@@ -1,0 +1,750 @@
+"""Fused BatchNorm(+ReLU) at the normalization boundary, as Triton kernels.
+
+Counterpart of ``chainermn_tpu/ops/fused_norm.py``.  The activation is
+viewed as ``[R, C]`` (rows = every non-feature element, channels last), and
+each direction makes the fewest full passes over it that a batch-global
+normalization allows:
+
+  forward  (train): stats pass (read x)  +  apply pass (read x, write y)
+  forward  (eval):  apply pass only
+  backward:         reduce pass (read x, g)  +  dx pass (read x, g, write dx)
+
+Four Triton kernels do those passes on the GPU.  Each is bound by device
+memory: it does at most ~12 float32 operations per element, while an H100
+can do ~20 float32 operations (67 TFLOP/s outside the tensor cores) in the
+time it moves one byte (3.35 TB/s).  Its least time is therefore the bytes
+:func:`fused_norm_traffic_bytes` prices for its pass, over 3.35 TB/s.
+
+===============  ===============================  =========================
+wrapper          replaces (chainermn_tpu/ops/     bytes of its pass
+                 fused_norm.py)
+===============  ===============================  =========================
+stats_call       ``_stats_kernel``                x once + 2 C-vectors
+apply_call       ``_apply_kernel``                x and y once + 4 vectors
+bwd_reduce_call  ``_bwd_reduce_kernel``           x and g once + 6 vectors
+bwd_dx_call      ``_bwd_dx_kernel``               x, g, dx once + 6 vectors
+===============  ===============================  =========================
+
+Design, against that bound:
+
+* A program works on a ``BLOCK_R x BLOCK_C`` tile whose rows are runs of
+  ``BLOCK_C`` neighbouring channels, so every load is a coalesced run of the
+  channels-last layout (the whole tile is one contiguous run when
+  ``C <= BLOCK_C``).  The per-channel vectors are a few KiB and stay in L2.
+* The TPU kernels carry their sums across a sequential grid in scratch
+  memory.  GPU blocks run in parallel and in no order, so the two reductions
+  (stats, bwd_reduce) are two-stage and deterministic: a grid of
+  (row chunks x channel blocks) writes float32 partial sums into a
+  ``[2, n_chunks, C]`` workspace, and a small finalize kernel adds the
+  chunks in a fixed order.  No atomics, so a rerun gives the same bits.
+  About four waves of programs on 132 SMs keep the card's memory busy.
+* All arithmetic is float32 whatever the activation dtype; the variance is
+  the fast form ``mean(x^2) - mean^2`` clamped at 0, as flax computes it.
+* Ragged edges are masked, so any ``R`` and ``C`` work (the TPU kernels
+  need the row tile to divide ``R``).
+
+Beside each kernel is its plain PyTorch version with the kernel's op order
+(``*_plain``).  A wrapper takes the plain version only for a tensor that
+lies on the CPU; for a CUDA tensor it launches its kernel or raises.  Each
+wrapper counts its launches in its ``launches`` attribute.
+
+Triton is imported, and the kernels built, on the first launch, with
+Triton's cache under ``build/triton`` of the checkout unless
+``TRITON_CACHE_DIR`` says otherwise; the module itself imports without
+Triton.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Optional
+
+import torch
+from torch import nn
+
+__all__ = [
+    "fused_norm",
+    "fused_norm_reference",
+    "FusedBatchNormAct",
+    "ReferenceBatchNormAct",
+    "fused_norm_traffic_bytes",
+    "resnet_bn_traffic_bytes",
+    "stats_call",
+    "apply_call",
+    "bwd_reduce_call",
+    "bwd_dx_call",
+    "KERNELS",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+# Bound by _kernels() on the first launch (the kernels read them as module
+# globals, which is how Triton resolves names inside a @triton.jit body).
+triton = None
+tl = None
+
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_TILE = 4096            # elements per program tile
+_MAX_BLOCK_C = 128      # channels per tile row (256 B of bf16)
+_WAVES = 4 * 132        # reduction programs: about four waves on an H100
+_FINAL_BLOCK_K = 32     # chunks the finalize kernel adds per iteration
+_BUILD = Path(__file__).resolve().parents[2] / "build" / "triton"
+_K: dict = {}
+
+
+def _kernels() -> dict:
+    """Import Triton and define the four kernels (once per process)."""
+    if _K:
+        return _K
+    global triton, tl
+    os.environ.setdefault("TRITON_CACHE_DIR", str(_BUILD / "cache"))
+    os.environ.setdefault("TRITON_HOME", str(_BUILD))
+    import triton as _triton
+    import triton.language as _tl
+    triton, tl = _triton, _tl
+
+    @triton.jit
+    def stats_kernel(x_ptr, ws_ptr, R, C, rows_per_chunk,
+                     BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
+        # partial Σx and Σx² of one row chunk, for BLOCK_C channels
+        chunk = tl.program_id(0)
+        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
+        cmask = cols < C
+        r_lo = chunk * rows_per_chunk
+        r_hi = tl.minimum(r_lo + rows_per_chunk, R)
+        s = tl.zeros((BLOCK_R, BLOCK_C), tl.float32)
+        sq = tl.zeros((BLOCK_R, BLOCK_C), tl.float32)
+        for r0 in range(r_lo, r_hi, BLOCK_R):
+            rows = r0 + tl.arange(0, BLOCK_R)
+            m = (rows < r_hi)[:, None] & cmask[None, :]
+            offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
+            x = tl.load(x_ptr + offs, mask=m, other=0.0).to(tl.float32)
+            s += x
+            sq += x * x
+        out = chunk * C + cols
+        tl.store(ws_ptr + out, tl.sum(s, axis=0), mask=cmask)
+        tl.store(ws_ptr + tl.num_programs(0) * C + out, tl.sum(sq, axis=0),
+                 mask=cmask)
+
+    @triton.jit
+    def finalize_kernel(ws_ptr, a_ptr, b_ptr, n_chunks, C, R,
+                        STATS: tl.constexpr, BLOCK_K: tl.constexpr,
+                        BLOCK_C: tl.constexpr):
+        # add the [2, n_chunks, C] partials over chunks in a fixed order
+        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
+        cmask = cols < C
+        sa = tl.zeros((BLOCK_K, BLOCK_C), tl.float32)
+        sb = tl.zeros((BLOCK_K, BLOCK_C), tl.float32)
+        for k0 in range(0, n_chunks, BLOCK_K):
+            ks = k0 + tl.arange(0, BLOCK_K)
+            m = (ks < n_chunks)[:, None] & cmask[None, :]
+            offs = ks[:, None] * C + cols[None, :]
+            sa += tl.load(ws_ptr + offs, mask=m, other=0.0)
+            sb += tl.load(ws_ptr + n_chunks * C + offs, mask=m, other=0.0)
+        a = tl.sum(sa, axis=0)
+        b = tl.sum(sb, axis=0)
+        if STATS:
+            # mean and fast variance, clamped at 0 (flax's form)
+            a = a / R
+            b = tl.maximum(b / R - a * a, 0.0)
+        tl.store(a_ptr + cols, a, mask=cmask)
+        tl.store(b_ptr + cols, b, mask=cmask)
+
+    @triton.jit
+    def apply_kernel(x_ptr, mean_ptr, invstd_ptr, scale_ptr, bias_ptr, y_ptr,
+                     R, C, RELU: tl.constexpr, BLOCK_R: tl.constexpr,
+                     BLOCK_C: tl.constexpr):
+        # y = relu?((x - mean) * (invstd * scale) + bias)
+        rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
+        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
+        cmask = cols < C
+        m = (rows < R)[:, None] & cmask[None, :]
+        offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
+        x = tl.load(x_ptr + offs, mask=m, other=0.0).to(tl.float32)
+        mean = tl.load(mean_ptr + cols, mask=cmask, other=0.0)
+        mul = (tl.load(invstd_ptr + cols, mask=cmask, other=0.0)
+               * tl.load(scale_ptr + cols, mask=cmask, other=0.0))
+        bias = tl.load(bias_ptr + cols, mask=cmask, other=0.0)
+        y = (x - mean[None, :]) * mul[None, :] + bias[None, :]
+        if RELU:
+            y = tl.maximum(y, 0.0)
+        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=m)
+
+    @triton.jit
+    def bwd_reduce_kernel(x_ptr, g_ptr, mean_ptr, invstd_ptr, scale_ptr,
+                          bias_ptr, ws_ptr, R, C, rows_per_chunk,
+                          RELU: tl.constexpr, BLOCK_R: tl.constexpr,
+                          BLOCK_C: tl.constexpr):
+        # partial dβ = Σdz and dγ = Σdz·x̂ of one row chunk; the ReLU mask
+        # is recomputed from x̂·γ + β > 0
+        chunk = tl.program_id(0)
+        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
+        cmask = cols < C
+        mean = tl.load(mean_ptr + cols, mask=cmask, other=0.0)
+        invstd = tl.load(invstd_ptr + cols, mask=cmask, other=0.0)
+        scale = tl.load(scale_ptr + cols, mask=cmask, other=0.0)
+        bias = tl.load(bias_ptr + cols, mask=cmask, other=0.0)
+        r_lo = chunk * rows_per_chunk
+        r_hi = tl.minimum(r_lo + rows_per_chunk, R)
+        db = tl.zeros((BLOCK_R, BLOCK_C), tl.float32)
+        dg = tl.zeros((BLOCK_R, BLOCK_C), tl.float32)
+        for r0 in range(r_lo, r_hi, BLOCK_R):
+            rows = r0 + tl.arange(0, BLOCK_R)
+            m = (rows < r_hi)[:, None] & cmask[None, :]
+            offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
+            x = tl.load(x_ptr + offs, mask=m, other=0.0).to(tl.float32)
+            dz = tl.load(g_ptr + offs, mask=m, other=0.0).to(tl.float32)
+            xhat = (x - mean[None, :]) * invstd[None, :]
+            if RELU:
+                z = xhat * scale[None, :] + bias[None, :]
+                dz = tl.where(z > 0.0, dz, 0.0)
+            db += dz
+            dg += dz * xhat
+        out = chunk * C + cols
+        tl.store(ws_ptr + out, tl.sum(db, axis=0), mask=cmask)
+        tl.store(ws_ptr + tl.num_programs(0) * C + out, tl.sum(dg, axis=0),
+                 mask=cmask)
+
+    @triton.jit
+    def bwd_dx_kernel(x_ptr, g_ptr, mean_ptr, invstd_ptr, scale_ptr, bias_ptr,
+                      dbeta_ptr, dgamma_ptr, dx_ptr, R, C, inv_rows,
+                      RELU: tl.constexpr, TRAIN: tl.constexpr,
+                      BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
+        # train: dx = γ·invstd·(dz − dβ/R − x̂·dγ/R); eval: γ·invstd·dz
+        rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
+        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
+        cmask = cols < C
+        m = (rows < R)[:, None] & cmask[None, :]
+        offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
+        x = tl.load(x_ptr + offs, mask=m, other=0.0).to(tl.float32)
+        dz = tl.load(g_ptr + offs, mask=m, other=0.0).to(tl.float32)
+        mean = tl.load(mean_ptr + cols, mask=cmask, other=0.0)
+        invstd = tl.load(invstd_ptr + cols, mask=cmask, other=0.0)
+        scale = tl.load(scale_ptr + cols, mask=cmask, other=0.0)
+        xhat = (x - mean[None, :]) * invstd[None, :]
+        if RELU:
+            bias = tl.load(bias_ptr + cols, mask=cmask, other=0.0)
+            z = xhat * scale[None, :] + bias[None, :]
+            dz = tl.where(z > 0.0, dz, 0.0)
+        k = scale * invstd
+        if TRAIN:
+            dbeta = tl.load(dbeta_ptr + cols, mask=cmask, other=0.0)
+            dgamma = tl.load(dgamma_ptr + cols, mask=cmask, other=0.0)
+            dx = k[None, :] * (dz - (dbeta * inv_rows)[None, :]
+                               - xhat * (dgamma * inv_rows)[None, :])
+        else:
+            dx = k[None, :] * dz
+        tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=m)
+
+    _K.update(stats=stats_kernel, finalize=finalize_kernel,
+              apply=apply_kernel, bwd_reduce=bwd_reduce_kernel,
+              bwd_dx=bwd_dx_kernel)
+    return _K
+
+
+# ---------------------------------------------------------------------------
+# launch geometry and argument checks
+# ---------------------------------------------------------------------------
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _tile(c: int):
+    """(BLOCK_R, BLOCK_C): BLOCK_C channels per tile row, _TILE elements."""
+    bc = min(_MAX_BLOCK_C, 1 << max(0, (c - 1).bit_length()))
+    return _TILE // bc, bc
+
+
+def _chunks(r: int, br: int, grid_c: int):
+    """(rows_per_chunk, n_chunks) for the two-stage reductions: about
+    ``_WAVES`` programs in all, each walking whole row tiles."""
+    row_blocks = _cdiv(r, br)
+    want = max(1, min(row_blocks, _cdiv(_WAVES, grid_c)))
+    rows_per_chunk = _cdiv(row_blocks, want) * br
+    return rows_per_chunk, _cdiv(r, rows_per_chunk)
+
+
+def _on_gpu(name: str, x: torch.Tensor) -> bool:
+    """False for a CPU tensor (plain version), True for CUDA (kernel)."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type == "cuda":
+        return True
+    raise ValueError(f"{name}: tensors on {x.device} are not supported")
+
+
+def _check_rows(name: str, *ts: torch.Tensor) -> None:
+    shape = ts[0].shape
+    for t in ts:
+        if t.dim() != 2 or t.shape != shape:
+            raise ValueError(f"{name}: expected [R, C] tensors of one shape, "
+                             f"got {tuple(t.shape)} and {tuple(shape)}")
+        if t.dtype not in _DTYPES:
+            raise ValueError(f"{name}: dtype {t.dtype} is not one of "
+                             f"{_DTYPES}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: [R, C] tensor must be contiguous")
+        if t.device != ts[0].device:
+            raise ValueError(f"{name}: tensors on {t.device} and "
+                             f"{ts[0].device}")
+
+
+def _check_vecs(name: str, x2: torch.Tensor, *vs: torch.Tensor) -> None:
+    c = x2.shape[1]
+    for v in vs:
+        if v.shape != (c,) or v.dtype != torch.float32 \
+                or not v.is_contiguous() or v.device != x2.device:
+            raise ValueError(
+                f"{name}: per-channel vectors must be contiguous float32 "
+                f"[{c}] on {x2.device}, got {v.dtype} {tuple(v.shape)} on "
+                f"{v.device}")
+
+
+def _finalize(ws, a, b, n_chunks, c, r, stats):
+    bc = min(_MAX_BLOCK_C, 1 << max(0, (c - 1).bit_length()))
+    _kernels()["finalize"][(_cdiv(c, bc),)](
+        ws, a, b, n_chunks, c, r, STATS=stats, BLOCK_K=_FINAL_BLOCK_K,
+        BLOCK_C=bc, num_warps=4)
+
+
+# ---------------------------------------------------------------------------
+# the four wrappers and their plain versions
+# ---------------------------------------------------------------------------
+
+
+def stats_plain(x2):
+    """Plain version of the stats kernel: per-channel mean and fast
+    variance of ``x2`` [R, C], in float32."""
+    r = x2.shape[0]
+    x = x2.float()
+    mean = x.sum(0) / r
+    var = torch.clamp_min((x * x).sum(0) / r - mean * mean, 0.0)
+    return mean, var
+
+
+def stats_call(x2):
+    """Batch mean and variance ([C] float32 each) of ``x2`` [R, C]."""
+    _check_rows("stats_call", x2)
+    if not _on_gpu("stats_call", x2):
+        return stats_plain(x2)
+    k = _kernels()
+    r, c = x2.shape
+    br, bc = _tile(c)
+    grid_c = _cdiv(c, bc)
+    rows_per_chunk, n_chunks = _chunks(r, br, grid_c)
+    ws = torch.empty((2, n_chunks, c), dtype=torch.float32, device=x2.device)
+    mean = torch.empty((c,), dtype=torch.float32, device=x2.device)
+    var = torch.empty_like(mean)
+    k["stats"][(n_chunks, grid_c)](x2, ws, r, c, rows_per_chunk,
+                                   BLOCK_R=br, BLOCK_C=bc, num_warps=8)
+    _finalize(ws, mean, var, n_chunks, c, r, True)
+    stats_call.launches += 1
+    return mean, var
+
+
+def apply_plain(x2, mean, invstd, scale, bias, relu):
+    """Plain version of the apply kernel."""
+    mul = invstd * scale
+    y = (x2.float() - mean) * mul + bias
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return y.to(x2.dtype)
+
+
+def apply_call(x2, mean, invstd, scale, bias, relu):
+    """``relu?((x2 - mean) * (invstd * scale) + bias)`` in x2's dtype."""
+    _check_rows("apply_call", x2)
+    _check_vecs("apply_call", x2, mean, invstd, scale, bias)
+    if not _on_gpu("apply_call", x2):
+        return apply_plain(x2, mean, invstd, scale, bias, relu)
+    k = _kernels()
+    r, c = x2.shape
+    br, bc = _tile(c)
+    y2 = torch.empty_like(x2)
+    k["apply"][(_cdiv(r, br), _cdiv(c, bc))](
+        x2, mean, invstd, scale, bias, y2, r, c, RELU=bool(relu),
+        BLOCK_R=br, BLOCK_C=bc, num_warps=8)
+    apply_call.launches += 1
+    return y2
+
+
+def _dz_xhat(x2, g2, mean, invstd, scale, bias, relu):
+    """Shared prologue of the plain backward versions: x̂ and masked dz."""
+    xhat = (x2.float() - mean) * invstd
+    g = g2.float()
+    if relu:
+        z = xhat * scale + bias
+        g = torch.where(z > 0.0, g, torch.zeros_like(g))
+    return g, xhat
+
+
+def bwd_reduce_plain(x2, g2, mean, invstd, scale, bias, relu):
+    """Plain version of the backward reduce kernel: (dβ, dγ)."""
+    dz, xhat = _dz_xhat(x2, g2, mean, invstd, scale, bias, relu)
+    return dz.sum(0), (dz * xhat).sum(0)
+
+
+def bwd_reduce_call(x2, g2, mean, invstd, scale, bias, relu):
+    """dβ = Σdz and dγ = Σdz·x̂ ([C] float32 each), dz the upstream
+    gradient ``g2`` masked by the recomputed ReLU."""
+    _check_rows("bwd_reduce_call", x2, g2)
+    _check_vecs("bwd_reduce_call", x2, mean, invstd, scale, bias)
+    if not _on_gpu("bwd_reduce_call", x2):
+        return bwd_reduce_plain(x2, g2, mean, invstd, scale, bias, relu)
+    k = _kernels()
+    r, c = x2.shape
+    br, bc = _tile(c)
+    grid_c = _cdiv(c, bc)
+    rows_per_chunk, n_chunks = _chunks(r, br, grid_c)
+    ws = torch.empty((2, n_chunks, c), dtype=torch.float32, device=x2.device)
+    dbeta = torch.empty((c,), dtype=torch.float32, device=x2.device)
+    dgamma = torch.empty_like(dbeta)
+    k["bwd_reduce"][(n_chunks, grid_c)](
+        x2, g2, mean, invstd, scale, bias, ws, r, c, rows_per_chunk,
+        RELU=bool(relu), BLOCK_R=br, BLOCK_C=bc, num_warps=8)
+    _finalize(ws, dbeta, dgamma, n_chunks, c, r, False)
+    bwd_reduce_call.launches += 1
+    return dbeta, dgamma
+
+
+def bwd_dx_plain(x2, g2, mean, invstd, scale, bias, dbeta, dgamma, relu,
+                 train):
+    """Plain version of the dx kernel."""
+    dz, xhat = _dz_xhat(x2, g2, mean, invstd, scale, bias, relu)
+    k = scale * invstd
+    if train:
+        inv_rows = 1.0 / x2.shape[0]
+        dx = k * (dz - dbeta * inv_rows - xhat * (dgamma * inv_rows))
+    else:
+        dx = k * dz
+    return dx.to(x2.dtype)
+
+
+def bwd_dx_call(x2, g2, mean, invstd, scale, bias, dbeta, dgamma, relu,
+                train):
+    """dx in x2's dtype; in train mode it carries the batch-statistics
+    terms (dβ, dγ from :func:`bwd_reduce_call`)."""
+    _check_rows("bwd_dx_call", x2, g2)
+    _check_vecs("bwd_dx_call", x2, mean, invstd, scale, bias, dbeta, dgamma)
+    if not _on_gpu("bwd_dx_call", x2):
+        return bwd_dx_plain(x2, g2, mean, invstd, scale, bias, dbeta, dgamma,
+                            relu, train)
+    k = _kernels()
+    r, c = x2.shape
+    br, bc = _tile(c)
+    dx2 = torch.empty_like(x2)
+    k["bwd_dx"][(_cdiv(r, br), _cdiv(c, bc))](
+        x2, g2, mean, invstd, scale, bias, dbeta, dgamma, dx2, r, c,
+        1.0 / r, RELU=bool(relu), TRAIN=bool(train), BLOCK_R=br,
+        BLOCK_C=bc, num_warps=8)
+    bwd_dx_call.launches += 1
+    return dx2
+
+
+KERNELS = (stats_call, apply_call, bwd_reduce_call, bwd_dx_call)
+for _w in KERNELS:
+    _w.launches = 0
+
+
+def launch_counts() -> dict:
+    """``{wrapper name: kernel launches so far}``."""
+    return {w.__name__: w.launches for w in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for w in KERNELS:
+        w.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd core over the flattened [R, C] view
+# ---------------------------------------------------------------------------
+
+
+class _FusedCore(torch.autograd.Function):
+    """The ``_fused_core`` custom VJP: forward = stats (train) + apply,
+    backward = reduce + dx.  The cotangents of the returned batch
+    mean/var are dropped, so gradients w.r.t. running stats are zero."""
+
+    @staticmethod
+    def forward(ctx, x2, scale, bias, mean_in, var_in, train, eps, relu):
+        if train:
+            mean, var = stats_call(x2)
+        else:
+            mean, var = mean_in, var_in
+        invstd = torch.rsqrt(var + eps)
+        y2 = apply_call(x2, mean, invstd, scale, bias, relu)
+        ctx.save_for_backward(x2, scale, bias, mean, invstd)
+        ctx.train, ctx.relu = train, relu
+        ctx.mark_non_differentiable(mean, var)
+        return y2, mean, var
+
+    @staticmethod
+    def backward(ctx, gy2, _gmean, _gvar):
+        x2, scale, bias, mean, invstd = ctx.saved_tensors
+        gy2 = gy2.contiguous()
+        dbeta, dgamma = bwd_reduce_call(x2, gy2, mean, invstd, scale, bias,
+                                        ctx.relu)
+        dx2 = bwd_dx_call(x2, gy2, mean, invstd, scale, bias, dbeta, dgamma,
+                          ctx.relu, ctx.train)
+        return dx2, dgamma, dbeta, None, None, None, None, None
+
+
+def _vec(v, c, name):
+    v = torch.as_tensor(v)
+    if v.numel() != c:
+        raise ValueError(f"fused_norm: {name} has {v.numel()} values for "
+                         f"{c} channels")
+    return v.reshape(c).to(torch.float32).contiguous()
+
+
+def fused_norm(x, scale, bias, mean=None, var=None, *,
+               use_running_average=False, epsilon=1e-5, relu=True):
+    """Fused BatchNorm(+ReLU) over the last axis of ``x``.
+
+    Returns ``(y, mean, var)``: ``y`` in ``x``'s dtype and the per-channel
+    statistics used (the batch's in train mode, the given running stats in
+    eval mode).  Differentiable; the backward is the reduce + dx kernels.
+
+    Args:
+      x: activations ``[..., C]`` (features last; a channels-last NCHW
+        tensor permuted to NHWC is a free view).
+      scale, bias: ``[C]`` affine parameters (γ, β).
+      mean, var: running statistics ``[C]``, needed when
+        ``use_running_average=True`` and ignored otherwise.
+      use_running_average: eval mode.
+      epsilon: added to the variance before the rsqrt.
+      relu: apply ``max(y, 0)`` in the same pass.
+    """
+    c = x.shape[-1]
+    r = x.numel() // c if c else 0
+    if r == 0:
+        raise ValueError(f"fused_norm: empty activation batch for "
+                         f"{tuple(x.shape)}")
+    x2 = x.reshape(r, c).contiguous()
+    s2 = _vec(scale, c, "scale")
+    b2 = _vec(bias, c, "bias")
+    if use_running_average:
+        if mean is None or var is None:
+            raise ValueError(
+                "fused_norm(use_running_average=True) needs mean= and var=")
+        m2, v2 = _vec(mean, c, "mean"), _vec(var, c, "var")
+    else:
+        m2 = v2 = None
+    y2, m, v = _FusedCore.apply(x2, s2, b2, m2, v2, not use_running_average,
+                                float(epsilon), bool(relu))
+    return y2.reshape(x.shape), m, v
+
+
+def fused_norm_reference(x, scale, bias, mean=None, var=None, *,
+                         use_running_average=False, epsilon=1e-5, relu=True):
+    """Plain differentiable oracle with the kernels' math (float32, fast
+    variance, flax op order); autograd gives its gradient."""
+    c = x.shape[-1]
+    x2 = x.reshape(-1, c).float()
+    if use_running_average:
+        m, v = mean.float(), var.float()
+    else:
+        m = x2.mean(0)
+        v = torch.clamp_min((x2 * x2).mean(0) - m * m, 0.0)
+    mul = torch.rsqrt(v + epsilon) * scale.float()
+    y = (x2 - m) * mul + bias.float()
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return y.reshape(x.shape).to(x.dtype), m, v
+
+
+# ---------------------------------------------------------------------------
+# module: the norm_cls of models.resnet
+# ---------------------------------------------------------------------------
+
+
+class FusedBatchNormAct(nn.Module):
+    """BatchNorm(+ReLU) module backed by the fused kernels.
+
+    The counterpart of the flax ``FusedBatchNormAct``: float32 ``weight``
+    (γ, flax ``scale``) and ``bias``, float32 ``running_mean`` /
+    ``running_var`` buffers updated as ``m * running + (1 - m) * batch``
+    with the biased batch variance (flax's rule; ``nn.BatchNorm2d`` would
+    use the unbiased one).  Train or eval mode follows ``self.training``.
+    Takes ``[N, C, H, W]`` (best in ``torch.channels_last`` memory, where
+    the ``[R, C]`` view is free) or ``[N, C]``; the output is in ``dtype``
+    (default: the promotion of the input's dtype with float32).
+    """
+
+    supports_fused_relu = True  # read by models.resnet._norm_relu
+    _norm = staticmethod(fused_norm)
+
+    def __init__(self, num_features: int, *, momentum: float = 0.99,
+                 epsilon: float = 1e-5, dtype: Optional[torch.dtype] = None,
+                 scale_init: float = 1.0, fuse_relu: bool = False,
+                 device=None):
+        super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.dtype = dtype
+        self.fuse_relu = fuse_relu
+        f32 = {"dtype": torch.float32, "device": device}
+        self.weight = nn.Parameter(torch.full((num_features,), scale_init,
+                                              **f32))
+        self.bias = nn.Parameter(torch.zeros((num_features,), **f32))
+        self.register_buffer("running_mean", torch.zeros((num_features,),
+                                                         **f32))
+        self.register_buffer("running_var", torch.ones((num_features,),
+                                                       **f32))
+
+    def forward(self, x):
+        odt = self.dtype or torch.promote_types(x.dtype, torch.float32)
+        xl = x.permute(0, 2, 3, 1) if x.dim() == 4 else x
+        y, mean, var = self._norm(
+            xl.to(odt), self.weight, self.bias, self.running_mean,
+            self.running_var, use_running_average=not self.training,
+            epsilon=self.epsilon, relu=self.fuse_relu)
+        if self.training:
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var)
+        return y.permute(0, 3, 1, 2) if x.dim() == 4 else y
+
+
+class ReferenceBatchNormAct(FusedBatchNormAct):
+    """The same module over :func:`fused_norm_reference` (plain PyTorch
+    ops and autograd): the yardstick a model with kernels is held to."""
+
+    _norm = staticmethod(fused_norm_reference)
+
+
+# ---------------------------------------------------------------------------
+# traffic model (plain arithmetic, identical to the JAX package's)
+# ---------------------------------------------------------------------------
+
+
+def _dtype_info(dtype: torch.dtype):
+    """(name, itemsize) of a torch dtype."""
+    if not isinstance(dtype, torch.dtype):
+        raise TypeError(f"expected a torch dtype, got {dtype!r}")
+    return str(dtype).replace("torch.", ""), dtype.itemsize
+
+
+def fused_norm_traffic_bytes(shape, dtype=torch.bfloat16, *, train=True,
+                             relu=True, backward=True):
+    """Modeled device-memory bytes for one BN(+ReLU) boundary, fused vs
+    unfused: full-activation traversals at ``dtype`` width plus the float32
+    per-channel vectors each pass touches.  The fused side prices exactly
+    the passes of the kernels in this module:
+
+      unfused fwd: mean 1R · var 1R · normalize 1R+1W · scale/shift
+                   1R+1W · relu 1R+1W                       = 8 acts
+      unfused bwd: relu-bwd 2R+1W · dβ 1R · dγ 2R · dx 2R+1W = 9 acts
+      fused   fwd: stats 1R · apply 1R+1W                    = 3 acts
+      fused   bwd: reduce 2R · dx 2R+1W                      = 5 acts
+    """
+    shape = tuple(int(s) for s in shape)
+    c = shape[-1]
+    n = 1
+    for s in shape:
+        n *= s
+    name, itemsize = _dtype_info(dtype)
+    act = n * itemsize
+    vec = c * 4  # per-channel f32 vectors
+
+    def _table(passes):
+        total = sum(b for _, b in passes)
+        return {"passes": [[p, int(b)] for p, b in passes],
+                "total_bytes": int(total)}
+
+    fused = []
+    if train:
+        fused.append(("fwd_stats", act + 2 * vec))
+    fused.append(("fwd_apply", 2 * act + 4 * vec))
+    if backward:
+        fused.append(("bwd_reduce", 2 * act + 6 * vec))
+        fused.append(("bwd_dx", 3 * act + 6 * vec))
+
+    unfused = []
+    if train:
+        unfused.append(("fwd_mean", act + vec))
+        unfused.append(("fwd_var", act + vec))
+    unfused.append(("fwd_normalize", 2 * act + 2 * vec))
+    unfused.append(("fwd_scale_shift", 2 * act + 2 * vec))
+    if relu:
+        unfused.append(("fwd_relu", 2 * act))
+    if backward:
+        if relu:
+            unfused.append(("bwd_relu", 3 * act))
+        unfused.append(("bwd_dbeta", act + vec))
+        unfused.append(("bwd_dgamma", 2 * act + vec))
+        unfused.append(("bwd_dx", 3 * act + 4 * vec))
+
+    f, u = _table(fused), _table(unfused)
+    return {
+        "shape": list(shape),
+        "dtype": name,
+        "train": bool(train),
+        "relu": bool(relu),
+        "backward": bool(backward),
+        "activation_bytes": int(act),
+        "fused": f,
+        "unfused": u,
+        "ratio": u["total_bytes"] / f["total_bytes"],
+    }
+
+
+def resnet_bn_boundaries(batch, *, image=224, stage_sizes=(3, 4, 6, 3),
+                         num_filters=64):
+    """``(name, NHWC shape, relu)`` of every BN boundary of a bottleneck
+    ResNet, in the order the forward pass meets them."""
+    boundaries = []
+    s = image // 2  # stem conv 7x7 stride 2
+    boundaries.append(("stem/bn_init", (batch, s, s, num_filters), True))
+    s = s // 2  # 3x3 maxpool stride 2
+    for i, blocks in enumerate(stage_sizes):
+        f = num_filters * (2 ** i)
+        for j in range(blocks):
+            stride = 2 if (i > 0 and j == 0) else 1
+            s_in, s_out = s, s // stride
+            tag = f"stage{i + 1}/block{j + 1}"
+            boundaries.append((f"{tag}/norm1", (batch, s_in, s_in, f), True))
+            boundaries.append((f"{tag}/norm2", (batch, s_out, s_out, f),
+                               True))
+            boundaries.append((f"{tag}/norm3",
+                               (batch, s_out, s_out, 4 * f), False))
+            if j == 0:  # channel (and possibly spatial) change: projection
+                boundaries.append((f"{tag}/norm_proj",
+                                   (batch, s_out, s_out, 4 * f), False))
+            s = s_out
+    return boundaries
+
+
+def resnet_bn_traffic_bytes(batch, *, image=224, stage_sizes=(3, 4, 6, 3),
+                            num_filters=64, dtype=torch.bfloat16, train=True):
+    """Sum :func:`fused_norm_traffic_bytes` over every BN boundary of a
+    bottleneck ResNet (the 53 boundaries of ResNet-50)."""
+    rows, fused_total, unfused_total = [], 0, 0
+    for name, shape, relu in resnet_bn_boundaries(
+            batch, image=image, stage_sizes=stage_sizes,
+            num_filters=num_filters):
+        t = fused_norm_traffic_bytes(shape, dtype, train=train, relu=relu)
+        fused_total += t["fused"]["total_bytes"]
+        unfused_total += t["unfused"]["total_bytes"]
+        rows.append({"name": name, "shape": list(shape), "relu": relu,
+                     "fused_bytes": t["fused"]["total_bytes"],
+                     "unfused_bytes": t["unfused"]["total_bytes"]})
+    return {
+        "batch": int(batch),
+        "image": int(image),
+        "stage_sizes": list(stage_sizes),
+        "dtype": _dtype_info(dtype)[0],
+        "train": bool(train),
+        "num_boundaries": len(rows),
+        "fused_total_bytes": int(fused_total),
+        "unfused_total_bytes": int(unfused_total),
+        "ratio": unfused_total / fused_total,
+        "boundaries": rows,
+    }
