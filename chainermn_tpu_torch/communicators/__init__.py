@@ -2,9 +2,9 @@
 
 Counterpart of ``chainermn_tpu/communicators/__init__.py`` (the reference's
 ``create_communicator``): string -> class dispatch, where only
-``xla``/``pure_nccl`` accept ``allreduce_grad_dtype``.  This slice of the
-port has ``naive``, ``flat`` and ``xla`` (``pure_nccl`` is its alias); the
-other names of the JAX package raise until they are ported.
+``xla``/``pure_nccl`` accept ``allreduce_grad_dtype``.  Every flavor of the
+reference is here; ``auto``, the JAX package's planner-tuned flavor, raises
+until the collective planner is ported (ROADMAP.md, Queue A11).
 """
 
 from typing import Optional
@@ -13,22 +13,31 @@ from chainermn_tpu_torch.communicators.communicator_base import (
     CommunicatorBase)
 from chainermn_tpu_torch.communicators.flat_communicator import (
     FlatCommunicator)
+from chainermn_tpu_torch.communicators.hierarchical_communicator import (
+    HierarchicalCommunicator)
 from chainermn_tpu_torch.communicators.mesh_communicator_base import (
     MeshCommunicator)
 from chainermn_tpu_torch.communicators.naive_communicator import (
     NaiveCommunicator)
+from chainermn_tpu_torch.communicators.non_cuda_aware_communicator import (
+    NonCudaAwareCommunicator)
+from chainermn_tpu_torch.communicators.single_node_communicator import (
+    SingleNodeCommunicator)
+from chainermn_tpu_torch.communicators.two_dimensional_communicator import (
+    TwoDimensionalCommunicator)
 from chainermn_tpu_torch.communicators.xla_communicator import (
     XlaCommunicator)
 
 _COMMUNICATORS = {
     "naive": NaiveCommunicator,
     "flat": FlatCommunicator,
+    "hierarchical": HierarchicalCommunicator,
+    "two_dimensional": TwoDimensionalCommunicator,
+    "single_node": SingleNodeCommunicator,
+    "non_cuda_aware": NonCudaAwareCommunicator,
     "xla": XlaCommunicator,
     "pure_nccl": XlaCommunicator,
 }
-# names of the JAX package still to be ported (ROADMAP.md, Queue A2)
-_NOT_PORTED = ("hierarchical", "two_dimensional", "single_node",
-               "non_cuda_aware", "auto")
 
 
 def create_communicator(communicator_name: str = "hierarchical",
@@ -42,12 +51,13 @@ def create_communicator(communicator_name: str = "hierarchical",
     Initializes the default process group first if it is not yet
     (:func:`~chainermn_tpu_torch.runtime.bootstrap.init_distributed`, from
     the environment).  ``device``: CUDA unless ``"cpu"`` is asked for.
+    ``intra_size``: ranks per node (default ``LOCAL_WORLD_SIZE``).  Every
+    rank must call this, in the same order: it builds process groups.
     """
-    if communicator_name in _NOT_PORTED:
+    if communicator_name == "auto":
         raise NotImplementedError(
-            f"communicator {communicator_name!r} is not ported yet; see "
-            "ROADMAP.md Queue A2 (available: "
-            f"{sorted(_COMMUNICATORS)})")
+            "communicator 'auto' needs the collective planner, which is not "
+            "ported yet; see ROADMAP.md Queue A11")
     try:
         cls = _COMMUNICATORS[communicator_name]
     except KeyError:
@@ -73,6 +83,10 @@ __all__ = [
     "MeshCommunicator",
     "NaiveCommunicator",
     "FlatCommunicator",
+    "HierarchicalCommunicator",
+    "TwoDimensionalCommunicator",
+    "SingleNodeCommunicator",
+    "NonCudaAwareCommunicator",
     "XlaCommunicator",
     "create_communicator",
 ]

@@ -83,6 +83,18 @@ def pack(tree: Any, comm_dtype: Optional[torch.dtype] = None):
     return buffers, (treedef, keys, order)
 
 
+def pad_to_multiple(buf: torch.Tensor, m: int):
+    """Pad a flat buffer with zeros so its length divides ``m`` (the
+    reduce-scatter leg of the two-dimensional communicator needs it).
+    Returns ``(padded, strip)``; ``strip`` slices a buffer of the padded
+    length back to the original one, ``strip(padded) == buf``."""
+    n = int(buf.shape[0])
+    rem = (-n) % m
+    if rem:
+        buf = torch.cat([buf, buf.new_zeros(rem)])
+    return buf, lambda b: b[:n]
+
+
 def unpack(buffers: List[torch.Tensor], meta, scale: Optional[float] = None):
     """Inverse of :func:`pack`, with an optional ``*= scale`` (the
     reference's 1/size multiply).

@@ -61,6 +61,9 @@ class CommunicatorBase(abc.ABC):
     @abc.abstractmethod
     def allgather_obj(self, obj: Any) -> List[Any]: ...
 
+    @abc.abstractmethod
+    def allreduce_obj(self, obj: Any, op="sum") -> Any: ...
+
     # ---- tensor collectives ------------------------------------------------
     @abc.abstractmethod
     def allreduce(self, x, op: str = "sum"): ...

@@ -5,6 +5,8 @@ reference's ``FlatCommunicator``): pack every gradient into one contiguous
 buffer, one all-reduce over it, unpack with the 1/size mean.
 """
 
+import torch.distributed as dist
+
 from chainermn_tpu_torch.communicators import _packing
 from chainermn_tpu_torch.communicators.mesh_communicator_base import (
     MeshCommunicator)
@@ -14,6 +16,16 @@ class FlatCommunicator(MeshCommunicator):
     flavor = "flat"
 
     def _allreduce_grad_traced(self, grads):
+        return self._allreduce_grad_start(grads)()
+
+    def _allreduce_grad_start(self, grads):
         buffers, meta = _packing.pack(grads)
-        buffers = [self._all_reduce_sum(b) for b in buffers]
-        return _packing.unpack(buffers, meta, scale=1.0 / self.size)
+        works = [dist.all_reduce(b, dist.ReduceOp.SUM, group=self._group,
+                                 async_op=True) for b in buffers]
+
+        def finish():
+            for w in works:
+                w.wait()
+            return _packing.unpack(buffers, meta, scale=1.0 / self.size)
+
+        return finish

@@ -6,6 +6,12 @@ traces its collectives into an SPMD program; this one binds a
 ``torch.distributed`` process group (NCCL on a GPU, gloo on the CPU) and
 calls its collectives eagerly, one process per rank.
 
+The JAX mesh has two axes, ``inter`` (across nodes) and ``intra`` (within
+one); here they are two families of process groups, built in the
+constructor: the intra group of this rank's node (``intra_size``
+consecutive ranks) and the inter group of the ranks that hold its place on
+every node.
+
 The gradient decomposition is what tells the flavors apart.  The bodies
 here are the JAX package's pre-planner ones (``_legacy_allreduce_grad_traced``,
 which its tests pin bit-exact with the plan path): the base class is the
@@ -17,6 +23,7 @@ from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -28,6 +35,21 @@ from chainermn_tpu_torch.parallel.topology import Topology, init_topology
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
+# allreduce_obj's reductions, applied through dicts, lists and tuples (the
+# JAX control plane's structural ops)
+_PAIR_OPS = {"sum": lambda a, b: a + b, "prod": lambda a, b: a * b,
+             "max": lambda a, b: np.maximum(a, b),
+             "min": lambda a, b: np.minimum(a, b)}
+
+
+def _structural(op):
+    def apply(a, b):
+        if isinstance(a, dict):
+            return {k: apply(a[k], b[k]) for k in a}
+        if isinstance(a, (list, tuple)):
+            return type(a)(apply(x, y) for x, y in zip(a, b))
+        return op(a, b)
+    return apply
 
 
 def as_dtype(dtype) -> Optional[torch.dtype]:
@@ -56,7 +78,7 @@ class MeshCommunicator(CommunicatorBase):
 
     def __init__(self, topology: Optional[Topology] = None, group=None,
                  allreduce_grad_dtype=None, device=None,
-                 intra_size: Optional[int] = None):
+                 intra_size: Optional[int] = None, _groups=None):
         if topology is None:
             topology = init_topology(device, intra_size=intra_size)
         if allreduce_grad_dtype is not None and \
@@ -67,6 +89,48 @@ class MeshCommunicator(CommunicatorBase):
         self._topology = topology
         self._group = group
         self.allreduce_grad_dtype = as_dtype(allreduce_grad_dtype)
+        if _groups is None:  # the world: its ranks are the global ranks
+            _groups = self._make_groups(list(range(topology.size)),
+                                        topology.intra_size, group)
+            _groups = _groups[topology.rank]
+        self._groups = _groups
+
+    def _make_groups(self, members: List[int], intra_size: int,
+                     world) -> dict:
+        """This flavor's process groups of the world whose global ranks are
+        ``members`` (process group ``world``): ``{global rank: {"intra":
+        group, "inter": group}}``.
+
+        Collective over the default group: every process calls it, for
+        every world being built, in the same order (``new_group``'s rule),
+        and every group is created in the same order everywhere.  A level
+        that spans the whole world reuses ``world``; a level of one rank
+        gets ``None`` (its reduction is the identity and is skipped).
+        """
+        n = len(members)
+        inter_size = n // intra_size
+        out = {r: {"intra": None, "inter": None} for r in members}
+        levels = (("intra", intra_size,
+                   [members[k * intra_size:(k + 1) * intra_size]
+                    for k in range(inter_size)]),
+                  ("inter", inter_size,
+                   [members[i::intra_size] for i in range(intra_size)]))
+        for name, level_size, blocks in levels:
+            if level_size == 1:
+                continue
+            for ranks in blocks:
+                g = world if level_size == n else dist.new_group(ranks)
+                for r in ranks:
+                    out[r][name] = g
+        return out
+
+    def _reduce_level(self, buf: torch.Tensor, level: str) -> torch.Tensor:
+        """Sum ``buf`` in place over this rank's ``"intra"`` or ``"inter"``
+        group (nothing to do over a level of one rank)."""
+        group = self._groups[level]
+        if getattr(self, f"{level}_size") > 1:
+            dist.all_reduce(buf, dist.ReduceOp.SUM, group=group)
+        return buf
 
     # ---- topology ----------------------------------------------------------
     @property
@@ -121,6 +185,24 @@ class MeshCommunicator(CommunicatorBase):
         out = [None] * self.size
         dist.all_gather_object(out, obj, group=self._group)
         return out
+
+    def allreduce_obj(self, obj, op="sum"):
+        """Reduce picklable objects over the world; every rank gets the
+        result.  ``op``: "sum", "prod", "max" or "min", applied through
+        dicts, lists and tuples (numpy-aware), or any binary callable.
+        Folded in rank order, so every rank computes the same value."""
+        if callable(op):
+            fold = op
+        elif op in _PAIR_OPS:
+            fold = _structural(_PAIR_OPS[op])
+        else:
+            raise ValueError(f"unknown op {op!r} (expected one of "
+                             f"{sorted(_PAIR_OPS)} or a callable)")
+        objs = self.allgather_obj(obj)
+        acc = objs[0]
+        for o in objs[1:]:
+            acc = fold(acc, o)
+        return acc
 
     def _obj_dev(self):
         return self.device if self.device.type == "cuda" else None
@@ -178,6 +260,15 @@ class MeshCommunicator(CommunicatorBase):
         return _packing.tree_map(
             lambda g: self._all_reduce_sum(g.clone()) / n, grads)
 
+    def _allreduce_grad_start(self, grads):
+        """Begin the mean of ``grads``; returns ``finish()``, which waits
+        and returns what ``allreduce_grad`` would.  ``grads`` may be freed
+        once this returns.  Here the whole decomposition runs at once;
+        a flavor whose reduction is one collective leaves it in flight
+        (the double-buffered optimizer overlaps it with the next step)."""
+        out = self._allreduce_grad_traced(grads)
+        return lambda: out
+
     def bcast_data(self, params):
         """Broadcast model parameters from rank 0 to the whole world —
         called once after model init so every worker starts from the same
@@ -197,26 +288,32 @@ class MeshCommunicator(CommunicatorBase):
         ``(key, rank)`` (reference: ``mpi_comm.Split``).  Every rank of
         this communicator must call it."""
         infos = self.allgather_obj((color, key, self._global_rank(self.rank)))
+        me = self._global_rank(self.rank)
         mine = None
+        # collective: every rank builds every color's groups, in one order
         for c in sorted({t[0] for t in infos}):
             members = [t[2] for t in sorted(
                 (t for t in infos if t[0] == c), key=lambda t: (t[1], t[2]))]
-            group = dist.new_group(members)  # collective: every rank calls
+            group = dist.new_group(members)
+            intra_size = self._sub_intra_size(members)
+            groups = self._make_groups(members, intra_size, group)
             if c == color:
-                mine = (members, group)
-        members, group = mine
-        me = self._global_rank(self.rank)
-        # intra level of the sub-world: its members on this node, when
-        # every node holds the same number of them
-        node = lambda r: r // self.intra_size  # noqa: E731
-        per_node = {}
-        for r in members:
-            per_node[node(r)] = per_node.get(node(r), 0) + 1
-        counts = set(per_node.values())
-        intra_size = counts.pop() if len(counts) == 1 else 1
+                mine = (members, group, intra_size, groups[me])
+        members, group, intra_size, groups = mine
         topo = Topology(rank=members.index(me), size=len(members),
                         intra_rank=members.index(me) % intra_size,
                         intra_size=intra_size, device=self.device)
         return type(self)(topology=topo, group=group,
                           allreduce_grad_dtype=self.allreduce_grad_dtype
-                          if self.supports_allreduce_grad_dtype else None)
+                          if self.supports_allreduce_grad_dtype else None,
+                          _groups=groups)
+
+    def _sub_intra_size(self, members: List[int]) -> int:
+        """Intra level of a sub-world: its members on one node, when every
+        node holds the same number of them (else 1)."""
+        per_node: dict = {}
+        for r in members:
+            node = r // self.intra_size
+            per_node[node] = per_node.get(node, 0) + 1
+        counts = set(per_node.values())
+        return counts.pop() if len(counts) == 1 else 1

@@ -1,4 +1,7 @@
+from chainermn_tpu_torch.datasets.image_pipeline import PrefetchIterator
 from chainermn_tpu_torch.datasets.scatter_dataset import (
     SubDataset, TupleDataset, scatter_dataset, scatter_index)
+from chainermn_tpu_torch.datasets.synthetic import make_classification
 
-__all__ = ["SubDataset", "TupleDataset", "scatter_dataset", "scatter_index"]
+__all__ = ["PrefetchIterator", "SubDataset", "TupleDataset",
+           "make_classification", "scatter_dataset", "scatter_index"]

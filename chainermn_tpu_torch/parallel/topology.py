@@ -7,7 +7,7 @@ rank drove one GPU in the reference: ``rank``/``size`` come from
 ``torch.distributed`` (or the launcher's environment), the ``intra`` level
 is the ranks of one node (``LOCAL_RANK``/``LOCAL_WORLD_SIZE``, NVLink) and
 the ``inter`` level is the set of nodes.  The device is
-``cuda:{intra_rank}`` unless the caller asks for the CPU.
+``cuda:LOCAL_RANK`` unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -79,8 +79,14 @@ def init_topology(device=None, intra_size: Optional[int] = None,
     ``rank``/``size`` default to the initialized process group's, else to
     ``RANK``/``WORLD_SIZE`` (or ``CHAINERMN_TPU_PROCESS_ID``/
     ``CHAINERMN_TPU_NUM_PROCESSES``), else to a world of one.
-    ``intra_size`` defaults to ``LOCAL_WORLD_SIZE``, else the whole world
-    (one node); ``intra_rank`` to ``LOCAL_RANK``, else ``rank % intra_size``.
+
+    A given ``intra_size`` splits the world into nodes of that many
+    consecutive ranks, so ``intra_rank = rank % intra_size``, as the JAX
+    package takes the position on the mesh's last axis (one node can so
+    stand in for several).  Without it, ``LOCAL_WORLD_SIZE``/``LOCAL_RANK``
+    (else the whole world as one node).  The device is ``cuda:LOCAL_RANK``
+    whichever way the levels are cut (``cuda:{intra_rank}`` when
+    ``LOCAL_RANK`` is unset).
     """
     if rank is None or size is None:
         if dist.is_initialized():
@@ -88,14 +94,19 @@ def init_topology(device=None, intra_size: Optional[int] = None,
         else:
             rank = env_int("RANK", "CHAINERMN_TPU_PROCESS_ID") or 0
             size = env_int("WORLD_SIZE", "CHAINERMN_TPU_NUM_PROCESSES") or 1
+    local_rank = env_int("LOCAL_RANK")
     if intra_size is None:
         intra_size = env_int("LOCAL_WORLD_SIZE") or size
+        intra_rank = local_rank
+    else:
+        intra_rank = None
     if intra_size < 1 or size % intra_size:
         raise ValueError(f"world size {size} is not divisible by "
                          f"intra_size {intra_size}")
-    intra_rank = env_int("LOCAL_RANK")
     if intra_rank is None:
         intra_rank = rank % intra_size
     return Topology(rank=rank, size=size, intra_rank=intra_rank,
                     intra_size=intra_size,
-                    device=resolve_device(device, intra_rank))
+                    device=resolve_device(
+                        device, intra_rank if local_rank is None
+                        else local_rank))

@@ -9,14 +9,17 @@ extensions.  The same script shape works here:
     trainer = Trainer(updater, (args.epoch, "epoch"))
     trainer.run()
 
-The step is :func:`chainermn_tpu_torch.optimizers.make_train_step`.  The
-reports of the JAX package (``LogReport``/``PrintReport``) are a plain
-print on rank 0 here; the other extensions are not ported yet
-(ROADMAP.md, Queue A4).
+The step is :func:`chainermn_tpu_torch.optimizers.make_train_step`.
+Extensions (``training/extensions.py``: ``LogReport``, ``PrintReport``,
+``Evaluator``) run in order of their ``priority``, each when its
+``trigger`` fires; the trainer also keeps a plain rank-0 print on
+``log_trigger``.  ``Snapshot`` and ``MetricsReport`` are not ported yet
+(ROADMAP.md, Queues A4 and A13).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Optional, Tuple
 
@@ -82,6 +85,10 @@ class StandardUpdater:
         obs.update({f"main/{k}": v for k, v in out[1].items()})
         return obs
 
+    def finalize(self) -> None:
+        """End of training: let the step finish what it left in flight."""
+        getattr(self.step_fn, "finalize", lambda: None)()
+
 
 class StatefulUpdater(StandardUpdater):
     """StandardUpdater over a model with mutable, rank-local state (the
@@ -98,22 +105,42 @@ class StatefulUpdater(StandardUpdater):
 class Trainer:
     """Trigger-driven training loop (the Chainer ``Trainer`` role).
 
-    ``log_trigger``: when rank 0 prints the iteration, epoch, elapsed time
-    and observation (``None``: never)."""
+    ``out``: directory for the extensions' files (``None``: they write
+    none).  ``log_trigger``: when rank 0 prints the iteration, epoch,
+    elapsed time and observation (``None``: never).  When the loop ends,
+    the updater's ``finalize`` runs (the double-buffered optimizer's last
+    gradient mean completes there)."""
 
     def __init__(self, updater, stop_trigger: Tuple[int, str] = (20, "epoch"),
-                 log_trigger: Optional[Tuple[int, str]] = (1, "epoch")):
+                 log_trigger: Optional[Tuple[int, str]] = (1, "epoch"),
+                 out: Optional[str] = None):
         self.updater = updater
         self.stop_trigger = stop_trigger
         self.log_trigger = log_trigger
+        self.out = out
         self.observation: dict = {}
-        self._extensions = []  # (ext, trigger)
+        self._extensions = []  # (name, ext, trigger, priority)
         self.elapsed_time = 0.0
 
     def extend(self, extension: Callable,
-               trigger: Tuple[int, str] = (1, "epoch")):
-        """Call ``extension(trainer)`` whenever ``trigger`` fires."""
-        self._extensions.append((extension, trigger))
+               trigger: Optional[Tuple[int, str]] = None,
+               name: Optional[str] = None, priority: Optional[int] = None):
+        """Call ``extension(trainer)`` whenever ``trigger`` fires (default:
+        the extension's own ``trigger``, else every epoch), higher
+        ``priority`` first (default: its own, else 100)."""
+        trigger = trigger or getattr(extension, "trigger", (1, "epoch"))
+        priority = priority if priority is not None else getattr(
+            extension, "priority", 100)
+        name = name or getattr(extension, "name", None) or \
+            type(extension).__name__
+        self._extensions.append((name, extension, trigger, priority))
+        self._extensions.sort(key=lambda t: -t[3])
+
+    def get_extension(self, name: str):
+        for n, ext, _, _ in self._extensions:
+            if n == name:
+                return ext
+        raise KeyError(name)
 
     def _stop(self) -> bool:
         n, unit = self.stop_trigger
@@ -122,17 +149,20 @@ class Trainer:
         return self.updater.iteration >= n
 
     def run(self):
+        if self.out is not None:
+            os.makedirs(self.out, exist_ok=True)
         start = time.perf_counter()
         while not self._stop():
             self.observation = self.updater.update()
             self.elapsed_time = time.perf_counter() - start
-            for ext, trigger in self._extensions:
+            for _, ext, trigger, _ in self._extensions:
                 if _trigger_fires(trigger, self.updater):
                     ext(self)
             if self.log_trigger is not None and \
                     self.updater.comm.rank == 0 and \
                     _trigger_fires(self.log_trigger, self.updater):
                 self.print_report()
+        self.updater.finalize()
 
     def print_report(self):
         vals = " ".join(f"{k}={float(v):.6g}"

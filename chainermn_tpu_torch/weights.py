@@ -1,9 +1,10 @@
-"""Weights between the flax ResNet and the port's.
+"""Weights between the flax models and the port's.
 
 The JAX package's ``models.ResNet`` keeps its weights as flax
 ``variables``: ``{"params": ..., "batch_stats": ...}``, nested dicts of
-arrays named by flax.  This module maps them onto the port's
-``state_dict`` (and back), taking numpy arrays only:
+arrays named by flax (``models.MLP`` has ``params`` only).  This module
+maps them onto the port's ``state_dict`` (and back), taking numpy arrays
+only:
 
 * conv kernels HWIO -> OIHW; dense kernels ``[in, out]`` -> ``[out, in]``;
 * BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, and ``batch_stats``
@@ -12,7 +13,9 @@ arrays named by flax.  This module maps them onto the port's
   ``conv_init``, ``bn_init``, ``{Block}_{i}`` (``BottleneckBlock`` or
   ``BasicBlock``, numbered across all stages) holding ``Conv_{j}``,
   ``{Norm}_{j}`` (``BatchNorm`` or ``FusedBatchNormAct``), ``conv_proj``
-  and ``norm_proj``, then ``Dense_0``.
+  and ``norm_proj``, then ``Dense_0``;
+* the MLP's ``Dense_0``, ``Dense_1``, ``Dense_2`` are the port's ``l1``,
+  ``l2``, ``l3``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from typing import Dict
 import numpy as np
 import torch
 from torch import nn
+
+from chainermn_tpu_torch.models.mlp import MLP
 
 _NORM_NAMES = ("FusedBatchNormAct", "BatchNorm")
 
@@ -36,6 +41,10 @@ def _norm_key(model: nn.Module, name: str) -> str:
 def _layers(model: nn.Module):
     """``(flax scope, port name, kind)`` of every layer with weights, in
     flax's creation order; kind is "conv", "norm" or "dense"."""
+    if isinstance(model, MLP):
+        for i in range(3):
+            yield (f"Dense_{i}",), f"l{i + 1}", "dense"
+        return
     yield ("conv_init",), "conv_init", "conv"
     yield ("bn_init",), "bn_init", "norm"
     for i, blk in enumerate(model.blocks):
@@ -69,7 +78,7 @@ def _norm_name(params) -> str:
 def flax_to_state_dict(variables, model: nn.Module) -> Dict[str, torch.Tensor]:
     """The port ``model``'s ``state_dict`` (float32 CPU tensors) holding the
     flax ``variables`` of the same architecture."""
-    params, stats = variables["params"], variables["batch_stats"]
+    params, stats = variables["params"], variables.get("batch_stats", {})
     norm = _norm_name(params)
     sd = {}
     t = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
@@ -101,7 +110,8 @@ def load_flax_variables(model: nn.Module, variables) -> nn.Module:
 
 def state_dict_to_flax(model: nn.Module, norm: str = _NORM_NAMES[0]):
     """The inverse: ``{"params": ..., "batch_stats": ...}`` as nested dicts
-    of float32 numpy arrays, flax-named with ``norm`` as the norm class."""
+    of float32 numpy arrays, flax-named with ``norm`` as the norm class
+    (``{"params": ...}`` alone for the MLP)."""
     sd = {k: v.detach().float().cpu().numpy()
           for k, v in model.state_dict().items()}
     params, stats = {}, {}
@@ -125,4 +135,6 @@ def state_dict_to_flax(model: nn.Module, norm: str = _NORM_NAMES[0]):
                                 "bias": sd[f"{key}.bias"]})
             put(stats, scope, {"mean": sd[f"{key}.running_mean"],
                                "var": sd[f"{key}.running_var"]})
+    if isinstance(model, MLP):
+        return {"params": params}
     return {"params": params, "batch_stats": stats}

@@ -29,11 +29,36 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the plain reference norm, from the same ``weights.py``-converted
    weights, TF32 off and cuDNN deterministic; the loss (relative 1e-4) and
    every BatchNorm parameter gradient (relative L2 error 1e-3) must agree;
-6. summary: a ``{"kernels": [...]}`` line, the nvidia-smi line, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+6. cast kernel: the CUDA ``cast_scale`` of ``chainermn_tpu_torch.ops``
+   (built with nvcc into ``build/cuda`` on first use) against
+   ``cast_scale_plain``, bit for bit (NaN positions, not payloads), for
+   every (source, destination) pair and None, scales 1, 1/2, 1/3, 1/8,
+   lengths from 1 to the packed gradient counts of the MLP and of
+   ResNet-50 (taken from the models), a view one element in (not 16-byte
+   aligned), +-7e4 (float16 overflow), NaN and subnormals;
+7. the MNIST slice: ``examples.train_mnist``'s ``main`` for one epoch at
+   full width (784-1000-1000-10, batch 100) with ``--communicator xla
+   --allreduce-grad-dtype float16 --double-buffering``: 2 cast launches
+   per iteration (the float32 group's cast in and cast back), finite
+   losses and a validation accuracy; a direct drive of the same pieces
+   shows that update 0 leaves every parameter unchanged; then one epoch
+   each with the ``hierarchical`` and ``two_dimensional`` communicators;
+8. ResNet-50 in the fork's 15-minute configuration (float16 wire, double
+   buffering; 224x224, batch 32, bf16, ``STEPS`` steps): images/sec beside
+   phase 3's, 2 cast launches per step;
+9. cast timing over ResNet-50's packed gradient buffer, float32 -> float16
+   at scale 1 and back at scale 1/size: kernel (CUDA graph replay), eager,
+   plain, library (``x.to(dst)``) and the bound (source plus destination
+   bytes over 3.35 TB/s);
+10. summary: a ``{"kernels": [...]}`` line with all five kernels, the
+    nvidia-smi line, then ``{"ok": true, "device": {...}}`` as the last
+    line.
+
+The cast check (6) runs right after the BatchNorm kernel check (2).
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -332,6 +357,176 @@ def phase_f32(fn, torch, dev, comm):
     return loss_rel, grad_rel
 
 
+def _same_bits(torch, got, want, what):
+    """Bit-exact but for NaN payloads (NaN positions must agree); returns
+    the largest absolute error over the finite values (0.0)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} vs "
+                             f"{want.dtype}{tuple(want.shape)}")
+    view = torch.int32 if got.element_size() == 4 else torch.int16
+    nan = torch.isnan(got)
+    if not torch.equal(nan, torch.isnan(want)) or not torch.equal(
+            got.view(view)[~nan], want.view(view)[~nan]):
+        raise AssertionError(f"{what}: kernel and plain version differ")
+    fin = torch.isfinite(want)
+    return float((got[fin].float() - want[fin].float()).abs().max()) \
+        if bool(fin.any()) else 0.0
+
+
+def grad_counts(torch, dev):
+    """Packed gradient counts of the MLP and of ResNet-50."""
+    from chainermn_tpu_torch.models import MLP, ResNet50
+    return {type(m).__name__: sum(p.numel() for p in m.parameters())
+            for m in (MLP(device=dev), ResNet50(device=dev))}
+
+
+def phase_cast(cs, torch, dev, counts):
+    """The CUDA cast_scale kernel against cast_scale_plain, bit-exact."""
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    err, cases = 0.0, 0
+    for n in [1, 7, 127, 128, 33000] + sorted(counts.values()):
+        base = torch.randn(n + 1, device=dev, generator=gen) * 3e4
+        base[::97] = float("nan")
+        base[1::89], base[2::83] = 7e4, -7e4          # float16 overflow
+        base[3::79], base[4::71] = 1e-41, 3e-8        # subnormals
+        for src in dtypes:
+            x = base.to(src)
+            for view in (x[:n], x[1:]):               # x[1:]: misaligned
+                for dst in dtypes + (None,):
+                    for scale in (1.0, 0.5, 1.0 / 3.0, 0.125):
+                        err = max(err, _same_bits(
+                            torch, cs.cast_scale(view, dst, scale),
+                            cs.cast_scale_plain(view, dst, scale),
+                            f"cast_scale {src}->{dst} n={n} scale={scale} "
+                            f"offset={view.storage_offset()}"))
+                        cases += 1
+    torch.cuda.synchronize()
+    return err, cases
+
+
+def phase_mnist(cs, torch, dev):
+    """The MNIST example on the float16 wire with double buffering, then
+    update 0 of the same pieces driven directly, then the hierarchical
+    and two-dimensional communicators."""
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer,
+                                     make_train_step)
+    from chainermn_tpu_torch.examples import train_mnist
+    from chainermn_tpu_torch.models import MLP
+    out_dir = os.path.join(HERE, "build", "chip_smoke_mnist")
+    flags = ["--epoch", "1", "--unit", "1000", "--batchsize", "100",
+             "--out", out_dir]
+    cs.reset_launch_counts()
+    res = train_mnist.main(flags + ["--communicator", "xla",
+                                    "--allreduce-grad-dtype", "float16",
+                                    "--double-buffering"])
+    launches = cs.cast_scale.launches
+    rec = res["log"][-1]
+    iters = rec["iteration"]
+    if launches != 2 * iters:
+        raise AssertionError(f"cast_scale launched {launches} times in "
+                             f"{iters} iterations, expected {2 * iters}")
+    vals = [rec[k] for k in ("main/loss", "main/accuracy", "validation/loss",
+                             "validation/accuracy")]
+    if not all(math.isfinite(v) for v in vals) or \
+            not 0.1 < rec["validation/accuracy"] <= 1.0:
+        raise AssertionError(f"MNIST epoch not sane: {rec}")
+
+    # update 0 of the double buffer applies zeros
+    comm = create_communicator("xla", allreduce_grad_dtype="float16")
+    model = MLP(1000, 10, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(0))
+    opt = create_multi_node_optimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-3), comm,
+        double_buffering=True)
+    step = make_train_step(comm, lambda b: F.cross_entropy(model(b[0]),
+                                                           b[1]), opt)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = (torch.randn(100, 784, device=dev, generator=gen),
+             torch.randint(0, 10, (100,), device=dev, generator=gen))
+    before = [p.detach().clone() for p in model.parameters()]
+    counts = []  # cast launches by update 0, update 1, the drain
+    for run in (lambda: step(batch), lambda: step(batch), step.finalize):
+        cs.reset_launch_counts()
+        run()
+        counts.append(cs.cast_scale.launches)
+        if len(counts) == 1 and not all(
+                torch.equal(a, p) for a, p in zip(before,
+                                                  model.parameters())):
+            raise AssertionError("update 0 of the double buffer changed a "
+                                 "parameter")
+    if all(torch.equal(a, p) for a, p in zip(before, model.parameters())):
+        raise AssertionError("update 1 of the double buffer changed nothing")
+    if counts != [1, 2, 1]:
+        raise AssertionError(f"cast launches by update 0, update 1 and the "
+                             f"drain: {counts}, expected [1, 2, 1]")
+
+    others = {}
+    for name in ("hierarchical", "two_dimensional"):
+        r = train_mnist.main(flags + ["--communicator", name,
+                                      "--double-buffering"])["log"][-1]
+        if not math.isfinite(r["main/loss"]):
+            raise AssertionError(f"{name}: loss {r['main/loss']}")
+        others[name] = r
+    return res, launches, counts, others
+
+
+def phase_resnet_fp16(cs, fn):
+    """ResNet-50 on the float16 wire with double buffering."""
+    from chainermn_tpu_torch.examples import train_imagenet
+    cs.reset_launch_counts()
+    fn.reset_launch_counts()
+    out = train_imagenet.main([
+        "--arch", "resnet50", "--communicator", "xla",
+        "--allreduce-grad-dtype", "float16", "--double-buffering",
+        "--batchsize", str(BATCH), "--iterations", str(STEPS),
+        "--dtype", "bfloat16", "--train-size", str(BATCH * STEPS),
+        "--seed", "0", "--log-interval", str(STEPS),
+        "--warmup-steps", str(WARMUP)])
+    launches = cs.cast_scale.launches
+    losses = out["losses"]
+    if len(losses) != STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"fp16-wire losses not finite: {losses}")
+    if launches != 2 * STEPS:
+        raise AssertionError(f"cast_scale launched {launches} times in "
+                             f"{STEPS} steps, expected {2 * STEPS}")
+    for name, n in fn.launch_counts().items():
+        if n != 53 * STEPS:
+            raise AssertionError(f"{name}: {n} launches in {STEPS} steps")
+    return out, launches
+
+
+def phase_cast_timing(cs, torch, dev, n, size):
+    """Both legs of the wire over ResNet-50's packed gradient buffer."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x32 = torch.randn(n, device=dev, generator=gen)
+    x16 = x32.half()
+    legs = (("f32->f16", x32, torch.float16, 1.0),
+            ("f16->f32", x16, torch.float32, 1.0 / size))
+    total = dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                 bound_ms=0.0, bytes=0)
+    for name, x, dst, scale in legs:
+        t = dict(
+            ms=_time(torch, lambda: cs.cast_scale(x, dst, scale), 50, True),
+            eager_ms=_time(torch, lambda: cs.cast_scale(x, dst, scale), 50,
+                           False),
+            plain_ms=_time(torch, lambda: cs.cast_scale_plain(x, dst, scale),
+                           20, True),
+            library_ms=_time(torch, lambda: x.to(dst), 50, True),
+            bytes=cs.cast_scale_bytes(n, x.dtype, dst))
+        t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"timing: cast_scale {name} over {n} elements (CUDA graph "
+            f"replay): kernel {t['ms']:.4f} ms (eager launch: "
+            f"{t['eager_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, library "
+            f"(x.to(dst)) {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms (bytes: {t['bytes']} B)")
+        for k in total:
+            total[k] += t[k]
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -340,6 +535,7 @@ def main():
     sys.path.insert(0, HERE)
     import importlib
     fn = importlib.import_module("chainermn_tpu_torch.ops.fused_norm")
+    cs = importlib.import_module("chainermn_tpu_torch.ops.cast_scale")
     import triton
 
     gpu = gpu_line()
@@ -351,6 +547,13 @@ def main():
     errs = phase_kernels(fn, torch, dev)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s, max abs err "
         f"{json.dumps(errs)}")
+
+    t0 = time.perf_counter()
+    grads = grad_counts(torch, dev)
+    cast_err, cases = phase_cast(cs, torch, dev, grads)
+    log(f"phase cast: {time.perf_counter() - t0:.1f} s; {cases} cases "
+        f"bit-exact against cast_scale_plain (packed gradient counts "
+        f"{json.dumps(grads)})")
 
     t0 = time.perf_counter()
     out, counts = phase_slice(fn)
@@ -372,7 +575,32 @@ def main():
     phase_f32(fn, torch, dev, create_communicator("xla"))
     log(f"phase f32: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    mnist, mnist_casts, db_casts, others = phase_mnist(cs, torch, dev)
+    rec = mnist["log"][-1]
+    log(f"phase mnist: {time.perf_counter() - t0:.1f} s; xla + float16 "
+        f"wire + double buffering, 1 epoch of {rec['iteration']} "
+        f"iterations: cast_scale launches {mnist_casts} (2 per iteration), "
+        f"{json.dumps(rec)}; direct drive: update 0 left every parameter "
+        f"unchanged, cast launches by update 0 / update 1 / drain "
+        f"{db_casts}; hierarchical {json.dumps(others['hierarchical'])}; "
+        f"two_dimensional {json.dumps(others['two_dimensional'])} on {gpu}")
+
+    t0 = time.perf_counter()
+    fp16, fp16_casts = phase_resnet_fp16(cs, fn)
+    log(f"phase resnet fp16: {time.perf_counter() - t0:.1f} s; losses "
+        f"{fp16['losses']}; cast_scale launches {fp16_casts} (2 x {STEPS}); "
+        f"images/sec (steps {WARMUP + 1}..{STEPS}): float16 wire + double "
+        f"buffering {fp16['images_per_sec']:.1f}, phase 3 (float32 wire) "
+        f"{out['images_per_sec']:.1f} on {gpu}")
+
     import torch.distributed as dist
+    t0 = time.perf_counter()
+    cast_t = phase_cast_timing(cs, torch, dev, grads["ResNet"],
+                               dist.get_world_size())
+    log(f"phase cast timing: {time.perf_counter() - t0:.1f} s; both legs: "
+        f"{json.dumps(cast_t)}")
+
     dist.destroy_process_group()
     kernels = []
     for wrapper, (name, replaces, _, _) in KERNELS.items():
@@ -383,6 +611,14 @@ def main():
             "max_abs_err": errs[wrapper], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    kernels.append({
+        "name": "cast_scale", "route": "cuda",
+        "source": "chainermn_tpu_torch/csrc/cast_scale.cu",
+        "replaces": "chainermn_tpu/ops/cast_scale.py:33",
+        "launches": mnist_casts, "max_abs_err": cast_err,
+        "ms": cast_t["ms"], "plain_ms": cast_t["plain_ms"],
+        "bound_ms": cast_t["bound_ms"], "bound_by": "bytes",
+        "library_ms": cast_t["library_ms"]})
     log("kernels: " + ", ".join(k["name"] for k in kernels))
     log(json.dumps({"kernels": kernels}))
     log(gpu)

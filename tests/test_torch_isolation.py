@@ -3,7 +3,8 @@
 * Every module of ``chainermn_tpu_torch`` imports in a fresh interpreter
   whose import hook refuses ``jax``, ``flax``, ``optax`` and
   ``chainermn_tpu`` (Triton, which only the kernels' first launch imports,
-  is not needed either).
+  is not needed either, nor is ``nvcc``, which builds the CUDA kernels at
+  their first launch).
 * An AST scan of the package and of ``chip_smoke.py`` finds no import of
   those packages anywhere, lazy imports included.
 * Without a CUDA card, the entry points called without ``device=`` raise
@@ -85,13 +86,15 @@ def _no_cuda():
 def test_entry_points_refuse_the_cpu_unless_asked():
     _no_cuda()
     from chainermn_tpu_torch import create_communicator, init_distributed
-    from chainermn_tpu_torch.examples import train_imagenet
-    from chainermn_tpu_torch.models import ResNet50
+    from chainermn_tpu_torch.examples import train_imagenet, train_mnist
+    from chainermn_tpu_torch.models import MLP, ResNet50
     from chainermn_tpu_torch.parallel import init_topology
 
     calls = [init_distributed, init_topology,
-             lambda: create_communicator("xla"), lambda: ResNet50(),
-             lambda: train_imagenet.main(["--iterations", "1"])]
+             lambda: create_communicator("xla"), create_communicator,
+             lambda: ResNet50(), lambda: MLP(),
+             lambda: train_imagenet.main(["--iterations", "1"]),
+             lambda: train_mnist.main(["--epoch", "1"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

@@ -1,7 +1,7 @@
-"""The Triton kernels of the port against their plain versions, on the card.
+"""The kernels of the port against their plain versions, on the card.
 
-Triton kernels have no CPU mode, so every test here is marked ``gpu`` and
-skips without a CUDA card.  The file imports torch and the port only, so
+Triton and CUDA kernels have no CPU mode, so every test here is marked
+``gpu`` and skips without a CUDA card.  The file imports torch and the port only, so
 that the machine with the card (which has no JAX) runs it as
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
@@ -79,6 +79,128 @@ def test_reductions_are_deterministic(cuda):
     a = tfn.bwd_reduce_call(x, g, mean, invstd, scale, bias, True)
     b = tfn.bwd_reduce_call(x, g, mean, invstd, scale, bias, True)
     assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def _assert_same_bits(got, want, what):
+    """Bit-exact, except that NaN payloads may differ: NaN positions must
+    agree."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    nan = torch.isnan(got)
+    assert torch.equal(nan, torch.isnan(want)), what
+    assert torch.equal(_bits(got)[~nan], _bits(want)[~nan]), what
+
+
+CAST_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("src", CAST_DTYPES)
+def test_cast_scale_kernel_is_bit_exact(cuda, src):
+    """The CUDA cast_scale kernel against cast_scale_plain, for every
+    destination and None, scales 1, 1/2, 1/3, 1/8, lengths from 1 to the
+    packed gradient counts of the MLP and of ResNet-50, a view that starts
+    one element in (not 16-byte aligned), +-7e4 (float16 overflow), NaN
+    and subnormals."""
+    from chainermn_tpu_torch.models import MLP, ResNet50
+    cs = importlib.import_module("chainermn_tpu_torch.ops.cast_scale")
+    counts = [sum(p.numel() for p in m.parameters())
+              for m in (MLP(device=cuda), ResNet50(device=cuda))]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    before = cs.cast_scale.launches
+    calls = 0
+    for n in [1, 7, 127, 128, 33000] + counts:
+        x = torch.randn(n + 1, device=cuda, generator=gen) * 3e4
+        x[::97] = float("nan")
+        x[1::89], x[2::83] = 7e4, -7e4
+        x[3::79], x[4::71] = 1e-41, 3e-8
+        x = x.to(src)
+        for view in (x[:n], x[1:]):
+            for dst in CAST_DTYPES + [None]:
+                for scale in (1.0, 0.5, 1.0 / 3.0, 0.125):
+                    _assert_same_bits(
+                        cs.cast_scale(view, dst, scale),
+                        cs.cast_scale_plain(view, dst, scale),
+                        f"{src}->{dst} n={n} scale={scale} "
+                        f"offset={view.storage_offset()}")
+                    calls += 1
+    torch.cuda.synchronize()
+    assert cs.cast_scale.launches - before == calls
+
+
+@pytest.mark.gpu
+def test_cast_scale_refuses_other_inputs(cuda):
+    cs = importlib.import_module("chainermn_tpu_torch.ops.cast_scale")
+    x = torch.ones(8, 8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        cs.cast_scale(x.t(), torch.float16, 1.0)
+    with pytest.raises(ValueError, match="not one of"):
+        cs.cast_scale(x.double(), None, 1.0)
+    assert cs.cast_scale(x[:0], torch.float16, 1.0).numel() == 0
+
+
+@pytest.mark.gpu
+def test_xla_float16_wire_launches_two_casts(cuda):
+    """A world of one on the card: the xla communicator's float16 wire runs
+    the kernel twice for one float32 group and gives the float32 mean."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator
+    cs = importlib.import_module("chainermn_tpu_torch.ops.cast_scale")
+    created = not dist.is_initialized()
+    comm = create_communicator("xla", allreduce_grad_dtype="float16")
+    try:
+        g = {"w": torch.randn(1000, device=cuda), "b": torch.randn(
+            7, device=cuda)}
+        before = cs.cast_scale.launches
+        out = comm.allreduce_grad(g)
+        assert cs.cast_scale.launches - before == 2
+        for k in g:
+            assert out[k].dtype == torch.float32
+            torch.testing.assert_close(out[k], g[k].half().float(), rtol=0,
+                                       atol=0)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_every_flavor_runs_on_the_card(cuda):
+    """A world of one on the card: every communicator keeps its gradients'
+    values, dtypes and device (non_cuda_aware through pinned host memory
+    and a gloo group), and the double buffer's update 0 applies zeros."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer,
+                                     make_train_step)
+    created = not dist.is_initialized()
+    try:
+        g = {"w": torch.randn(5, 3, device=cuda),
+             "h": torch.randn(7, device=cuda).half()}
+        for name in ("naive", "flat", "hierarchical", "two_dimensional",
+                     "single_node", "non_cuda_aware", "xla"):
+            out = create_communicator(name).allreduce_grad(g)
+            for k in g:
+                assert out[k].device == g[k].device, name
+                torch.testing.assert_close(out[k], g[k], rtol=0, atol=0)
+        w = torch.nn.Parameter(torch.ones(3, device=cuda))
+        opt = create_multi_node_optimizer(
+            torch.optim.SGD([w], lr=1.0),
+            create_communicator("xla", allreduce_grad_dtype="float16"),
+            double_buffering=True)
+        step = make_train_step(opt.communicator,
+                               lambda b: ((w - b) ** 2).sum(), opt)
+        step(torch.zeros(3, device=cuda))
+        assert torch.equal(w.detach(), torch.ones(3, device=cuda))
+        step(torch.zeros(3, device=cuda))
+        step.finalize()
+        # update 1 applied step 0's gradient, 2 * (w - 0) = 2
+        assert torch.equal(w.detach(), -torch.ones(3, device=cuda))
+    finally:
+        if created:
+            dist.destroy_process_group()
 
 
 @pytest.mark.gpu

@@ -1,7 +1,8 @@
 """One rank of a multi-process gloo world for the port's parity tests.
 
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
-        python tests/torch_dist_worker.py {comm|train} IN.npz OUT_PREFIX
+        python tests/torch_dist_worker.py {comm|train|opt|mnist} IN.npz \\
+            OUT_PREFIX
 
 Reads the stacked per-rank inputs from ``IN.npz`` (leading axis = rank),
 runs this rank's part through ``chainermn_tpu_torch`` on the CPU, and
@@ -47,18 +48,58 @@ def flatten(tree, prefix=""):
     return {prefix: np.asarray(tree)}
 
 
+# (label, communicator name, keyword arguments) of every flavor run_comm
+# reduces with
+FLAVORS = (("naive", "naive", {}), ("flat", "flat", {}), ("xla", "xla", {}),
+           ("pure_nccl", "pure_nccl", {}),
+           ("hierarchical", "hierarchical", {}),
+           ("two_dimensional", "two_dimensional", {}),
+           ("single_node", "single_node", {}),
+           ("non_cuda_aware", "non_cuda_aware", {}),
+           ("xla_f16", "xla", {"allreduce_grad_dtype": "float16"}),
+           ("xla_bf16", "xla", {"allreduce_grad_dtype": "bfloat16",
+                                "use_pallas_cast": True}))
+
+
 def run_comm(inp, rank):
-    names = sorted(k[5:] for k in inp if k.startswith("grad/"))
-    grads = {n: torch.from_numpy(inp[f"grad/{n}"][rank]) for n in names}
+    """Every flavor's ``allreduce_grad`` of this rank's slice of the
+    ``grad/*`` tree (keys ``{label}/{leaf}``) and of the ``exact/*`` tree
+    (``{label}/exact/{leaf}``), over ``intra_size`` if given; a refused
+    flavor leaves ``{label}/refused``.  With ``mod/*`` inputs, also the
+    module form, bcast, allreduce ops and split."""
+    intra = int(inp["intra_size"]) if "intra_size" in inp else None
+    trees = {}
+    for k in inp:
+        if k.startswith(("grad/", "exact/")):
+            tree, name = k.split("/", 1)
+            trees.setdefault(tree, {})[name] = torch.from_numpy(inp[k][rank])
     out = {}
-    for flavor in ("naive", "flat", "xla", "pure_nccl"):
-        comm = create_communicator(flavor, device="cpu")
-        red = comm.allreduce_grad(grads)
-        out.update({f"{flavor}/{n}": red[n].numpy() for n in names})
-    comm = create_communicator("xla", allreduce_grad_dtype="float16",
+    for label, name, kw in FLAVORS:
+        try:
+            comm = create_communicator(name, intra_size=intra, device="cpu",
+                                       **kw)
+        except ValueError:
+            out[f"{label}/refused"] = np.asarray(1)
+            continue
+        for tree, grads in trees.items():
+            red = comm.allreduce_grad(grads)
+            pre = label if tree == "grad" else f"{label}/{tree}"
+            out.update({f"{pre}/{n}": red[n].numpy() for n in grads})
+    comm = create_communicator("hierarchical", intra_size=intra,
                                device="cpu")
-    red = comm.allreduce_grad(grads)
-    out.update({f"xla_f16/{n}": red[n].numpy() for n in names})
+    out["allreduce_obj/sum"] = np.asarray(comm.allreduce_obj(
+        {"a": rank + 1, "b": [np.full(2, rank)]})["b"][0])
+    out["allreduce_obj/max"] = np.asarray(comm.allreduce_obj(rank, "max"))
+    # a sub-world of every other rank keeps working levels
+    sub = comm.split(color=rank % 2, key=rank)
+    out["split/levels"] = np.asarray([sub.size, sub.intra_size,
+                                      sub.inter_size])
+    for n, g in sub.allreduce_grad(trees.get("exact", {})).items():
+        out[f"split/exact/{n}"] = g.numpy()
+    if "mod/w" not in inp:
+        return out
+    names = sorted(trees["grad"])
+    grads = trees["grad"]
     # the module form replaces .grad in place
     comm = create_communicator("xla", device="cpu")
     lin = torch.nn.Linear(3, 2)
@@ -111,6 +152,71 @@ def run_train(inp, rank):
     return out
 
 
+def run_opt(inp, rank):
+    """The multi-node optimizers: the double buffer's staleness on a
+    quadratic (``stale/{flavor}`` = the weights after each of 3 steps),
+    then an MLP from flax weights (``var/``) for every optimizer x
+    double-buffering config: ``{config}/losses`` and ``{config}/var/...``."""
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import weights
+    from chainermn_tpu_torch.models import MLP
+
+    out = {}
+    target = torch.full((3,), float(rank))
+    for label, name, kw in (("xla", "xla", {}),
+                            ("hierarchical", "hierarchical", {}),
+                            ("xla_f16", "xla",
+                             {"allreduce_grad_dtype": "float16"})):
+        comm = create_communicator(name, device="cpu", **kw)
+        w = torch.nn.Parameter(torch.zeros(3))
+        opt = create_multi_node_optimizer(torch.optim.SGD([w], lr=1.0), comm,
+                                          double_buffering=True)
+        step = make_train_step(
+            comm, lambda b: 0.5 * ((w - b) ** 2).sum(), opt)
+        ws = []
+        for _ in range(3):
+            step(target)
+            ws.append(w.detach().clone().numpy())
+        step.finalize()
+        out[f"stale/{label}"] = np.stack(ws)
+
+    variables = nest({k[4:]: v for k, v in inp.items()
+                      if k.startswith("var/")})
+    comm = create_communicator("xla", device="cpu")
+    for opt_name in ("adam", "momentum"):
+        for db in (False, True):
+            model = MLP(int(inp["unit"]), 10, device="cpu")
+            weights.load_flax_variables(model, variables)
+            lr = float(inp[f"lr_{opt_name}"])
+            inner = (torch.optim.Adam(model.parameters(), lr=lr)
+                     if opt_name == "adam" else
+                     torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9))
+            opt = create_multi_node_optimizer(inner, comm,
+                                              double_buffering=db)
+            step = make_train_step(
+                comm, lambda b: F.cross_entropy(model(b[0]), b[1]), opt)
+            losses = [float(step((torch.from_numpy(x),
+                                  torch.from_numpy(y).long())))
+                      for x, y in zip(inp["x"][:, rank], inp["y"][:, rank])]
+            step.finalize()
+            cfg = f"{opt_name}_db{int(db)}"
+            out[f"{cfg}/losses"] = np.asarray(losses)
+            out.update({f"{cfg}/var/{k}": v for k, v in flatten(
+                weights.state_dict_to_flax(model)).items()})
+    return out
+
+
+def run_mnist(inp, rank):
+    """The MNIST example's ``main`` with ``argv`` (one string in the
+    inputs); its per-epoch log as ``log/{key}`` arrays."""
+    from chainermn_tpu_torch.examples import train_mnist
+
+    res = train_mnist.main(str(inp["argv"]).split())
+    keys = sorted(res["log"][0])
+    return {f"log/{k}": np.asarray([r[k] for r in res["log"]], np.float64)
+            for k in keys}
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -150,7 +256,8 @@ def main():
     torch.set_num_threads(1)
     topo = init_distributed(device="cpu")
     inp = dict(np.load(inp_path))
-    out = {"comm": run_comm, "train": run_train}[mode](inp, topo.rank)
+    out = {"comm": run_comm, "train": run_train, "opt": run_opt,
+           "mnist": run_mnist}[mode](inp, topo.rank)
     np.savez(f"{out_prefix}.{topo.rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
