@@ -92,18 +92,20 @@ _CATEGORIES = (
 )
 
 
-def _category(kernel: str) -> str:
+def _category(kernel: str, categories=_CATEGORIES) -> str:
     low = kernel.lower()
-    for cat, keys in _CATEGORIES:
+    for cat, keys in categories:
         if any(k in low for k in keys):
             return cat
     return "other (elementwise, pad, pool, loss, optimizer)"
 
 
-def profile_steps(updater, steps: int, device) -> dict:
+def profile_steps(updater, steps: int, device,
+                  categories=_CATEGORIES) -> dict:
     """Run ``steps`` more steps under ``torch.profiler``; returns wall ms
-    per step, device kernel ms per step by category, and the device's busy
-    share (kernel time over wall time; streams assumed not to overlap)."""
+    per step, device kernel ms per step by category (``(name, kernel-name
+    fragments)`` pairs, first match wins), and the device's busy share
+    (kernel time over wall time; streams assumed not to overlap)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
@@ -123,7 +125,7 @@ def profile_steps(updater, steps: int, device) -> dict:
                 getattr(e, "is_user_annotation", False) or "#" in e.key:
             continue
         ms = e.self_device_time_total / 1e3 / steps
-        cat = _category(e.key)
+        cat = _category(e.key, categories)
         by_cat[cat] = by_cat.get(cat, 0.0) + ms
         by_kernel.append((ms, e.key[:80]))
     busy = sum(by_cat.values())

@@ -15,7 +15,12 @@ only:
   ``{Norm}_{j}`` (``BatchNorm`` or ``FusedBatchNormAct``), ``conv_proj``
   and ``norm_proj``, then ``Dense_0``;
 * the MLP's ``Dense_0``, ``Dense_1``, ``Dense_2`` are the port's ``l1``,
-  ``l2``, ``l3``.
+  ``l2``, ``l3``;
+* the TransformerLM's ``tok_emb``/``pos_emb`` ``embedding`` are the
+  embeddings' ``weight``; each ``block_{i}`` holds ``ln_attn``, ``qkv``,
+  ``proj``, ``ln_mlp``, ``up``, ``down`` (the port's ``blocks.{i}.*``);
+  then ``ln_f`` and ``head``; LayerNorm ``scale`` -> ``weight``.  It has
+  ``params`` only.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 from torch import nn
 
 from chainermn_tpu_torch.models.mlp import MLP
+from chainermn_tpu_torch.models.transformer import TransformerLM
 
 _NORM_NAMES = ("FusedBatchNormAct", "BatchNorm")
 
@@ -40,7 +46,18 @@ def _norm_key(model: nn.Module, name: str) -> str:
 
 def _layers(model: nn.Module):
     """``(flax scope, port name, kind)`` of every layer with weights, in
-    flax's creation order; kind is "conv", "norm" or "dense"."""
+    flax's creation order; kind is "conv", "norm" (BatchNorm), "dense",
+    "embed" or "ln" (LayerNorm)."""
+    if isinstance(model, TransformerLM):
+        yield ("tok_emb",), "tok_emb", "embed"
+        yield ("pos_emb",), "pos_emb", "embed"
+        for i in range(len(model.blocks)):
+            for n in ("ln_attn", "qkv", "proj", "ln_mlp", "up", "down"):
+                yield ((f"block_{i}", n), f"blocks.{i}.{n}",
+                       "ln" if n.startswith("ln") else "dense")
+        yield ("ln_f",), "ln_f", "ln"
+        yield ("head",), "head", "dense"
+        return
     if isinstance(model, MLP):
         for i in range(3):
             yield (f"Dense_{i}",), f"l{i + 1}", "dense"
@@ -91,6 +108,11 @@ def flax_to_state_dict(variables, model: nn.Module) -> Dict[str, torch.Tensor]:
         elif kind == "dense":
             sd[f"{name}.weight"] = t(np.asarray(p["kernel"]).T)
             sd[f"{name}.bias"] = t(p["bias"])
+        elif kind == "embed":
+            sd[f"{name}.weight"] = t(p["embedding"])
+        elif kind == "ln":
+            sd[f"{name}.weight"] = t(p["scale"])
+            sd[f"{name}.bias"] = t(p["bias"])
         else:
             s = _get(stats, scope)
             key = _norm_key(model, name)
@@ -111,7 +133,7 @@ def load_flax_variables(model: nn.Module, variables) -> nn.Module:
 def state_dict_to_flax(model: nn.Module, norm: str = _NORM_NAMES[0]):
     """The inverse: ``{"params": ..., "batch_stats": ...}`` as nested dicts
     of float32 numpy arrays, flax-named with ``norm`` as the norm class
-    (``{"params": ...}`` alone for the MLP)."""
+    (``{"params": ...}`` alone for the MLP and the TransformerLM)."""
     sd = {k: v.detach().float().cpu().numpy()
           for k, v in model.state_dict().items()}
     params, stats = {}, {}
@@ -129,12 +151,17 @@ def state_dict_to_flax(model: nn.Module, norm: str = _NORM_NAMES[0]):
         elif kind == "dense":
             put(params, scope, {"kernel": np.ascontiguousarray(
                 sd[f"{name}.weight"].T), "bias": sd[f"{name}.bias"]})
+        elif kind == "embed":
+            put(params, scope, {"embedding": sd[f"{name}.weight"]})
+        elif kind == "ln":
+            put(params, scope, {"scale": sd[f"{name}.weight"],
+                                "bias": sd[f"{name}.bias"]})
         else:
             key = _norm_key(model, name)
             put(params, scope, {"scale": sd[f"{key}.weight"],
                                 "bias": sd[f"{key}.bias"]})
             put(stats, scope, {"mean": sd[f"{key}.running_mean"],
                                "var": sd[f"{key}.running_var"]})
-    if isinstance(model, MLP):
+    if isinstance(model, (MLP, TransformerLM)):
         return {"params": params}
     return {"params": params, "batch_stats": stats}

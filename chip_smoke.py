@@ -50,7 +50,38 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    at scale 1 and back at scale 1/size: kernel (CUDA graph replay), eager,
    plain, library (``x.to(dst)``) and the bound (source plus destination
    bytes over 3.35 TB/s);
-10. summary: a ``{"kernels": [...]}`` line with all five kernels, the
+10. flash kernels: the three CUDA kernels of
+    ``chainermn_tpu_torch.ops.flash_attention`` (built with nvcc into
+    ``build/cuda`` at the start, beside the cast kernel, one nvcc each,
+    started together) against their plain versions: in bfloat16 at the
+    LM's attention shape (B 1, T 8192, H 16, D 128, causal), then GQA (Hkv
+    4 and 1), non-causal, Tq != Tkv, T 100, segment ids with a padding id
+    (empty rows give 0 and lse 1e30), dropout 0.1 (the kernel's mask read
+    out exactly and held to the plain ``_keep_mask``), scalar and [B]
+    offsets with a glse cotangent, fp16 and float32, D 16/64/128; relative
+    L2 errors within 1e-5 (float32) and 1e-2 (bf16/fp16);
+11. the LM slice: an NCCL world of one, TransformerLM at full width
+    (vocab 32768, d_model 2048, 8 layers, 16 heads, T 8192, batch 1, bf16
+    compute over float32 parameters, random weights from seed 0: 553.9 M
+    parameters) through ``create_communicator("xla",
+    allreduce_grad_dtype=torch.bfloat16)`` ->
+    ``create_multi_node_optimizer(SGD momentum, double_buffering=True)`` ->
+    ``make_train_step`` for ``LM_STEPS`` steps on ``RandomState(0)``
+    tokens: finite losses from about ln 32768, 24 flash launches (3 x 8
+    layers) and 2 cast launches a step; tokens/sec over the steps after
+    ``LM_WARMUP``; ``LM_PROFILED`` more under ``torch.profiler``; then
+    ``examples.train_lm`` at its defaults with ``--attention flash``
+    (float32, D 16) for ``EXAMPLE_STEPS`` steps, whose loss must fall;
+12. float32 agreement: the LM at full width with 2 layers and T 2048, TF32
+    off, one loss and gradient with the kernels and one with
+    ``attention_impl="xla"`` from the same weights: loss relative 1e-4,
+    every gradient relative L2 1e-3;
+13. flash timing at the LM's shape (q/k/v views of one qkv projection):
+    each kernel by CUDA-graph replay, eagerly, its plain version, the bound
+    (matrix-product FLOPs over 989 TFLOP/s or bytes over 3.35 TB/s,
+    whichever is larger) and PyTorch's ``scaled_dot_product_attention``
+    (forward; its autograd backward beside dK/dV + dQ);
+14. summary: a ``{"kernels": [...]}`` line with all eight kernels, the
     nvidia-smi line, then ``{"ok": true, "device": {...}}`` as the last
     line.
 
@@ -85,6 +116,27 @@ KERNELS = {
     "bwd_dx_call": ("fused_norm.bwd_dx",
                     "chainermn_tpu/ops/fused_norm.py:140", "bwd_dx", 11),
 }
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16/fp16 tensor cores, dense
+LM = dict(vocab=32768, d_model=2048, n_layers=8, n_heads=16, max_len=8192)
+LM_T = 8192
+LM_STEPS = 8         # LM steps; tokens/sec over those after LM_WARMUP
+LM_WARMUP = 3
+LM_PROFILED = 2
+EXAMPLE_STEPS = 10
+FLASH_SOURCE = "chainermn_tpu_torch/csrc/flash_attention.cu"
+# wrapper -> (JSON name, TPU kernel it replaces, kind for the work counts)
+FLASH = {
+    "flash_fwd": ("flash.fwd", "chainermn_tpu/ops/flash_attention.py:136",
+                  "fwd"),
+    "flash_bwd_dkv": ("flash.bwd_dkv",
+                      "chainermn_tpu/ops/flash_attention.py:307", "bwd_dkv"),
+    "flash_bwd_dq": ("flash.bwd_dq",
+                     "chainermn_tpu/ops/flash_attention.py:393", "bwd_dq"),
+}
+# relative L2 error limits of the flash kernels against their plain
+# versions: float32 products agree to rounding; bf16/fp16 kernels round P
+# and dS to the input type before their products
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 1e-2}
 LIBRARY = {
     "stats_call": "torch.var_mean(x, 0, correction=0)",
     "apply_call": "F.batch_norm(eval) (no ReLU)",
@@ -527,6 +579,333 @@ def phase_cast_timing(cs, torch, dev, n, size):
     return total
 
 
+def start_cuda_builds():
+    """Start building every CUDA source of the port, one nvcc each, all at
+    once, in the background; returns ``{source name: future}``."""
+    from concurrent.futures import ThreadPoolExecutor
+    from chainermn_tpu_torch.ops import _build
+    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    ex = ThreadPoolExecutor(len(names))
+    builds = {n: ex.submit(_build.load_library, n) for n in names}
+    ex.shutdown(wait=False)
+    return builds
+
+
+def _rel(torch, got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def flash_case(fa, torch, dev, dtype, b, tq, tk, h, hk, d, causal, seg=False,
+               rate=0.0, offs=None, glse=False, seed=0):
+    """The three kernels and their plain versions on one case; returns
+    ``{wrapper: (max abs error, worst relative L2 error)}``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    q = (mk(b, tq, h, d) * 0.5).to(dtype)
+    k = (mk(b, tk, hk, d) * 0.5).to(dtype)
+    v, g = mk(b, tk, hk, d).to(dtype), mk(b, tq, h, d).to(dtype)
+    kw = dict(seed=1234 + seed, rate=rate)
+    if seg:
+        ids = lambda t: torch.randint(0, 3, (b, t), generator=gen,  # noqa
+                                      device=dev, dtype=torch.int32)
+        kw["qseg"], kw["kseg"] = ids(tq), ids(tk)
+        kw["qseg"][0, :7] = 9  # a padding id that matches no key
+    if offs == "scalar":
+        kw["offs"] = torch.tensor([[5, 3]], device=dev,
+                                  dtype=torch.int32).expand(b, 2)
+    elif offs == "vector":
+        kw["offs"] = torch.stack([torch.arange(b, device=dev) * 7,
+                                  torch.arange(b, device=dev).flip(0) * 5],
+                                 1).to(torch.int32)
+    gl = mk(b, h, tq) if glse else None
+    out_k, lse_k = fa.flash_fwd(q, k, v, causal, **kw)
+    out_p, lse_p = fa.flash_forward_plain(q, k, v, causal, **kw)
+    empty = lse_p >= 1e30
+    if not torch.equal(lse_k >= 1e30, empty):
+        raise AssertionError("flash_fwd: empty rows differ from the plain "
+                             "version's")
+    if seg and not (bool((out_k[0, :7] == 0).all())):
+        raise AssertionError("flash_fwd: a padding row's output is not 0")
+    delta = (g.float() * out_p.float()).sum(-1).transpose(1, 2).contiguous()
+    dk_k, dv_k = fa.flash_bwd_dkv(q, k, v, g, lse_p, delta, gl, causal, **kw)
+    dq_k = fa.flash_bwd_dq(q, k, v, g, lse_p, delta, gl, causal, **kw)
+    dq_p, dk_p, dv_p = fa.flash_backward_plain(q, k, v, g, lse_p, delta, gl,
+                                               causal, block_k=1024, **kw)
+    torch.cuda.synchronize()
+    pairs = {"flash_fwd": [(out_k, out_p), (lse_k[~empty], lse_p[~empty])],
+             "flash_bwd_dkv": [(dk_k, dk_p), (dv_k, dv_p)],
+             "flash_bwd_dq": [(dq_k, dq_p)]}
+    res = {}
+    for w, ps in pairs.items():
+        ps = [(a, b_) for a, b_ in ps if b_.numel()]
+        res[w] = (max(float((a.float() - b_.float()).abs().max())
+                      for a, b_ in ps),
+                  max(_rel(torch, a, b_) for a, b_ in ps))
+    return res
+
+
+def flash_keep_grid(fa, torch, dev, b=2, h=4, t=256, rate=0.1, seed=77):
+    """The forward kernel's dropout mask read out exactly (float32, q = 0:
+    weight 1/16 on each of 16 keys; v = I: output column j is key j's
+    dropped weight), its window walked over ``t`` key positions by kv
+    offsets; returns the kernel's mask and the plain ``_keep_mask``."""
+    d = 16
+    q = torch.zeros(b, t, h, d, device=dev)
+    v = torch.eye(d, device=dev).view(1, d, 1, d).expand(b, d, h, d)
+    got = []
+    for c in range(0, t, d):
+        offs = torch.tensor([[0, c]] * b, device=dev, dtype=torch.int32)
+        out, _ = fa.flash_fwd(q, q[:, :d], v.contiguous(), False, offs=offs,
+                              seed=seed, rate=rate)
+        got.append(out.permute(0, 2, 1, 3) > 0)
+    bh = torch.arange(b * h, device=dev).view(b, h, 1, 1)
+    pos = torch.arange(t, device=dev)
+    want = fa._keep_mask(seed, bh, pos.view(1, 1, t, 1),
+                         pos.view(1, 1, 1, t), rate)
+    return torch.cat(got, dim=-1), want
+
+
+def phase_flash(fa, torch, dev):
+    """Every flash kernel against its plain version; returns the largest
+    max-abs error per wrapper and the case lines printed."""
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    cases = [
+        # (name, dtype, B, Tq, Tk, H, Hk, D, causal, extras)
+        ("lm_shape", bf, 1, LM_T, LM_T, 16, 16, 128, True, {}),
+        ("gqa4", bf, 2, 512, 512, 16, 4, 128, True, {}),
+        ("mqa_noncausal", bf, 2, 256, 256, 8, 1, 64, False, {}),
+        ("cross_tq100_tk160", bf, 2, 100, 160, 4, 4, 64, False, {}),
+        ("t100_f16", f16, 2, 100, 100, 4, 2, 128, True, {}),
+        ("segments_padding", bf, 2, 256, 256, 8, 8, 64, True, {"seg": True}),
+        ("dropout", bf, 2, 256, 256, 8, 4, 64, True, {"rate": 0.1}),
+        ("offsets_scalar_glse", bf, 2, 96, 128, 4, 4, 32, True,
+         {"offs": "scalar", "glse": True}),
+        ("offsets_vector_glse_f32", f32, 2, 96, 128, 4, 4, 32, True,
+         {"offs": "vector", "glse": True}),
+        ("f16_d16_dropout", f16, 2, 130, 130, 8, 2, 16, False, {"rate": 0.1}),
+        ("f32_d16", f32, 2, 200, 200, 8, 8, 16, True, {}),
+        ("f32_d64", f32, 2, 256, 256, 4, 4, 64, False, {}),
+        ("f32_d128_everything", f32, 1, 160, 160, 4, 2, 128, True,
+         {"seg": True, "rate": 0.2, "glse": True}),
+    ]
+    errs = {w: 0.0 for w in FLASH}
+    for i, (name, dt, b, tq, tk, h, hk, d, causal, extra) in enumerate(cases):
+        res = flash_case(fa, torch, dev, dt, b, tq, tk, h, hk, d, causal,
+                         seed=i, **extra)
+        tol = FLASH_TOL[str(dt).split(".")[1]]
+        log(f"flash {name}: {str(dt).split('.')[1]} B{b} Tq{tq} Tk{tk} H{h} "
+            f"Hkv{hk} D{d} causal={causal} {extra}: " + ", ".join(
+                f"{w} max abs {a:.3g} rel L2 {r:.3g}"
+                for w, (a, r) in res.items()) + f" (tol {tol})")
+        for w, (a, r) in res.items():
+            if not r <= tol:
+                raise AssertionError(f"{w} {name}: relative L2 error {r:.3g}"
+                                     f" over {tol}")
+            errs[w] = max(errs[w], a)
+    got, want = flash_keep_grid(fa, torch, dev)
+    if not torch.equal(got, want):
+        raise AssertionError(f"flash_fwd: dropout mask differs from "
+                             f"_keep_mask at {int((got != want).sum())} of "
+                             f"{want.numel()} positions")
+    log(f"flash dropout mask: {want.numel()} (b, h, q, k) positions equal to "
+        f"_keep_mask (keep share {float(want.float().mean()):.4f} at rate "
+        f"0.1)")
+    torch.cuda.empty_cache()
+    return errs
+
+
+LM_CATEGORIES = (
+    ("flash (CUDA)", ("fwd_tc_kernel", "dkv_tc_kernel", "dq_tc_kernel",
+                      "_f32_kernel")),
+    ("cast_scale (CUDA)", ("cast_scale",)),
+    ("nccl", ("nccl",)),
+    ("memcpy / memset", ("memcpy", "memset")),
+    ("gemm", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
+)
+
+
+def phase_lm(fa, cs, torch, dev):
+    """TransformerLM at full width through the data-parallel step."""
+    import numpy as np
+    import torch.distributed as dist
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer,
+                                     make_train_step)
+    from chainermn_tpu_torch.examples.train_imagenet import profile_steps
+    from chainermn_tpu_torch.examples.train_lm import lm_loss
+    from chainermn_tpu_torch.models import TransformerLM
+    comm = create_communicator("xla", allreduce_grad_dtype=torch.bfloat16)
+    if (dist.get_backend(), comm.size) != ("nccl", 1):
+        raise AssertionError("expected an NCCL world of one")
+    model = TransformerLM(**LM, attention_impl="flash", dtype=torch.bfloat16,
+                          device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    if round(n_params / 1e6, 1) != 553.9:
+        raise AssertionError(f"{n_params} parameters, expected 553.9 M")
+    opt = create_multi_node_optimizer(
+        torch.optim.SGD(model.parameters(), lr=1e-3, momentum=0.9), comm,
+        double_buffering=True)
+    step = make_train_step(comm, lambda b: lm_loss(model, b), opt)
+    # bench_lm.py's tokens: RandomState(0), [batch * size, T], this rank's
+    # rows
+    rng = np.random.RandomState(0)
+    toks = (rng.rand(comm.size, LM_T) * LM["vocab"]).astype(np.int32)
+    toks = torch.from_numpy(toks[comm.rank:comm.rank + 1]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    cs.reset_launch_counts()
+    losses, secs = [], []
+    for _ in range(LM_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(toks)))  # the loss read ends the step
+        secs.append(time.perf_counter() - t0)
+    step.finalize()
+    torch.cuda.synchronize()
+    counts = dict(fa.launch_counts(), cast_scale=cs.cast_scale.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(map(math.isfinite, losses)) or \
+            abs(losses[0] - math.log(LM["vocab"])) > 1.5:
+        raise AssertionError(f"LM losses {losses}: not finite, or the first "
+                             f"far from ln {LM['vocab']}")
+    per_step = {w: n / LM_STEPS for w, n in counts.items()}
+    if per_step != {"flash_fwd": 8, "flash_bwd_dkv": 8, "flash_bwd_dq": 8,
+                    "cast_scale": 2}:
+        raise AssertionError(f"launches per LM step {per_step}: expected 8 "
+                             f"of each flash kernel (24) and 2 casts")
+    tok_s = LM_T * (LM_STEPS - LM_WARMUP) / sum(secs[LM_WARMUP:])
+
+    class _Steps:  # the updater interface profile_steps drives
+        update = staticmethod(lambda: step(toks))
+        finalize = staticmethod(step.finalize)
+
+    prof = profile_steps(_Steps, LM_PROFILED, dev, LM_CATEGORIES)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_s=secs, tokens_per_sec=tok_s,
+                counts=counts, n_params=n_params, peak_gb=peak_gb,
+                profile=prof)
+
+
+def phase_lm_example(fa):
+    """examples.train_lm at its own defaults, --attention flash."""
+    from chainermn_tpu_torch.examples import train_lm
+    fa.reset_launch_counts()
+    out = train_lm.main(["--attention", "flash", "--steps",
+                         str(EXAMPLE_STEPS)])
+    losses = out["losses"]
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_lm losses did not fall: {losses}")
+    if fa.flash_fwd.launches != 2 * EXAMPLE_STEPS:
+        raise AssertionError(f"train_lm: {fa.launch_counts()} flash launches"
+                             f" in {EXAMPLE_STEPS} steps of 2 layers")
+    return out
+
+
+def phase_lm_f32(torch, dev):
+    """One float32 loss and gradient of the 2-layer LM at T 2048 with the
+    kernels and with attention_impl="xla", from the same weights."""
+    import numpy as np
+    from chainermn_tpu_torch.examples.train_lm import lm_loss
+    from chainermn_tpu_torch.models import TransformerLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dict(LM, n_layers=2, max_len=2048)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rng = np.random.RandomState(1)
+    toks = torch.from_numpy((rng.rand(1, 2048) * LM["vocab"]).astype(
+        np.int32)).to(dev)
+    results = []
+    state = None
+    for impl in ("flash", "xla"):
+        model = TransformerLM(**cfg, attention_impl=impl, device=dev,
+                              generator=gen)
+        if state is None:
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(state)
+        loss = lm_loss(model, toks)
+        loss.backward()
+        results.append((float(loss.detach()), {k: p.grad for k, p in
+                                      model.named_parameters()}))
+        del model
+    (lk, gk), (lp, gp) = results
+    loss_rel = abs(lk - lp) / abs(lp)
+    grad_rel, worst = max((float((gk[k] - gp[k]).norm())
+                           / max(float(gp[k].norm()), 1e-30), k) for k in gp)
+    log(f"LM f32 step (2 layers, T 2048, TF32 off): loss kernels {lk:.7f} "
+        f"xla {lp:.7f} (rel {loss_rel:.2e}, tol 1e-4); worst gradient "
+        f"relative L2 error {grad_rel:.2e} ({worst}; tol 1e-3) over "
+        f"{len(gp)} tensors")
+    if not (lk == lk and loss_rel <= 1e-4 and grad_rel <= 1e-3):
+        raise AssertionError("float32 LM step with the flash kernels "
+                             "disagrees with the plain attention")
+    del results, gk, gp
+    torch.cuda.empty_cache()
+    return loss_rel, grad_rel
+
+
+def phase_flash_timing(fa, torch, dev):
+    """Each flash kernel at the LM's attention shape: kernel (CUDA graph
+    replay), eager, plain, library and the bound."""
+    import torch.nn.functional as F
+    b, t, h, d = 1, LM_T, LM["n_heads"], LM["d_model"] // LM["n_heads"]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    # q, k, v as the model gives them: views of one qkv projection
+    qkv = (torch.randn(b, t, 3 * h * d, device=dev, generator=gen)
+           * 0.5).to(torch.bfloat16)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, t, h, d)
+               for i in range(3))
+    g = torch.randn(b, t, h, d, device=dev, generator=gen).to(torch.bfloat16)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, g, lse, delta, None, True)
+    kern = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, True),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(*bwd),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq(*bwd)}
+    # the plain backward computes dq, dk and dv in one loop: its time
+    # stands beside both backward kernels
+    plain_fwd = _time(torch, lambda: fa.flash_forward_plain(q, k, v, True),
+                      2, graph=False)
+    torch.cuda.empty_cache()
+    plain_bwd = _time(torch, lambda: fa.flash_backward_plain(
+        *bwd, block_k=1024), 2, graph=False)
+    torch.cuda.empty_cache()
+    q3, k3, v3 = (x.transpose(1, 2) for x in (q, k, v))
+    lib_fwd = _time(torch, lambda: F.scaled_dot_product_attention(
+        q3, k3, v3, is_causal=True), 20, graph=True)
+    qt, kt, vt = (x.detach().requires_grad_() for x in (q3, k3, v3))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    gt = g.transpose(1, 2)
+    lib_bwd = _time(torch, lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), gt, retain_graph=True), 10, graph=False)
+    out_t = {}
+    for w, (_, _, kind) in FLASH.items():
+        ops = fa.flash_attention_flops(b, t, t, h, d, True, kind)
+        nbytes = fa.flash_attention_bytes(b, t, t, h, h, d, torch.bfloat16,
+                                          kind)
+        ops_ms, bytes_ms = ops / BF16_OPS_PER_S * 1e3, \
+            nbytes / HBM_BYTES_PER_S * 1e3
+        ms = _time(torch, kern[w], 10, graph=True)
+        eager_ms = _time(torch, kern[w], 10, graph=False)
+        out_t[w] = dict(
+            ms=ms, eager_ms=eager_ms,
+            plain_ms=plain_fwd if kind == "fwd" else plain_bwd,
+            library_ms=lib_fwd if kind == "fwd" else lib_bwd,
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            ops=ops, bytes=nbytes)
+        log(f"timing: {w} at B{b} T{t} H{h} D{d} causal bf16 (CUDA graph "
+            f"replay): kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain "
+            f"{out_t[w]['plain_ms']:.4f} ms, library "
+            f"({'SDPA forward' if kind == 'fwd' else 'SDPA autograd backward, dq+dk+dv'}"
+            f") {out_t[w]['library_ms']:.4f} ms, bound "
+            f"{out_t[w]['bound_ms']:.4f} ms ({out_t[w]['bound_by']}: {ops} "
+            f"FLOPs, {nbytes} B); {ops / ms / 1e9:.1f} TFLOP/s")
+    return out_t
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -536,8 +915,11 @@ def main():
     import importlib
     fn = importlib.import_module("chainermn_tpu_torch.ops.fused_norm")
     cs = importlib.import_module("chainermn_tpu_torch.ops.cast_scale")
+    fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
     import triton
 
+    t_build = time.perf_counter()
+    builds = start_cuda_builds()  # nvcc runs beside the Triton phase
     gpu = gpu_line()
     log(f"gpu: {gpu}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, triton "
@@ -547,6 +929,10 @@ def main():
     errs = phase_kernels(fn, torch, dev)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s, max abs err "
         f"{json.dumps(errs)}")
+    for f in builds.values():
+        f.result()  # a failed build raises here
+    log(f"CUDA builds ({', '.join(builds)}): done "
+        f"{time.perf_counter() - t_build:.1f} s after their start")
 
     t0 = time.perf_counter()
     grads = grad_counts(torch, dev)
@@ -601,6 +987,41 @@ def main():
     log(f"phase cast timing: {time.perf_counter() - t0:.1f} s; both legs: "
         f"{json.dumps(cast_t)}")
 
+    t0 = time.perf_counter()
+    flash_errs = phase_flash(fa, torch, dev)
+    log(f"phase flash: {time.perf_counter() - t0:.1f} s; max abs err "
+        f"{json.dumps(flash_errs)}")
+
+    t0 = time.perf_counter()
+    lm = phase_lm(fa, cs, torch, dev)
+    lm_prof = lm["profile"]
+    if not lm_prof["device_ms_per_step"]:
+        lm_prof = "not measured (the profiler saw no device time)"
+    log(f"phase lm: {time.perf_counter() - t0:.1f} s; TransformerLM "
+        f"{lm['n_params']} parameters, bf16, T {LM_T}, batch 1, xla "
+        f"communicator with the bfloat16 wire, SGD momentum, double "
+        f"buffering; losses {lm['losses']}; step seconds {lm['step_s']}; "
+        f"launches {json.dumps(lm['counts'])} in {LM_STEPS} steps; "
+        f"tokens/sec (steps {LM_WARMUP + 1}..{LM_STEPS}) "
+        f"{lm['tokens_per_sec']:.1f} on {gpu}; peak memory "
+        f"{lm['peak_gb']:.1f} GB; profile of {LM_PROFILED} more steps: "
+        f"{json.dumps(lm_prof)}")
+
+    t0 = time.perf_counter()
+    ex = phase_lm_example(fa)
+    log(f"phase lm example: {time.perf_counter() - t0:.1f} s; train_lm "
+        f"--attention flash (float32, seq 2048, batch 4, d_model 128, 8 "
+        f"heads: D 16): losses {ex['losses']}; {ex['tokens_per_sec']:.1f} "
+        f"tokens/sec over all {EXAMPLE_STEPS} steps")
+
+    t0 = time.perf_counter()
+    phase_lm_f32(torch, dev)
+    log(f"phase lm f32: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    flash_t = phase_flash_timing(fa, torch, dev)
+    log(f"phase flash timing: {time.perf_counter() - t0:.1f} s")
+
     dist.destroy_process_group()
     kernels = []
     for wrapper, (name, replaces, _, _) in KERNELS.items():
@@ -619,6 +1040,14 @@ def main():
         "ms": cast_t["ms"], "plain_ms": cast_t["plain_ms"],
         "bound_ms": cast_t["bound_ms"], "bound_by": "bytes",
         "library_ms": cast_t["library_ms"]})
+    for wrapper, (name, replaces, _) in FLASH.items():
+        t = flash_t[wrapper]
+        kernels.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": replaces, "launches": lm["counts"][wrapper],
+            "max_abs_err": flash_errs[wrapper], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     log("kernels: " + ", ".join(k["name"] for k in kernels))
     log(json.dumps({"kernels": kernels}))
     log(gpu)

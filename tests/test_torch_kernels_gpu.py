@@ -14,6 +14,8 @@ one to two bfloat16 units in the last place at the values' magnitude.
 """
 
 import importlib
+import os
+import sys
 
 import pytest
 import torch
@@ -226,3 +228,84 @@ def test_fused_norm_grads_match_reference(cuda, train):
                      m.running_mean.clone(), m.running_var.clone()])
     for got, want in zip(*outs):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# --- flash attention: the three CUDA kernels against their plain versions --
+
+tfa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+# chip_smoke.py (at the repository's root) runs the same cases on the card;
+# its case runner and dropout-mask read-out serve both
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+smoke = importlib.import_module("chip_smoke")
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+BF, F16, F32 = torch.bfloat16, torch.float16, torch.float32
+FLASH_CASES = {
+    # name: (dtype, B, Tq, Tk, H, Hk, D, causal, extras)
+    "lm_heads": (BF, 1, 1024, 1024, 16, 16, 128, True, {}),
+    "gqa4": (BF, 2, 256, 256, 8, 4, 64, True, {}),
+    "mqa_full": (BF, 2, 192, 192, 8, 1, 64, False, {}),
+    "cross": (BF, 2, 100, 160, 4, 4, 64, False, {}),
+    "t100": (F16, 2, 100, 100, 4, 2, 128, True, {}),
+    "seg": (BF, 2, 128, 128, 4, 4, 64, True, {"seg": True}),
+    "dropout": (BF, 2, 128, 128, 4, 2, 64, True, {"rate": 0.1}),
+    "offs_scalar": (BF, 2, 96, 128, 4, 4, 32, True,
+                    {"offs": "scalar", "glse": True}),
+    "offs_vector": (F32, 2, 96, 128, 4, 4, 32, True,
+                    {"offs": "vector", "glse": True}),
+    "f32_d16": (F32, 2, 200, 200, 8, 8, 16, True, {}),
+    "f32_d128_all": (F32, 1, 160, 160, 4, 2, 128, True,
+                     {"seg": True, "rate": 0.2, "glse": True}),
+    "f16_d16": (F16, 2, 130, 130, 8, 2, 16, False, {"rate": 0.1}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda, name):
+    """Relative L2 errors within 1e-5 (float32: products agree to rounding)
+    or 1e-2 (bf16/fp16: the kernels round P and dS to the input type before
+    their products, as the TPU kernels do); empty rows give 0 and 1e30."""
+    dtype, b, tq, tk, h, hk, d, causal, extra = FLASH_CASES[name]
+    before = tfa.launch_counts()
+    errs = smoke.flash_case(tfa, torch, cuda, dtype, b, tq, tk, h, hk, d,
+                            causal, **extra)
+    assert all(n - before[w] == 1 for w, n in tfa.launch_counts().items())
+    tol = smoke.FLASH_TOL[str(dtype).split(".")[1]]
+    assert all(rel <= tol for _, rel in errs.values()), (errs, tol)
+
+
+@pytest.mark.gpu
+def test_flash_dropout_mask_is_exact(cuda):
+    got, want = smoke.flash_keep_grid(tfa, torch, cuda)
+    assert torch.equal(got, want)
+    assert 0.85 < float(want.float().mean()) < 0.95
+
+
+@pytest.mark.gpu
+def test_flash_attention_autograd_on_the_card(cuda):
+    """The public function on CUDA tensors: forward and the two backward
+    kernels, once each, and the plain autograd on the same inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(2, 64, 4, 32, generator=gen, device=cuda)
+               .requires_grad_() for _ in range(3))
+    before = tfa.launch_counts()
+    out, lse = tfa.flash_attention(q, k, v, True, return_lse=True)
+    (out.square().sum() + lse.sum()).backward()
+    assert {w: n - before[w] for w, n in tfa.launch_counts().items()} == {
+        "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    got = [out, lse, q.grad, k.grad, v.grad]
+    ref = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    out_p, lse_p = tfa.flash_attention(*ref, True, return_lse=True)
+    (out_p.square().sum() + lse_p.sum()).backward()
+    want = [out_p, lse_p] + [t.grad for t in ref]
+    for a, b in zip(got, want):
+        assert _rel(a.detach().cpu(), b.detach()) <= 1e-5
+    with pytest.raises(ValueError, match="blockwise"):
+        tfa.flash_attention(q, k, v, bwd_impl="blockwise")

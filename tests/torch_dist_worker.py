@@ -1,8 +1,8 @@
 """One rank of a multi-process gloo world for the port's parity tests.
 
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
-        python tests/torch_dist_worker.py {comm|train|opt|mnist} IN.npz \\
-            OUT_PREFIX
+        python tests/torch_dist_worker.py {comm|train|opt|mnist|lm} \\
+            IN.npz OUT_PREFIX
 
 Reads the stacked per-rank inputs from ``IN.npz`` (leading axis = rank),
 runs this rank's part through ``chainermn_tpu_torch`` on the CPU, and
@@ -217,6 +217,41 @@ def run_mnist(inp, rank):
             for k in keys}
 
 
+def run_lm(inp, rank):
+    """The data-parallel LM step at toy width: ``create_communicator("xla",
+    allreduce_grad_dtype=wire)`` -> ``create_multi_node_optimizer(SGD
+    momentum 0.9, double_buffering=True)`` -> ``make_train_step``, from flax
+    weights (``var/``), on this rank's slice of ``toks`` [steps, world, b,
+    T], for the float32 and the bfloat16 wire: ``{wire}/losses`` and
+    ``{wire}/var/...`` after ``step.finalize()``."""
+    from chainermn_tpu_torch import weights
+    from chainermn_tpu_torch.examples.train_lm import lm_loss
+    from chainermn_tpu_torch.models import TransformerLM
+
+    variables = nest({k[4:]: v for k, v in inp.items()
+                      if k.startswith("var/")})
+    vocab, d_model, layers, heads, kv, max_len = (int(x) for x in inp["cfg"])
+    out = {}
+    for wire, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        comm = create_communicator("xla", allreduce_grad_dtype=dtype,
+                                   device="cpu")
+        model = TransformerLM(vocab, d_model, layers, heads, max_len=max_len,
+                              attention_impl=str(inp["impl"]),
+                              n_kv_heads=kv or None, device="cpu")
+        weights.load_flax_variables(model, variables)
+        comm.bcast_data(model)
+        opt = create_multi_node_optimizer(
+            torch.optim.SGD(model.parameters(), lr=float(inp["lr"]),
+                            momentum=0.9), comm, double_buffering=True)
+        step = make_train_step(comm, lambda b: lm_loss(model, b), opt)
+        out[f"{wire}/losses"] = np.asarray(
+            [float(step(torch.from_numpy(t))) for t in inp["toks"][:, rank]])
+        step.finalize()
+        out.update({f"{wire}/var/{k}": v for k, v in flatten(
+            weights.state_dict_to_flax(model)).items()})
+    return out
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -257,7 +292,7 @@ def main():
     topo = init_distributed(device="cpu")
     inp = dict(np.load(inp_path))
     out = {"comm": run_comm, "train": run_train, "opt": run_opt,
-           "mnist": run_mnist}[mode](inp, topo.rank)
+           "mnist": run_mnist, "lm": run_lm}[mode](inp, topo.rank)
     np.savez(f"{out_prefix}.{topo.rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
