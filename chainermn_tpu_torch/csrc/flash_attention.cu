@@ -9,10 +9,11 @@
 //
 // They compute what the TPU kernels compute, with the same conventions:
 // q [B, Tq, H, D] and k/v [B, Tk, Hk, D] (any strides with a unit stride
-// along D and 16-byte aligned rows: the views a fused qkv projection's split
-// gives); GQA (q head h reads kv head h / (H / Hk)); the score scaled after
-// the QK^T product; masked scores set to -1e30 and masked probabilities
-// zeroed explicitly; causal and segment-id masks on GLOBAL positions
+// along D, a 16-byte aligned base and strides of 16-byte multiples: the
+// views a fused qkv projection's split gives); GQA (q head h reads kv head
+// h / (H / Hk)); the score scaled after the QK^T product; masked scores set
+// to -1e30 and masked probabilities zeroed explicitly; causal and
+// segment-id masks on GLOBAL positions
 // (per-sequence offsets [B, 2]); dropout on the normalised weights from the
 // counter hash of (seed, b * H + h, q position, k position), with inverted
 // scaling and the denominator built from the undropped weights; P cast to
@@ -24,37 +25,79 @@
 // above the H100's 295 operations per byte, so the least time is the
 // matrix-product FLOPs (2 products forward, 4 for dK/dV, 3 for dQ, over the
 // (q, k) pairs the mask allows) over 989 TFLOP/s (bf16/fp16 tensor cores).
+// What keeps a kernel from it is feeding the tensor cores: operand traffic
+// through shared memory, copies that stall the products, and the softmax
+// (or gradient) arithmetic between two products.
 //
-// The design, kept simple (no wgmma, TMA or warp specialisation yet):
+// Which kernel runs is a dispatch by dtype and head dim, one kernel each:
+//
+//   bf16/fp16, D 64 and 128: fwd_wgmma_kernel, dkv_wgmma_kernel (wgmma +
+//                            TMA); dQ: dq_tc_kernel (mma.sync)
+//   bf16/fp16, D 16 and 32:  fwd_tc_kernel, dkv_tc_kernel, dq_tc_kernel
+//                            (mma.sync)
+//   float32, any D:          *_f32_kernel (CUDA cores)
+//
+// Common to all:
 //  * TPU grids run in order and carry accumulators in VMEM scratch across
 //    the innermost grid axis; here one block owns an output tile and walks
-//    the other axis in a loop: forward, one block per (b*h, 64-row q tile)
-//    looping over K/V tiles with an online softmax in float32; dK/dV, one
-//    block per (b*hk, 64-key tile) looping over the group's q heads and the
-//    q tiles at or after the diagonal, so the GQA group sum of dK/dV is
-//    taken in float32 inside the kernel; dQ, one block per (b*h, 64-row q
-//    tile) looping over K/V tiles.  No atomics: one block writes each
-//    output tile, so a rerun gives the same bits.
+//    the other axis in a loop: forward, one block per (b*h, q tile) looping
+//    over K/V tiles with an online softmax in float32; dK/dV, one block per
+//    (b*hk, key tile) looping over the group's q heads and the q tiles at or
+//    after the diagonal, so the GQA group sum of dK/dV is taken in float32
+//    inside the kernel; dQ, one block per (b*h, q tile) looping over K/V
+//    tiles.  No atomics: one block writes each output tile, so a rerun
+//    gives the same bits.
 //  * Tiles past the causal diagonal are never visited, as the TPU kernels
-//    skip their grid steps.
-//  * bf16/fp16 (the tensor-core kernels, *_tc_kernel): four warps, each
-//    owning 16 output rows; mma.sync m16n8k16 with float32 accumulators in
-//    registers -- scores, dP, the output and the dQ/dK/dV accumulators
-//    never go through shared memory, and P (dS) is repacked from the
-//    accumulator layout into the next product's A operand in registers;
-//    operands come from shared memory by ldmatrix; the next K/V (Q/dO)
-//    tile is copied in with cp.async while the current one is used.
-//  * float32 (*_f32_kernel): the products run on the CUDA cores in float32
-//    (never TF32), 256 threads over 32-row tiles staged in shared memory.
-//    It is the path of float32 models (the long-context example), not of
-//    the bf16 LM.
+//    skip their grid steps; causal q tiles run heaviest first.
 //  * ragged sequence ends are masked in the kernels (rows and keys past T),
 //    so any Tq and Tk work, Tq != Tk included.
+//
+// The wgmma kernels (the LM's path: bf16, D 128).  A block of 128 output
+// rows (q rows forward, keys for dK/dV) is two warpgroups of 64 rows each,
+// whose first warp is also the producer.  It issues TMA copies
+// (cp.async.bulk.tensor) of the tiles the block walks -- K/V tiles of 128
+// keys forward, Q/dO tiles of 64 rows for dK/dV -- into a ring of shared-
+// memory stages with `full`/`empty` mbarriers, and writes each stage's
+// per-row vectors (kv segment ids; lse, delta, glse, q segment ids) with
+// plain loads, since a ragged T leaves them too short for bulk copies.  The
+// tensor maps are 4-D (D, H, T, B) over the caller's strides, so the
+// strided q/k/v views of one qkv projection are read in place, and rows
+// past T arrive as zeros, never from the next sequence.  The warpgroups run
+// wgmma.mma_async m64nNk16 with float32 accumulators in registers: S = Q
+// K^T (dK/dV: S^T = K Q^T and dP^T = V dO^T) with both operands read from
+// the 128-byte-swizzled tiles, then O += P V (dV += P_drop^T dO, dK +=
+// dS^T Q) with P (dS) packed to 16 bits in registers as the A operand and
+// V (dO, Q) read MN-major.  The forward is software-pipelined: the scores
+// of tile kt are issued before, and their softmax runs while, P V of tile
+// kt - 1 is on the tensor cores.  That answers the mma.sync kernels' four
+// limits: 64-row warpgroup products read each B tile once per 64 rows
+// instead of once per 16; the tiles are 128 wide; one thread issues each
+// tile's copy; copies, products and softmax overlap.  There is no
+// separate producer warpgroup: with 12 warps a block's threads are held to
+// 168 registers (3 warps share each quarter of the register file), which
+// ptxas did not lift for the consumers through setmaxnreg, while the dK/dV
+// consumers need ~230 (128 for the dK/dV accumulators alone at D 128).
+// With 8 warps each thread may have 255.
+//
+// The mma.sync kernels (bf16/fp16 at D 16 and 32; dQ at every D): four
+// warps, each owning 16 output rows; mma.sync m16n8k16 with float32
+// accumulators in registers -- scores, dP, the output and the dQ/dK/dV
+// accumulators never go through shared memory, and P (dS) is repacked from
+// the accumulator layout into the next product's A operand in registers;
+// operands come from shared memory by ldmatrix; the next K/V (Q/dO) tile is
+// copied in with cp.async while the current one is used.
+//
+// The float32 kernels (*_f32_kernel): the products run on the CUDA cores in
+// float32 (never TF32), 256 threads over 32-row tiles staged in shared
+// memory.  It is the path of float32 models (the long-context example),
+// not of the bf16 LM.
 //
 // Plain C entry points (bound from Python with ctypes, no PyTorch headers):
 // the caller fills `Args`, allocates the outputs, passes its stream and
 // device, and raises if the returned cudaError_t is not 0.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -97,6 +140,8 @@ enum Code { kF32 = 0, kBF16 = 1, kF16 = 2 };
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 constexpr float kLseSentinel = 1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Tiles of the float32 (CUDA-core) kernels.
 template <typename T, int D>
@@ -730,6 +775,13 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
   a[3] = Mma<T>::pack(c[2 * kc + 1][2], c[2 * kc + 1][3]);
 }
 
+// 2**x, one MUFU instruction (what __expf(x) computes for 2**(x log2 e))
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -782,6 +834,7 @@ __device__ __forceinline__ int64_t heavy_first(const Args& p, int tiles) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads) fwd_tc_kernel(const Args p) {
   constexpr int BQ = kTcRows, BK = kTcCols, LD = D + 8;
+  static_assert(D <= 32, "head dims 64 and 128 take fwd_wgmma_kernel");
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
   T* Qs = cv.take<T>(BQ * LD);
@@ -1122,6 +1175,7 @@ __global__ void __launch_bounds__(kTcThreads) dq_tc_kernel(const Args p) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads) dkv_tc_kernel(const Args p) {
   constexpr int BK = kTcRows, BQ = kTcQRows, LD = D + 8;
+  static_assert(D <= 32, "head dims 64 and 128 take dkv_wgmma_kernel");
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
   T* Ks = cv.take<T>(BK * LD);
@@ -1288,6 +1342,934 @@ __global__ void __launch_bounds__(kTcThreads) dkv_tc_kernel(const Args p) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 / fp16 at head dims 64 and 128: wgmma kernels fed by TMA
+// ---------------------------------------------------------------------------
+//
+// A block is two warpgroups of 128 threads; each owns 64 rows of the
+// block's 128-row output tile (q rows forward, keys for dK/dV) and keeps
+// its accumulators in registers.  Warp 0 is also the producer: it issues
+// the TMA loads of the tiles the block walks into a ring of stages (and
+// writes the stage's small per-row vectors), guarded by mbarriers -- `full`
+// when a stage has landed, `empty` when both warpgroups are done with it --
+// refilling a stage as soon as it is released.
+//
+// A tile arrives as TMA lays it out with the 128-byte swizzle: each
+// 64-column half of a [rows][D] tile is its own [rows][64] region (128-byte
+// rows whose 16-byte chunks are permuted by row % 8, in 1024-byte atoms of
+// 8 rows).  wgmma reads its B operand (and A, for the first product) from
+// there through a matrix descriptor: K-major for Q K^T (K Q^T, V dO^T),
+// stepping 32 bytes along a row per 16-wide k step and to the next region
+// every 4 steps; MN-major (the transpose bit) for the V of P V (the dO, Q
+// of dV, dK), stepping 16 rows per k step with LBO the distance between
+// the 64-column regions along N and SBO that between 8-row groups along K.
+// The second product takes A from registers: wgmma's accumulator layout is
+// mma.sync's C layout tiled along N, so P (dS) is packed to 16 bits in
+// registers by acc_to_a as in the mma.sync kernels.
+
+// Two consumer warpgroups, warp 0 also the producer.  Not a third
+// (producer) warpgroup: with 12 warps ptxas holds every thread to 168
+// registers whatever setmaxnreg asks, and the dK/dV consumers need ~230.
+constexpr int kHopThreads = 256;
+
+__device__ __forceinline__ void bar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(b)),
+               "r"(count)
+               : "memory");
+}
+
+// Arrives and adds `bytes` to the transactions the current phase awaits.
+__device__ __forceinline__ void bar_expect(uint64_t* b, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(b)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(b))
+               : "memory");
+}
+
+__device__ __forceinline__ bool bar_try(uint64_t* b, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(b)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Returns once the phase of barrier b with parity `parity` has completed
+// (parity 1 before the first phase completes: the buffer starts empty).  A
+// stage lands or frees in microseconds: a wait of 10 s is a fault, and
+// traps -- the launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void bar_wait(uint64_t* b, int parity) {
+  if (bar_try(b, parity)) return;
+  const uint64_t start = global_ns();
+  while (!bar_try(b, parity))
+    if (global_ns() - start > 10000000000ull) __trap();
+}
+
+// The [rows][64] box at (d0, h, t0, b) of a (D, H, T, B) tensor map into
+// shared memory at dst, counted on barrier `bar`; rows past T are zeros.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int d0, int h, int t0,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(d0),
+      "r"(h), "r"(t0), "r"(b)
+      : "memory");
+}
+
+// wgmma matrix descriptor of a 128-byte-swizzled operand at shared address
+// a; lbo and sbo in bytes.  The address field is a's bits 4..17, so a byte
+// offset >> 4 added to a descriptor moves it (shared memory is < 256 KB).
+__device__ __forceinline__ uint64_t wg_desc(uint32_t a, uint32_t lbo,
+                                            uint32_t sbo) {
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// The address of a tile, hidden from the optimiser: the descriptors built
+// from it are recomputed at each step (a few integer adds) instead of being
+// hoisted out of the loop into registers the accumulators need.
+__device__ __forceinline__ uint32_t opaque_addr(const void* p) {
+  uint32_t a = smem_addr(p);
+  asm volatile("" : "+r"(a));
+  return a;
+}
+
+// K-major operand of a tile of R rows at shared address a: its rows from
+// r0 (A: 64 rows; B: all R), k step kk (columns 16 kk..16 kk + 15).
+template <int R>
+__device__ __forceinline__ uint64_t kmajor(uint32_t a, int r0, int kk) {
+  return wg_desc(a + r0 * 128, 16, 1024) +
+         (((kk / 4) * R * 128 + (kk % 4) * 32) >> 4);
+}
+
+// MN-major B operand of a tile of R rows at shared address a: rows 16 kc..
+// 16 kc + 15 (K), all D columns (N) across its 64-column regions.
+template <int R>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t a, int kc) {
+  return wg_desc(a, R * 128, 1024) + ((kc * 16 * 128) >> 4);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups of products are in flight (they
+// complete in order).
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wg_commit_wait() {
+  wg_commit();
+  wg_wait<0>();
+}
+
+// Keeps the compiler from moving reads or reuse of registers that an
+// in-flight wgmma writes (accumulators) or reads (A fragments) across the
+// issue or the wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+__device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
+// wgmma.mma_async m64nNk16 with float32 accumulators, N = 64 or 128 (the
+// accumulator's extent picks the overload): `ss` reads A and B K-major from
+// shared memory (scale_d 0 overwrites D), `rs` reads A from registers and B
+// MN-major.
+template <typename T>
+struct Wg;
+
+template <>
+struct Wg<__nv_bfloat16> {
+  __device__ static void ss(float (&d)[8][4], uint64_t a, uint64_t b,
+                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  __device__ static void rs(float (&d)[8][4], const uint32_t (&a)[4],
+                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(scale_d));
+  }
+  __device__ static void ss(float (&d)[16][4], uint64_t a, uint64_t b,
+                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  __device__ static void rs(float (&d)[16][4], const uint32_t (&a)[4],
+                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct Wg<__half> {
+  __device__ static void ss(float (&d)[8][4], uint64_t a, uint64_t b,
+                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  __device__ static void rs(float (&d)[8][4], const uint32_t (&a)[4],
+                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(scale_d));
+  }
+  __device__ static void ss(float (&d)[16][4], uint64_t a, uint64_t b,
+                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  __device__ static void rs(float (&d)[16][4], const uint32_t (&a)[4],
+                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(scale_d));
+  }
+};
+
+// Shared memory of the forward kernel: Q [D/64][BQ][64], then S stages of
+// K and V [D/64][BK][64], the stages' kv segment ids, and the barriers (q,
+// full[S], empty[S]); 1024 bytes of slack align the base for the swizzle
+// atoms.  Three stages: a consumer holds two (the V of the tile whose P V
+// is in flight, the K of the next), the third is the producer's.  At D 128
+// that is 227 KB, all a block may have.
+template <int D>
+struct FwdTiles {
+  static constexpr int BQ = 128, BK = 128, S = 3;
+  static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + Q_BYTES;
+  static constexpr int V = K + S * KV_BYTES;
+  static constexpr int KSEG = V + S * KV_BYTES;
+  static constexpr int BARS = KSEG + S * BK * 4;
+  static constexpr size_t bytes = BARS + (1 + 2 * S) * 8 + 1024;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const Args p) {
+  using L = FwdTiles<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, S = L::S, NH = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_1k(smem_raw);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + S;
+  int* kseg_s = reinterpret_cast<int*>(sm + L::KSEG);
+
+  const int64_t H = p.H;
+  const int64_t bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int hk = static_cast<int>(h / (H / p.Hk));
+  const TcPos P(p, b);
+  const int q0 = static_cast<int>(heavy_first(p, gridDim.x)) * BQ;
+  const bool has_seg = p.qseg != nullptr;
+  const int q_valid = min(BQ, P.Tq - q0);
+  const int n_kt = (P.Tk + BK - 1) / BK;
+  const int kt_end = p.causal ? causal_tiles(P.goff_q + q0 + q_valid - 1,
+                                             P.goff_k, BK, n_kt)
+                              : n_kt;
+
+  if (threadIdx.x == 0) {
+    bar_init(qbar, 1);
+    for (int s = 0; s < S; ++s) {
+      bar_init(full + s, 32);        // the producer warp's lanes
+      bar_init(empty + s, 2 * 128);  // every thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Warp 0 also feeds the ring: Q once, then tile kt into stage kt % S
+  // once both warpgroups have released the tile S before it.
+  const bool producer = threadIdx.x < 32;
+  auto produce = [&](int kt) {
+    if (kt >= kt_end) return;
+    const int s = kt % S, lane = threadIdx.x;
+    bar_wait(empty + s, ((kt / S) & 1) ^ 1);
+    const int k0 = kt * BK;
+    if (has_seg)
+      for (int i = lane; i < BK; i += 32)
+        kseg_s[s * BK + i] = k0 + i < P.Tk ? p.kseg[b * P.Tk + k0 + i] : 0;
+    if (lane == 0) {
+      bar_expect(full + s, 2 * L::KV_BYTES);
+      unsigned char* kd = sm + L::K + s * L::KV_BYTES;
+      unsigned char* vd = sm + L::V + s * L::KV_BYTES;
+      for (int j = 0; j < NH; ++j) {
+        tma_load(kd + j * BK * 128, &tm_k, full + s, 64 * j, hk, k0,
+                 static_cast<int>(b));
+        tma_load(vd + j * BK * 128, &tm_v, full + s, 64 * j, hk, k0,
+                 static_cast<int>(b));
+      }
+    } else {
+      bar_arrive(full + s);
+    }
+  };
+  if (producer && kt_end > 0) {
+    if (threadIdx.x == 0) {
+      bar_expect(qbar, L::Q_BYTES);
+      for (int j = 0; j < NH; ++j)
+        tma_load(sm + L::Q + j * BQ * 128, &tm_q, qbar, 64 * j,
+                 static_cast<int>(h), q0, static_cast<int>(b));
+    }
+    for (int kt = 0; kt < S; ++kt) produce(kt);
+  }
+  // a stage is done with: release it and, in warp 0, refill it
+  auto release = [&](int kt) {
+    bar_arrive(empty + kt % S);
+    if (producer) produce(kt + S);
+  };
+
+  {
+    // two consumer warpgroups of 64 q rows: S = Q K^T and O += P V
+    const int cw = threadIdx.x / 128;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + cw * 64;     // the warpgroup's first row
+    const int wrow = row0 + warp * 16;  // the warp's first row
+    const int qpos0 = P.goff_q + wrow;
+    const bool wg_rows = row0 < P.Tq;
+    const int wg_last = P.goff_q + min(row0 + 63, P.Tq - 1);
+    const float scale2 = static_cast<float>(p.scale) * kLog2e;
+    const float inv_keep = static_cast<float>(p.inv_keep);
+    int qpos[2], qs[2];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      const int qi = wrow + g + 8 * ri;
+      qpos[ri] = qpos0 + g + 8 * ri;
+      qs[ri] = has_seg && qi < P.Tq ? p.qseg[b * P.Tq + qi] : 0;
+    }
+    float o[D / 8][4] = {};
+    float sc[BK / 8][4];     // scores, then probabilities, of one tile
+    uint32_t pa[BK / 16][4];  // P packed to T: the A operand of P V
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+    // the tiles this warpgroup takes: none if its rows are all past T,
+    // else those up to its last row's causal limit -- a prefix of the
+    // block's; the rest it only passes on
+    const int kt_wg = !wg_rows ? 0
+                      : p.causal ? causal_tiles(wg_last, P.goff_k, BK, n_kt)
+                                 : n_kt;
+
+    // S = Q K^T of tile kt, issued and committed (not waited for)
+    auto scores = [&](int kt) {
+      const uint32_t qa = opaque_addr(sm + L::Q) + cw * 64 * 128;
+      const uint32_t ka = opaque_addr(sm + L::K + (kt % S) * L::KV_BYTES);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wg<T>::ss(sc, kmajor<BQ>(qa, 0, kk), kmajor<BK>(ka, 0, kk), kk > 0);
+      wg_commit();
+    };
+    // O += P V of tile kt, P from pa, issued and committed
+    auto pv = [&](int kt) {
+      const uint32_t va = opaque_addr(sm + L::V + (kt % S) * L::KV_BYTES);
+      reg_fence(o);
+      reg_fence(pa);
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)
+        Wg<T>::rs(o, pa[kc], mnmajor<BK>(va, kc), 1);
+      wg_commit();
+    };
+    // online softmax of tile kt on sc: scale, mask, running max and
+    // denominator, in log2 units (m is the running max of s * scale *
+    // log2 e, so one ex2 per element); sc becomes the (dropped)
+    // probabilities, alpha the factor the output must be rescaled by.  A
+    // tile that no mask touches takes a branch-free loop.
+    auto softmax = [&](int kt, float (&alpha)[2]) {
+      const int k0 = kt * BK;
+      const bool full_tile = !has_seg && k0 + BK <= P.Tk &&
+                             (!p.causal || P.goff_k + k0 + BK - 1 <= qpos0);
+      uint32_t allow[BK / 32];
+      float mx[2][2] = {{kNegInf, kNegInf}, {kNegInf, kNegInf}};
+      if (full_tile) {
+#pragma unroll
+        for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float v = sc[nt][j] * scale2;
+            sc[nt][j] = v;
+            mx[j >> 1][j & 1] = fmaxf(mx[j >> 1][j & 1], v);
+          }
+      } else {
+        const int* ks = kseg_s + (kt % S) * BK;
+#pragma unroll
+        for (int w = 0; w < BK / 32; ++w) allow[w] = ~0u;
+#pragma unroll
+        for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int ri = j >> 1, c = nt * 8 + 2 * t + (j & 1);
+            bool ok = k0 + c < P.Tk;
+            if (p.causal) ok = ok && qpos[ri] >= P.goff_k + k0 + c;
+            if (has_seg) ok = ok && qs[ri] == ks[c];
+            if (!ok) allow[nt / 8] &= ~(1u << ((nt % 8) * 4 + j));
+            const float v = ok ? sc[nt][j] * scale2 : kNegInf;
+            sc[nt][j] = v;
+            mx[ri][j & 1] = fmaxf(mx[ri][j & 1], v);
+          }
+      }
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        const float mn =
+            fmaxf(m[ri], quad_max(fmaxf(mx[ri][0], mx[ri][1])));
+        alpha[ri] = ex2(m[ri] - mn);
+        m[ri] = mn;
+      }
+      float sum[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+      if (full_tile) {
+#pragma unroll
+        for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float pj = ex2(sc[nt][j] - m[j >> 1]);
+            sum[j >> 1][j & 1] += pj;
+            sc[nt][j] = pj;
+          }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int ri = j >> 1;
+            const bool ok = (allow[nt / 8] >> ((nt % 8) * 4 + j)) & 1u;
+            const float pj = ok ? ex2(sc[nt][j] - m[ri]) : 0.0f;
+            sum[ri][j & 1] += pj;
+            sc[nt][j] = pj;
+          }
+      }
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri)
+        l[ri] = l[ri] * alpha[ri] + quad_sum(sum[ri][0] + sum[ri][1]);
+      if (p.dropout) {
+#pragma unroll
+        for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            sc[nt][j] =
+                keep(static_cast<uint32_t>(p.seed), static_cast<uint32_t>(bh),
+                     static_cast<uint32_t>(qpos[j >> 1]),
+                     static_cast<uint32_t>(P.goff_k + k0 + nt * 8 + 2 * t +
+                                           (j & 1)),
+                     static_cast<uint32_t>(p.thresh))
+                    ? sc[nt][j] * inv_keep
+                    : 0.0f;
+      }
+    };
+    // P rounded to v's type, packed from the accumulator layout
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) acc_to_a<T>(pa[kc], sc, kc);
+    };
+
+    if (kt_end > 0) bar_wait(qbar, 0);
+    // Software pipeline: while P V of tile kt - 1 runs on the tensor cores,
+    // S of tile kt is issued before it and its softmax runs after it has
+    // landed.  A stage is released once P V has read its V.
+    if (kt_wg > 0) {
+      float alpha[2];
+      bar_wait(full, 0);
+      scores(0);
+      wg_wait<0>();
+      reg_fence(sc);
+      softmax(0, alpha);  // O is still 0: nothing to rescale
+      pack_p();
+      for (int kt = 1; kt < kt_wg; ++kt) {
+        bar_wait(full + kt % S, (kt / S) & 1);
+        scores(kt);
+        pv(kt - 1);
+        wg_wait<1>();  // S of tile kt has landed; P V may still run
+        reg_fence(sc);
+        softmax(kt, alpha);
+        wg_wait<0>();
+        reg_fence(o);
+        reg_fence(pa);
+        release(kt - 1);
+#pragma unroll
+        for (int nd = 0; nd < D / 8; ++nd) {
+          o[nd][0] *= alpha[0];
+          o[nd][1] *= alpha[0];
+          o[nd][2] *= alpha[1];
+          o[nd][3] *= alpha[1];
+        }
+        pack_p();
+      }
+      pv(kt_wg - 1);
+      wg_wait<0>();
+      reg_fence(o);
+      reg_fence(pa);
+      release(kt_wg - 1);
+    }
+    for (int kt = kt_wg; kt < kt_end; ++kt) {
+      bar_wait(full + kt % S, (kt / S) & 1);
+      release(kt);
+    }
+
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      const int64_t qi = wrow + g + 8 * ri;
+      if (qi >= P.Tq) continue;
+      const bool empty_row = l[ri] == 0.0f;
+      const float denom = empty_row ? 1.0f : l[ri];
+      T* orow = static_cast<T*>(p.out) + ((b * P.Tq + qi) * H + h) * D;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd)
+        *reinterpret_cast<uint32_t*>(orow + nd * 8 + 2 * t) = Mma<T>::pack(
+            o[nd][2 * ri] / denom, o[nd][2 * ri + 1] / denom);
+      if (t == 0)
+        p.lse[bh * P.Tq + qi] =
+            empty_row ? kLseSentinel : m[ri] * kLn2 + logf(denom);
+    }
+  }
+}
+
+// Shared memory of the dK/dV kernel: K and V [D/64][BK][64], S stages of Q
+// and dO [D/64][BQ][64] and of the per-row vectors (lse, delta, glse, q
+// segment ids, BQ each), and the barriers (kv, full[S], empty[S]).
+template <int D>
+struct DkvTiles {
+  static constexpr int BK = 128, BQ = 64, S = 2;
+  static constexpr int KV_BYTES = BK * D * 2, Q_BYTES = BQ * D * 2;
+  static constexpr int K = 0;
+  static constexpr int V = K + KV_BYTES;
+  static constexpr int Q = V + KV_BYTES;
+  static constexpr int G = Q + S * Q_BYTES;
+  static constexpr int VEC = G + S * Q_BYTES;
+  static constexpr int BARS = VEC + S * 4 * BQ * 4;
+  static constexpr size_t bytes = BARS + (1 + 2 * S) * 8 + 1024;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_g, const Args p) {
+  using L = DkvTiles<D>;
+  constexpr int BK = L::BK, BQ = L::BQ, S = L::S, NH = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_1k(smem_raw);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + S;
+  float* vec = reinterpret_cast<float*>(sm + L::VEC);
+
+  const int64_t H = p.H, Hk = p.Hk;
+  const int grp = static_cast<int>(H / Hk);
+  const int64_t bhk = blockIdx.y, b = bhk / Hk;
+  const int hk = static_cast<int>(bhk % Hk);
+  const TcPos P(p, b);
+  const int k0 = blockIdx.x * BK;
+  const bool has_seg = p.qseg != nullptr;
+  const int n_qt = (P.Tq + BQ - 1) / BQ;
+  // causal: q tiles whose last row does not see key k0 are skipped
+  int qt0 = 0;
+  if (p.causal)
+    while (qt0 < n_qt &&
+           P.goff_q + min((qt0 + 1) * BQ, P.Tq) - 1 < P.goff_k + k0)
+      ++qt0;
+  const int nq = n_qt - qt0;
+  const int total = grp * nq;
+
+  if (threadIdx.x == 0) {
+    bar_init(kvbar, 1);
+    for (int s = 0; s < S; ++s) {
+      bar_init(full + s, 32);
+      bar_init(empty + s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Warp 0 also feeds the ring: K/V once, then (q head, q tile) step i's
+  // Q, dO and per-row vectors into stage i % S once both warpgroups have
+  // released step i - S.
+  const bool producer = threadIdx.x < 32;
+  auto produce = [&](int i) {
+    if (i >= total) return;
+    const int s = i % S, lane = threadIdx.x;
+    bar_wait(empty + s, ((i / S) & 1) ^ 1);
+    const int h = hk * grp + i / nq;
+    const int q0 = (qt0 + i % nq) * BQ;
+    const int64_t row = (b * H + h) * P.Tq + q0;
+    float* vs = vec + s * 4 * BQ;
+    for (int j = lane; j < BQ; j += 32) {
+      const bool ok = q0 + j < P.Tq;
+      vs[j] = ok ? p.lse_in[row + j] : 0.0f;
+      vs[BQ + j] = ok ? p.delta[row + j] : 0.0f;
+      vs[2 * BQ + j] = ok && p.glse ? p.glse[row + j] : 0.0f;
+      reinterpret_cast<int*>(vs)[3 * BQ + j] =
+          ok && has_seg ? p.qseg[b * P.Tq + q0 + j] : 0;
+    }
+    if (lane == 0) {
+      bar_expect(full + s, 2 * L::Q_BYTES);
+      unsigned char* qd = sm + L::Q + s * L::Q_BYTES;
+      unsigned char* gd = sm + L::G + s * L::Q_BYTES;
+      for (int j = 0; j < NH; ++j) {
+        tma_load(qd + j * BQ * 128, &tm_q, full + s, 64 * j, h, q0,
+                 static_cast<int>(b));
+        tma_load(gd + j * BQ * 128, &tm_g, full + s, 64 * j, h, q0,
+                 static_cast<int>(b));
+      }
+    } else {
+      bar_arrive(full + s);
+    }
+  };
+  if (producer && total > 0) {
+    if (threadIdx.x == 0) {
+      bar_expect(kvbar, 2 * L::KV_BYTES);
+      for (int j = 0; j < NH; ++j) {
+        tma_load(sm + L::K + j * BK * 128, &tm_k, kvbar, 64 * j, hk, k0,
+                 static_cast<int>(b));
+        tma_load(sm + L::V + j * BK * 128, &tm_v, kvbar, 64 * j, hk, k0,
+                 static_cast<int>(b));
+      }
+    }
+    for (int i = 0; i < S; ++i) produce(i);
+  }
+
+  {
+    // two consumer warpgroups of 64 keys: S^T = K Q^T, dP^T = V dO^T, then
+    // dV += P_drop^T dO and dK += dS^T Q, all on wgmma
+    const int cw = threadIdx.x / 128;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int key0 = k0 + cw * 64;     // the warpgroup's first key
+    const int wkey = key0 + warp * 16;  // the warp's first key
+    const int kpos_last = P.goff_k + wkey + 15;
+    const bool keys_ok = wkey + 16 <= P.Tk;
+    const float scale = static_cast<float>(p.scale);
+    const float scale2 = scale * kLog2e;
+    int kpos[2], ks[2];
+    bool key_ok[2];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      const int ki = wkey + g + 8 * ri;
+      kpos[ri] = P.goff_k + ki;
+      key_ok[ri] = ki < P.Tk;
+      ks[ri] = has_seg && key_ok[ri] ? p.kseg[b * P.Tk + ki] : 0;
+    }
+    float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+    if (total > 0) bar_wait(kvbar, 0);
+
+    for (int i = 0; i < total; ++i) {
+      const int s = i % S;
+      bar_wait(full + s, (i / S) & 1);
+      const int64_t bhq = b * H + hk * grp + i / nq;
+      const int q0 = (qt0 + i % nq) * BQ;
+      // a warpgroup whose keys are all past T, or that no row of this q
+      // tile sees, only passes the stage on
+      if (key0 < P.Tk &&
+          (!p.causal || P.goff_q + min(q0 + BQ, P.Tq) - 1 >= P.goff_k + key0)) {
+        const uint32_t ka = opaque_addr(sm + L::K);
+        const uint32_t va = opaque_addr(sm + L::V);
+        const uint32_t qa = opaque_addr(sm + L::Q + s * L::Q_BYTES);
+        const uint32_t ga = opaque_addr(sm + L::G + s * L::Q_BYTES);
+        const float* lse_b = vec + s * 4 * BQ;
+        const float* delta_b = lse_b + BQ;
+        const float* glse_b = lse_b + 2 * BQ;
+        const int* qseg_b = reinterpret_cast<const int*>(lse_b + 3 * BQ);
+        float st[BQ / 8][4], dpt[BQ / 8][4];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wg<T>::ss(st, kmajor<BK>(ka, cw * 64, kk), kmajor<BQ>(qa, 0, kk),
+                    kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wg<T>::ss(dpt, kmajor<BK>(va, cw * 64, kk), kmajor<BQ>(ga, 0, kk),
+                    kk > 0);
+        wg_commit_wait();
+        reg_fence(st);
+        reg_fence(dpt);
+        const bool full_tile = !has_seg && keys_ok && q0 + BQ <= P.Tq &&
+                               (!p.causal || P.goff_q + q0 >= kpos_last);
+        if (full_tile && !p.dropout) {
+          // no mask, no dropout: a = 2**(s scale log2 e - lse log2 e) and
+          // ds = a (dp - (delta - glse)) scale, branch-free
+#pragma unroll
+          for (int nt = 0; nt < BQ / 8; ++nt) {
+            const int c = nt * 8 + 2 * t;
+            const float l2[2] = {lse_b[c] * kLog2e, lse_b[c + 1] * kLog2e};
+            const float dl[2] = {delta_b[c] - glse_b[c],
+                                 delta_b[c + 1] - glse_b[c + 1]};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float a = ex2(st[nt][j] * scale2 - l2[j & 1]);
+              dpt[nt][j] = a * (dpt[nt][j] - dl[j & 1]) * scale;
+              st[nt][j] = a;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < BQ / 8; ++nt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int ri = j >> 1, c = nt * 8 + 2 * t + (j & 1);
+              const int qpos = P.goff_q + q0 + c;
+              bool ok = true;
+              if (!full_tile) {
+                ok = key_ok[ri] && q0 + c < P.Tq;
+                if (p.causal) ok = ok && qpos >= kpos[ri];
+                if (has_seg) ok = ok && qseg_b[c] == ks[ri];
+              }
+              float a_drop;
+              dpt[nt][j] = grad_elem(p, ok, st[nt][j], dpt[nt][j], lse_b[c],
+                                     delta_b[c], glse_b[c],
+                                     static_cast<uint32_t>(bhq), qpos, kpos[ri],
+                                     a_drop);
+              st[nt][j] = a_drop;
+            }
+        }
+        // dV += P_drop^T dO and dK += dS^T Q, both A operands from registers
+        uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+#pragma unroll
+        for (int kc = 0; kc < BQ / 16; ++kc) {
+          acc_to_a<T>(pa[kc], st, kc);
+          acc_to_a<T>(sa[kc], dpt, kc);
+        }
+        reg_fence(dk);
+        reg_fence(dv);
+        reg_fence(pa);
+        reg_fence(sa);
+        wg_fence();
+#pragma unroll
+        for (int kc = 0; kc < BQ / 16; ++kc) {
+          Wg<T>::rs(dv, pa[kc], mnmajor<BQ>(ga, kc), 1);
+          Wg<T>::rs(dk, sa[kc], mnmajor<BQ>(qa, kc), 1);
+        }
+        wg_commit_wait();
+        reg_fence(dk);
+        reg_fence(dv);
+        reg_fence(pa);
+        reg_fence(sa);
+      }
+      bar_arrive(empty + s);
+      if (producer) produce(i + S);
+    }
+
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      if (!key_ok[ri]) continue;
+      const int64_t o = ((b * P.Tk + wkey + g + 8 * ri) * Hk + hk) * D;
+      T* dkr = static_cast<T*>(p.dk) + o;
+      T* dvr = static_cast<T*>(p.dv) + o;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        *reinterpret_cast<uint32_t*>(dkr + nd * 8 + 2 * t) =
+            Mma<T>::pack(dk[nd][2 * ri], dk[nd][2 * ri + 1]);
+        *reinterpret_cast<uint32_t*>(dvr + nd * 8 + 2 * t) =
+            Mma<T>::pack(dv[nd][2 * ri], dv[nd][2 * ri + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1306,17 +2288,73 @@ cudaError_t allow_smem(K kernel, size_t bytes, int device, bool* done) {
   return err;
 }
 
-template <typename Kern>
+template <typename Kern, typename... KArgs>
 cudaError_t launch_kernel(Kern kernel, dim3 grid, int threads, size_t bytes,
-                          const Args& a, cudaStream_t s, int device,
-                          bool* done) {
+                          cudaStream_t s, int device, bool* done,
+                          const KArgs&... args) {
   cudaError_t err = allow_smem(kernel, bytes, device, done);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, bytes, s>>>(a);
+  kernel<<<grid, threads, bytes, s>>>(args...);
   return cudaGetLastError();
 }
 
-// float32 takes the CUDA-core kernels, bf16/fp16 the tensor-core ones
+// cuTensorMapEncodeTiled is a driver-API call; the library links only the
+// CUDA runtime, so it takes the driver's entry point from the runtime.
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// The (D, H, T, B) tensor map of a [B, T, H, D] 16-bit tensor at `base`
+// with element strides sb, st, sh (unit stride along D), read in [rows][64]
+// boxes with the 128-byte swizzle; rows past T read as zeros.  Built on the
+// host at every launch and passed by value, so a CUDA graph captures it.
+template <typename T>
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int64_t B,
+                       int64_t Tn, int64_t Hn, int D, int64_t sb, int64_t st,
+                       int64_t sh, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const int64_t e = sizeof(T);
+  // a dimension of extent 1 is never stepped: any legal stride will do
+  auto bytes = [&](int64_t stride, int64_t extent) {
+    return static_cast<cuuint64_t>(extent > 1 ? stride * e : D * e);
+  };
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                        static_cast<cuuint64_t>(Hn),
+                        static_cast<cuuint64_t>(Tn),
+                        static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3] = {bytes(sh, Hn), bytes(st, Tn), bytes(sb, B)};
+  cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map,
+      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// float32 takes the CUDA-core kernels; bf16/fp16 the mma.sync kernels at
+// head dims 16 and 32 and the wgmma kernels at 64 and 128 -- a dispatch by
+// shape: each head dim has exactly one kernel.
 struct Fwd {
   template <typename T, int D>
   static cudaError_t run(const Args& a, cudaStream_t s, int device) {
@@ -1326,11 +2364,26 @@ struct Fwd {
       using C = Cfg<T, D>;
       return launch_kernel(fwd_f32_kernel<T, D>,
                            dim3((a.Tq + C::BQ - 1) / C::BQ, bh), kThreads,
-                           Smem<T, D>::fwd, a, s, device, done);
-    } else {
+                           Smem<T, D>::fwd, s, device, done, a);
+    } else if constexpr (D <= 32) {
       return launch_kernel(fwd_tc_kernel<T, D>,
                            dim3((a.Tq + kTcRows - 1) / kTcRows, bh),
-                           kTcThreads, TcSmem<T, D>::fwd, a, s, device, done);
+                           kTcThreads, TcSmem<T, D>::fwd, s, device, done, a);
+    } else {
+      using L = FwdTiles<D>;
+      CUtensorMap mq, mk, mv;
+      cudaError_t err = tensor_map<T>(&mq, a.q, a.B, a.Tq, a.H, D, a.q_sb,
+                                      a.q_st, a.q_sh, L::BQ);
+      if (err == cudaSuccess)
+        err = tensor_map<T>(&mk, a.k, a.B, a.Tk, a.Hk, D, a.k_sb, a.k_st,
+                            a.k_sh, L::BK);
+      if (err == cudaSuccess)
+        err = tensor_map<T>(&mv, a.v, a.B, a.Tk, a.Hk, D, a.v_sb, a.v_st,
+                            a.v_sh, L::BK);
+      if (err != cudaSuccess) return err;
+      return launch_kernel(fwd_wgmma_kernel<T, D>,
+                           dim3((a.Tq + L::BQ - 1) / L::BQ, bh), kHopThreads,
+                           L::bytes, s, device, done, mq, mk, mv, a);
     }
   }
 };
@@ -1344,11 +2397,29 @@ struct Dkv {
       using C = Cfg<T, D>;
       return launch_kernel(dkv_f32_kernel<T, D>,
                            dim3((a.Tk + C::BK - 1) / C::BK, bhk), kThreads,
-                           Smem<T, D>::dkv, a, s, device, done);
-    } else {
+                           Smem<T, D>::dkv, s, device, done, a);
+    } else if constexpr (D <= 32) {
       return launch_kernel(dkv_tc_kernel<T, D>,
                            dim3((a.Tk + kTcRows - 1) / kTcRows, bhk),
-                           kTcThreads, TcSmem<T, D>::dkv, a, s, device, done);
+                           kTcThreads, TcSmem<T, D>::dkv, s, device, done, a);
+    } else {
+      using L = DkvTiles<D>;
+      CUtensorMap mq, mk, mv, mg;
+      cudaError_t err = tensor_map<T>(&mq, a.q, a.B, a.Tq, a.H, D, a.q_sb,
+                                      a.q_st, a.q_sh, L::BQ);
+      if (err == cudaSuccess)
+        err = tensor_map<T>(&mg, a.g, a.B, a.Tq, a.H, D, a.g_sb, a.g_st,
+                            a.g_sh, L::BQ);
+      if (err == cudaSuccess)
+        err = tensor_map<T>(&mk, a.k, a.B, a.Tk, a.Hk, D, a.k_sb, a.k_st,
+                            a.k_sh, L::BK);
+      if (err == cudaSuccess)
+        err = tensor_map<T>(&mv, a.v, a.B, a.Tk, a.Hk, D, a.v_sb, a.v_st,
+                            a.v_sh, L::BK);
+      if (err != cudaSuccess) return err;
+      return launch_kernel(dkv_wgmma_kernel<T, D>,
+                           dim3((a.Tk + L::BK - 1) / L::BK, bhk), kHopThreads,
+                           L::bytes, s, device, done, mq, mk, mv, mg, a);
     }
   }
 };
@@ -1362,11 +2433,11 @@ struct Dq {
       using C = Cfg<T, D>;
       return launch_kernel(dq_f32_kernel<T, D>,
                            dim3((a.Tq + C::BQ - 1) / C::BQ, bh), kThreads,
-                           Smem<T, D>::dq, a, s, device, done);
+                           Smem<T, D>::dq, s, device, done, a);
     } else {
       return launch_kernel(dq_tc_kernel<T, D>,
                            dim3((a.Tq + kTcRows - 1) / kTcRows, bh),
-                           kTcThreads, TcSmem<T, D>::dq, a, s, device, done);
+                           kTcThreads, TcSmem<T, D>::dq, s, device, done, a);
     }
   }
 };

@@ -253,13 +253,19 @@ def _kernel(entry: str):
 
 
 def _kernel_view(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself when the kernels can read it (unit stride along D,
-    16-byte aligned rows), else a contiguous copy."""
+    """``x`` itself when the kernels can read it, else a contiguous copy.
+    They read a view as a TMA tensor map does (the wgmma kernels) or by
+    16-byte vectors (the others): unit stride along D, a 16-byte aligned
+    base, strides that are multiples of 16 bytes, and no zero stride along a
+    dimension longer than 1 (a broadcast view)."""
     e = x.element_size()
     if (x.stride(3) == 1 and x.data_ptr() % 16 == 0
-            and all((s * e) % 16 == 0 for s in x.stride()[:3])):
+            and all((s * e) % 16 == 0 and (s or n == 1)
+                    for s, n in zip(x.stride()[:3], x.shape[:3]))):
         return x
-    return x.contiguous()
+    # a clone, not .contiguous(): a contiguous view off the 16-byte grid
+    # must move too
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _args(q, k, v, causal, sm_scale, qseg, kseg, offs, seed, rate):

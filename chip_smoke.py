@@ -53,13 +53,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 10. flash kernels: the three CUDA kernels of
     ``chainermn_tpu_torch.ops.flash_attention`` (built with nvcc into
     ``build/cuda`` at the start, beside the cast kernel, one nvcc each,
-    started together) against their plain versions: in bfloat16 at the
-    LM's attention shape (B 1, T 8192, H 16, D 128, causal), then GQA (Hkv
-    4 and 1), non-causal, Tq != Tkv, T 100, segment ids with a padding id
-    (empty rows give 0 and lse 1e30), dropout 0.1 (the kernel's mask read
-    out exactly and held to the plain ``_keep_mask``), scalar and [B]
-    offsets with a glse cotangent, fp16 and float32, D 16/64/128; relative
-    L2 errors within 1e-5 (float32) and 1e-2 (bf16/fp16);
+    started together) against their plain versions.  Which kernel runs is
+    set by dtype and head dim: bf16/fp16 forward and dK/dV at D 64 and 128
+    take the wgmma kernels fed by TMA (``fwd_wgmma_kernel``,
+    ``dkv_wgmma_kernel``), at D 16 and 32 the mma.sync kernels; dQ is the
+    mma.sync kernel at every head dim; float32 takes the CUDA-core kernels.
+    Cases: bfloat16 at the LM's attention shape (B 1, T 8192, H 16, D 128,
+    causal), then GQA (Hkv 4 and 1), non-causal, Tq != Tkv, T 100, segment
+    ids with a padding id (empty rows give 0 and lse 1e30), dropout 0.1
+    (the kernel's mask read out exactly and held to the plain
+    ``_keep_mask``), scalar and [B] offsets with a glse cotangent, fp16 and
+    float32, D 16/32/64/128, and the wgmma kernels' edges: T 1000 (no tile
+    divides it), a Tq 1 decode row with [B] offsets over Tk 4096, a GQA
+    group of 8, q/k/v as views of one qkv projection, fp16 at D 64;
+    relative L2 errors within 1e-5 (float32) and 1e-2 (bf16/fp16); then
+    each kernel launched twice on the same inputs must give the same bits;
 11. the LM slice: an NCCL world of one, TransformerLM at full width
     (vocab 32768, d_model 2048, 8 layers, 16 heads, T 8192, batch 1, bf16
     compute over float32 parameters, random weights from seed 0: 553.9 M
@@ -80,7 +88,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     each kernel by CUDA-graph replay, eagerly, its plain version, the bound
     (matrix-product FLOPs over 989 TFLOP/s or bytes over 3.35 TB/s,
     whichever is larger) and PyTorch's ``scaled_dot_product_attention``
-    (forward; its autograd backward beside dK/dV + dQ);
+    (forward; its autograd backward beside dK/dV + dQ); each kernel's
+    TFLOP/s, and its time against the mma.sync design's
+    (``FLASH_MMA_SYNC_MS``);
 14. summary: a ``{"kernels": [...]}`` line with all eight kernels, the
     nvidia-smi line, then ``{"ok": true, "device": {...}}`` as the last
     line.
@@ -137,6 +147,12 @@ FLASH = {
 # versions: float32 products agree to rounding; bf16/fp16 kernels round P
 # and dS to the input type before their products
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 1e-2}
+# CUDA-graph ms of the mma.sync forward / dK/dV and of dQ at the LM's
+# attention shape, measured by phase 13 of this script on an NVIDIA H100
+# 80GB HBM3 at 700 W before the wgmma redesign: the yardstick phase 13
+# prints each kernel's time against
+FLASH_MMA_SYNC_MS = {"flash_fwd": 2.2804, "flash_bwd_dkv": 3.6619,
+                     "flash_bwd_dq": 2.7811}
 LIBRARY = {
     "stats_call": "torch.var_mean(x, 0, correction=0)",
     "apply_call": "F.batch_norm(eval) (no ReLU)",
@@ -597,14 +613,22 @@ def _rel(torch, got, want):
 
 
 def flash_case(fa, torch, dev, dtype, b, tq, tk, h, hk, d, causal, seg=False,
-               rate=0.0, offs=None, glse=False, seed=0):
+               rate=0.0, offs=None, glse=False, seed=0, qkv=False):
     """The three kernels and their plain versions on one case; returns
-    ``{wrapper: (max abs error, worst relative L2 error)}``."""
+    ``{wrapper: (max abs error, worst relative L2 error)}``.  With ``qkv``
+    (Tq == Tk, H == Hkv) q, k and v are views of one ``[B, T, 3 H D]``
+    projection, as the model gives them."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     mk = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
-    q = (mk(b, tq, h, d) * 0.5).to(dtype)
-    k = (mk(b, tk, hk, d) * 0.5).to(dtype)
-    v, g = mk(b, tk, hk, d).to(dtype), mk(b, tq, h, d).to(dtype)
+    if qkv:
+        x = (mk(b, tq, 3 * h * d) * 0.5).to(dtype)
+        q, k, v = (x[..., i * h * d:(i + 1) * h * d].view(b, tq, h, d)
+                   for i in range(3))
+    else:
+        q = (mk(b, tq, h, d) * 0.5).to(dtype)
+        k = (mk(b, tk, hk, d) * 0.5).to(dtype)
+        v = mk(b, tk, hk, d).to(dtype)
+    g = mk(b, tq, h, d).to(dtype)
     kw = dict(seed=1234 + seed, rate=rate)
     if seg:
         ids = lambda t: torch.randint(0, 3, (b, t), generator=gen,  # noqa
@@ -617,6 +641,10 @@ def flash_case(fa, torch, dev, dtype, b, tq, tk, h, hk, d, causal, seg=False,
     elif offs == "vector":
         kw["offs"] = torch.stack([torch.arange(b, device=dev) * 7,
                                   torch.arange(b, device=dev).flip(0) * 5],
+                                 1).to(torch.int32)
+    elif offs == "decode":  # each row a next token after Tk - 100 i keys
+        kw["offs"] = torch.stack([tk - 1 - 100 * torch.arange(b, device=dev),
+                                  torch.zeros(b, device=dev)],
                                  1).to(torch.int32)
     gl = mk(b, h, tq) if glse else None
     out_k, lse_k = fa.flash_fwd(q, k, v, causal, **kw)
@@ -643,6 +671,33 @@ def flash_case(fa, torch, dev, dtype, b, tq, tk, h, hk, d, causal, seg=False,
                       for a, b_ in ps),
                   max(_rel(torch, a, b_) for a, b_ in ps))
     return res
+
+
+def flash_repeat(fa, torch, dev):
+    """Each flash kernel launched twice on the same inputs, at a bf16 D 128
+    GQA shape and an fp16 D 64 one (the wgmma kernels) and a bf16 D 32 one
+    (mma.sync); returns ``{wrapper: True if both launches gave the same
+    bits}``.  No kernel uses atomics: one block writes each output tile."""
+    same = {w: True for w in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    for dtype, d in ((torch.bfloat16, 128), (torch.float16, 64),
+                     (torch.bfloat16, 32)):
+        gen = torch.Generator(device=dev).manual_seed(d)
+        mk = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                    device=dev).to(dtype)
+        q, g = mk(2, 700, 8, d), mk(2, 700, 8, d)
+        k, v = mk(2, 700, 2, d), mk(2, 700, 2, d)
+        runs = []
+        for _ in range(2):
+            out, lse = fa.flash_fwd(q, k, v, True)
+            delta = (g.float() * out.float()).sum(-1).transpose(1, 2)
+            bwd = (q, k, v, g, lse, delta, None, True)
+            runs.append({"flash_fwd": (out, lse),
+                         "flash_bwd_dkv": fa.flash_bwd_dkv(*bwd),
+                         "flash_bwd_dq": (fa.flash_bwd_dq(*bwd),)})
+        for w in same:
+            same[w] &= all(torch.equal(a, b) for a, b in
+                           zip(runs[0][w], runs[1][w]))
+    return same
 
 
 def flash_keep_grid(fa, torch, dev, b=2, h=4, t=256, rate=0.1, seed=77):
@@ -688,6 +743,15 @@ def phase_flash(fa, torch, dev):
         ("f32_d64", f32, 2, 256, 256, 4, 4, 64, False, {}),
         ("f32_d128_everything", f32, 1, 160, 160, 4, 2, 128, True,
          {"seg": True, "rate": 0.2, "glse": True}),
+        # the edges of the wgmma kernels (D 64/128, bf16/fp16): a T no tile
+        # divides, a decode shape, a GQA group of 8, the qkv-split views
+        # (T stride 3 H D) and fp16 at D 64
+        ("t1000_causal_d128", bf, 1, 1000, 1000, 8, 8, 128, True, {}),
+        ("decode_tq1_tk4096", bf, 2, 1, 4096, 16, 4, 128, True,
+         {"offs": "decode"}),
+        ("gqa8_d128", bf, 2, 512, 512, 16, 2, 128, True, {}),
+        ("qkv_views_d128", bf, 2, 640, 640, 8, 8, 128, True, {"qkv": True}),
+        ("f16_d64", f16, 2, 300, 300, 8, 4, 64, True, {"glse": True}),
     ]
     errs = {w: 0.0 for w in FLASH}
     for i, (name, dt, b, tq, tk, h, hk, d, causal, extra) in enumerate(cases):
@@ -711,13 +775,19 @@ def phase_flash(fa, torch, dev):
     log(f"flash dropout mask: {want.numel()} (b, h, q, k) positions equal to "
         f"_keep_mask (keep share {float(want.float().mean()):.4f} at rate "
         f"0.1)")
+    same = flash_repeat(fa, torch, dev)
+    if not all(same.values()):
+        raise AssertionError(f"flash kernels: two launches on the same "
+                             f"inputs differ: {same}")
+    log("flash repeat: two launches of each kernel gave the same bits (bf16 "
+        "D 128 GQA, fp16 D 64, bf16 D 32)")
     torch.cuda.empty_cache()
     return errs
 
 
 LM_CATEGORIES = (
-    ("flash (CUDA)", ("fwd_tc_kernel", "dkv_tc_kernel", "dq_tc_kernel",
-                      "_f32_kernel")),
+    ("flash (CUDA)", ("fwd_wgmma_kernel", "dkv_wgmma_kernel", "fwd_tc_kernel",
+                      "dkv_tc_kernel", "dq_tc_kernel", "_f32_kernel")),
     ("cast_scale (CUDA)", ("cast_scale",)),
     ("nccl", ("nccl",)),
     ("memcpy / memset", ("memcpy", "memset")),
@@ -902,7 +972,9 @@ def phase_flash_timing(fa, torch, dev):
             f"({'SDPA forward' if kind == 'fwd' else 'SDPA autograd backward, dq+dk+dv'}"
             f") {out_t[w]['library_ms']:.4f} ms, bound "
             f"{out_t[w]['bound_ms']:.4f} ms ({out_t[w]['bound_by']}: {ops} "
-            f"FLOPs, {nbytes} B); {ops / ms / 1e9:.1f} TFLOP/s")
+            f"FLOPs, {nbytes} B); {ops / ms / 1e9:.1f} TFLOP/s; mma.sync "
+            f"design {FLASH_MMA_SYNC_MS[w]:.4f} ms "
+            f"({FLASH_MMA_SYNC_MS[w] / ms:.2f}x this time)")
     return out_t
 
 

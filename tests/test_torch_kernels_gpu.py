@@ -263,6 +263,13 @@ FLASH_CASES = {
     "f32_d128_all": (F32, 1, 160, 160, 4, 2, 128, True,
                      {"seg": True, "rate": 0.2, "glse": True}),
     "f16_d16": (F16, 2, 130, 130, 8, 2, 16, False, {"rate": 0.1}),
+    # the wgmma kernels' edges (bf16/fp16 at D 64/128)
+    "t1000_causal_d128": (BF, 1, 1000, 1000, 4, 4, 128, True, {}),
+    "decode_tq1_tk4096": (BF, 2, 1, 4096, 8, 2, 128, True,
+                          {"offs": "decode"}),
+    "gqa8_d128": (BF, 2, 256, 256, 16, 2, 128, True, {}),
+    "qkv_views_d128": (BF, 2, 384, 384, 4, 4, 128, True, {"qkv": True}),
+    "f16_d64": (F16, 2, 300, 300, 4, 2, 64, True, {"glse": True}),
 }
 
 
@@ -279,6 +286,15 @@ def test_flash_kernels_match_plain(cuda, name):
     assert all(n - before[w] == 1 for w, n in tfa.launch_counts().items())
     tol = smoke.FLASH_TOL[str(dtype).split(".")[1]]
     assert all(rel <= tol for _, rel in errs.values()), (errs, tol)
+
+
+@pytest.mark.gpu
+def test_flash_kernels_repeat_bit_for_bit(cuda):
+    """Two launches of each kernel on the same inputs give the same bits
+    (no atomics: one block writes each output tile), for the wgmma kernels
+    (bf16 D 128, fp16 D 64) and the mma.sync ones (D 32)."""
+    assert smoke.flash_repeat(tfa, torch, cuda) == {
+        "flash_fwd": True, "flash_bwd_dkv": True, "flash_bwd_dq": True}
 
 
 @pytest.mark.gpu
