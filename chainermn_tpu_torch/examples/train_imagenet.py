@@ -29,6 +29,7 @@ from chainermn_tpu_torch.datasets import TupleDataset
 from chainermn_tpu_torch.iterators import SerialIterator
 from chainermn_tpu_torch.models import ResNet50
 from chainermn_tpu_torch.training import StatefulUpdater, Trainer
+from chainermn_tpu_torch.utils.trace import KERNEL_CATEGORIES, kernel_category
 
 ARCHS = {"resnet50": ResNet50}
 
@@ -79,29 +80,8 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-# kernel-name fragments -> category of the profile breakdown
-_CATEGORIES = (
-    ("fused_norm (Triton)", ("stats_kernel", "apply_kernel",
-                             "bwd_reduce_kernel", "bwd_dx_kernel",
-                             "finalize_kernel")),
-    ("cast_scale (CUDA)", ("cast_scale",)),
-    ("nccl", ("nccl",)),
-    ("memcpy / memset", ("memcpy", "memset")),
-    ("conv / gemm", ("conv", "gemm", "xmma", "cudnn", "cutlass", "sm90_",
-                     "wgrad", "dgrad")),
-)
-
-
-def _category(kernel: str, categories=_CATEGORIES) -> str:
-    low = kernel.lower()
-    for cat, keys in categories:
-        if any(k in low for k in keys):
-            return cat
-    return "other (elementwise, pad, pool, loss, optimizer)"
-
-
 def profile_steps(updater, steps: int, device,
-                  categories=_CATEGORIES) -> dict:
+                  categories=KERNEL_CATEGORIES) -> dict:
     """Run ``steps`` more steps under ``torch.profiler``; returns wall ms
     per step, device kernel ms per step by category (``(name, kernel-name
     fragments)`` pairs, first match wins), and the device's busy share
@@ -125,7 +105,7 @@ def profile_steps(updater, steps: int, device,
                 getattr(e, "is_user_annotation", False) or "#" in e.key:
             continue
         ms = e.self_device_time_total / 1e3 / steps
-        cat = _category(e.key, categories)
+        cat = kernel_category(e.key, categories)
         by_cat[cat] = by_cat.get(cat, 0.0) + ms
         by_kernel.append((ms, e.key[:80]))
     busy = sum(by_cat.values())

@@ -6,11 +6,15 @@
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. environment: the card's name and power limit (nvidia-smi), the torch,
-   CUDA and Triton versions;
+   CUDA and Triton versions, and the card's rates from
+   ``chainermn_tpu_torch.utils.gpu_info`` that every bound below uses
+   (``peak_assumed=True`` when the card is not in its table);
 2. kernels: each Triton kernel of ``chainermn_tpu_torch.ops.fused_norm``
    (built into ``build/triton`` on first use) against its plain PyTorch
    version, at ResNet-50 batch-32 boundary shapes and one ragged row
-   count, in bfloat16 and float32, train/eval, ReLU on/off;
+   count, in bfloat16 and float32, then at the 12 distinct shapes of the
+   bench's 53 boundaries (batch 256, phase 16: [3211264, 64] down to
+   [12544, 2048]) in bfloat16; train/eval, ReLU on/off;
 3. the slice: ``python -m chainermn_tpu_torch.examples.train_imagenet``'s
    ``main`` -- an NCCL world of one, ``create_communicator("xla")``,
    ResNet-50 at full width (224x224, batch 32, bfloat16, random weights
@@ -23,8 +27,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    captured into a CUDA graph and replayed between CUDA events (device
    time; the eager time with the host's launch path is printed too),
    beside its plain version, one PyTorch library call and the least time
-   the card could take (bytes over 3.35 TB/s, or float32 operations over
-   67 TFLOP/s, whichever is larger);
+   the card could take (bytes over its memory rate, or float32 operations
+   over its float32 peak, whichever is larger: 3.35 TB/s and 66.9 TFLOP/s
+   on an H100 SXM);
 5. float32 agreement: one step of ResNet-50 with the kernels and one with
    the plain reference norm, from the same ``weights.py``-converted
    weights, TF32 off and cuDNN deterministic; the loss (relative 1e-4) and
@@ -49,7 +54,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 9. cast timing over ResNet-50's packed gradient buffer, float32 -> float16
    at scale 1 and back at scale 1/size: kernel (CUDA graph replay), eager,
    plain, library (``x.to(dst)``) and the bound (source plus destination
-   bytes over 3.35 TB/s);
+   bytes over the card's memory rate);
 10. flash kernels: the three CUDA kernels of
     ``chainermn_tpu_torch.ops.flash_attention`` (built with nvcc into
     ``build/cuda`` at the start, beside the cast kernel, one nvcc each,
@@ -86,14 +91,39 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     every gradient relative L2 1e-3;
 13. flash timing at the LM's shape (q/k/v views of one qkv projection):
     each kernel by CUDA-graph replay, eagerly, its plain version, the bound
-    (matrix-product FLOPs over 989 TFLOP/s or bytes over 3.35 TB/s,
-    whichever is larger) and PyTorch's ``scaled_dot_product_attention``
-    (forward; its autograd backward beside dK/dV + dQ); each kernel's
+    (matrix-product FLOPs over the card's bf16 peak, 989.4 TFLOP/s on an
+    H100 SXM, or bytes over its memory rate, whichever is larger) and
+    PyTorch's ``scaled_dot_product_attention`` (forward; its autograd
+    backward beside dK/dV + dQ); each kernel's
     TFLOP/s, and its time against the mma.sync design's
     (``FLASH_MMA_SYNC_MS``);
-14. summary: a ``{"kernels": [...]}`` line with all eight kernels, the
-    nvidia-smi line, then ``{"ok": true, "device": {...}}`` as the last
-    line.
+14. probe kernels: the two CUDA kernels of
+    ``chainermn_tpu_torch.ops.probe_matmul`` (wgrad with its chunk sum,
+    rowblock) against their plain versions at the probe's shapes (M =
+    802,816: wgrad [256, M] @ [M, 64], rowblock (k, n) = (64, 256) and
+    (256, 64)) for every bm of the sweep, bm = M and bm 256: wgrad within
+    a relative L2 error of 2e-5, rowblock 99% equal bit for bit and every
+    element within one bf16 ulp plus the float32 sums' rounding bound;
+    a bm that does not divide M raises; views at storage offsets 8 and 1
+    give the tensor's own bits; two launches give the same bits;
+15. the probe: ``python -m chainermn_tpu_torch.benchmarks.bench_conv_probe``'s
+    ``main`` at its defaults prints its document (library, kernel sweep,
+    bound and TFLOP/s of each case; the two cuDNN convolutions); every
+    bm's kernel launched once for the check, twice to warm up and 5 + 5
+    times in each profiler capture (its warm-up step and the timed one;
+    ``utils.trace.device_time`` captures again when one lost kernels);
+16. the bench: ``python -m chainermn_tpu_torch.benchmarks.bench``'s
+    ``main`` at its card defaults (ResNet-50, batch 256, the bf16 wire,
+    double buffering, 20 steps after 5) prints its line (images/sec per
+    GPU, MFU, step and device ms); 53 launches of each BatchNorm kernel
+    and 2 casts a step over its 26 steps and 3 + 3 a capture; its peak
+    memory;
+17. probe timing: each case at every bm by CUDA-graph replay, eagerly, its
+    plain version, ``torch.mm`` with the output type (library) and the
+    bound;
+18. summary: a ``{"kernels": [...]}`` line with all ten kernels (the
+    rowblock row sums dgrad and fwd1x1 at their best bm), the nvidia-smi
+    line, then ``{"ok": true, "device": {...}}`` as the last line.
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
 """
@@ -110,8 +140,6 @@ STEPS = 10           # trained steps; images/sec over those after WARMUP
 WARMUP = 3
 PROFILED = 3         # further steps under torch.profiler
 BATCH = 32
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 SOURCE = "chainermn_tpu_torch/ops/fused_norm.py"
 # wrapper -> (JSON name, TPU kernel it replaces, its pass in the traffic
 # model, float32 operations per element counted from the kernel body)
@@ -126,7 +154,6 @@ KERNELS = {
     "bwd_dx_call": ("fused_norm.bwd_dx",
                     "chainermn_tpu/ops/fused_norm.py:140", "bwd_dx", 11),
 }
-BF16_OPS_PER_S = 989e12        # H100 SXM bf16/fp16 tensor cores, dense
 LM = dict(vocab=32768, d_model=2048, n_layers=8, n_heads=16, max_len=8192)
 LM_T = 8192
 LM_STEPS = 8         # LM steps; tokens/sec over those after LM_WARMUP
@@ -185,14 +212,18 @@ def check(name, got, want, rtol, atol, errs):
     errs[name] = max(errs.get(name, 0.0), float(err.max()))
 
 
-def phase_kernels(fn, torch, dev):
-    """Every kernel against its plain version; returns max abs errors."""
-    shapes = [(401408, 64), (100352, 256), (6272, 1024), (1568, 2048),
-              (12547, 512)]  # the last: a ragged row count
-    errs = {}
+def bn_shapes(fn, batch):
+    """The distinct [R, C] of ResNet-50's 53 BN boundaries at ``batch``."""
+    return sorted({(n * h * w, c) for _, (n, h, w, c), _ in
+                   fn.resnet_bn_boundaries(batch)}, reverse=True)
+
+
+def phase_kernels(fn, torch, dev, shapes, dtypes, errs):
+    """Every kernel against its plain version at each [R, C] of ``shapes``
+    in each of ``dtypes``; keeps the max abs errors in ``errs``."""
     gen = torch.Generator(device=dev).manual_seed(1)
     for r, c in shapes:
-        for dt in (torch.bfloat16, torch.float32):
+        for dt in dtypes:
             x = (torch.randn((r, c), device=dev, generator=gen) * 1.5
                  + 0.3).to(dt)
             g = torch.randn((r, c), device=dev, generator=gen).to(dt)
@@ -223,9 +254,11 @@ def phase_kernels(fn, torch, dev):
                                           db, dg, relu, train),
                           out_tol, out_tol, errs)
             del x, g
-        log(f"kernels: [{r}, {c}] bf16+f32 within tolerance")
+        log(f"kernels: [{r}, {c}] "
+            f"{'+'.join(str(dt).split('.')[1] for dt in dtypes)} within "
+            "tolerance")
     torch.cuda.synchronize()
-    return errs
+    torch.cuda.empty_cache()
 
 
 def phase_slice(fn):
@@ -286,9 +319,9 @@ def _time(torch, fn_, reps, graph):
     return start.elapsed_time(end) / reps
 
 
-def phase_timing(fn, torch, dev):
+def phase_timing(fn, torch, dev, card):
     """Each kernel over one bf16 step's 53 boundaries: kernel, plain,
-    library ms, and the bound."""
+    library ms, and the bound on ``card`` (its ``gpu_info`` rates)."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(2)
     cases = []
@@ -358,8 +391,8 @@ def phase_timing(fn, torch, dev):
         eager_ms = _time(torch, kern, 10, graph=False)
         plain_ms = _time(torch, plain, 5, graph=True)
         library_ms = _time(torch, lib, 20, graph=True)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_OPS_PER_S * 1e3
+        bytes_ms = nbytes / card.hbm_bytes_per_s * 1e3
+        ops_ms = ops / (card.f32_tflops * 1e12) * 1e3
         out[wrapper] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                             bound_ms=max(bytes_ms, ops_ms),
                             bound_by="bytes" if bytes_ms >= ops_ms
@@ -566,7 +599,7 @@ def phase_resnet_fp16(cs, fn):
     return out, launches
 
 
-def phase_cast_timing(cs, torch, dev, n, size):
+def phase_cast_timing(cs, torch, dev, n, size, card):
     """Both legs of the wire over ResNet-50's packed gradient buffer."""
     gen = torch.Generator(device=dev).manual_seed(6)
     x32 = torch.randn(n, device=dev, generator=gen)
@@ -584,7 +617,7 @@ def phase_cast_timing(cs, torch, dev, n, size):
                            20, True),
             library_ms=_time(torch, lambda: x.to(dst), 50, True),
             bytes=cs.cast_scale_bytes(n, x.dtype, dst))
-        t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        t["bound_ms"] = t["bytes"] / card.hbm_bytes_per_s * 1e3
         log(f"timing: cast_scale {name} over {n} elements (CUDA graph "
             f"replay): kernel {t['ms']:.4f} ms (eager launch: "
             f"{t['eager_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, library "
@@ -916,7 +949,7 @@ def phase_lm_f32(torch, dev):
     return loss_rel, grad_rel
 
 
-def phase_flash_timing(fa, torch, dev):
+def phase_flash_timing(fa, torch, dev, card):
     """Each flash kernel at the LM's attention shape: kernel (CUDA graph
     replay), eager, plain, library and the bound."""
     import torch.nn.functional as F
@@ -955,8 +988,8 @@ def phase_flash_timing(fa, torch, dev):
         ops = fa.flash_attention_flops(b, t, t, h, d, True, kind)
         nbytes = fa.flash_attention_bytes(b, t, t, h, h, d, torch.bfloat16,
                                           kind)
-        ops_ms, bytes_ms = ops / BF16_OPS_PER_S * 1e3, \
-            nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / (card.peak_tflops * 1e12) * 1e3
+        bytes_ms = nbytes / card.hbm_bytes_per_s * 1e3
         ms = _time(torch, kern[w], 10, graph=True)
         eager_ms = _time(torch, kern[w], 10, graph=False)
         out_t[w] = dict(
@@ -978,6 +1011,158 @@ def phase_flash_timing(fa, torch, dev):
     return out_t
 
 
+PROBE_M = 256 * 56 * 56      # the probe's M: stage 1 of ResNet-50 at 256
+PROBE_BLOCKS = (1024, 2048, 4096, 8192)  # the probe's default bm sweep
+# wrapper -> (JSON name, TPU kernel it replaces)
+PROBE = {
+    "wgrad": ("probe.wgrad",
+              "benchmarks/bench_pallas_conv_probe.py:57"),
+    "rowblock": ("probe.rowblock",
+                 "benchmarks/bench_pallas_conv_probe.py:88"),
+}
+PROBE_SOURCE = "chainermn_tpu_torch/csrc/probe_matmul.cu"
+
+
+def phase_probe(pm, bcp, torch, dev):
+    """Both probe kernels against their plain versions at M = 802,816 for
+    every bm of the sweep and each (k, n) family; the edges (bm = M, bm
+    256, a bm that does not divide M, views with a storage offset); then
+    each kernel twice on the same inputs.  Returns the largest max-abs
+    error per wrapper and the case lines."""
+    errs = {"wgrad": 0.0, "rowblock": 0.0}
+    lines = []
+    for name, (sa, sb, kern, _) in bcp.probe_cases(PROBE_M).items():
+        a, b = bcp.operands(dev, sa, sb)
+        fn, plain = getattr(pm, kern), getattr(pm, f"{kern}_plain")
+        for bm in PROBE_BLOCKS + (PROBE_M, 256):
+            res = pm.agreement(kern, a, b, fn(a, b, bm), plain(a, b, bm))
+            errs[kern] = max(errs[kern], res["max_abs_err"])
+            lines.append(f"{name} bm={bm}: {json.dumps(res)}")
+        try:
+            fn(a, b, 3 * 64)
+        except ValueError as e:
+            lines.append(f"{name} bm=192 raises: {e}")
+        else:
+            raise AssertionError(f"{name}: bm 192 does not divide M and "
+                                 "was taken")
+        # the same rows read through views into a larger buffer: 16-byte
+        # aligned (read in place) and one element in (copied)
+        for off in (8, 1):
+            flat = torch.cat([a.new_zeros(off), a.reshape(-1)])
+            view = flat[off:].view(a.shape)
+            if not torch.equal(fn(view, b, 2048), fn(a, b, 2048)):
+                raise AssertionError(f"{name}: a view at storage offset "
+                                     f"{off} gives other bits")
+            del flat, view
+        if not torch.equal(fn(a, b, 1024), fn(a, b, 1024)):
+            raise AssertionError(f"{name}: two launches on the same inputs "
+                                 "differ")
+        lines.append(f"{name}: views at storage offsets 8 and 1 give the "
+                     f"bits of the tensor itself; two launches the same bits")
+        del a, b
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return errs, lines
+
+
+def phase_probe_timing(pm, bcp, torch, dev, card):
+    """Each probe case at every bm: the kernel by CUDA-graph replay,
+    eagerly, its plain version, one library call (``torch.mm`` with the
+    output type) and the bound on ``card``; returns per case the figures
+    at every bm and the best one."""
+    out = {}
+    for name, (sa, sb, kern, out_dtype) in bcp.probe_cases(PROBE_M).items():
+        a, b = bcp.operands(dev, sa, sb)
+        fn, plain = getattr(pm, kern), getattr(pm, f"{kern}_plain")
+        flops = pm.probe_flops(sa[0], sa[1], sb[1])
+        nbytes = pm.probe_bytes(sa[0], sa[1], sb[1], torch.empty(
+            (), dtype=out_dtype).element_size())
+        bound, bound_by = pm.bound_ms(flops, nbytes, card)
+        lib = _time(torch, lambda: bcp.library_product(a, b, out_dtype), 20,
+                    graph=True)
+        per_bm = {}
+        for bm in PROBE_BLOCKS:
+            t = dict(ms=_time(torch, lambda: fn(a, b, bm), 20, graph=True),
+                     eager_ms=_time(torch, lambda: fn(a, b, bm), 20,
+                                    graph=False),
+                     plain_ms=_time(torch, lambda: plain(a, b, bm), 3,
+                                    graph=True))
+            per_bm[bm] = t
+            log(f"timing: {kern} {name} bm={bm} (CUDA graph replay): "
+                f"kernel {t['ms']:.4f} ms ({flops / t['ms'] / 1e9:.1f} "
+                f"TFLOP/s, {bound / t['ms']:.3f} of the bound; eager "
+                f"{t['eager_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms")
+        best = min(per_bm, key=lambda k: per_bm[k]["ms"])
+        out[name] = dict(per_bm[best], bm=best, per_bm=per_bm, kernel=kern,
+                         library_ms=lib, bound_ms=bound, bound_by=bound_by,
+                         flops=flops, bytes=nbytes)
+        log(f"timing: {kern} {name} best bm={best}: kernel "
+            f"{per_bm[best]['ms']:.4f} ms, library (torch.mm -> "
+            f"{str(out_dtype).split('.')[1]}) {lib:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by}: {nbytes} B, {flops} FLOPs)")
+        del a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_probe_main(pm, bcp):
+    """``bench_conv_probe.main`` at its defaults; returns the document and
+    the kernel launches it made (per bm: one check, 2 warm-up, 5 timed)."""
+    pm.reset_launch_counts()
+    doc = bcp.main([])
+    counts = pm.launch_counts()
+    # per case and bm: the check, the warm-up calls, then the timed calls
+    # of each capture (device_time captures again when one lost kernels)
+    for w, cases in (("wgrad", 1), ("rowblock", 2)):
+        fixed = cases * len(PROBE_BLOCKS) * (1 + bcp.WARMUP)
+        timed = counts[w] - fixed
+        if timed < cases * len(PROBE_BLOCKS) * bcp.STEPS or \
+                timed % bcp.STEPS:
+            raise AssertionError(
+                f"probe: {w} launched {counts[w]} times, expected {fixed} "
+                f"+ {bcp.STEPS} per capture ({cases} case(s) x "
+                f"{len(PROBE_BLOCKS)} block sizes)")
+    for name, row in doc["cases"].items():
+        if name.startswith("conv"):
+            continue
+        if set(row["kernel_sweep"]) != {str(bm) for bm in PROBE_BLOCKS}:
+            raise AssertionError(
+                f"{name}: sweep {sorted(row['kernel_sweep'])}")
+    return doc, counts
+
+
+def phase_bench(fn, cs, torch):
+    """``benchmarks.bench.main`` at its card defaults: ResNet-50, batch 256,
+    the bf16 wire with double buffering, 20 steps after 5 (then 1, and 3 +
+    3 a profiler capture for its device time: the profiler's warm-up step
+    and the timed one); every BatchNorm kernel 53 times a step, 2 casts a
+    step.  Returns the line, the launches and the peak
+    memory in GB."""
+    from chainermn_tpu_torch.benchmarks import bench
+    fn.reset_launch_counts()
+    cs.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    line = bench.main([])
+    counts = dict(fn.launch_counts(), cast_scale=cs.cast_scale.launches)
+    batch, _, steps, warmup = bench.GPU_SHAPE
+    total = counts["cast_scale"] // 2  # steps run (device_time may capture
+    fixed = steps + warmup + bench.DEVICE_TIME_WARMUP  # more than once)
+    want = dict({w: 53 * total for w in fn.launch_counts()},
+                cast_scale=2 * total)
+    if counts != want or total < fixed + bench.DEVICE_TIME_STEPS or \
+            (total - fixed) % bench.DEVICE_TIME_STEPS:
+        raise AssertionError(f"bench launches {counts}: expected 53 of each "
+                             f"BatchNorm kernel and 2 casts a step, over "
+                             f"{fixed} steps + {bench.DEVICE_TIME_STEPS} a "
+                             "capture")
+    if not (line["metric"] == "resnet50_synthetic_imagenet_train_throughput"
+            and math.isfinite(line["value"]) and line["value"] > 0
+            and 0 < line["device_ms_per_step"] <= line["step_ms"] * 1.5):
+        raise AssertionError(f"bench line not sane: {line}")
+    return line, counts, torch.cuda.max_memory_allocated() / 1e9
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -988,6 +1173,9 @@ def main():
     fn = importlib.import_module("chainermn_tpu_torch.ops.fused_norm")
     cs = importlib.import_module("chainermn_tpu_torch.ops.cast_scale")
     fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+    pm = importlib.import_module("chainermn_tpu_torch.ops.probe_matmul")
+    from chainermn_tpu_torch.benchmarks import bench_conv_probe as bcp
+    from chainermn_tpu_torch.utils.gpu_info import card_info
     import triton
 
     t_build = time.perf_counter()
@@ -997,8 +1185,18 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, triton "
         f"{triton.__version__}, python {sys.version.split()[0]}")
     dev = torch.device("cuda", 0)
+    card, matched = card_info(dev)
+    log(f"card rates for the bounds (utils/gpu_info, key {matched!r}): "
+        f"{card}; peak_assumed={matched is None}")
     t0 = time.perf_counter()
-    errs = phase_kernels(fn, torch, dev)
+    errs = {}
+    # ResNet-50's batch-32 boundaries (phase 3) and a ragged row count
+    phase_kernels(fn, torch, dev, [(401408, 64), (100352, 256), (6272, 1024),
+                                   (1568, 2048), (12547, 512)],
+                  (torch.bfloat16, torch.float32), errs)
+    # the bench's (phase 16): batch 256, bfloat16, up to 3,211,264 rows
+    phase_kernels(fn, torch, dev, bn_shapes(fn, 256), (torch.bfloat16,),
+                  errs)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s, max abs err "
         f"{json.dumps(errs)}")
     for f in builds.values():
@@ -1025,7 +1223,7 @@ def main():
         f"profile of {PROFILED} more steps: {json.dumps(prof)}")
 
     t0 = time.perf_counter()
-    times = phase_timing(fn, torch, dev)
+    times = phase_timing(fn, torch, dev, card)
     log(f"phase timing: {time.perf_counter() - t0:.1f} s")
 
     from chainermn_tpu_torch.communicators import create_communicator
@@ -1055,7 +1253,7 @@ def main():
     import torch.distributed as dist
     t0 = time.perf_counter()
     cast_t = phase_cast_timing(cs, torch, dev, grads["ResNet"],
-                               dist.get_world_size())
+                               dist.get_world_size(), card)
     log(f"phase cast timing: {time.perf_counter() - t0:.1f} s; both legs: "
         f"{json.dumps(cast_t)}")
 
@@ -1091,8 +1289,31 @@ def main():
     log(f"phase lm f32: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    flash_t = phase_flash_timing(fa, torch, dev)
+    flash_t = phase_flash_timing(fa, torch, dev, card)
     log(f"phase flash timing: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    probe_errs, probe_lines = phase_probe(pm, bcp, torch, dev)
+    for line in probe_lines:
+        log(f"probe kernels: {line}")
+    log(f"phase probe kernels: {time.perf_counter() - t0:.1f} s; max abs "
+        f"err {json.dumps(probe_errs)}")
+
+    t0 = time.perf_counter()
+    probe_doc, probe_counts = phase_probe_main(pm, bcp)
+    log(f"phase probe: {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(probe_counts)}; document above, on {gpu}")
+
+    t0 = time.perf_counter()
+    bench_line, bench_counts, bench_gb = phase_bench(fn, cs, torch)
+    log(f"phase bench: {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(bench_counts)}; peak memory {bench_gb:.1f} GB; "
+        f"line above, on {gpu}")
+
+    t0 = time.perf_counter()
+    probe_t = phase_probe_timing(pm, bcp, torch, dev, card)
+    log(f"phase probe timing: {time.perf_counter() - t0:.1f} s; "
+        f"{json.dumps(probe_t)}")
 
     dist.destroy_process_group()
     kernels = []
@@ -1120,6 +1341,16 @@ def main():
             "max_abs_err": flash_errs[wrapper], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # rowblock's row: dgrad and fwd1x1, each at its best bm, summed
+    for wrapper, (name, replaces) in PROBE.items():
+        rows = [t for t in probe_t.values() if t["kernel"] == wrapper]
+        total = {k: sum(t[k] for t in rows)
+                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        kernels.append(dict(
+            name=name, route="cuda", source=PROBE_SOURCE, replaces=replaces,
+            launches=probe_counts[wrapper], max_abs_err=probe_errs[wrapper],
+            bound_by="bytes" if all(t["bound_by"] == "bytes" for t in rows)
+            else "operations", **total))
     log("kernels: " + ", ".join(k["name"] for k in kernels))
     log(json.dumps({"kernels": kernels}))
     log(gpu)

@@ -325,3 +325,62 @@ def test_flash_attention_autograd_on_the_card(cuda):
         assert _rel(a.detach().cpu(), b.detach()) <= 1e-5
     with pytest.raises(ValueError, match="blockwise"):
         tfa.flash_attention(q, k, v, bwd_impl="blockwise")
+
+
+tpm = importlib.import_module("chainermn_tpu_torch.ops.probe_matmul")
+PROBE_M = 65536
+PROBE_CASES = {"wgrad": ((256, PROBE_M), (PROBE_M, 64)),
+               "dgrad": ((PROBE_M, 64), (64, 256)),
+               "fwd1x1": ((PROBE_M, 256), (256, 64))}
+
+
+def _probe_operands(name, device, seed=0):
+    sa, sb = PROBE_CASES[name]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen, device=device,
+                             dtype=torch.bfloat16) for s in (sa, sb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bm", [64, 1024, 8192, PROBE_M])
+@pytest.mark.parametrize("name", sorted(PROBE_CASES))
+def test_probe_kernels_match_plain(cuda, name, bm):
+    """The CUDA wgrad (relative L2 within 2e-5) and rowblock kernels (99%
+    of the bf16 outputs equal bit for bit, every one within one ulp plus
+    the float32 sums' rounding bound) against their plain versions, one
+    launch each."""
+    kern = "wgrad" if name == "wgrad" else "rowblock"
+    a, b = _probe_operands(name, cuda)
+    fn, plain = getattr(tpm, kern), getattr(tpm, f"{kern}_plain")
+    before = getattr(tpm, kern).launches
+    got = fn(a, b, bm)
+    torch.cuda.synchronize()
+    assert getattr(tpm, kern).launches - before == 1
+    tpm.agreement(kern, a, b, got, plain(a, b, bm))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(PROBE_CASES))
+def test_probe_kernels_repeat_bit_for_bit(cuda, name):
+    """Two launches on the same inputs give the same bits (wgrad sums its
+    partials in chunk order, without atomics), also through a view with a
+    storage offset that is not 16-byte aligned (the wrapper copies it)."""
+    kern = "wgrad" if name == "wgrad" else "rowblock"
+    fn = getattr(tpm, kern)
+    a, b = _probe_operands(name, cuda, seed=1)
+    assert torch.equal(fn(a, b, 2048), fn(a, b, 2048))
+    flat = torch.cat([a.new_zeros(1), a.reshape(-1)])
+    view = flat[1:].view(a.shape)
+    assert view.storage_offset() == 1
+    assert torch.equal(fn(view, b, 2048), fn(a, b, 2048))
+
+
+@pytest.mark.gpu
+def test_probe_kernels_refuse_other_inputs(cuda):
+    a, b = _probe_operands("fwd1x1", cuda)
+    with pytest.raises(ValueError, match="does not divide"):
+        tpm.rowblock(a, b, 3 * 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tpm.rowblock(a.half(), b.half(), 1024)
+    with pytest.raises(ValueError, match="expected"):
+        tpm.rowblock(a, b[:64].contiguous(), 1024)
