@@ -238,13 +238,18 @@ class MeshCommunicator(CommunicatorBase):
         """Average gradients over the world.
 
         ``grads``: a module, whose parameters' ``.grad`` are replaced by
-        the mean in place (returns the module), or a tree of gradient
+        the mean in place (a parameter without one counts as zeros;
+        returns the module), or a tree of gradient
         tensors (returns the tree of means).
         """
         if isinstance(grads, nn.Module):
-            params = [p for p in grads.parameters() if p.grad is not None]
+            # every parameter: one that this rank's backward did not reach
+            # contributes zeros (its JAX gradient), so every rank issues
+            # the same collectives
+            params = list(grads.parameters())
             for p, g in zip(params, self._allreduce_grad_traced(
-                    [p.grad for p in params])):
+                    [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params])):
                 p.grad = g
             return grads
         return self._allreduce_grad_traced(grads)

@@ -31,8 +31,8 @@
 //
 // Which kernel runs is a dispatch by dtype and head dim, one kernel each:
 //
-//   bf16/fp16, D 64 and 128: fwd_wgmma_kernel, dkv_wgmma_kernel (wgmma +
-//                            TMA); dQ: dq_tc_kernel (mma.sync)
+//   bf16/fp16, D 64 and 128: fwd_wgmma_kernel, dkv_wgmma_kernel,
+//                            dq_wgmma_kernel (wgmma + TMA)
 //   bf16/fp16, D 16 and 32:  fwd_tc_kernel, dkv_tc_kernel, dq_tc_kernel
 //                            (mma.sync)
 //   float32, any D:          *_f32_kernel (CUDA cores)
@@ -53,39 +53,40 @@
 //    so any Tq and Tk work, Tq != Tk included.
 //
 // The wgmma kernels (the LM's path: bf16, D 128).  A block of 128 output
-// rows (q rows forward, keys for dK/dV) is two warpgroups of 64 rows each,
-// whose first warp is also the producer.  It issues TMA copies
+// rows (q rows forward and for dQ, keys for dK/dV) is two warpgroups of 64
+// rows each, whose first warp is also the producer.  It issues TMA copies
 // (cp.async.bulk.tensor) of the tiles the block walks -- K/V tiles of 128
-// keys forward, Q/dO tiles of 64 rows for dK/dV -- into a ring of shared-
-// memory stages with `full`/`empty` mbarriers, and writes each stage's
-// per-row vectors (kv segment ids; lse, delta, glse, q segment ids) with
-// plain loads, since a ragged T leaves them too short for bulk copies.  The
-// tensor maps are 4-D (D, H, T, B) over the caller's strides, so the
-// strided q/k/v views of one qkv projection are read in place, and rows
-// past T arrive as zeros, never from the next sequence.  The warpgroups run
-// wgmma.mma_async m64nNk16 with float32 accumulators in registers: S = Q
-// K^T (dK/dV: S^T = K Q^T and dP^T = V dO^T) with both operands read from
-// the 128-byte-swizzled tiles, then O += P V (dV += P_drop^T dO, dK +=
-// dS^T Q) with P (dS) packed to 16 bits in registers as the A operand and
-// V (dO, Q) read MN-major.  The forward is software-pipelined: the scores
-// of tile kt are issued before, and their softmax runs while, P V of tile
-// kt - 1 is on the tensor cores.  That answers the mma.sync kernels' four
-// limits: 64-row warpgroup products read each B tile once per 64 rows
+// keys forward and of 64 for dQ, Q/dO tiles of 64 rows for dK/dV -- into a
+// ring of shared-memory stages with `full`/`empty` mbarriers, and writes
+// each stage's per-row vectors (kv segment ids; lse, delta, glse, q segment
+// ids) with plain loads, since a ragged T leaves them too short for bulk
+// copies.  The tensor maps are 4-D (D, H, T, B) over the caller's strides,
+// so the strided q/k/v views of one qkv projection are read in place, and
+// rows past T arrive as zeros, never from the next sequence.  The warpgroups
+// run wgmma.mma_async m64nNk16 with float32 accumulators in registers: S = Q
+// K^T (dK/dV: S^T = K Q^T and dP^T = V dO^T; dQ: S = Q K^T and dP = dO V^T)
+// with both operands read from the 128-byte-swizzled tiles, then O += P V
+// (dV += P_drop^T dO, dK += dS^T Q; dQ += dS K) with P (dS) packed to 16
+// bits in registers as the A operand and V (dO, Q; K) read MN-major.  The
+// forward and dQ are software-pipelined: the scores (and dP) of tile kt are
+// issued before, and their softmax (element step) runs while, P V (dS K) of
+// tile kt - 1 is on the tensor cores.  That answers the mma.sync kernels'
+// four limits: 64-row warpgroup products read each B tile once per 64 rows
 // instead of once per 16; the tiles are 128 wide; one thread issues each
-// tile's copy; copies, products and softmax overlap.  There is no
-// separate producer warpgroup: with 12 warps a block's threads are held to
-// 168 registers (3 warps share each quarter of the register file), which
-// ptxas did not lift for the consumers through setmaxnreg, while the dK/dV
+// tile's copy; copies, products and softmax overlap.  There is no separate
+// producer warpgroup: with 12 warps a block's threads are held to 168
+// registers (3 warps share each quarter of the register file), which ptxas
+// did not lift for the consumers through setmaxnreg, while the dK/dV
 // consumers need ~230 (128 for the dK/dV accumulators alone at D 128).
 // With 8 warps each thread may have 255.
 //
-// The mma.sync kernels (bf16/fp16 at D 16 and 32; dQ at every D): four
-// warps, each owning 16 output rows; mma.sync m16n8k16 with float32
-// accumulators in registers -- scores, dP, the output and the dQ/dK/dV
-// accumulators never go through shared memory, and P (dS) is repacked from
-// the accumulator layout into the next product's A operand in registers;
-// operands come from shared memory by ldmatrix; the next K/V (Q/dO) tile is
-// copied in with cp.async while the current one is used.
+// The mma.sync kernels (bf16/fp16 at D 16 and 32): four warps, each owning
+// 16 output rows; mma.sync m16n8k16 with float32 accumulators in registers
+// -- scores, dP, the output and the dQ/dK/dV accumulators never go through
+// shared memory, and P (dS) is repacked from the accumulator layout into the
+// next product's A operand in registers; operands come from shared memory by
+// ldmatrix; the next K/V (Q/dO) tile is copied in with cp.async while the
+// current one is used.
 //
 // The float32 kernels (*_f32_kernel): the products run on the CUDA cores in
 // float32 (never TF32), 256 threads over 32-row tiles staged in shared
@@ -1029,6 +1030,7 @@ __device__ __forceinline__ float grad_elem(const Args& p, bool ok, float s,
 template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads) dq_tc_kernel(const Args p) {
   constexpr int BQ = kTcRows, BK = kTcCols, LD = D + 8;
+  static_assert(D <= 32, "head dims 64 and 128 take dq_wgmma_kernel");
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
   T* Qs = cv.take<T>(BQ * LD);
@@ -2269,6 +2271,271 @@ __global__ void __launch_bounds__(kHopThreads, 1)
   }
 }
 
+// Shared memory of the dQ kernel: Q and dO [D/64][BQ][64], then S stages
+// of K and V [D/64][BK][64], the stages' kv segment ids, and the barriers
+// (q, full[S], empty[S]).  64-key tiles keep S and dP at 32 floats a thread
+// each beside the 64 of the dQ accumulator at D 128 (at 128 keys the three
+// would not fit in 255 registers); four stages: a consumer holds two (the K
+// of the tile whose dS K is in flight, the K and V of the next), the
+// producer fills the other two.  At D 128 that is 194 KB.
+template <int D>
+struct DqTiles {
+  static constexpr int BQ = 128, BK = 64, S = 4;
+  static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr int Q = 0;
+  static constexpr int G = Q + Q_BYTES;
+  static constexpr int K = G + Q_BYTES;
+  static constexpr int V = K + S * KV_BYTES;
+  static constexpr int KSEG = V + S * KV_BYTES;
+  static constexpr int BARS = KSEG + S * BK * 4;
+  static constexpr size_t bytes = BARS + (1 + 2 * S) * 8 + 1024;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_g, const Args p) {
+  using L = DqTiles<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, S = L::S, NH = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_1k(smem_raw);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + S;
+  int* kseg_s = reinterpret_cast<int*>(sm + L::KSEG);
+
+  const int64_t H = p.H;
+  const int64_t bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int hk = static_cast<int>(h / (H / p.Hk));
+  const TcPos P(p, b);
+  const int q0 = static_cast<int>(heavy_first(p, gridDim.x)) * BQ;
+  const bool has_seg = p.qseg != nullptr;
+  const int q_valid = min(BQ, P.Tq - q0);
+  const int n_kt = (P.Tk + BK - 1) / BK;
+  const int kt_end = p.causal ? causal_tiles(P.goff_q + q0 + q_valid - 1,
+                                             P.goff_k, BK, n_kt)
+                              : n_kt;
+
+  if (threadIdx.x == 0) {
+    bar_init(qbar, 1);
+    for (int s = 0; s < S; ++s) {
+      bar_init(full + s, 32);        // the producer warp's lanes
+      bar_init(empty + s, 2 * 128);  // every thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Warp 0 also feeds the ring: Q and dO once, then K/V tile kt into stage
+  // kt % S once both warpgroups have released the tile S before it.
+  const bool producer = threadIdx.x < 32;
+  auto produce = [&](int kt) {
+    if (kt >= kt_end) return;
+    const int s = kt % S, lane = threadIdx.x;
+    bar_wait(empty + s, ((kt / S) & 1) ^ 1);
+    const int k0 = kt * BK;
+    if (has_seg)
+      for (int i = lane; i < BK; i += 32)
+        kseg_s[s * BK + i] = k0 + i < P.Tk ? p.kseg[b * P.Tk + k0 + i] : 0;
+    if (lane == 0) {
+      bar_expect(full + s, 2 * L::KV_BYTES);
+      unsigned char* kd = sm + L::K + s * L::KV_BYTES;
+      unsigned char* vd = sm + L::V + s * L::KV_BYTES;
+      for (int j = 0; j < NH; ++j) {
+        tma_load(kd + j * BK * 128, &tm_k, full + s, 64 * j, hk, k0,
+                 static_cast<int>(b));
+        tma_load(vd + j * BK * 128, &tm_v, full + s, 64 * j, hk, k0,
+                 static_cast<int>(b));
+      }
+    } else {
+      bar_arrive(full + s);
+    }
+  };
+  if (producer && kt_end > 0) {
+    if (threadIdx.x == 0) {
+      bar_expect(qbar, 2 * L::Q_BYTES);
+      for (int j = 0; j < NH; ++j) {
+        tma_load(sm + L::Q + j * BQ * 128, &tm_q, qbar, 64 * j,
+                 static_cast<int>(h), q0, static_cast<int>(b));
+        tma_load(sm + L::G + j * BQ * 128, &tm_g, qbar, 64 * j,
+                 static_cast<int>(h), q0, static_cast<int>(b));
+      }
+    }
+    for (int kt = 0; kt < S; ++kt) produce(kt);
+  }
+  // a stage is done with: release it and, in warp 0, refill it
+  auto release = [&](int kt) {
+    bar_arrive(empty + kt % S);
+    if (producer) produce(kt + S);
+  };
+
+  {
+    // two consumer warpgroups of 64 q rows: S = Q K^T, dP = dO V^T, the
+    // element step, then dQ += dS K
+    const int cw = threadIdx.x / 128;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + cw * 64;     // the warpgroup's first row
+    const int wrow = row0 + warp * 16;  // the warp's first row
+    const int qpos0 = P.goff_q + wrow;
+    const bool rows_ok = wrow + 16 <= P.Tq;
+    const int wg_last = P.goff_q + min(row0 + 63, P.Tq - 1);
+    const float scale = static_cast<float>(p.scale);
+    const float scale2 = scale * kLog2e;
+    // the per-row vectors of this thread's two rows, read once
+    int qpos[2], qs[2];
+    bool row_ok[2];
+    float lse[2], delta[2], gl[2];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      const int qi = wrow + g + 8 * ri;
+      const int64_t at = bh * P.Tq + qi;
+      qpos[ri] = qpos0 + g + 8 * ri;
+      row_ok[ri] = qi < P.Tq;
+      qs[ri] = has_seg && row_ok[ri] ? p.qseg[b * P.Tq + qi] : 0;
+      lse[ri] = row_ok[ri] ? p.lse_in[at] : 0.0f;
+      delta[ri] = row_ok[ri] ? p.delta[at] : 0.0f;
+      gl[ri] = row_ok[ri] && p.glse ? p.glse[at] : 0.0f;
+    }
+    float dq[D / 8][4] = {};
+    float sc[BK / 8][4], dp[BK / 8][4];  // S and dP, then dS in sc
+    uint32_t sa[BK / 16][4];              // dS packed to T: the A of dS K
+    // the tiles this warpgroup takes: none if its rows are all past T,
+    // else those up to its last row's causal limit -- a prefix of the
+    // block's; the rest it only passes on
+    const int kt_wg = row0 >= P.Tq ? 0
+                      : p.causal ? causal_tiles(wg_last, P.goff_k, BK, n_kt)
+                                 : n_kt;
+
+    // S = Q K^T and dP = dO V^T of tile kt, issued and committed as one
+    // group (not waited for)
+    auto products = [&](int kt) {
+      const uint32_t qa = opaque_addr(sm + L::Q) + cw * 64 * 128;
+      const uint32_t ga = opaque_addr(sm + L::G) + cw * 64 * 128;
+      const uint32_t ka = opaque_addr(sm + L::K + (kt % S) * L::KV_BYTES);
+      const uint32_t va = opaque_addr(sm + L::V + (kt % S) * L::KV_BYTES);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wg<T>::ss(sc, kmajor<BQ>(qa, 0, kk), kmajor<BK>(ka, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wg<T>::ss(dp, kmajor<BQ>(ga, 0, kk), kmajor<BK>(va, 0, kk), kk > 0);
+      wg_commit();
+    };
+    // dQ += dS K of tile kt, dS from sa and K read MN-major, issued and
+    // committed
+    auto dsk = [&](int kt) {
+      const uint32_t ka = opaque_addr(sm + L::K + (kt % S) * L::KV_BYTES);
+      reg_fence(dq);
+      reg_fence(sa);
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)
+        Wg<T>::rs(dq, sa[kc], mnmajor<BK>(ka, kc), 1);
+      wg_commit();
+    };
+    // the element step of tile kt on the accumulator layout: sc becomes
+    // dS.  A tile that no mask touches, without dropout, takes a
+    // branch-free loop: a = 2**(s scale log2 e - lse log2 e) and ds = a
+    // (dp - (delta - glse)) scale; the rest goes through grad_elem.
+    auto element = [&](int kt) {
+      const int k0 = kt * BK;
+      const bool full_tile = !has_seg && rows_ok && k0 + BK <= P.Tk &&
+                             (!p.causal || P.goff_k + k0 + BK - 1 <= qpos0);
+      if (full_tile && !p.dropout) {
+        const float l2[2] = {lse[0] * kLog2e, lse[1] * kLog2e};
+        const float dl[2] = {delta[0] - gl[0], delta[1] - gl[1]};
+#pragma unroll
+        for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int ri = j >> 1;
+            const float a = ex2(sc[nt][j] * scale2 - l2[ri]);
+            sc[nt][j] = a * (dp[nt][j] - dl[ri]) * scale;
+          }
+      } else {
+        const int* ks = kseg_s + (kt % S) * BK;
+#pragma unroll
+        for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int ri = j >> 1, c = nt * 8 + 2 * t + (j & 1);
+            bool ok = true;
+            if (!full_tile) {
+              ok = row_ok[ri] && k0 + c < P.Tk;
+              if (p.causal) ok = ok && qpos[ri] >= P.goff_k + k0 + c;
+              if (has_seg) ok = ok && qs[ri] == ks[c];
+            }
+            float unused;
+            sc[nt][j] = grad_elem(p, ok, sc[nt][j], dp[nt][j], lse[ri],
+                                  delta[ri], gl[ri],
+                                  static_cast<uint32_t>(bh), qpos[ri],
+                                  P.goff_k + k0 + c, unused);
+          }
+      }
+    };
+    // dS rounded to k's type, packed from the accumulator layout
+    auto pack_ds = [&]() {
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) acc_to_a<T>(sa[kc], sc, kc);
+    };
+
+    if (kt_end > 0) bar_wait(qbar, 0);
+    // Software pipeline: while dS K of tile kt - 1 runs on the tensor
+    // cores, S and dP of tile kt are issued before it and the element step
+    // of tile kt runs after they have landed.  A stage is released once dS
+    // K has read its K.
+    if (kt_wg > 0) {
+      bar_wait(full, 0);
+      products(0);
+      wg_wait<0>();
+      reg_fence(sc);
+      reg_fence(dp);
+      element(0);
+      pack_ds();
+      for (int kt = 1; kt < kt_wg; ++kt) {
+        bar_wait(full + kt % S, (kt / S) & 1);
+        products(kt);
+        dsk(kt - 1);
+        wg_wait<1>();  // S and dP of tile kt have landed; dS K may still run
+        reg_fence(sc);
+        reg_fence(dp);
+        element(kt);
+        wg_wait<0>();
+        reg_fence(dq);
+        reg_fence(sa);
+        release(kt - 1);
+        pack_ds();
+      }
+      dsk(kt_wg - 1);
+      wg_wait<0>();
+      reg_fence(dq);
+      reg_fence(sa);
+      release(kt_wg - 1);
+    }
+    for (int kt = kt_wg; kt < kt_end; ++kt) {
+      bar_wait(full + kt % S, (kt / S) & 1);
+      release(kt);
+    }
+
+    // dQ [B, Tq, H, D], contiguous; rows past Tq are not stored
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      if (!row_ok[ri]) continue;
+      const int64_t qi = wrow + g + 8 * ri;
+      T* row = static_cast<T*>(p.dq) + ((b * P.Tq + qi) * H + h) * D;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd)
+        *reinterpret_cast<uint32_t*>(row + nd * 8 + 2 * t) =
+            Mma<T>::pack(dq[nd][2 * ri], dq[nd][2 * ri + 1]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -2354,7 +2621,7 @@ cudaError_t tensor_map(CUtensorMap* map, const void* base, int64_t B,
 
 // float32 takes the CUDA-core kernels; bf16/fp16 the mma.sync kernels at
 // head dims 16 and 32 and the wgmma kernels at 64 and 128 -- a dispatch by
-// shape: each head dim has exactly one kernel.
+// shape: each head dim has exactly one kernel, for dQ as for the others.
 struct Fwd {
   template <typename T, int D>
   static cudaError_t run(const Args& a, cudaStream_t s, int device) {
@@ -2434,10 +2701,28 @@ struct Dq {
       return launch_kernel(dq_f32_kernel<T, D>,
                            dim3((a.Tq + C::BQ - 1) / C::BQ, bh), kThreads,
                            Smem<T, D>::dq, s, device, done, a);
-    } else {
+    } else if constexpr (D <= 32) {
       return launch_kernel(dq_tc_kernel<T, D>,
                            dim3((a.Tq + kTcRows - 1) / kTcRows, bh),
                            kTcThreads, TcSmem<T, D>::dq, s, device, done, a);
+    } else {
+      using L = DqTiles<D>;
+      CUtensorMap mq, mk, mv, mg;
+      cudaError_t err = tensor_map<T>(&mq, a.q, a.B, a.Tq, a.H, D, a.q_sb,
+                                      a.q_st, a.q_sh, L::BQ);
+      if (err == cudaSuccess)
+        err = tensor_map<T>(&mg, a.g, a.B, a.Tq, a.H, D, a.g_sb, a.g_st,
+                            a.g_sh, L::BQ);
+      if (err == cudaSuccess)
+        err = tensor_map<T>(&mk, a.k, a.B, a.Tk, a.Hk, D, a.k_sb, a.k_st,
+                            a.k_sh, L::BK);
+      if (err == cudaSuccess)
+        err = tensor_map<T>(&mv, a.v, a.B, a.Tk, a.Hk, D, a.v_sb, a.v_st,
+                            a.v_sh, L::BK);
+      if (err != cudaSuccess) return err;
+      return launch_kernel(dq_wgmma_kernel<T, D>,
+                           dim3((a.Tq + L::BQ - 1) / L::BQ, bh), kHopThreads,
+                           L::bytes, s, device, done, mq, mk, mv, mg, a);
     }
   }
 };

@@ -5,6 +5,9 @@ with a plain ``extern "C"`` entry point.  :func:`load_library` compiles one
 with ``nvcc`` for Hopper (``sm_90a``) into ``build/cuda/`` of the checkout
 and loads it with ``ctypes``; the caller declares the entry point's
 ``argtypes``.  No PyTorch headers are compiled, so a build takes seconds.
+ptxas's report of each build (``-Xptxas -v``: registers, shared memory and
+spills by kernel) is written beside the library, and :func:`build_report`
+reads it back whether this process built the library or found it built.
 
 The library's file name carries a hash of the source and the flags, so an
 edited source is rebuilt and a stale library is never loaded.  Several
@@ -27,7 +30,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build" / "cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIBS: dict = {}
 
 
@@ -51,6 +54,11 @@ def library_path(name: str) -> Path:
     return BUILD / f"lib{name}-{key}.so"
 
 
+def report_path(name: str) -> Path:
+    """Where ptxas's report of that library's build goes."""
+    return library_path(name).with_suffix(".ptxas.txt")
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/{name}.cu`` if its library is missing, then load it
     (once per process)."""
@@ -71,6 +79,24 @@ def load_library(name: str) -> ctypes.CDLL:
                     raise RuntimeError(
                         f"building {name}.cu failed ({' '.join(cmd)}):\n"
                         f"{proc.stdout}{proc.stderr}")
+                # the report lands first, so every library has one
+                report = report_path(name)
+                tmp_report = report.with_name(
+                    f"{report.name}.{os.getpid()}.tmp")
+                tmp_report.write_text(proc.stdout + proc.stderr)
+                os.replace(tmp_report, report)
                 os.replace(tmp, out)
     _LIBS[name] = ctypes.CDLL(str(out))
     return _LIBS[name]
+
+
+def build_report(name: str) -> str:
+    """ptxas's report of ``csrc/{name}.cu``'s library, building it first
+    if it is missing."""
+    load_library(name)
+    report = report_path(name)
+    if not report.exists():
+        raise RuntimeError(
+            f"{library_path(name)} has no build report {report.name}: "
+            "delete the library so that it is rebuilt")
+    return report.read_text()

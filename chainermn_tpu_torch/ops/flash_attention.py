@@ -399,6 +399,8 @@ def flash_bwd_dq(q, k, v, g, lse, delta, glse=None, causal=False,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
+    if k.shape[1] == 0:  # no key: every row is empty (no tensor map of K)
+        return dq.zero_()
     a.dq = dq.data_ptr()
     _launch("cmn_flash_bwd_dq", a, keep[0])
     flash_bwd_dq.launches += 1

@@ -1,4 +1,4 @@
-"""Fused BatchNorm(+ReLU) at the normalization boundary, as Triton kernels.
+"""Fused BatchNorm(+ReLU) at the normalization boundary, as GPU kernels.
 
 Counterpart of ``chainermn_tpu/ops/fused_norm.py``.  The activation is
 viewed as ``[R, C]`` (rows = every non-feature element, channels last), and
@@ -9,10 +9,11 @@ normalization allows:
   forward  (eval):  apply pass only
   backward:         reduce pass (read x, g)  +  dx pass (read x, g, write dx)
 
-Four Triton kernels do those passes on the GPU.  Each is bound by device
-memory: it does at most ~12 float32 operations per element, while an H100
-can do ~20 float32 operations (67 TFLOP/s outside the tensor cores) in the
-time it moves one byte (3.35 TB/s).  Its least time is therefore the bytes
+Four kernels do those passes on the GPU: three in Triton and the backward
+reduction in CUDA C++.  Each is bound by device memory: it does at most
+~12 float32 operations per element, while an H100 can do ~20 float32
+operations (67 TFLOP/s outside the tensor cores) in the time it moves one
+byte (3.35 TB/s).  Its least time is therefore the bytes
 :func:`fused_norm_traffic_bytes` prices for its pass, over 3.35 TB/s.
 
 ===============  ===============================  =========================
@@ -27,17 +28,25 @@ bwd_dx_call      ``_bwd_dx_kernel``               x, g, dx once + 6 vectors
 
 Design, against that bound:
 
-* A program works on a ``BLOCK_R x BLOCK_C`` tile whose rows are runs of
-  ``BLOCK_C`` neighbouring channels, so every load is a coalesced run of the
-  channels-last layout (the whole tile is one contiguous run when
-  ``C <= BLOCK_C``).  The per-channel vectors are a few KiB and stay in L2.
+* A Triton program works on a ``BLOCK_R x BLOCK_C`` tile whose rows are
+  runs of ``BLOCK_C`` neighbouring channels, so every load is a coalesced
+  run of the channels-last layout (the whole tile is one contiguous run
+  when ``C <= BLOCK_C``).  The per-channel vectors are a few KiB and stay
+  in L2.
 * The TPU kernels carry their sums across a sequential grid in scratch
-  memory.  GPU blocks run in parallel and in no order, so the two reductions
-  (stats, bwd_reduce) are two-stage and deterministic: a grid of
-  (row chunks x channel blocks) writes float32 partial sums into a
-  ``[2, n_chunks, C]`` workspace, and a small finalize kernel adds the
-  chunks in a fixed order.  No atomics, so a rerun gives the same bits.
-  About four waves of programs on 132 SMs keep the card's memory busy.
+  memory.  GPU blocks run in parallel and in no order, so the reductions
+  are taken in a fixed order from float32 partial sums, with no atomics on
+  the sums: a rerun gives the same bits.  The stats pass is two Triton
+  launches: a grid of (row chunks x channel blocks), about four waves on
+  132 SMs, writes a ``[2, n_chunks, C]`` workspace, and a small finalize
+  kernel adds the chunks.  The backward reduction is one CUDA launch
+  (``chainermn_tpu_torch/csrc/fused_norm.cu``, design in its header): its
+  blocks stream x and g through a ``cp.async`` ring, write their partials,
+  and the last block of each channel tile to finish (a ticket counter)
+  adds them, spread over all its threads.  It is CUDA because the Triton
+  version's finalize was one 4-warp program per 128 channels walking ~500
+  chunks serially, a latency-bound tail on every boundary, and Triton
+  expresses neither the in-kernel finalize nor the explicit copy ring.
 * All arithmetic is float32 whatever the activation dtype; the variance is
   the fast form ``mean(x^2) - mean^2`` clamped at 0, as flax computes it.
 * Ragged edges are masked, so any ``R`` and ``C`` work (the TPU kernels
@@ -48,20 +57,24 @@ Beside each kernel is its plain PyTorch version with the kernel's op order
 lies on the CPU; for a CUDA tensor it launches its kernel or raises.  Each
 wrapper counts its launches in its ``launches`` attribute.
 
-Triton is imported, and the kernels built, on the first launch, with
+Triton is imported, and its kernels built, on the first launch, with
 Triton's cache under ``build/triton`` of the checkout unless
-``TRITON_CACHE_DIR`` says otherwise; the module itself imports without
-Triton.
+``TRITON_CACHE_DIR`` says otherwise; the CUDA source is built with ``nvcc``
+into ``build/cuda`` on its first launch (:mod:`chainermn_tpu_torch.ops.
+_build`).  The module itself imports without either.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 from pathlib import Path
 from typing import Optional
 
 import torch
 from torch import nn
+
+from chainermn_tpu_torch.ops import _build
 
 __all__ = [
     "fused_norm",
@@ -91,10 +104,15 @@ _WAVES = 4 * 132        # reduction programs: about four waves on an H100
 _FINAL_BLOCK_K = 32     # chunks the finalize kernel adds per iteration
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "triton"
 _K: dict = {}
+# the CUDA reduction (csrc/fused_norm.cu): dtype codes, block size, and
+# its per-device state (entry point, SM count)
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_REDUCE_THREADS = 256
+_REDUCE: dict = {}
 
 
 def _kernels() -> dict:
-    """Import Triton and define the four kernels (once per process)."""
+    """Import Triton and define its kernels (once per process)."""
     if _K:
         return _K
     global triton, tl
@@ -128,9 +146,8 @@ def _kernels() -> dict:
                  mask=cmask)
 
     @triton.jit
-    def finalize_kernel(ws_ptr, a_ptr, b_ptr, n_chunks, C, R,
-                        STATS: tl.constexpr, BLOCK_K: tl.constexpr,
-                        BLOCK_C: tl.constexpr):
+    def finalize_kernel(ws_ptr, mean_ptr, var_ptr, n_chunks, C, R,
+                        BLOCK_K: tl.constexpr, BLOCK_C: tl.constexpr):
         # add the [2, n_chunks, C] partials over chunks in a fixed order
         cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
         cmask = cols < C
@@ -142,14 +159,11 @@ def _kernels() -> dict:
             offs = ks[:, None] * C + cols[None, :]
             sa += tl.load(ws_ptr + offs, mask=m, other=0.0)
             sb += tl.load(ws_ptr + n_chunks * C + offs, mask=m, other=0.0)
-        a = tl.sum(sa, axis=0)
-        b = tl.sum(sb, axis=0)
-        if STATS:
-            # mean and fast variance, clamped at 0 (flax's form)
-            a = a / R
-            b = tl.maximum(b / R - a * a, 0.0)
-        tl.store(a_ptr + cols, a, mask=cmask)
-        tl.store(b_ptr + cols, b, mask=cmask)
+        # mean and fast variance, clamped at 0 (flax's form)
+        mean = tl.sum(sa, axis=0) / R
+        var = tl.maximum(tl.sum(sb, axis=0) / R - mean * mean, 0.0)
+        tl.store(mean_ptr + cols, mean, mask=cmask)
+        tl.store(var_ptr + cols, var, mask=cmask)
 
     @triton.jit
     def apply_kernel(x_ptr, mean_ptr, invstd_ptr, scale_ptr, bias_ptr, y_ptr,
@@ -170,41 +184,6 @@ def _kernels() -> dict:
         if RELU:
             y = tl.maximum(y, 0.0)
         tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=m)
-
-    @triton.jit
-    def bwd_reduce_kernel(x_ptr, g_ptr, mean_ptr, invstd_ptr, scale_ptr,
-                          bias_ptr, ws_ptr, R, C, rows_per_chunk,
-                          RELU: tl.constexpr, BLOCK_R: tl.constexpr,
-                          BLOCK_C: tl.constexpr):
-        # partial dβ = Σdz and dγ = Σdz·x̂ of one row chunk; the ReLU mask
-        # is recomputed from x̂·γ + β > 0
-        chunk = tl.program_id(0)
-        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        mean = tl.load(mean_ptr + cols, mask=cmask, other=0.0)
-        invstd = tl.load(invstd_ptr + cols, mask=cmask, other=0.0)
-        scale = tl.load(scale_ptr + cols, mask=cmask, other=0.0)
-        bias = tl.load(bias_ptr + cols, mask=cmask, other=0.0)
-        r_lo = chunk * rows_per_chunk
-        r_hi = tl.minimum(r_lo + rows_per_chunk, R)
-        db = tl.zeros((BLOCK_R, BLOCK_C), tl.float32)
-        dg = tl.zeros((BLOCK_R, BLOCK_C), tl.float32)
-        for r0 in range(r_lo, r_hi, BLOCK_R):
-            rows = r0 + tl.arange(0, BLOCK_R)
-            m = (rows < r_hi)[:, None] & cmask[None, :]
-            offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
-            x = tl.load(x_ptr + offs, mask=m, other=0.0).to(tl.float32)
-            dz = tl.load(g_ptr + offs, mask=m, other=0.0).to(tl.float32)
-            xhat = (x - mean[None, :]) * invstd[None, :]
-            if RELU:
-                z = xhat * scale[None, :] + bias[None, :]
-                dz = tl.where(z > 0.0, dz, 0.0)
-            db += dz
-            dg += dz * xhat
-        out = chunk * C + cols
-        tl.store(ws_ptr + out, tl.sum(db, axis=0), mask=cmask)
-        tl.store(ws_ptr + tl.num_programs(0) * C + out, tl.sum(dg, axis=0),
-                 mask=cmask)
 
     @triton.jit
     def bwd_dx_kernel(x_ptr, g_ptr, mean_ptr, invstd_ptr, scale_ptr, bias_ptr,
@@ -238,8 +217,7 @@ def _kernels() -> dict:
         tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=m)
 
     _K.update(stats=stats_kernel, finalize=finalize_kernel,
-              apply=apply_kernel, bwd_reduce=bwd_reduce_kernel,
-              bwd_dx=bwd_dx_kernel)
+              apply=apply_kernel, bwd_dx=bwd_dx_kernel)
     return _K
 
 
@@ -303,11 +281,11 @@ def _check_vecs(name: str, x2: torch.Tensor, *vs: torch.Tensor) -> None:
                 f"{v.device}")
 
 
-def _finalize(ws, a, b, n_chunks, c, r, stats):
+def _finalize(ws, mean, var, n_chunks, c, r):
     bc = min(_MAX_BLOCK_C, 1 << max(0, (c - 1).bit_length()))
     _kernels()["finalize"][(_cdiv(c, bc),)](
-        ws, a, b, n_chunks, c, r, STATS=stats, BLOCK_K=_FINAL_BLOCK_K,
-        BLOCK_C=bc, num_warps=4)
+        ws, mean, var, n_chunks, c, r, BLOCK_K=_FINAL_BLOCK_K, BLOCK_C=bc,
+        num_warps=4)
 
 
 # ---------------------------------------------------------------------------
@@ -340,7 +318,7 @@ def stats_call(x2):
     var = torch.empty_like(mean)
     k["stats"][(n_chunks, grid_c)](x2, ws, r, c, rows_per_chunk,
                                    BLOCK_R=br, BLOCK_C=bc, num_warps=8)
-    _finalize(ws, mean, var, n_chunks, c, r, True)
+    _finalize(ws, mean, var, n_chunks, c, r)
     stats_call.launches += 1
     return mean, var
 
@@ -387,25 +365,70 @@ def bwd_reduce_plain(x2, g2, mean, invstd, scale, bias, relu):
     return dz.sum(0), (dz * xhat).sum(0)
 
 
+def _reduce_geometry(r: int, c: int, vec: bool, sms: int):
+    """(threads a row, rows a step, rows a block) of the CUDA reduction:
+    8 channels a thread on the vector path, 1 on the scalar path, in tiles
+    of up to 128 channels (narrow tiles give wide layers more blocks and
+    each tile's finalize fewer partials to add); about one block an SM in
+    all, each walking at least 8 row steps."""
+    epc, groups = (8, 16) if vec else (1, 128)
+    tpr = min(_cdiv(c, epc), groups)
+    rpi = _REDUCE_THREADS // tpr
+    tiles = _cdiv(c, tpr * epc)
+    want = max(1, _cdiv(sms, tiles))
+    n_chunks = max(1, min(want, r // (8 * rpi)))
+    rows = _cdiv(_cdiv(r, n_chunks), rpi) * rpi
+    return tpr, rpi, rows
+
+
+def _reduce_state(dev: torch.device):
+    """``(entry point, SM count)`` of the CUDA reduction on ``dev``, made
+    at its first call there."""
+    st = _REDUCE.get(dev)
+    if st is None:
+        fn = _build.load_library("fused_norm").cmn_bn_bwd_reduce
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        st = _REDUCE[dev] = (
+            fn, torch.cuda.get_device_properties(dev).multi_processor_count)
+    return st
+
+
 def bwd_reduce_call(x2, g2, mean, invstd, scale, bias, relu):
     """dβ = Σdz and dγ = Σdz·x̂ ([C] float32 each), dz the upstream
-    gradient ``g2`` masked by the recomputed ReLU."""
+    gradient ``g2`` masked by the recomputed ReLU.  On the card: one launch
+    of the CUDA ``cmn_bn_bwd_reduce`` (``csrc/fused_norm.cu``), after a
+    memset of its tile counters, which sit at the end of the call's own
+    workspace; ``x2`` and ``g2`` must have one dtype there."""
     _check_rows("bwd_reduce_call", x2, g2)
     _check_vecs("bwd_reduce_call", x2, mean, invstd, scale, bias)
     if not _on_gpu("bwd_reduce_call", x2):
         return bwd_reduce_plain(x2, g2, mean, invstd, scale, bias, relu)
-    k = _kernels()
+    if g2.dtype != x2.dtype:
+        raise ValueError(f"bwd_reduce_call: x2 {x2.dtype} and g2 "
+                         f"{g2.dtype} must have one dtype on the card")
     r, c = x2.shape
-    br, bc = _tile(c)
-    grid_c = _cdiv(c, bc)
-    rows_per_chunk, n_chunks = _chunks(r, br, grid_c)
-    ws = torch.empty((2, n_chunks, c), dtype=torch.float32, device=x2.device)
-    dbeta = torch.empty((c,), dtype=torch.float32, device=x2.device)
-    dgamma = torch.empty_like(dbeta)
-    k["bwd_reduce"][(n_chunks, grid_c)](
-        x2, g2, mean, invstd, scale, bias, ws, r, c, rows_per_chunk,
-        RELU=bool(relu), BLOCK_R=br, BLOCK_C=bc, num_warps=8)
-    _finalize(ws, dbeta, dgamma, n_chunks, c, r, False)
+    dev = x2.device
+    fn, sms = _reduce_state(dev)
+    vec = (c % 8 == 0 and x2.data_ptr() % 16 == 0
+           and g2.data_ptr() % 16 == 0)
+    tpr, rpi, rows = _reduce_geometry(r, c, vec, sms)
+    # [n_chunks, 2, C] float32 partials, then one int32 counter a tile
+    partials = _cdiv(r, rows) * 2 * c
+    ws = torch.empty((partials + _cdiv(c, tpr * (8 if vec else 1)),),
+                     dtype=torch.float32, device=dev)
+    out = torch.empty((2, c), dtype=torch.float32, device=dev)
+    vecs = (ctypes.c_void_p * 4)(mean.data_ptr(), invstd.data_ptr(),
+                                 scale.data_ptr(), bias.data_ptr())
+    err = fn(x2.data_ptr(), g2.data_ptr(), vecs, out.data_ptr(),
+             ws.data_ptr(), ws.data_ptr() + 4 * partials, r, c, rows, tpr,
+             rpi, int(vec), int(bool(relu)), _CODES[x2.dtype], dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"bwd_reduce_call: kernel launch failed with "
+                           f"CUDA error {err}")
+    dbeta, dgamma = out
     bwd_reduce_call.launches += 1
     return dbeta, dgamma
 

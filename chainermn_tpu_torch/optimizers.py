@@ -18,6 +18,12 @@ from typing import Callable
 import torch
 
 
+def _local_grads(params):
+    """Each parameter's local gradient, zeros where backward left None."""
+    return [p.grad if p.grad is not None else torch.zeros_like(p)
+            for p in params]
+
+
 class _MultiNodeOptimizer:
     """``step()`` = allreduce-mean the gradients, then the inner step.
 
@@ -33,9 +39,13 @@ class _MultiNodeOptimizer:
         return getattr(self.actual_optimizer, name)
 
     def allreduce_grad(self) -> None:
+        # every parameter, whether or not this rank's backward reached it:
+        # an unused one contributes zeros, as its JAX gradient is, so every
+        # rank issues the same collectives and the inner step moves it as
+        # optax moves a parameter with a zero gradient (momentum)
         params = [p for g in self.actual_optimizer.param_groups
-                  for p in g["params"] if p.grad is not None]
-        reduced = self.communicator.allreduce_grad([p.grad for p in params])
+                  for p in g["params"]]
+        reduced = self.communicator.allreduce_grad(_local_grads(params))
         for p, g in zip(params, reduced):
             p.grad = g
 
@@ -83,8 +93,7 @@ class _DoubleBufferingOptimizer(_MultiNodeOptimizer):
             stale = self._pending()
         # an unused parameter's local gradient is zero, as JAX's is
         self._pending = self.communicator._allreduce_grad_start(
-            [p.grad if p.grad is not None else torch.zeros_like(p)
-             for p in params])
+            _local_grads(params))
         for p, g in zip(params, stale):
             p.grad = g
         return self.actual_optimizer.step()

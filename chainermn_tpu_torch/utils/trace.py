@@ -66,9 +66,9 @@ captures = collections.Counter()
 # kernel-name fragments -> category of the profile breakdowns (first match
 # wins; the rest is "other")
 KERNEL_CATEGORIES = (
+    ("fused_norm reduce (CUDA)", ("bn_bwd_reduce",)),
     ("fused_norm (Triton)", ("stats_kernel", "apply_kernel",
-                             "bwd_reduce_kernel", "bwd_dx_kernel",
-                             "finalize_kernel")),
+                             "bwd_dx_kernel", "finalize_kernel")),
     ("cast_scale (CUDA)", ("cast_scale",)),
     ("nccl", ("nccl",)),
     ("memcpy / memset", ("memcpy", "memset")),

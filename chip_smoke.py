@@ -9,8 +9,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    CUDA and Triton versions, and the card's rates from
    ``chainermn_tpu_torch.utils.gpu_info`` that every bound below uses
    (``peak_assumed=True`` when the card is not in its table);
-2. kernels: each Triton kernel of ``chainermn_tpu_torch.ops.fused_norm``
-   (built into ``build/triton`` on first use) against its plain PyTorch
+2. kernels: each kernel of ``chainermn_tpu_torch.ops.fused_norm`` (the
+   Triton stats, apply and dx passes, built into ``build/triton`` on first
+   use, and the CUDA backward reduction ``cmn_bn_bwd_reduce``, built with
+   nvcc into ``build/cuda`` at the start) against its plain PyTorch
    version, at ResNet-50 batch-32 boundary shapes and one ragged row
    count, in bfloat16 and float32, then at the 12 distinct shapes of the
    bench's 53 boundaries (batch 256, phase 16: [3211264, 64] down to
@@ -23,7 +25,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``STEPS`` steps (images/sec over those after ``WARMUP``), then
    ``PROFILED`` more under ``torch.profiler`` (device time by category);
    every kernel's launch count must be 53 per step;
-4. timing: each kernel over the 53 boundaries of one bfloat16 step,
+4. timing: each kernel over the 53 boundaries of one bfloat16 step, at
+   batch 32 (phase 3's) and at the bench's batch 256 (phase 16's),
    captured into a CUDA graph and replayed between CUDA events (device
    time; the eager time with the host's launch path is printed too),
    beside its plain version, one PyTorch library call and the least time
@@ -59,10 +62,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     ``chainermn_tpu_torch.ops.flash_attention`` (built with nvcc into
     ``build/cuda`` at the start, beside the cast kernel, one nvcc each,
     started together) against their plain versions.  Which kernel runs is
-    set by dtype and head dim: bf16/fp16 forward and dK/dV at D 64 and 128
-    take the wgmma kernels fed by TMA (``fwd_wgmma_kernel``,
-    ``dkv_wgmma_kernel``), at D 16 and 32 the mma.sync kernels; dQ is the
-    mma.sync kernel at every head dim; float32 takes the CUDA-core kernels.
+    set by dtype and head dim: bf16/fp16 at D 64 and 128 take the wgmma
+    kernels fed by TMA (``fwd_wgmma_kernel``, ``dkv_wgmma_kernel``,
+    ``dq_wgmma_kernel``), at D 16 and 32 the mma.sync kernels; float32
+    takes the CUDA-core kernels.  The build prints ptxas's registers and
+    spills of the wgmma kernels and of the BatchNorm reduction.
     Cases: bfloat16 at the LM's attention shape (B 1, T 8192, H 16, D 128,
     causal), then GQA (Hkv 4 and 1), non-causal, Tq != Tkv, T 100, segment
     ids with a padding id (empty rows give 0 and lse 1e30), dropout 0.1
@@ -96,7 +100,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     PyTorch's ``scaled_dot_product_attention`` (forward; its autograd
     backward beside dK/dV + dQ); each kernel's
     TFLOP/s, and its time against the mma.sync design's
-    (``FLASH_MMA_SYNC_MS``);
+    (``FLASH_MMA_SYNC_MS``: every kernel now runs the wgmma design at the
+    LM's shape);
 14. probe kernels: the two CUDA kernels of
     ``chainermn_tpu_torch.ops.probe_matmul`` (wgrad with its chunk sum,
     rowblock) against their plain versions at the probe's shapes (M =
@@ -122,7 +127,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     plain version, ``torch.mm`` with the output type (library) and the
     bound;
 18. summary: a ``{"kernels": [...]}`` line with all ten kernels (the
-    rowblock row sums dgrad and fwd1x1 at their best bm), the nvidia-smi
+    BatchNorm rows at batch 32; the rowblock row sums dgrad and fwd1x1 at
+    their best bm), the nvidia-smi
     line, then ``{"ok": true, "device": {...}}`` as the last line.
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
@@ -141,19 +147,23 @@ WARMUP = 3
 PROFILED = 3         # further steps under torch.profiler
 BATCH = 32
 SOURCE = "chainermn_tpu_torch/ops/fused_norm.py"
+BN_CUDA_SOURCE = "chainermn_tpu_torch/csrc/fused_norm.cu"
 # wrapper -> (JSON name, TPU kernel it replaces, its pass in the traffic
-# model, float32 operations per element counted from the kernel body)
+# model, float32 operations per element counted from the kernel body,
+# route, source)
 KERNELS = {
     "stats_call": ("fused_norm.stats", "chainermn_tpu/ops/fused_norm.py:78",
-                   "fwd_stats", 3),
+                   "fwd_stats", 3, "triton", SOURCE),
     "apply_call": ("fused_norm.apply", "chainermn_tpu/ops/fused_norm.py:97",
-                   "fwd_apply", 4),
+                   "fwd_apply", 4, "triton", SOURCE),
     "bwd_reduce_call": ("fused_norm.bwd_reduce",
                         "chainermn_tpu/ops/fused_norm.py:119", "bwd_reduce",
-                        9),
+                        9, "cuda", BN_CUDA_SOURCE),
     "bwd_dx_call": ("fused_norm.bwd_dx",
-                    "chainermn_tpu/ops/fused_norm.py:140", "bwd_dx", 11),
+                    "chainermn_tpu/ops/fused_norm.py:140", "bwd_dx", 11,
+                    "triton", SOURCE),
 }
+BENCH_BATCH = 256    # the bench's batch (phase 16), timed in phase 4 too
 LM = dict(vocab=32768, d_model=2048, n_layers=8, n_heads=16, max_len=8192)
 LM_T = 8192
 LM_STEPS = 8         # LM steps; tokens/sec over those after LM_WARMUP
@@ -174,12 +184,16 @@ FLASH = {
 # versions: float32 products agree to rounding; bf16/fp16 kernels round P
 # and dS to the input type before their products
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 1e-2}
-# CUDA-graph ms of the mma.sync forward / dK/dV and of dQ at the LM's
+# CUDA-graph ms of the mma.sync forward, dK/dV and dQ at the LM's
 # attention shape, measured by phase 13 of this script on an NVIDIA H100
-# 80GB HBM3 at 700 W before the wgmma redesign: the yardstick phase 13
-# prints each kernel's time against
+# 80GB HBM3 at 700 W before each was redesigned with wgmma: the yardstick
+# phase 13 prints each kernel's time against
 FLASH_MMA_SYNC_MS = {"flash_fwd": 2.2804, "flash_bwd_dkv": 3.6619,
                      "flash_bwd_dq": 2.7811}
+# kernels whose ptxas report (registers, spills) the build phase prints
+PTXAS_KERNELS = {"flash_attention": ("fwd_wgmma_kernel", "dkv_wgmma_kernel",
+                                     "dq_wgmma_kernel"),
+                 "fused_norm": ("bn_bwd_reduce_kernel",)}
 LIBRARY = {
     "stats_call": "torch.var_mean(x, 0, correction=0)",
     "apply_call": "F.batch_norm(eval) (no ReLU)",
@@ -197,6 +211,38 @@ def gpu_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def ptxas_registers(lines, kernels):
+    """``{label: (registers, spill store bytes, spill load bytes)}`` of
+    every instance of ``kernels`` in ptxas -v output ``lines``; the label
+    names the kernel, its type, head dim (Li64E / Li128E) and path (Lb1E:
+    vector, Lb0E: scalar) from the mangled name."""
+    out, cur = {}, None
+    for line in lines:
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            cur = None
+            for kern in kernels:
+                if kern in name:
+                    dt = ("bf16" if "bfloat16" in name else "fp16"
+                          if "__half" in name else "f32")
+                    tags = [kern, dt] + [
+                        tag for mark, tag in (("Li64E", "D64"),
+                                              ("Li128E", "D128"),
+                                              ("Lb1E", "vector"),
+                                              ("Lb0E", "scalar"))
+                        if mark in name]
+                    cur = " ".join(tags)
+        elif cur and "spill stores" in line:
+            w = line.split()
+            out.setdefault(cur, [0, 0, 0])[1:] = [int(w[w.index("spill") - 2]),
+                                                  int(w[-4])]
+        elif cur and "Used" in line and "registers" in line:
+            w = line.split()
+            out.setdefault(cur, [0, 0, 0])[0] = int(w[w.index("registers,")
+                                                      - 1])
+    return {k: tuple(v) for k, v in sorted(out.items())}
 
 
 def check(name, got, want, rtol, atol, errs):
@@ -319,13 +365,14 @@ def _time(torch, fn_, reps, graph):
     return start.elapsed_time(end) / reps
 
 
-def phase_timing(fn, torch, dev, card):
-    """Each kernel over one bf16 step's 53 boundaries: kernel, plain,
-    library ms, and the bound on ``card`` (its ``gpu_info`` rates)."""
+def phase_timing(fn, torch, dev, card, batch):
+    """Each kernel over one bf16 step's 53 boundaries at ``batch``: kernel,
+    plain, library ms, and the bound on ``card`` (its ``gpu_info``
+    rates)."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(2)
     cases = []
-    for name, shape, relu in fn.resnet_bn_boundaries(BATCH):
+    for name, shape, relu in fn.resnet_bn_boundaries(batch):
         n, h, w, c = shape
         x = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
         g = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
@@ -380,7 +427,7 @@ def phase_timing(fn, torch, dev, card):
     }
     out = {}
     for wrapper, (kern, plain, lib) in runs.items():
-        _, _, pass_name, ops_per_el = KERNELS[wrapper]
+        pass_name, ops_per_el = KERNELS[wrapper][2:4]
         nbytes = ops = 0
         for k in cases:
             t = fn.fused_norm_traffic_bytes(k["shape"], torch.bfloat16,
@@ -397,11 +444,14 @@ def phase_timing(fn, torch, dev, card):
                             bound_ms=max(bytes_ms, ops_ms),
                             bound_by="bytes" if bytes_ms >= ops_ms
                             else "operations", bytes=nbytes, ops=ops)
-        log(f"timing: {wrapper} over 53 boundaries (CUDA graph replay): "
+        log(f"timing: {wrapper} over 53 boundaries at batch {batch} (CUDA "
+            f"graph replay): "
             f"kernel {ms:.4f} ms (eager launches: {eager_ms:.4f} ms), "
             f"plain {plain_ms:.4f} ms, library ({LIBRARY[wrapper]}) "
             f"{library_ms:.4f} ms, bound {out[wrapper]['bound_ms']:.4f} ms "
             f"({out[wrapper]['bound_by']}: {nbytes} B, {ops} ops)")
+    del cases
+    torch.cuda.empty_cache()
     return out
 
 
@@ -819,8 +869,9 @@ def phase_flash(fa, torch, dev):
 
 
 LM_CATEGORIES = (
-    ("flash (CUDA)", ("fwd_wgmma_kernel", "dkv_wgmma_kernel", "fwd_tc_kernel",
-                      "dkv_tc_kernel", "dq_tc_kernel", "_f32_kernel")),
+    ("flash (CUDA)", ("fwd_wgmma_kernel", "dkv_wgmma_kernel",
+                      "dq_wgmma_kernel", "fwd_tc_kernel", "dkv_tc_kernel",
+                      "dq_tc_kernel", "_f32_kernel")),
     ("cast_scale (CUDA)", ("cast_scale",)),
     ("nccl", ("nccl",)),
     ("memcpy / memset", ("memcpy", "memset")),
@@ -1203,6 +1254,12 @@ def main():
         f.result()  # a failed build raises here
     log(f"CUDA builds ({', '.join(builds)}): done "
         f"{time.perf_counter() - t_build:.1f} s after their start")
+    from chainermn_tpu_torch.ops import _build
+    for src, kerns in PTXAS_KERNELS.items():
+        regs = ptxas_registers(_build.build_report(src).splitlines(), kerns)
+        log(f"ptxas -v {src}.cu (registers, spill store / load bytes): "
+            + ", ".join(f"{k} {r}/{st}/{ld}"
+                        for k, (r, st, ld) in regs.items()))
 
     t0 = time.perf_counter()
     grads = grad_counts(torch, dev)
@@ -1223,8 +1280,13 @@ def main():
         f"profile of {PROFILED} more steps: {json.dumps(prof)}")
 
     t0 = time.perf_counter()
-    times = phase_timing(fn, torch, dev, card)
-    log(f"phase timing: {time.perf_counter() - t0:.1f} s")
+    times = phase_timing(fn, torch, dev, card, BATCH)
+    times_bench = phase_timing(fn, torch, dev, card, BENCH_BATCH)
+    log(f"phase timing: {time.perf_counter() - t0:.1f} s; at batch "
+        f"{BENCH_BATCH}: " + json.dumps(
+            {w: {k: t[k] for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms")}
+             for w, t in times_bench.items()}))
 
     from chainermn_tpu_torch.communicators import create_communicator
     t0 = time.perf_counter()
@@ -1317,10 +1379,10 @@ def main():
 
     dist.destroy_process_group()
     kernels = []
-    for wrapper, (name, replaces, _, _) in KERNELS.items():
+    for wrapper, (name, replaces, _, _, route, source) in KERNELS.items():
         t = times[wrapper]
         kernels.append({
-            "name": name, "route": "triton", "source": SOURCE,
+            "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": counts[wrapper],
             "max_abs_err": errs[wrapper], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

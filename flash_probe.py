@@ -8,8 +8,8 @@ few variants made by editing its text (into ``build/flash_probe/``, never
 over the source), one nvcc each with ``-Xptxas -v``, all started together.
 For each build it prints the registers and spills of the bf16/fp16 wgmma
 kernels, then times, at the LM's attention shape (bf16, B 1, T 8192, H 16,
-D 128, q/k/v views of one qkv projection), the forward (causal and not)
-and dK/dV by CUDA-graph replay between CUDA events.
+D 128, q/k/v views of one qkv projection), the forward (causal and not),
+dK/dV and dQ by CUDA-graph replay between CUDA events.
 
 The variants leave out one part of the work, so they compute wrong results
 and only say what that part costs:
@@ -17,7 +17,7 @@ and only say what that part costs:
 * ``as_is``: the kernels as they are (checked against the plain versions);
 * ``no_softmax``: the forward's online softmax skipped (P = raw scores);
 * ``no_elementwise``: the dK/dV step between the products skipped (P and
-  dS = raw S^T and dP^T);
+  dS = raw S^T and dP^T), and dQ's (dS = raw S);
 * ``no_products``: every wgmma product skipped (TMA ring, barriers and the
   elementwise work only).
 
@@ -58,6 +58,8 @@ def variants(src):
         no_elementwise = _cut(no_elementwise, old, old.replace(
             "if (full_tile && !p.dropout)", "if (false)").replace(
             "} else {", "} else if (false) {"))
+    for old in ("      element(0);\n", "        element(kt);\n"):
+        no_elementwise = _cut(no_elementwise, old, "")
     no_products = src
     for old in (
             "        Wg<T>::ss(sc, kmajor<BQ>(qa, 0, kk), kmajor<BK>(ka, 0, "
@@ -68,7 +70,10 @@ def variants(src):
             "          Wg<T>::ss(dpt, kmajor<BK>(va, cw * 64, kk), "
             "kmajor<BQ>(ga, 0, kk),\n                    kk > 0);\n",
             "          Wg<T>::rs(dv, pa[kc], mnmajor<BQ>(ga, kc), 1);\n",
-            "          Wg<T>::rs(dk, sa[kc], mnmajor<BQ>(qa, kc), 1);\n"):
+            "          Wg<T>::rs(dk, sa[kc], mnmajor<BQ>(qa, kc), 1);\n",
+            "        Wg<T>::ss(dp, kmajor<BQ>(ga, 0, kk), kmajor<BK>(va, 0, "
+            "kk), kk > 0);\n",
+            "        Wg<T>::rs(dq, sa[kc], mnmajor<BK>(ka, kc), 1);\n"):
         no_products = _cut(no_products, old, "")
     return {"as_is": src, "no_softmax": no_softmax,
             "no_elementwise": no_elementwise, "no_products": no_products}
@@ -81,36 +86,12 @@ def build(build_mod, name, src):
     with open(cu, "w") as f:
         f.write(src)
     proc = subprocess.run([build_mod.nvcc(), *build_mod.NVCC_FLAGS,
-                           "-Xptxas", "-v", "-o", so, cu],
+                           "-o", so, cu],
                           capture_output=True, text=True, timeout=900)
     if proc.returncode:
         raise SystemExit(f"flash_probe: {name} did not build:\n"
                          f"{proc.stdout}{proc.stderr}")
     return name, so, (proc.stdout + proc.stderr).splitlines()
-
-
-def registers(lines):
-    """``{kernel: (registers, spill store bytes, spill load bytes)}`` of the
-    wgmma kernels, from ptxas -v."""
-    out, cur = {}, None
-    for line in lines:
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-            cur = None
-            for kern in ("fwd_wgmma_kernel", "dkv_wgmma_kernel"):
-                if kern in name:
-                    dt = "bf16" if "bfloat16" in name else "fp16"
-                    d = 128 if "Li128E" in name else 64
-                    cur = f"{kern[:3]} {dt} D{d}"
-        elif cur and "spill stores" in line:
-            w = line.split()
-            out.setdefault(cur, [0, 0, 0])[1:] = [int(w[w.index("spill") - 2]),
-                                                  int(w[-4])]
-        elif cur and "Used" in line and "registers" in line:
-            w = line.split()
-            out.setdefault(cur, [0, 0, 0])[0] = int(w[w.index("registers,")
-                                                      - 1])
-    return {k: tuple(v) for k, v in sorted(out.items())}
 
 
 def main():
@@ -159,12 +140,17 @@ def main():
                 torch, lambda: fa.flash_fwd(q, k, v, False), 5, graph=True),
             "dkv causal": smoke._time(
                 torch, lambda: fa.flash_bwd_dkv(q, k, v, g, lse, delta, None,
-                                                True), 10, graph=True)}
+                                                True), 10, graph=True),
+            "dq causal": smoke._time(
+                torch, lambda: fa.flash_bwd_dq(q, k, v, g, lse, delta, None,
+                                               True), 10, graph=True)}
         print(f"{name}: " + ", ".join(f"{w} {x:.4f} ms"
                                       for w, x in ms.items()), flush=True)
         print(f"{name}: registers, spill store / load bytes: "
               + ", ".join(f"{kern} {r}/{s}/{l}" for kern, (r, s, l)
-                          in registers(lines).items()), flush=True)
+                          in smoke.ptxas_registers(
+                              lines, smoke.PTXAS_KERNELS["flash_attention"])
+                          .items()), flush=True)
     print(smoke.gpu_line())
     return 0
 

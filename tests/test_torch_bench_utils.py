@@ -245,6 +245,8 @@ def test_append_jsonl(tmp_path):
 
 @pytest.mark.parametrize("name,cat", [
     ("triton_stats_kernel_0d1d", "fused_norm (Triton)"),
+    ("void bn_bwd_reduce_kernel<__nv_bfloat16, true>",
+     "fused_norm reduce (CUDA)"),
     ("void cast_scale_kernel<float, __half>", "cast_scale (CUDA)"),
     ("ncclDevKernel_AllReduce_Sum_bf16", "nccl"),
     ("Memcpy DtoD (Device -> Device)", "memcpy / memset"),

@@ -1,7 +1,7 @@
 """One rank of a multi-process gloo world for the port's parity tests.
 
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
-        python tests/torch_dist_worker.py {comm|train|opt|mnist|lm} \\
+        python tests/torch_dist_worker.py {comm|train|opt|mnist|lm|unused} \\
             IN.npz OUT_PREFIX
 
 Reads the stacked per-rank inputs from ``IN.npz`` (leading axis = rank),
@@ -252,6 +252,70 @@ def run_lm(inp, rank):
     return out
 
 
+def run_unused(inp, rank):
+    """Parameters that a rank's backward leaves without a gradient: ``w``
+    always used, ``a`` only where ``use[step, rank, 0]``, ``c`` only where
+    ``use[step, rank, 1]``, ``z`` never; SGD momentum 0.9 through each
+    flavor's multi-node optimizer, plain and double-buffered.  Writes
+    ``{flavor}_db{0|1}/losses`` and ``.../{name}`` ([steps, ...], the
+    parameter after each step), then reduces one backward's gradients
+    through ``comm.allreduce_grad(module)`` (``module_{flavor}/...``)."""
+    out = {}
+    for flavor in ("naive", "flat", "xla"):
+        for db in (False, True):
+            comm = create_communicator(flavor, device="cpu")
+            params = {n: torch.nn.Parameter(torch.tensor(inp[f"p/{n}"]))
+                      for n in ("w", "a", "c", "z")}
+            opt = create_multi_node_optimizer(
+                torch.optim.SGD(params.values(), lr=float(inp["lr"]),
+                                momentum=0.9), comm, double_buffering=db)
+
+            def loss_fn(batch):
+                x, use = batch
+                h = x @ params["w"]
+                loss = (h ** 2).mean()
+                if use[0]:
+                    loss = loss + (torch.tanh(h) * params["a"]).mean()
+                if use[1]:
+                    loss = loss + 0.1 * (torch.tanh(h) * params["c"]).sum()
+                return loss
+
+            step = make_train_step(comm, loss_fn, opt)
+            cfg = f"{flavor}_db{int(db)}"
+            losses, after = [], {n: [] for n in params}
+            for x, use in zip(inp["x"][:, rank], inp["use"][:, rank]):
+                losses.append(float(step((torch.from_numpy(x), use))))
+                for n, p in params.items():
+                    after[n].append(p.detach().clone().numpy())
+            step.finalize()
+            out[f"{cfg}/losses"] = np.asarray(losses)
+            out.update({f"{cfg}/{n}": np.stack(v) for n, v in after.items()})
+        # the module form: comm.allreduce_grad(module) after one backward
+        # that uses ``a`` only where ``use[0, rank, 0]``; writes
+        # ``module_{flavor}/{name}`` (the reduced .grad),
+        # ``.../local/{name}`` (this rank's .grad, zeros for None) and
+        # ``.../none`` (which .grad backward left None)
+        mod = torch.nn.Module()
+        for n in ("w", "a"):
+            setattr(mod, n, torch.nn.Parameter(torch.tensor(inp[f"p/{n}"])))
+        h = torch.from_numpy(inp["x"][0, rank]) @ mod.w
+        loss = (h ** 2).mean()
+        if inp["use"][0, rank, 0]:
+            loss = loss + (torch.tanh(h) * mod.a).mean()
+        loss.backward()
+        key = f"module_{flavor}"
+        out[f"{key}/none"] = np.asarray([mod.w.grad is None,
+                                         mod.a.grad is None])
+        for n, p in mod.named_parameters():
+            out[f"{key}/local/{n}"] = (np.zeros_like(inp[f"p/{n}"])
+                                       if p.grad is None
+                                       else p.grad.numpy().copy())
+        assert comm.allreduce_grad(mod) is mod
+        for n, p in mod.named_parameters():
+            out[f"{key}/{n}"] = p.grad.numpy().copy()
+    return out
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -292,7 +356,8 @@ def main():
     topo = init_distributed(device="cpu")
     inp = dict(np.load(inp_path))
     out = {"comm": run_comm, "train": run_train, "opt": run_opt,
-           "mnist": run_mnist, "lm": run_lm}[mode](inp, topo.rank)
+           "mnist": run_mnist, "lm": run_lm,
+           "unused": run_unused}[mode](inp, topo.rank)
     np.savez(f"{out_prefix}.{topo.rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
