@@ -11,7 +11,10 @@ three matrix products of ResNet-50's first stage (M = 256 * 56 * 56 =
 it times one library call (``library``: ``torch.mm`` with the same output
 type, cuBLAS on the card) and the port's hand-written CUDA kernel
 (:mod:`chainermn_tpu_torch.ops.probe_matmul`) over a sweep of block sizes
-``bm`` (rows of M a block takes), beside the least time the card could take
+``bm`` -- the JAX probe's grid step; the port's persistent kernels split M
+their own way and give the same launch and bits at every ``bm``, which
+only sets the plain version's chunk order (the sweep's rows should agree
+within the timing's noise) -- beside the least time the card could take
 (``bound_ms``: the bytes over its memory rate or the operations over its
 bf16 peak, whichever is larger, from :mod:`..utils.gpu_info`).  Then the 3x3
 64->64 convolution of the same activation, forward and forward+backward, in

@@ -10,12 +10,21 @@ ResNet-50's first stage (M = 256 * 56 * 56 rows) against the library's:
   A[M, k] @ B[k, n]`` summed in float32 and rounded once, for
   ``(k, n) = (64, 256)`` (dgrad) and ``(256, 64)`` (the forward 1x1 conv).
 
-``bm`` keeps the probe's meaning: rows of M a grid step.  The kernels are
-``chainermn_tpu_torch/csrc/probe_matmul.cu`` (design and bound in its
-header), built with ``nvcc`` into ``build/cuda/`` on the first launch and
-bound with ``ctypes`` (:mod:`chainermn_tpu_torch.ops._build`).  wgrad sums
-the ``M / bm`` float32 partials of its blocks in chunk order in a second
-kernel, through a workspace of :func:`wgrad_workspace_bytes`.
+The kernels are ``chainermn_tpu_torch/csrc/probe_matmul.cu`` (design and
+bound in its header): persistent blocks fed by TMA through an mbarrier ring,
+``wgmma`` products, and (rowblock) a TMA-store epilogue.  They are built
+with ``nvcc`` into ``build/cuda/`` on the first launch and bound with
+``ctypes`` (:mod:`chainermn_tpu_torch.ops._build`).  Both cut M into 64-row
+tiles and the tiles into :data:`SPANS` spans balanced within one tile, one
+block each (:func:`probe_geometry`, computed here and checked by the
+kernels' entry points): wgrad's blocks take contiguous spans, rowblock's
+every :data:`SPANS`-th tile, so that the blocks write neighbouring rows.
+wgrad writes one float32 partial per span into a workspace of
+:func:`wgrad_workspace_bytes` and a second kernel adds the partials in a
+fixed order.  ``bm`` keeps the probe's meaning (rows of M a grid step on
+the TPU) in the API, its checks and the plain versions, where it sets the
+chunk order; the kernels do not use it: every ``bm`` gives them the same
+launch and the same bits.
 
 Each wrapper takes its plain version (:func:`wgrad_plain`,
 :func:`rowblock_plain`: the same function in PyTorch ops, chunk by chunk)
@@ -35,13 +44,16 @@ from chainermn_tpu_torch.ops import _build
 __all__ = ["wgrad", "wgrad_plain", "rowblock", "rowblock_plain",
            "agreement", "probe_flops", "probe_bytes", "bound_ms",
            "wgrad_workspace_bytes", "ROWBLOCK_EQUAL", "ROWBLOCK_SHAPES",
-           "STEP_ROWS", "WGRAD_RTOL", "KERNELS", "launch_counts",
-           "reset_launch_counts"]
+           "SPANS", "STEP_ROWS", "WGRAD_RTOL", "KERNELS", "launch_counts",
+           "probe_geometry", "reset_launch_counts", "span_tiles",
+           "strided_tiles"]
 
 # (k, n) of the rowblock kernel: dgrad and the forward 1x1 conv
 ROWBLOCK_SHAPES = ((64, 256), (256, 64))
 WGRAD_SHAPE = (256, 64)  # wgrad's output
-STEP_ROWS = 64           # rows of M a kernel step takes: bm is a multiple
+STEP_ROWS = 64           # rows of M a kernel tile takes: bm is a multiple
+SPANS = 132              # the kernels' spans of M (blocks): a constant, so
+                         # the bits do not depend on the card's SM count
 WGRAD_RTOL = 2e-5        # relative L2 error of wgrad against its plain sum
 ROWBLOCK_EQUAL = 0.99    # share of rowblock's bf16 outputs equal bit for bit
 
@@ -105,22 +117,49 @@ def rowblock_plain(a: torch.Tensor, b: torch.Tensor, bm: int) -> torch.Tensor:
                       for r in range(0, m, bm)])
 
 
+def probe_geometry(m: int) -> tuple:
+    """``(spans, base, extra)``: the kernels' split of M's ``m // 64``
+    tiles into :data:`SPANS` spans, balanced within one tile -- span ``s``
+    holds ``base + 1`` tiles if ``s < extra``, else ``base``; block ``s``
+    of wgrad takes them contiguous (:func:`span_tiles`), block ``s`` of
+    rowblock every ``SPANS``-th tile from tile ``s`` (:func:`strided_tiles`).
+    The same for every bm."""
+    tiles = m // STEP_ROWS
+    return SPANS, tiles // SPANS, tiles % SPANS
+
+
+def span_tiles(geometry: tuple, s: int) -> range:
+    """The tiles wgrad's block ``s`` reduces, in order: span ``s`` of
+    ``geometry``, contiguous (the kernels' ``Share::span``)."""
+    _, base, extra = geometry
+    first = s * base + min(s, extra)
+    return range(first, first + base + (s < extra))
+
+
+def strided_tiles(geometry: tuple, s: int) -> range:
+    """The tiles rowblock's block ``s`` computes, in order: every
+    ``spans``-th tile from tile ``s`` (``Share::strided``), as many as span
+    ``s`` holds."""
+    spans, base, extra = geometry
+    return range(s, spans * base + extra, spans)
+
+
 def _library():
     lib = _build.load_library("probe_matmul")
+    split = [ctypes.c_int, ctypes.c_int64, ctypes.c_int]  # probe_geometry
     lib.cmn_probe_wgrad.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int64, *split, ctypes.c_int, ctypes.c_void_p]
     lib.cmn_probe_rowblock.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, *split, ctypes.c_int, ctypes.c_void_p]
     lib.cmn_probe_wgrad.restype = lib.cmn_probe_rowblock.restype = ctypes.c_int
     return lib
 
 
 def _kernel_input(x: torch.Tensor) -> torch.Tensor:
-    """``x`` when the kernels can read it (16-byte copies need a 16-byte
-    aligned base), else an aligned copy."""
+    """``x`` when the kernels can read it (TMA needs a 16-byte aligned
+    base), else an aligned copy."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
@@ -140,21 +179,22 @@ def _raise_on(err: int, what: str) -> None:
 
 def wgrad(a: torch.Tensor, b: torch.Tensor, bm: int) -> torch.Tensor:
     """``C[256, 64] float32 = a[256, M] @ b[M, 64]`` (bfloat16, contiguous),
-    the reduction over M split into chunks of ``bm`` rows (``bm`` a multiple
-    of 64 dividing M) whose float32 partials are summed in chunk order."""
+    the reduction over M taken in float32 (``bm`` a multiple of 64 dividing
+    M).  The kernel sums :data:`SPANS` float32 partials in a fixed order;
+    the plain version sums chunks of ``bm`` rows in order."""
     m = _check_wgrad(a, b, bm)
     if not _on_cuda(a, "wgrad"):
         return wgrad_plain(a, b, bm)
     a, b = _kernel_input(a), _kernel_input(b)
     out = torch.empty(WGRAD_SHAPE, dtype=torch.float32, device=a.device)
-    work = torch.empty((m // bm,) + WGRAD_SHAPE, dtype=torch.float32,
+    work = torch.empty((SPANS,) + WGRAD_SHAPE, dtype=torch.float32,
                        device=a.device)
     lib = _library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.cmn_probe_wgrad(a.data_ptr(), b.data_ptr(),
-                                  work.data_ptr(), out.data_ptr(), m, bm,
-                                  a.device.index, stream)
+                                  work.data_ptr(), out.data_ptr(), m,
+                                  *probe_geometry(m), a.device.index, stream)
     _raise_on(err, "wgrad")
     wgrad.launches += 1
     return out
@@ -162,8 +202,8 @@ def wgrad(a: torch.Tensor, b: torch.Tensor, bm: int) -> torch.Tensor:
 
 def rowblock(a: torch.Tensor, b: torch.Tensor, bm: int) -> torch.Tensor:
     """``C[M, n] bfloat16 = a[M, k] @ b[k, n]`` (bfloat16, contiguous; (k,
-    n) one of :data:`ROWBLOCK_SHAPES`), summed in float32 and rounded once,
-    one block of the kernel per ``bm`` rows (a multiple of 64 dividing M)."""
+    n) one of :data:`ROWBLOCK_SHAPES`), summed in float32 and rounded once
+    (``bm`` a multiple of 64 dividing M; the plain version's row blocks)."""
     m = _check_rowblock(a, b, bm)
     if not _on_cuda(a, "rowblock"):
         return rowblock_plain(a, b, bm)
@@ -174,8 +214,9 @@ def rowblock(a: torch.Tensor, b: torch.Tensor, bm: int) -> torch.Tensor:
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.cmn_probe_rowblock(a.data_ptr(), b.data_ptr(),
-                                     out.data_ptr(), m, bm, k, n,
-                                     a.device.index, stream)
+                                     out.data_ptr(), m, k, n,
+                                     *probe_geometry(m), a.device.index,
+                                     stream)
     _raise_on(err, "rowblock")
     rowblock.launches += 1
     return out
@@ -255,9 +296,9 @@ def agreement(kind: str, a: torch.Tensor, b: torch.Tensor,
 
 
 def wgrad_workspace_bytes(m: int, bm: int) -> int:
-    """The float32 partials wgrad writes and sums again: ``M / bm`` of
-    ``[256, 64]``."""
-    return (m // bm) * WGRAD_SHAPE[0] * WGRAD_SHAPE[1] * 4
+    """The float32 partials wgrad writes and sums again: one ``[256, 64]``
+    a span, :data:`SPANS` of them whatever ``m`` and ``bm``."""
+    return SPANS * WGRAD_SHAPE[0] * WGRAD_SHAPE[1] * 4
 
 
 KERNELS = (wgrad, rowblock)

@@ -66,7 +66,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     kernels fed by TMA (``fwd_wgmma_kernel``, ``dkv_wgmma_kernel``,
     ``dq_wgmma_kernel``), at D 16 and 32 the mma.sync kernels; float32
     takes the CUDA-core kernels.  The build prints ptxas's registers and
-    spills of the wgmma kernels and of the BatchNorm reduction.
+    spills of the wgmma kernels (flash and probe), the probe's span sum
+    and the BatchNorm reduction.
     Cases: bfloat16 at the LM's attention shape (B 1, T 8192, H 16, D 128,
     causal), then GQA (Hkv 4 and 1), non-causal, Tq != Tkv, T 100, segment
     ids with a padding id (empty rows give 0 and lse 1e30), dropout 0.1
@@ -103,14 +104,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     (``FLASH_MMA_SYNC_MS``: every kernel now runs the wgmma design at the
     LM's shape);
 14. probe kernels: the two CUDA kernels of
-    ``chainermn_tpu_torch.ops.probe_matmul`` (wgrad with its chunk sum,
-    rowblock) against their plain versions at the probe's shapes (M =
-    802,816: wgrad [256, M] @ [M, 64], rowblock (k, n) = (64, 256) and
-    (256, 64)) for every bm of the sweep, bm = M and bm 256: wgrad within
-    a relative L2 error of 2e-5, rowblock 99% equal bit for bit and every
-    element within one bf16 ulp plus the float32 sums' rounding bound;
-    a bm that does not divide M raises; views at storage offsets 8 and 1
-    give the tensor's own bits; two launches give the same bits;
+    ``chainermn_tpu_torch.ops.probe_matmul`` (persistent, TMA-fed wgmma:
+    wgrad with its span sum, rowblock with its TMA-store epilogue) against
+    their plain versions at the probe's shapes (M = 802,816: wgrad
+    [256, M] @ [M, 64], rowblock (k, n) = (64, 256) and (256, 64)) for
+    every bm of the sweep, bm = M and bm 256, and at M with fewer 64-row
+    tiles than the kernels' 132 spans and with a ragged split: wgrad
+    within a relative L2 error of 2e-5, rowblock 99% equal bit for bit and
+    every element within one bf16 ulp plus the float32 sums' rounding
+    bound; every bm gives the same bits; a bm that does not divide M
+    raises; views at storage offsets 8 and 1 give the tensor's own bits;
+    two launches give the same bits;
 15. the probe: ``python -m chainermn_tpu_torch.benchmarks.bench_conv_probe``'s
     ``main`` at its defaults prints its document (library, kernel sweep,
     bound and TFLOP/s of each case; the two cuDNN convolutions); every
@@ -125,7 +129,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     memory;
 17. probe timing: each case at every bm by CUDA-graph replay, eagerly, its
     plain version, ``torch.mm`` with the output type (library) and the
-    bound;
+    bound, and against the mma.sync design's time at that bm
+    (``PROBE_MMA_SYNC_MS``);
 18. summary: a ``{"kernels": [...]}`` line with all ten kernels (the
     BatchNorm rows at batch 32; the rowblock row sums dgrad and fwd1x1 at
     their best bm), the nvidia-smi
@@ -193,7 +198,14 @@ FLASH_MMA_SYNC_MS = {"flash_fwd": 2.2804, "flash_bwd_dkv": 3.6619,
 # kernels whose ptxas report (registers, spills) the build phase prints
 PTXAS_KERNELS = {"flash_attention": ("fwd_wgmma_kernel", "dkv_wgmma_kernel",
                                      "dq_wgmma_kernel"),
-                 "fused_norm": ("bn_bwd_reduce_kernel",)}
+                 "fused_norm": ("bn_bwd_reduce_kernel",),
+                 "probe_matmul": ("wgrad_kernel", "span_sum_kernel",
+                                  "rowblock_kernel")}
+# marks of a mangled kernel name -> its label's tags, the first that match
+# taken out of the name before the next are looked for
+PTXAS_TAGS = (("ILi64ELi256E", "dgrad"), ("ILi256ELi64E", "fwd1x1"),
+              ("Li64E", "D64"), ("Li128E", "D128"), ("Lb1E", "vector"),
+              ("Lb0E", "scalar"))
 LIBRARY = {
     "stats_call": "torch.var_mean(x, 0, correction=0)",
     "apply_call": "F.batch_norm(eval) (no ReLU)",
@@ -216,8 +228,8 @@ def gpu_line():
 def ptxas_registers(lines, kernels):
     """``{label: (registers, spill store bytes, spill load bytes)}`` of
     every instance of ``kernels`` in ptxas -v output ``lines``; the label
-    names the kernel, its type, head dim (Li64E / Li128E) and path (Lb1E:
-    vector, Lb0E: scalar) from the mangled name."""
+    names the kernel, its type where it has one, and its head dim, path or
+    probe case (``PTXAS_TAGS``) from the mangled name."""
     out, cur = {}, None
     for line in lines:
         if "Compiling entry function" in line:
@@ -225,14 +237,14 @@ def ptxas_registers(lines, kernels):
             cur = None
             for kern in kernels:
                 if kern in name:
-                    dt = ("bf16" if "bfloat16" in name else "fp16"
-                          if "__half" in name else "f32")
-                    tags = [kern, dt] + [
-                        tag for mark, tag in (("Li64E", "D64"),
-                                              ("Li128E", "D128"),
-                                              ("Lb1E", "vector"),
-                                              ("Lb0E", "scalar"))
-                        if mark in name]
+                    tags = [kern] + [dt for mark, dt in (
+                        ("bfloat16", "bf16"), ("__half", "fp16"),
+                        ("IfL", "f32")) if mark in name][:1]
+                    rest = name
+                    for mark, tag in PTXAS_TAGS:
+                        if mark in rest:
+                            tags.append(tag)
+                            rest = rest.replace(mark, "")
                     cur = " ".join(tags)
         elif cur and "spill stores" in line:
             w = line.split()
@@ -1072,23 +1084,52 @@ PROBE = {
                  "benchmarks/bench_pallas_conv_probe.py:88"),
 }
 PROBE_SOURCE = "chainermn_tpu_torch/csrc/probe_matmul.cu"
+# CUDA-graph ms of the mma.sync probe kernels at PROBE_M for each bm of the
+# sweep, measured by phase 17 of this script on an NVIDIA H100 80GB HBM3 at
+# 700 W before they were redesigned as persistent wgmma + TMA kernels: the
+# yardstick phase 17 prints each bm's time against
+PROBE_MMA_SYNC_MS = {
+    "wgrad": {1024: 0.2500, 2048: 0.2185, 4096: 0.2328, 8192: 0.2007},
+    "dgrad": {1024: 0.1951, 2048: 0.1975, 4096: 0.2202, 8192: 0.2153},
+    "fwd1x1": {1024: 0.1836, 2048: 0.1986, 4096: 0.2107, 8192: 0.2266}}
+# M of the probe kernels' short and ragged splits in phase 14: fewer 64-row
+# tiles than the kernels' 132 spans, and a tile count that 132 does not
+# divide
+PROBE_EDGE_M = (64 * 5, 64 * 12547)
 
 
 def phase_probe(pm, bcp, torch, dev):
     """Both probe kernels against their plain versions at M = 802,816 for
     every bm of the sweep and each (k, n) family; the edges (bm = M, bm
-    256, a bm that does not divide M, views with a storage offset); then
-    each kernel twice on the same inputs.  Returns the largest max-abs
-    error per wrapper and the case lines."""
+    256, a bm that does not divide M, views with a storage offset, M with
+    fewer tiles than spans and a ragged split); then each kernel twice on
+    the same inputs, and the same bits at every bm (the kernels do not use
+    it).  Returns the largest max-abs error per wrapper and the case
+    lines."""
     errs = {"wgrad": 0.0, "rowblock": 0.0}
     lines = []
+    for m in PROBE_EDGE_M:
+        for name, (sa, sb, kern, _) in bcp.probe_cases(m).items():
+            a, b = bcp.operands(dev, sa, sb)
+            fn, plain = getattr(pm, kern), getattr(pm, f"{kern}_plain")
+            res = pm.agreement(kern, a, b, fn(a, b, 64), plain(a, b, m))
+            errs[kern] = max(errs[kern], res["max_abs_err"])
+            lines.append(f"{name} M={m} ({m // 64} tiles) bm=64: "
+                         f"{json.dumps(res)}")
     for name, (sa, sb, kern, _) in bcp.probe_cases(PROBE_M).items():
         a, b = bcp.operands(dev, sa, sb)
         fn, plain = getattr(pm, kern), getattr(pm, f"{kern}_plain")
+        first = None
         for bm in PROBE_BLOCKS + (PROBE_M, 256):
-            res = pm.agreement(kern, a, b, fn(a, b, bm), plain(a, b, bm))
+            got = fn(a, b, bm)
+            res = pm.agreement(kern, a, b, got, plain(a, b, bm))
             errs[kern] = max(errs[kern], res["max_abs_err"])
             lines.append(f"{name} bm={bm}: {json.dumps(res)}")
+            if first is None:
+                first = got
+            elif not torch.equal(got, first):
+                raise AssertionError(f"{name}: bm {bm} gives other bits "
+                                     f"than bm {PROBE_BLOCKS[0]}")
         try:
             fn(a, b, 3 * 64)
         except ValueError as e:
@@ -1108,8 +1149,9 @@ def phase_probe(pm, bcp, torch, dev):
         if not torch.equal(fn(a, b, 1024), fn(a, b, 1024)):
             raise AssertionError(f"{name}: two launches on the same inputs "
                                  "differ")
-        lines.append(f"{name}: views at storage offsets 8 and 1 give the "
-                     f"bits of the tensor itself; two launches the same bits")
+        lines.append(f"{name}: every bm the same bits; views at storage "
+                     f"offsets 8 and 1 give the bits of the tensor itself; "
+                     f"two launches the same bits")
         del a, b
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1139,10 +1181,13 @@ def phase_probe_timing(pm, bcp, torch, dev, card):
                      plain_ms=_time(torch, lambda: plain(a, b, bm), 3,
                                     graph=True))
             per_bm[bm] = t
+            old = PROBE_MMA_SYNC_MS[name][bm]
             log(f"timing: {kern} {name} bm={bm} (CUDA graph replay): "
                 f"kernel {t['ms']:.4f} ms ({flops / t['ms'] / 1e9:.1f} "
                 f"TFLOP/s, {bound / t['ms']:.3f} of the bound; eager "
-                f"{t['eager_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms")
+                f"{t['eager_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms; "
+                f"mma.sync design {old:.4f} ms ({old / t['ms']:.2f}x this "
+                f"time)")
         best = min(per_bm, key=lambda k: per_bm[k]["ms"])
         out[name] = dict(per_bm[best], bm=best, per_bm=per_bm, kernel=kern,
                          library_ms=lib, bound_ms=bound, bound_by=bound_by,

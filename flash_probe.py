@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time of the wgmma flash-attention kernels goes, on one GPU.
+"""Where the time of the wgmma kernels goes, on one GPU.
 
-    python3 flash_probe.py
+    python3 flash_probe.py          # the flash-attention kernels
+    python3 flash_probe.py probe    # the stage-1 probe GEMMs
 
-Builds ``chainermn_tpu_torch/csrc/flash_attention.cu`` as it is and in a
-few variants made by editing its text (into ``build/flash_probe/``, never
-over the source), one nvcc each with ``-Xptxas -v``, all started together.
-For each build it prints the registers and spills of the bf16/fp16 wgmma
-kernels, then times, at the LM's attention shape (bf16, B 1, T 8192, H 16,
-D 128, q/k/v views of one qkv projection), the forward (causal and not),
-dK/dV and dQ by CUDA-graph replay between CUDA events.
+Builds ``chainermn_tpu_torch/csrc/flash_attention.cu`` (or
+``probe_matmul.cu``) as it is and in a few variants made by editing its
+text (into ``build/flash_probe/``, never over the source), one nvcc each
+with ``-Xptxas -v``, all started together.  For each build it prints the
+registers and spills of the wgmma kernels, then times them by CUDA-graph
+replay between CUDA events: the flash kernels at the LM's attention shape
+(bf16, B 1, T 8192, H 16, D 128, q/k/v views of one qkv projection) --
+the forward (causal and not), dK/dV and dQ; the probe kernels at the
+probe's M = 802,816 -- wgrad, dgrad and fwd1x1, beside ``torch.mm``, and
+for the kernels as they are also by the profiler's kernel durations
+(``utils.trace.device_time``, what the probe's document reports).
 
 The variants leave out one part of the work, so they compute wrong results
 and only say what that part costs:
@@ -19,7 +24,17 @@ and only say what that part costs:
 * ``no_elementwise``: the dK/dV step between the products skipped (P and
   dS = raw S^T and dP^T), and dQ's (dS = raw S);
 * ``no_products``: every wgmma product skipped (TMA ring, barriers and the
-  elementwise work only).
+  elementwise work, or the probe's epilogues, only);
+* ``no_stores`` (probe): rowblock without its TMA stores (loads, products
+  and the staging of the output tile only).
+
+For the probe it also builds the alternatives its design chose against
+(right results, checked like ``as_is``): ``contiguous_rows`` (rowblock's
+blocks on contiguous spans of tiles), ``box_stores`` (each output tile
+stored as 64-column 2-D boxes), ``stores_normal`` (no evict-first policy
+on rowblock's stores), ``dgrad_loads_first`` (evict-first A loads for
+dgrad too), ``wgrad_no_promotion`` (no 256-byte L2 promotion of wgrad's
+loads), ``wgrad_loads_normal`` (no evict-first policy on them).
 
 Needs one CUDA card and nvcc; prints the card's name and power limit last.
 """
@@ -43,8 +58,8 @@ def _cut(src, old, new):
     return src.replace(old, new)
 
 
-def variants(src):
-    """``{name: source}``."""
+def flash_variants(src):
+    """``{name: source}`` of ``flash_attention.cu``."""
     no_softmax = _cut(
         _cut(src, "      softmax(0, alpha);  // O is still 0: nothing to "
              "rescale\n", "      alpha[0] = alpha[1] = 1.0f;\n"),
@@ -79,6 +94,59 @@ def variants(src):
             "no_elementwise": no_elementwise, "no_products": no_products}
 
 
+def probe_variants(src):
+    """``{name: source}`` of ``probe_matmul.cu``: the parts left out, then
+    the design's alternatives (which compute right results)."""
+    no_products = src
+    for old in (
+            "        wg_mma(d[mi], kmajor<kWgradM>(a, cw * 128 + mi * 64, "
+            "kk),\n               mnmajor<kTile>(b, kk), kk > 0);\n",
+            "      wg_mma(acc, kmajor<kTile>(a, 0, kk), mnmajor<K>(b, kk), "
+            "kk > 0);\n"):
+        no_products = _cut(no_products, old, "")
+    store = ("      tma_store(&tm_c, cs, static_cast<int>(sp.strided(t) * "
+             "kTile),\n                evict_first());\n")
+    no_stores = _cut(src, store, "")
+    # rowblock's blocks on contiguous spans, as wgrad's
+    contiguous = _cut(src, "sp.strided(t)", "sp.span(t)")
+    # the output tile stored as four 2-D boxes of 64 columns
+    box_stores = _cut(_cut(_cut(
+        src, "        const int line = (warp * 16 + g + 8 * h) * (N / 64) "
+        "+ j / 8;\n",
+        "        const int line = (j / 8) * kTile + warp * 16 + g + 8 * h;\n"),
+        "  if (err == cudaSuccess) err = tile_map(&mc, c, m_total, N);\n",
+        "  if (err == cudaSuccess)\n"
+        "    err = tensor_map(&mc, c, m_total, N, kTile, 64, promo);\n"),
+        store,
+        "      for (int j = 0; j < N / 64; ++j)\n"
+        "        asm volatile(\n"
+        "            \"cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+        ".L2::cache_hint \"\n"
+        "            \"[%0, {%2, %3}], [%1], %4;\\n\" ::\"l\"("
+        "reinterpret_cast<uint64_t>(&tm_c)),\n"
+        "            \"r\"(smem_addr(cs + j * kTile * 128)), \"r\"(64 * j),\n"
+        "            \"r\"(static_cast<int>(sp.strided(t) * kTile)),\n"
+        "            \"l\"(evict_first()) : \"memory\");\n")
+    stores_normal = _cut(src, "kTile),\n                evict_first());",
+                         "kTile),\n                evict_normal());")
+    dgrad_loads_first = _cut(
+        src, "K == 256 ? evict_first() : evict_normal()", "evict_first()")
+    wgrad_no_promotion = _cut(
+        src, "  constexpr CUtensorMapL2promotion promo = "
+        "CU_TENSOR_MAP_L2_PROMOTION_L2_256B;\n  CUtensorMap ma, mb;",
+        "  constexpr CUtensorMapL2promotion promo = "
+        "CU_TENSOR_MAP_L2_PROMOTION_NONE;\n  CUtensorMap ma, mb;")
+    wgrad_loads_normal = _cut(
+        src, "      const uint64_t pol = evict_first();\n      unsigned char*",
+        "      const uint64_t pol = evict_normal();\n      unsigned char*")
+    return {"as_is": src, "no_products": no_products, "no_stores": no_stores,
+            "contiguous_rows": contiguous, "box_stores": box_stores,
+            "stores_normal": stores_normal,
+            "dgrad_loads_first": dgrad_loads_first,
+            "wgrad_no_promotion": wgrad_no_promotion,
+            "wgrad_loads_normal": wgrad_loads_normal}
+
+
 def build(build_mod, name, src):
     """Compile one variant; returns (name, library path, ptxas lines)."""
     cu = os.path.join(OUT, f"{name}.cu")
@@ -94,23 +162,30 @@ def build(build_mod, name, src):
     return name, so, (proc.stdout + proc.stderr).splitlines()
 
 
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        print("flash_probe: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, HERE)
-    build_mod = importlib.import_module("chainermn_tpu_torch.ops._build")
-    fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
-    smoke = importlib.import_module("chip_smoke")
+def build_all(build_mod, source, variants):
+    """Every variant of ``csrc/{source}.cu``, built in parallel."""
     os.makedirs(OUT, exist_ok=True)
-    src = (build_mod.CSRC / "flash_attention.cu").read_text()
+    src = (build_mod.CSRC / f"{source}.cu").read_text()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(4) as ex:
-        built = list(ex.map(lambda kv: build(build_mod, *kv),
+        built = list(ex.map(lambda kv: build(build_mod, f"{source}_{kv[0]}",
+                                             kv[1]),
                             variants(src).items()))
     print(f"builds: {time.perf_counter() - t0:.1f} s", flush=True)
+    return built
 
+
+def print_registers(smoke, source, name, lines):
+    print(f"{name}: registers, spill store / load bytes: "
+          + ", ".join(f"{kern} {r}/{s}/{l}" for kern, (r, s, l)
+                      in smoke.ptxas_registers(
+                          lines, smoke.PTXAS_KERNELS[source]).items()),
+          flush=True)
+
+
+def flash(torch, build_mod, smoke):
+    fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+    built = build_all(build_mod, "flash_attention", flash_variants)
     dev = torch.device("cuda", 0)
     b, t, h, d = 1, smoke.LM_T, smoke.LM["n_heads"], \
         smoke.LM["d_model"] // smoke.LM["n_heads"]
@@ -123,7 +198,7 @@ def main():
     lse = delta = None
     for name, so, lines in built:
         build_mod._LIBS["flash_attention"] = ctypes.CDLL(so)
-        if name == "as_is":
+        if name.endswith("as_is"):
             res = smoke.flash_case(fa, torch, dev, torch.bfloat16, 2, 1000,
                                    1000, 16, 2, 128, True, seed=3)
             worst = max(r for _, r in res.values())
@@ -146,11 +221,54 @@ def main():
                                                True), 10, graph=True)}
         print(f"{name}: " + ", ".join(f"{w} {x:.4f} ms"
                                       for w, x in ms.items()), flush=True)
-        print(f"{name}: registers, spill store / load bytes: "
-              + ", ".join(f"{kern} {r}/{s}/{l}" for kern, (r, s, l)
-                          in smoke.ptxas_registers(
-                              lines, smoke.PTXAS_KERNELS["flash_attention"])
-                          .items()), flush=True)
+        print_registers(smoke, "flash_attention", name, lines)
+
+
+def probe(torch, build_mod, smoke):
+    pm = importlib.import_module("chainermn_tpu_torch.ops.probe_matmul")
+    from chainermn_tpu_torch.benchmarks import bench_conv_probe as bcp
+    from chainermn_tpu_torch.utils.trace import device_time
+    built = build_all(build_mod, "probe_matmul", probe_variants)
+    dev = torch.device("cuda", 0)
+    cases = {name: (bcp.operands(dev, sa, sb), kern, out_dtype)
+             for name, (sa, sb, kern, out_dtype)
+             in bcp.probe_cases(smoke.PROBE_M).items()}
+    for name, so, lines in built:
+        build_mod._LIBS["probe_matmul"] = ctypes.CDLL(so)
+        ms = {}
+        for case, ((a, b), kern, out_dtype) in cases.items():
+            fn = getattr(pm, kern)
+
+            def lib():
+                return bcp.library_product(a, b, out_dtype)
+
+            def kernel():
+                return fn(a, b, 1024)
+            if not name.startswith("probe_matmul_no_"):  # right results
+                pm.agreement(kern, a, b, kernel(),
+                             getattr(pm, f"{kern}_plain")(a, b, 1024))
+            if name.endswith("as_is"):
+                ms[f"{case} torch.mm"] = smoke._time(torch, lib, 20,
+                                                     graph=True)
+                # the same two by the profiler's kernel durations
+                ms[f"{case} torch.mm (profiler)"] = device_time(lib, ())
+                ms[f"{case} (profiler)"] = device_time(kernel, ())
+            ms[case] = smoke._time(torch, kernel, 20, graph=True)
+        print(f"{name}: " + ", ".join(f"{w} {x:.4f} ms"
+                                      for w, x in ms.items()), flush=True)
+        print_registers(smoke, "probe_matmul", name, lines)
+
+
+def main(argv=None):
+    import torch
+    argv = sys.argv[1:] if argv is None else argv
+    if not torch.cuda.is_available():
+        print("flash_probe: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    build_mod = importlib.import_module("chainermn_tpu_torch.ops._build")
+    smoke = importlib.import_module("chip_smoke")
+    (probe if argv[:1] == ["probe"] else flash)(torch, build_mod, smoke)
     print(smoke.gpu_line())
     return 0
 
