@@ -9,11 +9,11 @@ normalization allows:
   forward  (eval):  apply pass only
   backward:         reduce pass (read x, g)  +  dx pass (read x, g, write dx)
 
-Four kernels do those passes on the GPU: three in Triton and the backward
-reduction in CUDA C++.  Each is bound by device memory: it does at most
-~12 float32 operations per element, while an H100 can do ~20 float32
-operations (67 TFLOP/s outside the tensor cores) in the time it moves one
-byte (3.35 TB/s).  Its least time is therefore the bytes
+Four kernels do those passes on the GPU: the two elementwise passes in
+Triton and the two reductions in CUDA C++.  Each is bound by device memory:
+it does at most ~12 float32 operations per element, while an H100 can do
+~20 float32 operations (67 TFLOP/s outside the tensor cores) in the time it
+moves one byte (3.35 TB/s).  Its least time is therefore the bytes
 :func:`fused_norm_traffic_bytes` prices for its pass, over 3.35 TB/s.
 
 ===============  ===============================  =========================
@@ -28,25 +28,28 @@ bwd_dx_call      ``_bwd_dx_kernel``               x, g, dx once + 6 vectors
 
 Design, against that bound:
 
-* A Triton program works on a ``BLOCK_R x BLOCK_C`` tile whose rows are
-  runs of ``BLOCK_C`` neighbouring channels, so every load is a coalesced
-  run of the channels-last layout (the whole tile is one contiguous run
-  when ``C <= BLOCK_C``).  The per-channel vectors are a few KiB and stay
-  in L2.
+* A Triton program (apply, dx) works on a ``BLOCK_R x BLOCK_C`` tile whose
+  rows are runs of ``BLOCK_C`` neighbouring channels, so every load is a
+  coalesced run of the channels-last layout (the whole tile is one
+  contiguous run when ``C <= BLOCK_C``).  The per-channel vectors are a few
+  KiB and stay in L2.
 * The TPU kernels carry their sums across a sequential grid in scratch
-  memory.  GPU blocks run in parallel and in no order, so the reductions
-  are taken in a fixed order from float32 partial sums, with no atomics on
-  the sums: a rerun gives the same bits.  The stats pass is two Triton
-  launches: a grid of (row chunks x channel blocks), about four waves on
-  132 SMs, writes a ``[2, n_chunks, C]`` workspace, and a small finalize
-  kernel adds the chunks.  The backward reduction is one CUDA launch
-  (``chainermn_tpu_torch/csrc/fused_norm.cu``, design in its header): its
-  blocks stream x and g through a ``cp.async`` ring, write their partials,
-  and the last block of each channel tile to finish (a ticket counter)
-  adds them, spread over all its threads.  It is CUDA because the Triton
-  version's finalize was one 4-warp program per 128 channels walking ~500
-  chunks serially, a latency-bound tail on every boundary, and Triton
-  expresses neither the in-kernel finalize nor the explicit copy ring.
+  memory.  GPU blocks run in parallel and in no order, so the two
+  reductions (``chainermn_tpu_torch/csrc/fused_norm.cu``, design in its
+  header) take their sums in a fixed order from float32 partials, with no
+  atomics on the sums: a rerun gives the same bits.  Each is one launch
+  that gathers its partials itself.  The statistics: one cooperative
+  launch of at most one block an SM; a block copies a span of whole rows
+  through a ring of 1-D bulk asynchronous copies (the TMA engine) into
+  shared memory, writes a ``[2, C]`` partial, and after a grid-wide
+  barrier every block adds the partials of its slice of the channels.  The
+  backward reduction: blocks stream x and g through a ``cp.async`` ring,
+  write their partials, and the last block of each channel tile to finish
+  (a ticket counter, zeroed by a memset on the call's stream) adds them.
+  Both replaced Triton designs whose finalize was one 4-warp program per
+  128 channels walking ~500 chunks serially, a latency-bound tail on every
+  boundary; Triton expresses neither the in-kernel finalize nor the copy
+  ring.
 * All arithmetic is float32 whatever the activation dtype; the variance is
   the fast form ``mean(x^2) - mean^2`` clamped at 0, as flax computes it.
 * Ragged edges are masked, so any ``R`` and ``C`` work (the TPU kernels
@@ -60,12 +63,14 @@ wrapper counts its launches in its ``launches`` attribute.
 Triton is imported, and its kernels built, on the first launch, with
 Triton's cache under ``build/triton`` of the checkout unless
 ``TRITON_CACHE_DIR`` says otherwise; the CUDA source is built with ``nvcc``
-into ``build/cuda`` on its first launch (:mod:`chainermn_tpu_torch.ops.
-_build`).  The module itself imports without either.
+into ``build/cuda`` on the first launch of either reduction
+(:mod:`chainermn_tpu_torch.ops._build`).  The module itself imports
+without either.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 from pathlib import Path
@@ -87,6 +92,7 @@ __all__ = [
     "apply_call",
     "bwd_reduce_call",
     "bwd_dx_call",
+    "stats_geometry",
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",
@@ -100,15 +106,16 @@ tl = None
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _TILE = 4096            # elements per program tile
 _MAX_BLOCK_C = 128      # channels per tile row (256 B of bf16)
-_WAVES = 4 * 132        # reduction programs: about four waves on an H100
-_FINAL_BLOCK_K = 32     # chunks the finalize kernel adds per iteration
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "triton"
 _K: dict = {}
-# the CUDA reduction (csrc/fused_norm.cu): dtype codes, block size, and
-# its per-device state (entry point, SM count)
+# the CUDA reductions (csrc/fused_norm.cu): dtype codes, block size, the
+# statistics' ring stages (kStatsStages of kStageBytes), and the per-device
+# state (entry points, SM count)
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_REDUCE_THREADS = 256
-_REDUCE: dict = {}
+_THREADS = 256
+_STATS_STAGES = 6
+_STAGE_BYTES = 16384
+_CUDA: dict = {}
 
 
 def _kernels() -> dict:
@@ -121,49 +128,6 @@ def _kernels() -> dict:
     import triton as _triton
     import triton.language as _tl
     triton, tl = _triton, _tl
-
-    @triton.jit
-    def stats_kernel(x_ptr, ws_ptr, R, C, rows_per_chunk,
-                     BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        # partial Σx and Σx² of one row chunk, for BLOCK_C channels
-        chunk = tl.program_id(0)
-        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        r_lo = chunk * rows_per_chunk
-        r_hi = tl.minimum(r_lo + rows_per_chunk, R)
-        s = tl.zeros((BLOCK_R, BLOCK_C), tl.float32)
-        sq = tl.zeros((BLOCK_R, BLOCK_C), tl.float32)
-        for r0 in range(r_lo, r_hi, BLOCK_R):
-            rows = r0 + tl.arange(0, BLOCK_R)
-            m = (rows < r_hi)[:, None] & cmask[None, :]
-            offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
-            x = tl.load(x_ptr + offs, mask=m, other=0.0).to(tl.float32)
-            s += x
-            sq += x * x
-        out = chunk * C + cols
-        tl.store(ws_ptr + out, tl.sum(s, axis=0), mask=cmask)
-        tl.store(ws_ptr + tl.num_programs(0) * C + out, tl.sum(sq, axis=0),
-                 mask=cmask)
-
-    @triton.jit
-    def finalize_kernel(ws_ptr, mean_ptr, var_ptr, n_chunks, C, R,
-                        BLOCK_K: tl.constexpr, BLOCK_C: tl.constexpr):
-        # add the [2, n_chunks, C] partials over chunks in a fixed order
-        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        sa = tl.zeros((BLOCK_K, BLOCK_C), tl.float32)
-        sb = tl.zeros((BLOCK_K, BLOCK_C), tl.float32)
-        for k0 in range(0, n_chunks, BLOCK_K):
-            ks = k0 + tl.arange(0, BLOCK_K)
-            m = (ks < n_chunks)[:, None] & cmask[None, :]
-            offs = ks[:, None] * C + cols[None, :]
-            sa += tl.load(ws_ptr + offs, mask=m, other=0.0)
-            sb += tl.load(ws_ptr + n_chunks * C + offs, mask=m, other=0.0)
-        # mean and fast variance, clamped at 0 (flax's form)
-        mean = tl.sum(sa, axis=0) / R
-        var = tl.maximum(tl.sum(sb, axis=0) / R - mean * mean, 0.0)
-        tl.store(mean_ptr + cols, mean, mask=cmask)
-        tl.store(var_ptr + cols, var, mask=cmask)
 
     @triton.jit
     def apply_kernel(x_ptr, mean_ptr, invstd_ptr, scale_ptr, bias_ptr, y_ptr,
@@ -216,8 +180,7 @@ def _kernels() -> dict:
             dx = k[None, :] * dz
         tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=m)
 
-    _K.update(stats=stats_kernel, finalize=finalize_kernel,
-              apply=apply_kernel, bwd_dx=bwd_dx_kernel)
+    _K.update(apply=apply_kernel, bwd_dx=bwd_dx_kernel)
     return _K
 
 
@@ -234,15 +197,6 @@ def _tile(c: int):
     """(BLOCK_R, BLOCK_C): BLOCK_C channels per tile row, _TILE elements."""
     bc = min(_MAX_BLOCK_C, 1 << max(0, (c - 1).bit_length()))
     return _TILE // bc, bc
-
-
-def _chunks(r: int, br: int, grid_c: int):
-    """(rows_per_chunk, n_chunks) for the two-stage reductions: about
-    ``_WAVES`` programs in all, each walking whole row tiles."""
-    row_blocks = _cdiv(r, br)
-    want = max(1, min(row_blocks, _cdiv(_WAVES, grid_c)))
-    rows_per_chunk = _cdiv(row_blocks, want) * br
-    return rows_per_chunk, _cdiv(r, rows_per_chunk)
 
 
 def _on_gpu(name: str, x: torch.Tensor) -> bool:
@@ -281,13 +235,6 @@ def _check_vecs(name: str, x2: torch.Tensor, *vs: torch.Tensor) -> None:
                 f"{v.device}")
 
 
-def _finalize(ws, mean, var, n_chunks, c, r):
-    bc = min(_MAX_BLOCK_C, 1 << max(0, (c - 1).bit_length()))
-    _kernels()["finalize"][(_cdiv(c, bc),)](
-        ws, mean, var, n_chunks, c, r, BLOCK_K=_FINAL_BLOCK_K, BLOCK_C=bc,
-        num_warps=4)
-
-
 # ---------------------------------------------------------------------------
 # the four wrappers and their plain versions
 # ---------------------------------------------------------------------------
@@ -303,22 +250,66 @@ def stats_plain(x2):
     return mean, var
 
 
+StatsGeometry = collections.namedtuple(
+    "StatsGeometry", "vec gpr rpi tile_c tiles tile_blocks spans span_rows "
+    "stage_rows smem_bytes")
+
+
+def stats_geometry(r: int, c: int, itemsize: int, vec: bool,
+                   sms: int) -> StatsGeometry:
+    """How ``cmn_bn_stats`` cuts an ``[R, C]`` activation of ``itemsize``
+    bytes an element: ``gpr`` threads a row of a channel tile of ``tile_c``
+    channels (8 a thread on the vector path, up to 2048 a tile; 1 a thread
+    and 256 a tile on the scalar path), ``rpi`` rows a step; ``tiles``
+    tiles over ``tile_blocks`` blocks times ``spans`` spans of
+    ``span_rows`` rows (a multiple of rpi), at most ``sms`` blocks in all
+    (one an SM, all resident at once); ring stages of ``stage_rows`` rows
+    (whole row steps within ``_STAGE_BYTES``); ``smem_bytes`` of dynamic
+    shared memory a block (the kernel's ``StatsSmem``)."""
+    epc = 8 if vec else 1
+    gpr = min(_cdiv(c, epc), _THREADS)
+    rpi = _THREADS // gpr
+    tile_c = gpr * epc
+    tiles = _cdiv(c, tile_c)
+    tile_blocks = min(tiles, sms)
+    spans = max(1, min(sms // tile_blocks, _cdiv(r, rpi)))
+    span_rows = _cdiv(_cdiv(r, spans), rpi) * rpi
+    spans = _cdiv(r, span_rows)
+    if vec:
+        stage_rows = max(rpi, _STAGE_BYTES // (tile_c * itemsize) // rpi
+                         * rpi)
+        ring = _STATS_STAGES * (_STAGE_BYTES + 8)
+    else:
+        stage_rows, ring = rpi, 0
+    return StatsGeometry(vec, gpr, rpi, tile_c, tiles, tile_blocks, spans,
+                         span_rows, stage_rows,
+                         ring + 2 * 8 * _THREADS * 4)
+
+
 def stats_call(x2):
-    """Batch mean and variance ([C] float32 each) of ``x2`` [R, C]."""
+    """Batch mean and variance ([C] float32 each) of ``x2`` [R, C].  On the
+    card: one cooperative launch of the CUDA ``cmn_bn_stats``
+    (``csrc/fused_norm.cu``), which writes its partials into the call's own
+    workspace and adds them after a grid-wide barrier."""
     _check_rows("stats_call", x2)
     if not _on_gpu("stats_call", x2):
         return stats_plain(x2)
-    k = _kernels()
     r, c = x2.shape
-    br, bc = _tile(c)
-    grid_c = _cdiv(c, bc)
-    rows_per_chunk, n_chunks = _chunks(r, br, grid_c)
-    ws = torch.empty((2, n_chunks, c), dtype=torch.float32, device=x2.device)
-    mean = torch.empty((c,), dtype=torch.float32, device=x2.device)
+    dev = x2.device
+    lib, sms = _cuda_state(dev)
+    geo = stats_geometry(r, c, x2.element_size(),
+                         c % 8 == 0 and x2.data_ptr() % 16 == 0, sms)
+    ws = torch.empty((geo.spans, 2, c), dtype=torch.float32, device=dev)
+    mean = torch.empty((c,), dtype=torch.float32, device=dev)
     var = torch.empty_like(mean)
-    k["stats"][(n_chunks, grid_c)](x2, ws, r, c, rows_per_chunk,
-                                   BLOCK_R=br, BLOCK_C=bc, num_warps=8)
-    _finalize(ws, mean, var, n_chunks, c, r)
+    err = lib.cmn_bn_stats(
+        x2.data_ptr(), mean.data_ptr(), var.data_ptr(), ws.data_ptr(), r, c,
+        geo.span_rows, geo.gpr, geo.rpi, geo.stage_rows, geo.tile_blocks,
+        int(geo.vec), _CODES[x2.dtype], dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"stats_call: kernel launch failed with CUDA "
+                           f"error {err}")
     stats_call.launches += 1
     return mean, var
 
@@ -373,7 +364,7 @@ def _reduce_geometry(r: int, c: int, vec: bool, sms: int):
     all, each walking at least 8 row steps."""
     epc, groups = (8, 16) if vec else (1, 128)
     tpr = min(_cdiv(c, epc), groups)
-    rpi = _REDUCE_THREADS // tpr
+    rpi = _THREADS // tpr
     tiles = _cdiv(c, tpr * epc)
     want = max(1, _cdiv(sms, tiles))
     n_chunks = max(1, min(want, r // (8 * rpi)))
@@ -381,17 +372,27 @@ def _reduce_geometry(r: int, c: int, vec: bool, sms: int):
     return tpr, rpi, rows
 
 
-def _reduce_state(dev: torch.device):
-    """``(entry point, SM count)`` of the CUDA reduction on ``dev``, made
-    at its first call there."""
-    st = _REDUCE.get(dev)
+def declare_entries(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the argument and result types of the two C entry points of a
+    library built from ``csrc/fused_norm.cu``; returns it."""
+    lib.cmn_bn_bwd_reduce.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p])
+    lib.cmn_bn_stats.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 7
+        + [ctypes.c_void_p])
+    lib.cmn_bn_bwd_reduce.restype = lib.cmn_bn_stats.restype = ctypes.c_int
+    return lib
+
+
+def _cuda_state(dev: torch.device):
+    """``(library, SM count)`` of the CUDA reductions on ``dev``, made at
+    the first call there."""
+    st = _CUDA.get(dev)
     if st is None:
-        fn = _build.load_library("fused_norm").cmn_bn_bwd_reduce
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        st = _REDUCE[dev] = (
-            fn, torch.cuda.get_device_properties(dev).multi_processor_count)
+        st = _CUDA[dev] = (
+            declare_entries(_build.load_library("fused_norm")),
+            torch.cuda.get_device_properties(dev).multi_processor_count)
     return st
 
 
@@ -410,7 +411,7 @@ def bwd_reduce_call(x2, g2, mean, invstd, scale, bias, relu):
                          f"{g2.dtype} must have one dtype on the card")
     r, c = x2.shape
     dev = x2.device
-    fn, sms = _reduce_state(dev)
+    lib, sms = _cuda_state(dev)
     vec = (c % 8 == 0 and x2.data_ptr() % 16 == 0
            and g2.data_ptr() % 16 == 0)
     tpr, rpi, rows = _reduce_geometry(r, c, vec, sms)
@@ -421,10 +422,11 @@ def bwd_reduce_call(x2, g2, mean, invstd, scale, bias, relu):
     out = torch.empty((2, c), dtype=torch.float32, device=dev)
     vecs = (ctypes.c_void_p * 4)(mean.data_ptr(), invstd.data_ptr(),
                                  scale.data_ptr(), bias.data_ptr())
-    err = fn(x2.data_ptr(), g2.data_ptr(), vecs, out.data_ptr(),
-             ws.data_ptr(), ws.data_ptr() + 4 * partials, r, c, rows, tpr,
-             rpi, int(vec), int(bool(relu)), _CODES[x2.dtype], dev.index,
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.cmn_bn_bwd_reduce(
+        x2.data_ptr(), g2.data_ptr(), vecs, out.data_ptr(), ws.data_ptr(),
+        ws.data_ptr() + 4 * partials, r, c, rows, tpr, rpi, int(vec),
+        int(bool(relu)), _CODES[x2.dtype], dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"bwd_reduce_call: kernel launch failed with "
                            f"CUDA error {err}")

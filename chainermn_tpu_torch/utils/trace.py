@@ -64,8 +64,10 @@ PAD_S = 0.05            # host seconds at each edge of the timed window
 captures = collections.Counter()
 
 # kernel-name fragments -> category of the profile breakdowns (first match
-# wins; the rest is "other")
+# wins, so the CUDA statistics kernel, whose name holds "stats_kernel",
+# comes before the Triton fragments; the rest is "other")
 KERNEL_CATEGORIES = (
+    ("fused_norm stats (CUDA)", ("bn_stats",)),
     ("fused_norm reduce (CUDA)", ("bn_bwd_reduce",)),
     ("fused_norm (Triton)", ("stats_kernel", "apply_kernel",
                              "bwd_dx_kernel", "finalize_kernel")),

@@ -10,22 +10,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``chainermn_tpu_torch.utils.gpu_info`` that every bound below uses
    (``peak_assumed=True`` when the card is not in its table);
 2. kernels: each kernel of ``chainermn_tpu_torch.ops.fused_norm`` (the
-   Triton stats, apply and dx passes, built into ``build/triton`` on first
-   use, and the CUDA backward reduction ``cmn_bn_bwd_reduce``, built with
-   nvcc into ``build/cuda`` at the start) against its plain PyTorch
-   version, at ResNet-50 batch-32 boundary shapes and one ragged row
-   count, in bfloat16 and float32, then at the 12 distinct shapes of the
-   bench's 53 boundaries (batch 256, phase 16: [3211264, 64] down to
-   [12544, 2048]) in bfloat16; train/eval, ReLU on/off;
+   Triton apply and dx passes, built into ``build/triton`` on first use,
+   and the two CUDA reductions -- the statistics ``cmn_bn_stats``, one
+   cooperative launch fed by bulk copies with its finalize behind a grid
+   barrier, and the backward ``cmn_bn_bwd_reduce`` -- built with nvcc into
+   ``build/cuda`` at the start) against its plain PyTorch version, at
+   ResNet-50 batch-32 boundary shapes and one ragged row count, in
+   bfloat16 and float32, then at the 12 distinct shapes of the bench's 53
+   boundaries (batch 256, phase 16: [3211264, 64] down to [12544, 2048])
+   in bfloat16; train/eval, ReLU on/off; then the statistics' edges: C 13,
+   100, 2050 and 4104 (channel tiles), R 1 and 7, fp16, a view one element
+   into its buffer (the scalar path), each within rtol/atol 1e-4 of
+   ``stats_plain``, and data of mean 100 and standard deviation 1 against
+   a float64 reference (mean within 1e-5 relative; var within 1e-5 of
+   mean(x^2), the fast variance's cancellation);
 3. the slice: ``python -m chainermn_tpu_torch.examples.train_imagenet``'s
    ``main`` -- an NCCL world of one, ``create_communicator("xla")``,
    ResNet-50 at full width (224x224, batch 32, bfloat16, random weights
    from seed 0) on synthetic data, SGD momentum through
    ``create_multi_node_optimizer`` and ``StatefulUpdater`` -- for
    ``STEPS`` steps (images/sec over those after ``WARMUP``), then
-   ``PROFILED`` more under ``torch.profiler`` (device time by category);
+   ``PROFILED`` more under ``torch.profiler`` (device time by category,
+   which must hold the CUDA statistics kernel's);
    every kernel's launch count must be 53 per step;
-4. timing: each kernel over the 53 boundaries of one bfloat16 step, at
+4. timing: each BatchNorm kernel (the CUDA statistics and reduction, the
+   Triton apply and dx) over the 53 boundaries of one bfloat16 step, at
    batch 32 (phase 3's) and at the bench's batch 256 (phase 16's),
    captured into a CUDA graph and replayed between CUDA events (device
    time; the eager time with the host's launch path is printed too),
@@ -67,7 +76,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     ``dq_wgmma_kernel``), at D 16 and 32 the mma.sync kernels; float32
     takes the CUDA-core kernels.  The build prints ptxas's registers and
     spills of the wgmma kernels (flash and probe), the probe's span sum
-    and the BatchNorm reduction.
+    and the two BatchNorm reductions (statistics and backward).
     Cases: bfloat16 at the LM's attention shape (B 1, T 8192, H 16, D 128,
     causal), then GQA (Hkv 4 and 1), non-causal, Tq != Tkv, T 100, segment
     ids with a padding id (empty rows give 0 and lse 1e30), dropout 0.1
@@ -132,8 +141,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     bound, and against the mma.sync design's time at that bm
     (``PROBE_MMA_SYNC_MS``);
 18. summary: a ``{"kernels": [...]}`` line with all ten kernels (the
-    BatchNorm rows at batch 32; the rowblock row sums dgrad and fwd1x1 at
-    their best bm), the nvidia-smi
+    BatchNorm rows at batch 32 -- the statistics now the cooperative CUDA
+    kernel, route "cuda"; the rowblock row sums dgrad and fwd1x1 at their
+    best bm; the kernel list marks the kernels redesigned since their first
+    port), the nvidia-smi
     line, then ``{"ok": true, "device": {...}}`` as the last line.
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
@@ -158,7 +169,7 @@ BN_CUDA_SOURCE = "chainermn_tpu_torch/csrc/fused_norm.cu"
 # route, source)
 KERNELS = {
     "stats_call": ("fused_norm.stats", "chainermn_tpu/ops/fused_norm.py:78",
-                   "fwd_stats", 3, "triton", SOURCE),
+                   "fwd_stats", 3, "cuda", BN_CUDA_SOURCE),
     "apply_call": ("fused_norm.apply", "chainermn_tpu/ops/fused_norm.py:97",
                    "fwd_apply", 4, "triton", SOURCE),
     "bwd_reduce_call": ("fused_norm.bwd_reduce",
@@ -198,7 +209,7 @@ FLASH_MMA_SYNC_MS = {"flash_fwd": 2.2804, "flash_bwd_dkv": 3.6619,
 # kernels whose ptxas report (registers, spills) the build phase prints
 PTXAS_KERNELS = {"flash_attention": ("fwd_wgmma_kernel", "dkv_wgmma_kernel",
                                      "dq_wgmma_kernel"),
-                 "fused_norm": ("bn_bwd_reduce_kernel",),
+                 "fused_norm": ("bn_stats_kernel", "bn_bwd_reduce_kernel"),
                  "probe_matmul": ("wgrad_kernel", "span_sum_kernel",
                                   "rowblock_kernel")}
 # marks of a mangled kernel name -> its label's tags, the first that match
@@ -206,6 +217,13 @@ PTXAS_KERNELS = {"flash_attention": ("fwd_wgmma_kernel", "dkv_wgmma_kernel",
 PTXAS_TAGS = (("ILi64ELi256E", "dgrad"), ("ILi256ELi64E", "fwd1x1"),
               ("Li64E", "D64"), ("Li128E", "D128"), ("Lb1E", "vector"),
               ("Lb0E", "scalar"))
+# kernels redesigned for Hopper since their first port (PERF.md section 6
+# says when), marked in the summary's kernel list
+REDESIGNED = {"fused_norm.stats", "fused_norm.bwd_reduce", "flash.fwd",
+              "flash.bwd_dkv", "flash.bwd_dq", "probe.wgrad",
+              "probe.rowblock"}
+# the profile category of the CUDA statistics kernel (utils/trace.py)
+STATS_CATEGORY = "fused_norm stats (CUDA)"
 LIBRARY = {
     "stats_call": "torch.var_mean(x, 0, correction=0)",
     "apply_call": "F.batch_norm(eval) (no ReLU)",
@@ -319,6 +337,50 @@ def phase_kernels(fn, torch, dev, shapes, dtypes, errs):
     torch.cuda.empty_cache()
 
 
+def phase_stats_edges(fn, torch, dev, errs):
+    """The statistics kernel at its edges: C not a multiple of 8 and C of
+    several channel tiles, R 1 and 7, fp16, a view one element into its
+    buffer (the scalar path), against ``stats_plain``; then data of mean
+    100 and standard deviation 1 against a float64 reference, where the
+    fast variance's cancellation leaves an absolute error of a few float32
+    roundings of mean(x^2)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cases = [(r, c, dt) for r, c in ((1, 64), (7, 13), (7, 4104), (1, 1),
+                                     (12547, 100), (1001, 2050),
+                                     (300, 4104))
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [(100352, 256, torch.float16), (6272, 1024, torch.float16)]
+    for r, c, dt in cases:
+        x = (torch.randn((r, c), device=dev, generator=gen) * 1.5
+             + 0.3).to(dt)
+        buf = torch.empty(r * c + 1, dtype=dt, device=dev)
+        off = buf[1:].view(r, c)   # contiguous, off the 16-byte grid
+        off.copy_(x)
+        want = fn.stats_plain(x)
+        for view in (x, off):
+            for got, w in zip(fn.stats_call(view), want):
+                check("stats_call", got, w, 1e-4, 1e-4, errs)
+    worst = [0.0, 0.0]
+    for dt in (torch.bfloat16, torch.float32):
+        x = (torch.randn((100352, 256), device=dev, generator=gen)
+             + 100.0).to(dt)
+        x64 = x.double()
+        m64, v64 = x64.mean(0), x64.var(0, correction=0)
+        mean, var = fn.stats_call(x)
+        rel_m = float(((mean.double() - m64).abs() / m64.abs()).max())
+        rel_v = float(((var.double() - v64).abs()
+                       / (x64 * x64).mean(0)).max())
+        if not (rel_m <= 1e-5 and rel_v <= 1e-5):
+            raise AssertionError(f"stats_call at mean 100 ({dt}): mean rel "
+                                 f"{rel_m:.3g}, var err / mean(x^2) "
+                                 f"{rel_v:.3g} (limits 1e-5)")
+        worst = [max(worst[0], rel_m), max(worst[1], rel_v)]
+    torch.cuda.synchronize()
+    log(f"kernels: stats_call edges ({len(cases)} shapes x aligned and "
+        f"offset views) within tolerance; mean 100: mean rel "
+        f"{worst[0]:.3g}, var err / mean(x^2) {worst[1]:.3g}")
+
+
 def phase_slice(fn):
     import torch.distributed as dist
     from chainermn_tpu_torch import init_distributed
@@ -336,6 +398,10 @@ def phase_slice(fn):
         "--profile-steps", str(PROFILED)])
     counts = fn.launch_counts()
     losses = out["losses"]
+    cats = out["profile"]["device_ms_by_category"]
+    if not cats.get(STATS_CATEGORY):
+        raise AssertionError(f"the profile holds no {STATS_CATEGORY} time: "
+                             f"{cats}")
     if len(losses) != STEPS or not all(map(lambda v: v == v and abs(v) <
                                            float("inf"), losses)):
         raise AssertionError(f"train losses not finite: {losses}")
@@ -1254,7 +1320,8 @@ def phase_bench(fn, cs, torch):
                              "capture")
     if not (line["metric"] == "resnet50_synthetic_imagenet_train_throughput"
             and math.isfinite(line["value"]) and line["value"] > 0
-            and 0 < line["device_ms_per_step"] <= line["step_ms"] * 1.5):
+            and 0 < line["device_ms_per_step"] <= line["step_ms"] * 1.5
+            and line["device_ms_by_category"].get(STATS_CATEGORY)):
         raise AssertionError(f"bench line not sane: {line}")
     return line, counts, torch.cuda.max_memory_allocated() / 1e9
 
@@ -1293,6 +1360,7 @@ def main():
     # the bench's (phase 16): batch 256, bfloat16, up to 3,211,264 rows
     phase_kernels(fn, torch, dev, bn_shapes(fn, 256), (torch.bfloat16,),
                   errs)
+    phase_stats_edges(fn, torch, dev, errs)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s, max abs err "
         f"{json.dumps(errs)}")
     for f in builds.values():
@@ -1458,7 +1526,9 @@ def main():
             launches=probe_counts[wrapper], max_abs_err=probe_errs[wrapper],
             bound_by="bytes" if all(t["bound_by"] == "bytes" for t in rows)
             else "operations", **total))
-    log("kernels: " + ", ".join(k["name"] for k in kernels))
+    log("kernels: " + ", ".join(
+        k["name"] + (" (redesigned)" if k["name"] in REDESIGNED else "")
+        for k in kernels))
     log(json.dumps({"kernels": kernels}))
     log(gpu)
     log(json.dumps({"ok": True, "device": {

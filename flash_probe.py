@@ -3,18 +3,22 @@
 
     python3 flash_probe.py          # the flash-attention kernels
     python3 flash_probe.py probe    # the stage-1 probe GEMMs
+    python3 flash_probe.py stats    # the BatchNorm statistics kernel
 
 Builds ``chainermn_tpu_torch/csrc/flash_attention.cu`` (or
-``probe_matmul.cu``) as it is and in a few variants made by editing its
-text (into ``build/flash_probe/``, never over the source), one nvcc each
-with ``-Xptxas -v``, all started together.  For each build it prints the
-registers and spills of the wgmma kernels, then times them by CUDA-graph
-replay between CUDA events: the flash kernels at the LM's attention shape
-(bf16, B 1, T 8192, H 16, D 128, q/k/v views of one qkv projection) --
-the forward (causal and not), dK/dV and dQ; the probe kernels at the
-probe's M = 802,816 -- wgrad, dgrad and fwd1x1, beside ``torch.mm``, and
-for the kernels as they are also by the profiler's kernel durations
-(``utils.trace.device_time``, what the probe's document reports).
+``probe_matmul.cu``, or ``fused_norm.cu``) as it is and in a few variants
+made by editing its text (into ``build/flash_probe/``, never over the
+source), one nvcc each with ``-Xptxas -v``, all started together.  For
+each build it prints the registers and spills of the kernels it is about,
+then times them by CUDA-graph replay between CUDA events: the flash
+kernels at the LM's attention shape (bf16, B 1, T 8192, H 16, D 128, q/k/v
+views of one qkv projection) -- the forward (causal and not), dK/dV and
+dQ; the probe kernels at the probe's M = 802,816 -- wgrad, dgrad and
+fwd1x1, beside ``torch.mm``, and for the kernels as they are also by the
+profiler's kernel durations (``utils.trace.device_time``, what the probe's
+document reports); the statistics kernel (``cmn_bn_stats``, called
+through its C entry) over the 53 BatchNorm boundaries of a ResNet-50 step
+in bf16 at batch 32 and at batch 256.
 
 The variants leave out one part of the work, so they compute wrong results
 and only say what that part costs:
@@ -27,6 +31,23 @@ and only say what that part costs:
   elementwise work, or the probe's epilogues, only);
 * ``no_stores`` (probe): rowblock without its TMA stores (loads, products
   and the staging of the output tile only).
+
+For the statistics (``stats``), the parts left out and the alternatives:
+
+* ``no_finalize``: the grid barrier and the finalize left out (the
+  launch, the copies and the partials only);
+* ``barrier_only``: the finalize left out, the grid barrier kept;
+* ``no_stream``: no copies and no sums (the launch, zero partials, the
+  barrier and the finalize): the fixed cost of a launch;
+* ``ticket`` (right results): the finalize of the backward reduction
+  instead of the barrier -- a plain launch after a memset of a counter,
+  each block fences its partial and takes a ticket, and the last block
+  adds every channel's partials alone;
+* ``cp_async`` (right results): every thread copies 16-byte pieces of
+  each stage with ``cp.async`` instead of one thread's bulk copy, a
+  ``cp.async.wait_group`` and a block barrier instead of the mbarrier;
+* ``stages_4``, ``stages_8`` (right results): a ring of 4 or 8 stages
+  instead of 6 (8 leaves room for one block an SM only).
 
 For the probe it also builds the alternatives its design chose against
 (right results, checked like ``as_is``): ``contiguous_rows`` (rowblock's
@@ -147,6 +168,79 @@ def probe_variants(src):
             "wgrad_loads_normal": wgrad_loads_normal}
 
 
+def stats_variants(src):
+    """``{name: source}`` of ``fused_norm.cu``: the statistics kernel's
+    parts left out, then its design's alternatives (right results)."""
+    finish = ("  cooperative_groups::this_grid().sync();\n"
+              "  stats_finalize<VEC>(ws, mean, var, geo, blockIdx.y * "
+              "gridDim.x + blockIdx.x,\n"
+              "                      gridDim.x * gridDim.y);\n")
+    no_finalize = _cut(src, finish, "")
+    barrier_only = _cut(src, finish,
+                        "  cooperative_groups::this_grid().sync();\n")
+    no_stream = _cut(src, "      const int n_st = static_cast<int>(\n"
+                     "          (r_hi - r_lo + geo.stage_rows - 1) / "
+                     "geo.stage_rows);\n", "      const int n_st = 0;\n")
+    # the backward reduction's finish: a memset counter after the partials
+    # (ws has room for it past [spans, 2, C]), the last block finalizes
+    ticket = _cut(_cut(_cut(
+        src, finish,
+        "  __shared__ int last;\n"
+        "  __threadfence();\n"
+        "  __syncthreads();\n"
+        "  if (tid == 0)\n"
+        "    last = atomicAdd(reinterpret_cast<int*>(\n"
+        "               ws + static_cast<int64_t>(gridDim.x) * 2 * C), 1) ==\n"
+        "           static_cast<int>(gridDim.x * gridDim.y) - 1;\n"
+        "  __syncthreads();\n"
+        "  if (!last) return;\n"
+        "  __threadfence();\n"
+        "  stats_finalize<VEC>(ws, mean, var, geo, 0, 1);\n"),
+        "  attr[0].val.cooperative = 1;\n",
+        "  attr[0].val.cooperative = 0;\n"),
+        "  const int ns = static_cast<int>(spans);\n",
+        "  const int ns = static_cast<int>(spans);\n"
+        "  err = cudaMemsetAsync(ws + spans * 2 * C, 0, sizeof(int), s);\n"
+        "  if (err != cudaSuccess) return err;\n")
+    cp_async = _cut(_cut(
+        src,
+        "        if (tid != 0 || st >= n_st) return;\n"
+        "        const int slot = static_cast<int>((job + st) % kStatsStages);"
+        "\n        const int rows = rows_of(st);\n"
+        "        unsigned char* dst = ring + static_cast<size_t>(slot) * "
+        "kStageBytes;\n",
+        "        if (st >= n_st) {\n"
+        "          cp_async_commit();  // one group a stage, empty or not\n"
+        "          return;\n"
+        "        }\n"
+        "        const int slot = static_cast<int>((job + st) % kStatsStages);"
+        "\n        const int rows = rows_of(st);\n"
+        "        unsigned char* dst = ring + static_cast<size_t>(slot) * "
+        "kStageBytes;\n"
+        "        const int pieces = row_bytes / 16;\n"
+        "        for (int i = tid; i < rows * pieces; i += kThreads) {\n"
+        "          const int rr = i / pieces, pc = i % pieces;\n"
+        "          cp_async16(dst + (static_cast<size_t>(rr) * tile_c * "
+        "sizeof(T) + pc * 16),\n"
+        "                     reinterpret_cast<const unsigned char*>(\n"
+        "                         x + (r_lo + static_cast<int64_t>(st) * "
+        "geo.stage_rows + rr) * C + c_lo) + pc * 16, true);\n"
+        "        }\n"
+        "        cp_async_commit();\n"
+        "        if (true) return;\n"),
+        "        bar_wait(full + slot,\n"
+        "                 static_cast<int>(((job + st) / kStatsStages) & 1));"
+        "\n",
+        "        cp_async_wait<kStatsStages - 1>();\n"
+        "        __syncthreads();\n")
+    stages = "constexpr int kStatsStages = 6;"
+    return {"as_is": src, "no_finalize": no_finalize,
+            "barrier_only": barrier_only, "no_stream": no_stream,
+            "ticket": ticket, "cp_async": cp_async,
+            "stages_4": _cut(src, stages, stages.replace("6", "4")),
+            "stages_8": _cut(src, stages, stages.replace("6", "8"))}
+
+
 def build(build_mod, name, src):
     """Compile one variant; returns (name, library path, ptxas lines)."""
     cu = os.path.join(OUT, f"{name}.cu")
@@ -259,6 +353,55 @@ def probe(torch, build_mod, smoke):
         print_registers(smoke, "probe_matmul", name, lines)
 
 
+def stats(torch, build_mod, smoke):
+    fn = importlib.import_module("chainermn_tpu_torch.ops.fused_norm")
+    built = build_all(build_mod, "fused_norm", stats_variants)
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sets = {}
+    for batch in (smoke.BATCH, smoke.BENCH_BATCH):
+        cases = []
+        for _, (n, h, w, c), _ in fn.resnet_bn_boundaries(batch):
+            x = torch.randn((n * h * w, c), device=dev, generator=gen) \
+                .to(torch.bfloat16)
+            geo = fn.stats_geometry(n * h * w, c, 2, True, sms)
+            # [spans, 2, C] partials and the ticket variant's counter
+            ws = torch.empty(geo.spans * 2 * c + 4, device=dev)
+            cases.append((x, geo, ws, torch.empty(c, device=dev),
+                          torch.empty(c, device=dev)))
+        sets[batch] = cases
+    for name, so, lines in built:
+        entry = fn.declare_entries(ctypes.CDLL(so)).cmn_bn_stats
+
+        def run(cases):
+            for x, geo, ws, mean, var in cases:
+                r, c = x.shape
+                err = entry(x.data_ptr(), mean.data_ptr(), var.data_ptr(),
+                            ws.data_ptr(), r, c, geo.span_rows, geo.gpr,
+                            geo.rpi, geo.stage_rows, geo.tile_blocks, 1, 1,
+                            0, torch.cuda.current_stream(dev).cuda_stream)
+                if err:
+                    raise SystemExit(f"flash_probe: {name} failed to "
+                                     f"launch (CUDA error {err})")
+        right = not name.split("_", 2)[-1].startswith(
+            ("no_", "barrier_only"))
+        if right:
+            for batch, cases in sets.items():
+                run(cases)
+                for x, _, _, mean, var in cases:
+                    for got, want in zip((mean, var), fn.stats_plain(x)):
+                        torch.testing.assert_close(got, want, rtol=1e-4,
+                                                   atol=1e-4)
+        ms = {f"batch {b}": smoke._time(torch, lambda: run(cases), 20,
+                                        graph=True)
+              for b, cases in sets.items()}
+        print(f"{name}{'' if right else ' (wrong results)'}: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + " over 53 boundaries", flush=True)
+        print_registers(smoke, "fused_norm", name, lines)
+
+
 def main(argv=None):
     import torch
     argv = sys.argv[1:] if argv is None else argv
@@ -268,7 +411,8 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     build_mod = importlib.import_module("chainermn_tpu_torch.ops._build")
     smoke = importlib.import_module("chip_smoke")
-    (probe if argv[:1] == ["probe"] else flash)(torch, build_mod, smoke)
+    {"probe": probe, "stats": stats}.get(argv[0] if argv else None, flash)(
+        torch, build_mod, smoke)
     print(smoke.gpu_line())
     return 0
 
