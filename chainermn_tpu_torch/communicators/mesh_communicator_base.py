@@ -12,6 +12,15 @@ constructor: the intra group of this rank's node (``intra_size``
 consecutive ranks) and the inter group of the ranks that hold its place on
 every node.
 
+Objects (pickled) travel on a gloo side group of the same ranks (the
+world's own group when it is gloo already): NCCL has no tags and moves
+only device memory, while the JAX package's object plane is a socket
+control plane with tags.  Point-to-point objects (``send_obj``/
+``recv_obj``/``gather_obj``/``scatter_obj``/``barrier``) share one ordered
+gloo channel per pair of ranks; each message carries its ``tag``, and a
+receiver keeps messages of other tags until they are asked for, so tags
+may interleave as on the JAX control plane.  Sends do not block.
+
 The gradient decomposition is what tells the flavors apart.  The bodies
 here are the JAX package's pre-planner ones (``_legacy_allreduce_grad_traced``,
 which its tests pin bit-exact with the plan path): the base class is the
@@ -21,7 +30,9 @@ naive per-leaf all-reduce.  The collective planner is not ported yet
 
 from __future__ import annotations
 
-from typing import List, Optional
+import collections
+import pickle
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +51,18 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
 _PAIR_OPS = {"sum": lambda a, b: a + b, "prod": lambda a, b: a * b,
              "max": lambda a, b: np.maximum(a, b),
              "min": lambda a, b: np.minimum(a, b)}
+
+
+# the gloo tag of the object channel between two ranks (the message's own
+# tag travels in its header)
+_CHANNEL = 7
+
+# torch renamed reduce_scatter_tensor (same signature) and deprecated the
+# old name; take whichever this torch has
+reduce_scatter_tensor = getattr(dist, "reduce_scatter_single",
+                                dist.reduce_scatter_tensor)
+all_gather_tensor = getattr(dist, "all_gather_single",
+                            dist.all_gather_into_tensor)
 
 
 def _structural(op):
@@ -94,6 +117,10 @@ class MeshCommunicator(CommunicatorBase):
                                         topology.intra_size, group)
             _groups = _groups[topology.rank]
         self._groups = _groups
+        # the object plane: messages received for a tag not yet asked for,
+        # by (source, tag), and the sends still in flight
+        self._inbox: dict = collections.defaultdict(collections.deque)
+        self._sends: list = []
 
     def _make_groups(self, members: List[int], intra_size: int,
                      world) -> dict:
@@ -106,10 +133,17 @@ class MeshCommunicator(CommunicatorBase):
         and every group is created in the same order everywhere.  A level
         that spans the whole world reuses ``world``; a level of one rank
         gets ``None`` (its reduction is the identity and is skipped).
+        ``"obj"`` is the object plane's gloo group of the whole world:
+        ``world`` itself when the default group is gloo, else a gloo group
+        of the same ranks.
         """
         n = len(members)
         inter_size = n // intra_size
-        out = {r: {"intra": None, "inter": None} for r in members}
+        obj = world
+        if dist.is_initialized() and dist.get_backend() != "gloo":
+            obj = dist.new_group(members, backend="gloo")
+        out = {r: {"intra": None, "inter": None, "obj": obj}
+               for r in members}
         levels = (("intra", intra_size,
                    [members[k * intra_size:(k + 1) * intra_size]
                     for k in range(inter_size)]),
@@ -175,18 +209,27 @@ class MeshCommunicator(CommunicatorBase):
         return dist.get_global_rank(self._group, rank)
 
     # ---- object plane ------------------------------------------------------
-    def bcast_obj(self, obj, root: int = 0):
+    @property
+    def _obj_group(self):
+        return self._groups["obj"]
+
+    def bcast_obj(self, obj, root: int = 0, tag: int = 0):
+        """Root's object on every rank.  Collective: ranks match calls by
+        their order, so ``tag`` (the reference signature's) selects
+        nothing."""
         box = [obj]
         dist.broadcast_object_list(box, src=self._global_rank(root),
-                                   group=self._group, device=self._obj_dev())
+                                   group=self._obj_group)
         return box[0]
 
-    def allgather_obj(self, obj) -> List:
+    def allgather_obj(self, obj, tag: int = 0) -> List:
+        """Every rank's object, in rank order, on every rank (collective;
+        ``tag`` as in :meth:`bcast_obj`)."""
         out = [None] * self.size
-        dist.all_gather_object(out, obj, group=self._group)
+        dist.all_gather_object(out, obj, group=self._obj_group)
         return out
 
-    def allreduce_obj(self, obj, op="sum"):
+    def allreduce_obj(self, obj, op="sum", tag: int = 0):
         """Reduce picklable objects over the world; every rank gets the
         result.  ``op``: "sum", "prod", "max" or "min", applied through
         dicts, lists and tuples (numpy-aware), or any binary callable.
@@ -204,8 +247,76 @@ class MeshCommunicator(CommunicatorBase):
             acc = fold(acc, o)
         return acc
 
-    def _obj_dev(self):
-        return self.device if self.device.type == "cuda" else None
+    def send_obj(self, obj, dest: int, tag: int = 0) -> None:
+        """Send a picklable object to rank ``dest`` under ``tag``; returns
+        at once (the transfer completes when ``dest`` receives it, and
+        only while the process group lives).  A rank may send to
+        itself."""
+        self._isend_obj(obj, dest, tag)
+
+    def _isend_obj(self, obj, dest: int, tag: int) -> list:
+        """:meth:`send_obj`; returns the transfer's work handles."""
+        payload = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+        if dest == self.rank:
+            self._inbox[(dest, tag)].append(payload)
+            return []
+        head = torch.tensor([tag, len(payload)], dtype=torch.int64)
+        body = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
+        dst = self._global_rank(dest)
+        works = [dist.isend(t, dst, group=self._obj_group, tag=_CHANNEL)
+                 for t in (head, body)]
+        # the tensors stay referenced until their sends complete
+        self._sends = [s for s in self._sends
+                       if not all(w.is_completed() for w in s[0])]
+        self._sends.append((works, head, body))
+        return works
+
+    def recv_obj(self, source: int, tag: int = 0):
+        """The oldest object rank ``source`` sent this rank under ``tag``;
+        messages of other tags that arrive first are kept for later
+        calls."""
+        box = self._inbox[(source, tag)]
+        src = self._global_rank(source)
+        while not box:
+            if source == self.rank:
+                raise ValueError(f"no object sent to self under tag {tag}")
+            head = torch.empty(2, dtype=torch.int64)
+            dist.recv(head, src, group=self._obj_group, tag=_CHANNEL)
+            body = torch.empty(int(head[1]), dtype=torch.uint8)
+            dist.recv(body, src, group=self._obj_group, tag=_CHANNEL)
+            self._inbox[(source, int(head[0]))].append(body.numpy().tobytes())
+        return pickle.loads(box.popleft())
+
+    def gather_obj(self, obj, root: int = 0, tag: int = 0):
+        """Every rank's object, in rank order, on ``root``; None on the
+        other ranks."""
+        if self.rank != root:
+            self.send_obj(obj, root, tag=tag)
+            return None
+        return [obj if r == root else self.recv_obj(r, tag=tag)
+                for r in range(self.size)]
+
+    def scatter_obj(self, objs, root: int = 0, tag: int = 0):
+        """Rank r gets ``objs[r]`` of root's list (``objs`` is read on
+        ``root`` only).  The root returns once every rank holds its
+        object, so the root may tear its process group down after it."""
+        if self.rank == root:
+            if len(objs) != self.size:
+                raise ValueError(f"scatter_obj: {len(objs)} objects for "
+                                 f"{self.size} ranks")
+            works = [w for r, o in enumerate(objs) if r != root
+                     for w in self._isend_obj(o, r, tag)]
+            for w in works:
+                w.wait()
+            return objs[root]
+        return self.recv_obj(root, tag=tag)
+
+    def barrier(self, tag: int = 900) -> None:
+        """Return once every rank has entered: a gather to rank 0 under
+        ``tag`` and a release under ``tag + 1`` (the JAX control plane's
+        two tags).  Rank 0 returns once every rank has its release."""
+        self.gather_obj(None, 0, tag=tag)
+        self.scatter_obj([None] * self.size, 0, tag=tag + 1)
 
     # ---- tensor collectives ------------------------------------------------
     def allreduce(self, x, op: str = "sum"):
@@ -230,6 +341,98 @@ class MeshCommunicator(CommunicatorBase):
             v = v.clone()
             dist.broadcast(v, src=src, group=self._group)
             return v
+
+        return _packing.tree_map(one, x)
+
+    def allgather(self, x):
+        """This rank's tensor (or tree) -> every rank's, stacked
+        ``[size, ...]`` in rank order, on every rank."""
+        def one(v):
+            out = v.new_empty((self.size,) + tuple(v.shape))
+            all_gather_tensor(out.view(-1), v.contiguous().view(-1),
+                              group=self._group)
+            return out
+
+        return _packing.tree_map(one, x)
+
+    def gather(self, x, root: int = 0):
+        """The JAX package's ``gather``: every rank gets the stack (an SPMD
+        program has one output shape on every device), so it is
+        :meth:`allgather`; ``root`` is kept for the reference signature.
+        Root-only gathers of objects are :meth:`gather_obj`."""
+        del root
+        return self.allgather(x)
+
+    def alltoall(self, xs):
+        """``xs[p]`` goes to rank p (leading axis == size); returns
+        ``out`` with ``out[q]`` = rank q's ``xs[rank]``."""
+        def one(v):
+            if v.shape[0] != self.size:
+                raise ValueError(f"alltoall: leading axis {v.shape[0]}, "
+                                 f"expected the world size {self.size}")
+            out = torch.empty_like(v)
+            dist.all_to_all_single(out, v.contiguous(), group=self._group)
+            return out
+
+        return _packing.tree_map(one, xs)
+
+    def scatter(self, x, root: int = 0):
+        """Root's stacked ``[size, ...]`` tensor (or tree) -> this rank's
+        slice (``x`` is read on root; the others pass one of its shape)."""
+        src = self._global_rank(root)
+
+        def one(v):
+            out = torch.empty(tuple(v.shape[1:]), dtype=v.dtype,
+                              device=v.device)
+            parts = list(v.contiguous().unbind(0)) if self.rank == root \
+                else None
+            dist.scatter(out, parts, src=src, group=self._group)
+            return out
+
+        return _packing.tree_map(one, x)
+
+    def reduce_scatter(self, x):
+        """Sum over the world, then this rank's block of the leading axis
+        (which ``size`` must divide): JAX ``psum_scatter(tiled=True)``."""
+        def one(v):
+            if v.shape[0] % self.size:
+                raise ValueError(f"reduce_scatter: leading axis "
+                                 f"{v.shape[0]} is not a multiple of the "
+                                 f"world size {self.size}")
+            out = v.new_empty((v.shape[0] // self.size,) + tuple(v.shape[1:]))
+            reduce_scatter_tensor(out, v.contiguous(), dist.ReduceOp.SUM,
+                                  group=self._group)
+            return out
+
+        return _packing.tree_map(one, x)
+
+    def ppermute(self, x, perm: Sequence[Tuple[int, int]]):
+        """Send this rank's tensor (or tree) along ``(src, dst)`` pairs of
+        ranks; a rank that receives nothing gets zeros.  The sends and
+        receives of one call go out as one batch
+        (``dist.batch_isend_irecv``), so a ring cannot deadlock."""
+        perm = [(int(a), int(b)) for a, b in perm]
+        for pos in (0, 1):
+            ends = [p[pos] for p in perm]
+            if len(set(ends)) != len(ends):
+                raise ValueError(f"ppermute: {perm} is not a permutation")
+        me = self.rank
+        dst = [b for a, b in perm if a == me]
+        src = [a for a, b in perm if b == me]
+
+        def one(v):
+            v = v.contiguous()
+            if src and src[0] == me:
+                return v.clone()
+            out = torch.zeros_like(v)
+            ops = [dist.P2POp(dist.isend, v, self._global_rank(d),
+                              group=self._group) for d in dst]
+            ops += [dist.P2POp(dist.irecv, out, self._global_rank(s),
+                               group=self._group) for s in src]
+            if ops:
+                for w in dist.batch_isend_irecv(ops):
+                    w.wait()
+            return out
 
         return _packing.tree_map(one, x)
 
@@ -292,6 +495,12 @@ class MeshCommunicator(CommunicatorBase):
         """Ranks sharing ``color`` form a new world, ordered by
         ``(key, rank)`` (reference: ``mpi_comm.Split``).  Every rank of
         this communicator must call it."""
+        return self._split(color, key)
+
+    def _split(self, color: int, key: int, fallback: bool = False):
+        """:meth:`split`; with ``fallback``, a flavor that refuses the
+        sub-world (single_node on several nodes) gives way to the naive
+        per-leaf communicator, as the JAX ``split_axes`` does."""
         infos = self.allgather_obj((color, key, self._global_rank(self.rank)))
         me = self._global_rank(self.rank)
         mine = None
@@ -308,10 +517,33 @@ class MeshCommunicator(CommunicatorBase):
         topo = Topology(rank=members.index(me), size=len(members),
                         intra_rank=members.index(me) % intra_size,
                         intra_size=intra_size, device=self.device)
-        return type(self)(topology=topo, group=group,
-                          allreduce_grad_dtype=self.allreduce_grad_dtype
-                          if self.supports_allreduce_grad_dtype else None,
-                          _groups=groups)
+        wire = self.allreduce_grad_dtype \
+            if self.supports_allreduce_grad_dtype else None
+        try:
+            return type(self)(topology=topo, group=group,
+                              allreduce_grad_dtype=wire, _groups=groups)
+        except ValueError:
+            if not fallback:
+                raise
+            return MeshCommunicator(topology=topo, group=group,
+                                    _groups=groups)
+
+    def split_axes(self, axes: Sequence[str]) -> "MeshCommunicator":
+        """A communicator over a subset of the world's levels, keeping this
+        flavor: ``("intra",)`` the ranks of this rank's node, ``("inter",)``
+        the ranks that hold this rank's place on every node, both the whole
+        world.  Every rank must call it (it builds process groups)."""
+        axes = tuple(axes)
+        if not axes or set(axes) - {"inter", "intra"} or \
+                len(set(axes)) != len(axes):
+            raise ValueError(f"split_axes: axes {axes!r} are not a subset "
+                             "of ('inter', 'intra')")
+        if len(axes) == 2:
+            color = 0
+        else:
+            color = self.inter_rank if axes == ("intra",) else \
+                self.intra_rank
+        return self._split(color, self.rank, fallback=True)
 
     def _sub_intra_size(self, members: List[int]) -> int:
         """Intra level of a sub-world: its members on one node, when every

@@ -16,13 +16,7 @@ import torch.distributed as dist
 
 from chainermn_tpu_torch.communicators import _packing
 from chainermn_tpu_torch.communicators.mesh_communicator_base import (
-    MeshCommunicator)
-
-# torch renamed reduce_scatter_tensor (same signature) and deprecated the
-# old name; take whichever this torch has
-_reduce_scatter = getattr(dist, "reduce_scatter_single",
-                          dist.reduce_scatter_tensor)
-_all_gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+    MeshCommunicator, all_gather_tensor, reduce_scatter_tensor)
 
 
 class TwoDimensionalCommunicator(MeshCommunicator):
@@ -41,8 +35,8 @@ class TwoDimensionalCommunicator(MeshCommunicator):
             shard = torch.empty(buf.shape[0] // m, dtype=buf.dtype,
                                 device=buf.device)
             group = self._groups["intra"]
-            _reduce_scatter(shard, buf, dist.ReduceOp.SUM, group=group)
+            reduce_scatter_tensor(shard, buf, dist.ReduceOp.SUM, group=group)
             self._reduce_level(shard, "inter")
-            _all_gather(buf, shard, group=group)
+            all_gather_tensor(buf, shard, group=group)
             out.append(strip(buf))
         return _packing.unpack(out, meta, scale=1.0 / self.size)

@@ -13,6 +13,20 @@ buffering:
     python -m chainermn_tpu_torch.examples.train_imagenet --arch resnet50 \\
         --communicator xla --batchsize 32 --iterations 20 \\
         --allreduce-grad-dtype float16 --double-buffering
+
+The JAX example's training flags are here too: ``--zero`` (ZeRO-1
+optimizer-state sharding), ``--optimizer momentum|lars|adam``,
+``--warmup-epochs`` (linear warmup, then cosine decay, as optax's
+``warmup_cosine_decay_schedule``), ``--val-size`` (a synthetic validation
+set through the multi-node evaluator), and ``--checkpoint DIR`` with
+auto-resume: snapshots every epoch (or every ``--checkpoint-freq``
+iterations) hold the model's parameters and BatchNorm buffers, the
+optimizer's state (this rank's shards under ``--zero``), the pending
+gradient mean of ``--double-buffering``, the iterator's position and the
+iteration; a run started on a directory that holds a generation every rank
+can read resumes from the newest such one, and then trains as the
+uninterrupted run would have.  ``AllreducePersistent`` averages the
+BatchNorm running statistics over the world at every epoch end.
 """
 
 from __future__ import annotations
@@ -26,12 +40,30 @@ import torch.nn.functional as F
 
 import chainermn_tpu_torch as cmn
 from chainermn_tpu_torch.datasets import TupleDataset
+from chainermn_tpu_torch.extensions import (
+    AllreducePersistent, create_multi_node_checkpointer,
+    create_multi_node_evaluator, make_eval_fn)
 from chainermn_tpu_torch.iterators import SerialIterator
 from chainermn_tpu_torch.models import ResNet50
-from chainermn_tpu_torch.training import StatefulUpdater, Trainer
+from chainermn_tpu_torch.optim import (
+    LARS, init_optimizer_state, load_optimizer_state_tree,
+    optimizer_state_tree, warmup_cosine_decay_schedule)
+from chainermn_tpu_torch.training import StatefulUpdater, Trainer, extensions
 from chainermn_tpu_torch.utils.trace import KERNEL_CATEGORIES, kernel_category
 
 ARCHS = {"resnet50": ResNet50}
+OPTIMIZERS = {
+    "momentum": lambda ps, lr: torch.optim.SGD(ps, lr=lr, momentum=0.9),
+    "lars": lambda ps, lr: LARS(ps, lr=lr, momentum=0.9),
+    "adam": lambda ps, lr: torch.optim.Adam(ps, lr=lr),
+}
+# flags of the JAX example that wait for other modules: (attribute, what,
+# ROADMAP.md queue); each raises when given
+NOT_PORTED = (("fsdp", "--fsdp (parallel/fsdp.py)", "A9"),
+              ("accum_steps", "--accum-steps (utils/accum.py)", "A9"),
+              ("data", "--data (the image pipeline)", "A6"),
+              ("train_root", "--train-root (the image pipeline)", "A6"),
+              ("aux_loss", "--aux-loss (GoogLeNet's heads)", "A8"))
 
 
 def make_synthetic_imagenet(n, image, n_classes, seed):
@@ -47,6 +79,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="chainermn_tpu_torch ImageNet "
                                 "example (synthetic data)")
     p.add_argument("--arch", "-a", default="resnet50", choices=sorted(ARCHS))
+    p.add_argument("--width", type=int, default=64,
+                   help="the ResNet's base width (64: the published one)")
     p.add_argument("--batchsize", "-B", type=int, default=32,
                    help="per-GPU minibatch size")
     p.add_argument("--epoch", "-E", type=int, default=1)
@@ -59,13 +93,38 @@ def parse_args(argv=None):
     p.add_argument("--double-buffering", action="store_true",
                    help="overlap gradient allreduce with compute "
                         "(1-step-stale gradients)")
+    p.add_argument("--zero", action="store_true",
+                   help="ZeRO-1 optimizer-state sharding (exclusive with "
+                        "--double-buffering)")
+    p.add_argument("--optimizer", default="momentum",
+                   choices=sorted(OPTIMIZERS),
+                   help="momentum = the reference's MomentumSGD; lars = "
+                        "layer-wise trust-ratio scaling; adam")
+    p.add_argument("--warmup-epochs", type=float, default=0.0,
+                   help="linear LR warmup over this many epochs, then "
+                        "cosine decay to 0 at the end of --epoch epochs "
+                        "(0 = constant LR)")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--n-classes", type=int, default=1000)
     p.add_argument("--train-size", type=int, default=1024,
                    help="synthetic examples in all (scattered over ranks)")
-    p.add_argument("--lr", type=float, default=0.1)
+    p.add_argument("--val-size", type=int, default=512,
+                   help="synthetic validation examples in all, evaluated "
+                        "at every epoch end over the world (0: none)")
+    p.add_argument("--lr", type=float, default=0.1,
+                   help="(peak) learning rate")
+    p.add_argument("--checkpoint", default=None, metavar="DIR",
+                   help="multi-node snapshots into DIR, with auto-resume "
+                        "from the newest generation every rank holds")
+    p.add_argument("--checkpoint-freq", type=int, default=None, metavar="N",
+                   help="snapshot every N iterations (default: every "
+                        "epoch)")
+    p.add_argument("--checkpoint-keep", type=int, default=2)
+    p.add_argument("--out", "-o", default=None,
+                   help="directory for rank 0's per-epoch log (default: no "
+                        "files)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="default: cuda:LOCAL_RANK (pass 'cpu' for the CPU)")
@@ -77,7 +136,24 @@ def parse_args(argv=None):
                    help="after training, run this many more steps under "
                         "torch.profiler and print where the device time "
                         "went")
-    return p.parse_args(argv)
+    p.add_argument("--fsdp", action="store_true", help="not ported yet")
+    p.add_argument("--accum-steps", type=int, default=1,
+                   help="not ported yet (only 1)")
+    p.add_argument("--data", default=None, help="not ported yet")
+    p.add_argument("--train-root", default=None, help="not ported yet")
+    p.add_argument("--aux-loss", action="store_true", help="not ported yet")
+    args = p.parse_args(argv)
+    if args.zero and args.double_buffering:
+        p.error("--zero and --double-buffering are mutually exclusive")
+    if args.zero and args.optimizer == "lars":
+        p.error("--zero flattens parameters into per-rank shards, which "
+                "destroys LARS's per-layer trust ratios -- use --optimizer "
+                "momentum/adam")
+    for flag, what, queue in NOT_PORTED:
+        if getattr(args, flag) != p.get_default(flag):
+            raise NotImplementedError(
+                f"{what} is not ported yet; see ROADMAP.md Queue {queue}")
+    return args
 
 
 def profile_steps(updater, steps: int, device,
@@ -117,8 +193,12 @@ def profile_steps(updater, steps: int, device,
 
 def main(argv=None) -> dict:
     """Train; returns ``{"losses", "images_per_sec", "iterations",
-    "world"}`` (images/sec over the steps after ``--warmup-steps``, summed
-    over the world), plus ``"profile"`` with ``--profile-steps``."""
+    "world", "log", "resumed_from", "save_seconds", "peak_memory_gb",
+    "model", "optimizer"}`` (images/sec over this run's steps after
+    ``--warmup-steps``, summed over the world; ``resumed_from`` the
+    iteration of the snapshot it resumed from, or None; ``save_seconds``
+    each snapshot's; the process's peak device memory, None on the CPU),
+    plus ``"profile"`` with ``--profile-steps``."""
     args = parse_args(argv)
     comm = cmn.create_communicator(
         args.communicator, allreduce_grad_dtype=args.allreduce_grad_dtype,
@@ -127,7 +207,9 @@ def main(argv=None) -> dict:
     if comm.rank == 0:
         print(f"==========================================\n"
               f"Num processes (GPUs): {comm.size} (intra {comm.intra_size})\n"
-              f"Using {args.communicator} communicator, arch {args.arch}\n"
+              f"Using {args.communicator} communicator, arch {args.arch}, "
+              f"optimizer {args.optimizer}"
+              f"{' (ZeRO-1)' if args.zero else ''}\n"
               f"Minibatch/GPU: {args.batchsize}, dtype: {args.dtype}, "
               f"device: {device}\n"
               f"==========================================", flush=True)
@@ -140,12 +222,22 @@ def main(argv=None) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = ARCHS[args.arch](num_classes=args.n_classes,
+                             num_filters=args.width,
                              dtype=getattr(torch, args.dtype), device=device,
                              generator=gen)
     comm.bcast_data(model)
+    # the LR schedule, sized in updates from the scattered dataset over
+    # --epoch epochs (--iterations may stop the run before or after)
+    iters_per_epoch = max(1, len(train) // args.batchsize)
+    schedule = None
+    if args.warmup_epochs > 0:
+        warmup = max(1, int(args.warmup_epochs * iters_per_epoch))
+        schedule = warmup_cosine_decay_schedule(
+            0.0, args.lr, warmup,
+            max(args.epoch * iters_per_epoch, warmup + 1))
     optimizer = cmn.create_multi_node_optimizer(
-        torch.optim.SGD(model.parameters(), lr=args.lr, momentum=0.9), comm,
-        double_buffering=args.double_buffering)
+        OPTIMIZERS[args.optimizer](model.parameters(), args.lr), comm,
+        double_buffering=args.double_buffering, zero=args.zero)
 
     def loss_fn(batch):
         x, y = batch
@@ -153,13 +245,34 @@ def main(argv=None) -> dict:
         acc = (logits.argmax(-1) == y).float().mean()
         return F.cross_entropy(logits, y), {"accuracy": acc}
 
-    step = cmn.make_train_step(comm, loss_fn, optimizer, has_aux=True)
+    train_step = cmn.make_train_step(comm, loss_fn, optimizer, has_aux=True)
+
+    def step(batch):
+        if schedule is not None:
+            lr = schedule(updater.iteration)  # updates so far, as optax
+            for g in optimizer.param_groups:
+                g["lr"] = lr
+        return train_step(batch)
+
+    step.finalize = train_step.finalize
     model.train()
     updater = StatefulUpdater(train_iter, step, model, comm)
+
+    ckpt = resumed = None
+    if args.checkpoint:
+        ckpt = create_multi_node_checkpointer(
+            comm, args.checkpoint, name=f"imagenet-{args.arch}",
+            keep=args.checkpoint_keep)
+        resumed = resume(ckpt, model, optimizer, train_iter, updater)
+        if resumed is not None and comm.rank == 0:
+            print(f"resumed from snapshot at iteration {resumed} (epoch "
+                  f"{train_iter.epoch})", flush=True)
+
     stop = ((args.iterations, "iteration") if args.iterations
             else (args.epoch, "epoch"))
     trainer = Trainer(updater, stop,
-                      log_trigger=(args.log_interval, "iteration"))
+                      log_trigger=(args.log_interval, "iteration"),
+                      out=args.out)
     losses, marks = [], []
 
     def sync():
@@ -172,6 +285,18 @@ def main(argv=None) -> dict:
         marks.append(time.perf_counter())
 
     trainer.extend(record, trigger=(1, "iteration"))
+    trainer.extend(AllreducePersistent(comm, model))
+    if ckpt is not None:
+        trainer.extend(extensions.Snapshot(
+            ckpt, lambda t: checkpoint_state(model, optimizer, train_iter,
+                                             t.updater.iteration),
+            trigger=((args.checkpoint_freq, "iteration")
+                     if args.checkpoint_freq else (1, "epoch"))))
+    if args.val_size:
+        trainer.extend(create_multi_node_evaluator(
+            make_evaluator(args, comm, model), comm))
+    log = extensions.LogReport(filename="log" if comm.rank == 0 else None)
+    trainer.extend(log)
     sync()
     marks.append(time.perf_counter())
     trainer.run()
@@ -181,12 +306,22 @@ def main(argv=None) -> dict:
     if len(losses) > w:  # marks[i]: after step i (marks[0]: the start)
         ips = (args.batchsize * comm.size * (len(losses) - w)
                / (marks[-1] - marks[w]))
+    peak_gb = (torch.cuda.max_memory_allocated(device) / 1e9
+               if device.type == "cuda" else None)
     result = {"losses": losses, "images_per_sec": ips,
-              "iterations": updater.iteration, "world": comm.size}
+              "iterations": updater.iteration, "world": comm.size,
+              "log": log.log, "resumed_from": resumed,
+              "save_seconds": ckpt.save_seconds if ckpt else [],
+              "peak_memory_gb": peak_gb, "model": model,
+              "optimizer": optimizer}
     if comm.rank == 0:
         ips_s = f"{ips:.1f}" if ips is not None else "n/a"
-        print(f"final loss {losses[-1]:.4f}; images/sec (all GPUs, steps "
-              f"{w + 1}..{len(losses)}): {ips_s}", flush=True)
+        final = f"{losses[-1]:.4f}" if losses else "n/a"
+        mem = f"{peak_gb:.2f} GB" if peak_gb is not None else "n/a"
+        print(f"final loss {final}; images/sec (all GPUs, steps "
+              f"{w + 1}..{len(losses)} of this run): {ips_s}; peak device "
+              f"memory of rank 0 {mem}; epoch log "
+              f"{log.log[-1] if log.log else {}}", flush=True)
     if args.profile_steps:
         if device.type != "cuda":
             raise ValueError("--profile-steps profiles the GPU")
@@ -195,6 +330,65 @@ def main(argv=None) -> dict:
         if comm.rank == 0:
             print(f"profile: {result['profile']}", flush=True)
     return result
+
+
+def make_evaluator(args, comm, model):
+    """The synthetic validation set (seed + 1), scattered without
+    shuffling, evaluated in eval mode (running statistics)."""
+    val = make_synthetic_imagenet(args.val_size, args.image_size,
+                                  args.n_classes, args.seed + 1)
+    val = cmn.scatter_dataset(val, comm, shuffle=False)
+    val_iter = SerialIterator(val, args.batchsize, repeat=False,
+                              shuffle=False)
+
+    def metrics(batch):
+        x, y = batch
+        model.eval()
+        try:
+            logits = model(x)
+        finally:
+            model.train()
+        return {"loss": F.cross_entropy(logits, y),
+                "accuracy": (logits.argmax(-1) == y).float().mean()}
+
+    return extensions.Evaluator(val_iter, make_eval_fn(comm, metrics), comm)
+
+
+def checkpoint_state(model, optimizer, train_iter, iteration) -> dict:
+    """What a snapshot holds: the model's parameters and buffers, the
+    optimizer's state (this rank's shards under ZeRO-1), the gradient mean
+    a double-buffered optimizer applies next, the iterator and the
+    iteration."""
+    state = {"model": dict(model.state_dict()),
+             "optimizer": optimizer_state_tree(optimizer.local_optimizer),
+             "iterator": train_iter.state_dict(),
+             "iteration": np.int64(iteration)}
+    pending = getattr(optimizer, "pending_grads", None)
+    if pending is not None:
+        state["pending"] = pending()
+    return state
+
+
+def resume(ckpt, model, optimizer, train_iter, updater):
+    """Restore the newest generation every rank holds, if any; returns its
+    iteration (None: a fresh start, nothing changed)."""
+    if ckpt.latest_consistent_generation() is None:
+        return None
+    # the live state that the snapshot must match: a torch optimizer has
+    # no state before its first step, so take one that changes nothing
+    init_optimizer_state(optimizer.local_optimizer)
+    like = checkpoint_state(model, optimizer, train_iter, 0)
+    if "pending" in like:
+        like["pending"] = [torch.zeros_like(p) for p in model.parameters()]
+    restored, gen = ckpt.resume(like)
+    model.load_state_dict(restored["model"])
+    load_optimizer_state_tree(optimizer.local_optimizer,
+                              restored["optimizer"])
+    if "pending" in restored:
+        optimizer.set_pending_grads(restored["pending"])
+    train_iter.load_state_dict(restored["iterator"])
+    updater.iteration = int(restored["iteration"])
+    return gen
 
 
 if __name__ == "__main__":

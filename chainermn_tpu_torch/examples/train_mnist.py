@@ -5,8 +5,10 @@ ChainerMN example, BASELINE config 0): create a communicator, scatter the
 dataset, wrap the optimizer, evaluate on every rank with the multi-node
 evaluator, gate the reports to rank 0, train a 784-1000-1000-10 MLP with
 Adam.  One process drives one GPU; launch several with ``torchrun``.  The
-data is the JAX example's synthetic MNIST-shaped Gaussian blobs (12,000
-train, 2,000 test; the MNIST npz of ``--data`` is not in the repository).
+data is the JAX example's: ``--data`` names an npz with ``x_train``,
+``y_train``, ``x_test`` and ``y_test`` (MNIST, which needs a download);
+without it, synthetic MNIST-shaped Gaussian blobs (12,000 train, 2,000
+test).
 
     python -m chainermn_tpu_torch.examples.train_mnist --epoch 5
     torchrun --nproc_per_node 4 -m chainermn_tpu_torch.examples.train_mnist \\
@@ -17,11 +19,13 @@ from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 import chainermn_tpu_torch as cmn
-from chainermn_tpu_torch.datasets import PrefetchIterator, make_classification
+from chainermn_tpu_torch.datasets import (
+    PrefetchIterator, TupleDataset, make_classification)
 from chainermn_tpu_torch.extensions import (
     create_multi_node_evaluator, make_eval_fn)
 from chainermn_tpu_torch.iterators import SerialIterator
@@ -44,7 +48,8 @@ def parse_args(argv=None):
     p.add_argument("--unit", "-u", type=int, default=1000)
     p.add_argument("--out", "-o", default="result")
     p.add_argument("--data", default=None,
-                   help="not supported yet (ROADMAP.md Queue A5)")
+                   help="npz with x_train/y_train/x_test/y_test (default: "
+                        "synthetic data)")
     p.add_argument("--prefetch", type=int, default=2,
                    help="prefetched training batches (0 disables the "
                         "loader thread)")
@@ -65,6 +70,24 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def load_data(args):
+    """``(train, test)``: the npz of ``--data`` (``x_train``, ``y_train``,
+    ``x_test``, ``y_test``; images as float32, labels as int32), else the
+    synthetic sets."""
+    if args.data:
+        with np.load(args.data) as d:
+            train = TupleDataset(d["x_train"].astype(np.float32),
+                                 d["y_train"].astype(np.int32))
+            test = TupleDataset(d["x_test"].astype(np.float32),
+                                d["y_test"].astype(np.int32))
+        return train, test
+    train = make_classification(n=12000, dim=784, n_classes=10, noise=4.0,
+                                seed=0)
+    test = make_classification(n=2000, dim=784, n_classes=10, noise=4.0,
+                               seed=1)
+    return train, test
+
+
 def main(argv=None) -> dict:
     """Train; returns ``{"log": [...], "world": size,
     "examples_per_sec_per_gpu": rate}``, ``log`` holding one record per
@@ -72,8 +95,7 @@ def main(argv=None) -> dict:
     ``validation/accuracy`` (on every rank), ``rate`` over the epochs after
     the first (None for one epoch)."""
     args = parse_args(argv)
-    for flag, queue in (("data", "A5 (an MNIST npz in the repository)"),
-                        ("compression", "A10"), ("observability", "A13")):
+    for flag, queue in (("compression", "A10"), ("observability", "A13")):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} is not ported yet; see ROADMAP.md Queue {queue}")
@@ -112,10 +134,7 @@ def main(argv=None) -> dict:
 
     step = cmn.make_train_step(comm, loss_fn, optimizer, has_aux=True)
 
-    train = make_classification(n=12000, dim=784, n_classes=10, noise=4.0,
-                                seed=0)
-    test = make_classification(n=2000, dim=784, n_classes=10, noise=4.0,
-                               seed=1)
+    train, test = load_data(args)
     train = cmn.scatter_dataset(train, comm, shuffle=True, seed=args.seed)
     test = cmn.scatter_dataset(test, comm, shuffle=False)
     train_iter = SerialIterator(train, args.batchsize, shuffle=True,

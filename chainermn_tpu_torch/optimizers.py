@@ -6,16 +6,28 @@ Counterpart of ``chainermn_tpu/optimizers.py`` (the reference's
 then the inner update.  Here the wrapped object is a ``torch.optim``
 optimizer (the JAX package wraps an optax transformation).
 
-``double_buffering=True`` is the fork's double-buffered optimizer.  ZeRO-1
-and compressed gradients are not ported yet (ROADMAP.md, Queue A3); asking
-for them raises.
+``double_buffering=True`` is the fork's double-buffered optimizer;
+``zero=True`` shards the optimizer state ZeRO-1-style (a beyond-reference
+extension of the JAX package).  Compressed gradients are not ported yet
+(ROADMAP.md, Queue A10); asking for them raises.
+
+Every wrapper's ``local_optimizer`` is the ``torch.optim`` optimizer that
+holds this rank's state and whose step moves its parameters (the wrapped
+one, or ZeRO-1's optimizer over this rank's flat shards): checkpoints save
+and restore its state.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable
 
 import torch
+
+from chainermn_tpu_torch.communicators import _packing
+from chainermn_tpu_torch.communicators.mesh_communicator_base import (
+    all_gather_tensor)
+from chainermn_tpu_torch.ops.cast_scale import cast_scale
 
 
 def _local_grads(params):
@@ -28,7 +40,9 @@ class _MultiNodeOptimizer:
     """``step()`` = allreduce-mean the gradients, then the inner step.
 
     Every other attribute (``param_groups``, ``state``, ``zero_grad``,
-    ``state_dict``...) is the wrapped optimizer's, as in the reference.
+    ``state_dict``...) is the local optimizer's: the wrapped one, as in
+    the reference (ZeRO-1's own, over the shards, for all but
+    ``zero_grad``).
     """
 
     def __init__(self, actual_optimizer: torch.optim.Optimizer, comm):
@@ -36,7 +50,11 @@ class _MultiNodeOptimizer:
         self.communicator = comm
 
     def __getattr__(self, name):
-        return getattr(self.actual_optimizer, name)
+        return getattr(self.local_optimizer, name)
+
+    @property
+    def local_optimizer(self) -> torch.optim.Optimizer:
+        return self.actual_optimizer
 
     def allreduce_grad(self) -> None:
         # every parameter, whether or not this rank's backward reached it:
@@ -54,6 +72,9 @@ class _MultiNodeOptimizer:
             raise NotImplementedError(
                 "a closure would re-run forward/backward after the "
                 "gradients were averaged; call backward, then step()")
+        return self._update()
+
+    def _update(self):
         self.allreduce_grad()
         return self.actual_optimizer.step()
 
@@ -80,11 +101,7 @@ class _DoubleBufferingOptimizer(_MultiNodeOptimizer):
         super().__init__(actual_optimizer, comm)
         self._pending = None  # finish() of the previous step's mean
 
-    def step(self, closure=None):
-        if closure is not None:
-            raise NotImplementedError(
-                "a closure would re-run forward/backward after the "
-                "gradients were averaged; call backward, then step()")
+    def _update(self):
         params = [p for g in self.actual_optimizer.param_groups
                   for p in g["params"]]
         if self._pending is None:
@@ -106,18 +123,142 @@ class _DoubleBufferingOptimizer(_MultiNodeOptimizer):
             done = self._pending()
             self._pending = lambda: done
 
+    def pending_grads(self):
+        """The gradient mean the next update applies (waited for; the
+        caller must not write to it), or None before the first update:
+        the part of this optimizer's state that a checkpoint keeps."""
+        self._drain()
+        return None if self._pending is None else self._pending()
+
+    def set_pending_grads(self, grads) -> None:
+        """Make ``grads`` (one tensor per parameter) the mean the next
+        update applies, as a restored checkpoint does."""
+        grads = list(grads)
+        self._pending = lambda: grads
+
+
+class _Zero1Optimizer(_MultiNodeOptimizer):
+    """ZeRO stage-1 optimizer-state sharding (JAX ``optimizers.py:186``, a
+    beyond-reference extension there too).
+
+    Each rank owns 1/size of the flattened parameters: per dtype group the
+    gradients are packed, padded to a multiple of ``size`` and
+    reduce-scattered (sum, then ``/ size``), so this rank holds the mean of
+    its shard; the inner optimizer steps that shard alone, so its state
+    (SGD's momentum, Adam's two moments) is 1/size of the unsharded
+    state; the updated shards are all-gathered, unpacked and copied into
+    the parameters, which stay replicated.  The shard is sliced from the
+    current parameters before every step, as the JAX optimizer slices the
+    packed parameters it is given.
+
+    With the communicator's ``allreduce_grad_dtype`` the reduce-scatter
+    runs in that wire dtype: :func:`~chainermn_tpu_torch.ops.cast_scale`
+    into it with scale 1, the sum, and ``cast_scale`` back with scale
+    1/size (the cast kernel on the card; at power-of-two sizes the bits of
+    JAX's ``astype``, ``reduce_scatter``, ``/ size``, ``astype``).
+
+    The inner optimizer is a new instance of the wrapped optimizer's class
+    over the flat shards, with its hyperparameters; the wrapped one keeps
+    the model's parameters for ``zero_grad``.  It must have one parameter
+    group (shard boundaries erase groups), and no rule whose update reads
+    a parameter's shape (LARS's layer-wise trust ratio).
+    """
+
+    def __init__(self, actual_optimizer: torch.optim.Optimizer, comm):
+        groups = actual_optimizer.param_groups
+        if len(groups) != 1:
+            raise ValueError(
+                f"zero=True flattens the parameters into one shard per "
+                f"dtype, which erases parameter groups; got {len(groups)}")
+        super().__init__(actual_optimizer, comm)
+        self._params = list(groups[0]["params"])
+        size, rank = comm.size, comm.rank
+        bufs, _ = _packing.pack([p.detach() for p in self._params])
+        shards = []
+        for buf in bufs:
+            buf, _ = _packing.pad_to_multiple(buf, size)
+            n = buf.shape[0] // size
+            shards.append(buf[rank * n:(rank + 1) * n].clone())
+        cls = type(actual_optimizer)
+        hyper = {k: groups[0][k] for k in actual_optimizer.defaults}
+        # a default the constructor does not take (AdamW's
+        # decoupled_weight_decay) is set on the group afterwards
+        takes = inspect.signature(cls.__init__).parameters
+        self._local = cls(
+            shards, **{k: v for k, v in hyper.items() if k in takes})
+        self._local.param_groups[0].update(hyper)
+        self._shards = shards
+
+    @property
+    def local_optimizer(self) -> torch.optim.Optimizer:
+        return self._local
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        """Clear the model's gradients (the shards' are set each step)."""
+        self.actual_optimizer.zero_grad(set_to_none=set_to_none)
+
+    def reduce_scatter_grad(self, grads):
+        """The mean of ``grads`` (a list of this rank's gradients) over
+        the world, as this rank's flat shard of each dtype group; also
+        returns the pack metadata and each group's strip."""
+        comm = self.communicator
+        size = comm.size
+        wire = comm.allreduce_grad_dtype \
+            if comm.supports_allreduce_grad_dtype else None
+        bufs, meta = _packing.pack(grads)
+        shards, strips = [], []
+        for g in bufs:
+            g, strip = _packing.pad_to_multiple(g, size)
+            strips.append(strip)
+            if wire is not None and g.dtype != wire:
+                s = comm.reduce_scatter(cast_scale(g, wire, 1.0))
+                s = cast_scale(s, g.dtype, 1.0 / size)
+            else:
+                s = comm.reduce_scatter(g) / size
+            shards.append(s)
+        return shards, meta, strips
+
+    def _update(self):
+        comm = self.communicator
+        grads, meta, strips = self.reduce_scatter_grad(
+            _local_grads(self._params))
+        pbufs, _ = _packing.pack([p.detach() for p in self._params])
+        for shard, g, p in zip(self._shards, grads, pbufs):
+            n = shard.shape[0]
+            p, _ = _packing.pad_to_multiple(p, comm.size)
+            shard.copy_(p[comm.rank * n:(comm.rank + 1) * n])
+            shard.grad = g
+        self.local_optimizer.step()
+        full = []
+        for shard, strip in zip(self._shards, strips):
+            shard.grad = None
+            out = shard.new_empty(shard.shape[0] * comm.size)
+            all_gather_tensor(out, shard, group=comm.group)
+            full.append(strip(out))
+        with torch.no_grad():
+            for p, v in zip(self._params, _packing.unpack(full, meta)):
+                p.copy_(v)
+
 
 def create_multi_node_optimizer(actual_optimizer: torch.optim.Optimizer,
                                 communicator, double_buffering: bool = False,
                                 zero: bool = False, compression=None):
     """Reference signature: ``create_multi_node_optimizer(optimizer, comm,
     double_buffering)``; ``actual_optimizer`` is a ``torch.optim``
-    optimizer over the model's parameters."""
-    for flag, what in ((zero, "zero=True"),
-                       (compression is not None, "compression=")):
-        if flag:
-            raise NotImplementedError(
-                f"{what} is not ported yet; see ROADMAP.md Queue A3")
+    optimizer over the model's parameters.
+
+    ``zero=True`` shards the optimizer state over the world (ZeRO-1, see
+    :class:`_Zero1Optimizer`); it excludes ``double_buffering`` (the
+    pending full-size gradients would undo the memory saving)."""
+    if compression is not None:
+        raise NotImplementedError(
+            "compression= is not ported yet; see ROADMAP.md Queue A10")
+    if zero and double_buffering:
+        raise ValueError("zero=True and double_buffering=True are mutually "
+                         "exclusive (the pending full-size gradient buffer "
+                         "would defeat ZeRO's memory saving)")
+    if zero:
+        return _Zero1Optimizer(actual_optimizer, communicator)
     if double_buffering:
         return _DoubleBufferingOptimizer(actual_optimizer, communicator)
     return _MultiNodeOptimizer(actual_optimizer, communicator)

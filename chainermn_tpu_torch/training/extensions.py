@@ -1,10 +1,10 @@
 """Trainer extensions (the Chainer ``training.extensions`` role).
 
 Counterpart of ``chainermn_tpu/training/extensions.py``: ``LogReport``,
-``PrintReport`` and ``Evaluator``.  The reference gates the reports to
-rank 0 in every example (``if comm.rank == 0: trainer.extend(...)``); the
-same pattern applies here.  ``Snapshot`` and ``MetricsReport`` wait for
-checkpoints and observability (ROADMAP.md, Queues A4 and A13).
+``PrintReport``, ``Evaluator`` and ``Snapshot``.  The reference gates the
+reports to rank 0 in every example (``if comm.rank == 0:
+trainer.extend(...)``); the same pattern applies here.  ``MetricsReport``
+waits for observability (ROADMAP.md, Queue A13).
 """
 
 from __future__ import annotations
@@ -147,4 +147,23 @@ class Evaluator:
             {f"{self.prefix}/{k}": v for k, v in result.items()})
 
 
-__all__ = ["Evaluator", "LogReport", "PrintReport"]
+class Snapshot:
+    """Periodic checkpoint through a checkpointer (see
+    :mod:`chainermn_tpu_torch.extensions.checkpoint`): at each ``trigger``
+    save ``state_getter(trainer)`` as generation ``updater.iteration``.
+    It runs after the other extensions of the same iteration (priority
+    30), so it saves what they left."""
+
+    priority = 30
+
+    def __init__(self, checkpointer, state_getter: Callable,
+                 trigger=(1, "epoch")):
+        self.trigger = trigger
+        self._ckpt = checkpointer
+        self._get = state_getter
+
+    def __call__(self, trainer):
+        self._ckpt.save(self._get(trainer), trainer.updater.iteration)
+
+
+__all__ = ["Evaluator", "LogReport", "PrintReport", "Snapshot"]

@@ -13,8 +13,8 @@ The step is :func:`chainermn_tpu_torch.optimizers.make_train_step`.
 Extensions (``training/extensions.py``: ``LogReport``, ``PrintReport``,
 ``Evaluator``) run in order of their ``priority``, each when its
 ``trigger`` fires; the trainer also keeps a plain rank-0 print on
-``log_trigger``.  ``Snapshot`` and ``MetricsReport`` are not ported yet
-(ROADMAP.md, Queues A4 and A13).
+``log_trigger``.  ``MetricsReport`` is not ported yet (ROADMAP.md, Queue
+A13).
 """
 
 from __future__ import annotations

@@ -145,7 +145,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     kernel, route "cuda"; the rowblock row sums dgrad and fwd1x1 at their
     best bm; the kernel list marks the kernels redesigned since their first
     port), the nvidia-smi
-    line, then ``{"ok": true, "device": {...}}`` as the last line.
+    line, then ``{"ok": true, "device": {...}}`` as the last line;
+19. the data-parallel slice, completed (run before the summary is
+    printed): ``examples.train_imagenet``'s ``main`` on the NCCL world of
+    one, ResNet-50 at full width (224x224, batch 32, bf16, seed 0,
+    synthetic data) with ``--zero --allreduce-grad-dtype bfloat16
+    --optimizer momentum --warmup-epochs 0.5``, ``P19_STEPS`` iterations
+    over epochs of ``P19_EPOCH`` (the evaluator, ``AllreducePersistent``
+    and the log fire at each epoch end) with ``--checkpoint`` into a
+    directory under ``build/`` (removed afterwards) every ``P19_FREQ``
+    iterations: finite losses; 53 launches a step of the statistics,
+    backward-reduction and dx kernels, 53 a step plus 53 a validation
+    batch of apply, and 2 casts a step (ZeRO-1's wire: the cast in and the
+    cast back); images/sec beside phase 3's, the peak memory and the ms
+    of each save, printed.  A second ``main`` call resumes from the
+    mid-run snapshot (copied into a fresh directory) and runs to the same
+    end: its parameters, BatchNorm buffers and optimizer shards equal the
+    uninterrupted run's bit for bit (cuDNN deterministic, benchmark off).
+    Then one float32 step (TF32 off) of ResNet-50 from the same
+    ``weights.py``-converted weights with ``zero=True`` and with the plain
+    optimizer, for SGD momentum and for Adam: the parameters are equal bit
+    for bit (on a world of one ZeRO-1 is the same elementwise update on a
+    flat view).
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
 """
@@ -395,7 +416,7 @@ def phase_slice(fn):
         str(BATCH), "--iterations", str(STEPS), "--dtype", "bfloat16",
         "--train-size", str(BATCH * STEPS), "--seed", "0",
         "--log-interval", "1", "--warmup-steps", str(WARMUP),
-        "--profile-steps", str(PROFILED)])
+        "--profile-steps", str(PROFILED), "--val-size", "0"])
     counts = fn.launch_counts()
     losses = out["losses"]
     cats = out["profile"]["device_ms_by_category"]
@@ -713,7 +734,7 @@ def phase_resnet_fp16(cs, fn):
         "--batchsize", str(BATCH), "--iterations", str(STEPS),
         "--dtype", "bfloat16", "--train-size", str(BATCH * STEPS),
         "--seed", "0", "--log-interval", str(STEPS),
-        "--warmup-steps", str(WARMUP)])
+        "--warmup-steps", str(WARMUP), "--val-size", "0"])
     launches = cs.cast_scale.launches
     losses = out["losses"]
     if len(losses) != STEPS or not all(map(math.isfinite, losses)):
@@ -1326,6 +1347,168 @@ def phase_bench(fn, cs, torch):
     return line, counts, torch.cuda.max_memory_allocated() / 1e9
 
 
+P19_STEPS = 12       # phase 19: iterations of the uninterrupted run
+P19_EPOCH = 5        # iterations an epoch (--train-size 5 x batch)
+P19_FREQ = 6         # snapshot every 6 iterations: the resume starts at 6
+P19_VAL = 2 * BATCH  # validation examples: 2 batches at each epoch end
+
+
+def _p19_state(res):
+    """Parameters, buffers and optimizer shards of a ``main`` result."""
+    out = {f"model/{k}": v.detach().clone()
+           for k, v in res["model"].state_dict().items()}
+    opt = res["optimizer"].local_optimizer
+    for i, st in opt.state_dict()["state"].items():
+        out.update({f"opt/{i}/{k}": v.clone() for k, v in st.items()
+                    if hasattr(v, "clone")})
+    return out
+
+
+def phase_dp(fn, cs, torch):
+    """Phase 19: ``train_imagenet.main`` with ZeRO-1, the bf16 wire, the
+    schedule, the evaluator and snapshots; a resumed run against the
+    uninterrupted one; ZeRO-1 against the plain optimizer for one float32
+    step.  Returns what the log line prints."""
+    import glob
+    import shutil
+    import tempfile
+    from chainermn_tpu_torch.examples import train_imagenet
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_",
+                            dir=os.path.join(HERE, "build"))
+    flags = ["--arch", "resnet50", "--communicator", "xla", "--zero",
+             "--allreduce-grad-dtype", "bfloat16", "--optimizer", "momentum",
+             "--warmup-epochs", "0.5", "--batchsize", str(BATCH),
+             "--dtype", "bfloat16", "--seed", "0",
+             "--train-size", str(BATCH * P19_EPOCH),
+             "--val-size", str(P19_VAL),
+             "--epoch", str(P19_STEPS // P19_EPOCH + 1),
+             "--iterations", str(P19_STEPS), "--checkpoint-freq",
+             str(P19_FREQ), "--log-interval", str(P19_STEPS),
+             "--warmup-steps", str(WARMUP)]
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        fn.reset_launch_counts()
+        cs.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases'
+        full = train_imagenet.main(flags + [
+            "--checkpoint", os.path.join(root, "full")])
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        counts = dict(fn.launch_counts(), cast_scale=cs.cast_scale.launches)
+        evals = (P19_STEPS // P19_EPOCH) * (P19_VAL // BATCH)
+        want = {w: 53 * P19_STEPS for w in fn.launch_counts()}
+        want.update(apply_call=53 * (P19_STEPS + evals),
+                    cast_scale=2 * P19_STEPS)
+        losses = full["losses"]
+        if len(losses) != P19_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"phase 19 losses not finite: {losses}")
+        if counts != want:
+            raise AssertionError(
+                f"phase 19 launches {counts}: expected 53 a step of each "
+                f"BatchNorm kernel (apply also 53 for each of the {evals} "
+                f"validation batches) and 2 casts a step, {want}")
+        log = full["log"]
+        if len(log) != P19_STEPS // P19_EPOCH or not all(
+                math.isfinite(r["validation/loss"]) for r in log):
+            raise AssertionError(f"phase 19 epoch log: {log}")
+        names = sorted(os.listdir(os.path.join(root, "full")))
+        if names != sorted(f"imagenet-resnet50.{i}.rank0.npz"
+                           for i in (P19_FREQ, P19_STEPS)):
+            raise AssertionError(f"phase 19 snapshots: {names}")
+        # the resume: the mid-run snapshot alone in a fresh directory
+        os.makedirs(os.path.join(root, "resumed"))
+        for f in glob.glob(os.path.join(root, "full",
+                                        f"*.{P19_FREQ}.rank*.npz")):
+            shutil.copy(f, os.path.join(root, "resumed"))
+        resumed = train_imagenet.main(flags + [
+            "--checkpoint", os.path.join(root, "resumed")])
+        if resumed["resumed_from"] != P19_FREQ or \
+                resumed["iterations"] != P19_STEPS:
+            raise AssertionError(
+                f"phase 19 resume: from {resumed['resumed_from']}, ended at "
+                f"{resumed['iterations']}")
+        a, b = _p19_state(full), _p19_state(resumed)
+        differ = sorted(k for k in a if k not in b or not torch.equal(a[k],
+                                                                      b[k]))
+        if differ or a.keys() != b.keys() or not any(
+                k.startswith("opt/") for k in a):
+            raise AssertionError(f"phase 19: the resumed run differs from "
+                                 f"the uninterrupted one in {differ[:8]} "
+                                 f"({len(differ)} of {len(a)} tensors)")
+        same_losses = resumed["losses"] == losses[P19_FREQ:]
+        del full["model"], full["optimizer"], resumed
+        f32 = phase_dp_f32(torch)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(losses=losses, counts=counts, peak_gb=peak_gb,
+                base_gb=base_gb,
+                images_per_sec=full["images_per_sec"],
+                save_ms=[round(1e3 * t, 1) for t in full["save_seconds"]],
+                log=log, tensors=len(a), same_losses=same_losses, f32=f32)
+
+
+def phase_dp_f32(torch):
+    """One float32 step of ResNet-50 from the same weights with
+    ``zero=True`` and with the plain optimizer (SGD momentum, Adam): the
+    parameters must be bit-equal.  Returns the number of tensors held."""
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer,
+                                     make_train_step, weights)
+    from chainermn_tpu_torch.models import ResNet50
+    dev = torch.device("cuda", 0)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        src = ResNet50(dtype=torch.float32, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(3))
+        variables = weights.state_dict_to_flax(src)
+        del src
+        rng = torch.Generator(device=dev).manual_seed(4)
+        batch = (torch.randn((BATCH, 3, 224, 224), device=dev,
+                             generator=rng),
+                 torch.randint(0, 1000, (BATCH,), device=dev, generator=rng))
+        comm = create_communicator("xla")
+        held = 0
+        for name, make in (
+                ("momentum", lambda ps: torch.optim.SGD(ps, lr=0.1,
+                                                        momentum=0.9)),
+                ("adam", lambda ps: torch.optim.Adam(ps, lr=1e-3))):
+            params = []
+            for zero in (False, True):
+                model = ResNet50(dtype=torch.float32, device=dev)
+                weights.load_flax_variables(model, variables)
+                model.train()
+                opt = create_multi_node_optimizer(
+                    make(model.parameters()), comm, zero=zero)
+                step = make_train_step(
+                    comm, lambda b: F.cross_entropy(model(b[0]), b[1]), opt)
+                if not math.isfinite(float(step(batch))):
+                    raise AssertionError(f"f32 {name} zero={zero}: loss")
+                params.append([p.detach().clone()
+                               for p in model.parameters()])
+                del model, opt, step
+            bad = sum(not torch.equal(x, y) for x, y in zip(*params))
+            if bad:
+                raise AssertionError(f"f32 {name}: ZeRO-1 and the plain "
+                                     f"optimizer differ in {bad} of "
+                                     f"{len(params[0])} parameters")
+            held += len(params[0])
+        return held
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1489,6 +1672,23 @@ def main():
     probe_t = phase_probe_timing(pm, bcp, torch, dev, card)
     log(f"phase probe timing: {time.perf_counter() - t0:.1f} s; "
         f"{json.dumps(probe_t)}")
+
+    t0 = time.perf_counter()
+    dp = phase_dp(fn, cs, torch)
+    log(f"phase dp (19): {time.perf_counter() - t0:.1f} s; ResNet-50 "
+        f"--zero --allreduce-grad-dtype bfloat16 --optimizer momentum "
+        f"--warmup-epochs 0.5 --checkpoint, {P19_STEPS} iterations: losses "
+        f"{dp['losses']}; launches {json.dumps(dp['counts'])}; epoch log "
+        f"{json.dumps(dp['log'])}; images/sec (steps {WARMUP + 1}.."
+        f"{P19_STEPS}, with the evaluations and saves in the window) "
+        f"{dp['images_per_sec']:.1f}, phase 3 {out['images_per_sec']:.1f}; "
+        f"peak memory {dp['peak_gb']:.2f} GB ({dp['base_gb']:.2f} GB held "
+        f"by earlier phases at its start); save ms {dp['save_ms']}; the "
+        f"run resumed at {P19_FREQ} equals the uninterrupted one bit for "
+        f"bit in all {dp['tensors']} parameters, buffers and optimizer "
+        f"shards (losses bit-equal too: {dp['same_losses']}); float32 step, "
+        f"ZeRO-1 = plain optimizer bit for bit (SGD momentum, Adam; "
+        f"{dp['f32']} parameter tensors) on {gpu}")
 
     dist.destroy_process_group()
     kernels = []

@@ -179,7 +179,7 @@ def test_example_trains_on_a_gloo_world(mnist_world):
 
 def test_example_refuses_what_is_not_ported():
     from chainermn_tpu_torch.examples import train_mnist
-    for flag in ("--observability", "--compression int8", "--data x.npz"):
+    for flag in ("--observability", "--compression int8"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_mnist.main(flag.split() + ["--device", "cpu"])
     assert not dist.is_initialized() or dist.get_world_size() == 1

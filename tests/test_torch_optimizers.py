@@ -175,10 +175,12 @@ def test_finalize_waits_without_changing_the_trajectory(world1):
 def test_double_buffering_and_the_other_flags(world1):
     comm = create_communicator("flat", device="cpu")
     w = torch.nn.Parameter(torch.zeros(2))
-    for kw in ({"zero": True}, {"compression": "int8"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_multi_node_optimizer(torch.optim.SGD([w], lr=1.0), comm,
-                                        **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_multi_node_optimizer(torch.optim.SGD([w], lr=1.0), comm,
+                                    compression="int8")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        create_multi_node_optimizer(torch.optim.SGD([w], lr=1.0), comm,
+                                    zero=True, double_buffering=True)
     opt = create_multi_node_optimizer(torch.optim.SGD([w], lr=1.0), comm,
                                       double_buffering=True)
     with pytest.raises(NotImplementedError, match="closure"):

@@ -1,7 +1,8 @@
 """One rank of a multi-process gloo world for the port's parity tests.
 
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
-        python tests/torch_dist_worker.py {comm|train|opt|mnist|lm|unused} \\
+        python tests/torch_dist_worker.py \\
+            {comm|train|opt|mnist|lm|unused|coll|zero|syncbn|imagenet} \\
             IN.npz OUT_PREFIX
 
 Reads the stacked per-rank inputs from ``IN.npz`` (leading axis = rank),
@@ -316,6 +317,183 @@ def run_unused(inp, rank):
     return out
 
 
+def run_coll(inp, rank):
+    """The array collectives, ``split_axes``, the object plane,
+    ``allreduce_persistent`` and the multi-node iterators on this rank's
+    slices of the inputs; object results as one JSON string ``obj``."""
+    import json
+
+    from chainermn_tpu_torch.extensions import allreduce_persistent
+    from chainermn_tpu_torch.iterators import (
+        SerialIterator, create_multi_node_iterator,
+        create_synchronized_iterator)
+
+    t = {k: torch.from_numpy(v[rank]) for k, v in inp.items()
+         if k != "intra_size"}
+    comm = create_communicator("naive", device="cpu")
+    n = comm.size
+    out = {"allgather": comm.allgather(t["x"]),
+           "gather": comm.gather(t["x"], root=1),
+           "alltoall": comm.alltoall(t["xs"]),
+           "scatter": comm.scatter(t["table"], root=n - 1),
+           "reduce_scatter": comm.reduce_scatter(t["rs"]),
+           "reduce_scatter_int": comm.reduce_scatter(t["rsi"]),
+           "ppermute_ring": comm.ppermute(
+               t["x"], [(i, (i + 1) % n) for i in range(n)]),
+           "ppermute_one": comm.ppermute(t["x"], [(0, n - 1)])}
+    tree = comm.allgather({"a": t["x"], "b": [t["rsi"][:2]]})
+    out["tree/a"], out["tree/b"] = tree["a"], tree["b"][0]
+    hier = create_communicator("hierarchical", device="cpu",
+                               intra_size=int(inp["intra_size"]))
+    for axes in (("intra",), ("inter",), ("inter", "intra")):
+        sub = hier.split_axes(axes)
+        key = "split_axes/" + "_".join(axes)
+        out[key] = sub.allreduce(t["x"], "sum")
+        out[key + "/shape"] = torch.tensor([sub.size, sub.rank,
+                                            sub.intra_size])
+        out[key + "/grad"] = sub.allreduce_grad({"g": t["x"]})["g"]
+    bn = torch.nn.BatchNorm1d(3)
+    with torch.no_grad():
+        bn.running_mean.copy_(t["x"])
+        bn.running_var.copy_(t["x"] * t["x"])
+    allreduce_persistent(bn, comm)
+    out["persistent/mean"] = bn.running_mean
+    out["persistent/var"] = bn.running_var
+    out["persistent/tree"] = allreduce_persistent(
+        {"bn": {"mean": t["rs"]}}, comm)["bn"]["mean"]
+    out = {k: v.numpy() for k, v in out.items()}
+
+    obj = {}
+    # two tags sent in one order and received in the other
+    nxt, prv = (rank + 1) % n, (rank - 1) % n
+    comm.send_obj({"first": rank}, nxt, tag=11)
+    comm.send_obj(["second", rank], nxt, tag=12)
+    obj["tag12"] = comm.recv_obj(prv, tag=12)
+    obj["tag11"] = comm.recv_obj(prv, tag=11)
+    comm.send_obj("self", rank, tag=13)
+    obj["loopback"] = comm.recv_obj(rank, tag=13)
+    obj["gather"] = comm.gather_obj({"r": rank}, root=1, tag=3)
+    obj["scatter"] = comm.scatter_obj(
+        [f"s{i}" for i in range(n)] if rank == n - 1 else None,
+        root=n - 1, tag=4)
+    comm.barrier()
+    obj["bcast"] = comm.bcast_obj(("from", rank), root=1, tag=5)
+    obj["allgather"] = comm.allgather_obj(rank * 10)
+    obj["allreduce"] = comm.allreduce_obj({"v": rank}, "sum")
+    comm.barrier(tag=950)
+
+    data = list(range(20))
+    it = SerialIterator(data, 4, repeat=False, shuffle=False) \
+        if rank == 0 else None
+    mit = create_multi_node_iterator(it, comm)
+    obj["mn_batches"] = [[int(v) for v in b] for b in mit]
+    obj["mn_epoch"] = mit.epoch
+    it = SerialIterator(data, 3, shuffle=True, seed=5) if rank == 0 else None
+    mit = create_multi_node_iterator(it, comm)
+    obj["mn_shuffled"] = [[int(v) for v in mit.next()] for _ in range(9)]
+    np.random.seed(100 + rank)  # a different global draw on every rank
+    it = create_synchronized_iterator(
+        SerialIterator(list(range(32)), 8, shuffle=True, seed=rank), comm)
+    obj["synced"] = [[int(v) for v in it.next()] for _ in range(5)]
+    out["obj"] = np.asarray(json.dumps(obj))
+    return out
+
+
+def run_zero(inp, rank):
+    """ZeRO-1 against the unsharded multi-node optimizer: an MLP from flax
+    weights (``var/``), 4 steps on this rank's slice of ``x``/``y`` for
+    Adam and AdamW, without and with ``zero``, float32 wire and the bf16
+    wire: ``{cfg}/losses``, ``{cfg}/var/...`` and ``{cfg}/state_numel``.
+    Then the wire leg alone on ``g`` (``wire/{dtype}/{i}``: this rank's
+    shards) and the refusals."""
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import weights
+    from chainermn_tpu_torch.models import MLP
+
+    variables = nest({k[4:]: v for k, v in inp.items()
+                      if k.startswith("var/")})
+    out = {}
+    for wire in (None, "bfloat16"):
+        comm = create_communicator("xla", device="cpu",
+                                   allreduce_grad_dtype=wire)
+        for name in ("adam", "adamw"):
+            for zero in (False, True):
+                model = MLP(int(inp["unit"]), 4, n_in=8, device="cpu")
+                weights.load_flax_variables(model, variables)
+                inner = (torch.optim.Adam(model.parameters(), lr=5e-2)
+                         if name == "adam" else torch.optim.AdamW(
+                             model.parameters(), lr=5e-2, weight_decay=1e-2))
+                opt = create_multi_node_optimizer(inner, comm, zero=zero)
+                step = make_train_step(
+                    comm, lambda b: F.cross_entropy(model(b[0]), b[1]), opt)
+                losses = [float(step((torch.from_numpy(x),
+                                      torch.from_numpy(y).long())))
+                          for x, y in zip(inp["x"][:, rank],
+                                          inp["y"][:, rank])]
+                cfg = f"{wire or 'float32'}/{name}/zero{int(zero)}"
+                out[f"{cfg}/losses"] = np.asarray(losses)
+                out[f"{cfg}/state_numel"] = np.asarray(sum(
+                    v.numel() for st in opt.local_optimizer.state.values()
+                    for k, v in st.items() if k != "step"))
+                out.update({f"{cfg}/var/{k}": v for k, v in flatten(
+                    weights.state_dict_to_flax(model)).items()})
+        zopt = create_multi_node_optimizer(
+            torch.optim.SGD([torch.nn.Parameter(torch.zeros(2))], lr=1.0),
+            comm, zero=True)
+        for key in ("g", "exact"):
+            shards, _, _ = zopt.reduce_scatter_grad(
+                [torch.from_numpy(inp[key][rank])])
+            out[f"wire/{wire or 'float32'}/{key}"] = shards[0].numpy()
+    return out
+
+
+def run_syncbn(inp, rank):
+    """``MultiNodeBatchNormalization`` on this rank's slice of ``x`` ([N,
+    C]) and ``x4`` ([N, C, H, W]) with weights ``w``/``b`` and upstream
+    gradients ``gy``/``gy4``: output, running statistics after two steps,
+    input gradient, and this rank's parameter gradients."""
+    from chainermn_tpu_torch.links import MultiNodeBatchNormalization
+
+    comm = create_communicator("xla", device="cpu")
+    out = {}
+    for key in ("x", "x4"):
+        x = torch.from_numpy(inp[key][rank]).requires_grad_()
+        bn = MultiNodeBatchNormalization(x.shape[1], comm)
+        with torch.no_grad():
+            bn.weight.copy_(torch.from_numpy(inp["w"]))
+            bn.bias.copy_(torch.from_numpy(inp["b"]))
+        y = bn(x)
+        gy = torch.from_numpy(inp["gy4" if key == "x4" else "gy"][rank])
+        (y * gy).sum().backward()
+        out[f"{key}/y"] = y.detach().numpy()
+        out[f"{key}/dx"] = x.grad.numpy()
+        out[f"{key}/dw"] = bn.weight.grad.numpy()
+        out[f"{key}/db"] = bn.bias.grad.numpy()
+        with torch.no_grad():
+            bn(x)
+        out[f"{key}/running_mean"] = bn.running_mean.numpy()
+        out[f"{key}/running_var"] = bn.running_var.numpy()
+        bn.eval()
+        out[f"{key}/eval"] = bn(x).detach().numpy()
+    return out
+
+
+def run_imagenet(inp, rank):
+    """``train_imagenet.main`` for each ``argv{i}`` (one string each):
+    ``{i}/losses`` and ``{i}/model/{name}`` (parameters and buffers)."""
+    from chainermn_tpu_torch.examples import train_imagenet
+
+    out = {}
+    i = 0
+    while f"argv{i}" in inp:
+        res = train_imagenet.main(str(inp[f"argv{i}"]).split())
+        out[f"{i}/losses"] = np.asarray(res["losses"])
+        out.update({f"{i}/model/{k}": v.detach().cpu().numpy()
+                    for k, v in res["model"].state_dict().items()})
+        i += 1
+    return out
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -356,8 +534,9 @@ def main():
     topo = init_distributed(device="cpu")
     inp = dict(np.load(inp_path))
     out = {"comm": run_comm, "train": run_train, "opt": run_opt,
-           "mnist": run_mnist, "lm": run_lm,
-           "unused": run_unused}[mode](inp, topo.rank)
+           "mnist": run_mnist, "lm": run_lm, "unused": run_unused,
+           "coll": run_coll, "zero": run_zero, "syncbn": run_syncbn,
+           "imagenet": run_imagenet}[mode](inp, topo.rank)
     np.savez(f"{out_prefix}.{topo.rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
