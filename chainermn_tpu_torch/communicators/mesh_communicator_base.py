@@ -326,7 +326,7 @@ class MeshCommunicator(CommunicatorBase):
             raise ValueError(f"unknown op {op!r}")
 
         def one(v):
-            v = v.clone()
+            v = v.clone(memory_format=torch.contiguous_format)
             dist.all_reduce(v, _OPS.get(op, dist.ReduceOp.SUM),
                             group=self._group)
             return v / self.size if op == "mean" else v
@@ -338,7 +338,7 @@ class MeshCommunicator(CommunicatorBase):
         src = self._global_rank(root)
 
         def one(v):
-            v = v.clone()
+            v = v.clone(memory_format=torch.contiguous_format)
             dist.broadcast(v, src=src, group=self._group)
             return v
 
@@ -370,8 +370,11 @@ class MeshCommunicator(CommunicatorBase):
             if v.shape[0] != self.size:
                 raise ValueError(f"alltoall: leading axis {v.shape[0]}, "
                                  f"expected the world size {self.size}")
+            # the buffers in row-major order: empty_like would keep a
+            # permuted view's strides, which the collective ignores
+            v = v.contiguous()
             out = torch.empty_like(v)
-            dist.all_to_all_single(out, v.contiguous(), group=self._group)
+            dist.all_to_all_single(out, v, group=self._group)
             return out
 
         return _packing.tree_map(one, xs)
@@ -409,8 +412,17 @@ class MeshCommunicator(CommunicatorBase):
     def ppermute(self, x, perm: Sequence[Tuple[int, int]]):
         """Send this rank's tensor (or tree) along ``(src, dst)`` pairs of
         ranks; a rank that receives nothing gets zeros.  The sends and
-        receives of one call go out as one batch
+        receives of every leaf go out as one batch
         (``dist.batch_isend_irecv``), so a ring cannot deadlock."""
+        out, wait = self.ppermute_async(x, perm)
+        wait()
+        return out
+
+    def ppermute_async(self, x, perm: Sequence[Tuple[int, int]]):
+        """:meth:`ppermute` started but not waited for: ``(out, wait)``.
+        ``out`` may be read only after ``wait()``, which makes the current
+        stream wait for the transfers (on NCCL; gloo blocks the host), so
+        work queued between the two overlaps them."""
         perm = [(int(a), int(b)) for a, b in perm]
         for pos in (0, 1):
             ends = [p[pos] for p in perm]
@@ -419,22 +431,28 @@ class MeshCommunicator(CommunicatorBase):
         me = self.rank
         dst = [b for a, b in perm if a == me]
         src = [a for a, b in perm if b == me]
+        leaves, treedef = _packing.tree_flatten(x)
+        leaves = [v.contiguous() for v in leaves]
+        if src and src[0] == me:
+            outs = [v.clone() for v in leaves]
+        elif src:
+            outs = [torch.empty_like(v) for v in leaves]
+        else:
+            outs = [torch.zeros_like(v) for v in leaves]
+        ops = []
+        if not (src and src[0] == me):
+            for v, o in zip(leaves, outs):
+                ops += [dist.P2POp(dist.isend, v, self._global_rank(d),
+                                   group=self._group) for d in dst]
+                ops += [dist.P2POp(dist.irecv, o, self._global_rank(s),
+                                   group=self._group) for s in src]
+        works = dist.batch_isend_irecv(ops) if ops else []
 
-        def one(v):
-            v = v.contiguous()
-            if src and src[0] == me:
-                return v.clone()
-            out = torch.zeros_like(v)
-            ops = [dist.P2POp(dist.isend, v, self._global_rank(d),
-                              group=self._group) for d in dst]
-            ops += [dist.P2POp(dist.irecv, out, self._global_rank(s),
-                               group=self._group) for s in src]
-            if ops:
-                for w in dist.batch_isend_irecv(ops):
-                    w.wait()
-            return out
+        def wait():
+            for w in works:
+                w.wait()
 
-        return _packing.tree_map(one, x)
+        return _packing.tree_unflatten(treedef, outs), wait
 
     # ---- gradient entry points ---------------------------------------------
     def allreduce_grad(self, grads):

@@ -6,9 +6,19 @@ learned positional embeddings, a GELU MLP, float32 parameters computed in
 
 * ``"flash"`` -- :func:`chainermn_tpu_torch.ops.flash_attention` (the CUDA
   kernels on the card), which reads grouped kv heads natively;
+* ``"ring"`` -- :func:`chainermn_tpu_torch.parallel.ring_attention` over
+  the ranks of ``comm``, for a sequence sharded across GPUs; ``"ring_flash"``
+  runs each visiting block through the flash kernels (logsumexp-merged) and
+  rotates the grouped kv heads as they are (1/group of the bytes);
+* ``"ulysses"`` -- :func:`chainermn_tpu_torch.parallel.ulysses_attention`,
+  the all-to-all head/sequence exchange over ``comm``;
 * ``"xla"`` -- the plain softmax of
-  :func:`chainermn_tpu_torch.parallel.sequence.attention`, with kv heads
-  repeated for GQA.
+  :func:`chainermn_tpu_torch.parallel.sequence.attention`.
+
+Every impl but ``flash`` and ``ring_flash`` sees the kv heads repeated for
+GQA.  The sequence-parallel impls take a communicator where the JAX model
+takes ``axis_name``: each rank runs the model on its block of the sequence
+with ``pos_offset = rank * T/P``.
 
 What is kept from flax, which ``torch.nn``'s defaults would change:
 
@@ -22,9 +32,8 @@ What is kept from flax, which ``torch.nn``'s defaults would change:
 * the qkv projection splits q | k | v with widths ``d_model, d_kv, d_kv``;
 * the logits are float32; ``pos_offset`` is a scalar or a ``[B]`` vector.
 
-The JAX model's extensions are not ported: ``moe_experts > 0``,
-``tp_size > 1``, ``attend=`` and the sequence-parallel impls (``ring``,
-``ring_flash``, ``ulysses``) raise with their ROADMAP.md queue.  Weights
+The JAX model's other extensions are not ported: ``moe_experts > 0``,
+``tp_size > 1`` and ``attend=`` raise with their ROADMAP.md queue.  Weights
 come from a flax model with :mod:`chainermn_tpu_torch.weights`;
 initialisation otherwise draws from an explicit ``torch.Generator`` with
 flax's initialisers (lecun-normal dense kernels and embeddings, zero biases,
@@ -41,27 +50,35 @@ from torch import nn
 
 from chainermn_tpu_torch.models.resnet import Dense as _Dense, _lecun_normal_
 from chainermn_tpu_torch.ops.flash_attention import flash_attention
-from chainermn_tpu_torch.parallel.sequence import attention
+from chainermn_tpu_torch.parallel.sequence import (
+    attention, ring_attention, ulysses_attention)
 from chainermn_tpu_torch.parallel.topology import resolve_device
 
 IMPLS = ("flash", "ring", "ring_flash", "ulysses", "xla")
-_SEQUENCE_PARALLEL = ("ring", "ring_flash", "ulysses")
+SEQUENCE_PARALLEL = ("ring", "ring_flash", "ulysses")
 
 
-def _check_impl(impl: str) -> None:
+def _check_impl(impl: str, comm) -> None:
     if impl not in IMPLS:
         raise ValueError(
             f"attention_impl must be flash|ring|ring_flash|ulysses|xla, "
             f"got {impl!r}")
-    if impl in _SEQUENCE_PARALLEL:
-        raise NotImplementedError(
-            f"attention_impl={impl!r} (sequence parallelism) is not ported "
-            "yet; see ROADMAP.md Queue A9")
+    if impl in SEQUENCE_PARALLEL and comm is None:
+        raise ValueError(
+            f"attention_impl={impl!r} shards the sequence over the ranks "
+            "of a communicator: pass comm=")
 
 
-def _attend(impl: str, q, k, v, causal: bool):
+def _attend(impl: str, comm, q, k, v, causal: bool):
     if impl == "flash":
         return flash_attention(q, k, v, causal)
+    if impl == "ring":
+        return ring_attention(q, k, v, comm, causal=causal)
+    if impl == "ring_flash":
+        return ring_attention(q, k, v, comm, causal=causal,
+                              attn_fn=flash_attention)
+    if impl == "ulysses":
+        return ulysses_attention(q, k, v, comm, causal=causal)
     return attention(q, k, v, causal=causal)
 
 
@@ -118,7 +135,8 @@ class Block(nn.Module):
     def __init__(self, d_model: int, n_heads: int,
                  attention_impl: str = "xla", dtype=torch.float32,
                  n_kv_heads: Optional[int] = None, moe_experts: int = 0,
-                 tp_size: int = 1, *, device=None, generator=None):
+                 tp_size: int = 1, comm=None, *, device=None,
+                 generator=None):
         super().__init__()
         n_kv = n_kv_heads or n_heads
         if n_heads % tp_size or n_kv % tp_size:
@@ -133,8 +151,9 @@ class Block(nn.Module):
             raise NotImplementedError(
                 "moe_experts > 0 (expert-parallel MLP) is not ported yet; "
                 "see ROADMAP.md Queue A9")
-        _check_impl(attention_impl)
+        _check_impl(attention_impl, comm)
         self.n_heads, self.n_kv, self.impl = n_heads, n_kv, attention_impl
+        self.comm = comm
         self.head_dim = d_model // n_heads
         self.d_kv = n_kv * self.head_dim
         dense = lambda i, o: Dense(i, o, dtype=dtype, device=device,  # noqa
@@ -160,13 +179,15 @@ class Block(nn.Module):
             lead + (self.n_kv, self.head_dim))
         v = qkv[..., d_model + self.d_kv:].reshape(
             lead + (self.n_kv, self.head_dim))
-        if self.n_kv != self.n_heads and self.impl != "flash":
-            # the fused kernels read grouped kv natively; the plain softmax
-            # sees the heads repeated
+        if self.n_kv != self.n_heads and self.impl not in (
+                "flash", "ring_flash"):
+            # the fused kernels read grouped kv natively (and under
+            # ring_flash the grouped blocks rotate the ring, 1/group of the
+            # bytes); the other impls see the heads repeated
             grp = self.n_heads // self.n_kv
             k = k.repeat_interleave(grp, dim=-2)
             v = v.repeat_interleave(grp, dim=-2)
-        out = _attend(self.impl, q, k, v, causal=True)
+        out = _attend(self.impl, self.comm, q, k, v, causal=True)
         x = x + self.proj(out.reshape(lead + (d_model,)))
         h = F.gelu(self.up(self.ln_mlp(x)), approximate="tanh")
         return x + self.down(h)
@@ -175,7 +196,10 @@ class Block(nn.Module):
 class TransformerLM(nn.Module):
     """``model(tokens [B, T]) -> logits [B, T, vocab]`` (float32, causal).
 
-    The JAX constructor's fields; of its extensions, ``moe_experts`` and
+    The JAX constructor's fields, with ``comm`` (the communicator whose
+    ranks shard the sequence) for ``axis_name``; with a sequence-parallel
+    ``attention_impl`` each rank passes its ``[B, T/P]`` block and
+    ``pos_offset=rank * T/P``.  Of the extensions, ``moe_experts`` and
     ``tp_size`` are taken only to refuse them.
     """
 
@@ -184,7 +208,7 @@ class TransformerLM(nn.Module):
                  attention_impl: str = "xla", *,
                  dtype: torch.dtype = torch.float32,
                  n_kv_heads: Optional[int] = None, moe_experts: int = 0,
-                 tp_size: int = 1, device=None,
+                 tp_size: int = 1, comm=None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if d_model % n_heads:
@@ -203,7 +227,8 @@ class TransformerLM(nn.Module):
                              generator=generator)
         self.blocks = nn.ModuleList([
             Block(d_model, n_heads, attention_impl, dtype, n_kv_heads,
-                  moe_experts, tp_size, device=device, generator=generator)
+                  moe_experts, tp_size, comm, device=device,
+                  generator=generator)
             for _ in range(n_layers)])
         self.ln_f = LayerNorm(d_model, dtype=dtype, device=device)
         self.head = Dense(d_model, vocab, dtype=dtype, device=device,

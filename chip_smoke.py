@@ -166,7 +166,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     ``weights.py``-converted weights with ``zero=True`` and with the plain
     optimizer, for SGD momentum and for Adam: the parameters are equal bit
     for bit (on a world of one ZeRO-1 is the same elementwise update on a
-    flat view).
+    flat view);
+20. the sequence-parallel slice (run after phase 19, before the summary),
+    float32 with TF32 off, on the NCCL world of one (a ring of one rank):
+    (a) ``examples.train_lm``'s ``main`` at phase 11's width (vocab 32768,
+    d_model 2048, 8 layers, 16 heads, T 8192, batch 1, seed 0) for
+    ``P20_STEPS`` Adam steps with ``--attention ring_flash`` and with
+    ``--attention flash``: the losses within 1e-4 relative and every
+    gradient of step 0 within a relative L2 error of 1e-3 (phase 12's
+    gates); the flash launches of the ring_flash run exactly 2 L P forward
+    and L P each of dK/dV and dQ a step (L 8 layers, P 1 rank: the fold is
+    rematerialised in the backward pass); tokens/sec and peak memory of
+    both.  (b) q/k/v at the LM's attention shape (B 1, T 8192, H 16, D 128,
+    causal) split into ``P20_BLOCKS`` blocks of 2048 and folded with
+    ``parallel.sequence.ring_flash_block`` with the offsets and merge a
+    4-rank ring would use (nonzero offsets, fully masked blocks, the lse's
+    cotangent into dK/dV and dQ), in bf16 and float32, against the plain
+    versions of the flash kernels over the whole sequence (plain PyTorch:
+    no CUDA kernel on that side) and against ``flash_attention`` over the
+    whole sequence: output and q/k/v gradients within phase 10's relative
+    L2 limits for both.  (c) ``ring`` and
+    ``ulysses`` at ``P20_LAYERS_C`` layers (their plain attention keeps
+    16 x 8192^2 float32 scores a layer) against ``flash`` at the same
+    depth, with (a)'s gates.
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
 """
@@ -1063,6 +1085,8 @@ def phase_lm_f32(torch, dev):
     import numpy as np
     from chainermn_tpu_torch.examples.train_lm import lm_loss
     from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.utils.compare import (
+        GRAD_RTOL, LOSS_RTOL, step_agrees, step_errors)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dict(LM, n_layers=2, max_len=2048)
@@ -1084,14 +1108,12 @@ def phase_lm_f32(torch, dev):
                                       model.named_parameters()}))
         del model
     (lk, gk), (lp, gp) = results
-    loss_rel = abs(lk - lp) / abs(lp)
-    grad_rel, worst = max((float((gk[k] - gp[k]).norm())
-                           / max(float(gp[k].norm()), 1e-30), k) for k in gp)
+    loss_rel, grad_rel, worst = step_errors([lk], [lp], gk, gp)
     log(f"LM f32 step (2 layers, T 2048, TF32 off): loss kernels {lk:.7f} "
-        f"xla {lp:.7f} (rel {loss_rel:.2e}, tol 1e-4); worst gradient "
-        f"relative L2 error {grad_rel:.2e} ({worst}; tol 1e-3) over "
+        f"xla {lp:.7f} (rel {loss_rel:.2e}, tol {LOSS_RTOL}); worst gradient "
+        f"relative L2 error {grad_rel:.2e} ({worst}; tol {GRAD_RTOL}) over "
         f"{len(gp)} tensors")
-    if not (lk == lk and loss_rel <= 1e-4 and grad_rel <= 1e-3):
+    if not step_agrees(loss_rel, grad_rel):
         raise AssertionError("float32 LM step with the flash kernels "
                              "disagrees with the plain attention")
     del results, gk, gp
@@ -1509,6 +1531,169 @@ def phase_dp_f32(torch):
             torch.backends.cudnn.allow_tf32 = tf32
 
 
+
+P20_STEPS = 3        # phase 20: Adam steps of each train_lm run
+P20_BLOCKS = 4       # the ring the one-card fold of (b) stands in for
+P20_LAYERS_C = 2     # (c): ring and ulysses keep [16, T, T] float32 scores
+
+
+def _p20_argv(attention, layers):
+    """train_lm at the LM's width (phase 11's), float32, seed 0."""
+    return ["--attention", attention, "--seq-len", str(LM_T),
+            "--batchsize", "1", "--steps", str(P20_STEPS),
+            "--vocab", str(LM["vocab"]), "--d-model", str(LM["d_model"]),
+            "--layers", str(layers), "--heads", str(LM["n_heads"]),
+            "--lr", "1e-3", "--seed", "0"]
+
+
+def _p20_run(fa, torch, attention, layers):
+    """``train_lm.main`` with the flash counts set to 0 just before it:
+    losses, step 0's gradients, launches, tokens/sec, peak memory."""
+    from chainermn_tpu_torch.examples import train_lm
+    grads = {}
+
+    def keep(i, model):
+        if i == 0:
+            grads.update({k: p.grad.detach().clone()
+                          for k, p in model.named_parameters()})
+
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    out = train_lm.main(_p20_argv(attention, layers), on_grads=keep)
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    losses = out["losses"]
+    if len(losses) != P20_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"phase 20 {attention}: losses {losses}")
+    # tokens/sec after the first step, which pays the first calls' costs
+    steady = out["step_seconds"][1:]
+    return dict(losses=losses, grads=grads, counts=counts,
+                tokens_per_sec=LM_T * len(steady) / sum(steady),
+                step_s=out["step_seconds"], peak_gb=out["peak_memory_gb"],
+                world=out["world"])
+
+
+def _p20_gate(name, got, want):
+    """Phase 12's float32 gates (``utils.compare``): every step's loss
+    within 1e-4 relative, every gradient of step 0 within a relative L2
+    error of 1e-3."""
+    from chainermn_tpu_torch.utils.compare import (
+        GRAD_RTOL, LOSS_RTOL, step_agrees, step_errors)
+    loss_rel, grad_rel, worst = step_errors(got["losses"], want["losses"],
+                                            got["grads"], want["grads"])
+    log(f"phase 20 {name}: losses {got['losses']} vs {want['losses']} (rel "
+        f"{loss_rel:.2e}, tol {LOSS_RTOL}); worst step-0 gradient relative "
+        f"L2 {grad_rel:.2e} ({worst}; tol {GRAD_RTOL}) over "
+        f"{len(want['grads'])} tensors")
+    if not step_agrees(loss_rel, grad_rel):
+        raise AssertionError(f"phase 20 {name} disagrees with flash")
+    return loss_rel, grad_rel
+
+
+def p20_fold(fa, seq, torch, dev, dtype):
+    """(b): q/k/v at the LM's attention shape (B 1, T 8192, H 16, D 128,
+    causal) split into ``P20_BLOCKS`` blocks and folded with
+    ``sequence.ring_flash_block`` as the ranks of a ring would (block r
+    visited by the k/v of r, r-1, ... with their global offsets; blocks
+    after r fully masked).  Returns the relative L2 errors of the output
+    and the q/k/v gradients of ``sum(out * g)`` against the plain versions
+    of the flash kernels over the whole sequence (``"plain"``: no CUDA
+    kernel on that side) and against ``flash_attention`` over the whole
+    sequence (``"flash"``)."""
+    b, t, h = 1, LM_T, LM["n_heads"]
+    d = LM["d_model"] // h
+    gen = torch.Generator(device=dev).manual_seed(20)
+    q, k, v = ((torch.randn(b, t, h, d, generator=gen, device=dev) * s)
+               .to(dtype).requires_grad_(True) for s in (0.5, 0.5, 1.0))
+    g = torch.randn(b, t, h, d, generator=gen, device=dev).to(dtype)
+    tb = t // P20_BLOCKS
+    blk = lambda x, i: x[:, i * tb:(i + 1) * tb]  # noqa: E731
+    outs = []
+    for r in range(P20_BLOCKS):
+        o = torch.zeros(b, tb, h, d, device=dev)
+        lse = torch.full((b, h, tb), float("-inf"), device=dev)
+        for step in range(P20_BLOCKS):
+            src = (r - step) % P20_BLOCKS
+            o, lse = seq.ring_flash_block(
+                blk(q, r), blk(k, src), blk(v, src), o, lse, causal=True,
+                sm_scale=None, attn_fn=fa.flash_attention, q_offset=r * tb,
+                kv_offset=src * tb)
+        outs.append(o.to(dtype))
+    folded = torch.cat(outs, dim=1)
+    got = (folded.detach(),) + torch.autograd.grad(folded, (q, k, v), g)
+    del outs, folded
+    whole = fa.flash_attention(q, k, v, True)
+    refs = {"flash": (whole.detach(),)
+            + torch.autograd.grad(whole, (q, k, v), g)}
+    del whole
+    q, k, v = (x.detach() for x in (q, k, v))
+    out_p, lse_p = fa.flash_forward_plain(q, k, v, True)
+    delta = (g.float() * out_p.float()).sum(-1).transpose(1, 2).contiguous()
+    refs["plain"] = (out_p,) + fa.flash_backward_plain(
+        q, k, v, g, lse_p, delta, None, True, block_k=1024)
+    torch.cuda.synchronize()
+    return {ref: {name: _rel(torch, a, w) for name, a, w in
+                  zip(("out", "dq", "dk", "dv"), got, want)}
+            for ref, want in refs.items()}
+
+
+def phase_sp(fa, torch, dev):
+    """Phase 20: the sequence-parallel slice on one card (see the module
+    docstring); returns what its log lines print."""
+    from chainermn_tpu_torch.parallel import sequence as seq
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        layers = LM["n_layers"]
+        runs = {att: _p20_run(fa, torch, att, layers)
+                for att in ("ring_flash", "flash")}
+        torch.cuda.empty_cache()
+        p = runs["ring_flash"]["world"]
+        # the design's count: the fold of each of the P blocks a layer is
+        # rematerialised in the backward pass (its forward kernel runs
+        # twice), dK/dV and dQ once
+        want = {"flash_fwd": 2 * layers * p * P20_STEPS,
+                "flash_bwd_dkv": layers * p * P20_STEPS,
+                "flash_bwd_dq": layers * p * P20_STEPS}
+        if runs["ring_flash"]["counts"] != want:
+            raise AssertionError(f"phase 20 ring_flash launches "
+                                 f"{runs['ring_flash']['counts']}, predicted "
+                                 f"{want}")
+        gates = {"ring_flash": _p20_gate("(a) ring_flash, full width",
+                                         runs["ring_flash"], runs["flash"])}
+        for r in runs.values():
+            del r["grads"]
+        torch.cuda.empty_cache()
+        fold = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            fold[name] = p20_fold(fa, seq, torch, dev, dtype)
+            tol = FLASH_TOL[name]
+            for ref, errs in fold[name].items():
+                log(f"phase 20 (b) {P20_BLOCKS}-block ring_flash fold vs "
+                    f"whole-sequence {ref}, {name}, B 1 T {LM_T} H 16 D 128 "
+                    f"causal: relative L2 {json.dumps(errs)} (tol {tol})")
+                if not all(e <= tol for e in errs.values()):
+                    raise AssertionError(f"phase 20 (b) fold {name} "
+                                         f"disagrees with {ref}")
+            torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+        short = {att: _p20_run(fa, torch, att, P20_LAYERS_C)
+                 for att in ("ring", "ulysses", "flash")}
+        for att in ("ring", "ulysses"):
+            gates[att] = _p20_gate(f"(c) {att}, {P20_LAYERS_C} layers",
+                                   short[att], short["flash"])
+        for r in short.values():
+            del r["grads"]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    return dict(runs=runs, short=short, fold=fold, gates=gates)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1689,6 +1874,21 @@ def main():
         f"shards (losses bit-equal too: {dp['same_losses']}); float32 step, "
         f"ZeRO-1 = plain optimizer bit for bit (SGD momentum, Adam; "
         f"{dp['f32']} parameter tensors) on {gpu}")
+
+    t0 = time.perf_counter()
+    sp = phase_sp(fa, torch, dev)
+    runs, short = sp["runs"], sp["short"]
+    log(f"phase sp (20): {time.perf_counter() - t0:.1f} s; train_lm at the "
+        f"LM's width in float32 ({LM_T} tokens, {P20_STEPS} Adam steps, "
+        f"world of one): " + "; ".join(
+            f"{att}: launches {json.dumps(r['counts'])}, step seconds "
+            f"{r['step_s']}, tokens/sec (steps 2..{P20_STEPS}) "
+            f"{r['tokens_per_sec']:.1f}, peak memory {r['peak_gb']:.2f} GB"
+            for att, r in runs.items()) + f"; at {P20_LAYERS_C} layers: "
+        + "; ".join(f"{att}: step seconds {r['step_s']}, tokens/sec "
+                    f"{r['tokens_per_sec']:.1f}, peak memory "
+                    f"{r['peak_gb']:.2f} GB" for att, r in short.items())
+        + f" on {gpu}")
 
     dist.destroy_process_group()
     kernels = []

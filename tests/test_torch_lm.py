@@ -3,7 +3,8 @@
 * ``examples.train_lm``: the motif task gives the JAX example's tokens bit
   for bit; three Adam steps of the example's loop at toy width, from flax
   weights, match the same JAX steps (losses 1e-5, parameters 1e-4 relative
-  to each tensor's largest value); the unported flags raise, and without
+  to each tensor's largest value); ``--fsdp`` raises, the sequence-parallel
+  attentions run on a world of one as ``flash`` does, and without
   ``--device`` the example refuses a box with no card.
 * The data-parallel step of the LM benchmark (``create_communicator("xla",
   allreduce_grad_dtype=...)`` -> ``create_multi_node_optimizer(SGD momentum
@@ -125,8 +126,18 @@ def test_example_runs_and_learns_on_cpu(capsys):
                                   ["--attention", "ulysses"],
                                   ["--attention", "ring", "--fsdp"]])
 def test_example_refuses_sequence_parallelism(argv):
-    with pytest.raises(NotImplementedError, match="Queue A9"):
-        train_lm.main(argv + ["--device", "cpu"])
+    if "--fsdp" in argv:
+        with pytest.raises(NotImplementedError, match="Queue A9"):
+            train_lm.main(argv + ["--device", "cpu"])
+        return
+    # ring, ring_flash and ulysses are ported (A9, part): on a world of one
+    # each runs the example's three Adam steps as --attention flash does
+    small = ["--device", "cpu", "--seq-len", "64", "--steps", "3",
+             "--kv-heads", "2", "--lr", "1e-3"]
+    got = train_lm.main(argv + small)
+    want = train_lm.main(["--attention", "flash"] + small)
+    assert got["world"] == 1
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
 
 
 def test_example_flag_errors_as_jax():

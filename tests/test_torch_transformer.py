@@ -7,7 +7,8 @@ the flash path folds the softmax tile by tile on the JAX side), for the
 ``xla`` and ``flash`` attentions, multi-head and grouped-query, and for
 scalar and per-sequence position offsets.  The weights mapping round-trips
 exactly; the full-width configuration counts flax's parameters; the
-unported extensions raise.
+unported extensions raise, and the sequence-parallel impls run on a world
+of one as their single-shard twins.
 """
 
 import copy
@@ -195,9 +196,50 @@ def test_tp_size_divisibility_error_matches_jax():
     ({"tp_size": 2}, "A12"),
 ])
 def test_unported_extensions_raise(kw, queue):
+    impl = kw.get("attention_impl")
+    if impl is not None:
+        # the sequence-parallel impls are ported (A9, part): on a world of
+        # one (a ring of one rank) each gives the logits and gradients of
+        # its single-shard twin, flash for ring_flash, xla for the others
+        _world_of_one_matches(impl, "flash" if impl == "ring_flash"
+                              else "xla")
+        return
     msg = _msg(lambda: TransformerLM(VOCAB, D_MODEL, 1, HEADS, device="cpu",
                                      **kw), NotImplementedError)
     assert f"Queue {queue}" in msg
+
+
+def _world_of_one_matches(impl, twin):
+    import torch.distributed as dist
+    from chainermn_tpu_torch import create_communicator
+    created = not dist.is_initialized()
+    comm = create_communicator("naive", device="cpu")
+    try:
+        with pytest.raises(ValueError, match="pass comm="):
+            TransformerLM(VOCAB, D_MODEL, 1, HEADS, device="cpu",
+                          attention_impl=impl)
+        _, params = _flax(kv=2)
+        toks = torch.from_numpy(_tokens(6))
+        w = torch.from_numpy(np.random.RandomState(7).randn(
+            B, T, VOCAB).astype(np.float32))
+        runs = []
+        for model in (_port(params, twin, kv=2),
+                      weights.load_flax_variables(TransformerLM(
+                          VOCAB, D_MODEL, LAYERS, HEADS, max_len=2 * T,
+                          attention_impl=impl, n_kv_heads=2, comm=comm,
+                          device="cpu"), params)):
+            logits = model(toks)
+            (logits * w).sum().backward()
+            runs.append((logits.detach().numpy(), _grads_as_flax(model)))
+        (want, gwant), (got, ggot) = runs
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        for k in gwant:
+            np.testing.assert_allclose(
+                ggot[k], gwant[k], rtol=RTOL,
+                atol=RTOL * np.abs(gwant[k]).max(), err_msg=k)
+    finally:
+        if created:
+            dist.destroy_process_group()
 
 
 def test_unknown_impl_and_attend_refused():

@@ -2,7 +2,7 @@
 
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/torch_dist_worker.py \\
-            {comm|train|opt|mnist|lm|unused|coll|zero|syncbn|imagenet} \\
+            {comm|train|opt|mnist|lm|unused|coll|zero|syncbn|imagenet|seq} \\
             IN.npz OUT_PREFIX
 
 Reads the stacked per-rank inputs from ``IN.npz`` (leading axis = rank),
@@ -494,6 +494,184 @@ def run_imagenet(inp, rank):
     return out
 
 
+def _grads_as_flax(model):
+    """The model's gradients in the flax parameter layout."""
+    from chainermn_tpu_torch import weights
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.grad)
+    return flatten(weights.state_dict_to_flax(model))
+
+
+def run_seq(inp, rank):
+    """The sequence-parallel slice on this rank's blocks, by section (a
+    section runs when its inputs are there):
+
+    * ``coll/*``: each differentiable collective, ``spmd_send_recv`` and
+      ``spmd_send_recv_async`` on ``x`` (rank-stacked), the loss ``sum(w *
+      y)``: ``{name}/y`` and ``{name}/g`` (the gradient of this rank's
+      ``x``);
+    * ``attn/*``: ``ring``, ``ulysses`` and ``ring_flash`` (the plain flash
+      on the CPU) over the world on this rank's sequence block of q/k/v,
+      causal and not, the loss ``sum(out * g)``: ``out``, ``dq``, ``dk``,
+      ``dv``; ``ulysses`` with heads the world does not divide: its
+      ``ValueError``; causal ``ring`` over ``split_axes(("intra",))`` of
+      nodes of half the world (``sub/*``);
+    * ``gqa/*``: TransformerLM with grouped k/v under ``ring_flash`` from
+      flax weights: this rank's logits and the head count of every k/v
+      block the ring rotated;
+    * ``lm/*``: the example's ``sp_loss`` for each of ``lm/impls`` from
+      flax weights, backward and ``sum_gradients``: the loss and the
+      gradients in the flax layout;
+    * ``example/*``: ``examples.train_lm.main`` for each impl: its losses.
+    """
+    from chainermn_tpu_torch import functions, weights
+    from chainermn_tpu_torch.examples import train_lm
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.ops.flash_attention import flash_attention
+    from chainermn_tpu_torch.parallel import sequence
+
+    comm = create_communicator("xla", device="cpu")
+    n = comm.size
+    out = {}
+
+    def grad_of(fn, x, w):
+        x = x.clone().requires_grad_(True)
+        y = fn(x)
+        (y * w).sum().backward()
+        return y.detach(), x.grad
+
+    if "coll/x" in inp:
+        x = torch.from_numpy(inp["coll/x"][rank])      # [n, 3]
+        w = torch.from_numpy(inp["coll/w"][rank])      # [n, n, 3]
+        ring = [(i, (i + 1) % n) for i in range(n)]
+
+        def async_pair(v):
+            # two tensors in one exchange, with work queued while it runs
+            pending = functions.spmd_send_recv_async((v, v * v), comm, ring)
+            mid = torch.sin(v)
+            a, b = pending.wait()
+            return a + 2.0 * b + mid
+
+        cases = {
+            "allgather": (x[0], lambda v: functions.allgather(comm, v),
+                          w[0]),
+            "gather": (x[0], lambda v: functions.gather(comm, v, root=1),
+                       w[0]),
+            "alltoall": (x, lambda v: functions.alltoall(comm, v), w[0]),
+            "bcast": (x[0], lambda v: functions.bcast(comm, v, root=1),
+                      w[0, 0]),
+            "scatter": (x, lambda v: functions.scatter(comm, v, root=n - 1),
+                        w[0, 0]),
+            "allreduce_sum": (x[0], lambda v: functions.allreduce(comm, v),
+                              w[0, 0]),
+            "allreduce_mean": (x[0], lambda v: functions.allreduce(
+                comm, v, "mean"), w[0, 0]),
+            "send_recv_ring": (x[0], lambda v: functions.spmd_send_recv(
+                v, comm, ring), w[0, 0]),
+            "send_recv_one": (x[0], lambda v: functions.spmd_send_recv(
+                v, comm, [(0, n - 1)]), w[0, 0]),
+            "send_recv_async_pair": (x[0], lambda v: async_pair(v), w[0, 0]),
+        }
+        for name, (xv, fn, wv) in cases.items():
+            y, g = grad_of(fn, xv, wv)
+            out[f"coll/{name}/y"], out[f"coll/{name}/g"] = y, g
+        out["coll/allreduce_max"] = functions.allreduce(comm, x[0], "max")
+
+    if "attn/q" in inp:
+        t_local = inp["attn/q"].shape[1] // n
+        blk = slice(rank * t_local, (rank + 1) * t_local)
+        q, k, v, g = (torch.from_numpy(inp[f"attn/{c}"][:, blk])
+                      for c in "qkvg")
+        impls = {
+            "ring": lambda a, b, c, causal: sequence.ring_attention(
+                a, b, c, comm, causal=causal),
+            "ulysses": lambda a, b, c, causal: sequence.ulysses_attention(
+                a, b, c, comm, causal=causal),
+            "ring_flash": lambda a, b, c, causal: sequence.ring_attention(
+                a, b, c, comm, causal=causal, attn_fn=flash_attention),
+        }
+        for name, fn in impls.items():
+            for causal in (False, True):
+                qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                o = fn(*qkv, causal)
+                (o * g).sum().backward()
+                key = f"attn/{name}/{int(causal)}"
+                out[f"{key}/out"] = o.detach()
+                for c, t in zip("qkv", qkv):
+                    out[f"{key}/d{c}"] = t.grad
+        bad = torch.zeros(1, 4, n + n // 2, 8)
+        try:
+            sequence.ulysses_attention(bad, bad, bad, comm)
+        except ValueError as e:
+            out["attn/ulysses_refusal"] = np.asarray(str(e))
+        sub = create_communicator("naive", intra_size=n // 2,
+                                  device="cpu").split_axes(("intra",))
+        t_sub = inp["attn/q"].shape[1] // sub.size
+        blk = slice(sub.rank * t_sub, (sub.rank + 1) * t_sub)
+        qkv = [torch.from_numpy(inp[f"attn/{c}"][:, blk])
+               .requires_grad_(True) for c in "qkv"]
+        o = sequence.ring_attention(*qkv, sub, causal=True)
+        (o * torch.from_numpy(inp["attn/g"][:, blk])).sum().backward()
+        out["sub/out"] = o.detach()
+        for c, t in zip("qkv", qkv):
+            out[f"sub/d{c}"] = t.grad
+
+    if "gqa/toks" in inp:
+        vocab, d_model, heads, kv, max_len = (int(c) for c in inp["gqa/cfg"])
+        model = TransformerLM(vocab, d_model, 1, heads, max_len=max_len,
+                              attention_impl="ring_flash", n_kv_heads=kv,
+                              comm=comm, device="cpu")
+        weights.load_flax_variables(model, nest(
+            {k[8:]: v for k, v in inp.items() if k.startswith("gqa/var/")}))
+        toks = torch.from_numpy(inp["gqa/toks"])
+        t_local = toks.shape[1] // n
+        rotated = []
+        send_recv = functions.spmd_send_recv_async
+
+        def spy(x, communicator, pairs):
+            rotated.extend(int(t.shape[2]) for t in x)
+            return send_recv(x, communicator, pairs)
+
+        functions.spmd_send_recv_async = spy
+        try:
+            with torch.no_grad():
+                out["gqa/logits"] = model(
+                    toks[:, rank * t_local:(rank + 1) * t_local],
+                    pos_offset=rank * t_local)
+        finally:
+            functions.spmd_send_recv_async = send_recv
+        out["gqa/rotated_heads"] = np.asarray(rotated)
+
+    if "lm/toks" in inp:
+        vocab, d_model, layers, heads, max_len = (int(c)
+                                                  for c in inp["lm/cfg"])
+        variables = nest({k[7:]: v for k, v in inp.items()
+                          if k.startswith("lm/var/")})
+        toks = torch.from_numpy(inp["lm/toks"])
+        t_local = toks.shape[1] // n
+        for impl in str(inp["lm/impls"]).split(","):
+            model = TransformerLM(vocab, d_model, layers, heads,
+                                  max_len=max_len, attention_impl=impl,
+                                  comm=comm, device="cpu")
+            weights.load_flax_variables(model, variables)
+            loss = train_lm.sp_loss(
+                model, toks[:, rank * t_local:(rank + 1) * t_local], comm)
+            loss.backward()
+            train_lm.sum_gradients(model, comm)
+            out[f"lm/{impl}/loss"] = loss.detach()
+            out.update({f"lm/{impl}/grad/{k}": v
+                        for k, v in _grads_as_flax(model).items()})
+
+    if "example/argv" in inp:
+        for impl in str(inp["example/impls"]).split(","):
+            res = train_lm.main(str(inp["example/argv"]).split()
+                                + ["--attention", impl])
+            out[f"example/{impl}/losses"] = np.asarray(res["losses"])
+    return {k: v.numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in out.items()}
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -536,7 +714,7 @@ def main():
     out = {"comm": run_comm, "train": run_train, "opt": run_opt,
            "mnist": run_mnist, "lm": run_lm, "unused": run_unused,
            "coll": run_coll, "zero": run_zero, "syncbn": run_syncbn,
-           "imagenet": run_imagenet}[mode](inp, topo.rank)
+           "imagenet": run_imagenet, "seq": run_seq}[mode](inp, topo.rank)
     np.savez(f"{out_prefix}.{topo.rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
