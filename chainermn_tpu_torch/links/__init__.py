@@ -1,4 +1,7 @@
 from chainermn_tpu_torch.links.multi_node_batch_normalization import (
     MultiNodeBatchNormalization)
+from chainermn_tpu_torch.links.multi_node_chain_list import (
+    MultiNodeChainList, pseudo_loss)
 
-__all__ = ["MultiNodeBatchNormalization"]
+__all__ = ["MultiNodeBatchNormalization", "MultiNodeChainList",
+           "pseudo_loss"]

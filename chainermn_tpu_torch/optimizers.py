@@ -298,3 +298,54 @@ def make_train_step(communicator, loss_fn: Callable, optimizer,
 
     step.finalize = getattr(optimizer, "_drain", lambda: None)
     return step
+
+
+class PerStageOptimizer:
+    """Optimizer for model-parallel chains (``MultiNodeChainList``): one
+    inner ``torch.optim`` optimizer for each stage this rank runs, each over
+    that stage's parameters; a rank steps only its own stages, as each
+    reference rank updated only its own sub-chain.
+
+    ``actual_optimizer(params) -> torch.optim.Optimizer`` builds an inner
+    optimizer (e.g. ``functools.partial(torch.optim.Adam, lr=2e-3)``): the
+    recipe, as the JAX class takes an optax transformation.
+    """
+
+    def __init__(self, actual_optimizer: Callable):
+        self.actual_optimizer = actual_optimizer
+        self.optimizers: list = []
+        self._chain = None
+
+    def init(self, chain) -> list:
+        """One inner optimizer per stage of the ``MultiNodeChainList``
+        ``chain`` that this rank runs (``None`` for the others' stages)."""
+        self._chain = chain
+        self.optimizers = [None if m is None else
+                           self.actual_optimizer(list(m.parameters()))
+                           for m in chain.local_stages]
+        return self.optimizers
+
+    def _check(self) -> None:
+        n = self._chain.n_stages if self._chain is not None else 0
+        if self._chain is None or n != len(self.optimizers):
+            raise ValueError(
+                f"stage count mismatch: {n} stages, {len(self.optimizers)} "
+                "optimizer states — re-init the optimizer after changing "
+                "the chain list")
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for opt in self.optimizers:
+            if opt is not None:
+                opt.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> None:
+        """Step every local stage's optimizer on its ``.grad``s."""
+        self._check()
+        for opt in self.optimizers:
+            if opt is not None:
+                opt.step()
+
+
+def create_per_stage_optimizer(actual_optimizer: Callable
+                               ) -> PerStageOptimizer:
+    return PerStageOptimizer(actual_optimizer)

@@ -3,17 +3,34 @@
 Two runs of one step (or of a few) from the same weights and data agree
 when every loss is within ``LOSS_RTOL`` relative of the reference's and
 every gradient tensor within a relative L2 error of ``GRAD_RTOL``.  Float32
-with TF32 off: the two runs differ only by the order of their sums.
+with TF32 off (``no_tf32``): the two runs differ only by the order of their
+sums.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import contextlib
+from typing import Dict, Iterator, Sequence, Tuple
 
 import torch
 
 LOSS_RTOL = 1e-4
 GRAD_RTOL = 1e-3
+
+
+@contextlib.contextmanager
+def no_tf32() -> Iterator[None]:
+    """TF32 off for cuBLAS and cuDNN (whose convolutions and LSTM take it
+    by default) inside the block; the flags as they were after it."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = flags
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -42,4 +59,5 @@ def step_agrees(loss_rel: float, grad_rel: float) -> bool:
     return loss_rel <= LOSS_RTOL and grad_rel <= GRAD_RTOL
 
 
-__all__ = ["GRAD_RTOL", "LOSS_RTOL", "rel_l2", "step_agrees", "step_errors"]
+__all__ = ["GRAD_RTOL", "LOSS_RTOL", "no_tf32", "rel_l2", "step_agrees",
+           "step_errors"]

@@ -20,7 +20,15 @@ only:
   embeddings' ``weight``; each ``block_{i}`` holds ``ln_attn``, ``qkv``,
   ``proj``, ``ln_mlp``, ``up``, ``down`` (the port's ``blocks.{i}.*``);
   then ``ln_f`` and ``head``; LayerNorm ``scale`` -> ``weight``.  It has
-  ``params`` only.
+  ``params`` only;
+* the seq2seq encoder's ``Embed_0`` and ``OptimizedLSTMCell_0`` are the
+  port's ``embed`` and ``lstm``, the decoder's ``embed``, ``cell`` and
+  ``out`` its ``embed``, ``lstm`` and ``out``: the cell's eight kernels
+  (``ii``/``if``/``ig``/``io`` ``[E, H]`` and ``hi``/``hf``/``hg``/``ho``
+  ``[H, H]``) stack, transposed and in gate order i, f, g, o, into
+  ``weight_ih_l0`` ``[4H, E]`` and ``weight_hh_l0`` ``[4H, H]``, the hidden
+  kernels' biases into ``bias_hh_l0``, and ``bias_ih_l0`` is zero.  Both
+  have ``params`` only.
 """
 
 from __future__ import annotations
@@ -32,9 +40,12 @@ import torch
 from torch import nn
 
 from chainermn_tpu_torch.models.mlp import MLP
+from chainermn_tpu_torch.models.seq2seq import Seq2SeqDecoder, Seq2SeqEncoder
 from chainermn_tpu_torch.models.transformer import TransformerLM
 
 _NORM_NAMES = ("FusedBatchNormAct", "BatchNorm")
+_GATES = "ifgo"  # flax OptimizedLSTMCell's order, and torch's
+_PARAMS_ONLY = (MLP, TransformerLM, Seq2SeqEncoder, Seq2SeqDecoder)
 
 
 def _norm_key(model: nn.Module, name: str) -> str:
@@ -47,7 +58,16 @@ def _norm_key(model: nn.Module, name: str) -> str:
 def _layers(model: nn.Module):
     """``(flax scope, port name, kind)`` of every layer with weights, in
     flax's creation order; kind is "conv", "norm" (BatchNorm), "dense",
-    "embed" or "ln" (LayerNorm)."""
+    "embed", "ln" (LayerNorm) or "lstm"."""
+    if isinstance(model, Seq2SeqEncoder):
+        yield ("Embed_0",), "embed", "embed"
+        yield ("OptimizedLSTMCell_0",), "lstm", "lstm"
+        return
+    if isinstance(model, Seq2SeqDecoder):
+        yield ("embed",), "embed", "embed"
+        yield ("cell",), "lstm", "lstm"
+        yield ("out",), "out", "dense"
+        return
     if isinstance(model, TransformerLM):
         yield ("tok_emb",), "tok_emb", "embed"
         yield ("pos_emb",), "pos_emb", "embed"
@@ -113,6 +133,14 @@ def flax_to_state_dict(variables, model: nn.Module) -> Dict[str, torch.Tensor]:
         elif kind == "ln":
             sd[f"{name}.weight"] = t(p["scale"])
             sd[f"{name}.bias"] = t(p["bias"])
+        elif kind == "lstm":
+            cat = lambda pre, leaf: np.concatenate(  # noqa: E731
+                [np.asarray(p[pre + g][leaf]).T for g in _GATES])
+            sd[f"{name}.weight_ih_l0"] = t(cat("i", "kernel"))
+            sd[f"{name}.weight_hh_l0"] = t(cat("h", "kernel"))
+            sd[f"{name}.bias_hh_l0"] = t(cat("h", "bias"))
+            sd[f"{name}.bias_ih_l0"] = torch.zeros_like(
+                sd[f"{name}.bias_hh_l0"])
         else:
             s = _get(stats, scope)
             key = _norm_key(model, name)
@@ -156,12 +184,21 @@ def state_dict_to_flax(model: nn.Module, norm: str = _NORM_NAMES[0]):
         elif kind == "ln":
             put(params, scope, {"scale": sd[f"{name}.weight"],
                                 "bias": sd[f"{name}.bias"]})
+        elif kind == "lstm":
+            cell = {}
+            for pre, w in (("i", "weight_ih_l0"), ("h", "weight_hh_l0")):
+                for g, k in zip(_GATES, np.split(sd[f"{name}.{w}"], 4)):
+                    cell[pre + g] = {"kernel": np.ascontiguousarray(k.T)}
+            for g, b in zip(_GATES, np.split(sd[f"{name}.bias_hh_l0"]
+                                             + sd[f"{name}.bias_ih_l0"], 4)):
+                cell["h" + g]["bias"] = b
+            put(params, scope, cell)
         else:
             key = _norm_key(model, name)
             put(params, scope, {"scale": sd[f"{key}.weight"],
                                 "bias": sd[f"{key}.bias"]})
             put(stats, scope, {"mean": sd[f"{key}.running_mean"],
                                "var": sd[f"{key}.running_var"]})
-    if isinstance(model, (MLP, TransformerLM)):
+    if isinstance(model, _PARAMS_ONLY):
         return {"params": params}
     return {"params": params, "batch_stats": stats}

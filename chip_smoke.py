@@ -111,7 +111,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     backward beside dK/dV + dQ); each kernel's
     TFLOP/s, and its time against the mma.sync design's
     (``FLASH_MMA_SYNC_MS``: every kernel now runs the wgmma design at the
-    LM's shape);
+    LM's shape); then the float32 variant of each kernel (the CUDA-core
+    kernels that ``ring_flash`` runs in the float32 long-context example)
+    at the same shape with TF32 off: graph replay, its plain version,
+    ``scaled_dot_product_attention`` in float32 and the bound at the card's
+    float32 peak outside the tensor cores (66.9 TFLOP/s on an H100 SXM);
 14. probe kernels: the two CUDA kernels of
     ``chainermn_tpu_torch.ops.probe_matmul`` (persistent, TMA-fed wgmma:
     wgrad with its span sum, rowblock with its TMA-store epilogue) against
@@ -188,7 +192,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     L2 limits for both.  (c) ``ring`` and
     ``ulysses`` at ``P20_LAYERS_C`` layers (their plain attention keeps
     16 x 8192^2 float32 scores a layer) against ``flash`` at the same
-    depth, with (a)'s gates.
+    depth, with (a)'s gates;
+21. the model-parallel slice (after phase 20, before the summary), float32
+    with TF32 off for cuBLAS and cuDNN (whose LSTM takes TF32 by default),
+    on the NCCL world of one, both stages on the card: (a)
+    ``examples.seq2seq``'s ``main`` at its defaults (5 epochs of the
+    synthetic copy-reverse corpus): the loss falls from epoch 1 to the
+    last, ``val_bleu`` is printed; tokens/sec over the steps after the
+    first, the median step and the peak memory.  (b) One step of the
+    ``MultiNodeChainList`` (the in-process channel) against
+    ``decoder(encoder(src, src_len), tgt_in)`` composed directly from the
+    same weights: the loss and every gradient equal bit for bit (the
+    direct composition is also run twice, to show the determinism this
+    rests on).  (c) The wide run ``S2S_WIDE`` (hidden and embedding 1024,
+    vocabulary 32000, sentences up to 48, 16,384 pairs, batch 128, one
+    epoch): (a)'s numbers, then ``S2S_PROFILED`` more steps on one batch
+    of a middle length under ``torch.profiler``: wall and device ms a
+    step, the device's busy share, device ms by category
+    (``S2S_CATEGORIES``).
+22. the repeat loops (after phase 21, before the summary), for the
+    intermittent faults of ROADMAP.md Queue C 12 and 13: ``C12_LOOPS``
+    passes of the flash autograd check (the test
+    ``tests/test_torch_kernels_gpu.py::test_flash_attention_autograd_on_the_card``
+    in a loop, the precision flags checked at each pass's start; see
+    ``phase_c12``), every pass within the test's 1e-5 and both sides'
+    bits the first pass's; then ``WGRAD_LOOPS`` launches of phase 14's
+    probe wgrad on one input, every result the first's bits.
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
 """
@@ -1121,65 +1150,81 @@ def phase_lm_f32(torch, dev):
     return loss_rel, grad_rel
 
 
-def phase_flash_timing(fa, torch, dev, card):
-    """Each flash kernel at the LM's attention shape: kernel (CUDA graph
-    replay), eager, plain, library and the bound."""
+def phase_flash_timing(fa, torch, dev, card, dtype):
+    """Each flash kernel at the LM's attention shape in ``dtype``: kernel
+    (CUDA graph replay), eager, plain, library and the bound at the peak of
+    ``dtype`` (bf16: the tensor cores; float32, TF32 off: the CUDA cores,
+    the ``*_f32_kernel`` variants that ``ring_flash`` runs in the float32
+    long-context example)."""
     import torch.nn.functional as F
-    b, t, h, d = 1, LM_T, LM["n_heads"], LM["d_model"] // LM["n_heads"]
-    gen = torch.Generator(device=dev).manual_seed(9)
-    # q, k, v as the model gives them: views of one qkv projection
-    qkv = (torch.randn(b, t, 3 * h * d, device=dev, generator=gen)
-           * 0.5).to(torch.bfloat16)
-    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, t, h, d)
-               for i in range(3))
-    g = torch.randn(b, t, h, d, device=dev, generator=gen).to(torch.bfloat16)
-    out, lse = fa.flash_fwd(q, k, v, True)
-    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    bwd = (q, k, v, g, lse, delta, None, True)
-    kern = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, True),
-            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(*bwd),
-            "flash_bwd_dq": lambda: fa.flash_bwd_dq(*bwd)}
-    # the plain backward computes dq, dk and dv in one loop: its time
-    # stands beside both backward kernels
-    plain_fwd = _time(torch, lambda: fa.flash_forward_plain(q, k, v, True),
-                      2, graph=False)
+    from chainermn_tpu_torch.utils.compare import no_tf32
+    with no_tf32():
+        f32 = dtype == torch.float32
+        b, t, h, d = 1, LM_T, LM["n_heads"], LM["d_model"] // LM["n_heads"]
+        gen = torch.Generator(device=dev).manual_seed(13 if f32 else 9)
+        # q, k, v as the model gives them: views of one qkv projection
+        qkv = (torch.randn(b, t, 3 * h * d, device=dev, generator=gen)
+               * 0.5).to(dtype)
+        q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, t, h, d)
+                   for i in range(3))
+        g = torch.randn(b, t, h, d, device=dev, generator=gen).to(dtype)
+        out, lse = fa.flash_fwd(q, k, v, True)
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        bwd = (q, k, v, g, lse, delta, None, True)
+        kern = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, True),
+                "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(*bwd),
+                "flash_bwd_dq": lambda: fa.flash_bwd_dq(*bwd)}
+        reps = 5 if f32 else 10
+        # the plain backward computes dq, dk and dv in one loop: its time
+        # stands beside both backward kernels
+        plain_fwd = _time(torch, lambda: fa.flash_forward_plain(
+            q, k, v, True), 2, graph=False)
+        torch.cuda.empty_cache()
+        plain_bwd = _time(torch, lambda: fa.flash_backward_plain(
+            *bwd, block_k=1024), 2, graph=False)
+        torch.cuda.empty_cache()
+        q3, k3, v3 = (x.transpose(1, 2) for x in (q, k, v))
+        lib_fwd = _time(torch, lambda: F.scaled_dot_product_attention(
+            q3, k3, v3, is_causal=True), 2 * reps, graph=True)
+        qt, kt, vt = (x.detach().requires_grad_() for x in (q3, k3, v3))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        gt = g.transpose(1, 2)
+        lib_bwd_name = "SDPA autograd backward, dq+dk+dv"
+        lib_bwd = _time(torch, lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), gt, retain_graph=True), reps, graph=False)
+        del lib_out
+        peak = card.f32_tflops if f32 else card.peak_tflops
+        name = str(dtype).split(".")[1]
+        out_t = {}
+        for w, (_, _, kind) in FLASH.items():
+            ops = fa.flash_attention_flops(b, t, t, h, d, True, kind)
+            nbytes = fa.flash_attention_bytes(b, t, t, h, h, d, dtype, kind)
+            ops_ms = ops / (peak * 1e12) * 1e3
+            bytes_ms = nbytes / card.hbm_bytes_per_s * 1e3
+            ms = _time(torch, kern[w], reps, graph=True)
+            eager_ms = _time(torch, kern[w], reps, graph=False)
+            out_t[w] = dict(
+                ms=ms, eager_ms=eager_ms,
+                plain_ms=plain_fwd if kind == "fwd" else plain_bwd,
+                library_ms=lib_fwd if kind == "fwd" else lib_bwd,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                ops=ops, bytes=nbytes)
+            log(f"timing: {w} at B{b} T{t} H{h} D{d} causal {name}"
+                f"{', TF32 off' if f32 else ''} (CUDA graph replay): kernel "
+                f"{ms:.4f} ms (eager {eager_ms:.4f} ms), plain "
+                f"{out_t[w]['plain_ms']:.4f} ms, library "
+                f"({'SDPA forward' if kind == 'fwd' else lib_bwd_name}, "
+                f"{name}) "
+                f"{out_t[w]['library_ms']:.4f} ms, bound "
+                f"{out_t[w]['bound_ms']:.4f} ms ({out_t[w]['bound_by']} at "
+                f"{peak} TFLOP/s: {ops} FLOPs, {nbytes} B); "
+                f"{ops / ms / 1e9:.2f} TFLOP/s"
+                + ("" if f32 else f"; mma.sync design "
+                   f"{FLASH_MMA_SYNC_MS[w]:.4f} ms "
+                   f"({FLASH_MMA_SYNC_MS[w] / ms:.2f}x this time)"))
     torch.cuda.empty_cache()
-    plain_bwd = _time(torch, lambda: fa.flash_backward_plain(
-        *bwd, block_k=1024), 2, graph=False)
-    torch.cuda.empty_cache()
-    q3, k3, v3 = (x.transpose(1, 2) for x in (q, k, v))
-    lib_fwd = _time(torch, lambda: F.scaled_dot_product_attention(
-        q3, k3, v3, is_causal=True), 20, graph=True)
-    qt, kt, vt = (x.detach().requires_grad_() for x in (q3, k3, v3))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    gt = g.transpose(1, 2)
-    lib_bwd = _time(torch, lambda: torch.autograd.grad(
-        lib_out, (qt, kt, vt), gt, retain_graph=True), 10, graph=False)
-    out_t = {}
-    for w, (_, _, kind) in FLASH.items():
-        ops = fa.flash_attention_flops(b, t, t, h, d, True, kind)
-        nbytes = fa.flash_attention_bytes(b, t, t, h, h, d, torch.bfloat16,
-                                          kind)
-        ops_ms = ops / (card.peak_tflops * 1e12) * 1e3
-        bytes_ms = nbytes / card.hbm_bytes_per_s * 1e3
-        ms = _time(torch, kern[w], 10, graph=True)
-        eager_ms = _time(torch, kern[w], 10, graph=False)
-        out_t[w] = dict(
-            ms=ms, eager_ms=eager_ms,
-            plain_ms=plain_fwd if kind == "fwd" else plain_bwd,
-            library_ms=lib_fwd if kind == "fwd" else lib_bwd,
-            bound_ms=max(ops_ms, bytes_ms),
-            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-            ops=ops, bytes=nbytes)
-        log(f"timing: {w} at B{b} T{t} H{h} D{d} causal bf16 (CUDA graph "
-            f"replay): kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain "
-            f"{out_t[w]['plain_ms']:.4f} ms, library "
-            f"({'SDPA forward' if kind == 'fwd' else 'SDPA autograd backward, dq+dk+dv'}"
-            f") {out_t[w]['library_ms']:.4f} ms, bound "
-            f"{out_t[w]['bound_ms']:.4f} ms ({out_t[w]['bound_by']}: {ops} "
-            f"FLOPs, {nbytes} B); {ops / ms / 1e9:.1f} TFLOP/s; mma.sync "
-            f"design {FLASH_MMA_SYNC_MS[w]:.4f} ms "
-            f"({FLASH_MMA_SYNC_MS[w] / ms:.2f}x this time)")
     return out_t
 
 
@@ -1485,12 +1530,9 @@ def phase_dp_f32(torch):
                                      create_multi_node_optimizer,
                                      make_train_step, weights)
     from chainermn_tpu_torch.models import ResNet50
+    from chainermn_tpu_torch.utils.compare import no_tf32
     dev = torch.device("cuda", 0)
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with no_tf32():
         src = ResNet50(dtype=torch.float32, device=dev,
                        generator=torch.Generator(device=dev).manual_seed(3))
         variables = weights.state_dict_to_flax(src)
@@ -1526,9 +1568,6 @@ def phase_dp_f32(torch):
                                      f"{len(params[0])} parameters")
             held += len(params[0])
         return held
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, \
-            torch.backends.cudnn.allow_tf32 = tf32
 
 
 
@@ -1641,11 +1680,8 @@ def phase_sp(fa, torch, dev):
     """Phase 20: the sequence-parallel slice on one card (see the module
     docstring); returns what its log lines print."""
     from chainermn_tpu_torch.parallel import sequence as seq
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    from chainermn_tpu_torch.utils.compare import no_tf32
+    with no_tf32():
         layers = LM["n_layers"]
         runs = {att: _p20_run(fa, torch, att, layers)
                 for att in ("ring_flash", "flash")}
@@ -1687,11 +1723,214 @@ def phase_sp(fa, torch, dev):
                                    short[att], short["flash"])
         for r in short.values():
             del r["grads"]
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, \
-            torch.backends.cudnn.allow_tf32 = tf32
     torch.cuda.empty_cache()
     return dict(runs=runs, short=short, fold=fold, gates=gates)
+
+
+# phase 21: the example's wide run (the reference era's 1024 units; the
+# vocabulary under the example's own --max-vocab 40000)
+S2S_WIDE = ["--hidden", "1024", "--embed-dim", "1024", "--vocab", "32000",
+            "--seq-len", "48", "--n-train", "16384", "--batchsize", "128",
+            "--epoch", "1"]
+S2S_PROFILED = 5     # further wide steps under torch.profiler
+S2S_CATEGORIES = (
+    ("lstm (cuDNN)", ("RNN", "rnn", "LSTM", "lstm", "cudnn")),
+    ("gemm", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
+    ("softmax / cross entropy", ("softmax", "nll_loss", "cross_entropy")),
+    ("embedding", ("embedding", "indexSelect", "index_select")),
+    ("adam", ("adam", "Adam", "multi_tensor", "foreach")),
+    ("memcpy / memset", ("memcpy", "memset")),
+)
+
+
+def _s2s_grads(model):
+    return [p.grad.clone() for s in range(model.n_stages)
+            for p in model.stage(s).parameters() if p.requires_grad]
+
+
+def p21_chain_vs_direct(torch, dev):
+    """(b): one float32 step of the chain list (both stages on the card,
+    the in-process channel) against ``decoder(encoder(src, src_len),
+    tgt_in)`` composed directly, from the same weights: loss and every
+    gradient bit-equal; the direct composition run twice for the
+    determinism it rests on."""
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.datasets.nmt import bucket_batches
+    from chainermn_tpu_torch.examples import seq2seq as ex
+    args = ex.parse_args([])
+    train, _, sv, tv = ex.load_data(args)
+    model = ex.build_model(create_communicator("xla"), len(sv), len(tv),
+                           args.embed_dim, args.hidden, args.seed)
+    tb = ex.batch_tensors(next(bucket_batches(train, args.batchsize,
+                                         step=args.bucket_step,
+                                         shuffle=False)), dev)
+    enc, dec = model.stage(0), model.stage(1)
+    runs = {}
+    for name, fwd in (("chain", lambda: model(
+            tb["src"], stage_inputs={0: (tb["src_len"],),
+                                     1: (tb["tgt_in"],)})),
+                      ("direct", lambda: dec(enc(tb["src"], tb["src_len"]),
+                                             tb["tgt_in"])),
+                      ("direct again", lambda: dec(enc(
+                          tb["src"], tb["src_len"]), tb["tgt_in"]))):
+        for s in (enc, dec):
+            s.zero_grad(set_to_none=True)
+        loss, _ = ex.masked_loss(fwd(), tb)
+        loss.backward()
+        runs[name] = (loss.detach().clone(), _s2s_grads(model))
+    torch.cuda.synchronize()
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and all(
+            torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+    return dict(loss=float(runs["chain"][0]), tensors=len(runs["chain"][1]),
+                equal=same(runs["chain"], runs["direct"]),
+                deterministic=same(runs["direct"], runs["direct again"]))
+
+
+def p21_profile(torch, dev):
+    """``S2S_PROFILED`` steps of the wide configuration on one batch of a
+    middle length under ``torch.profiler``
+    (``train_imagenet.profile_steps``)."""
+    import functools
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.datasets.nmt import bucket_batches
+    from chainermn_tpu_torch.examples import seq2seq as ex
+    from chainermn_tpu_torch.examples.train_imagenet import profile_steps
+    from chainermn_tpu_torch.optimizers import create_per_stage_optimizer
+    args = ex.parse_args(S2S_WIDE)
+    train, _, sv, tv = ex.load_data(args)
+    model = ex.build_model(create_communicator("xla"), len(sv), len(tv),
+                           args.embed_dim, args.hidden, args.seed)
+    opt = create_per_stage_optimizer(
+        functools.partial(torch.optim.Adam, lr=2e-3))
+    opt.init(model)
+    batches = list(bucket_batches(train, args.batchsize,
+                                  step=args.bucket_step, shuffle=False))
+    batch = batches[len(batches) // 2]  # a middle length (buckets ascend)
+    step = lambda: next(ex.train_steps(model, opt, [batch]))  # noqa: E731
+    for _ in range(2):
+        step()
+
+    class _Steps:  # the updater interface profile_steps drives
+        update = staticmethod(step)
+        finalize = staticmethod(lambda: None)
+
+    prof = profile_steps(_Steps, S2S_PROFILED, dev, S2S_CATEGORIES)
+    prof["batch_shape"] = [list(batch["src"].shape),
+                           list(batch["tgt_out"].shape)]
+    del model, opt
+    torch.cuda.empty_cache()
+    return prof
+
+
+def phase_seq2seq(torch, dev):
+    """Phase 21 (see the module docstring); returns what its log prints."""
+    from chainermn_tpu_torch.examples import seq2seq as ex
+    from chainermn_tpu_torch.utils.compare import no_tf32
+    with no_tf32():
+        runs = {}
+        for name, argv in (("defaults", []), ("wide", S2S_WIDE)):
+            torch.cuda.empty_cache()
+            res = ex.main(argv)
+            losses = res["losses"]
+            if res["world"] != 1 or not all(map(math.isfinite, losses)):
+                raise AssertionError(f"phase 21 {name}: world "
+                                     f"{res['world']}, losses {losses}")
+            if res["final"] is None or "val_bleu" not in res["final"]:
+                raise AssertionError(f"phase 21 {name}: no val_bleu in "
+                                     f"{res['final']}")
+            steady = res["step_seconds"][1:]
+            runs[name] = dict(
+                epoch_loss=[r["loss"] for r in res["log"]],
+                final=res["final"], steps=len(losses),
+                tokens_per_sec=res["steady_tokens_per_sec"],
+                step_ms=1e3 * sorted(steady)[len(steady) // 2],
+                peak_gb=res["peak_memory_gb"])
+        ep = runs["defaults"]["epoch_loss"]
+        if not ep[-1] < ep[0]:
+            raise AssertionError(f"phase 21 (a): the loss did not fall "
+                                 f"from epoch 1 to the last: {ep}")
+        bits = p21_chain_vs_direct(torch, dev)
+        if not bits["equal"]:
+            raise AssertionError(f"phase 21 (b): the chain differs from the "
+                                 f"direct composition: {bits}")
+        prof = p21_profile(torch, dev)
+    torch.cuda.empty_cache()
+    return dict(runs=runs, bits=bits, profile=prof)
+
+
+C12_LOOPS = 300      # phase 22: passes of the flash autograd check
+WGRAD_LOOPS = 600    # phase 22: launches of the probe wgrad
+
+
+def phase_c12(fa, torch, dev, loops):
+    """ROADMAP.md Queue C 12: ``tests/test_torch_kernels_gpu.py::
+    test_flash_attention_autograd_on_the_card`` looped ``loops`` times in
+    this process after every other phase: each pass checks the global
+    precision flags the test's fixture leaves (TF32 off, float32 matmul
+    precision "highest"), runs the float32 D 32 forward and both backward
+    kernels through ``flash_attention`` and the plain autograd on the CPU
+    from the same inputs, and records the relative L2 error of out, lse,
+    dq, dk and dv and whether each side's bits equal its first pass's."""
+    names = ("out", "lse", "dq", "dk", "dv")
+    worst = dict.fromkeys(names, 0.0)
+    over, first = 0, None
+    gpu_same = cpu_same = 0
+    from chainermn_tpu_torch.utils.compare import no_tf32
+    with no_tf32():
+        for i in range(loops):
+            flags = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32,
+                     torch.get_float32_matmul_precision())
+            if flags != (False, False, "highest"):
+                raise AssertionError(f"C12 pass {i}: precision flags "
+                                     f"{flags}")
+            gen = torch.Generator(device=dev).manual_seed(3)
+            q, k, v = (torch.randn(2, 64, 4, 32, generator=gen, device=dev)
+                       .requires_grad_() for _ in range(3))
+            out, lse = fa.flash_attention(q, k, v, True, return_lse=True)
+            (out.square().sum() + lse.sum()).backward()
+            got = [t.detach().cpu()
+                   for t in (out, lse, q.grad, k.grad, v.grad)]
+            ref = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+            out_p, lse_p = fa.flash_attention(*ref, True, return_lse=True)
+            (out_p.square().sum() + lse_p.sum()).backward()
+            want = [out_p.detach(), lse_p.detach()] + [t.grad for t in ref]
+            if first is None:
+                first = (got, want)
+            gpu_same += all(torch.equal(a, b) for a, b in zip(got, first[0]))
+            cpu_same += all(torch.equal(a, b) for a, b in zip(want, first[1]))
+            errs = [_rel(torch, a, b) for a, b in zip(got, want)]
+            over += any(e > 1e-5 for e in errs)
+            for n, e in zip(names, errs):
+                worst[n] = max(worst[n], e)
+    return dict(loops=loops, over_gate=over, worst=worst,
+                gpu_bits_repeat=gpu_same, cpu_bits_repeat=cpu_same)
+
+
+def phase_wgrad_repeat(pm, bcp, torch, dev, loops):
+    """Phase 14's check that two launches give the same bits, ``loops``
+    times: ``probe_matmul.wgrad`` at M = 802,816 (bm 1024) on the same
+    inputs against its first launch; for every launch that differs, the
+    count of differing elements and the largest difference, and how far
+    each side is from the plain version."""
+    a, b = bcp.operands(dev, (256, PROBE_M), (PROBE_M, 64))
+    first = pm.wgrad(a, b, 1024)
+    plain = pm.wgrad_plain(a, b, 1024)
+    diffs = []
+    for i in range(loops):
+        got = pm.wgrad(a, b, 1024)
+        if not torch.equal(got, first):
+            d = (got - first).abs()
+            diffs.append(dict(
+                launch=i + 1, elements=int((d > 0).sum()),
+                max_diff=float(d.max()),
+                vs_plain=float((got - plain).abs().max()),
+                first_vs_plain=float((first - plain).abs().max())))
+    torch.cuda.synchronize()
+    return dict(loops=loops, differing=len(diffs), diffs=diffs[:10])
 
 
 def main():
@@ -1832,8 +2071,12 @@ def main():
     log(f"phase lm f32: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    flash_t = phase_flash_timing(fa, torch, dev, card)
-    log(f"phase flash timing: {time.perf_counter() - t0:.1f} s")
+    flash_t = phase_flash_timing(fa, torch, dev, card, torch.bfloat16)
+    flash_t32 = phase_flash_timing(fa, torch, dev, card, torch.float32)
+    log(f"phase flash timing: {time.perf_counter() - t0:.1f} s; float32 "
+        f"rows: " + json.dumps({w: {k: t[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            for w, t in flash_t32.items()}) + f" on {gpu}")
 
     t0 = time.perf_counter()
     probe_errs, probe_lines = phase_probe(pm, bcp, torch, dev)
@@ -1889,6 +2132,33 @@ def main():
                     f"{r['tokens_per_sec']:.1f}, peak memory "
                     f"{r['peak_gb']:.2f} GB" for att, r in short.items())
         + f" on {gpu}")
+
+    t0 = time.perf_counter()
+    s2s = phase_seq2seq(torch, dev)
+    d, w, b = s2s["runs"]["defaults"], s2s["runs"]["wide"], s2s["bits"]
+    log(f"phase seq2seq (21): {time.perf_counter() - t0:.1f} s; float32, "
+        f"TF32 off, world of one (both stages on the card): (a) defaults, "
+        f"epoch losses {d['epoch_loss']}, final {json.dumps(d['final'])}, "
+        f"tokens/sec (steps after the first) {d['tokens_per_sec']:.1f}, "
+        f"median step {d['step_ms']:.3f} ms, peak memory {d['peak_gb']:.3f} "
+        f"GB; (b) one step of the chain vs decoder(encoder(...)): loss "
+        f"{b['loss']!r} and {b['tensors']} gradients bit-equal "
+        f"{b['equal']} (direct twice bit-equal {b['deterministic']}); (c) "
+        f"{' '.join(S2S_WIDE)}: {w['steps']} steps, epoch loss "
+        f"{w['epoch_loss']}, final {json.dumps(w['final'])}, tokens/sec "
+        f"(steps after the first) {w['tokens_per_sec']:.1f}, median step "
+        f"{w['step_ms']:.3f} ms, peak memory {w['peak_gb']:.3f} GB; profile "
+        f"of {S2S_PROFILED} steps: {json.dumps(s2s['profile'])} on {gpu}")
+
+    t0 = time.perf_counter()
+    c12 = phase_c12(fa, torch, dev, C12_LOOPS)
+    rep = phase_wgrad_repeat(pm, bcp, torch, dev, WGRAD_LOOPS)
+    log(f"phase repeat loops (22): {time.perf_counter() - t0:.1f} s; C12 "
+        f"{json.dumps(c12)}; probe wgrad {json.dumps(rep)} on {gpu}")
+    if (c12["over_gate"] or c12["gpu_bits_repeat"] != C12_LOOPS
+            or c12["cpu_bits_repeat"] != C12_LOOPS or rep["differing"]):
+        raise AssertionError("phase 22: a pass over the 1e-5 gate, or a "
+                             "launch whose bits differ from the first's")
 
     dist.destroy_process_group()
     kernels = []

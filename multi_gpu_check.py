@@ -1,6 +1,6 @@
-"""The data-parallel and sequence-parallel slices on every card of one host.
+"""The data-, sequence- and model-parallel slices on every card of one host.
 
-    python3 multi_gpu_check.py [--logs DIR] [--parts dp,sp]
+    python3 multi_gpu_check.py [--logs DIR] [--parts dp,sp,mp]
     # needs two CUDA cards or more
 
 1. prints the cards' names and power limits (``nvidia-smi``) and torch's
@@ -30,7 +30,17 @@
    ``ring_flash`` at T 32768 (8192 tokens a card on four); each run's
    tokens/sec of the whole sequence (over every step, and over the steps
    after the first) and every card's peak memory; then
-   ``benchmarks.bench_ring_attention`` on every card at T 8192 and 16384.
+   ``benchmarks.bench_ring_attention`` on every card at T 8192 and 16384;
+6. (part ``mp``) ``tests/test_torch_p2p_gpu.py`` (marker ``gpu``):
+   ``cross_send``/``cross_recv`` and the chain list on NCCL worlds of one,
+   two and four cards (the four-card world skips with fewer cards, and the
+   output says so); then ``examples.seq2seq`` (float32, TF32 off) at its
+   defaults and at phase 21's wide configuration
+   (``chip_smoke.S2S_WIDE``), on one card and under ``torchrun`` on two
+   (encoder on rank 0, decoder on rank 1): rank 1's losses within 1e-5 relative of the one-card run's (a
+   transfer copies bits: expect equality), ``final:`` and ``val_bleu``
+   printed by rank 1 only; each run's tokens/sec (over the steps after the
+   first) and every card's peak memory.
 
 Prints one JSON object as its last line; exits 1 if a check failed.  Runs
 write under ``build/`` (removed afterwards), their logs under ``--logs``
@@ -46,6 +56,8 @@ import shutil
 import subprocess
 import sys
 import tempfile
+
+from chip_smoke import S2S_WIDE
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TIMED = ["--arch", "resnet50", "--communicator", "xla",
@@ -108,10 +120,9 @@ def lm_worker(out_prefix, flags):
     its gradients of step 0 (summed over the ranks) to
     ``{out_prefix}.grads.pt``."""
     import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, HERE)
     from chainermn_tpu_torch.examples import train_lm
+    from chainermn_tpu_torch.utils.compare import no_tf32
     rank = int(os.environ["RANK"])
 
     def keep(i, model):
@@ -120,7 +131,8 @@ def lm_worker(out_prefix, flags):
                         for k, p in model.named_parameters()},
                        f"{out_prefix}.grads.pt")
 
-    res = train_lm.main(flags, on_grads=keep)
+    with no_tf32():
+        res = train_lm.main(flags, on_grads=keep)
     doc = {k: res[k] for k in ("losses", "tokens_per_sec", "world",
                                "peak_memory_gb", "seconds", "step_seconds")}
     # tokens/sec after the first step, which pays the first calls' costs
@@ -143,7 +155,28 @@ def bench_worker(out_prefix, flags):
         json.dump(rows, f)
 
 
-WORKERS = {"imagenet": worker, "lm": lm_worker, "bench": bench_worker}
+def s2s_worker(out_prefix, flags):
+    """One rank under ``torchrun``: ``seq2seq.main(flags)`` in float32 with
+    TF32 off (cuBLAS and cuDNN), its standard output captured, then
+    ``{out_prefix}.rank{r}.json``."""
+    import contextlib
+    import io
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch.examples import seq2seq
+    from chainermn_tpu_torch.utils.compare import no_tf32
+    buf = io.StringIO()
+    with no_tf32(), contextlib.redirect_stdout(buf):
+        res = seq2seq.main(flags)
+    doc = {k: res[k] for k in ("losses", "final", "steady_tokens_per_sec",
+                               "tokens_per_sec", "peak_memory_gb", "world",
+                               "owns_output")}
+    doc["stdout"] = buf.getvalue()
+    with open(f"{out_prefix}.rank{os.environ['RANK']}.json", "w") as f:
+        json.dump(doc, f)
+
+
+WORKERS = {"imagenet": worker, "lm": lm_worker, "bench": bench_worker,
+           "s2s": s2s_worker}
 
 
 def torchrun(n, name, flags, work, logs, kind="imagenet"):
@@ -167,13 +200,14 @@ def main(argv=None):
     p.add_argument("--logs", default=os.path.join(HERE, "build",
                                                   "multi_gpu_logs"),
                    help="directory for the tests' and the runs' output")
-    p.add_argument("--parts", default="dp,sp",
-                   help="which slices to run: dp (steps 2-4), sp (step 5)")
+    p.add_argument("--parts", default="dp,sp,mp",
+                   help="which slices to run: dp (steps 2-4), sp (step 5), "
+                   "mp (step 6)")
     args = p.parse_args(argv)
     logs = os.path.abspath(args.logs)
     parts = set(args.parts.split(","))
-    if not parts or parts - {"dp", "sp"}:
-        p.error(f"--parts: {args.parts!r} is not a subset of dp,sp")
+    if not parts or parts - {"dp", "sp", "mp"}:
+        p.error(f"--parts: {args.parts!r} is not a subset of dp,sp,mp")
     import torch
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         print("multi_gpu_check.py needs two CUDA cards or more",
@@ -197,12 +231,64 @@ def main(argv=None):
             data_parallel(n, out, failures, work, logs)
         if "sp" in parts:
             sequence_parallel(n, out, failures, work, logs)
+        if "mp" in parts:
+            model_parallel(n, out, failures, work, logs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["failures"] = failures
     out["ok"] = not failures
     print(json.dumps(out))
     return 0 if out["ok"] else 1
+
+
+def gpu_tests(path, logs, name):
+    """``pytest -m gpu path`` on the card: ``(rc, summary line)``, the
+    output in ``{logs}/{name}.log``."""
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p",
+         "no:cacheprovider", "-m", "gpu", "-q", "-rs", path], cwd=HERE,
+        capture_output=True, text=True, timeout=900)
+    with open(os.path.join(logs, f"{name}.log"), "w") as f:
+        f.write(tests.stdout + tests.stderr)
+    lines = tests.stdout.strip().splitlines()
+    summary = (lines or [""])[-1]
+    print(f"{path}: rc {tests.returncode}; {summary}", flush=True)
+    return tests.returncode, summary, [l for l in lines
+                                       if l.startswith("SKIPPED")]
+
+
+def model_parallel(n, out, failures, work, logs):
+    """Step 6 (see the module docstring)."""
+    rc, summary, skipped = gpu_tests("tests/test_torch_p2p_gpu.py", logs,
+                                     "p2p_gpu_tests")
+    out["mp"] = {"p2p_tests": {"rc": rc, "summary": summary,
+                               "not_run": skipped}}
+    if rc:
+        failures.append("tests/test_torch_p2p_gpu.py")
+    for name, flags in (("defaults", []), ("wide", S2S_WIDE)):
+        one = torchrun(1, f"s2s_{name}_1card", flags, work, logs,
+                       kind="s2s")[0]
+        two = torchrun(2, f"s2s_{name}_2card", flags, work, logs,
+                       kind="s2s")
+        got, want = two[1]["losses"], one["losses"]
+        rel = max((abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(got, want)), default=float("inf"))
+        row = {"losses_rel": rel, "bit_equal": got == want,
+               "steps": len(got), "final_rank1": two[1]["final"],
+               "final_1card": one["final"],
+               "tokens_per_sec_2card": two[1]["steady_tokens_per_sec"],
+               "tokens_per_sec_1card": one["steady_tokens_per_sec"],
+               "peak_memory_gb_2card": [d["peak_memory_gb"] for d in two],
+               "peak_memory_gb_1card": one["peak_memory_gb"],
+               "owners_of_output": [d["owns_output"] for d in two]}
+        out["mp"][name] = row
+        print(json.dumps({f"s2s {name}": row}), flush=True)
+        printed = ["final:" in d["stdout"] and "val_bleu" in d["stdout"]
+                   for d in two]
+        if len(got) != len(want) or rel > 1e-5 or printed != [False, True] \
+                or not all(map(math.isfinite, got)):
+            failures.append(f"mp seq2seq {name}: losses rel {rel:.2e}, "
+                            f"final/val_bleu printed by rank {printed}")
 
 
 def sequence_parallel(n, out, failures, work, logs):
@@ -255,18 +341,10 @@ def sequence_parallel(n, out, failures, work, logs):
 
 def data_parallel(n, out, failures, work, logs):
     """Steps 2-4 (see the module docstring)."""
-    tests = subprocess.run(
-        [sys.executable, "-m", "pytest", "--noconftest", "-p",
-         "no:cacheprovider", "-m", "gpu", "-q",
-         "tests/test_torch_nccl_gpu.py"], cwd=HERE, capture_output=True,
-        text=True, timeout=900)
-    with open(os.path.join(logs, "gpu_tests.log"), "w") as f:
-        f.write(tests.stdout + tests.stderr)
-    summary = (tests.stdout.strip().splitlines() or [""])[-1]
-    out["nccl_tests"] = {"rc": tests.returncode, "summary": summary}
-    print(f"tests/test_torch_nccl_gpu.py: rc {tests.returncode}; {summary}",
-          flush=True)
-    if tests.returncode or "skipped" in summary:
+    rc, summary, _ = gpu_tests("tests/test_torch_nccl_gpu.py", logs,
+                               "gpu_tests")
+    out["nccl_tests"] = {"rc": rc, "summary": summary}
+    if rc or "skipped" in summary:
         failures.append("tests/test_torch_nccl_gpu.py")
 
     runs = []

@@ -2,7 +2,8 @@
 
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/torch_dist_worker.py \\
-            {comm|train|opt|mnist|lm|unused|coll|zero|syncbn|imagenet|seq} \\
+            {comm|train|opt|mnist|lm|unused|coll|zero|syncbn|imagenet|seq|
+             p2p|chain|seq2seq} \\
             IN.npz OUT_PREFIX
 
 Reads the stacked per-rank inputs from ``IN.npz`` (leading axis = rank),
@@ -672,6 +673,138 @@ def run_seq(inp, rank):
             for k, v in out.items()}
 
 
+def run_p2p(inp, rank):
+    """``cross_send``/``cross_recv`` between ranks 0 and 1 (the others
+    idle): a float and an integer leaf forward, the float's cotangent back,
+    twice on one channel; a changed shape; a tag the receiver does not
+    expect."""
+    from chainermn_tpu_torch import functions as F
+    from chainermn_tpu_torch.links import pseudo_loss
+    comm = create_communicator("naive", device="cpu")
+    x, w = torch.from_numpy(inp["x"]), torch.from_numpy(inp["w"])
+    ids = torch.from_numpy(inp["ids"])
+    out = {}
+    for step, scale in enumerate((2.0, 3.0)):
+        if rank == 0:
+            xv = x.clone().requires_grad_(True)
+            d = F.cross_send((xv * scale, ids), comm, 1, tag=3)
+            out[f"delegate_shape/{step}"] = np.asarray(d.shape)
+            pseudo_loss(d).backward()
+            out[f"dx/{step}"] = xv.grad
+        elif rank == 1:
+            y, got_ids = F.cross_recv(comm, 0, tag=3)
+            out[f"y_requires_grad/{step}"] = np.asarray(y.requires_grad)
+            (y * w).sum().backward()
+            out[f"y/{step}"], out[f"ids/{step}"] = y.detach(), got_ids
+    if rank == 0:
+        try:
+            F.cross_send(x[:2], comm, 1, tag=3)
+        except ValueError as e:
+            out["shape_error"] = np.asarray(str(e))
+        F.cross_send(x, comm, 1, tag=5)
+    elif rank == 1:
+        try:
+            F.cross_recv(comm, 0, tag=6)
+        except RuntimeError as e:
+            out["tag_error"] = np.asarray(str(e))
+        # take the transfer that was sent, so that rank 0's send completes
+        dist.recv(torch.empty_like(x), 0)
+    return {k: v.numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in out.items()}
+
+
+class ChainStage(torch.nn.Module):
+    """``tanh?(Dense(cat(scale_i * x_i)))`` from a flax Dense's
+    ``kernel``/``bias``: the stages of ``tests/test_torch_chain_list.py``."""
+
+    def __init__(self, kernel, bias, tanh, scales=None):
+        super().__init__()
+        self.lin = torch.nn.Linear(*kernel.shape)
+        with torch.no_grad():
+            self.lin.weight.copy_(torch.tensor(kernel.T))
+            self.lin.bias.copy_(torch.tensor(bias))
+        self.tanh, self.scales = tanh, scales
+
+    def forward(self, *xs):
+        h = xs[0] if self.scales is None else torch.cat(
+            [x * s if s != 1 else x for x, s in zip(xs, self.scales)], -1)
+        y = self.lin(h)
+        return torch.tanh(y) if self.tanh else y
+
+
+def build_chain(comm, inp, prefix=""):
+    """The chain a ``chain/...`` input describes: for stage s,
+    ``{prefix}stage/{s}/kernel``, ``/bias``, ``/spec`` (tanh, process pin
+    or -1) and ``/rank_in``, ``/rank_out`` (-1 for None), ``/scales``."""
+    from chainermn_tpu_torch.links import MultiNodeChainList
+    model = MultiNodeChainList(comm)
+    n = int(inp[f"{prefix}n_stages"])
+    for s in range(n):
+        key = f"{prefix}stage/{s}/"
+        tanh, pin = (int(v) for v in inp[key + "spec"])
+
+        def ranks(name):
+            r = [int(v) for v in inp[key + name]]
+            return None if r == [-1] else r[0] if len(r) == 1 else r
+        scales = inp.get(key + "scales")
+        model.add_link(ChainStage(inp[key + "kernel"], inp[key + "bias"],
+                                  bool(tanh), None if scales is None
+                                  else [float(v) for v in scales]),
+                       rank_in=ranks("rank_in"), rank_out=ranks("rank_out"),
+                       process=None if pin < 0 else pin)
+    return model
+
+
+def run_chain(inp, rank):
+    """For each chain named in ``chains`` (inputs under ``{name}/``): SGD
+    steps on ``x``/``y`` (cross entropy on the exit stage's owner, the
+    pseudo-loss elsewhere), then this rank's losses, stage owners, whether
+    it owns the output and how many stages it built."""
+    import functools
+    from chainermn_tpu_torch.links import pseudo_loss
+    from chainermn_tpu_torch.optimizers import create_per_stage_optimizer
+    comm = create_communicator("naive", device="cpu")
+    out = {}
+    for name in str(inp["chains"]).split(","):
+        pre = f"{name}/"
+        model = build_chain(comm, inp, pre)
+        opt = create_per_stage_optimizer(functools.partial(
+            torch.optim.SGD, lr=float(inp[pre + "lr"])))
+        opt.init(model)
+        x = torch.from_numpy(inp[pre + "x"])
+        y = torch.from_numpy(inp[pre + "y"]).long()
+        losses = []
+        for _ in range(int(inp[pre + "steps"])):
+            opt.zero_grad()
+            o = model(x)
+            loss = torch.nn.functional.cross_entropy(o, y) \
+                if model.owns_output else pseudo_loss(o)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+        out.update({pre + "losses": np.asarray(losses),
+                    pre + "owners": np.asarray(
+                        [model.stage_owner(s) for s in range(model.n_stages)]),
+                    pre + "owns_output": np.asarray(model.owns_output),
+                    pre + "n_local": np.asarray(
+                        sum(m is not None for m in model.local_stages))})
+    return out
+
+
+def run_seq2seq(inp, rank):
+    """``examples.seq2seq.main(argv)`` with its standard output captured:
+    the output and the per-step losses."""
+    import contextlib
+    import io
+    from chainermn_tpu_torch.examples import seq2seq
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = seq2seq.main(str(inp["argv"]).split())
+    return {"stdout": np.asarray(buf.getvalue()),
+            "losses": np.asarray(res["losses"]),
+            "owns_output": np.asarray(res["owns_output"])}
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -714,7 +847,8 @@ def main():
     out = {"comm": run_comm, "train": run_train, "opt": run_opt,
            "mnist": run_mnist, "lm": run_lm, "unused": run_unused,
            "coll": run_coll, "zero": run_zero, "syncbn": run_syncbn,
-           "imagenet": run_imagenet, "seq": run_seq}[mode](inp, topo.rank)
+           "imagenet": run_imagenet, "seq": run_seq, "p2p": run_p2p,
+           "chain": run_chain, "seq2seq": run_seq2seq}[mode](inp, topo.rank)
     np.savez(f"{out_prefix}.{topo.rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
