@@ -22,12 +22,14 @@
 //
 // What bounds them: at the shapes attention runs (head dim 16..128, long
 // sequences) each kernel does ~D multiply-adds per byte it must move, far
-// above the H100's 295 operations per byte, so the least time is the
-// matrix-product FLOPs (2 products forward, 4 for dK/dV, 3 for dQ, over the
-// (q, k) pairs the mask allows) over 989 TFLOP/s (bf16/fp16 tensor cores).
-// What keeps a kernel from it is feeding the tensor cores: operand traffic
-// through shared memory, copies that stall the products, and the softmax
-// (or gradient) arithmetic between two products.
+// above the H100's 295 (bf16) or 20 (float32) operations per byte, so the
+// least time is the matrix-product FLOPs (2 products forward, 4 for dK/dV,
+// 3 for dQ, over the (q, k) pairs the mask allows) over the peak of the
+// units that run them: 989 TFLOP/s for bf16/fp16 (tensor cores), 66.9
+// TFLOP/s for float32 (CUDA cores, never TF32).  What keeps a kernel from
+// it is feeding those units: operand traffic through shared memory, copies
+// that stall the products, and the softmax (or gradient) arithmetic
+// between two products.
 //
 // Which kernel runs is a dispatch by dtype and head dim, one kernel each:
 //
@@ -89,9 +91,46 @@
 // current one is used.
 //
 // The float32 kernels (*_f32_kernel): the products run on the CUDA cores in
-// float32 (never TF32), 256 threads over 32-row tiles staged in shared
-// memory.  It is the path of float32 models (the long-context example),
-// not of the bf16 LM.
+// float32 (never TF32, no split into TF32 parts), so the float32 gates hold.
+// They are the path of float32 models (the long-context example), not of
+// the bf16 LM.  On the CUDA cores the limit is shared memory: an SM returns
+// 128 bytes (32 floats) of it a clock and runs 128 FMAs a clock, so a
+// kernel whose threads read F floats of shared memory per FMA runs at most
+// 1 / (4 F) of the float32 peak.  dQ (dq_f32_kernel) still reads one float
+// per FMA (2 x 2 micro-tiles through TileMma, F = 1: 0.25 of peak at best).
+// The forward and dK/dV are register-blocked:
+//  * fwd_f32_kernel: a block of 256 threads owns 128 q rows and walks K/V
+//    tiles of 64 keys, double-buffered by cp.async (the next tile's copy
+//    runs under this tile's products); causal q tiles heaviest first.  Row
+//    groups of 16 lanes in one warp: a thread holds an 8 x 4 micro-tile of S
+//    (rows ty + 16 i, keys tx + 16 j) and the same 8 rows' 8 output dims
+//    (at D 128) in registers, with its rows' running max (reduced by
+//    __shfl_xor_sync over the 16 lanes, every row at once) and its own
+//    share of the denominator (summed over the lanes once, at the end).  O
+//    is rescaled in registers; P goes through shared memory once, over the
+//    tile's K stage, as P V contracts over keys.  Operands are 128-bit
+//    reads (ld.shared.v4): Q and K along D, P along the keys, V along D.
+//    Per 4 dims of S a thread reads 8 + 4 float4 for 128 FMAs, per 4 keys
+//    of P V 8 + 8 for 256: F = 0.31 a tile (cap 0.80).  In a quarter warp
+//    the Q and P reads are one broadcast address, the K and V reads eight
+//    rows (pitch D + 4: distinct banks) or eight consecutive float4.
+//  * dkv_f32_kernel: a block of 256 threads owns 64 keys, with K and V
+//    staged once and Q/dO tiles of 64 rows double-buffered by cp.async.  A
+//    thread holds 4 keys x 4 q rows of S^T and of dP^T (both products in
+//    one loop over D), runs the element step on them in registers, and
+//    keeps 4 keys x 8 dims (D 128) of dK and of dV.  P_drop^T, then dS^T,
+//    go through one shared [key][q] buffer as the A operands of dV +=
+//    P_drop^T dO and dK += dS^T Q.  F = 0.44 (cap 0.57).  The causal skip of
+//    q tiles before the diagonal and the GQA group loop (heads outer) stay:
+//    the group's float32 sum is taken inside the block.
+// The tiles were chosen by `flash_probe.py f32` (CUDA-graph ms at the LM's
+// shape, B 1, T 8192, H 16, D 128, causal, on an H100 80GB HBM3 at 700 W;
+// PERF.md section 6): forward 7.74 ms against 8.11 with 8-lane row groups
+// (4 x 8 of S, 4 x 16 of O) and 8.41 with 4-row threads (64-row blocks);
+// dK/dV 15.29 ms against 18.13 with 32-row Q/dO tiles and 23.32 with
+// 32-key blocks; two blocks of 128 threads an SM (one stage, the largest
+// carveout) gained nothing (7.79, 15.32).  ptxas: 254 (forward) and 236
+// (dK/dV) registers at D 128, no spills.
 //
 // Plain C entry points (bound from Python with ctypes, no PyTorch headers):
 // the caller fills `Args`, allocates the outputs, passes its stream and
@@ -176,7 +215,7 @@ __device__ __forceinline__ bool keep(uint32_t seed, uint32_t bh, uint32_t qp,
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA-core kernels over tiles staged in shared memory
+// float32 dQ: a CUDA-core kernel over tiles staged in shared memory
 // ---------------------------------------------------------------------------
 
 // C[M][N] (float, row-major, ldc) = (accumulate ? C : 0) + A * B over K,
@@ -271,17 +310,8 @@ struct Smem {
   static constexpr size_t prob = al(C::BQ * C::LDP * sizeof(T));
   static constexpr size_t acc = al(C::BQ * C::LDA * sizeof(float));
   static constexpr size_t vec = al(C::BQ * sizeof(float));
-  static constexpr size_t fwd = 3 * tile + score + prob + acc + 2 * vec;
-  static constexpr size_t dkv = 4 * tile + 2 * score + 2 * prob + 2 * acc +
-                                5 * vec;
   static constexpr size_t dq = 4 * tile + 2 * score + prob + acc + 5 * vec;
 };
-
-__device__ __forceinline__ float row_max(float v, int tpr) {
-  for (int o = tpr / 2; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 __device__ __forceinline__ float row_sum(float v, int tpr) {
   for (int o = tpr / 2; o > 0; o >>= 1)
@@ -290,117 +320,7 @@ __device__ __forceinline__ float row_sum(float v, int tpr) {
 }
 
 // ---------------------------------------------------------------------------
-// float32 forward
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) fwd_f32_kernel(const Args p) {
-  using C = Cfg<T, D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  T* Qs = cv.take<T>(C::BQ * C::LDT);
-  T* Ks = cv.take<T>(C::BK * C::LDT);
-  T* Vs = cv.take<T>(C::BK * C::LDT);
-  float* S = cv.take<float>(C::BQ * C::LDS);
-  T* P = cv.take<T>(C::BQ * C::LDP);
-  float* O = cv.take<float>(C::BQ * C::LDA);
-  int* qseg_s = cv.take<int>(C::BQ);
-  int* kseg_s = cv.take<int>(C::BK);
-
-  const int64_t Tq = p.Tq, Tk = p.Tk, H = p.H;
-  const int64_t bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int64_t hk = h / (H / p.Hk);
-  const int q0 = blockIdx.x * C::BQ;
-  const int64_t goff_q = p.offs ? p.offs[2 * b] : 0;
-  const int64_t goff_k = p.offs ? p.offs[2 * b + 1] : 0;
-  const bool has_seg = p.qseg != nullptr;
-  const float scale = static_cast<float>(p.scale);
-  const float inv_keep = static_cast<float>(p.inv_keep);
-
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  const int q_valid = static_cast<int>(imin(C::BQ, Tq - q0));
-  load_rows<T, D, C::BQ>(Qs, C::LDT, qb + q0 * p.q_st, p.q_st, q_valid);
-  if (has_seg) load_vec(qseg_s, p.qseg + b * Tq + q0, q_valid, C::BQ);
-  zero(O, C::BQ * C::LDA);
-
-  const int r = threadIdx.x / C::TPR, sub = threadIdx.x % C::TPR;
-  const int64_t qi = q0 + r;
-  const int64_t qpos = goff_q + qi;
-  float m = kNegInf, l = 0.0f;
-  const int64_t q_last = goff_q + q0 + q_valid - 1;
-  const int n_kt = static_cast<int>((Tk + C::BK - 1) / C::BK);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * C::BK;
-    // causal: this and every later tile is masked for all rows
-    if (p.causal && q_last < goff_k + k0) break;
-    __syncthreads();  // the last tile's products are done with Ks, Vs, P
-    const int k_valid = static_cast<int>(imin(C::BK, Tk - k0));
-    load_rows<T, D, C::BK>(Ks, C::LDT, kb + k0 * p.k_st, p.k_st, k_valid);
-    load_rows<T, D, C::BK>(Vs, C::LDT, vb + k0 * p.v_st, p.v_st, k_valid);
-    if (has_seg) load_vec(kseg_s, p.kseg + b * Tk + k0, k_valid, C::BK);
-    __syncthreads();
-    TileMma<T, C::BQ, C::BK, D, true, false>::run(Qs, C::LDT, Ks, C::LDT, S,
-                                                  C::LDS, false);
-    __syncthreads();
-    // online softmax over this tile's columns of row r
-    const int qs = has_seg ? qseg_s[r] : 0;
-    float sv[C::NC];
-    uint32_t allow = 0u;
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < C::NC; ++j) {
-      const int c = sub + C::TPR * j;
-      const int64_t ki = k0 + c;
-      bool ok = ki < Tk;
-      if (p.causal) ok = ok && qpos >= goff_k + ki;
-      if (has_seg) ok = ok && qs == kseg_s[c];
-      const float s = ok ? S[r * C::LDS + c] * scale : kNegInf;
-      allow |= static_cast<uint32_t>(ok) << j;
-      sv[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = row_max(mx, C::TPR);
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < C::NC; ++j) {
-      const int c = sub + C::TPR * j;
-      float pj = ((allow >> j) & 1u) ? expf(sv[j] - m_new) : 0.0f;
-      sum += pj;
-      if (p.dropout)
-        pj = keep(static_cast<uint32_t>(p.seed), static_cast<uint32_t>(bh),
-                  static_cast<uint32_t>(qpos),
-                  static_cast<uint32_t>(goff_k + k0 + c),
-                  static_cast<uint32_t>(p.thresh))
-                 ? pj * inv_keep
-                 : 0.0f;
-      P[r * C::LDP + c] = static_cast<T>(pj);
-    }
-    sum = row_sum(sum, C::TPR);
-    l = l * alpha + sum;
-    m = m_new;
-    for (int c = sub; c < D; c += C::TPR) O[r * C::LDA + c] *= alpha;
-    __syncthreads();
-    TileMma<T, C::BQ, D, C::BK, true, true>::run(P, C::LDP, Vs, C::LDT, O,
-                                                 C::LDA, true);
-  }
-  __syncthreads();
-  if (qi < Tq) {
-    const bool empty = l == 0.0f;
-    const float denom = empty ? 1.0f : l;
-    T* orow = static_cast<T*>(p.out) + ((b * Tq + qi) * H + h) * D;
-    for (int c = sub; c < D; c += C::TPR)
-      orow[c] = static_cast<T>(O[r * C::LDA + c] / denom);
-    if (sub == 0)
-      p.lse[bh * Tq + qi] = empty ? kLseSentinel : m + logf(denom);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32 backward: the per-element step shared by dK/dV and dQ
+// float32 dQ: the per-element step
 // ---------------------------------------------------------------------------
 
 // From S = Q K^T and dP = dO V^T of one (q tile, k tile): a = exp(s - lse)
@@ -446,96 +366,6 @@ __device__ void grad_step(const Args& p, const float* S, const float* dP,
     if (p.glse) ds = ds + a * gl * scale;
     dS[r * C::LDP + c] = static_cast<T>(ds);
     if (Pd != nullptr) Pd[r * C::LDP + c] = static_cast<T>(a_drop);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32 dK / dV
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) dkv_f32_kernel(const Args p) {
-  using C = Cfg<T, D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  T* Ks = cv.take<T>(C::BK * C::LDT);
-  T* Vs = cv.take<T>(C::BK * C::LDT);
-  T* Qs = cv.take<T>(C::BQ * C::LDT);
-  T* Gs = cv.take<T>(C::BQ * C::LDT);
-  float* S = cv.take<float>(C::BQ * C::LDS);
-  float* dP = cv.take<float>(C::BQ * C::LDS);
-  T* Pd = cv.take<T>(C::BQ * C::LDP);
-  T* dS = cv.take<T>(C::BQ * C::LDP);
-  float* dK = cv.take<float>(C::BK * C::LDA);
-  float* dV = cv.take<float>(C::BK * C::LDA);
-  float* lse_s = cv.take<float>(C::BQ);
-  float* delta_s = cv.take<float>(C::BQ);
-  float* glse_s = cv.take<float>(C::BQ);
-  int* qseg_s = cv.take<int>(C::BQ);
-  int* kseg_s = cv.take<int>(C::BK);
-
-  const int64_t Tq = p.Tq, Tk = p.Tk, H = p.H, Hk = p.Hk;
-  const int64_t grp = H / Hk;
-  const int64_t bhk = blockIdx.y, b = bhk / Hk, hk = bhk % Hk;
-  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * C::BK;
-  const int64_t goff_q = p.offs ? p.offs[2 * b] : 0;
-  const int64_t goff_k = p.offs ? p.offs[2 * b + 1] : 0;
-  const bool has_seg = p.qseg != nullptr;
-
-  const int k_valid = static_cast<int>(imin(C::BK, Tk - k0));
-  load_rows<T, D, C::BK>(
-      Ks, C::LDT,
-      static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh + k0 * p.k_st,
-      p.k_st, k_valid);
-  load_rows<T, D, C::BK>(
-      Vs, C::LDT,
-      static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh + k0 * p.v_st,
-      p.v_st, k_valid);
-  if (has_seg) load_vec(kseg_s, p.kseg + b * Tk + k0, k_valid, C::BK);
-  zero(dK, C::BK * C::LDA);
-  zero(dV, C::BK * C::LDA);
-
-  const int n_qt = static_cast<int>((Tq + C::BQ - 1) / C::BQ);
-  for (int64_t gi = 0; gi < grp; ++gi) {
-    const int64_t h = hk * grp + gi, bh = b * H + h;
-    const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const T* gb = static_cast<const T*>(p.g) + b * p.g_sb + h * p.g_sh;
-    for (int qt = 0; qt < n_qt; ++qt) {
-      const int64_t q0 = static_cast<int64_t>(qt) * C::BQ;
-      const int q_valid = static_cast<int>(imin(C::BQ, Tq - q0));
-      // causal: no row of this q tile sees the k tile's first key
-      if (p.causal && goff_q + q0 + q_valid - 1 < goff_k + k0) continue;
-      __syncthreads();  // the last q tile's products are done
-      load_rows<T, D, C::BQ>(Qs, C::LDT, qb + q0 * p.q_st, p.q_st, q_valid);
-      load_rows<T, D, C::BQ>(Gs, C::LDT, gb + q0 * p.g_st, p.g_st, q_valid);
-      load_vec(lse_s, p.lse_in + bh * Tq + q0, q_valid, C::BQ);
-      load_vec(delta_s, p.delta + bh * Tq + q0, q_valid, C::BQ);
-      if (p.glse) load_vec(glse_s, p.glse + bh * Tq + q0, q_valid, C::BQ);
-      if (has_seg) load_vec(qseg_s, p.qseg + b * Tq + q0, q_valid, C::BQ);
-      __syncthreads();
-      TileMma<T, C::BQ, C::BK, D, true, false>::run(Qs, C::LDT, Ks, C::LDT,
-                                                    S, C::LDS, false);
-      TileMma<T, C::BQ, C::BK, D, true, false>::run(Gs, C::LDT, Vs, C::LDT,
-                                                    dP, C::LDS, false);
-      __syncthreads();
-      grad_step<T, D>(p, S, dP, dS, Pd, lse_s, delta_s, glse_s, qseg_s,
-                      kseg_s, q0, k0, goff_q, goff_k, bh);
-      __syncthreads();
-      // dV += Pd^T dO, dK += dS^T Q (A read column-major from [BQ][BK])
-      TileMma<T, C::BK, D, C::BQ, false, true>::run(Pd, C::LDP, Gs, C::LDT,
-                                                    dV, C::LDA, true);
-      TileMma<T, C::BK, D, C::BQ, false, true>::run(dS, C::LDP, Qs, C::LDT,
-                                                    dK, C::LDA, true);
-    }
-  }
-  __syncthreads();
-  T* dkb = static_cast<T*>(p.dk);
-  T* dvb = static_cast<T*>(p.dv);
-  for (int i = threadIdx.x; i < k_valid * D; i += kThreads) {
-    const int rr = i / D, c = i % D;
-    const int64_t o = ((b * Tk + k0 + rr) * Hk + hk) * D + c;
-    dkb[o] = static_cast<T>(dK[rr * C::LDA + c]);
-    dvb[o] = static_cast<T>(dV[rr * C::LDA + c]);
   }
 }
 
@@ -830,6 +660,569 @@ struct TcPos {
 // walk start first, so the short ones fill the tail of the grid.
 __device__ __forceinline__ int64_t heavy_first(const Args& p, int tiles) {
   return p.causal ? tiles - 1 - blockIdx.x : blockIdx.x;
+}
+
+// ---------------------------------------------------------------------------
+// float32 forward and dK/dV: register-blocked CUDA-core kernels
+// ---------------------------------------------------------------------------
+
+// Their tiles (the header says why).  fwd_f32_kernel: kF32FwdThreads
+// threads as row groups of kF32FwdLanes lanes; a thread owns kF32FwdRows q
+// rows, kF32FwdKeys keys of each K/V tile of S, and its rows' D /
+// kF32FwdLanes output dims; kF32FwdStages K/V stages.  dkv_f32_kernel:
+// kF32DkvThreads / 16 key groups x 16 q groups; a thread owns kF32DkvKeys
+// of the block's keys, kF32DkvRows rows of each Q/dO tile of S^T and dP^T,
+// and its keys' D / 16 dims of dK and of dV; kF32DkvStages Q/dO stages.
+constexpr int kF32FwdThreads = 256;
+constexpr int kF32FwdLanes = 16;
+constexpr int kF32FwdRows = 8;
+constexpr int kF32FwdKeys = 4;
+constexpr int kF32FwdStages = 2;
+constexpr int kF32DkvThreads = 256;
+constexpr int kF32DkvKeys = 4;
+constexpr int kF32DkvRows = 4;
+constexpr int kF32DkvStages = 2;
+constexpr int kF32Pad = 4;  // floats past D in a staged Q, K, V or dO row
+
+template <int D>
+struct F32Fwd {
+  static constexpr int NT = kF32FwdThreads, NS = kF32FwdStages;
+  static constexpr int TX = kF32FwdLanes, TY = NT / TX;
+  static constexpr int RM = kF32FwdRows, CN = kF32FwdKeys;
+  static constexpr int BQ = TY * RM;   // q rows of a block
+  static constexpr int BK = TX * CN;   // keys of a K/V tile
+  static constexpr int LDT = D + kF32Pad;
+  static constexpr int LDP = BK + TX;  // a warp's P rows on distinct banks
+  static constexpr int DN = D / TX;    // output dims of a thread, read and
+  static constexpr int VW = DN < 4 ? DN : 4;  // written VW at a time
+  // floats of one K stage (the K tile, then P [BQ][LDP] over it) and of one
+  // V stage; NS stages of each
+  static constexpr int KST = static_cast<int>(
+      al(4 * (BK * LDT > BQ * LDP ? BK * LDT : BQ * LDP)) / 4);
+  static constexpr int VST = static_cast<int>(al(4 * BK * LDT) / 4);
+  static constexpr size_t bytes = al(4 * BQ * LDT) + 4 * NS * size_t(KST) +
+                                  4 * NS * size_t(VST) + al(4 * BQ) +
+                                  al(4 * NS * BK);
+  static_assert(D % TX == 0 && 32 % TX == 0 && RM * CN <= 32 && BK % 4 == 0,
+                "tiles");
+};
+
+template <int D>
+struct F32Dkv {
+  static constexpr int NT = kF32DkvThreads, NS = kF32DkvStages;
+  static constexpr int TQ = 16;          // q groups
+  static constexpr int TK = NT / TQ;     // key groups
+  static constexpr int RK = kF32DkvKeys, CQ = kF32DkvRows;
+  static constexpr int BK = TK * RK;     // keys of a block
+  static constexpr int BQ = TQ * CQ;     // q rows of a Q/dO tile
+  static constexpr int LDT = D + kF32Pad;
+  static constexpr int LDP = BQ + 8;     // P_drop^T, then dS^T: [key][q]
+  static constexpr int DN = D / TQ;      // dK, dV dims of a thread
+  static constexpr int VW = DN < 4 ? DN : 4;
+  static constexpr int QST = static_cast<int>(al(4 * BQ * LDT) / 4);
+  // K, V; NS stages of Q and of dO; P^T; NS stages of lse, delta, glse and
+  // the q segment ids; the key segment ids
+  static constexpr size_t bytes = 2 * al(4 * BK * LDT) +
+                                  8 * NS * size_t(QST) + al(4 * BK * LDP) +
+                                  4 * al(4 * NS * BQ) + al(4 * BK);
+  static_assert(D % TQ == 0 && BQ % 4 == 0 && TK % 4 == 0, "tiles");
+};
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// c + a . b, in the order x, y, z, w
+__device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, c))));
+}
+
+__device__ __forceinline__ float part(float4 v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// W (1, 2 or 4) consecutive floats from or to p, aligned to W floats
+template <int W>
+__device__ __forceinline__ void ld_vec(float (&r)[W], const float* p) {
+  if constexpr (W == 4) {
+    const float4 v = lds4(p);
+    r[0] = v.x, r[1] = v.y, r[2] = v.z, r[3] = v.w;
+  } else if constexpr (W == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    r[0] = v.x, r[1] = v.y;
+  } else {
+    r[0] = *p;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void st_vec(float* p, const float (&r)[W]) {
+  if constexpr (W == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  else if constexpr (W == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
+  else
+    *p = r[0];
+}
+
+// ROWS rows of D floats (row r at src + r * stride) into dst (pitch LD),
+// asynchronously in 16-byte pieces; rows at or past `valid` (>= 1) are
+// zero-filled.
+template <int NT, int D, int ROWS, int LD>
+__device__ void f32_rows(float* dst, const float* src, int64_t stride,
+                         int valid) {
+  constexpr int CPR = D / 4;
+  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
+    const int r = i / CPR, c = (i % CPR) * 4;
+    const bool ok = r < valid;
+    cp_async16(dst + r * LD + c, src + (ok ? r * stride + c : 0), ok);
+  }
+}
+
+// n entries of a row vector (4 bytes each), asynchronously; 0 past `valid`
+template <int NT, typename U>
+__device__ void f32_vec(U* dst, const U* src, int valid, int n) {
+  for (int i = threadIdx.x; i < n; i += NT)
+    cp_async4(dst + i, src + (i < valid ? i : 0), i < valid);
+}
+
+// acc[R][C] += A B^T over D, 128-bit reads along D: A's row i at a + i * AS,
+// B's row j at b + j * BS, in shared memory.
+template <int R, int C, int D, int AS, int BS>
+__device__ __forceinline__ void f32_abt(float (&acc)[R][C], const float* a,
+                                        const float* b) {
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 av[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) av[i] = lds4(a + i * AS + d);
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const float4 bv = lds4(b + j * BS + d);
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc[i][j] = dot4(av[i], bv, acc[i][j]);
+    }
+  }
+}
+
+// x[R][C] += A B^T and y[R][C] += E F^T in one loop over D (twice the
+// independent sums in flight): A's, E's row i at a, e + i * AS; B's, F's
+// row j at b, f + j * BS.
+template <int R, int C, int D, int AS, int BS>
+__device__ __forceinline__ void f32_abt2(float (&x)[R][C], float (&y)[R][C],
+                                         const float* a, const float* e,
+                                         const float* b, const float* f) {
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 av[R], ev[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      av[i] = lds4(a + i * AS + d), ev[i] = lds4(e + i * AS + d);
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const float4 bv = lds4(b + j * BS + d), fv = lds4(f + j * BS + d);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        x[i][j] = dot4(av[i], bv, x[i][j]), y[i][j] = dot4(ev[i], fv, y[i][j]);
+    }
+  }
+}
+
+// acc[R][N] += A B over K: A(i, k) at a[i * AS + k], read 128 bits at a time
+// along K; the thread's N columns of B's row k, W at a time, at b + k * LDB
+// + n * NS (n < N / W).
+template <int R, int N, int W, int K, int AS, int LDB, int NS>
+__device__ __forceinline__ void f32_ab(float (&acc)[R][N], const float* a,
+                                       const float* b) {
+#pragma unroll 4
+  for (int k = 0; k < K; k += 4) {
+    float4 av[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) av[i] = lds4(a + i * AS + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int n = 0; n < N / W; ++n) {
+        float bv[W];
+        ld_vec<W>(bv, b + (k + kk) * LDB + n * NS);
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int e = 0; e < W; ++e)
+            acc[i][n * W + e] =
+                fmaf(part(av[i], kk), bv[e], acc[i][n * W + e]);
+      }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32Fwd<D>::NT, kThreads / F32Fwd<D>::NT)
+    fwd_f32_kernel(const Args p) {
+  using L = F32Fwd<D>;
+  constexpr int NT = L::NT, NS = L::NS;
+  constexpr int TX = L::TX, TY = L::TY, RM = L::RM, CN = L::CN;
+  constexpr int BQ = L::BQ, BK = L::BK, LDT = L::LDT, LDP = L::LDP;
+  constexpr int DN = L::DN, VW = L::VW;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Carve cv{smem};
+  float* Qs = cv.take<float>(BQ * LDT);
+  float* Ks = cv.take<float>(NS * L::KST);
+  float* Vs = cv.take<float>(NS * L::VST);
+  int* qseg_s = cv.take<int>(BQ);
+  int* kseg_s = cv.take<int>(NS * BK);
+
+  const int64_t H = p.H;
+  const int64_t bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int64_t hk = h / (H / p.Hk);
+  const TcPos P(p, b);
+  const int q0 = static_cast<int>(heavy_first(p, gridDim.x)) * BQ;
+  const bool has_seg = p.qseg != nullptr;
+  const float scale = static_cast<float>(p.scale);
+  const float inv_keep = static_cast<float>(p.inv_keep);
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const int q_valid = min(BQ, P.Tq - q0);
+  const int n_kt = (P.Tk + BK - 1) / BK;
+  const int kt_end = p.causal ? causal_tiles(P.goff_q + q0 + q_valid - 1,
+                                             P.goff_k, BK, n_kt)
+                              : n_kt;
+
+  auto load_kv = [&](int kt, int buf) {
+    const int k0 = kt * BK;
+    const int k_valid = min(BK, P.Tk - k0);
+    f32_rows<NT, D, BK, LDT>(Ks + buf * L::KST, kb + k0 * p.k_st, p.k_st,
+                             k_valid);
+    f32_rows<NT, D, BK, LDT>(Vs + buf * L::VST, vb + k0 * p.v_st, p.v_st,
+                             k_valid);
+    if (has_seg)
+      f32_vec<NT>(kseg_s + buf * BK, p.kseg + b * P.Tk + k0, k_valid, BK);
+  };
+  f32_rows<NT, D, BQ, LDT>(Qs, static_cast<const float*>(p.q) + b * p.q_sb +
+                                   h * p.q_sh + q0 * p.q_st,
+                           p.q_st, q_valid);
+  if (has_seg) f32_vec<NT>(qseg_s, p.qseg + b * P.Tq + q0, q_valid, BQ);
+  if (kt_end > 0) load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // row group ty (TX lanes of one warp), lane tx in it: rows ty + TY i,
+  // keys tx + TX j of a tile, output dims VW tx + TX VW n + e
+  const int lane = threadIdx.x % 32;
+  const int tx = lane % TX, ty = threadIdx.x / 32 * (32 / TX) + lane / TX;
+  const int qpos0 = P.goff_q + q0 + ty;  // row i at global qpos0 + TY i
+  float o[RM][DN] = {};
+  float m[RM], l[RM], alpha[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) m[i] = kNegInf, l[i] = 0.0f;
+
+  // online softmax of S's tile at k0 in registers: scale, mask, the running
+  // max over the row group's lanes (every row's shuffles at once), the
+  // lane's share of the denominator (summed over the lanes at the end), then
+  // dropout; S becomes P.  A tile no mask touches takes the branch-free path.
+  auto softmax = [&](float (&s)[RM][CN], int k0, const int* ks) {
+    const bool full = !has_seg && k0 + BK <= P.Tk &&
+                      (!p.causal || P.goff_k + k0 + BK - 1 <= P.goff_q + q0);
+    uint32_t allow = ~0u;  // bit i CN + j: element (i, j) is not masked
+    float mx[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) mx[i] = kNegInf;
+    if (full) {
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+          s[i][j] *= scale;
+          mx[i] = fmaxf(mx[i], s[i][j]);
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+          const int c = tx + TX * j;
+          bool ok = k0 + c < P.Tk;
+          if (p.causal) ok = ok && qpos0 + TY * i >= P.goff_k + k0 + c;
+          if (has_seg) ok = ok && qseg_s[ty + TY * i] == ks[c];
+          if (!ok) allow &= ~(1u << (i * CN + j));
+          s[i][j] = ok ? s[i][j] * scale : kNegInf;
+          mx[i] = fmaxf(mx[i], s[i][j]);
+        }
+    }
+#pragma unroll
+    for (int o = TX / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], o));
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const float mn = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - mn);
+      m[i] = mn;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < CN; ++j) {
+        float pj = expf(s[i][j] - mn);
+        if (!full && !((allow >> (i * CN + j)) & 1u)) pj = 0.0f;
+        sum += pj;
+        s[i][j] = pj;
+      }
+      l[i] = l[i] * alpha[i] + sum;
+    }
+    if (p.dropout)
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < CN; ++j)
+          s[i][j] = keep(static_cast<uint32_t>(p.seed),
+                         static_cast<uint32_t>(bh),
+                         static_cast<uint32_t>(qpos0 + TY * i),
+                         static_cast<uint32_t>(P.goff_k + k0 + tx + TX * j),
+                         static_cast<uint32_t>(p.thresh))
+                        ? s[i][j] * inv_keep
+                        : 0.0f;
+  };
+
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int buf = NS == 2 ? kt & 1 : 0;
+    if (NS == 2 && kt + 1 < kt_end) load_kv(kt + 1, buf ^ 1);
+    cp_async_commit();
+    float* K = Ks + buf * L::KST;
+    const float* V = Vs + buf * L::VST;
+    float s[RM][CN] = {};
+    f32_abt<RM, CN, D, TY * LDT, TX * LDT>(s, Qs + ty * LDT, K + tx * LDT);
+    softmax(s, kt * BK, kseg_s + buf * BK);
+    __syncthreads();  // every warp is done with this K tile: P goes there
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < CN; ++j)
+        K[(ty + TY * i) * LDP + tx + TX * j] = s[i][j];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int n = 0; n < DN; ++n) o[i][n] *= alpha[i];
+    __syncthreads();
+    f32_ab<RM, DN, VW, BK, TY * LDP, LDT, TX * VW>(o, K + ty * LDP,
+                                                   V + VW * tx);
+    if (NS == 1 && kt + 1 < kt_end) {  // one stage: the next tile now
+      __syncthreads();
+      load_kv(kt + 1, 0);
+      cp_async_commit();
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) l[i] = row_sum(l[i], TX);
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int qi = q0 + ty + TY * i;
+    if (qi >= P.Tq) continue;
+    const bool empty = l[i] == 0.0f;
+    const float denom = empty ? 1.0f : l[i];
+    float* orow = static_cast<float*>(p.out) + ((b * P.Tq + qi) * H + h) * D +
+                  VW * tx;
+#pragma unroll
+    for (int n = 0; n < DN / VW; ++n) {
+      float v[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) v[e] = o[i][n * VW + e] / denom;
+      st_vec<VW>(orow + TX * VW * n, v);
+    }
+    if (tx == 0)
+      p.lse[bh * P.Tq + qi] = empty ? kLseSentinel : m[i] + logf(denom);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32Dkv<D>::NT, kThreads / F32Dkv<D>::NT)
+    dkv_f32_kernel(const Args p) {
+  using L = F32Dkv<D>;
+  constexpr int NT = L::NT, NS = L::NS, TK = L::TK, TQ = L::TQ;
+  constexpr int RK = L::RK, CQ = L::CQ, BK = L::BK, BQ = L::BQ;
+  constexpr int LDT = L::LDT, LDP = L::LDP, DN = L::DN, VW = L::VW;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Carve cv{smem};
+  float* Ks = cv.take<float>(BK * LDT);
+  float* Vs = cv.take<float>(BK * LDT);
+  float* Qs = cv.take<float>(NS * L::QST);
+  float* Gs = cv.take<float>(NS * L::QST);
+  float* Pt = cv.take<float>(BK * LDP);
+  float* lse_s = cv.take<float>(NS * BQ);
+  float* delta_s = cv.take<float>(NS * BQ);
+  float* glse_s = cv.take<float>(NS * BQ);
+  int* qseg_s = cv.take<int>(NS * BQ);
+  int* kseg_s = cv.take<int>(BK);
+
+  const int64_t H = p.H, Hk = p.Hk;
+  const int64_t grp = H / Hk;
+  const int64_t bhk = blockIdx.y, b = bhk / Hk, hk = bhk % Hk;
+  const TcPos P(p, b);
+  const int k0 = blockIdx.x * BK;
+  const bool has_seg = p.qseg != nullptr;
+  const float scale = static_cast<float>(p.scale);
+  const float inv_keep = static_cast<float>(p.inv_keep);
+  const int k_valid = min(BK, P.Tk - k0);
+  const int n_qt = (P.Tq + BQ - 1) / BQ;
+  // causal: q tiles whose last row does not see key k0 are skipped
+  int qt0 = 0;
+  if (p.causal)
+    while (qt0 < n_qt &&
+           P.goff_q + min((qt0 + 1) * BQ, P.Tq) - 1 < P.goff_k + k0)
+      ++qt0;
+  const int nq = n_qt - qt0;
+  const int total = static_cast<int>(grp) * nq;  // the group's heads outer
+
+  auto load_q = [&](int it, int buf) {
+    const int64_t h = hk * grp + it / nq, bhq = b * H + h;
+    const int q0 = (qt0 + it % nq) * BQ;
+    const int q_valid = min(BQ, P.Tq - q0);
+    f32_rows<NT, D, BQ, LDT>(Qs + buf * L::QST,
+                             static_cast<const float*>(p.q) + b * p.q_sb +
+                                 h * p.q_sh + q0 * p.q_st,
+                             p.q_st, q_valid);
+    f32_rows<NT, D, BQ, LDT>(Gs + buf * L::QST,
+                             static_cast<const float*>(p.g) + b * p.g_sb +
+                                 h * p.g_sh + q0 * p.g_st,
+                             p.g_st, q_valid);
+    f32_vec<NT>(lse_s + buf * BQ, p.lse_in + bhq * P.Tq + q0, q_valid, BQ);
+    f32_vec<NT>(delta_s + buf * BQ, p.delta + bhq * P.Tq + q0, q_valid, BQ);
+    if (p.glse)
+      f32_vec<NT>(glse_s + buf * BQ, p.glse + bhq * P.Tq + q0, q_valid, BQ);
+    if (has_seg)
+      f32_vec<NT>(qseg_s + buf * BQ, p.qseg + b * P.Tq + q0, q_valid, BQ);
+  };
+  f32_rows<NT, D, BK, LDT>(Ks, static_cast<const float*>(p.k) + b * p.k_sb +
+                                   hk * p.k_sh + k0 * p.k_st,
+                           p.k_st, k_valid);
+  f32_rows<NT, D, BK, LDT>(Vs, static_cast<const float*>(p.v) + b * p.v_sb +
+                                   hk * p.v_sh + k0 * p.v_st,
+                           p.v_st, k_valid);
+  if (has_seg) f32_vec<NT>(kseg_s, p.kseg + b * P.Tk + k0, k_valid, BK);
+  if (total > 0) load_q(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // key group ky, q group qx (a warp: 4 key groups x 8 q groups): keys
+  // ky + TK i, q rows qx + TQ j of a tile, dK/dV dims VW qx + TQ VW n + e
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ky = warp / 2 * 4 + lane / 8, qx = warp % 2 * 8 + lane % 8;
+  const int kpos0 = P.goff_k + k0 + ky;  // key i at global kpos0 + TK i
+  float dk[RK][DN] = {}, dv[RK][DN] = {};
+
+  // the element step of S^T and dP^T of the q tile at q0, in registers:
+  // a = exp(s scale - lse) (0 where masked), dropout, ds = a (da - delta)
+  // scale (+ a glse scale); S^T becomes P_drop^T and dP^T becomes dS^T.
+  auto element = [&](float (&st)[RK][CQ], float (&dpt)[RK][CQ], int q0,
+                     int64_t bhq, int buf) {
+    const bool full = !has_seg && k0 + BK <= P.Tk && q0 + BQ <= P.Tq &&
+                      (!p.causal || P.goff_q + q0 >= P.goff_k + k0 + BK - 1);
+    if (full && !p.dropout && !p.glse) {  // the branch-free common case
+#pragma unroll
+      for (int j = 0; j < CQ; ++j) {
+        const float lse = lse_s[buf * BQ + qx + TQ * j];
+        const float delta = delta_s[buf * BQ + qx + TQ * j];
+#pragma unroll
+        for (int i = 0; i < RK; ++i) {
+          const float a = expf(st[i][j] * scale - lse);
+          st[i][j] = a;
+          dpt[i][j] = a * (dpt[i][j] - delta) * scale;
+        }
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < CQ; ++j) {
+      const int r = qx + TQ * j;
+      const int qpos = P.goff_q + q0 + r;
+      const bool row_ok = q0 + r < P.Tq;
+      const float lse = lse_s[buf * BQ + r], delta = delta_s[buf * BQ + r];
+      const float gl = p.glse ? glse_s[buf * BQ + r] : 0.0f;
+      const int qsg = has_seg ? qseg_s[buf * BQ + r] : 0;
+#pragma unroll
+      for (int i = 0; i < RK; ++i) {
+        bool ok = true;
+        if (!full) {
+          ok = row_ok && k0 + ky + TK * i < P.Tk;
+          if (p.causal) ok = ok && qpos >= kpos0 + TK * i;
+          if (has_seg) ok = ok && qsg == kseg_s[ky + TK * i];
+        }
+        const float a = ok ? expf(st[i][j] * scale - lse) : 0.0f;
+        float a_drop = a, da = dpt[i][j];
+        if (p.dropout) {
+          const bool kp = keep(static_cast<uint32_t>(p.seed),
+                               static_cast<uint32_t>(bhq),
+                               static_cast<uint32_t>(qpos),
+                               static_cast<uint32_t>(kpos0 + TK * i),
+                               static_cast<uint32_t>(p.thresh));
+          a_drop = kp ? a * inv_keep : 0.0f;
+          da = kp ? da * inv_keep : 0.0f;
+        }
+        float ds = a * (da - delta) * scale;
+        if (p.glse) ds = ds + a * gl * scale;
+        st[i][j] = a_drop;
+        dpt[i][j] = ds;
+      }
+    }
+  };
+
+  for (int it = 0; it < total; ++it) {
+    const int buf = NS == 2 ? it & 1 : 0;
+    if (NS == 2 && it + 1 < total) load_q(it + 1, buf ^ 1);
+    cp_async_commit();
+    const float* Q = Qs + buf * L::QST;
+    const float* G = Gs + buf * L::QST;
+    // S^T = K Q^T and dP^T = V dO^T, then the element step
+    float st[RK][CQ] = {}, dpt[RK][CQ] = {};
+    f32_abt2<RK, CQ, D, TK * LDT, TQ * LDT>(st, dpt, Ks + ky * LDT,
+                                            Vs + ky * LDT, Q + qx * LDT,
+                                            G + qx * LDT);
+    element(st, dpt, (qt0 + it % nq) * BQ, b * H + hk * grp + it / nq, buf);
+    // dV += P_drop^T dO, then dK += dS^T Q, each P^T through shared memory
+    // (the previous step's dK product ended at the barrier that ends it)
+#pragma unroll
+    for (int i = 0; i < RK; ++i)
+#pragma unroll
+      for (int j = 0; j < CQ; ++j)
+        Pt[(ky + TK * i) * LDP + qx + TQ * j] = st[i][j];
+    __syncthreads();
+    f32_ab<RK, DN, VW, BQ, TK * LDP, LDT, TQ * VW>(dv, Pt + ky * LDP,
+                                                   G + VW * qx);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RK; ++i)
+#pragma unroll
+      for (int j = 0; j < CQ; ++j)
+        Pt[(ky + TK * i) * LDP + qx + TQ * j] = dpt[i][j];
+    __syncthreads();
+    f32_ab<RK, DN, VW, BQ, TK * LDP, LDT, TQ * VW>(dk, Pt + ky * LDP,
+                                                   Q + VW * qx);
+    if (NS == 1 && it + 1 < total) {  // one stage: the next tile now
+      __syncthreads();
+      load_q(it + 1, 0);
+      cp_async_commit();
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < RK; ++i) {
+    if (k0 + ky + TK * i >= P.Tk) continue;
+    const int64_t o = ((b * P.Tk + k0 + ky + TK * i) * Hk + hk) * D + VW * qx;
+#pragma unroll
+    for (int n = 0; n < DN / VW; ++n) {
+      float x[VW], y[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e)
+        x[e] = dk[i][n * VW + e], y[e] = dv[i][n * VW + e];
+      st_vec<VW>(static_cast<float*>(p.dk) + o + TQ * VW * n, x);
+      st_vec<VW>(static_cast<float*>(p.dv) + o + TQ * VW * n, y);
+    }
+  }
 }
 
 template <typename T, int D>
@@ -2628,10 +3021,10 @@ struct Fwd {
     static bool done[kMaxDevices] = {};
     const unsigned bh = static_cast<unsigned>(a.B * a.H);
     if constexpr (std::is_same<T, float>::value) {
-      using C = Cfg<T, D>;
-      return launch_kernel(fwd_f32_kernel<T, D>,
-                           dim3((a.Tq + C::BQ - 1) / C::BQ, bh), kThreads,
-                           Smem<T, D>::fwd, s, device, done, a);
+      using L = F32Fwd<D>;
+      return launch_kernel(fwd_f32_kernel<D>,
+                           dim3((a.Tq + L::BQ - 1) / L::BQ, bh), L::NT,
+                           L::bytes, s, device, done, a);
     } else if constexpr (D <= 32) {
       return launch_kernel(fwd_tc_kernel<T, D>,
                            dim3((a.Tq + kTcRows - 1) / kTcRows, bh),
@@ -2661,10 +3054,10 @@ struct Dkv {
     static bool done[kMaxDevices] = {};
     const unsigned bhk = static_cast<unsigned>(a.B * a.Hk);
     if constexpr (std::is_same<T, float>::value) {
-      using C = Cfg<T, D>;
-      return launch_kernel(dkv_f32_kernel<T, D>,
-                           dim3((a.Tk + C::BK - 1) / C::BK, bhk), kThreads,
-                           Smem<T, D>::dkv, s, device, done, a);
+      using L = F32Dkv<D>;
+      return launch_kernel(dkv_f32_kernel<D>,
+                           dim3((a.Tk + L::BK - 1) / L::BK, bhk), L::NT,
+                           L::bytes, s, device, done, a);
     } else if constexpr (D <= 32) {
       return launch_kernel(dkv_tc_kernel<T, D>,
                            dim3((a.Tk + kTcRows - 1) / kTcRows, bhk),

@@ -8,15 +8,23 @@ logsumexp), with its three Pallas kernels written again by hand for Hopper
 in ``chainermn_tpu_torch/csrc/flash_attention.cu`` (design and bounds in
 its header):
 
-==============  ===========================================  ==============
-wrapper         replaces (chainermn_tpu/ops/flash_attention  bound (H100)
-                .py)
-==============  ===========================================  ==============
-flash_fwd       ``_fwd_kernel`` (:136) via ``_forward``      FLOPs / 989 T
-flash_bwd_dkv   ``_dkv_kernel`` (:307) via                   FLOPs / 989 T
+==============  ======================================  =====================
+wrapper         replaces (chainermn_tpu/ops/            bound (H100)
+                flash_attention.py)
+==============  ======================================  =====================
+flash_fwd       ``_fwd_kernel`` (:136) via              FLOPs / 989 T (bf16,
+                ``_forward``                            fp16), / 66.9 T
+                                                        (float32)
+flash_bwd_dkv   ``_dkv_kernel`` (:307) via              the same
                 ``_pallas_backward``
-flash_bwd_dq    ``_dq_kernel`` (:393) via ``_pallas_backward``  FLOPs / 989 T
-==============  ===========================================  ==============
+flash_bwd_dq    ``_dq_kernel`` (:393) via               the same
+                ``_pallas_backward``
+==============  ======================================  =====================
+
+bf16 and fp16 run on the tensor cores (``wgmma`` at head dims 64 and 128,
+``mma.sync`` at 16 and 32); float32 runs on the CUDA cores in float32,
+never TF32 (the forward and dK/dV register-blocked, dQ over shared-memory
+tiles).
 
 The kernels are built with ``nvcc`` into ``build/cuda/`` at their first
 launch and bound with ``ctypes`` (:mod:`chainermn_tpu_torch.ops._build`).

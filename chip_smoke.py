@@ -84,9 +84,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     ``_keep_mask``), scalar and [B] offsets with a glse cotangent, fp16 and
     float32, D 16/32/64/128, and the wgmma kernels' edges: T 1000 (no tile
     divides it), a Tq 1 decode row with [B] offsets over Tk 4096, a GQA
-    group of 8, q/k/v as views of one qkv projection, fp16 at D 64;
-    relative L2 errors within 1e-5 (float32) and 1e-2 (bf16/fp16); then
-    each kernel launched twice on the same inputs must give the same bits;
+    group of 8, q/k/v as views of one qkv projection, fp16 at D 64, and
+    the first three of them in float32 (the CUDA-core kernels); relative
+    L2 errors within 1e-5 (float32) and 1e-2 (bf16/fp16); then each kernel
+    launched twice on the same inputs must give the same bits (bf16 D 128
+    GQA, fp16 D 64, bf16 D 32, float32 D 128 GQA and D 32).  The build
+    fails the phase if the float32 forward or dK/dV spills at D 128;
 11. the LM slice: an NCCL world of one, TransformerLM at full width
     (vocab 32768, d_model 2048, 8 layers, 16 heads, T 8192, batch 1, bf16
     compute over float32 parameters, random weights from seed 0: 553.9 M
@@ -115,7 +118,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     kernels that ``ring_flash`` runs in the float32 long-context example)
     at the same shape with TF32 off: graph replay, its plain version,
     ``scaled_dot_product_attention`` in float32 and the bound at the card's
-    float32 peak outside the tensor cores (66.9 TFLOP/s on an H100 SXM);
+    float32 peak outside the tensor cores (66.9 TFLOP/s on an H100 SXM),
+    the forward and dK/dV also against their first CUDA-core design's
+    times (``FLASH_F32_CUDA_CORE_MS``);
 14. probe kernels: the two CUDA kernels of
     ``chainermn_tpu_torch.ops.probe_matmul`` (persistent, TMA-fed wgmma:
     wgrad with its span sum, rowblock with its TMA-store epilogue) against
@@ -278,17 +283,27 @@ FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 1e-2}
 # phase 13 prints each kernel's time against
 FLASH_MMA_SYNC_MS = {"flash_fwd": 2.2804, "flash_bwd_dkv": 3.6619,
                      "flash_bwd_dq": 2.7811}
+# CUDA-graph ms of the float32 forward and dK/dV at the same shape (TF32
+# off) before their register-blocked redesign: the first CUDA-core kernels
+# (32-row tiles staged in shared memory), measured by phase 13 of this
+# script on an NVIDIA H100 80GB HBM3 at 700 W; phase 13 prints the float32
+# rows against them
+FLASH_F32_CUDA_CORE_MS = {"flash_fwd": 16.6493, "flash_bwd_dkv": 51.3594}
 # kernels whose ptxas report (registers, spills) the build phase prints
 PTXAS_KERNELS = {"flash_attention": ("fwd_wgmma_kernel", "dkv_wgmma_kernel",
-                                     "dq_wgmma_kernel"),
+                                     "dq_wgmma_kernel", "fwd_f32_kernel",
+                                     "dkv_f32_kernel"),
                  "fused_norm": ("bn_stats_kernel", "bn_bwd_reduce_kernel"),
                  "probe_matmul": ("wgrad_kernel", "span_sum_kernel",
                                   "rowblock_kernel")}
 # marks of a mangled kernel name -> its label's tags, the first that match
 # taken out of the name before the next are looked for
 PTXAS_TAGS = (("ILi64ELi256E", "dgrad"), ("ILi256ELi64E", "fwd1x1"),
-              ("Li64E", "D64"), ("Li128E", "D128"), ("Lb1E", "vector"),
-              ("Lb0E", "scalar"))
+              ("Li64E", "D64"), ("Li128E", "D128"), ("Li16E", "D16"),
+              ("Li32E", "D32"), ("Lb1E", "vector"), ("Lb0E", "scalar"))
+# the float32 flash kernels that must not spill at D 128 (the build phase
+# fails if one does)
+F32_NO_SPILL = ("fwd_f32_kernel D128", "dkv_f32_kernel D128")
 # kernels redesigned for Hopper since their first port (PERF.md section 6
 # says when), marked in the summary's kernel list
 REDESIGNED = {"fused_norm.stats", "fused_norm.bwd_reduce", "flash.fwd",
@@ -908,12 +923,14 @@ def flash_case(fa, torch, dev, dtype, b, tq, tk, h, hk, d, causal, seg=False,
 
 def flash_repeat(fa, torch, dev):
     """Each flash kernel launched twice on the same inputs, at a bf16 D 128
-    GQA shape and an fp16 D 64 one (the wgmma kernels) and a bf16 D 32 one
-    (mma.sync); returns ``{wrapper: True if both launches gave the same
-    bits}``.  No kernel uses atomics: one block writes each output tile."""
+    GQA shape and an fp16 D 64 one (the wgmma kernels), a bf16 D 32 one
+    (mma.sync) and float32 D 128 GQA and D 32 ones (the CUDA-core kernels);
+    returns ``{wrapper: True if both launches gave the same bits}``.  No
+    kernel uses atomics: one block writes each output tile."""
     same = {w: True for w in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
     for dtype, d in ((torch.bfloat16, 128), (torch.float16, 64),
-                     (torch.bfloat16, 32)):
+                     (torch.bfloat16, 32), (torch.float32, 128),
+                     (torch.float32, 32)):
         gen = torch.Generator(device=dev).manual_seed(d)
         mk = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
                                     device=dev).to(dtype)
@@ -985,6 +1002,11 @@ def phase_flash(fa, torch, dev):
         ("gqa8_d128", bf, 2, 512, 512, 16, 2, 128, True, {}),
         ("qkv_views_d128", bf, 2, 640, 640, 8, 8, 128, True, {"qkv": True}),
         ("f16_d64", f16, 2, 300, 300, 8, 4, 64, True, {"glse": True}),
+        # the same edges for the float32 CUDA-core kernels
+        ("t1000_causal_d128_f32", f32, 1, 1000, 1000, 8, 8, 128, True, {}),
+        ("decode_tq1_tk4096_f32", f32, 2, 1, 4096, 16, 4, 128, True,
+         {"offs": "decode"}),
+        ("gqa8_d128_f32", f32, 2, 512, 512, 16, 2, 128, True, {}),
     ]
     errs = {w: 0.0 for w in FLASH}
     for i, (name, dt, b, tq, tk, h, hk, d, causal, extra) in enumerate(cases):
@@ -1013,7 +1035,7 @@ def phase_flash(fa, torch, dev):
         raise AssertionError(f"flash kernels: two launches on the same "
                              f"inputs differ: {same}")
     log("flash repeat: two launches of each kernel gave the same bits (bf16 "
-        "D 128 GQA, fp16 D 64, bf16 D 32)")
+        "D 128 GQA, fp16 D 64, bf16 D 32, float32 D 128 GQA and D 32)")
     torch.cuda.empty_cache()
     return errs
 
@@ -1220,7 +1242,12 @@ def phase_flash_timing(fa, torch, dev, card, dtype):
                 f"{out_t[w]['library_ms']:.4f} ms, bound "
                 f"{out_t[w]['bound_ms']:.4f} ms ({out_t[w]['bound_by']} at "
                 f"{peak} TFLOP/s: {ops} FLOPs, {nbytes} B); "
-                f"{ops / ms / 1e9:.2f} TFLOP/s"
+                f"{ops / ms / 1e9:.2f} TFLOP/s, "
+                f"{out_t[w]['bound_ms'] / ms:.3f} of the bound"
+                + (f"; first CUDA-core design "
+                   f"{FLASH_F32_CUDA_CORE_MS[w]:.4f} ms "
+                   f"({FLASH_F32_CUDA_CORE_MS[w] / ms:.2f}x this time)"
+                   if f32 and w in FLASH_F32_CUDA_CORE_MS else "")
                 + ("" if f32 else f"; mma.sync design "
                    f"{FLASH_MMA_SYNC_MS[w]:.4f} ms "
                    f"({FLASH_MMA_SYNC_MS[w] / ms:.2f}x this time)"))
@@ -1980,6 +2007,12 @@ def main():
         log(f"ptxas -v {src}.cu (registers, spill store / load bytes): "
             + ", ".join(f"{k} {r}/{st}/{ld}"
                         for k, (r, st, ld) in regs.items()))
+        spills = {k: regs.get(k) for k in F32_NO_SPILL
+                  if src == "flash_attention" and regs.get(k, (0, 1, 1))[1:]
+                  != (0, 0)}
+        if spills:
+            raise AssertionError(f"float32 flash kernels spill at D 128 (or "
+                                 f"are missing from the report): {spills}")
 
     t0 = time.perf_counter()
     grads = grad_counts(torch, dev)

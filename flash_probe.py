@@ -2,6 +2,7 @@
 """Where the time of the wgmma kernels goes, on one GPU.
 
     python3 flash_probe.py          # the flash-attention kernels
+    python3 flash_probe.py f32      # their float32 forward and dK/dV
     python3 flash_probe.py probe    # the stage-1 probe GEMMs
     python3 flash_probe.py stats    # the BatchNorm statistics kernel
 
@@ -13,7 +14,9 @@ each build it prints the registers and spills of the kernels it is about,
 then times them by CUDA-graph replay between CUDA events: the flash
 kernels at the LM's attention shape (bf16, B 1, T 8192, H 16, D 128, q/k/v
 views of one qkv projection) -- the forward (causal and not), dK/dV and
-dQ; the probe kernels at the probe's M = 802,816 -- wgrad, dgrad and
+dQ; the float32 forward and dK/dV (the CUDA-core ``fwd_f32_kernel`` and
+``dkv_f32_kernel``) at the same shape in float32, causal; the probe
+kernels at the probe's M = 802,816 -- wgrad, dgrad and
 fwd1x1, beside ``torch.mm``, and for the kernels as they are also by the
 profiler's kernel durations (``utils.trace.device_time``, what the probe's
 document reports); the statistics kernel (``cmn_bn_stats``, called
@@ -31,6 +34,28 @@ and only say what that part costs:
   elementwise work, or the probe's epilogues, only);
 * ``no_stores`` (probe): rowblock without its TMA stores (loads, products
   and the staging of the output tile only).
+
+For the float32 kernels (``f32``), the parts left out (``no_softmax``,
+``no_elementwise``, ``no_products``: their register-blocked products
+only), then the tile choices the design weighed (right results, checked
+like ``as_is``):
+
+* ``fwd_lanes8``: the forward's row groups of 8 lanes, a thread 4 rows x 8
+  keys of S and 4 rows x D/8 dims of O (the same 128 x 64 tiles);
+* ``fwd_rows4``: 4 q rows a thread, so 64-row blocks (4 x 4 of S, 4 x 8 of
+  O at D 128);
+* ``dkv_rows2``: dK/dV over Q/dO tiles of 32 rows (4 keys x 2 rows of S^T
+  and dP^T a thread);
+* ``dkv_keys2``: dK/dV blocks of 32 keys (2 keys a thread);
+* ``fwd_2cta``, ``dkv_2cta``: blocks of 128 threads with one K/V (Q/dO)
+  stage and the largest shared-memory carveout, two blocks an SM (64-row
+  forward blocks, 32-key dK/dV blocks);
+* ``unroll1``, ``unroll2``: the products' loops unrolled once or twice
+  instead of four times;
+* ``dkv_apart``: S^T and dP^T in two loops over D instead of one.
+
+The SM clock and power draw (``nvidia-smi``, sampled every 100 ms over ~3
+s of each kernel as it is) are printed beside their times.
 
 For the statistics (``stats``), the parts left out and the alternatives:
 
@@ -113,6 +138,79 @@ def flash_variants(src):
         no_products = _cut(no_products, old, "")
     return {"as_is": src, "no_softmax": no_softmax,
             "no_elementwise": no_elementwise, "no_products": no_products}
+
+
+# the largest shared-memory carveout, so that two blocks of ~110 KB fit an SM
+CARVEOUT = {"      static_cast<int>(bytes));\n  if (err == cudaSuccess) done":
+            "      static_cast<int>(bytes));\n  if (err == cudaSuccess)\n"
+            "    err = cudaFuncSetAttribute(\n        kernel, cudaFuncAttribute"
+            "PreferredSharedMemoryCarveout,\n        "
+            "cudaSharedmemCarveoutMaxShared);\n  if (err == cudaSuccess) done"}
+F32_TILES = {"fwd_lanes8": {"kF32FwdLanes = 16;": "kF32FwdLanes = 8;",
+                            "kF32FwdRows = 8;": "kF32FwdRows = 4;",
+                            "kF32FwdKeys = 4;": "kF32FwdKeys = 8;"},
+             "fwd_rows4": {"kF32FwdRows = 8;": "kF32FwdRows = 4;"},
+             "dkv_rows2": {"kF32DkvRows = 4;": "kF32DkvRows = 2;"},
+             "dkv_keys2": {"kF32DkvKeys = 4;": "kF32DkvKeys = 2;"},
+             "fwd_2cta": {"kF32FwdThreads = 256;": "kF32FwdThreads = 128;",
+                          "kF32FwdStages = 2;": "kF32FwdStages = 1;",
+                          **CARVEOUT},
+             "dkv_2cta": {"kF32DkvThreads = 256;": "kF32DkvThreads = 128;",
+                          "kF32DkvStages = 2;": "kF32DkvStages = 1;",
+                          **CARVEOUT}}
+
+
+def f32_variants(src):
+    """``{name: source}`` of ``flash_attention.cu`` for the float32
+    forward and dK/dV: the parts left out, then the tile choices."""
+    no_softmax = _cut(src, "    softmax(s, kt * BK, kseg_s + buf * BK);\n",
+                      "    for (int i = 0; i < RM; ++i) alpha[i] = 1.0f;\n")
+    no_elementwise = _cut(src, "    element(st, dpt, (qt0 + it % nq) * BQ, "
+                          "b * H + hk * grp + it / nq, buf);\n", "")
+    no_products = src
+    for old in (
+            "    f32_abt<RM, CN, D, TY * LDT, TX * LDT>(s, Qs + ty * LDT, "
+            "K + tx * LDT);\n",
+            "    f32_ab<RM, DN, VW, BK, TY * LDP, LDT, TX * VW>(o, K + ty * "
+            "LDP,\n                                                   V + "
+            "VW * tx);\n",
+            "    f32_abt2<RK, CQ, D, TK * LDT, TQ * LDT>(st, dpt, Ks + ky * "
+            "LDT,\n                                            Vs + ky * LDT, "
+            "Q + qx * LDT,\n                                            G + "
+            "qx * LDT);\n",
+            "    f32_ab<RK, DN, VW, BQ, TK * LDP, LDT, TQ * VW>(dv, Pt + ky * "
+            "LDP,\n                                                   G + "
+            "VW * qx);\n",
+            "    f32_ab<RK, DN, VW, BQ, TK * LDP, LDT, TQ * VW>(dk, Pt + ky * "
+            "LDP,\n                                                   Q + "
+            "VW * qx);\n"):
+        no_products = _cut(no_products, old, "")
+    out = {"as_is": src, "no_softmax": no_softmax,
+           "no_elementwise": no_elementwise, "no_products": no_products}
+    for name, cuts in F32_TILES.items():
+        var = src
+        for old, new in cuts.items():
+            var = _cut(var, old, new)
+        out[name] = var
+    # the products' loops over D and over keys (q rows) unrolled once (no
+    # operand prefetch) or twice instead of four times
+    for n in (1, 2):
+        var = src
+        for loop in ("  for (int d = 0; d < D; d += 4) {\n",
+                     "  for (int k = 0; k < K; k += 4) {\n"):
+            var = _cut(var, "#pragma unroll 4\n" + loop,
+                       f"#pragma unroll {n}\n" + loop)
+        out[f"unroll{n}"] = var
+    # S^T and dP^T in two loops over D, one product each
+    out["dkv_apart"] = _cut(
+        src, "    f32_abt2<RK, CQ, D, TK * LDT, TQ * LDT>(st, dpt, Ks + ky * "
+        "LDT,\n                                            Vs + ky * LDT, "
+        "Q + qx * LDT,\n                                            G + qx "
+        "* LDT);\n",
+        "    f32_abt<RK, CQ, D, TK * LDT, TQ * LDT>(st, Ks + ky * LDT, Q + qx"
+        " * LDT);\n    f32_abt<RK, CQ, D, TK * LDT, TQ * LDT>(dpt, Vs + ky "
+        "* LDT, G + qx * LDT);\n")
+    return out
 
 
 def probe_variants(src):
@@ -318,6 +416,88 @@ def flash(torch, build_mod, smoke):
         print_registers(smoke, "flash_attention", name, lines)
 
 
+def _sample_clocks():
+    """Start sampling the SM clock and power draw every 100 ms."""
+    return subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+
+def _stop_clocks(proc):
+    """Stop the sampler; the median and range of the SM clock and of the
+    power draw over its samples."""
+    proc.terminate()
+    out = proc.communicate(timeout=30)[0]
+    rows = [tuple(float(x) for x in line.split(",")) for line in
+            out.splitlines() if line.count(",") == 1]
+    if not rows:
+        return "SM clock not sampled"
+    mhz = sorted(r[0] for r in rows)
+    watts = sorted(r[1] for r in rows)
+    return (f"SM clock {mhz[len(mhz) // 2]:.0f} MHz ({mhz[0]:.0f}-"
+            f"{mhz[-1]:.0f}), power {watts[len(watts) // 2]:.0f} W "
+            f"({watts[0]:.0f}-{watts[-1]:.0f}) over {len(rows)} samples")
+
+
+def f32(torch, build_mod, smoke):
+    from chainermn_tpu_torch.utils.compare import no_tf32
+    fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+    built = build_all(build_mod, "flash_attention", f32_variants)
+    dev = torch.device("cuda", 0)
+    b, t, h, d = 1, smoke.LM_T, smoke.LM["n_heads"], \
+        smoke.LM["d_model"] // smoke.LM["n_heads"]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    qkv = torch.randn(b, t, 3 * h * d, device=dev, generator=gen) * 0.5
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, t, h, d)
+               for i in range(3))
+    g = torch.randn(b, t, h, d, device=dev, generator=gen)
+    kerns = ("fwd_f32_kernel", "dkv_f32_kernel")
+    with no_tf32():
+        out, lse = fa.flash_forward_plain(q, k, v, True)
+        delta = (g * out).sum(-1).transpose(1, 2).contiguous()
+        for name, so, lines in built:
+            build_mod._LIBS["flash_attention"] = ctypes.CDLL(so)
+            right = not name.split("_", 2)[-1].startswith("no_")
+            if right:  # every tile choice against the plain versions
+                for case in (("d128_all", 1, 300, 300, 8, 2, 128, True,
+                              dict(seg=True, rate=0.2, glse=True,
+                                   offs="vector")),
+                             ("d32_gqa", 2, 200, 200, 8, 1, 32, True, {}),
+                             ("d64_cross", 2, 96, 128, 4, 4, 64, False, {}),
+                             ("d16", 2, 130, 130, 4, 4, 16, True, {})):
+                    res = smoke.flash_case(fa, torch, dev, torch.float32,
+                                           *case[1:8], **case[8])
+                    worst = max(r for _, r in res.values())
+                    if not worst <= smoke.FLASH_TOL["float32"]:
+                        raise SystemExit(f"flash_probe: {name} {case[0]} "
+                                         f"disagrees with the plain versions"
+                                         f" ({res})")
+            kern = {"fwd causal": lambda: fa.flash_fwd(q, k, v, True),
+                    "dkv causal": lambda: fa.flash_bwd_dkv(
+                        q, k, v, g, lse, delta, None, True)}
+            ms = {w: smoke._time(torch, fn, 5, graph=True)
+                  for w, fn in kern.items()}
+            clocks = ""
+            if name.endswith("as_is"):  # ~3 s of each kernel, sampled
+                for w, fn in kern.items():
+                    proc = _sample_clocks()
+                    time.sleep(1.0)  # nvidia-smi's start
+                    t_end = time.perf_counter() + 3.0
+                    while time.perf_counter() < t_end:
+                        for _ in range(20):
+                            fn()
+                        torch.cuda.synchronize()
+                    clocks += f"; {w}: {_stop_clocks(proc)}"
+            print(f"{name}{'' if right else ' (wrong results)'}: "
+                  + ", ".join(f"{w} {x:.4f} ms" for w, x in ms.items())
+                  + clocks, flush=True)
+            print(f"{name}: registers, spill store / load bytes: "
+                  + ", ".join(f"{kern} {r}/{st}/{ld}" for kern, (r, st, ld)
+                              in smoke.ptxas_registers(lines, kerns).items()),
+                  flush=True)
+
+
 def probe(torch, build_mod, smoke):
     pm = importlib.import_module("chainermn_tpu_torch.ops.probe_matmul")
     from chainermn_tpu_torch.benchmarks import bench_conv_probe as bcp
@@ -411,7 +591,8 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     build_mod = importlib.import_module("chainermn_tpu_torch.ops._build")
     smoke = importlib.import_module("chip_smoke")
-    {"probe": probe, "stats": stats}.get(argv[0] if argv else None, flash)(
+    {"f32": f32, "probe": probe, "stats": stats}.get(
+        argv[0] if argv else None, flash)(
         torch, build_mod, smoke)
     print(smoke.gpu_line())
     return 0
