@@ -96,9 +96,9 @@
 // the bf16 LM.  On the CUDA cores the limit is shared memory: an SM returns
 // 128 bytes (32 floats) of it a clock and runs 128 FMAs a clock, so a
 // kernel whose threads read F floats of shared memory per FMA runs at most
-// 1 / (4 F) of the float32 peak.  dQ (dq_f32_kernel) still reads one float
-// per FMA (2 x 2 micro-tiles through TileMma, F = 1: 0.25 of peak at best).
-// The forward and dK/dV are register-blocked:
+// 1 / (4 F) of the float32 peak (measured, the model is pessimistic: a
+// 128-bit read that a quarter warp shares costs less).  All three are
+// register-blocked:
 //  * fwd_f32_kernel: a block of 256 threads owns 128 q rows and walks K/V
 //    tiles of 64 keys, double-buffered by cp.async (the next tile's copy
 //    runs under this tile's products); causal q tiles heaviest first.  Row
@@ -123,14 +123,33 @@
 //    P_drop^T dO and dK += dS^T Q.  F = 0.44 (cap 0.57).  The causal skip of
 //    q tiles before the diagonal and the GQA group loop (heads outer) stay:
 //    the group's float32 sum is taken inside the block.
+//  * dq_f32_kernel, dK/dV's mirror: a block of 256 threads owns 64 q rows of
+//    one (b, h), with Q, dO and their lse, delta, glse and segment ids
+//    staged once, and walks K/V tiles of 64 keys (of kv head h / (H / Hk))
+//    double-buffered by cp.async up to the causal end, causal q tiles
+//    heaviest first.  A thread holds 4 q rows x 4 keys of S and of dP (both
+//    products in one loop over D), runs the element step on them in
+//    registers (a branch-free path for unmasked tiles without dropout or
+//    glse), and keeps its 4 rows' 8 dims (D 128) of dQ in registers for the
+//    whole walk, written once.  dS goes through its own shared [q][key]
+//    buffer (pitch 64 + 8: a warp's 4 rows x 8 keys on 32 banks) as the A
+//    operand of dQ += dS K; with 222,720 bytes at D 128 it fits beside the
+//    K/V stages, so no barrier waits for the V stage to free.  Two barriers
+//    a tile.  F = 0.5 in the S/dP loop, 0.375 in dS K (cap 0.55).
 // The tiles were chosen by `flash_probe.py f32` (CUDA-graph ms at the LM's
 // shape, B 1, T 8192, H 16, D 128, causal, on an H100 80GB HBM3 at 700 W;
 // PERF.md section 6): forward 7.74 ms against 8.11 with 8-lane row groups
 // (4 x 8 of S, 4 x 16 of O) and 8.41 with 4-row threads (64-row blocks);
 // dK/dV 15.29 ms against 18.13 with 32-row Q/dO tiles and 23.32 with
-// 32-key blocks; two blocks of 128 threads an SM (one stage, the largest
-// carveout) gained nothing (7.79, 15.32).  ptxas: 254 (forward) and 236
-// (dK/dV) registers at D 128, no spills.
+// 32-key blocks; dQ 11.65 ms against 12.50 with 128-row blocks over 32-key
+// tiles (8 x 2 of S and dP a thread), 12.71 with 8 key groups (128-row
+// blocks over 32-key tiles, 4 x 4) and 14.11 with 32-key tiles (4 x 2); two
+// blocks of 128 threads an SM (one stage, the largest carveout) gained
+// nothing (7.79, 15.32; dQ 12.09).  The product loops are unrolled eight
+// times: in turns (`flash_probe.py f32-turns`) dQ 11.65 against 11.76 ms
+// unrolled four times, dK/dV 15.15 against 15.29, the forward the same
+// (7.74).  ptxas: 254 (forward), 252 (dK/dV) and 168 (dQ) registers at
+// D 128, no spills.
 //
 // Plain C entry points (bound from Python with ctypes, no PyTorch headers):
 // the caller fills `Args`, allocates the outputs, passes its stream and
@@ -183,25 +202,6 @@ constexpr float kLseSentinel = 1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Tiles of the float32 (CUDA-core) kernels.
-template <typename T, int D>
-struct Cfg {
-  static constexpr int BQ = 32;               // q rows of a tile
-  static constexpr int BK = BQ;               // keys of a tile
-  static constexpr int PAD = 4;               // elements; keeps 16 B rows
-  static constexpr int LDT = D + PAD;         // T tiles [rows][D]
-  static constexpr int LDS = BK + 4;          // float [BQ][BK]
-  static constexpr int LDP = BK + PAD;        // T [BQ][BK]
-  static constexpr int LDA = D + 4;           // float accumulators [rows][D]
-  static constexpr int TPR = kThreads / BQ;   // threads on one score row
-  static constexpr int NC = BK / TPR;         // score columns per thread
-  static_assert(D % 16 == 0 && NC <= 32, "tile shape");
-};
-
-__device__ __forceinline__ int64_t imin(int64_t a, int64_t b) {
-  return a < b ? a : b;
-}
-
 // JAX's _keep_mask: murmur3-finalizer rounds over uint32.
 __device__ __forceinline__ bool keep(uint32_t seed, uint32_t bh, uint32_t qp,
                                      uint32_t kp, uint32_t thresh) {
@@ -212,79 +212,6 @@ __device__ __forceinline__ bool keep(uint32_t seed, uint32_t bh, uint32_t qp,
   x *= 0x846CA68Bu;
   x ^= x >> 16;
   return x >= thresh;
-}
-
-// ---------------------------------------------------------------------------
-// float32 dQ: a CUDA-core kernel over tiles staged in shared memory
-// ---------------------------------------------------------------------------
-
-// C[M][N] (float, row-major, ldc) = (accumulate ? C : 0) + A * B over K,
-// with A(m, k) = A_ROW ? a[m * lda + k] : a[k * lda + m] and
-//      B(k, n) = B_ROW ? b[k * ldb + n] : b[n * ldb + k], all in shared
-// memory, in float32 on the CUDA cores.  The 256 threads form a 16 x 16
-// grid; thread (tr, tc) owns rows tr + 16 i and columns tc + 16 j.
-template <typename T, int M, int N, int K, bool A_ROW, bool B_ROW>
-struct TileMma;
-
-template <int M, int N, int K, bool A_ROW, bool B_ROW>
-struct TileMma<float, M, N, K, A_ROW, B_ROW> {
-  __device__ static void run(const float* a, int lda, const float* b, int ldb,
-                             float* c, int ldc, bool accumulate) {
-    constexpr int RM = M / 16, RN = N / 16;
-    const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-    float acc[RM][RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j)
-        acc[i][j] = accumulate ? c[(tr + 16 * i) * ldc + tc + 16 * j] : 0.0f;
-#pragma unroll 4
-    for (int kk = 0; kk < K; ++kk) {
-      float av[RM], bv[RN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-        av[i] = A_ROW ? a[(tr + 16 * i) * lda + kk] : a[kk * lda + tr + 16 * i];
-#pragma unroll
-      for (int j = 0; j < RN; ++j)
-        bv[j] = B_ROW ? b[kk * ldb + tc + 16 * j] : b[(tc + 16 * j) * ldb + kk];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j)
-        c[(tr + 16 * i) * ldc + tc + 16 * j] = acc[i][j];
-  }
-};
-
-// ROWS rows of D elements from src (row r at src + r * stride) into dst
-// (pitch ld); rows at or past `valid` are zero.  16-byte vectors.
-template <typename T, int D, int ROWS>
-__device__ void load_rows(T* dst, int ld, const T* src, int64_t stride,
-                          int valid) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int CPR = D / V;
-  for (int i = threadIdx.x; i < ROWS * CPR; i += kThreads) {
-    const int r = i / CPR, c = (i % CPR) * V;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-// n entries of a row vector, 0 past `valid` (src may be null: all 0)
-template <typename U>
-__device__ void load_vec(U* dst, const U* src, int valid, int n) {
-  for (int i = threadIdx.x; i < n; i += kThreads)
-    dst[i] = (src != nullptr && i < valid) ? src[i] : U(0);
-}
-
-template <typename U>
-__device__ void zero(U* p, int n) {
-  for (int i = threadIdx.x; i < n; i += kThreads) p[i] = U(0);
 }
 
 // Shared-memory carving: every buffer starts on a 128-byte boundary.
@@ -302,150 +229,11 @@ struct Carve {
   }
 };
 
-template <typename T, int D>
-struct Smem {
-  using C = Cfg<T, D>;
-  static constexpr size_t tile = al(C::BQ * C::LDT * sizeof(T));
-  static constexpr size_t score = al(C::BQ * C::LDS * sizeof(float));
-  static constexpr size_t prob = al(C::BQ * C::LDP * sizeof(T));
-  static constexpr size_t acc = al(C::BQ * C::LDA * sizeof(float));
-  static constexpr size_t vec = al(C::BQ * sizeof(float));
-  static constexpr size_t dq = 4 * tile + 2 * score + prob + acc + 5 * vec;
-};
-
+// v summed over the tpr lanes (a power of two) of its row group in a warp
 __device__ __forceinline__ float row_sum(float v, int tpr) {
   for (int o = tpr / 2; o > 0; o >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// ---------------------------------------------------------------------------
-// float32 dQ: the per-element step
-// ---------------------------------------------------------------------------
-
-// From S = Q K^T and dP = dO V^T of one (q tile, k tile): a = exp(s - lse)
-// (0 where masked), dropout, ds = a (da - delta) scale (+ a glse scale).
-// Writes ds (in T) to dS and, when Pd is not null, the dropped a to Pd.
-template <typename T, int D>
-__device__ void grad_step(const Args& p, const float* S, const float* dP,
-                          T* dS, T* Pd, const float* lse_s,
-                          const float* delta_s, const float* glse_s,
-                          const int* qseg_s, const int* kseg_s, int64_t q0,
-                          int64_t k0, int64_t goff_q, int64_t goff_k,
-                          int64_t bh) {
-  using C = Cfg<T, D>;
-  const int r = threadIdx.x / C::TPR, sub = threadIdx.x % C::TPR;
-  const int64_t qi = q0 + r, qpos = goff_q + qi;
-  const bool row_ok = qi < p.Tq;
-  const bool has_seg = p.qseg != nullptr;
-  const int qs = has_seg ? qseg_s[r] : 0;
-  const float scale = static_cast<float>(p.scale);
-  const float inv_keep = static_cast<float>(p.inv_keep);
-  const float lse = lse_s[r], delta = delta_s[r];
-  const float gl = p.glse ? glse_s[r] : 0.0f;
-#pragma unroll
-  for (int j = 0; j < C::NC; ++j) {
-    const int c = sub + C::TPR * j;
-    const int64_t ki = k0 + c;
-    bool ok = row_ok && ki < p.Tk;
-    if (p.causal) ok = ok && qpos >= goff_k + ki;
-    if (has_seg) ok = ok && qs == kseg_s[c];
-    const float a = ok ? expf(S[r * C::LDS + c] * scale - lse) : 0.0f;
-    const float dp = dP[r * C::LDS + c];
-    float a_drop = a, da = dp;
-    if (p.dropout) {
-      const bool kp = keep(static_cast<uint32_t>(p.seed),
-                           static_cast<uint32_t>(bh),
-                           static_cast<uint32_t>(qpos),
-                           static_cast<uint32_t>(goff_k + ki),
-                           static_cast<uint32_t>(p.thresh));
-      a_drop = kp ? a * inv_keep : 0.0f;
-      da = kp ? dp * inv_keep : 0.0f;
-    }
-    float ds = a * (da - delta) * scale;
-    if (p.glse) ds = ds + a * gl * scale;
-    dS[r * C::LDP + c] = static_cast<T>(ds);
-    if (Pd != nullptr) Pd[r * C::LDP + c] = static_cast<T>(a_drop);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32 dQ
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) dq_f32_kernel(const Args p) {
-  using C = Cfg<T, D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  T* Qs = cv.take<T>(C::BQ * C::LDT);
-  T* Gs = cv.take<T>(C::BQ * C::LDT);
-  T* Ks = cv.take<T>(C::BK * C::LDT);
-  T* Vs = cv.take<T>(C::BK * C::LDT);
-  float* S = cv.take<float>(C::BQ * C::LDS);
-  float* dP = cv.take<float>(C::BQ * C::LDS);
-  T* dS = cv.take<T>(C::BQ * C::LDP);
-  float* dQ = cv.take<float>(C::BQ * C::LDA);
-  float* lse_s = cv.take<float>(C::BQ);
-  float* delta_s = cv.take<float>(C::BQ);
-  float* glse_s = cv.take<float>(C::BQ);
-  int* qseg_s = cv.take<int>(C::BQ);
-  int* kseg_s = cv.take<int>(C::BK);
-
-  const int64_t Tq = p.Tq, Tk = p.Tk, H = p.H;
-  const int64_t bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int64_t hk = h / (H / p.Hk);
-  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * C::BQ;
-  const int64_t goff_q = p.offs ? p.offs[2 * b] : 0;
-  const int64_t goff_k = p.offs ? p.offs[2 * b + 1] : 0;
-  const bool has_seg = p.qseg != nullptr;
-
-  const int q_valid = static_cast<int>(imin(C::BQ, Tq - q0));
-  load_rows<T, D, C::BQ>(
-      Qs, C::LDT,
-      static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_st,
-      p.q_st, q_valid);
-  load_rows<T, D, C::BQ>(
-      Gs, C::LDT,
-      static_cast<const T*>(p.g) + b * p.g_sb + h * p.g_sh + q0 * p.g_st,
-      p.g_st, q_valid);
-  load_vec(lse_s, p.lse_in + bh * Tq + q0, q_valid, C::BQ);
-  load_vec(delta_s, p.delta + bh * Tq + q0, q_valid, C::BQ);
-  if (p.glse) load_vec(glse_s, p.glse + bh * Tq + q0, q_valid, C::BQ);
-  if (has_seg) load_vec(qseg_s, p.qseg + b * Tq + q0, q_valid, C::BQ);
-  zero(dQ, C::BQ * C::LDA);
-
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  const int64_t q_last = goff_q + q0 + q_valid - 1;
-  const int n_kt = static_cast<int>((Tk + C::BK - 1) / C::BK);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int64_t k0 = static_cast<int64_t>(kt) * C::BK;
-    if (p.causal && q_last < goff_k + k0) break;
-    __syncthreads();  // the last tile's products are done with Ks, dS
-    const int k_valid = static_cast<int>(imin(C::BK, Tk - k0));
-    load_rows<T, D, C::BK>(Ks, C::LDT, kb + k0 * p.k_st, p.k_st, k_valid);
-    load_rows<T, D, C::BK>(Vs, C::LDT, vb + k0 * p.v_st, p.v_st, k_valid);
-    if (has_seg) load_vec(kseg_s, p.kseg + b * Tk + k0, k_valid, C::BK);
-    __syncthreads();
-    TileMma<T, C::BQ, C::BK, D, true, false>::run(Qs, C::LDT, Ks, C::LDT, S,
-                                                  C::LDS, false);
-    TileMma<T, C::BQ, C::BK, D, true, false>::run(Gs, C::LDT, Vs, C::LDT, dP,
-                                                  C::LDS, false);
-    __syncthreads();
-    grad_step<T, D>(p, S, dP, dS, static_cast<T*>(nullptr), lse_s, delta_s,
-                    glse_s, qseg_s, kseg_s, q0, k0, goff_q, goff_k, bh);
-    __syncthreads();
-    TileMma<T, C::BQ, D, C::BK, true, true>::run(dS, C::LDP, Ks, C::LDT, dQ,
-                                                 C::LDA, true);
-  }
-  __syncthreads();
-  T* dqb = static_cast<T*>(p.dq);
-  for (int i = threadIdx.x; i < q_valid * D; i += kThreads) {
-    const int rr = i / D, c = i % D;
-    dqb[((b * Tq + q0 + rr) * H + h) * D + c] =
-        static_cast<T>(dQ[rr * C::LDA + c]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -663,7 +451,7 @@ __device__ __forceinline__ int64_t heavy_first(const Args& p, int tiles) {
 }
 
 // ---------------------------------------------------------------------------
-// float32 forward and dK/dV: register-blocked CUDA-core kernels
+// float32 forward, dK/dV and dQ: register-blocked CUDA-core kernels
 // ---------------------------------------------------------------------------
 
 // Their tiles (the header says why).  fwd_f32_kernel: kF32FwdThreads
@@ -673,6 +461,10 @@ __device__ __forceinline__ int64_t heavy_first(const Args& p, int tiles) {
 // kF32DkvThreads / 16 key groups x 16 q groups; a thread owns kF32DkvKeys
 // of the block's keys, kF32DkvRows rows of each Q/dO tile of S^T and dP^T,
 // and its keys' D / 16 dims of dK and of dV; kF32DkvStages Q/dO stages.
+// dq_f32_kernel: kF32DqThreads / kF32DqKeyGroups q groups x kF32DqKeyGroups
+// key groups; a thread owns kF32DqRows of the block's q rows, kF32DqKeys
+// keys of each K/V tile of S and dP, and its rows' D / kF32DqKeyGroups dims
+// of dQ; kF32DqStages K/V stages.
 constexpr int kF32FwdThreads = 256;
 constexpr int kF32FwdLanes = 16;
 constexpr int kF32FwdRows = 8;
@@ -682,6 +474,11 @@ constexpr int kF32DkvThreads = 256;
 constexpr int kF32DkvKeys = 4;
 constexpr int kF32DkvRows = 4;
 constexpr int kF32DkvStages = 2;
+constexpr int kF32DqThreads = 256;
+constexpr int kF32DqKeyGroups = 16;
+constexpr int kF32DqRows = 4;
+constexpr int kF32DqKeys = 4;
+constexpr int kF32DqStages = 2;
 constexpr int kF32Pad = 4;  // floats past D in a staged Q, K, V or dO row
 
 template <int D>
@@ -726,6 +523,29 @@ struct F32Dkv {
                                   8 * NS * size_t(QST) + al(4 * BK * LDP) +
                                   4 * al(4 * NS * BQ) + al(4 * BK);
   static_assert(D % TQ == 0 && BQ % 4 == 0 && TK % 4 == 0, "tiles");
+};
+
+template <int D>
+struct F32Dq {
+  static constexpr int NT = kF32DqThreads, NS = kF32DqStages;
+  static constexpr int TK = kF32DqKeyGroups;  // key groups
+  static constexpr int TQ = NT / TK;     // q groups
+  static constexpr int RQ = kF32DqRows, CK = kF32DqKeys;
+  static constexpr int BQ = TQ * RQ;     // q rows of a block
+  static constexpr int BK = TK * CK;     // keys of a K/V tile
+  static constexpr int LDT = D + kF32Pad;
+  static constexpr int LDP = BK + 8;     // dS: [q][key]
+  static constexpr int DN = D / TK;      // dQ dims of a thread
+  static constexpr int VW = DN < 4 ? DN : 4;
+  static constexpr int KST = static_cast<int>(al(4 * BK * LDT) / 4);
+  // Q, dO; NS stages of K and of V; dS; lse, delta, glse and the q segment
+  // ids; NS stages of the key segment ids
+  static constexpr size_t bytes = 2 * al(4 * BQ * LDT) +
+                                  8 * NS * size_t(KST) + al(4 * BQ * LDP) +
+                                  4 * al(4 * BQ) + al(4 * NS * BK);
+  static_assert(D % TK == 0 && BK % 4 == 0 && TK % 8 == 0 &&
+                    (NT / 32) % (TK / 8) == 0,
+                "tiles");
 };
 
 __device__ __forceinline__ float4 lds4(const float* p) {
@@ -791,7 +611,7 @@ __device__ void f32_vec(U* dst, const U* src, int valid, int n) {
 template <int R, int C, int D, int AS, int BS>
 __device__ __forceinline__ void f32_abt(float (&acc)[R][C], const float* a,
                                         const float* b) {
-#pragma unroll 4
+#pragma unroll 8
   for (int d = 0; d < D; d += 4) {
     float4 av[R];
 #pragma unroll
@@ -812,7 +632,7 @@ template <int R, int C, int D, int AS, int BS>
 __device__ __forceinline__ void f32_abt2(float (&x)[R][C], float (&y)[R][C],
                                          const float* a, const float* e,
                                          const float* b, const float* f) {
-#pragma unroll 4
+#pragma unroll 8
   for (int d = 0; d < D; d += 4) {
     float4 av[R], ev[R];
 #pragma unroll
@@ -834,7 +654,7 @@ __device__ __forceinline__ void f32_abt2(float (&x)[R][C], float (&y)[R][C],
 template <int R, int N, int W, int K, int AS, int LDB, int NS>
 __device__ __forceinline__ void f32_ab(float (&acc)[R][N], const float* a,
                                        const float* b) {
-#pragma unroll 4
+#pragma unroll 8
   for (int k = 0; k < K; k += 4) {
     float4 av[R];
 #pragma unroll
@@ -1221,6 +1041,174 @@ __global__ void __launch_bounds__(F32Dkv<D>::NT, kThreads / F32Dkv<D>::NT)
         x[e] = dk[i][n * VW + e], y[e] = dv[i][n * VW + e];
       st_vec<VW>(static_cast<float*>(p.dk) + o + TQ * VW * n, x);
       st_vec<VW>(static_cast<float*>(p.dv) + o + TQ * VW * n, y);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32Dq<D>::NT, kThreads / F32Dq<D>::NT)
+    dq_f32_kernel(const Args p) {
+  using L = F32Dq<D>;
+  constexpr int NT = L::NT, NS = L::NS, TK = L::TK, TQ = L::TQ;
+  constexpr int RQ = L::RQ, CK = L::CK, BQ = L::BQ, BK = L::BK;
+  constexpr int LDT = L::LDT, LDP = L::LDP, DN = L::DN, VW = L::VW;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Carve cv{smem};
+  float* Qs = cv.take<float>(BQ * LDT);
+  float* Gs = cv.take<float>(BQ * LDT);
+  float* Ks = cv.take<float>(NS * L::KST);
+  float* Vs = cv.take<float>(NS * L::KST);
+  float* dS = cv.take<float>(BQ * LDP);
+  float* lse_s = cv.take<float>(BQ);
+  float* delta_s = cv.take<float>(BQ);
+  float* glse_s = cv.take<float>(BQ);
+  int* qseg_s = cv.take<int>(BQ);
+  int* kseg_s = cv.take<int>(NS * BK);
+
+  const int64_t H = p.H;
+  const int64_t bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int64_t hk = h / (H / p.Hk);
+  const TcPos P(p, b);
+  const int q0 = static_cast<int>(heavy_first(p, gridDim.x)) * BQ;
+  const bool has_seg = p.qseg != nullptr;
+  const float scale = static_cast<float>(p.scale);
+  const float inv_keep = static_cast<float>(p.inv_keep);
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const int q_valid = min(BQ, P.Tq - q0);
+  const int n_kt = (P.Tk + BK - 1) / BK;
+  const int kt_end = p.causal ? causal_tiles(P.goff_q + q0 + q_valid - 1,
+                                             P.goff_k, BK, n_kt)
+                              : n_kt;
+
+  auto load_kv = [&](int kt, int buf) {
+    const int k0 = kt * BK;
+    const int k_valid = min(BK, P.Tk - k0);
+    f32_rows<NT, D, BK, LDT>(Ks + buf * L::KST, kb + k0 * p.k_st, p.k_st,
+                             k_valid);
+    f32_rows<NT, D, BK, LDT>(Vs + buf * L::KST, vb + k0 * p.v_st, p.v_st,
+                             k_valid);
+    if (has_seg)
+      f32_vec<NT>(kseg_s + buf * BK, p.kseg + b * P.Tk + k0, k_valid, BK);
+  };
+  f32_rows<NT, D, BQ, LDT>(Qs, static_cast<const float*>(p.q) + b * p.q_sb +
+                                   h * p.q_sh + q0 * p.q_st,
+                           p.q_st, q_valid);
+  f32_rows<NT, D, BQ, LDT>(Gs, static_cast<const float*>(p.g) + b * p.g_sb +
+                                   h * p.g_sh + q0 * p.g_st,
+                           p.g_st, q_valid);
+  f32_vec<NT>(lse_s, p.lse_in + bh * P.Tq + q0, q_valid, BQ);
+  f32_vec<NT>(delta_s, p.delta + bh * P.Tq + q0, q_valid, BQ);
+  if (p.glse) f32_vec<NT>(glse_s, p.glse + bh * P.Tq + q0, q_valid, BQ);
+  if (has_seg) f32_vec<NT>(qseg_s, p.qseg + b * P.Tq + q0, q_valid, BQ);
+  if (kt_end > 0) load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // q group qy, key group kx (a warp: 4 q groups x 8 key groups): rows
+  // qy + TQ i, keys kx + TK j of a tile, dQ dims VW kx + TK VW n + e
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qy = warp / (TK / 8) * 4 + lane / 8;
+  const int kx = warp % (TK / 8) * 8 + lane % 8;
+  const int qpos0 = P.goff_q + q0 + qy;  // row i at global qpos0 + TQ i
+  float dq[RQ][DN] = {};
+
+  // the element step of S and dP of the K/V tile at k0, in registers:
+  // a = exp(s scale - lse) (0 where masked), dropout, ds = a (da - delta)
+  // scale (+ a glse scale); dP becomes dS.
+  auto element = [&](const float (&s)[RQ][CK], float (&dp)[RQ][CK], int k0,
+                     int buf) {
+    const bool full = !has_seg && k0 + BK <= P.Tk && q0 + BQ <= P.Tq &&
+                      (!p.causal || P.goff_q + q0 >= P.goff_k + k0 + BK - 1);
+    if (full && !p.dropout && !p.glse) {  // the branch-free common case
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) {
+        const float lse = lse_s[qy + TQ * i], delta = delta_s[qy + TQ * i];
+#pragma unroll
+        for (int j = 0; j < CK; ++j) {
+          const float a = expf(s[i][j] * scale - lse);
+          dp[i][j] = a * (dp[i][j] - delta) * scale;
+        }
+      }
+      return;
+    }
+    const int kpos0 = P.goff_k + k0 + kx;  // key j at global kpos0 + TK j
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const int r = qy + TQ * i;
+      const int qpos = qpos0 + TQ * i;
+      const bool row_ok = q0 + r < P.Tq;
+      const float lse = lse_s[r], delta = delta_s[r];
+      const float gl = p.glse ? glse_s[r] : 0.0f;
+      const int qsg = has_seg ? qseg_s[r] : 0;
+#pragma unroll
+      for (int j = 0; j < CK; ++j) {
+        bool ok = true;
+        if (!full) {
+          ok = row_ok && k0 + kx + TK * j < P.Tk;
+          if (p.causal) ok = ok && qpos >= kpos0 + TK * j;
+          if (has_seg) ok = ok && qsg == kseg_s[buf * BK + kx + TK * j];
+        }
+        const float a = ok ? expf(s[i][j] * scale - lse) : 0.0f;
+        float da = dp[i][j];
+        if (p.dropout)
+          da = keep(static_cast<uint32_t>(p.seed), static_cast<uint32_t>(bh),
+                    static_cast<uint32_t>(qpos),
+                    static_cast<uint32_t>(kpos0 + TK * j),
+                    static_cast<uint32_t>(p.thresh))
+                   ? da * inv_keep
+                   : 0.0f;
+        float ds = a * (da - delta) * scale;
+        if (p.glse) ds = ds + a * gl * scale;
+        dp[i][j] = ds;
+      }
+    }
+  };
+
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int buf = NS == 2 ? kt & 1 : 0;
+    if (NS == 2 && kt + 1 < kt_end) load_kv(kt + 1, buf ^ 1);
+    cp_async_commit();
+    const float* K = Ks + buf * L::KST;
+    const float* V = Vs + buf * L::KST;
+    // S = Q K^T and dP = dO V^T, then the element step
+    float s[RQ][CK] = {}, dp[RQ][CK] = {};
+    f32_abt2<RQ, CK, D, TQ * LDT, TK * LDT>(s, dp, Qs + qy * LDT,
+                                            Gs + qy * LDT, K + kx * LDT,
+                                            V + kx * LDT);
+    element(s, dp, kt * BK, buf);
+    // dQ += dS K, dS through shared memory (the previous tile's product
+    // ended at the barrier that ends it)
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < CK; ++j)
+        dS[(qy + TQ * i) * LDP + kx + TK * j] = dp[i][j];
+    __syncthreads();
+    f32_ab<RQ, DN, VW, BK, TQ * LDP, LDT, TK * VW>(dq, dS + qy * LDP,
+                                                   K + VW * kx);
+    if (NS == 1 && kt + 1 < kt_end) {  // one stage: the next tile now
+      __syncthreads();
+      load_kv(kt + 1, 0);
+      cp_async_commit();
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int qi = q0 + qy + TQ * i;
+    if (qi >= P.Tq) continue;
+    float* row = static_cast<float*>(p.dq) + ((b * P.Tq + qi) * H + h) * D +
+                 VW * kx;
+#pragma unroll
+    for (int n = 0; n < DN / VW; ++n) {
+      float x[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) x[e] = dq[i][n * VW + e];
+      st_vec<VW>(row + TK * VW * n, x);
     }
   }
 }
@@ -3090,10 +3078,10 @@ struct Dq {
     static bool done[kMaxDevices] = {};
     const unsigned bh = static_cast<unsigned>(a.B * a.H);
     if constexpr (std::is_same<T, float>::value) {
-      using C = Cfg<T, D>;
-      return launch_kernel(dq_f32_kernel<T, D>,
-                           dim3((a.Tq + C::BQ - 1) / C::BQ, bh), kThreads,
-                           Smem<T, D>::dq, s, device, done, a);
+      using L = F32Dq<D>;
+      return launch_kernel(dq_f32_kernel<D>,
+                           dim3((a.Tq + L::BQ - 1) / L::BQ, bh), L::NT,
+                           L::bytes, s, device, done, a);
     } else if constexpr (D <= 32) {
       return launch_kernel(dq_tc_kernel<T, D>,
                            dim3((a.Tq + kTcRows - 1) / kTcRows, bh),

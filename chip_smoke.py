@@ -119,8 +119,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     at the same shape with TF32 off: graph replay, its plain version,
     ``scaled_dot_product_attention`` in float32 and the bound at the card's
     float32 peak outside the tensor cores (66.9 TFLOP/s on an H100 SXM),
-    the forward and dK/dV also against their first CUDA-core design's
-    times (``FLASH_F32_CUDA_CORE_MS``);
+    each also against its first CUDA-core design's time
+    (``FLASH_F32_CUDA_CORE_MS``);
 14. probe kernels: the two CUDA kernels of
     ``chainermn_tpu_torch.ops.probe_matmul`` (persistent, TMA-fed wgmma:
     wgrad with its span sum, rowblock with its TMA-store epilogue) against
@@ -283,16 +283,17 @@ FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 1e-2}
 # phase 13 prints each kernel's time against
 FLASH_MMA_SYNC_MS = {"flash_fwd": 2.2804, "flash_bwd_dkv": 3.6619,
                      "flash_bwd_dq": 2.7811}
-# CUDA-graph ms of the float32 forward and dK/dV at the same shape (TF32
-# off) before their register-blocked redesign: the first CUDA-core kernels
-# (32-row tiles staged in shared memory), measured by phase 13 of this
-# script on an NVIDIA H100 80GB HBM3 at 700 W; phase 13 prints the float32
-# rows against them
-FLASH_F32_CUDA_CORE_MS = {"flash_fwd": 16.6493, "flash_bwd_dkv": 51.3594}
+# CUDA-graph ms of the float32 forward, dK/dV and dQ at the same shape
+# (TF32 off) before their register-blocked redesign: the first CUDA-core
+# kernels (32-row tiles staged in shared memory), measured by phase 13 of
+# this script on an NVIDIA H100 80GB HBM3 at 700 W; phase 13 prints the
+# float32 rows against them
+FLASH_F32_CUDA_CORE_MS = {"flash_fwd": 16.6493, "flash_bwd_dkv": 51.3594,
+                          "flash_bwd_dq": 22.4158}
 # kernels whose ptxas report (registers, spills) the build phase prints
 PTXAS_KERNELS = {"flash_attention": ("fwd_wgmma_kernel", "dkv_wgmma_kernel",
                                      "dq_wgmma_kernel", "fwd_f32_kernel",
-                                     "dkv_f32_kernel"),
+                                     "dkv_f32_kernel", "dq_f32_kernel"),
                  "fused_norm": ("bn_stats_kernel", "bn_bwd_reduce_kernel"),
                  "probe_matmul": ("wgrad_kernel", "span_sum_kernel",
                                   "rowblock_kernel")}
@@ -303,7 +304,8 @@ PTXAS_TAGS = (("ILi64ELi256E", "dgrad"), ("ILi256ELi64E", "fwd1x1"),
               ("Li32E", "D32"), ("Lb1E", "vector"), ("Lb0E", "scalar"))
 # the float32 flash kernels that must not spill at D 128 (the build phase
 # fails if one does)
-F32_NO_SPILL = ("fwd_f32_kernel D128", "dkv_f32_kernel D128")
+F32_NO_SPILL = ("fwd_f32_kernel D128", "dkv_f32_kernel D128",
+                "dq_f32_kernel D128")
 # kernels redesigned for Hopper since their first port (PERF.md section 6
 # says when), marked in the summary's kernel list
 REDESIGNED = {"fused_norm.stats", "fused_norm.bwd_reduce", "flash.fwd",

@@ -2,7 +2,8 @@
 """Where the time of the wgmma kernels goes, on one GPU.
 
     python3 flash_probe.py          # the flash-attention kernels
-    python3 flash_probe.py f32      # their float32 forward and dK/dV
+    python3 flash_probe.py f32      # their float32 forward, dK/dV and dQ
+    python3 flash_probe.py f32-turns as_is unroll4   # f32 builds in turns
     python3 flash_probe.py probe    # the stage-1 probe GEMMs
     python3 flash_probe.py stats    # the BatchNorm statistics kernel
 
@@ -14,8 +15,9 @@ each build it prints the registers and spills of the kernels it is about,
 then times them by CUDA-graph replay between CUDA events: the flash
 kernels at the LM's attention shape (bf16, B 1, T 8192, H 16, D 128, q/k/v
 views of one qkv projection) -- the forward (causal and not), dK/dV and
-dQ; the float32 forward and dK/dV (the CUDA-core ``fwd_f32_kernel`` and
-``dkv_f32_kernel``) at the same shape in float32, causal; the probe
+dQ; the float32 forward, dK/dV and dQ (the CUDA-core ``fwd_f32_kernel``,
+``dkv_f32_kernel`` and ``dq_f32_kernel``) at the same shape in float32,
+causal; the probe
 kernels at the probe's M = 802,816 -- wgrad, dgrad and
 fwd1x1, beside ``torch.mm``, and for the kernels as they are also by the
 profiler's kernel durations (``utils.trace.device_time``, what the probe's
@@ -36,9 +38,10 @@ and only say what that part costs:
   and the staging of the output tile only).
 
 For the float32 kernels (``f32``), the parts left out (``no_softmax``,
-``no_elementwise``, ``no_products``: their register-blocked products
-only), then the tile choices the design weighed (right results, checked
-like ``as_is``):
+``no_elementwise``: the dK/dV and the dQ element step, dQ's replaced by dS
+= S + dP so that S stays live, ``no_products``: every register-blocked
+product of the three), then the tile choices the design weighed (right
+results, checked like ``as_is``):
 
 * ``fwd_lanes8``: the forward's row groups of 8 lanes, a thread 4 rows x 8
   keys of S and 4 rows x D/8 dims of O (the same 128 x 64 tiles);
@@ -47,15 +50,27 @@ like ``as_is``):
 * ``dkv_rows2``: dK/dV over Q/dO tiles of 32 rows (4 keys x 2 rows of S^T
   and dP^T a thread);
 * ``dkv_keys2``: dK/dV blocks of 32 keys (2 keys a thread);
-* ``fwd_2cta``, ``dkv_2cta``: blocks of 128 threads with one K/V (Q/dO)
-  stage and the largest shared-memory carveout, two blocks an SM (64-row
-  forward blocks, 32-key dK/dV blocks);
-* ``unroll1``, ``unroll2``: the products' loops unrolled once or twice
-  instead of four times;
-* ``dkv_apart``: S^T and dP^T in two loops over D instead of one.
+* ``dq_rows8_keys2``: dQ blocks of 128 q rows over K/V tiles of 32 keys
+  (8 rows x 2 keys of S and dP, 8 rows x D/16 dims of dQ a thread);
+* ``dq_keys2``: dQ over K/V tiles of 32 keys (4 x 2 of S and dP);
+* ``dq_keygroups8``: dQ threads as 32 q groups x 8 key groups, so blocks
+  of 128 q rows over K/V tiles of 32 keys with 4 x 4 of S and dP and 4
+  rows x D/8 dims of dQ a thread (half the K/V reads of 64-row blocks);
+* ``fwd_2cta``, ``dkv_2cta``, ``dq_2cta``: blocks of 128 threads with one
+  K/V (Q/dO) stage and the largest shared-memory carveout, two blocks an
+  SM (64-row forward blocks, 32-key dK/dV blocks, 32-row dQ blocks);
+* ``unroll1``, ``unroll2``, ``unroll4``: the products' loops unrolled
+  once, twice or four times instead of eight times;
+* ``dkv_apart``, ``dq_apart``: S^T and dP^T (S and dP) in two loops over
+  D instead of one.
 
 The SM clock and power draw (``nvidia-smi``, sampled every 100 ms over ~3
-s of each kernel as it is) are printed beside their times.
+s of each kernel as it is) are printed beside their times.  ``f32-turns``
+builds only the ``f32`` builds it is given (default: as it is and
+``unroll4``), holds each to the plain versions, then times the three
+float32 kernels of each in turns (six rounds, the order reversed every
+other round) and prints each kernel's median and range: the way to
+compare two choices whose difference is within the spread between calls.
 
 For the statistics (``stats``), the parts left out and the alternatives:
 
@@ -152,21 +167,41 @@ F32_TILES = {"fwd_lanes8": {"kF32FwdLanes = 16;": "kF32FwdLanes = 8;",
              "fwd_rows4": {"kF32FwdRows = 8;": "kF32FwdRows = 4;"},
              "dkv_rows2": {"kF32DkvRows = 4;": "kF32DkvRows = 2;"},
              "dkv_keys2": {"kF32DkvKeys = 4;": "kF32DkvKeys = 2;"},
+             "dq_rows8_keys2": {"kF32DqRows = 4;": "kF32DqRows = 8;",
+                                "kF32DqKeys = 4;": "kF32DqKeys = 2;"},
+             "dq_keys2": {"kF32DqKeys = 4;": "kF32DqKeys = 2;"},
+             "dq_keygroups8": {"kF32DqKeyGroups = 16;":
+                               "kF32DqKeyGroups = 8;"},
              "fwd_2cta": {"kF32FwdThreads = 256;": "kF32FwdThreads = 128;",
                           "kF32FwdStages = 2;": "kF32FwdStages = 1;",
                           **CARVEOUT},
              "dkv_2cta": {"kF32DkvThreads = 256;": "kF32DkvThreads = 128;",
                           "kF32DkvStages = 2;": "kF32DkvStages = 1;",
-                          **CARVEOUT}}
+                          **CARVEOUT},
+             "dq_2cta": {"kF32DqThreads = 256;": "kF32DqThreads = 128;",
+                         "kF32DqStages = 2;": "kF32DqStages = 1;",
+                         **CARVEOUT}}
+# dQ's S and dP in one loop over D (as it is), and in two (dq_apart)
+DQ_SDP = ("    f32_abt2<RQ, CK, D, TQ * LDT, TK * LDT>(s, dp, Qs + qy * LDT,\n"
+          "                                            Gs + qy * LDT, K + kx "
+          "* LDT,\n                                            V + kx * LDT"
+          ");\n")
+DQ_APART = ("    f32_abt<RQ, CK, D, TQ * LDT, TK * LDT>(s, Qs + qy * LDT, K + "
+            "kx * LDT);\n    f32_abt<RQ, CK, D, TQ * LDT, TK * LDT>(dp, Gs + "
+            "qy * LDT, V + kx * LDT);\n")
 
 
 def f32_variants(src):
     """``{name: source}`` of ``flash_attention.cu`` for the float32
-    forward and dK/dV: the parts left out, then the tile choices."""
+    forward, dK/dV and dQ: the parts left out, then the tile choices."""
     no_softmax = _cut(src, "    softmax(s, kt * BK, kseg_s + buf * BK);\n",
                       "    for (int i = 0; i < RM; ++i) alpha[i] = 1.0f;\n")
-    no_elementwise = _cut(src, "    element(st, dpt, (qt0 + it % nq) * BQ, "
-                          "b * H + hk * grp + it / nq, buf);\n", "")
+    no_elementwise = _cut(_cut(src, "    element(st, dpt, (qt0 + it % nq) * "
+                               "BQ, b * H + hk * grp + it / nq, buf);\n", ""),
+                          "    element(s, dp, kt * BK, buf);\n",
+                          "    for (int i = 0; i < RQ; ++i)\n"
+                          "      for (int j = 0; j < CK; ++j) dp[i][j] += "
+                          "s[i][j];\n")
     no_products = src
     for old in (
             "    f32_abt<RM, CN, D, TY * LDT, TX * LDT>(s, Qs + ty * LDT, "
@@ -183,7 +218,11 @@ def f32_variants(src):
             "VW * qx);\n",
             "    f32_ab<RK, DN, VW, BQ, TK * LDP, LDT, TQ * VW>(dk, Pt + ky * "
             "LDP,\n                                                   Q + "
-            "VW * qx);\n"):
+            "VW * qx);\n",
+            DQ_SDP,
+            "    f32_ab<RQ, DN, VW, BK, TQ * LDP, LDT, TK * VW>(dq, dS + qy * "
+            "LDP,\n                                                   K + "
+            "VW * kx);\n"):
         no_products = _cut(no_products, old, "")
     out = {"as_is": src, "no_softmax": no_softmax,
            "no_elementwise": no_elementwise, "no_products": no_products}
@@ -193,12 +232,12 @@ def f32_variants(src):
             var = _cut(var, old, new)
         out[name] = var
     # the products' loops over D and over keys (q rows) unrolled once (no
-    # operand prefetch) or twice instead of four times
-    for n in (1, 2):
+    # operand prefetch), twice or four times instead of eight times
+    for n in (1, 2, 4):
         var = src
         for loop in ("  for (int d = 0; d < D; d += 4) {\n",
                      "  for (int k = 0; k < K; k += 4) {\n"):
-            var = _cut(var, "#pragma unroll 4\n" + loop,
+            var = _cut(var, "#pragma unroll 8\n" + loop,
                        f"#pragma unroll {n}\n" + loop)
         out[f"unroll{n}"] = var
     # S^T and dP^T in two loops over D, one product each
@@ -210,6 +249,7 @@ def f32_variants(src):
         "    f32_abt<RK, CQ, D, TK * LDT, TQ * LDT>(st, Ks + ky * LDT, Q + qx"
         " * LDT);\n    f32_abt<RK, CQ, D, TK * LDT, TQ * LDT>(dpt, Vs + ky "
         "* LDT, G + qx * LDT);\n")
+    out["dq_apart"] = _cut(src, DQ_SDP, DQ_APART)
     return out
 
 
@@ -354,15 +394,18 @@ def build(build_mod, name, src):
     return name, so, (proc.stdout + proc.stderr).splitlines()
 
 
-def build_all(build_mod, source, variants):
-    """Every variant of ``csrc/{source}.cu``, built in parallel."""
+def build_all(build_mod, source, variants, names=None):
+    """Every variant of ``csrc/{source}.cu`` (or those in ``names``),
+    built in parallel."""
     os.makedirs(OUT, exist_ok=True)
     src = (build_mod.CSRC / f"{source}.cu").read_text()
+    chosen = [(n, v) for n, v in variants(src).items()
+              if names is None or n in names]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as ex:
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
         built = list(ex.map(lambda kv: build(build_mod, f"{source}_{kv[0]}",
                                              kv[1]),
-                            variants(src).items()))
+                            chosen))
     print(f"builds: {time.perf_counter() - t0:.1f} s", flush=True)
     return built
 
@@ -440,10 +483,9 @@ def _stop_clocks(proc):
             f"({watts[0]:.0f}-{watts[-1]:.0f}) over {len(rows)} samples")
 
 
-def f32(torch, build_mod, smoke):
-    from chainermn_tpu_torch.utils.compare import no_tf32
-    fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
-    built = build_all(build_mod, "flash_attention", f32_variants)
+def _f32_setup(torch, smoke, fa):
+    """The float32 kernels at phase 13's shape (q/k/v views of one qkv
+    projection, causal): ``{label: launch}`` of the forward, dK/dV, dQ."""
     dev = torch.device("cuda", 0)
     b, t, h, d = 1, smoke.LM_T, smoke.LM["n_heads"], \
         smoke.LM["d_model"] // smoke.LM["n_heads"]
@@ -452,30 +494,43 @@ def f32(torch, build_mod, smoke):
     q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, t, h, d)
                for i in range(3))
     g = torch.randn(b, t, h, d, device=dev, generator=gen)
-    kerns = ("fwd_f32_kernel", "dkv_f32_kernel")
+    out, lse = fa.flash_forward_plain(q, k, v, True)
+    delta = (g * out).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, g, lse, delta, None, True)
+    return {"fwd causal": lambda: fa.flash_fwd(q, k, v, True),
+            "dkv causal": lambda: fa.flash_bwd_dkv(*bwd),
+            "dq causal": lambda: fa.flash_bwd_dq(*bwd)}
+
+
+def _f32_check(torch, smoke, fa, name):
+    """Raise unless build ``name`` agrees with the plain versions on four
+    float32 cases (D 16-128, segments, dropout, offsets, glse, GQA)."""
+    dev = torch.device("cuda", 0)
+    for case in (("d128_all", 1, 300, 300, 8, 2, 128, True,
+                  dict(seg=True, rate=0.2, glse=True, offs="vector")),
+                 ("d32_gqa", 2, 200, 200, 8, 1, 32, True, {}),
+                 ("d64_cross", 2, 96, 128, 4, 4, 64, False, {}),
+                 ("d16", 2, 130, 130, 4, 4, 16, True, {})):
+        res = smoke.flash_case(fa, torch, dev, torch.float32, *case[1:8],
+                               **case[8])
+        worst = max(r for _, r in res.values())
+        if not worst <= smoke.FLASH_TOL["float32"]:
+            raise SystemExit(f"flash_probe: {name} {case[0]} disagrees "
+                             f"with the plain versions ({res})")
+
+
+def f32(torch, build_mod, smoke):
+    from chainermn_tpu_torch.utils.compare import no_tf32
+    fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+    built = build_all(build_mod, "flash_attention", f32_variants)
+    kerns = ("fwd_f32_kernel", "dkv_f32_kernel", "dq_f32_kernel")
     with no_tf32():
-        out, lse = fa.flash_forward_plain(q, k, v, True)
-        delta = (g * out).sum(-1).transpose(1, 2).contiguous()
+        kern = _f32_setup(torch, smoke, fa)
         for name, so, lines in built:
             build_mod._LIBS["flash_attention"] = ctypes.CDLL(so)
             right = not name.split("_", 2)[-1].startswith("no_")
             if right:  # every tile choice against the plain versions
-                for case in (("d128_all", 1, 300, 300, 8, 2, 128, True,
-                              dict(seg=True, rate=0.2, glse=True,
-                                   offs="vector")),
-                             ("d32_gqa", 2, 200, 200, 8, 1, 32, True, {}),
-                             ("d64_cross", 2, 96, 128, 4, 4, 64, False, {}),
-                             ("d16", 2, 130, 130, 4, 4, 16, True, {})):
-                    res = smoke.flash_case(fa, torch, dev, torch.float32,
-                                           *case[1:8], **case[8])
-                    worst = max(r for _, r in res.values())
-                    if not worst <= smoke.FLASH_TOL["float32"]:
-                        raise SystemExit(f"flash_probe: {name} {case[0]} "
-                                         f"disagrees with the plain versions"
-                                         f" ({res})")
-            kern = {"fwd causal": lambda: fa.flash_fwd(q, k, v, True),
-                    "dkv causal": lambda: fa.flash_bwd_dkv(
-                        q, k, v, g, lse, delta, None, True)}
+                _f32_check(torch, smoke, fa, name)
             ms = {w: smoke._time(torch, fn, 5, graph=True)
                   for w, fn in kern.items()}
             clocks = ""
@@ -496,6 +551,36 @@ def f32(torch, build_mod, smoke):
                   + ", ".join(f"{kern} {r}/{st}/{ld}" for kern, (r, st, ld)
                               in smoke.ptxas_registers(lines, kerns).items()),
                   flush=True)
+
+
+def f32_turns(torch, build_mod, smoke, names, rounds=6):
+    """The float32 kernels of the ``f32`` builds ``names`` (each first
+    held to the plain versions) timed in turns: ``rounds`` rounds, each
+    build once a round, the order reversed every other round; each
+    kernel's median and range of CUDA-graph ms by build."""
+    from chainermn_tpu_torch.utils.compare import no_tf32
+    fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+    built = build_all(build_mod, "flash_attention", f32_variants, names)
+    libs = {name.split("_", 2)[-1]: ctypes.CDLL(so) for name, so, _ in built}
+    if set(names) - set(libs):
+        raise SystemExit(f"flash_probe: no f32 build named "
+                         f"{sorted(set(names) - set(libs))}")
+    ms = {n: {} for n in libs}
+    with no_tf32():
+        kern = _f32_setup(torch, smoke, fa)
+        for n, lib in libs.items():
+            build_mod._LIBS["flash_attention"] = lib
+            _f32_check(torch, smoke, fa, n)
+        for r in range(rounds):
+            for n in (names if r % 2 == 0 else names[::-1]):
+                build_mod._LIBS["flash_attention"] = libs[n]
+                for w, fn in kern.items():
+                    ms[n].setdefault(w, []).append(
+                        smoke._time(torch, fn, 5, graph=True))
+    for n in names:
+        print(f"{n}, {rounds} turns: " + ", ".join(
+            f"{w} median {sorted(x)[len(x) // 2]:.4f} ms ({min(x):.4f}-"
+            f"{max(x):.4f})" for w, x in ms[n].items()), flush=True)
 
 
 def probe(torch, build_mod, smoke):
@@ -591,9 +676,12 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     build_mod = importlib.import_module("chainermn_tpu_torch.ops._build")
     smoke = importlib.import_module("chip_smoke")
-    {"f32": f32, "probe": probe, "stats": stats}.get(
-        argv[0] if argv else None, flash)(
-        torch, build_mod, smoke)
+    mode = argv[0] if argv else None
+    if mode == "f32-turns":
+        f32_turns(torch, build_mod, smoke, argv[1:] or ["as_is", "unroll4"])
+    else:
+        {"f32": f32, "probe": probe, "stats": stats}.get(mode, flash)(
+            torch, build_mod, smoke)
     print(smoke.gpu_line())
     return 0
 

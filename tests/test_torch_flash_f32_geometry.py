@@ -1,27 +1,31 @@
 """The float32 flash kernels' tiles and schedules, on the CPU.
 
-``fwd_f32_kernel`` and ``dkv_f32_kernel`` in
+``fwd_f32_kernel``, ``dkv_f32_kernel`` and ``dq_f32_kernel`` in
 ``chainermn_tpu_torch/csrc/flash_attention.cu`` are register-blocked
 CUDA-core kernels whose tiles follow from the constants of their header
 section.  Checked here:
 
 * the constants, read from the source, against the statement of them below
-  (``FWD``, ``DKV``), and the tiles and shared-memory bytes that follow at
-  every head dim the dispatch takes (within the 232,448 bytes a block may
-  use), with the row pitches that keep a warp's reads and writes on
-  distinct banks;
+  (``FWD``, ``DKV``, ``DQ``), and the tiles and shared-memory bytes that
+  follow at every head dim the dispatch takes (within the 232,448 bytes a
+  block may use), with the row pitches that keep a warp's reads and writes
+  on distinct banks;
 * the causal schedule: every (q tile, k tile) pair that the mask allows
-  is visited exactly once, by the forward's blocks (heaviest first) and by
-  dK/dV's (over each GQA group), and no other pair;
+  is visited exactly once, by the forward's and dQ's blocks (heaviest
+  first) and by dK/dV's (over each GQA group), and no other pair;
 * a Python mirror of the kernels' float32 order -- the online softmax over
-  64-key tiles, and dK/dV summed over 64-row q tiles and the GQA group in
-  the kernel's order -- against ``flash_forward_plain`` and
-  ``flash_backward_plain`` within the kernels' 1e-5 gate.
+  64-key tiles, dK/dV summed over 64-row q tiles and the GQA group, and dQ
+  summed over 64-key tiles, in the kernels' order -- against
+  ``flash_forward_plain`` and ``flash_backward_plain`` within the kernels'
+  1e-5 gate, and the dQ mirror at one small case against the JAX
+  package's dq (its Pallas backward in interpret mode).
 """
 
 import importlib
 import re
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -29,6 +33,7 @@ import torch
 from chainermn_tpu_torch.ops import _build
 
 fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+jfa = importlib.import_module("chainermn_tpu.ops.flash_attention")
 
 SRC = (_build.CSRC / "flash_attention.cu").read_text()
 THREADS = 256
@@ -41,6 +46,10 @@ FWD = {"kF32FwdThreads": 256, "kF32FwdLanes": 16, "kF32FwdRows": 8,
 # rows of S^T and dP^T; two Q/dO stages
 DKV = {"kF32DkvThreads": 256, "kF32DkvKeys": 4, "kF32DkvRows": 4,
        "kF32DkvStages": 2}
+# dQ: 256 threads, 16 q groups x 16 key groups; a thread 4 q rows x 4 keys
+# of S and dP; two K/V stages
+DQ = {"kF32DqThreads": 256, "kF32DqKeyGroups": 16, "kF32DqRows": 4,
+      "kF32DqKeys": 4, "kF32DqStages": 2}
 SMEM = 232_448   # shared memory a block may use on an H100
 HEAD_DIMS = (16, 32, 64, 128)
 
@@ -78,6 +87,19 @@ def dkv_tiles(d):
     return dict(bk=bk, bq=bq, ldt=ldt, ldp=ldp, dn=d // 16, bytes=nbytes)
 
 
+def dq_tiles(d):
+    nt, ns, tk = DQ["kF32DqThreads"], DQ["kF32DqStages"], \
+        DQ["kF32DqKeyGroups"]
+    tq = nt // tk
+    bq, bk = tq * DQ["kF32DqRows"], tk * DQ["kF32DqKeys"]
+    ldt, ldp = d + PAD, bk + 8
+    kst = _al(4 * bk * ldt) // 4
+    nbytes = (2 * _al(4 * bq * ldt) + 8 * ns * kst + _al(4 * bq * ldp)
+              + 4 * _al(4 * bq) + _al(4 * ns * bk))
+    return dict(tk=tk, bq=bq, bk=bk, ldt=ldt, ldp=ldp, dn=d // tk,
+                bytes=nbytes)
+
+
 def test_constants_match_the_kernels():
     assert _constant("kThreads") == THREADS
     assert _constant("kF32Pad") == PAD
@@ -100,6 +122,24 @@ def test_constants_match_the_kernels():
         assert text in SRC, text
 
 
+def test_dq_constants_match_the_kernel():
+    for name, value in DQ.items():
+        assert _constant(name) == value, name
+    for text in (
+            "static constexpr int TQ = NT / TK;     // q groups",
+            "static constexpr int LDP = BK + 8;     // dS: [q][key]",
+            "static constexpr int KST = static_cast<int>(al(4 * BK * LDT) / "
+            "4);",
+            "static constexpr size_t bytes = 2 * al(4 * BQ * LDT) +\n"
+            "                                  8 * NS * size_t(KST) + al(4 * "
+            "BQ * LDP) +\n                                  4 * al(4 * BQ) + "
+            "al(4 * NS * BK);"):
+        assert text in SRC, text
+    # the launch takes the layout's threads and bytes
+    assert ("dim3((a.Tq + L::BQ - 1) / L::BQ, bh), L::NT,\n"
+            "                           L::bytes, s, device, done, a);") in SRC
+
+
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_tiles_fit_and_keep_reads_on_distinct_banks(d):
     f, k = fwd_tiles(d), dkv_tiles(d)
@@ -120,6 +160,27 @@ def test_tiles_fit_and_keep_reads_on_distinct_banks(d):
     assert len({(r * k["ldp"] + c) % 32 for r in range(4)
                 for c in range(8)}) == 32
     assert (4 * f["ldp"]) % 16 == 0 and (4 * k["ldp"]) % 16 == 0
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_dq_tiles_fit_and_keep_reads_on_distinct_banks(d):
+    t = dq_tiles(d)
+    assert (t["bq"], t["bk"]) == (64, 64)
+    assert t["bytes"] <= SMEM
+    if d == 128:  # Q and dO, two K/V stages, dS, the row and key vectors
+        assert t["bytes"] == 67_584 + 135_168 + 18_432 + 1_024 + 512
+    # 16-byte staged rows; a quarter warp's eight K or V rows (one per key
+    # group) on eight bank quads, its Q and dO reads one broadcast row
+    assert (4 * t["ldt"]) % 16 == 0
+    assert len({(r * t["ldt"]) % 32 // 4 for r in range(8)}) == 8
+    # a warp writes dS (4 q rows of 8 key lanes) on 32 distinct banks and
+    # reads its rows 128 bits at a time along the keys
+    assert len({(r * t["ldp"] + c) % 32 for r in range(4)
+                for c in range(8)}) == 32
+    assert (4 * t["ldp"]) % 16 == 0 and t["bk"] % 4 == 0
+    # dS K: a quarter warp's eight key groups read eight consecutive
+    # float4 of one K row (VW = 4 floats each) once D >= 64
+    assert d % t["tk"] == 0 and t["tk"] % 8 == 0
 
 
 def _causal_tiles(q_last, goff, tile, n):
@@ -145,11 +206,10 @@ SCHEDULES = [(8192, 8192, 0, 0), (1000, 1000, 0, 0), (200, 200, 0, 0),
              (2048, 2048, 0, 6144), (130, 77, 3, 90)]
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("tq,tk,gq,gk", SCHEDULES)
-def test_forward_visits_each_allowed_pair_once_heaviest_first(tq, tk, gq, gk,
-                                                            causal):
-    t = fwd_tiles(128)
+def _q_tile_walk(t, tq, tk, gq, gk, causal):
+    """The (q tile, k tile) pairs that blocks owning q tiles visit in
+    launch order (heavy_first, then K/V tiles up to the causal end), and
+    each block's count of K/V tiles."""
     bq, bk = t["bq"], t["bk"]
     blocks = -(-tq // bq)
     n_kt = -(-tk // bk)
@@ -161,8 +221,28 @@ def test_forward_visits_each_allowed_pair_once_heaviest_first(tq, tk, gq, gk,
                if causal else n_kt)
         visits += [(qt, kt) for kt in range(end)]
         work.append(end)
+    return visits, work
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tq,tk,gq,gk", SCHEDULES)
+def test_forward_visits_each_allowed_pair_once_heaviest_first(tq, tk, gq, gk,
+                                                            causal):
+    t = fwd_tiles(128)
+    visits, work = _q_tile_walk(t, tq, tk, gq, gk, causal)
     assert len(visits) == len(set(visits))
-    assert set(visits) == _allowed(tq, tk, gq, gk, causal, bq, bk)
+    assert set(visits) == _allowed(tq, tk, gq, gk, causal, t["bq"], t["bk"])
+    assert work == sorted(work, reverse=True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tq,tk,gq,gk", SCHEDULES)
+def test_dq_visits_each_allowed_pair_once_heaviest_first(tq, tk, gq, gk,
+                                                       causal):
+    t = dq_tiles(128)
+    visits, work = _q_tile_walk(t, tq, tk, gq, gk, causal)
+    assert len(visits) == len(set(visits))
+    assert set(visits) == _allowed(tq, tk, gq, gk, causal, t["bq"], t["bk"])
     assert work == sorted(work, reverse=True)
 
 
@@ -311,6 +391,55 @@ def mirror_dkv(q, k, v, g, lse, delta, glse, causal, qseg, kseg, offs, seed,
     return dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
 
 
+def mirror_dq(q, k, v, g, lse, delta, glse, causal, qseg, kseg, offs, seed,
+              rate):
+    """dq_f32_kernel's float32 order: per head and q tile of BQ rows, dQ
+    summed over the K/V tiles of BK keys (of the head's kv head) up to the
+    causal end."""
+    t = dq_tiles(q.shape[3])
+    bq, bk = t["bq"], t["bk"]
+    b, tq, h, d = q.shape
+    tk, hk = k.shape[1], k.shape[2]
+    grp = h // hk
+    scale = d ** -0.5
+    inv = 1.0 / (1.0 - rate) if rate else 1.0
+    dq = torch.zeros(b, tq, h, d)
+    n_kt = -(-tk // bk)
+    for head in range(h):
+        kh, vh = k[:, :, head // grp], v[:, :, head // grp]
+        for q0 in range(0, tq, bq):
+            q1 = min(q0 + bq, tq)
+            qpos = offs[:, :1] + torch.arange(q0, q1)
+            end = (_causal_tiles(int(offs[:, 0].max()) + q1 - 1,
+                                 int(offs[:, 1].min()), bk, n_kt)
+                   if causal else n_kt)
+            Qt, Gt = q[:, q0:q1, head], g[:, q0:q1, head]
+            lt = lse[:, head, q0:q1, None]
+            dl = delta[:, head, q0:q1, None]
+            acc = torch.zeros(b, q1 - q0, d)
+            for kt in range(end):
+                k0, k1 = kt * bk, min(kt * bk + bk, tk)
+                kpos = offs[:, 1:] + torch.arange(k0, k1)
+                allow = _mask(causal, qpos, kpos,
+                              None if qseg is None else qseg[:, q0:q1],
+                              None if kseg is None else kseg[:, k0:k1])[:, 0]
+                Kt, Vt = kh[:, k0:k1], vh[:, k0:k1]
+                a = torch.where(allow, torch.exp(
+                    Qt @ Kt.transpose(-1, -2) * scale - lt), 0.0)
+                dp = Gt @ Vt.transpose(-1, -2)
+                if rate:
+                    keep = fa._keep_mask(
+                        seed, torch.arange(b).view(b, 1, 1) * h + head,
+                        qpos[:, :, None], kpos[:, None, :], rate)
+                    dp = torch.where(keep, dp * inv, 0.0)
+                ds = a * (dp - dl) * scale
+                if glse is not None:
+                    ds = ds + a * glse[:, head, q0:q1, None] * scale
+                acc = acc + ds @ Kt
+            dq[:, q0:q1, head] = acc
+    return dq
+
+
 def _rel(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
@@ -323,8 +452,10 @@ MIRROR_CASES = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(MIRROR_CASES))
-def test_mirror_of_the_kernels_order_matches_the_plain_versions(name):
+def _mirror_inputs(name):
+    """MIRROR_CASES[name] from numpy seed 5: ``(q, k, v, dO, the lse
+    cotangent or None, causal)``, the plain versions' keyword arguments and
+    the mirrors' (the [B, 2] offsets always given)."""
     b, tq, tk, h, hk, d, causal, seg, rate, offs, glse = MIRROR_CASES[name]
     rng = np.random.RandomState(5)
     mk = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))  # noqa
@@ -340,9 +471,15 @@ def test_mirror_of_the_kernels_order_matches_the_plain_versions(name):
     if offs:
         kw["offs"] = off
     gl = mk(b, h, tq) if glse else None
-    out_p, lse_p = fa.flash_forward_plain(q, k, v, causal, **kw)
     mirror = dict(qseg=kw.get("qseg"), kseg=kw.get("kseg"), offs=off,
                   seed=77, rate=rate)
+    return (q, k, v, g, gl, causal), kw, mirror
+
+
+@pytest.mark.parametrize("name", sorted(MIRROR_CASES))
+def test_mirror_of_the_kernels_order_matches_the_plain_versions(name):
+    (q, k, v, g, gl, causal), kw, mirror = _mirror_inputs(name)
+    out_p, lse_p = fa.flash_forward_plain(q, k, v, causal, **kw)
     out_m, lse_m = mirror_forward(q, k, v, causal, **mirror)
     empty = lse_p >= 1e30
     assert torch.equal(lse_m >= 1e30, empty)
@@ -354,3 +491,53 @@ def test_mirror_of_the_kernels_order_matches_the_plain_versions(name):
     dk_m, dv_m = mirror_dkv(q, k, v, g, lse_p, delta, gl, causal, **mirror)
     assert _rel(dk_m, dk_p) <= 1e-5
     assert _rel(dv_m, dv_p) <= 1e-5
+
+
+@pytest.mark.parametrize("name", sorted(MIRROR_CASES))
+def test_mirror_of_dq_order_matches_the_plain_version(name):
+    (q, k, v, g, gl, causal), kw, mirror = _mirror_inputs(name)
+    out, lse = fa.flash_forward_plain(q, k, v, causal, **kw)
+    delta = (g * out).sum(-1).transpose(1, 2).contiguous()
+    dq_p = fa.flash_backward_plain(q, k, v, g, lse, delta, gl, causal,
+                                   block_k=1024, **kw)[0]
+    dq_m = mirror_dq(q, k, v, g, lse, delta, gl, causal, **mirror)
+    assert _rel(dq_m, dq_p) <= 1e-5
+
+
+def test_mirror_of_dq_order_matches_jax():
+    """One small case with every option (GQA, segments, dropout, vector
+    offsets, the lse cotangent; three 32-row Pallas tiles a side): the dQ
+    mirror against the JAX package's dq from ``jax.vjp`` of its
+    ``flash_attention`` (the Pallas backward in interpret mode)."""
+    b, t, h, hk, d = 2, 96, 4, 2, 32
+    rng = np.random.RandomState(8)
+    x = {"q": rng.randn(b, t, h, d).astype(np.float32) * 0.5,
+         "k": rng.randn(b, t, hk, d).astype(np.float32) * 0.5,
+         "v": rng.randn(b, t, hk, d).astype(np.float32),
+         "g": rng.randn(b, t, h, d).astype(np.float32),
+         "glse": rng.randn(b, h, t).astype(np.float32)}
+    qs = rng.randint(0, 3, (b, t)).astype(np.int32)
+    qs[0, :5] = 7  # rows that attend to nothing
+    ks = rng.randint(0, 3, (b, t)).astype(np.int32)
+    qo, ko = np.array([0, 7], np.int32), np.array([3, 0], np.int32)
+
+    def f(q, k, v):
+        return jfa.flash_attention(
+            q, k, v, True, return_lse=True, bwd_impl="pallas", block_q=32,
+            block_k=32, q_segment_ids=jnp.asarray(qs),
+            kv_segment_ids=jnp.asarray(ks), dropout_rate=0.2,
+            dropout_seed=99, q_offset=jnp.asarray(qo),
+            kv_offset=jnp.asarray(ko))
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(x[n]) for n in "qkv"))
+    want = torch.tensor(np.asarray(vjp((jnp.asarray(x["g"]),
+                                        jnp.asarray(x["glse"])))[0]))
+    q, k, v, g, gl = (torch.from_numpy(x[n]) for n in
+                      ("q", "k", "v", "g", "glse"))
+    kw = dict(qseg=torch.from_numpy(qs), kseg=torch.from_numpy(ks),
+              offs=torch.from_numpy(np.stack([qo, ko], 1)), seed=99,
+              rate=0.2)
+    out, lse = fa.flash_forward_plain(q, k, v, True, **kw)
+    delta = (g * out).sum(-1).transpose(1, 2).contiguous()
+    got = mirror_dq(q, k, v, g, lse, delta, gl, True, **kw)
+    assert _rel(got, want) <= 1e-5

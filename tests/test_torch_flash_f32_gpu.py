@@ -1,16 +1,17 @@
 """The float32 flash kernels against their plain versions, on the card.
 
-``fwd_f32_kernel`` and ``dkv_f32_kernel`` (register-blocked CUDA-core
-kernels in ``chainermn_tpu_torch/csrc/flash_attention.cu``) at every head
-dim the dispatch takes, causal and not, with segments, dropout 0.2,
-vector offsets with an lse cotangent, GQA groups of 1, 4 and 8, ragged T,
-Tq != Tk, a Tq 1 decode row over 4096 keys and the q/k/v views of one qkv
-projection: relative L2 errors within 1e-5 (float32 products on the CUDA
-cores agree with the plain float32 version to rounding; never TF32).  Each
-case also runs ``dq_f32_kernel`` through the same case runner as
-``chip_smoke.py``'s phase 10.  Then each kernel launched twice on the same
-inputs gives the same bits (no atomics).  CUDA kernels have no CPU mode:
-every test is marked ``gpu`` and skips without a card.  On the card:
+``fwd_f32_kernel``, ``dkv_f32_kernel`` and ``dq_f32_kernel``
+(register-blocked CUDA-core kernels in
+``chainermn_tpu_torch/csrc/flash_attention.cu``), through the same case
+runner as ``chip_smoke.py``'s phase 10, at every head dim the dispatch
+takes, causal and not, with segments, dropout 0.2, vector offsets with an
+lse cotangent, GQA groups of 1, 4 and 8, ragged T, Tq != Tk, a Tq 1
+decode row over 4096 keys and the q/k/v views of one qkv projection:
+relative L2 errors within 1e-5 (float32 products on the CUDA cores agree
+with the plain float32 version to rounding; never TF32).  Then each of
+the three kernels launched twice on the same inputs gives the same bits
+(no atomics).  CUDA kernels have no CPU mode: every test is marked
+``gpu`` and skips without a card.  On the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
         tests/test_torch_flash_f32_gpu.py
@@ -94,6 +95,8 @@ def test_f32_kernels_repeat_bit_for_bit(cuda, d):
         out, lse = tfa.flash_fwd(q, k, v, True, **kw)
         delta = (g * out).sum(-1).transpose(1, 2).contiguous()
         runs.append((out, lse) + tfa.flash_bwd_dkv(q, k, v, g, lse, delta,
-                                                    lse * 0.1, True, **kw))
+                                                    lse * 0.1, True, **kw)
+                    + (tfa.flash_bwd_dq(q, k, v, g, lse, delta, lse * 0.1,
+                                        True, **kw),))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
