@@ -6,9 +6,14 @@ averages the gradients, and train.  One process drives one GPU; launch
 several with ``torchrun`` (or set ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/
 ``MASTER_PORT``/``LOCAL_RANK`` yourself).  This port supports synthetic
 ImageNet-shaped data only (class-dependent channel means, so the loss can
-fall) and ResNet-50 with the fused BatchNorm(+ReLU) kernels.  The fork's
-"ImageNet in 15 minutes" configuration is the float16 wire with double
-buffering:
+fall; the JAX example's images from the same seed, transposed to NCHW) and
+the reference's architectures: ``alex``, ``googlenet``, ``googlenetbn``,
+``nin`` and ``resnet50``.  The BatchNorm archs (ResNet-50, GoogLeNetBN)
+run the fused BatchNorm(+ReLU) kernels.  ``--aux-loss`` trains GoogLeNet's
+auxiliary heads (``loss3 + 0.3 loss1 + 0.3 loss2``).  Dropout masks come
+from the model's generator, reseeded every step from (seed, iteration,
+rank).  The fork's "ImageNet in 15 minutes" configuration is the float16
+wire with double buffering:
 
     python -m chainermn_tpu_torch.examples.train_imagenet --arch resnet50 \\
         --communicator xla --batchsize 32 --iterations 20 \\
@@ -18,15 +23,16 @@ The JAX example's training flags are here too: ``--zero`` (ZeRO-1
 optimizer-state sharding), ``--optimizer momentum|lars|adam``,
 ``--warmup-epochs`` (linear warmup, then cosine decay, as optax's
 ``warmup_cosine_decay_schedule``), ``--val-size`` (a synthetic validation
-set through the multi-node evaluator), and ``--checkpoint DIR`` with
-auto-resume: snapshots every epoch (or every ``--checkpoint-freq``
-iterations) hold the model's parameters and BatchNorm buffers, the
-optimizer's state (this rank's shards under ``--zero``), the pending
-gradient mean of ``--double-buffering``, the iterator's position and the
-iteration; a run started on a directory that holds a generation every rank
-can read resumes from the newest such one, and then trains as the
-uninterrupted run would have.  ``AllreducePersistent`` averages the
-BatchNorm running statistics over the world at every epoch end.
+set through the multi-node evaluator), ``--intra-size`` and
+``--checkpoint DIR`` with auto-resume: snapshots every epoch (or every
+``--checkpoint-freq`` iterations) hold the model's parameters and
+BatchNorm buffers, the optimizer's state (this rank's shards under
+``--zero``), the pending gradient mean of ``--double-buffering``, the
+iterator's position and the iteration; a run started on a directory that
+holds a generation every rank can read resumes from the newest such one,
+and then trains as the uninterrupted run would have.
+``AllreducePersistent`` averages the BatchNorm running statistics over the
+world at every epoch end.
 """
 
 from __future__ import annotations
@@ -43,15 +49,23 @@ from chainermn_tpu_torch.datasets import TupleDataset
 from chainermn_tpu_torch.extensions import (
     AllreducePersistent, create_multi_node_checkpointer,
     create_multi_node_evaluator, make_eval_fn)
+from chainermn_tpu_torch.extensions.allreduce_persistent import (
+    persistent_buffers)
 from chainermn_tpu_torch.iterators import SerialIterator
-from chainermn_tpu_torch.models import ResNet50
+from chainermn_tpu_torch.models import (
+    NIN, AlexNet, GoogLeNet, GoogLeNetBN, ResNet50)
+from chainermn_tpu_torch.models.layers import dropout_seed
 from chainermn_tpu_torch.optim import (
     LARS, init_optimizer_state, load_optimizer_state_tree,
     optimizer_state_tree, warmup_cosine_decay_schedule)
 from chainermn_tpu_torch.training import StatefulUpdater, Trainer, extensions
 from chainermn_tpu_torch.utils.trace import KERNEL_CATEGORIES, kernel_category
 
-ARCHS = {"resnet50": ResNet50}
+ARCHS = {"alex": AlexNet, "googlenet": GoogLeNet,
+         "googlenetbn": GoogLeNetBN, "nin": NIN, "resnet50": ResNet50,
+         # the JAX example's ViTs wait for models/vit.py
+         "vit_s16": None, "vit_b16": None}
+AUX_ARCHS = ("googlenet", "googlenetbn")
 OPTIMIZERS = {
     "momentum": lambda ps, lr: torch.optim.SGD(ps, lr=lr, momentum=0.9),
     "lars": lambda ps, lr: LARS(ps, lr=lr, momentum=0.9),
@@ -63,16 +77,47 @@ NOT_PORTED = (("fsdp", "--fsdp (parallel/fsdp.py)", "A9"),
               ("accum_steps", "--accum-steps (utils/accum.py)", "A9"),
               ("data", "--data (the image pipeline)", "A6"),
               ("train_root", "--train-root (the image pipeline)", "A6"),
-              ("aux_loss", "--aux-loss (GoogLeNet's heads)", "A8"))
+              ("val_data", "--val-data (the image pipeline)", "A6"),
+              ("prefetch", "--prefetch (the image pipeline's loader)", "A6"),
+              ("loader_workers", "--loader-workers (the image pipeline's "
+               "loader)", "A6"))
 
 
 def make_synthetic_imagenet(n, image, n_classes, seed):
-    """NCHW float32 images whose channel means depend on the class."""
+    """The JAX example's synthetic set (the same ``RandomState`` draws:
+    labels, then NHWC images whose channel means depend on the class),
+    transposed to NCHW float32."""
     rng = np.random.RandomState(seed)
     y = (rng.rand(n) * n_classes).astype(np.int64)
-    x = rng.randn(n, 3, image, image).astype(np.float32)
+    x = rng.randn(n, image, image, 3).astype(np.float32)
     x += (y % 8).reshape(-1, 1, 1, 1) * 0.3
-    return TupleDataset(x, y)
+    return TupleDataset(np.ascontiguousarray(x.transpose(0, 3, 1, 2)), y)
+
+
+def build_model(args, device, generator):
+    """``--arch`` at ``--n-classes``, ``--dtype`` and ``--image-size`` on
+    ``device`` (ResNet-50 at ``--width``; GoogLeNet with its aux heads
+    under ``--aux-loss``)."""
+    kw = dict(num_classes=args.n_classes, dtype=getattr(torch, args.dtype),
+              device=device, generator=generator)
+    if args.arch == "resnet50":
+        kw["num_filters"] = args.width
+    elif args.arch == "alex":
+        kw["image_size"] = args.image_size
+    elif args.arch in AUX_ARCHS:
+        kw.update(image_size=args.image_size, aux_heads=args.aux_loss)
+    return ARCHS[args.arch](**kw)
+
+
+def objective(out, y):
+    """``(loss, logits)`` of a model's training output: the cross-entropy
+    of the logits, plus 0.3 x each aux head's when the model returns
+    ``(logits, aux)`` (GoogLeNet's recipe, ``--aux-loss``)."""
+    logits, aux = out if isinstance(out, tuple) else (out, ())
+    loss = F.cross_entropy(logits, y)
+    for a in aux:
+        loss = loss + 0.3 * F.cross_entropy(a, y)
+    return loss, logits
 
 
 def parse_args(argv=None):
@@ -80,13 +125,16 @@ def parse_args(argv=None):
                                 "example (synthetic data)")
     p.add_argument("--arch", "-a", default="resnet50", choices=sorted(ARCHS))
     p.add_argument("--width", type=int, default=64,
-                   help="the ResNet's base width (64: the published one)")
+                   help="the ResNet's base width (64: the published one; "
+                        "resnet50 only)")
     p.add_argument("--batchsize", "-B", type=int, default=32,
                    help="per-GPU minibatch size")
     p.add_argument("--epoch", "-E", type=int, default=1)
     p.add_argument("--iterations", type=int, default=None,
                    help="stop after this many steps (overrides --epoch)")
     p.add_argument("--communicator", default="xla")
+    p.add_argument("--intra-size", type=int, default=None,
+                   help="ranks per node (default: LOCAL_WORLD_SIZE)")
     p.add_argument("--allreduce-grad-dtype", default=None,
                    help="communication dtype (xla communicator only), "
                         "e.g. float16")
@@ -141,8 +189,25 @@ def parse_args(argv=None):
                    help="not ported yet (only 1)")
     p.add_argument("--data", default=None, help="not ported yet")
     p.add_argument("--train-root", default=None, help="not ported yet")
-    p.add_argument("--aux-loss", action="store_true", help="not ported yet")
+    p.add_argument("--val-data", default=None, help="not ported yet")
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="not ported yet (only 2)")
+    p.add_argument("--loader-workers", type=int, default=4,
+                   help="not ported yet (only 4)")
+    p.add_argument("--aux-loss", action="store_true",
+                   help="googlenet/googlenetbn only: train with the "
+                        "auxiliary classifier heads (loss1*0.3 + loss2*0.3 "
+                        "+ loss3, the reference recipe)")
     args = p.parse_args(argv)
+    if args.aux_loss and args.arch not in AUX_ARCHS:
+        p.error("--aux-loss only applies to googlenet/googlenetbn")
+    if args.arch != "resnet50" and args.width != p.get_default("width"):
+        p.error("--width sets the ResNet's base width; --arch "
+                f"{args.arch} has no such option")
+    if ARCHS[args.arch] is None:
+        raise NotImplementedError(
+            f"--arch {args.arch} (models/vit.py) is not ported yet; see "
+            "ROADMAP.md Queue A9")
     if args.zero and args.double_buffering:
         p.error("--zero and --double-buffering are mutually exclusive")
     if args.zero and args.optimizer == "lars":
@@ -197,12 +262,12 @@ def main(argv=None) -> dict:
     "model", "optimizer"}`` (images/sec over this run's steps after
     ``--warmup-steps``, summed over the world; ``resumed_from`` the
     iteration of the snapshot it resumed from, or None; ``save_seconds``
-    each snapshot's; the process's peak device memory, None on the CPU),
+    each snapshot's; the run's peak device memory, None on the CPU),
     plus ``"profile"`` with ``--profile-steps``."""
     args = parse_args(argv)
     comm = cmn.create_communicator(
         args.communicator, allreduce_grad_dtype=args.allreduce_grad_dtype,
-        device=args.device)
+        intra_size=args.intra_size, device=args.device)
     device = comm.device
     if comm.rank == 0:
         print(f"==========================================\n"
@@ -221,10 +286,7 @@ def main(argv=None) -> dict:
                                 seed=args.seed)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = ARCHS[args.arch](num_classes=args.n_classes,
-                             num_filters=args.width,
-                             dtype=getattr(torch, args.dtype), device=device,
-                             generator=gen)
+    model = build_model(args, device, gen)
     comm.bcast_data(model)
     # the LR schedule, sized in updates from the scattered dataset over
     # --epoch epochs (--iterations may stop the run before or after)
@@ -241,17 +303,21 @@ def main(argv=None) -> dict:
 
     def loss_fn(batch):
         x, y = batch
-        logits = model(x)
+        loss, logits = objective(model(x), y)
         acc = (logits.argmax(-1) == y).float().mean()
-        return F.cross_entropy(logits, y), {"accuracy": acc}
+        return loss, {"accuracy": acc}
 
     train_step = cmn.make_train_step(comm, loss_fn, optimizer, has_aux=True)
+    dropout_gen = getattr(model, "dropout_generator", None)
 
     def step(batch):
         if schedule is not None:
             lr = schedule(updater.iteration)  # updates so far, as optax
             for g in optimizer.param_groups:
                 g["lr"] = lr
+        if dropout_gen is not None:
+            dropout_gen.manual_seed(dropout_seed(args.seed, updater.iteration,
+                                                 comm.rank))
         return train_step(batch)
 
     step.finalize = train_step.finalize
@@ -273,19 +339,10 @@ def main(argv=None) -> dict:
     trainer = Trainer(updater, stop,
                       log_trigger=(args.log_interval, "iteration"),
                       out=args.out)
-    losses, marks = [], []
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    def record(tr):
-        losses.append(tr.observation["main/loss"])
-        sync()
-        marks.append(time.perf_counter())
-
-    trainer.extend(record, trigger=(1, "iteration"))
-    trainer.extend(AllreducePersistent(comm, model))
+    timer = extensions.StepTimer(device)
+    trainer.extend(timer)
+    if persistent_buffers(model):  # the BatchNorm archs
+        trainer.extend(AllreducePersistent(comm, model))
     if ckpt is not None:
         trainer.extend(extensions.Snapshot(
             ckpt, lambda t: checkpoint_state(model, optimizer, train_iter,
@@ -297,17 +354,10 @@ def main(argv=None) -> dict:
             make_evaluator(args, comm, model), comm))
     log = extensions.LogReport(filename="log" if comm.rank == 0 else None)
     trainer.extend(log)
-    sync()
-    marks.append(time.perf_counter())
+    timer.start()
     trainer.run()
-    losses = [float(v) for v in losses]
     w = args.warmup_steps
-    ips = None
-    if len(losses) > w:  # marks[i]: after step i (marks[0]: the start)
-        ips = (args.batchsize * comm.size * (len(losses) - w)
-               / (marks[-1] - marks[w]))
-    peak_gb = (torch.cuda.max_memory_allocated(device) / 1e9
-               if device.type == "cuda" else None)
+    losses, ips, peak_gb = timer.result(args.batchsize * comm.size, w)
     result = {"losses": losses, "images_per_sec": ips,
               "iterations": updater.iteration, "world": comm.size,
               "log": log.log, "resumed_from": resumed,

@@ -55,17 +55,21 @@ def _same_pads(n: int, k: int, s: int):
 
 
 class Conv(nn.Module):
-    """Bias-free 2-D convolution with flax "SAME" padding, computed in
-    ``dtype`` from float32 weights (OIHW)."""
+    """2-D convolution with flax "SAME" padding, computed in ``dtype`` from
+    float32 weights (OIHW); bias-free unless ``bias`` (flax's ``use_bias``,
+    zero-initialised)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 *, dtype=torch.float32, device=None, generator=None):
+                 *, bias: bool = False, dtype=torch.float32, device=None,
+                 generator=None):
         super().__init__()
         self.kernel, self.stride, self.dtype = kernel, stride, dtype
         self.weight = nn.Parameter(torch.empty(
             (out_ch, in_ch, kernel, kernel), dtype=torch.float32,
             device=device))
         _lecun_normal_(self.weight, in_ch * kernel * kernel, generator)
+        self.bias = nn.Parameter(torch.zeros(
+            (out_ch,), dtype=torch.float32, device=device)) if bias else None
 
     def forward(self, x):
         k, s = self.kernel, self.stride
@@ -76,8 +80,15 @@ class Conv(nn.Module):
         else:
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
             pad = 0
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
                         stride=s, padding=pad)
+
+
+def flatten_nhwc(x):
+    """``[N, C, H, W]`` -> ``[N, H * W * C]`` in flax's (NHWC) order, so
+    the first dense layer after it takes flax's kernel rows as they are."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
 
 def max_pool_same(x, k: int = 3, s: int = 2):

@@ -1,7 +1,8 @@
 """Trainer extensions (the Chainer ``training.extensions`` role).
 
 Counterpart of ``chainermn_tpu/training/extensions.py``: ``LogReport``,
-``PrintReport``, ``Evaluator`` and ``Snapshot``.  The reference gates the
+``PrintReport``, ``Evaluator`` and ``Snapshot``; the examples' own
+``StepTimer``.  The reference gates the
 reports to rank 0 in every example (``if comm.rank == 0:
 trainer.extend(...)``); the same pattern applies here.  ``MetricsReport``
 waits for observability (ROADMAP.md, Queue A13).
@@ -12,6 +13,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import time
 from typing import Callable, List, Optional
 
 import torch
@@ -166,4 +168,45 @@ class Snapshot:
         self._ckpt.save(self._get(trainer), trainer.updater.iteration)
 
 
-__all__ = ["Evaluator", "LogReport", "PrintReport", "Snapshot"]
+class StepTimer:
+    """Every iteration: the step's loss, and the host's clock once the
+    device has finished the step.  Call :meth:`start` right before
+    ``trainer.run()`` and :meth:`result` after it."""
+
+    trigger = (1, "iteration")
+
+    def __init__(self, device):
+        self.device = device
+        self.losses: List = []
+        self.marks: List[float] = []  # marks[i]: after step i (0: start)
+
+    def _mark(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.marks.append(time.perf_counter())
+
+    def start(self):
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
+        self._mark()
+
+    def __call__(self, trainer):
+        self.losses.append(trainer.observation["main/loss"])
+        self._mark()
+
+    def result(self, images_per_step: int, warmup: int):
+        """``(losses, images_per_sec, peak_gb)``: every step's loss as a
+        float, ``images_per_step`` over the steps after ``warmup`` (None
+        when there are none), and the device's peak memory since
+        :meth:`start` (None on the CPU)."""
+        losses = [float(v) for v in self.losses]
+        ips = None
+        if len(losses) > warmup:
+            ips = (images_per_step * (len(losses) - warmup)
+                   / (self.marks[-1] - self.marks[warmup]))
+        peak = (torch.cuda.max_memory_allocated(self.device) / 1e9
+                if self.device.type == "cuda" else None)
+        return losses, ips, peak
+
+
+__all__ = ["Evaluator", "LogReport", "PrintReport", "Snapshot", "StepTimer"]

@@ -70,5 +70,16 @@ def peak_tflops_info(device=None) -> Tuple[float, Optional[str]]:
     return card.peak_tflops, matched
 
 
+def smi_line(index: int = 0) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (card ``index``): the
+    label every measurement of the card is reported beside."""
+    import subprocess
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[index]
+
+
 __all__ = ["CARDS", "Card", "PEAK_TFLOPS", "card_info", "device_name",
-           "peak_tflops_info"]
+           "peak_tflops_info", "smi_line"]

@@ -63,12 +63,15 @@ PAD_S = 0.05            # host seconds at each edge of the timed window
 # captures device_time took, and those that were not complete
 captures = collections.Counter()
 
+OTHER_CATEGORY = "other (elementwise, pad, pool, loss, optimizer)"
 # kernel-name fragments -> category of the profile breakdowns (first match
 # wins, so the CUDA statistics kernel, whose name holds "stats_kernel",
-# comes before the Triton fragments; the rest is "other")
+# comes before the Triton fragments, and the optimizers' foreach kernels,
+# "multi_tensor_apply_kernel", before "apply_kernel"; the rest is "other")
 KERNEL_CATEGORIES = (
     ("fused_norm stats (CUDA)", ("bn_stats",)),
     ("fused_norm reduce (CUDA)", ("bn_bwd_reduce",)),
+    (OTHER_CATEGORY, ("multi_tensor_apply",)),
     ("fused_norm (Triton)", ("stats_kernel", "apply_kernel",
                              "bwd_dx_kernel", "finalize_kernel")),
     ("cast_scale (CUDA)", ("cast_scale",)),
@@ -77,7 +80,6 @@ KERNEL_CATEGORIES = (
     ("conv / gemm", ("conv", "gemm", "xmma", "cudnn", "cutlass", "sm90_",
                      "wgrad", "dgrad")),
 )
-OTHER_CATEGORY = "other (elementwise, pad, pool, loss, optimizer)"
 
 
 def kernel_category(kernel: str, categories=KERNEL_CATEGORIES) -> str:

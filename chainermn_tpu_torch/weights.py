@@ -28,24 +28,49 @@ only:
   ``[H, H]``) stack, transposed and in gate order i, f, g, o, into
   ``weight_ih_l0`` ``[4H, E]`` and ``weight_hh_l0`` ``[4H, H]``, the hidden
   kernels' biases into ``bias_hh_l0``, and ``bias_ih_l0`` is zero.  Both
-  have ``params`` only.
+  have ``params`` only;
+* VGG's ``Conv_{i}`` and ``BatchNorm_{i}`` (13 each in VGG-16) are the
+  port's ``convs.{i}`` and ``norms.{i}``, ``Dense_0`` and ``Dense_1`` its
+  ``fc`` and ``classifier``;
+* AlexNet's ``Conv_0``..``Conv_4`` (with ``bias``) and ``Dense_0``..
+  ``Dense_2`` are ``convs.{i}`` and ``dense.{i}``; NIN's ``Conv_0``..
+  ``Conv_11`` (with ``bias``) are ``convs.{i}``.  Both have ``params``
+  only;
+* GoogLeNet's stem ``Conv_0``..``Conv_2`` (and GoogLeNetBN's
+  ``BatchNorm_0``..``BatchNorm_2``) are ``convs.{j}`` (and
+  ``norms.{j}``); each block ``inc3a``..``inc5b`` holds ``Conv_{j}``
+  (and ``BatchNorm_{j}``), the port's ``blocks.inc{name}.convs.{j}`` (and
+  ``.norms.{j}``), six a block in GoogLeNet and seven in GoogLeNetBN; the
+  aux heads ``aux4a`` and ``aux4d`` hold ``Conv_0``, ``Dense_0`` and
+  ``Dense_1``, the port's ``aux.aux{name}.conv``, ``.fc`` and
+  ``.classifier``; ``Dense_0`` is ``classifier``.  GoogLeNet has
+  ``params`` only, GoogLeNetBN ``batch_stats`` too.
+
+A conv with a ``bias`` leaf maps it to the port's ``bias``.  Every leaf of
+the flax tree must be taken by the map, and every tensor of the port's
+``state_dict`` filled.
 """
 
 from __future__ import annotations
 
+import functools
+from collections.abc import Mapping
 from typing import Dict
 
 import numpy as np
 import torch
 from torch import nn
 
+from chainermn_tpu_torch.models.alexnet import AlexNet
+from chainermn_tpu_torch.models.googlenet import AUX_AFTER, GoogLeNet
 from chainermn_tpu_torch.models.mlp import MLP
+from chainermn_tpu_torch.models.nin import NIN
 from chainermn_tpu_torch.models.seq2seq import Seq2SeqDecoder, Seq2SeqEncoder
 from chainermn_tpu_torch.models.transformer import TransformerLM
+from chainermn_tpu_torch.models.vgg import VGG
 
 _NORM_NAMES = ("FusedBatchNormAct", "BatchNorm")
 _GATES = "ifgo"  # flax OptimizedLSTMCell's order, and torch's
-_PARAMS_ONLY = (MLP, TransformerLM, Seq2SeqEncoder, Seq2SeqDecoder)
 
 
 def _norm_key(model: nn.Module, name: str) -> str:
@@ -82,6 +107,36 @@ def _layers(model: nn.Module):
         for i in range(3):
             yield (f"Dense_{i}",), f"l{i + 1}", "dense"
         return
+    if isinstance(model, VGG):
+        for i in range(len(model.convs)):
+            yield (f"Conv_{i}",), f"convs.{i}", "conv"
+            yield ("{norm}_%d" % i,), f"norms.{i}", "norm"
+        yield ("Dense_0",), "fc", "dense"
+        yield ("Dense_1",), "classifier", "dense"
+        return
+    if isinstance(model, (AlexNet, NIN)):
+        for i in range(len(model.convs)):
+            yield (f"Conv_{i}",), f"convs.{i}", "conv"
+        for i in range(len(getattr(model, "dense", ()))):
+            yield (f"Dense_{i}",), f"dense.{i}", "dense"
+        return
+    if isinstance(model, GoogLeNet):
+        for scope, units in [((), model)] + [((n,), b) for n, b in
+                                             model.blocks.items()]:
+            pre = f"blocks.{scope[0]}." if scope else ""
+            for j in range(len(units.convs)):
+                yield scope + (f"Conv_{j}",), f"{pre}convs.{j}", "conv"
+                if units.norms is not None:
+                    yield (scope + ("{norm}_%d" % j,), f"{pre}norms.{j}",
+                           "norm")
+        if model.aux_heads:
+            for n in AUX_AFTER:
+                for flax_name, port in (("Conv_0", "conv"), ("Dense_0", "fc"),
+                                        ("Dense_1", "classifier")):
+                    yield ((f"aux{n}", flax_name), f"aux.aux{n}.{port}",
+                           "conv" if port == "conv" else "dense")
+        yield ("Dense_0",), "classifier", "dense"
+        return
     yield ("conv_init",), "conv_init", "conv"
     yield ("bn_init",), "bn_init", "norm"
     for i, blk in enumerate(model.blocks):
@@ -102,52 +157,77 @@ def _get(tree, path):
     return tree
 
 
+def _leaf_paths(tree, prefix=()):
+    if not isinstance(tree, Mapping):
+        return {prefix}
+    return {q for k, v in tree.items() for q in _leaf_paths(v, prefix + (k,))}
+
+
 def _norm_name(params) -> str:
-    """Which norm class named the flax blocks' norm layers."""
+    """Which norm class named the flax model's norm layers (the first
+    ``{name}_0`` scope found, depth first)."""
     for scope, sub in params.items():
-        if scope.startswith(("BottleneckBlock_", "BasicBlock_")):
+        if isinstance(sub, Mapping):
             for name in _NORM_NAMES:
-                if f"{name}_0" in sub:
+                if scope == f"{name}_0":
                     return name
-    return _NORM_NAMES[0]
+            found = _norm_name(sub)
+            if found:
+                return found
+    return ""
 
 
 def flax_to_state_dict(variables, model: nn.Module) -> Dict[str, torch.Tensor]:
     """The port ``model``'s ``state_dict`` (float32 CPU tensors) holding the
-    flax ``variables`` of the same architecture."""
-    params, stats = variables["params"], variables.get("batch_stats", {})
-    norm = _norm_name(params)
+    flax ``variables`` of the same architecture; raises if a leaf of
+    ``variables`` is left over."""
+    trees = {"params": variables["params"],
+             "batch_stats": variables.get("batch_stats", {})}
+    norm = _norm_name(trees["params"]) or _NORM_NAMES[0]
+    taken = set()
+
+    def take(tree, scope, *leaf):
+        taken.add((tree,) + scope + leaf)
+        return _get(trees[tree], scope + leaf)
+
     sd = {}
     t = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
     for scope, name, kind in _layers(model):
         scope = tuple(s.format(norm=norm) for s in scope)
-        p = _get(params, scope)
+        p = functools.partial(take, "params", scope)
         if kind == "conv":
-            sd[f"{name}.weight"] = t(np.asarray(p["kernel"])
+            sd[f"{name}.weight"] = t(np.asarray(p("kernel"))
                                      .transpose(3, 2, 0, 1))
+            if "bias" in _get(trees["params"], scope):
+                sd[f"{name}.bias"] = t(p("bias"))
         elif kind == "dense":
-            sd[f"{name}.weight"] = t(np.asarray(p["kernel"]).T)
-            sd[f"{name}.bias"] = t(p["bias"])
+            sd[f"{name}.weight"] = t(np.asarray(p("kernel")).T)
+            sd[f"{name}.bias"] = t(p("bias"))
         elif kind == "embed":
-            sd[f"{name}.weight"] = t(p["embedding"])
+            sd[f"{name}.weight"] = t(p("embedding"))
         elif kind == "ln":
-            sd[f"{name}.weight"] = t(p["scale"])
-            sd[f"{name}.bias"] = t(p["bias"])
+            sd[f"{name}.weight"] = t(p("scale"))
+            sd[f"{name}.bias"] = t(p("bias"))
         elif kind == "lstm":
             cat = lambda pre, leaf: np.concatenate(  # noqa: E731
-                [np.asarray(p[pre + g][leaf]).T for g in _GATES])
+                [np.asarray(p(pre + g, leaf)).T for g in _GATES])
             sd[f"{name}.weight_ih_l0"] = t(cat("i", "kernel"))
             sd[f"{name}.weight_hh_l0"] = t(cat("h", "kernel"))
             sd[f"{name}.bias_hh_l0"] = t(cat("h", "bias"))
             sd[f"{name}.bias_ih_l0"] = torch.zeros_like(
                 sd[f"{name}.bias_hh_l0"])
         else:
-            s = _get(stats, scope)
+            s = functools.partial(take, "batch_stats", scope)
             key = _norm_key(model, name)
-            sd[f"{key}.weight"] = t(p["scale"])
-            sd[f"{key}.bias"] = t(p["bias"])
-            sd[f"{key}.running_mean"] = t(s["mean"])
-            sd[f"{key}.running_var"] = t(s["var"])
+            sd[f"{key}.weight"] = t(p("scale"))
+            sd[f"{key}.bias"] = t(p("bias"))
+            sd[f"{key}.running_mean"] = t(s("mean"))
+            sd[f"{key}.running_var"] = t(s("var"))
+    left = sorted("/".join(q) for q in _leaf_paths(trees) - taken)
+    if left:
+        raise ValueError(f"flax leaves without a place in "
+                         f"{type(model).__name__}: {left[:8]} "
+                         f"({len(left)} in all)")
     return sd
 
 
@@ -161,7 +241,7 @@ def load_flax_variables(model: nn.Module, variables) -> nn.Module:
 def state_dict_to_flax(model: nn.Module, norm: str = _NORM_NAMES[0]):
     """The inverse: ``{"params": ..., "batch_stats": ...}`` as nested dicts
     of float32 numpy arrays, flax-named with ``norm`` as the norm class
-    (``{"params": ...}`` alone for the MLP and the TransformerLM)."""
+    (``{"params": ...}`` alone for a model without BatchNorm)."""
     sd = {k: v.detach().float().cpu().numpy()
           for k, v in model.state_dict().items()}
     params, stats = {}, {}
@@ -174,8 +254,11 @@ def state_dict_to_flax(model: nn.Module, norm: str = _NORM_NAMES[0]):
     for scope, name, kind in _layers(model):
         scope = tuple(s.format(norm=norm) for s in scope)
         if kind == "conv":
-            put(params, scope, {"kernel": np.ascontiguousarray(
-                sd[f"{name}.weight"].transpose(2, 3, 1, 0))})
+            leaf = {"kernel": np.ascontiguousarray(
+                sd[f"{name}.weight"].transpose(2, 3, 1, 0))}
+            if f"{name}.bias" in sd:
+                leaf["bias"] = sd[f"{name}.bias"]
+            put(params, scope, leaf)
         elif kind == "dense":
             put(params, scope, {"kernel": np.ascontiguousarray(
                 sd[f"{name}.weight"].T), "bias": sd[f"{name}.bias"]})
@@ -199,6 +282,5 @@ def state_dict_to_flax(model: nn.Module, norm: str = _NORM_NAMES[0]):
                                 "bias": sd[f"{key}.bias"]})
             put(stats, scope, {"mean": sd[f"{key}.running_mean"],
                                "var": sd[f"{key}.running_var"]})
-    if isinstance(model, _PARAMS_ONLY):
-        return {"params": params}
-    return {"params": params, "batch_stats": stats}
+    return {"params": params, "batch_stats": stats} if stats else \
+        {"params": params}

@@ -223,6 +223,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     ``phase_c12``), every pass within the test's 1e-5 and both sides'
     bits the first pass's; then ``WGRAD_LOOPS`` launches of phase 14's
     probe wgrad on one input, every result the first's bits.
+23. the reference's other models (after phase 21, before phase 22, which
+    stays the last before the summary): (a) ``examples.train_cifar``'s
+    ``main`` at its defaults (VGG-16, batch 64, bfloat16, seed 0, the
+    JAX example's synthetic CIFAR) with ``--double-buffering
+    --allreduce-grad-dtype float16`` for ``P23_ITERS`` iterations: exactly
+    13 launches a step of each BatchNorm kernel and 2 casts a step, finite
+    losses whose last five sum below the first five; images/sec and peak
+    memory.  (b) One float32 step of VGG-16 (batch 64, dropout 0, TF32 off,
+    cuDNN deterministic) on the card with the kernels, from the same
+    ``weights.py`` weights and batch, against the same step on the card
+    and on the CPU with the plain reference norm, both taking the kernel
+    run's ReLU and max-pool branches (see ``p23_f32_step``):
+    ``utils.compare``'s gates (loss 1e-4 relative, every gradient tensor
+    1e-3 relative L2).  (c) The four BatchNorm
+    kernels against their plain versions in bfloat16 at VGG-16's boundary
+    shapes at batch 64 ([65536, 64] to [256, 512]) and 256, phase 2's
+    limits.  (d) ``examples.train_imagenet``'s ``main`` for ``alex``,
+    ``googlenet``, ``googlenetbn --aux-loss`` and ``nin`` at 224 pixels,
+    1000 classes, batch 32, bfloat16, lr 0.01 (the reference example's
+    MomentumSGD), ``P23_ARCH_ITERS`` iterations:
+    finite losses, images/sec and peak memory; GoogLeNetBN launches each
+    BatchNorm kernel exactly 66 times a step, the others none.  (e)
+    ``benchmarks.run_configs`` with ``P23_CONFIGS``: the ResNet-50 and
+    VGG-16 rows on the card (full shapes, 5 timed windows and the device
+    time) and ``mnist_mlp`` on a gloo world of 8 CPU processes, one JSON
+    line each.
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
 """
@@ -230,7 +256,6 @@ The cast check (6) runs right after the BatchNorm kernel check (2).
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -326,10 +351,8 @@ def log(msg):
 
 
 def gpu_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()[0]
+    from chainermn_tpu_torch.utils.gpu_info import smi_line
+    return smi_line(0)
 
 
 def ptxas_registers(lines, kernels):
@@ -1890,6 +1913,227 @@ def phase_seq2seq(torch, dev):
     return dict(runs=runs, bits=bits, profile=prof)
 
 
+# phase 23: the reference's other models
+P23_ITERS = 30       # (a) train_cifar iterations at its defaults
+P23_ARCH_ITERS = 10  # (d) train_imagenet iterations of each arch
+P23_ARCHS = (("alex", []), ("googlenet", []), ("googlenetbn", ["--aux-loss"]),
+             ("nin", []))
+P23_LR = "0.01"      # (d): the reference ImageNet example's MomentumSGD lr
+P23_BN = {"googlenetbn": 66}  # BatchNorm boundaries a step of (d)'s archs
+P23_CONFIGS = "resnet50_xla,vgg16_cifar_db,mnist_mlp"
+
+
+def vgg_bn_shapes(batch):
+    """The [R, C] of VGG-16's 13 BatchNorm boundaries at 32 pixels."""
+    shapes, size = [], 32
+    for c in (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512,
+              512, "M", 512, 512, 512, "M"):
+        if c == "M":
+            size //= 2
+        else:
+            shapes.append((batch * size * size, c))
+    return shapes
+
+
+class _Decisions:
+    """Stands in for ``torch.nn.functional`` inside ``models.vgg`` during
+    phase 23 (b): records the ReLU masks and max-pool indices of a run
+    (``replay`` None), or replays a recorded run's (``replay`` set), so
+    that two runs take the same branches; ``flips`` counts the decisions
+    a replaying run would have taken otherwise."""
+
+    def __init__(self, F):
+        self.F, self.record, self.replay, self.flips = F, [], None, 0
+
+    def __getattr__(self, name):
+        return getattr(self.F, name)
+
+    def _pinned(self, own):
+        if self.replay is None:
+            self.record.append(own)
+            return own
+        got = next(self.replay).to(own.device)
+        self.flips += int((got != own).sum())
+        return got
+
+    def relu(self, x):
+        return x * self._pinned(x.detach() > 0)
+
+    def max_pool2d(self, x, k, s):
+        idx = self._pinned(self.F.max_pool2d(x.detach(), k, s,
+                                             return_indices=True)[1])
+        return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+
+def p23_f32_step(fn, torch, dev):
+    """(b): one float32 step of VGG-16 (batch 64, dropout 0, TF32 off,
+    cuDNN deterministic) from the same weights and batch: on the card with
+    the kernels, then on the card and on the CPU with the plain reference
+    norm; ``utils.compare``'s gates (loss 1e-4, every gradient tensor 1e-3
+    relative L2).  The plain runs take the kernel run's branches: its
+    ReLU masks (each norm's, and the dense layer's) and max-pool indices
+    are replayed (``_Decisions``; ``_Pinned`` norms).  Without that, a
+    ReLU input or a max-pool pair within the runs' float32 drift takes
+    the other branch, and one such element moves every gradient below it
+    by ~5e-3 (PR 14's first runs: 6 of 17.7 million ReLU outputs, 9.69e-3
+    and 6.00e-3 worst).  The decisions each plain run would have taken
+    otherwise are counted and printed.  Returns the errors."""
+    import importlib
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import weights
+    from chainermn_tpu_torch.models import VGG16
+    from chainermn_tpu_torch.utils.compare import (
+        no_tf32, step_agrees, step_errors)
+    vgg = importlib.import_module("chainermn_tpu_torch.models.vgg")
+    dec = _Decisions(F)
+    masks = []
+
+    class _Pinned(fn.ReferenceBatchNormAct):
+        """The plain norm without its ReLU, times the kernel run's mask."""
+
+        def forward(self, x):
+            self.fuse_relu = False
+            y = super().forward(x)
+            return y * dec._pinned(y.detach() > 0)
+
+    src = VGG16(device="cpu", generator=torch.Generator().manual_seed(3))
+    variables = weights.state_dict_to_flax(src)
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((64, 3, 32, 32), generator=gen)
+    y = torch.randint(0, 10, (64,), generator=gen)
+    runs = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    vgg.F = dec
+    try:
+        with no_tf32():
+            for name, d, norm in (("kernels", dev, fn.FusedBatchNormAct),
+                                  ("plain", dev, _Pinned),
+                                  ("cpu", torch.device("cpu"), _Pinned)):
+                model = weights.load_flax_variables(
+                    VGG16(dropout_rate=0.0, norm_cls=norm, device=d),
+                    variables)
+                model.train()
+                if name == "kernels":
+                    for m in model.norms:  # the fused ReLU's mask
+                        m.register_forward_hook(
+                            lambda m, i, o: masks.append(o.detach() > 0))
+                else:
+                    dec.replay, dec.flips = iter(dec.record), 0
+                loss = F.cross_entropy(model(x.to(d)), y.to(d))
+                loss.backward()
+                if name == "kernels":
+                    # the order the plain runs meet them in: a norm's mask
+                    # before the pool or ReLU after it
+                    pools = iter(dec.record)
+                    dec.record = []
+                    norms = iter(masks)
+                    for c in vgg.CFG_16:
+                        dec.record.append(next(pools if c == "M" else norms))
+                    dec.record.append(next(pools))  # the dense layer's ReLU
+                runs[name] = (loss.item(), {
+                    k: p.grad.detach().cpu()
+                    for k, p in model.named_parameters()}, dec.flips)
+                del model
+    finally:
+        vgg.F = F
+        torch.backends.cudnn.deterministic = det
+    out = {}
+    lk, gk, _ = runs["kernels"]
+    for other in ("plain", "cpu"):
+        lp, gp, flips = runs[other]
+        loss_rel, grad_rel, worst = step_errors([lk], [lp], gk, gp)
+        log(f"phase 23 (b): float32 VGG-16 step, kernels on the card vs "
+            f"{other} with the kernels' branches: loss {lk:.7f} / {lp:.7f} "
+            f"(rel {loss_rel:.2e}); worst gradient relative L2 "
+            f"{grad_rel:.2e} ({worst}) over {len(gp)} tensors; gates 1e-4 "
+            f"and 1e-3; decisions it would have taken otherwise: {flips}")
+        if not step_agrees(loss_rel, grad_rel):
+            raise AssertionError(f"phase 23 (b): the float32 VGG-16 step "
+                                 f"with the kernels disagrees with {other}")
+        out[other] = dict(loss_rel=loss_rel, grad_rel=grad_rel, worst=worst,
+                          flips=flips)
+    return out
+
+
+def phase_models(fn, cs, torch, dev):
+    """Phase 23: the reference's other models (see the module docstring).
+    Returns what the log line prints."""
+    from chainermn_tpu_torch.benchmarks import run_configs
+    from chainermn_tpu_torch.examples import train_cifar, train_imagenet
+    out = {}
+    # (a) train_cifar at its defaults, on the float16 wire with double
+    # buffering
+    fn.reset_launch_counts()
+    cs.reset_launch_counts()
+    res = train_cifar.main(["--double-buffering", "--allreduce-grad-dtype",
+                            "float16", "--iterations", str(P23_ITERS),
+                            "--log-interval", str(P23_ITERS),
+                            "--warmup-steps", "5"])
+    counts = dict(fn.launch_counts(), cast_scale=cs.cast_scale.launches)
+    want = dict({w: 13 * P23_ITERS for w in fn.launch_counts()},
+                cast_scale=2 * P23_ITERS)
+    losses = res["losses"]
+    if counts != want:
+        raise AssertionError(f"phase 23 (a) launches {counts}, expected "
+                             f"{want} (13 BatchNorm boundaries and 2 casts "
+                             "a step)")
+    if len(losses) != P23_ITERS or not all(map(math.isfinite, losses)) or \
+            not sum(losses[-5:]) < sum(losses[:5]):
+        raise AssertionError(f"phase 23 (a): losses {losses}")
+    out["cifar"] = dict(losses=losses, counts=counts,
+                        images_per_sec=res["images_per_sec"],
+                        peak_gb=res["peak_memory_gb"])
+    del res
+    # (b) float32 step, card against CPU
+    out["f32"] = p23_f32_step(fn, torch, dev)
+    # (c) the BatchNorm kernels at VGG-16's boundaries, batch 64 and 256
+    errs = {}
+    phase_kernels(fn, torch, dev, sorted(set(vgg_bn_shapes(64))
+                                         | set(vgg_bn_shapes(256)),
+                                         reverse=True),
+                  (torch.bfloat16,), errs)
+    out["kernel_errs"] = errs
+    # (d) the ImageNet example's other archs at full width
+    out["archs"] = {}
+    for arch, extra in P23_ARCHS:
+        fn.reset_launch_counts()
+        torch.cuda.empty_cache()
+        res = train_imagenet.main([
+            "--arch", arch, "--communicator", "xla", "--batchsize",
+            str(BATCH), "--iterations", str(P23_ARCH_ITERS), "--dtype",
+            "bfloat16", "--train-size", str(BATCH * P23_ARCH_ITERS),
+            "--val-size", "0", "--seed", "0", "--log-interval",
+            str(P23_ARCH_ITERS), "--warmup-steps", str(WARMUP), "--lr",
+            P23_LR] + extra)
+        losses = res["losses"]
+        counts = fn.launch_counts()
+        n_bn = P23_BN.get(arch, 0)
+        if len(losses) != P23_ARCH_ITERS or \
+                not all(map(math.isfinite, losses)):
+            raise AssertionError(f"phase 23 (d) {arch}: losses {losses}")
+        if counts != {w: n_bn * P23_ARCH_ITERS for w in counts}:
+            raise AssertionError(f"phase 23 (d) {arch}: launches {counts}, "
+                                 f"expected {n_bn} of each a step")
+        out["archs"][" ".join([arch] + extra)] = dict(
+            losses=losses, bn_launches=counts,
+            images_per_sec=res["images_per_sec"],
+            peak_gb=res["peak_memory_gb"])
+        del res
+    # (e) the configs runner: two card rows and the CPU world's
+    torch.cuda.empty_cache()
+    rows = run_configs.main(["--configs", P23_CONFIGS])
+    for r in rows:
+        if not (math.isfinite(r["value"]) and r["value"] > 0
+                and math.isfinite(r["final_loss"]) and r["card"]) or (
+                r["config"] != "mnist_mlp"
+                and not r["device_ms_per_step"] > 0):
+            raise AssertionError(f"phase 23 (e): row not sane: {r}")
+    out["configs"] = {r["config"]: r["value"] for r in rows}
+    torch.cuda.empty_cache()
+    return out
+
+
 C12_LOOPS = 300      # phase 22: passes of the flash autograd check
 WGRAD_LOOPS = 600    # phase 22: launches of the probe wgrad
 
@@ -2184,6 +2428,27 @@ def main():
         f"(steps after the first) {w['tokens_per_sec']:.1f}, median step "
         f"{w['step_ms']:.3f} ms, peak memory {w['peak_gb']:.3f} GB; profile "
         f"of {S2S_PROFILED} steps: {json.dumps(s2s['profile'])} on {gpu}")
+
+    t0 = time.perf_counter()
+    models = phase_models(fn, cs, torch, dev)
+    cif = models["cifar"]
+    log(f"phase models (23): {time.perf_counter() - t0:.1f} s; (a) "
+        f"train_cifar (VGG-16, batch 64, bf16, xla + float16 wire + double "
+        f"buffering), {P23_ITERS} iterations: losses {cif['losses']}; "
+        f"launches {json.dumps(cif['counts'])}; images/sec (steps 6.."
+        f"{P23_ITERS}) {cif['images_per_sec']:.1f}; peak memory "
+        f"{cif['peak_gb']:.2f} GB; (b) float32 step (loss rel, worst "
+        f"gradient rel L2, tensor) {json.dumps(models['f32'])}; (c) BN "
+        f"kernels at VGG-16's shapes, batch 64 and 256, bf16: max abs err "
+        f"{json.dumps(models['kernel_errs'])}; (d) train_imagenet, 224 px, "
+        f"batch {BATCH}, bf16: " + "; ".join(
+            f"{a}: losses {r['losses']}, BN launches "
+            f"{json.dumps(r['bn_launches'])}, images/sec (steps "
+            f"{WARMUP + 1}..{P23_ARCH_ITERS}) {r['images_per_sec']:.1f}, "
+            f"peak memory {r['peak_gb']:.2f} GB"
+            for a, r in models["archs"].items())
+        + f"; (e) run_configs values {json.dumps(models['configs'])} "
+        f"(rows above) on {gpu}")
 
     t0 = time.perf_counter()
     c12 = phase_c12(fa, torch, dev, C12_LOOPS)

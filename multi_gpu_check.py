@@ -1,6 +1,6 @@
 """The data-, sequence- and model-parallel slices on every card of one host.
 
-    python3 multi_gpu_check.py [--logs DIR] [--parts dp,sp,mp]
+    python3 multi_gpu_check.py [--logs DIR] [--parts dp,sp,mp,configs]
     # needs two CUDA cards or more
 
 1. prints the cards' names and power limits (``nvidia-smi``) and torch's
@@ -40,7 +40,14 @@
    (encoder on rank 0, decoder on rank 1): rank 1's losses within 1e-5 relative of the one-card run's (a
    transfer copies bits: expect equality), ``final:`` and ``val_bleu``
    printed by rank 1 only; each run's tokens/sec (over the steps after the
-   first) and every card's peak memory.
+   first) and every card's peak memory;
+7. (part ``configs``, not in the default) ``benchmarks.run_configs``'s
+   multi-rank configs under ``torchrun``: ``seq2seq_mp`` on two cards and
+   ``resnet50_hier`` on four (``intra_size`` 2: two "nodes" of two), each
+   row with finite values, every rank's the same final loss; then
+   ``examples.train_parallel_conv`` at its defaults on four cards, its
+   loss falling, the same on every rank.  With fewer cards than a run
+   needs, the output says it did not run.
 
 Prints one JSON object as its last line; exits 1 if a check failed.  Runs
 write under ``build/`` (removed afterwards), their logs under ``--logs``
@@ -175,8 +182,29 @@ def s2s_worker(out_prefix, flags):
         json.dump(doc, f)
 
 
+def configs_worker(out_prefix, flags):
+    """One rank under ``torchrun``: ``run_configs.main(flags)``, its rows
+    in ``{out_prefix}.rank{r}.json``."""
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch.benchmarks import run_configs
+    rows = run_configs.main(flags)
+    with open(f"{out_prefix}.rank{os.environ['RANK']}.json", "w") as f:
+        json.dump(rows, f)
+
+
+def pconv_worker(out_prefix, flags):
+    """One rank under ``torchrun``: ``train_parallel_conv.main(flags)``,
+    its losses in ``{out_prefix}.rank{r}.json``."""
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch.examples import train_parallel_conv
+    res = train_parallel_conv.main(flags)
+    with open(f"{out_prefix}.rank{os.environ['RANK']}.json", "w") as f:
+        json.dump({"losses": res["losses"], "world": res["world"]}, f)
+
+
 WORKERS = {"imagenet": worker, "lm": lm_worker, "bench": bench_worker,
-           "s2s": s2s_worker}
+           "s2s": s2s_worker, "configs": configs_worker,
+           "pconv": pconv_worker}
 
 
 def torchrun(n, name, flags, work, logs, kind="imagenet"):
@@ -202,12 +230,13 @@ def main(argv=None):
                    help="directory for the tests' and the runs' output")
     p.add_argument("--parts", default="dp,sp,mp",
                    help="which slices to run: dp (steps 2-4), sp (step 5), "
-                   "mp (step 6)")
+                   "mp (step 6), configs (step 7)")
     args = p.parse_args(argv)
     logs = os.path.abspath(args.logs)
     parts = set(args.parts.split(","))
-    if not parts or parts - {"dp", "sp", "mp"}:
-        p.error(f"--parts: {args.parts!r} is not a subset of dp,sp,mp")
+    if not parts or parts - {"dp", "sp", "mp", "configs"}:
+        p.error(f"--parts: {args.parts!r} is not a subset of "
+                "dp,sp,mp,configs")
     import torch
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         print("multi_gpu_check.py needs two CUDA cards or more",
@@ -233,6 +262,8 @@ def main(argv=None):
             sequence_parallel(n, out, failures, work, logs)
         if "mp" in parts:
             model_parallel(n, out, failures, work, logs)
+        if "configs" in parts:
+            configs(n, out, failures, work, logs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["failures"] = failures
@@ -255,6 +286,39 @@ def gpu_tests(path, logs, name):
     print(f"{path}: rc {tests.returncode}; {summary}", flush=True)
     return tests.returncode, summary, [l for l in lines
                                        if l.startswith("SKIPPED")]
+
+
+def configs(n, out, failures, work, logs):
+    """Step 7 (see the module docstring)."""
+    out["configs"] = {}
+    for config, ranks in (("seq2seq_mp", 2), ("resnet50_hier", 4)):
+        if n < ranks:
+            out["configs"][config] = f"not run: needs {ranks} cards"
+            continue
+        docs = torchrun(ranks, f"configs_{config}", ["--configs", config],
+                        work, logs, kind="configs")
+        row = docs[0][0]
+        out["configs"][config] = row
+        print(json.dumps(row), flush=True)
+        losses = {d[0]["final_loss"] for d in docs}
+        if not (row["config"] == config and row["devices"] == ranks
+                and math.isfinite(row["value"]) and row["value"] > 0
+                and row.get("device_ms_per_step", 0) > 0 and len(losses) == 1
+                and all(map(math.isfinite, losses))):
+            failures.append(f"configs {config}: {row} (final losses by "
+                            f"rank {losses})")
+    if n < 4:
+        out["configs"]["train_parallel_conv"] = "not run: needs 4 cards"
+        return
+    docs = torchrun(4, "parallel_conv", [], work, logs, kind="pconv")
+    losses = docs[0]["losses"]
+    out["configs"]["train_parallel_conv"] = {
+        "world": docs[0]["world"], "first": losses[0], "last": losses[-1]}
+    if not (losses[-1] < losses[0] and all(d["losses"] == losses
+                                           for d in docs)):
+        failures.append(f"train_parallel_conv: losses {losses[0]} -> "
+                        f"{losses[-1]}, the same on every rank: "
+                        f"{all(d['losses'] == losses for d in docs)}")
 
 
 def model_parallel(n, out, failures, work, logs):

@@ -93,7 +93,7 @@ def test_other_optimizers_train(world1, opt):
     ("--fsdp", NotImplementedError), ("--accum-steps 2", NotImplementedError),
     ("--data x", NotImplementedError), ("--train-root x.npz",
                                         NotImplementedError),
-    ("--aux-loss", NotImplementedError)])
+    ("--aux-loss", SystemExit)])
 def test_refusals(flags, err):
     with pytest.raises(err):
         train_imagenet.main(SMALL + flags.split())

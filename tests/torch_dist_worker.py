@@ -3,7 +3,7 @@
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/torch_dist_worker.py \\
             {comm|train|opt|mnist|lm|unused|coll|zero|syncbn|imagenet|seq|
-             p2p|chain|seq2seq} \\
+             p2p|chain|seq2seq|pconv|configs} \\
             IN.npz OUT_PREFIX
 
 Reads the stacked per-rank inputs from ``IN.npz`` (leading axis = rank),
@@ -480,14 +480,18 @@ def run_syncbn(inp, rank):
 
 
 def run_imagenet(inp, rank):
-    """``train_imagenet.main`` for each ``argv{i}`` (one string each):
-    ``{i}/losses`` and ``{i}/model/{name}`` (parameters and buffers)."""
-    from chainermn_tpu_torch.examples import train_imagenet
+    """``main`` of the example ``example`` names (``train_imagenet`` when
+    it is absent) for each ``argv{i}`` (one string each): ``{i}/losses``
+    and ``{i}/model/{name}`` (parameters and buffers)."""
+    import importlib
+    example = importlib.import_module(
+        "chainermn_tpu_torch.examples."
+        + str(inp["example"] if "example" in inp else "train_imagenet"))
 
     out = {}
     i = 0
     while f"argv{i}" in inp:
-        res = train_imagenet.main(str(inp[f"argv{i}"]).split())
+        res = example.main(str(inp[f"argv{i}"]).split())
         out[f"{i}/losses"] = np.asarray(res["losses"])
         out.update({f"{i}/model/{k}": v.detach().cpu().numpy()
                     for k, v in res["model"].state_dict().items()})
@@ -805,6 +809,44 @@ def run_seq2seq(inp, rank):
             "owns_output": np.asarray(res["owns_output"])}
 
 
+def run_pconv(inp, rank):
+    """``examples.train_parallel_conv``'s model from this rank's slice of
+    the flax ``var/*`` tree, ``steps`` Adam steps (``lr``) on the example's
+    batch: ``losses`` and ``var/*`` after them."""
+    from chainermn_tpu_torch.examples import train_parallel_conv as pc
+    comm = create_communicator("xla", device="cpu")
+    model = pc.ChannelShardedCNN(comm)
+    p = nest({k[4:]: v[rank] for k, v in inp.items() if k.startswith("var/")})
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
+    sd = {}
+    for flax_name, port in (("Conv_0", "conv0"), ("Conv_1", "conv1")):
+        sd[f"{port}.weight"] = t(p[flax_name]["kernel"].transpose(3, 2, 0, 1))
+        sd[f"{port}.bias"] = t(p[flax_name]["bias"])
+    sd["dense.weight"] = t(p["Dense_0"]["kernel"].T)
+    sd["dense.bias"] = t(p["Dense_0"]["bias"])
+    model.load_state_dict(sd)
+    x, y = pc.make_batch(int(inp["batchsize"]), int(inp["seed"]))
+    opt = torch.optim.Adam(model.parameters(), lr=float(inp["lr"]))
+    losses = list(pc.train_steps(model, opt, x, y, int(inp["steps"])))
+    w = {n: v.detach().numpy() for n, v in model.state_dict().items()}
+    out = {"losses": np.asarray(losses)}
+    for flax_name, port in (("Conv_0", "conv0"), ("Conv_1", "conv1")):
+        out[f"var/{flax_name}/kernel"] = w[f"{port}.weight"].transpose(
+            2, 3, 1, 0)
+        out[f"var/{flax_name}/bias"] = w[f"{port}.bias"]
+    out["var/Dense_0/kernel"] = w["dense.weight"].T
+    out["var/Dense_0/bias"] = w["dense.bias"]
+    return out
+
+
+def run_configs(inp, rank):
+    """``benchmarks.run_configs.main(argv)``: its rows as one JSON
+    string."""
+    import json
+    from chainermn_tpu_torch.benchmarks import run_configs as rc
+    return {"rows": np.asarray(json.dumps(rc.main(str(inp["argv"]).split())))}
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -848,7 +890,9 @@ def main():
            "mnist": run_mnist, "lm": run_lm, "unused": run_unused,
            "coll": run_coll, "zero": run_zero, "syncbn": run_syncbn,
            "imagenet": run_imagenet, "seq": run_seq, "p2p": run_p2p,
-           "chain": run_chain, "seq2seq": run_seq2seq}[mode](inp, topo.rank)
+           "chain": run_chain, "seq2seq": run_seq2seq,
+           "pconv": run_pconv, "configs": run_configs}[mode](inp,
+                                                             topo.rank)
     np.savez(f"{out_prefix}.{topo.rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
