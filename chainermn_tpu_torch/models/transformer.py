@@ -32,8 +32,12 @@ What is kept from flax, which ``torch.nn``'s defaults would change:
 * the qkv projection splits q | k | v with widths ``d_model, d_kv, d_kv``;
 * the logits are float32; ``pos_offset`` is a scalar or a ``[B]`` vector.
 
-The JAX model's other extensions are not ported: ``moe_experts > 0``,
-``tp_size > 1`` and ``attend=`` raise with their ROADMAP.md queue.  Weights
+Serving's hooks are JAX's: ``pos_offset`` may be a ``[B]`` vector (each
+sequence at its own global position) and ``attend=`` installs a per-layer
+callback ``attend(layer, q, k, v)`` that sees the unrepeated grouped kv
+heads and owns masking and the cache (:mod:`chainermn_tpu_torch.serving`).
+The JAX model's other extensions are not ported: ``moe_experts > 0`` and
+``tp_size > 1`` raise with their ROADMAP.md queue.  Weights
 come from a flax model with :mod:`chainermn_tpu_torch.weights`;
 initialisation otherwise draws from an explicit ``torch.Generator`` with
 flax's initialisers (lecun-normal dense kernels and embeddings, zero biases,
@@ -42,6 +46,7 @@ unit scales).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -167,10 +172,6 @@ class Block(nn.Module):
         self.down = dense(4 * d_model, d_model)
 
     def forward(self, x, attend=None):
-        if attend is not None:
-            raise NotImplementedError(
-                "attend= (serving's per-layer attention) is not ported yet; "
-                "see ROADMAP.md Queue A12")
         d_model = x.shape[-1]
         lead = x.shape[:-1]
         qkv = self.qkv(self.ln_attn(x))
@@ -179,6 +180,8 @@ class Block(nn.Module):
             lead + (self.n_kv, self.head_dim))
         v = qkv[..., d_model + self.d_kv:].reshape(
             lead + (self.n_kv, self.head_dim))
+        if attend is not None:
+            return self._rest(x, attend(q, k, v), lead, d_model)
         if self.n_kv != self.n_heads and self.impl not in (
                 "flash", "ring_flash"):
             # the fused kernels read grouped kv natively (and under
@@ -188,6 +191,9 @@ class Block(nn.Module):
             k = k.repeat_interleave(grp, dim=-2)
             v = v.repeat_interleave(grp, dim=-2)
         out = _attend(self.impl, self.comm, q, k, v, causal=True)
+        return self._rest(x, out, lead, d_model)
+
+    def _rest(self, x, out, lead, d_model):
         x = x + self.proj(out.reshape(lead + (d_model,)))
         h = F.gelu(self.up(self.ln_mlp(x)), approximate="tanh")
         return x + self.down(h)
@@ -199,8 +205,10 @@ class TransformerLM(nn.Module):
     The JAX constructor's fields, with ``comm`` (the communicator whose
     ranks shard the sequence) for ``axis_name``; with a sequence-parallel
     ``attention_impl`` each rank passes its ``[B, T/P]`` block and
-    ``pos_offset=rank * T/P``.  Of the extensions, ``moe_experts`` and
-    ``tp_size`` are taken only to refuse them.
+    ``pos_offset=rank * T/P``.  Decode mode (serving): ``pos_offset`` a
+    ``[B]`` vector and ``attend(layer, q, k, v)`` per layer.  Of the
+    extensions, ``moe_experts`` and ``tp_size`` are taken only to refuse
+    them.
     """
 
     def __init__(self, vocab: int, d_model: int = 256, n_layers: int = 4,
@@ -221,6 +229,8 @@ class TransformerLM(nn.Module):
                 f"n_heads ({n_heads})")
         device = resolve_device(device)
         self.vocab, self.d_model, self.dtype = vocab, d_model, dtype
+        self.n_layers, self.n_heads, self.max_len = n_layers, n_heads, max_len
+        self.n_kv_heads = n_kv_heads
         self.tok_emb = Embed(vocab, d_model, dtype=dtype, device=device,
                              generator=generator)
         self.pos_emb = Embed(max_len, d_model, dtype=dtype, device=device,
@@ -235,18 +245,15 @@ class TransformerLM(nn.Module):
                           generator=generator)
 
     def forward(self, tokens, pos_offset=0, attend=None):
-        if attend is not None:
-            raise NotImplementedError(
-                "attend= (serving's per-layer attention) is not ported yet; "
-                "see ROADMAP.md Queue A12")
         x = self.tok_emb(tokens)
         off = torch.as_tensor(pos_offset, dtype=torch.int64,
                               device=tokens.device)
         ar = torch.arange(tokens.shape[-1], device=tokens.device)
         positions = off + ar if off.ndim == 0 else off[:, None] + ar[None, :]
         x = x + self.pos_emb(positions)
-        for blk in self.blocks:
-            x = blk(x)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, None if attend is None
+                    else functools.partial(attend, i))
         return self.head(self.ln_f(x)).float()
 
 

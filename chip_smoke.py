@@ -249,6 +249,36 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     VGG-16 rows on the card (full shapes, 5 timed windows and the device
     time) and ``mnist_mlp`` on a gloo world of 8 CPU processes, one JSON
     line each.
+24. serving (after 23, before 22), through
+    ``benchmarks.bench_serving`` at phase 11's LM, uncut (seed-0 weights,
+    bf16; 16 slots of 64-token chunks, 2,048 pages of 16, 128 a
+    sequence): first ``cmn_flash_fwd`` against its plain version on a
+    paged cache at the engine's shapes (``serving_case``: B 16, Tk 2048,
+    Tq 64 and 5, kv heads 16 and 4, bf16 and float32, idle rows at offset
+    0), phase 10's limits.  (a) The open-loop trace (seed 0, 64 requests,
+    prompts 128-1024, up to 128 new tokens, 200 requests/s) under
+    ``continuous`` then ``static``: tokens/s, requests/s, steps, TTFT and
+    inter-token p50/p99, mean active slots, the device's busy share over
+    5 profiled steps, peak memory; gated: every page free after each
+    drain, flash forward launches exactly 8 x the target passes and no
+    backward launch, continuous in no more steps than static.  Row 6 is
+    timed at B 16, Tq 64, Tk 2048 (``serving_timing``, with SDPA under the
+    equivalent mask).  (c) The same trace as one burst through two engines
+    stepped together, the kernel's and the plain attention's: the kept
+    logits within phase 10's bf16 limit (relative L2 over all rows
+    compared), equal tokens wherever the plain run's top-two gap exceeds
+    ``_gap_limit`` (``P24_GAP`` and two bf16 spacings at the top logit).
+    (d) ``prefix`` (32 requests, 1024-token prompts 0.9
+    shared, cache off then on: speedup, hit tokens) and ``spec`` (k 4, the
+    one-layer draft, 16 requests, prompts 64-256, 128 new tokens: tokens a
+    verify pass), the spec completions equal to greedy decoding's
+    wherever its gap exceeds that limit, launches 8 x target + 1 x draft
+    passes.  (e) ``fleet``: 2 replicas, 32 requests over 8 sessions: TTFT
+    p50/p99, every session served by one replica.  (b) Float32 (TF32 off)
+    at ``P24_B_LAYERS`` layers of the same width: each step's kept logits
+    of 3 requests within ``utils/compare.py``'s relative L2 of a
+    cache-free forward over the sequence so far, equal tokens where its
+    gap exceeds 1e-3.  The summary's row 6 adds the serving launches.
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
 """
@@ -2134,6 +2164,443 @@ def phase_models(fn, cs, torch, dev):
     return out
 
 
+# phase 24: serving (bench_serving's engine at the LM's full width)
+P24_FLAGS = ["--device", "cuda", "--dtype", "bfloat16", "--seed", "0",
+             "--vocab", str(LM["vocab"]), "--d-model", str(LM["d_model"]),
+             "--n-layers", str(LM["n_layers"]),
+             "--n-heads", str(LM["n_heads"]), "--max-len",
+             str(LM["max_len"]), "--page-size", "16", "--num-pages", "2048",
+             "--max-seqs", "16", "--chunk-tokens", "64",
+             "--max-pages-per-seq", "128", "--rate", "200"]
+# (a) and (e): the open-loop trace; (d) the prefix and spec bursts
+P24_TRACE = ["--requests", "64", "--min-prompt", "128", "--max-prompt",
+             "1024", "--max-new", "128"]
+P24_PREFIX = ["--requests", "32", "--prefix-prompt", "1024",
+              "--prefix-share", "0.9", "--prefix-max-new", "4"]
+P24_SPEC = ["--requests", "16", "--min-prompt", "64", "--max-prompt", "256",
+            "--spec-k", "4", "--spec-max-new", "128"]
+P24_FLEET = ["--requests", "32", "--min-prompt", "128", "--max-prompt",
+             "1024", "--max-new", "128", "--replicas", "2", "--sessions",
+             "8"]
+P24_PARAMS_M = 553.9  # the LM's parameters (phase 11's check), millions
+P24_B_LAYERS = 2     # (b): the float32 check's depth
+P24_B_PROMPTS = (200, 77, 9)   # (b): prompt lengths (200: 4 prefill chunks)
+P24_B_NEW = 6
+# (c), (d): tokens are compared where the plain run's top-two gap exceeds
+# P24_GAP and two bfloat16 spacings at its top logit.  The logits are bf16
+# (the head's output): from 2 to 4 they step by 1/64, from 4 to 8 by 1/32,
+# so two runs whose logits differ below a spacing can still round a pair
+# apart by one spacing each, a flip at a gap of up to two spacings
+P24_GAP = 2e-2
+# the flash forward at serving shapes: (B, Tq, Tk, H, D) and each row's
+# offset (rows 0 and 14 idle at offset 0; 2047 a decode at the cache's
+# last position, its padded rows past Tk)
+SERVE_SHAPE = (16, 64, 2048, 16, 128)
+SERVE_OFFS = (0, 5, 63, 64, 100, 511, 777, 1000, 1023, 1024, 1500, 1984,
+              2000, 2047, 0, 300)
+
+
+def serving_case(fa, kv, torch, dev, dtype, tq, hk, seed=0, page=16):
+    """The flash forward against its plain version on a paged cache at a
+    serving shape: every active row holds the pages its offset reaches
+    (drawn at random from 2048), the rest of its table and all of an idle
+    row's point at the trash page; keys past a row's length hold the
+    cache's other contents.  ``(max abs error, relative L2 error)``."""
+    b, _, tk, h, d = SERVE_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_pages, per_row = 2048, tk // page
+    cache_k = torch.randn(n_pages + 1, page, hk, d, generator=gen,
+                          device=dev).mul_(0.5).to(dtype)
+    cache_v = torch.randn(n_pages + 1, page, hk, d, generator=gen,
+                          device=dev).to(dtype)
+    table = torch.full((b, per_row), n_pages, dtype=torch.int32, device=dev)
+    perm = torch.randperm(n_pages, generator=gen, device=dev)
+    used = 0
+    for i, off in enumerate(SERVE_OFFS):
+        if i in (0, 14):
+            continue
+        n = min(per_row, -(-(off + tq) // page))
+        table[i, :n] = perm[used:used + n]
+        used += n
+    q = (torch.randn(b, tq, h, d, generator=gen, device=dev) * 0.5).to(dtype)
+    kc, vc = kv.gather_kv(cache_k, table), kv.gather_kv(cache_v, table)
+    offs = torch.tensor([[o, 0] for o in SERVE_OFFS], dtype=torch.int32,
+                        device=dev)
+    out_k, _ = fa.flash_fwd(q, kc, vc, True, offs=offs)
+    out_p, _ = fa.flash_forward_plain(q, kc, vc, True, offs=offs)
+    torch.cuda.synchronize()
+    return (float((out_k.float() - out_p.float()).abs().max()),
+            _rel(torch, out_k, out_p))
+
+
+def serving_timing(fa, kv, torch, dev, card):
+    """Row 6 at the serving shape (bf16, H = Hkv = 16, the phase's
+    offsets): the kernel by CUDA-graph replay, its plain version, and SDPA
+    with the equivalent boolean mask; the bound counts the bytes of q, the
+    gathered K/V, out and lse (the work is far under the product bound)."""
+    import torch.nn.functional as F
+    b, tq, tk, h, d = SERVE_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(1)
+    mk = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                device=dev).to(torch.bfloat16)
+    q, k, v = mk(b, tq, h, d), mk(b, tk, h, d), mk(b, tk, h, d)
+    offs = torch.tensor([[o, 0] for o in SERVE_OFFS], dtype=torch.int32,
+                        device=dev)
+    qpos = offs[:, :1, None] + torch.arange(tq, device=dev)[None, :, None]
+    mask = (torch.arange(tk, device=dev)[None, None, :] <= qpos)[:, None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms = _time(torch, lambda: fa.flash_fwd(q, k, v, True, offs=offs), 20,
+               True)
+    plain_ms = _time(torch, lambda: fa.flash_forward_plain(
+        q, k, v, True, offs=offs), 5, False)
+    library_ms = _time(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), 20, True)
+    # the bytes this data needs: q, out and lse, and of K and V only the
+    # keys some query of the row can see (the kernel skips the tiles past
+    # each row's diagonal; rows of small offsets read few pages)
+    seen = sum(min(o + tq, tk) for o in SERVE_OFFS)
+    nbytes = (fa.flash_attention_bytes(b, tq, 0, h, h, d, torch.bfloat16)
+              + 2 * seen * h * d * 2)
+    pairs = sum(fa._pairs(tq, tk, True, o) for o in SERVE_OFFS)
+    flops = 4 * d * h * pairs
+    bound = max(nbytes / card.hbm_bytes_per_s,
+                flops / (card.peak_tflops * 1e12)) * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound, bytes=nbytes, flops=flops,
+                bound_by="bytes" if nbytes / card.hbm_bytes_per_s
+                >= flops / (card.peak_tflops * 1e12) else "operations")
+
+
+def _bf16_ulp(x):
+    """The spacing of bfloat16 values at ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def _spacings(flips):
+    """``{gap in bf16 spacings at the top logit: flips}``."""
+    out = {}
+    for f in flips:
+        k = str(round(f["gap"] / _bf16_ulp(f["top"]), 3))
+        out[k] = out.get(k, 0) + 1
+    return out
+
+
+def _gap_limit(top):
+    """The top-two gap above which phase 24 compares tokens (P24_GAP)."""
+    return max(P24_GAP, 2 * _bf16_ulp(top))
+
+
+def _top2_gap(row):
+    top = row.float().topk(2).values
+    return float(top[0] - top[1])
+
+
+class _PlainAttention:
+    """Inside the block, ``serving.kv_cache``'s attention is the flash
+    forward's plain version (phase 24 (c)'s reference run on the card)."""
+
+    def __init__(self, fa, kv, torch):
+        self.fa, self.kv, self.torch = fa, kv, torch
+
+    def __enter__(self):
+        fa, torch = self.fa, self.torch
+
+        def plain(q, k, v, causal, sm_scale=None, q_offset=None):
+            off = q_offset.to(torch.int32)
+            offs = torch.stack([off, torch.zeros_like(off)], 1)
+            return fa.flash_forward_plain(q, k, v, causal, sm_scale,
+                                          offs=offs)[0]
+
+        self.orig, self.kv.flash_attention = self.kv.flash_attention, plain
+
+    def __exit__(self, *exc):
+        self.kv.flash_attention = self.orig
+
+
+def p24_b(torch, args):
+    """(b): float32 (TF32 off) at P24_B_LAYERS layers of the LM's width
+    (``args``: the phase's flags with those changes and 64 pages): each
+    step's kept logits of 3 requests against a cache-free forward of the
+    same model (its plain attention) over the sequence so far;
+    ``(worst relative L2, rows, near-ties)``."""
+    from chainermn_tpu_torch.benchmarks import bench_serving as bs
+    from chainermn_tpu_torch.serving import InferenceEngine
+    from chainermn_tpu_torch.utils.compare import GRAD_RTOL, no_tf32, rel_l2
+    import numpy as np
+    model = bs.build_model(args)
+    dev = torch.device(args.device)
+    eng = InferenceEngine(model, bs._config(args, keep_logits=True))
+    rng = np.random.default_rng(24)
+    ctx = {}
+    for n in P24_B_PROMPTS:
+        p = list(map(int, rng.integers(1, LM["vocab"], size=n)))
+        ctx[eng.submit(p, P24_B_NEW)] = p
+    worst, rows, ties = 0.0, 0, 0
+    with no_tf32(), torch.inference_mode():
+        while not eng.idle():
+            res = eng.step()
+            slot = {s.rid: i for i, s in enumerate(eng.scheduler.slots)
+                    if s is not None}
+            for rid, tok, _ in res.emitted:
+                ref = model(torch.tensor([ctx[rid]], device=dev))[0, -1]
+                got = torch.from_numpy(res.last_logits[slot[rid]])
+                err = rel_l2(got, ref.cpu())
+                worst, rows = max(worst, err), rows + 1
+                if not err <= GRAD_RTOL:
+                    raise AssertionError(f"phase 24 (b): rid {rid} logits "
+                                         f"rel L2 {err:.3g} over {GRAD_RTOL}")
+                if tok != int(ref.argmax()):
+                    if _top2_gap(ref) > 1e-3:
+                        raise AssertionError(
+                            f"phase 24 (b): rid {rid} token {tok}, the full "
+                            f"context's {int(ref.argmax())} (gap "
+                            f"{_top2_gap(ref):.3g})")
+                    ties += 1
+                ctx[rid].append(tok)
+    if rows != len(P24_B_PROMPTS) * P24_B_NEW:
+        raise AssertionError(f"phase 24 (b): {rows} rows compared")
+    del model, eng
+    return dict(worst_rel=worst, rows=rows, near_ties=ties)
+
+
+def p24_c(fa, kv, torch, model, args):
+    """(c): the (a) trace as one burst through two bf16 engines stepped
+    together, one with the kernel, one with its plain version: the kept
+    logits of every row whose request's tokens agree so far (relative L2
+    of them all within phase 10's bf16 limit), equal tokens where the
+    plain run's top-two gap exceeds ``_gap_limit``; a request is compared
+    up to its first differing token, which is recorded."""
+    from chainermn_tpu_torch.benchmarks import bench_serving as bs
+    from chainermn_tpu_torch.serving import InferenceEngine
+    cfg = bs._config(args, keep_logits=True)
+    engs = [InferenceEngine(model, cfg) for _ in range(2)]
+    for _, prompt, max_new in bs.build_trace(args):
+        for e in engs:
+            e.submit(prompt, max_new)
+    diverged, num, den, worst = set(), 0.0, 0.0, 0.0
+    tokens, flips, max_abs = 0, [], 0.0
+    while not engs[0].idle():
+        rk = engs[0].step()
+        with _PlainAttention(fa, kv, torch):
+            rp = engs[1].step()
+        if rk.plan != rp.plan:
+            raise AssertionError("phase 24 (c): the plans differ")
+        if not rk.ran_forward:
+            continue
+        slot = {s.rid: i for i, s in enumerate(engs[0].scheduler.slots)
+                if s is not None}
+        for rid, i in slot.items():
+            if rid in diverged or rk.n_new[i] == 0:
+                continue
+            a = torch.from_numpy(rk.last_logits[i])
+            b = torch.from_numpy(rp.last_logits[i])
+            num += float((a - b).norm() ** 2)
+            den += float(b.norm() ** 2)
+            worst = max(worst, _rel(torch, a, b))
+            max_abs = max(max_abs, float((a - b).abs().max()))
+        pt = {rid: (tok, slot[rid]) for rid, tok, _ in rp.emitted}
+        for rid, tok, _ in rk.emitted:
+            if rid in diverged:
+                continue
+            ptok, i = pt[rid]
+            if tok == ptok:
+                tokens += 1
+                continue
+            a = torch.from_numpy(rk.last_logits[i])
+            b = torch.from_numpy(rp.last_logits[i])
+            flips.append(dict(
+                rid=rid, kernel=tok, plain=ptok,
+                gap=_top2_gap(b), top=float(b.max()),
+                kernel_logits=[float(a[tok]), float(a[ptok])],
+                plain_logits=[float(b[tok]), float(b[ptok])]))
+            diverged.add(rid)
+    rel = (num / den) ** 0.5
+    over = [f for f in flips if f["gap"] > _gap_limit(f["top"])]
+    del engs
+    return dict(rel_l2=rel, worst_row_rel=worst, max_abs=max_abs,
+                tokens=tokens, flips=len(flips), flip_gaps=_spacings(flips),
+                over=over, ok=rel <= FLASH_TOL["bfloat16"] and not over)
+
+
+def p24_spec_gate(torch, model, args, spec):
+    """(d): the spec run's completions against plain greedy decoding of
+    the same burst (a vanilla engine keeping its logits): equal tokens up
+    to the first position where greedy's top-two gap is within
+    ``_gap_limit``."""
+    from chainermn_tpu_torch.benchmarks import bench_serving as bs
+    from chainermn_tpu_torch.serving import InferenceEngine
+    eng = InferenceEngine(model, bs._config(args, keep_logits=True))
+    trace = bs.build_spec_trace(args)
+    bs._warm(eng, trace[0][0])  # as run_spec's engines: the same rids
+    for prompt, max_new in trace:
+        eng.submit(prompt, max_new)
+    gaps = {}
+    while not eng.idle():
+        res = eng.step()
+        slot = {s.rid: i for i, s in enumerate(eng.scheduler.slots)
+                if s is not None}
+        for rid, tok, _ in res.emitted:
+            row = torch.from_numpy(res.last_logits[slot[rid]])
+            gaps.setdefault(rid, []).append((_top2_gap(row),
+                                             float(row.max())))
+    greedy = {c.rid: c.tokens for c in eng.completions}
+    equal, flips = 0, []
+    for rid, toks in spec["completions"].items():
+        for j, (a, b) in enumerate(zip(toks, greedy[rid])):
+            if a != b:
+                flips.append(dict(rid=rid, at=j, spec=a, greedy=b,
+                                  gap=gaps[rid][j][0], top=gaps[rid][j][1]))
+                break
+            equal += 1
+    del eng
+    over = [f for f in flips if f["gap"] > _gap_limit(f["top"])]
+    return dict(equal_tokens=equal, flips=len(flips),
+                flip_gaps=_spacings(flips), over=over, ok=not over)
+
+
+def _p24_launches(fa, passes, layers, draft_layers=1):
+    """The flash launches since the last reset against the passes that
+    ran; raises unless forward == layers x target + draft_layers x draft
+    passes and no backward kernel launched."""
+    counts = fa.launch_counts()
+    want = {"flash_fwd": layers * passes.get("target", 0)
+            + draft_layers * passes.get("draft", 0),
+            "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    if counts != want:
+        raise AssertionError(f"phase 24 launches {counts}, expected {want} "
+                             f"(passes {passes})")
+    return counts["flash_fwd"]
+
+
+def phase_serving(fa, torch, dev, card):
+    """Phase 24: serving (see the module docstring).  Returns what the log
+    lines print."""
+    import importlib
+    from chainermn_tpu_torch.benchmarks import bench_serving as bs
+    kv = importlib.import_module("chainermn_tpu_torch.serving.kv_cache")
+    p = bs.parser()
+    args = p.parse_args(P24_FLAGS + P24_TRACE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"shape_errs": {}}
+    # the kernel at the phase's attention shapes first (its first launch
+    # at them, before the engine's)
+    h = SERVE_SHAPE[3]
+    for dt in (torch.bfloat16, torch.float32):
+        for tq in (SERVE_SHAPE[1], 5):  # a chunk; spec's k + 1 at k 4
+            for hk in (h, h // 4):
+                err = serving_case(fa, kv, torch, dev, dt, tq, hk)
+                tol = FLASH_TOL[str(dt).split(".")[1]]
+                out["shape_errs"][f"{str(dt)[6:]} Tq{tq} Hkv{hk}"] = err
+                if not err[1] <= tol:
+                    raise AssertionError(f"phase 24: flash at a serving "
+                                         f"shape: {err} over {tol}")
+    model = bs.build_model(args)
+    n_params = sum(x.numel() for x in model.parameters())
+    if round(n_params / 1e6, 1) != P24_PARAMS_M:
+        raise AssertionError(f"{n_params} parameters, expected "
+                             f"{P24_PARAMS_M} M")
+    # (a): the main path, counted
+    fa.reset_launch_counts()
+    pol = {pl: bs.run_policy(pl, model, bs.build_trace(args), args)
+           for pl in ("continuous", "static")}
+    passes = {"target": sum(r["passes"]["target"] for r in pol.values())}
+    out["launches"] = _p24_launches(fa, passes, LM["n_layers"])
+    for pl, r in pol.items():
+        if r["free_pages"] != r["num_pages"] or \
+                r["requests"] != args.requests:
+            raise AssertionError(f"phase 24 (a) {pl}: {r['requests']} "
+                                 f"requests, {r['free_pages']} pages free")
+    if pol["continuous"]["steps"] > pol["static"]["steps"]:
+        raise AssertionError("phase 24 (a): continuous took more steps than "
+                             "static")
+    out["policies"] = pol
+    out["timing"] = serving_timing(fa, kv, torch, dev, card)
+    # (c) the same trace, kernel vs plain, bf16
+    out["c"] = p24_c(fa, kv, torch, model, args)
+    # (d) prefix and spec
+    fa.reset_launch_counts()
+    pa = p.parse_args(P24_FLAGS + P24_PREFIX)
+    out["prefix"] = bs.run_prefix(model, pa)
+    sa = p.parse_args(P24_FLAGS + P24_SPEC)
+    out["spec"] = bs.run_spec(model, sa)
+    out["launches_d"] = _p24_launches(fa, {
+        k: out["prefix"]["passes"].get(k, 0) + out["spec"]["passes"].get(
+            k, 0) for k in ("target", "draft")}, LM["n_layers"])
+    out["spec_gate"] = p24_spec_gate(torch, model, sa, out["spec"])
+    # (e) the fleet
+    fa.reset_launch_counts()
+    fa_args = p.parse_args(P24_FLAGS + P24_FLEET)
+    out["fleet"] = bs.run_fleet(model, bs.build_trace(fa_args), fa_args)
+    out["launches_e"] = _p24_launches(fa, out["fleet"]["passes"],
+                                      LM["n_layers"])
+    if not out["fleet"]["session_affinity_ok"] or \
+            out["fleet"]["requests"] != fa_args.requests:
+        raise AssertionError(f"phase 24 (e): {out['fleet']}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["serving_launches"] = (out["launches"] + out["launches_d"]
+                               + out["launches_e"])
+    del model
+    torch.cuda.empty_cache()
+    # (b) float32 at two layers
+    out["b"] = p24_b(torch, p.parse_args(
+        P24_FLAGS + ["--dtype", "float32", "--n-layers", str(P24_B_LAYERS),
+                     "--num-pages", "64"]))
+    torch.cuda.empty_cache()
+    out["failed"] = [k for k in ("c", "spec_gate") if not out[k]["ok"]]
+    return out
+
+
+def _lat(r):
+    return (f"TTFT p50/p99 {r['ttft_s']['p50']:.4f}/{r['ttft_s']['p99']:.4f}"
+            f" s, inter-token p50/p99 {r['per_token_s']['p50']:.5f}/"
+            f"{r['per_token_s']['p99']:.5f} s")
+
+
+def log_serving(srv, gpu, secs):
+    """Phase 24's lines: (a) per policy, the kernel at serving shapes and
+    its timing, (b)-(e)."""
+    for pl, r in srv["policies"].items():
+        busy = r.get("busy") or {}
+        log(f"phase serving (24) (a) {pl}: {r['generated_tokens']} tokens "
+            f"of {r['requests']} requests in {r['steps']} steps, "
+            f"{r['wall_s']:.3f} s: {r['tokens_per_sec']:.1f} tokens/s, "
+            f"{r['requests_per_sec']:.2f} requests/s; {_lat(r)}; mean "
+            f"active slots {r['mean_active']:.2f}; busy share over "
+            f"{busy.get('steps')} profiled steps {busy.get('busy_share')} "
+            f"(device {busy.get('device_ms_per_step')} ms of wall "
+            f"{busy.get('wall_ms_per_step')} ms a step; by category "
+            f"{json.dumps(busy.get('device_ms_by_category'))}); peak memory "
+            f"{r['peak_gb']:.2f} GB; pages free after the drain "
+            f"{r['free_pages']}/{r['num_pages']}; passes "
+            f"{json.dumps(r['passes'])}")
+    t = srv["timing"]
+    pr, sp, fl = srv["prefix"], srv["spec"], srv["fleet"]
+    log(f"phase serving (24): {secs:.1f} s; cmn_flash_fwd launches (a) "
+        f"{srv['launches']} = 8 x target passes, no backward launches; (d) "
+        f"{srv['launches_d']}, (e) {srv['launches_e']}; flash at serving "
+        f"shapes (B, Tq, Tk, H, D {SERVE_SHAPE}; max abs, rel L2) "
+        f"{json.dumps(srv['shape_errs'])}; row 6 at that shape, bf16, "
+        f"offsets {list(SERVE_OFFS)}: {json.dumps(t)}; (b) float32 "
+        f"{P24_B_LAYERS} layers vs the full-context forward "
+        f"{json.dumps(srv['b'])}; (c) bf16 kernel vs plain "
+        f"{json.dumps(srv['c'])}; (d) prefix speedup {pr['speedup']:.3f} "
+        f"({pr['cached']['tokens_per_sec']:.1f} vs "
+        f"{pr['uncached']['tokens_per_sec']:.1f} tokens/s), hit tokens "
+        f"{pr['cached']['stats']['hit_tokens']} of "
+        f"{pr['cached']['stats']['prompt_tokens']}; spec k {sp['k']}: "
+        f"{sp['accept_tokens_per_step']:.3f} tokens per verify pass "
+        f"(acceptance {sp['acceptance_rate']:.3f}), "
+        f"{sp['spec']['tokens_per_sec']:.1f} vs vanilla "
+        f"{sp['vanilla']['tokens_per_sec']:.1f} tokens/s, against greedy "
+        f"{json.dumps(srv['spec_gate'])}; (e) fleet x{fl['replicas']}, "
+        f"{fl['sessions']} sessions: {fl['tokens_per_sec']:.1f} tokens/s, "
+        f"{_lat(fl)}, per replica {fl['requests_per_replica']}, affinity "
+        f"{fl['session_affinity_ok']}, prefix hits {fl['prefix_hits']}; "
+        f"peak memory {srv['peak_gb']:.2f} GB on {gpu}")
+
+
 C12_LOOPS = 300      # phase 22: passes of the flash autograd check
 WGRAD_LOOPS = 600    # phase 22: launches of the probe wgrad
 
@@ -2451,6 +2918,13 @@ def main():
         f"(rows above) on {gpu}")
 
     t0 = time.perf_counter()
+    srv = phase_serving(fa, torch, dev, card)
+    log_serving(srv, gpu, time.perf_counter() - t0)
+    if srv["failed"]:
+        raise AssertionError(f"phase 24: gates {srv['failed']} failed "
+                             "(their lines above)")
+
+    t0 = time.perf_counter()
     c12 = phase_c12(fa, torch, dev, C12_LOOPS)
     rep = phase_wgrad_repeat(pm, bcp, torch, dev, WGRAD_LOOPS)
     log(f"phase repeat loops (22): {time.perf_counter() - t0:.1f} s; C12 "
@@ -2482,7 +2956,8 @@ def main():
         t = flash_t[wrapper]
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
-            "replaces": replaces, "launches": lm["counts"][wrapper],
+            "replaces": replaces, "launches": lm["counts"][wrapper]
+            + (srv["serving_launches"] if wrapper == "flash_fwd" else 0),
             "max_abs_err": flash_errs[wrapper], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -246,7 +246,18 @@ def test_unknown_impl_and_attend_refused():
     want = "attention_impl must be flash|ring|ring_flash|ulysses|xla"
     assert want in _msg(lambda: TransformerLM(
         VOCAB, D_MODEL, 1, HEADS, attention_impl="fused", device="cpu"))
+    # attend= (serving's per-layer hook) is no longer refused: block i
+    # calls attend(i, q, k, v) instead of its own attention
+    from chainermn_tpu_torch.parallel.sequence import attention
     model = TransformerLM(VOCAB, D_MODEL, 1, HEADS, device="cpu")
     toks = torch.zeros((1, 8), dtype=torch.int64)
-    assert "Queue A12" in _msg(lambda: model(toks, attend=lambda *a: a),
-                               NotImplementedError)
+    seen = []
+
+    def attend(layer, q, k, v):
+        seen.append(layer)
+        return attention(q, k, v, causal=True)
+
+    with torch.no_grad():
+        np.testing.assert_allclose(model(toks, attend=attend).numpy(),
+                                   model(toks).numpy(), rtol=RTOL, atol=ATOL)
+    assert seen == [0]

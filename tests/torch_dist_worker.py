@@ -3,7 +3,7 @@
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/torch_dist_worker.py \\
             {comm|train|opt|mnist|lm|unused|coll|zero|syncbn|imagenet|seq|
-             p2p|chain|seq2seq|pconv|configs} \\
+             p2p|chain|seq2seq|pconv|configs|serve} \\
             IN.npz OUT_PREFIX
 
 Reads the stacked per-rank inputs from ``IN.npz`` (leading axis = rank),
@@ -847,6 +847,57 @@ def run_configs(inp, rank):
     return {"rows": np.asarray(json.dumps(rc.main(str(inp["argv"]).split())))}
 
 
+def run_serve(inp, rank):
+    """Serving on a gloo world (``parts``: ``lockstep`` and/or ``bcast``).
+    ``lockstep``: every rank builds the same seeded LM and an engine whose
+    plane is the communicator (vanilla, then ``spec_k`` 2 with a one-layer
+    draft); rank 0 alone submits the prompts; every rank runs ``steps``
+    steps; each rank's completion digest, free pages and spec pickups.
+    ``bcast``: a state dict of this rank's own values (float32, bfloat16,
+    int64) through ``broadcast_inference_params``; the result's bits."""
+    import json
+    from chainermn_tpu_torch.benchmarks.bench_serving import truncated_draft
+    from chainermn_tpu_torch.models.transformer import TransformerLM
+    from chainermn_tpu_torch.serving import (InferenceEngine, ServingConfig,
+                                             broadcast_inference_params)
+    comm = create_communicator("naive", device="cpu")
+    parts = str(inp["parts"]).split(",")
+    out = {}
+    if "lockstep" in parts:
+        model = TransformerLM(37, 16, 2, 2, 64, device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+        prompts = json.loads(str(inp["prompts"]))
+        for label, k in (("vanilla", 0), ("spec", 2)):
+            cfg = ServingConfig(page_size=4, num_pages=16, max_seqs=2,
+                                chunk_tokens=4, max_pages_per_seq=4,
+                                spec_k=k)
+            eng = InferenceEngine(
+                model, cfg, plane=comm,
+                draft_model=truncated_draft(model) if k else None)
+            if comm.rank == 0:
+                for pr in prompts:
+                    eng.submit(pr, max_new_tokens=4)
+            for _ in range(int(inp["steps"])):
+                eng.step()
+            digest = sorted([c.rid, c.tokens] for c in eng.completions)
+            out[f"{label}/digest"] = np.asarray(json.dumps(digest))
+            out[f"{label}/free"] = np.asarray(eng.scheduler.allocator.num_free)
+            out[f"{label}/pickups"] = np.asarray(eng._spec_pickups)
+    if "bcast" in parts:
+        gen = torch.Generator().manual_seed(100 + rank)
+        sd = {"w": torch.randn(5, 7, generator=gen),
+              "h": torch.randn(3, generator=gen).to(torch.bfloat16),
+              "ids": torch.randint(0, 1000, (4,), generator=gen)}
+        got = broadcast_inference_params(comm, sd, root=0)
+        out["bcast/w"] = got["w"].numpy()
+        out["bcast/h"] = got["h"].view(torch.int16).numpy()
+        out["bcast/ids"] = got["ids"].numpy()
+        out["mine/w"] = sd["w"].numpy()
+        out["mine/h"] = sd["h"].view(torch.int16).numpy()
+        out["mine/ids"] = sd["ids"].numpy()
+    return out
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -891,8 +942,8 @@ def main():
            "coll": run_coll, "zero": run_zero, "syncbn": run_syncbn,
            "imagenet": run_imagenet, "seq": run_seq, "p2p": run_p2p,
            "chain": run_chain, "seq2seq": run_seq2seq,
-           "pconv": run_pconv, "configs": run_configs}[mode](inp,
-                                                             topo.rank)
+           "pconv": run_pconv, "configs": run_configs,
+           "serve": run_serve}[mode](inp, topo.rank)
     np.savez(f"{out_prefix}.{topo.rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
