@@ -8,15 +8,20 @@ imports neither JAX nor ``chainermn_tpu``.
 """
 
 from chainermn_tpu_torch.communicators import create_communicator
-from chainermn_tpu_torch.datasets import scatter_dataset
+from chainermn_tpu_torch.datasets import (
+    Augment, ImageFolderDataset, NpzImageDataset, TransformDataset,
+    normalize_image, scatter_dataset)
 from chainermn_tpu_torch.links import MultiNodeChainList, pseudo_loss
+from chainermn_tpu_torch.models.vit import ViT, ViT_B16, ViT_S16
 from chainermn_tpu_torch.optimizers import (
     create_multi_node_optimizer, create_per_stage_optimizer, make_train_step)
 from chainermn_tpu_torch.parallel.sequence import (
     attention, ring_attention, ulysses_attention)
 from chainermn_tpu_torch.runtime.bootstrap import init_distributed
 
-__all__ = ["MultiNodeChainList", "attention", "create_communicator",
-           "create_multi_node_optimizer", "create_per_stage_optimizer",
-           "init_distributed", "make_train_step", "pseudo_loss",
+__all__ = ["Augment", "ImageFolderDataset", "MultiNodeChainList",
+           "NpzImageDataset", "TransformDataset", "ViT", "ViT_B16", "ViT_S16",
+           "attention", "create_communicator", "create_multi_node_optimizer",
+           "create_per_stage_optimizer", "init_distributed",
+           "make_train_step", "normalize_image", "pseudo_loss",
            "ring_attention", "scatter_dataset", "ulysses_attention"]

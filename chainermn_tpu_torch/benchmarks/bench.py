@@ -25,7 +25,8 @@ failure there raises) and ``device_ms_by_category`` (the same split by
 :func:`..utils.trace.kernel_category`).  ``--device cpu`` runs the JAX
 bench's CPU smoke shape (a two-stage ResNet of 8 filters at 32x32, batch
 8, float32, no wire dtype, 5 steps after 2) and marks the line ``smoke:
-true``.  The whole run
+true``.  ``--stem s2d`` swaps the 7x7/s2 stem for JAX's space-to-depth
+stem (the same 53 BatchNorm boundaries a step).  The whole run
 sits in a bounded retry of transient (network) failures.
 
     python -m chainermn_tpu_torch.benchmarks.bench
@@ -71,9 +72,11 @@ def parse_args(argv=None):
     p.add_argument("--attempts", type=int, default=3,
                    help="max benchmark attempts before giving up")
     p.add_argument("--stem", choices=["conv7", "s2d"], default=None,
-                   help="ResNet stem (only conv7 is ported)")
+                   help="ResNet stem: conv7 (the reference's 7x7/s2) or s2d "
+                        "(space-to-depth + 4x4/s1 over 12 channels)")
     p.add_argument("--scan", type=int, default=None,
-                   help="train steps fused per dispatch (only 1 is ported)")
+                   help="train steps fused per dispatch (only 1: see "
+                        "ROADMAP.md, the captured train step)")
     p.add_argument("--metrics", default=None, metavar="PATH",
                    help="append the result record to this metrics JSONL")
     p.add_argument("--device", default=None,
@@ -81,11 +84,11 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build(dev):
+def build(dev, stem: str = "conv7"):
     """The bench's train step on ``dev``: ``(step, batch, comm, shape)``,
     ``shape`` = (batch per GPU, image, timed steps, warm-up steps) and the
     number of classes.  ResNet-50 at :data:`GPU_SHAPE` on the card, the
-    tiny ResNet at :data:`CPU_SHAPE` on the CPU."""
+    tiny ResNet at :data:`CPU_SHAPE` on the CPU; ``stem`` either way."""
     import chainermn_tpu_torch as cmn
     from chainermn_tpu_torch.models import ResNet, ResNet50
     from chainermn_tpu_torch.models.resnet import BasicBlock
@@ -94,13 +97,14 @@ def build(dev):
     if on_gpu:
         n_classes = 1000
         model = ResNet50(num_classes=n_classes, dtype=torch.bfloat16,
-                         device=dev, generator=gen)
+                         stem=stem, device=dev, generator=gen)
         shape = GPU_SHAPE
     else:  # CPU smoke path: tiny ResNet so the contract can be exercised
         n_classes = 10
         model = ResNet(stage_sizes=(1, 1), block_cls=BasicBlock,
                        num_filters=8, num_classes=n_classes,
-                       dtype=torch.float32, device=dev, generator=gen)
+                       dtype=torch.float32, stem=stem, device=dev,
+                       generator=gen)
         shape = CPU_SHAPE
     per_gpu_batch, image = shape[:2]
 
@@ -136,13 +140,15 @@ def run(args) -> dict:
 
     stem = args.stem or "conv7"
     scan = 1 if args.scan is None else args.scan
-    if stem != "conv7" or scan != 1:
+    if scan != 1:
         raise NotImplementedError(
-            f"--stem {stem} --scan {scan}: only the conv7 stem and one step "
-            "a dispatch are ported; see ROADMAP.md Queue A6")
+            f"--scan {scan}: several train steps a dispatch have no eager "
+            "counterpart; their counterpart is the captured train step (one "
+            "CUDA graph a step), recorded in ROADMAP.md under work for after "
+            "the port")
     dev = resolve_device(args.device, env_int("LOCAL_RANK") or 0)
     on_gpu = dev.type == "cuda"
-    step, batch, comm, shape = build(dev)
+    step, batch, comm, shape = build(dev, stem)
     per_gpu_batch, image, steps, warmup = shape
     log(f"bench: device={dev} world={comm.size} batch/GPU={per_gpu_batch} "
         f"image={image} stem={stem} scan={scan}")

@@ -35,6 +35,10 @@ writes ``--out``), every rank returns them.
     torchrun --nproc_per_node 4 -m chainermn_tpu_torch.benchmarks.run_configs
     python -m chainermn_tpu_torch.benchmarks.run_configs --device cpu \\
         --configs mnist_mlp,resnet50_xla,vgg16_cifar_db
+
+``--tune-remat`` sweeps JAX's remat policies over the ResNet configs
+instead (:func:`tune_remat`), printing a ``remat_tune/v1`` document with
+each policy's step time and peak device memory, and the selected one.
 """
 
 from __future__ import annotations
@@ -351,6 +355,83 @@ def bench_resnet50_hier(args, dev):
         r)
 
 
+# --------------------------------------------------------------------------
+# --tune-remat: the remat policies over the ResNet configs
+# --------------------------------------------------------------------------
+def tune_remat(args, dev, card) -> dict:
+    """Sweep :data:`~chainermn_tpu_torch.models.resnet.REMAT_POLICIES`
+    (none / every residual block recomputed / only the norm tails
+    recomputed) over ``resnet50_xla``, and over ``resnet50_hier`` on a
+    world of four ranks or more, with the fused BatchNorm kernels at every
+    boundary; pick each config's policy by its measured step time.  Returns
+    the ``remat_tune/v1`` document (JAX's keys, plus each row's peak device
+    memory and ``card``).  The card rows are ResNet-50 at 224 pixels, 128 a
+    GPU, 10 steps after 3 of warm-up in ``--repeats`` windows; the CPU rows
+    the smoke ResNet (batch 8, 3 steps after 1, one window)."""
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.models import ResNet, ResNet50
+    from chainermn_tpu_torch.models.resnet import REMAT_POLICIES, BasicBlock
+    on_gpu = dev.type == "cuda"
+    n = dist.get_world_size()
+
+    def model_kw(policy):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if on_gpu:
+            return (ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                             remat_policy=policy, device=dev, generator=gen),
+                    dict(image=224, n_classes=1000, per_gpu_batch=128,
+                         steps=10, warmup=3, repeats=args.repeats))
+        return (ResNet(stage_sizes=(1, 1), block_cls=BasicBlock,
+                       num_filters=8, num_classes=10, remat_policy=policy,
+                       device=dev, generator=gen),
+                dict(image=32, n_classes=10, per_gpu_batch=8, steps=3,
+                     warmup=1, repeats=1))
+
+    comms = {"resnet50_xla": lambda: cmn.create_communicator(
+        "xla", allreduce_grad_dtype="bfloat16" if on_gpu else None,
+        device=dev)}
+    if n >= 4:
+        comms["resnet50_hier"] = lambda: cmn.create_communicator(
+            "hierarchical", intra_size=n // 2, device=dev)
+    sweeps = {}
+    for config, mk_comm in comms.items():
+        rows = {}
+        for policy in REMAT_POLICIES:
+            model, kw = model_kw(policy)
+            comm = mk_comm()
+            if dist.get_rank() == 0:
+                log(f"tune-remat {config}/{policy}: starting (device {dev}, "
+                    f"world {comm.size})")
+            if on_gpu:
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            r = _dp_image_bench(model, comm, **kw)
+            rows[policy] = {
+                "ms_per_step": r["seconds"] / kw["steps"] * 1e3,
+                "images_per_sec_per_gpu": r["per_gpu"],
+                "final_loss": r["final_loss"],
+                "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+                if on_gpu else None,
+                **{k: r[k] for k in TIMED_KEYS if k in r}}
+            del model
+            if on_gpu:
+                torch.cuda.empty_cache()
+            if dist.get_rank() == 0:
+                log(f"tune-remat {config}/{policy}: "
+                    f"{rows[policy]['ms_per_step']:.3f} ms/step, peak "
+                    f"{rows[policy]['peak_memory_gb']} GB")
+        selected = min(rows, key=lambda p: rows[p]["ms_per_step"])
+        sweeps[config] = {"rows": rows, "selected": selected,
+                          "selected_ms_per_step":
+                              rows[selected]["ms_per_step"]}
+    return {"schema": "remat_tune/v1", "backend": dev.type,
+            # a CPU run exercises the path; the card's run selects
+            "smoke": not on_gpu, "fused_norm": True,
+            "policies": list(REMAT_POLICIES),
+            "timestamp": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+            "card": card, "configs": sweeps}
+
+
 BENCHES = {"mnist_mlp": bench_mnist_mlp, "resnet50_xla": bench_resnet50_xla,
            "vgg16_cifar_db": bench_vgg16_cifar_db,
            "seq2seq_mp": bench_seq2seq_mp,
@@ -370,12 +451,14 @@ def parse_args(argv=None):
                    help="default: cuda:LOCAL_RANK (pass 'cpu' for the CPU "
                         "smoke shapes)")
     p.add_argument("--tune-remat", action="store_true",
-                   help="not ported yet (the remat policies)")
+                   help="instead of the configs, sweep the remat policies "
+                        "(none/block/norm) over the ResNet configs with the "
+                        "fused norm kernels and select each config's by "
+                        "step time (remat_tune/v1 document)")
     args = p.parse_args(argv)
-    if args.tune_remat:
-        raise NotImplementedError(
-            "--tune-remat needs the ResNet's remat policies, which are not "
-            "ported yet; see ROADMAP.md Queue A6")
+    if args.tune_remat and args.configs:
+        p.error("--tune-remat sweeps the ResNet configs (resnet50_xla, and "
+                "resnet50_hier on four ranks); --configs does not apply")
     if args.repeats < 1:
         p.error("--repeats must be >= 1")
     wanted = args.configs.split(",") if args.configs else list(CONFIGS)
@@ -387,14 +470,25 @@ def parse_args(argv=None):
     return args
 
 
-def main(argv=None) -> list:
-    """Run the configs asked for; returns their rows (every rank)."""
+def main(argv=None):
+    """Run the configs asked for; returns their rows (every rank), or the
+    ``remat_tune/v1`` document with ``--tune-remat``."""
     from chainermn_tpu_torch.runtime.bootstrap import init_distributed
     from chainermn_tpu_torch.utils.gpu_info import smi_line
     args = parse_args(argv)
     topo = init_distributed(args.device)
     dev = topo.device
     card = smi_line(dev.index or 0) if dev.type == "cuda" else None
+    if args.tune_remat:
+        doc = tune_remat(args, dev, card)
+        if topo.rank == 0:
+            payload = json.dumps(doc, indent=2)
+            print(payload, flush=True)
+            if args.out:
+                with open(args.out, "w") as f:
+                    f.write(payload + "\n")
+                log(f"wrote {args.out}")
+        return doc
     rows = []
     for name in args.wanted:
         if topo.rank == 0:

@@ -4,16 +4,39 @@ Counterpart of ``examples/imagenet/train_imagenet.py``: create a
 communicator, scatter the dataset, wrap the optimizer so every step
 averages the gradients, and train.  One process drives one GPU; launch
 several with ``torchrun`` (or set ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/
-``MASTER_PORT``/``LOCAL_RANK`` yourself).  This port supports synthetic
-ImageNet-shaped data only (class-dependent channel means, so the loss can
-fall; the JAX example's images from the same seed, transposed to NCHW) and
-the reference's architectures: ``alex``, ``googlenet``, ``googlenetbn``,
-``nin`` and ``resnet50``.  The BatchNorm archs (ResNet-50, GoogLeNetBN)
-run the fused BatchNorm(+ReLU) kernels.  ``--aux-loss`` trains GoogLeNet's
-auxiliary heads (``loss3 + 0.3 loss1 + 0.3 loss2``).  Dropout masks come
-from the model's generator, reseeded every step from (seed, iteration,
-rank).  The fork's "ImageNet in 15 minutes" configuration is the float16
-wire with double buffering:
+``MASTER_PORT``/``LOCAL_RANK`` yourself).  The data is synthetic by default
+(class-dependent channel means, so the loss can fall; the JAX example's
+images from the same seed, transposed to NCHW), or real:
+
+* ``--data DIR``: an ImageFolder (``DIR/<class>/<image>``) decoded at short
+  side ``round(image * 256 / 224)``, ``--n-classes`` taken from the folder,
+  each sample augmented on the host (random-sized crop and flip,
+  ``Augment(train=True, seed)``);
+* ``--train-root FILE.npz``: ``x``/``y`` (or ``x_train``/``y_train``) NHWC
+  arrays; uint8 images of another size than ``--image-size`` are augmented
+  the same way;
+* ``--val-data DIR``: an ImageFolder evaluated every epoch through the
+  center-crop transform (without it, a synthetic validation set only
+  beside synthetic training data).
+
+The host decodes and augments in uint8 on ``--loader-workers`` threads,
+``--prefetch`` batches ahead of the step (:class:`PrefetchIterator`;
+``--prefetch 0`` runs without the loader thread, for collatable data
+only); uint8 batches travel pinned and asynchronously, become NCHW
+``channels_last`` views on the device and are normalized at the head of
+the loss (:func:`normalize_image`); labels are cast on the device.  The
+architectures are the reference's ``alex``, ``googlenet``,
+``googlenetbn``, ``nin`` and ``resnet50``, and the JAX example's
+``vit_s16`` and ``vit_b16`` (plain attention, as there).  The BatchNorm
+archs (ResNet-50, GoogLeNetBN) run the fused BatchNorm(+ReLU) kernels.
+``--accum-steps K`` splits each GPU's batch into K microbatches whose
+gradients are averaged before the one all-reduce of the step (ghost-batch
+BatchNorm, as in JAX).  ``--aux-loss`` trains GoogLeNet's auxiliary heads
+(``loss3 + 0.3 loss1 + 0.3 loss2``).  Dropout masks come from the model's
+generator, reseeded every step from (seed, iteration, rank), and under
+``--accum-steps K`` every microbatch from (seed, K iteration + microbatch,
+rank), as JAX's seed stamp gives each its own.  The fork's "ImageNet in 15
+minutes" configuration is the float16 wire with double buffering:
 
     python -m chainermn_tpu_torch.examples.train_imagenet --arch resnet50 \\
         --communicator xla --batchsize 32 --iterations 20 \\
@@ -28,7 +51,8 @@ set through the multi-node evaluator), ``--intra-size`` and
 ``--checkpoint-freq`` iterations) hold the model's parameters and
 BatchNorm buffers, the optimizer's state (this rank's shards under
 ``--zero``), the pending gradient mean of ``--double-buffering``, the
-iterator's position and the iteration; a run started on a directory that
+iterator's position (after the last batch a step consumed, whatever the
+loader drew ahead) and the iteration; a run started on a directory that
 holds a generation every rank can read resumes from the newest such one,
 and then trains as the uninterrupted run would have.
 ``AllreducePersistent`` averages the BatchNorm running statistics over the
@@ -45,7 +69,9 @@ import torch
 import torch.nn.functional as F
 
 import chainermn_tpu_torch as cmn
-from chainermn_tpu_torch.datasets import TupleDataset
+from chainermn_tpu_torch.datasets import (
+    Augment, ImageFolderDataset, NpzImageDataset, PrefetchIterator,
+    TransformDataset, TupleDataset, normalize_image)
 from chainermn_tpu_torch.extensions import (
     AllreducePersistent, create_multi_node_checkpointer,
     create_multi_node_evaluator, make_eval_fn)
@@ -53,7 +79,7 @@ from chainermn_tpu_torch.extensions.allreduce_persistent import (
     persistent_buffers)
 from chainermn_tpu_torch.iterators import SerialIterator
 from chainermn_tpu_torch.models import (
-    NIN, AlexNet, GoogLeNet, GoogLeNetBN, ResNet50)
+    NIN, AlexNet, GoogLeNet, GoogLeNetBN, ResNet50, ViT_B16, ViT_S16)
 from chainermn_tpu_torch.models.layers import dropout_seed
 from chainermn_tpu_torch.optim import (
     LARS, init_optimizer_state, load_optimizer_state_tree,
@@ -63,8 +89,7 @@ from chainermn_tpu_torch.utils.trace import KERNEL_CATEGORIES, kernel_category
 
 ARCHS = {"alex": AlexNet, "googlenet": GoogLeNet,
          "googlenetbn": GoogLeNetBN, "nin": NIN, "resnet50": ResNet50,
-         # the JAX example's ViTs wait for models/vit.py
-         "vit_s16": None, "vit_b16": None}
+         "vit_s16": ViT_S16, "vit_b16": ViT_B16}
 AUX_ARCHS = ("googlenet", "googlenetbn")
 OPTIMIZERS = {
     "momentum": lambda ps, lr: torch.optim.SGD(ps, lr=lr, momentum=0.9),
@@ -73,14 +98,7 @@ OPTIMIZERS = {
 }
 # flags of the JAX example that wait for other modules: (attribute, what,
 # ROADMAP.md queue); each raises when given
-NOT_PORTED = (("fsdp", "--fsdp (parallel/fsdp.py)", "A9"),
-              ("accum_steps", "--accum-steps (utils/accum.py)", "A9"),
-              ("data", "--data (the image pipeline)", "A6"),
-              ("train_root", "--train-root (the image pipeline)", "A6"),
-              ("val_data", "--val-data (the image pipeline)", "A6"),
-              ("prefetch", "--prefetch (the image pipeline's loader)", "A6"),
-              ("loader_workers", "--loader-workers (the image pipeline's "
-               "loader)", "A6"))
+NOT_PORTED = (("fsdp", "--fsdp (parallel/fsdp.py)", "A9"),)
 
 
 def make_synthetic_imagenet(n, image, n_classes, seed):
@@ -102,7 +120,7 @@ def build_model(args, device, generator):
               device=device, generator=generator)
     if args.arch == "resnet50":
         kw["num_filters"] = args.width
-    elif args.arch == "alex":
+    elif args.arch in ("alex", "vit_s16", "vit_b16"):
         kw["image_size"] = args.image_size
     elif args.arch in AUX_ARCHS:
         kw.update(image_size=args.image_size, aux_heads=args.aux_loss)
@@ -122,7 +140,7 @@ def objective(out, y):
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="chainermn_tpu_torch ImageNet "
-                                "example (synthetic data)")
+                                "example")
     p.add_argument("--arch", "-a", default="resnet50", choices=sorted(ARCHS))
     p.add_argument("--width", type=int, default=64,
                    help="the ResNet's base width (64: the published one; "
@@ -157,10 +175,32 @@ def parse_args(argv=None):
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--n-classes", type=int, default=1000)
     p.add_argument("--train-size", type=int, default=1024,
-                   help="synthetic examples in all (scattered over ranks)")
+                   help="synthetic examples in all (scattered over ranks; "
+                        "no --data/--train-root)")
     p.add_argument("--val-size", type=int, default=512,
                    help="synthetic validation examples in all, evaluated "
-                        "at every epoch end over the world (0: none)")
+                        "at every epoch end over the world (0: none; only "
+                        "beside synthetic training data)")
+    p.add_argument("--train-root", default=None, metavar="FILE",
+                   help="npz with x/y (or x_train/y_train) NHWC arrays")
+    p.add_argument("--data", default=None, metavar="DIR",
+                   help="ImageFolder root (DIR/<class>/<img>); images are "
+                        "decoded, augmented (random-sized crop + flip) and "
+                        "prefetched on the host, shipped uint8, normalized "
+                        "on the device")
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="batches prepared ahead by the loader thread (0: "
+                        "no loader thread; collatable data only)")
+    p.add_argument("--loader-workers", type=int, default=4,
+                   help="host threads decoding and augmenting samples")
+    p.add_argument("--val-data", default=None, metavar="DIR",
+                   help="ImageFolder root for validation (center-crop "
+                        "transform; evaluated over the world every epoch)")
+    p.add_argument("--accum-steps", type=int, default=1,
+                   help="gradient accumulation: split each GPU's batch into "
+                        "this many microbatches (~1/K activation memory; "
+                        "exact for BN-free archs, ghost-batch BatchNorm for "
+                        "the others)")
     p.add_argument("--lr", type=float, default=0.1,
                    help="(peak) learning rate")
     p.add_argument("--checkpoint", default=None, metavar="DIR",
@@ -185,15 +225,6 @@ def parse_args(argv=None):
                         "torch.profiler and print where the device time "
                         "went")
     p.add_argument("--fsdp", action="store_true", help="not ported yet")
-    p.add_argument("--accum-steps", type=int, default=1,
-                   help="not ported yet (only 1)")
-    p.add_argument("--data", default=None, help="not ported yet")
-    p.add_argument("--train-root", default=None, help="not ported yet")
-    p.add_argument("--val-data", default=None, help="not ported yet")
-    p.add_argument("--prefetch", type=int, default=2,
-                   help="not ported yet (only 2)")
-    p.add_argument("--loader-workers", type=int, default=4,
-                   help="not ported yet (only 4)")
     p.add_argument("--aux-loss", action="store_true",
                    help="googlenet/googlenetbn only: train with the "
                         "auxiliary classifier heads (loss1*0.3 + loss2*0.3 "
@@ -204,16 +235,14 @@ def parse_args(argv=None):
     if args.arch != "resnet50" and args.width != p.get_default("width"):
         p.error("--width sets the ResNet's base width; --arch "
                 f"{args.arch} has no such option")
-    if ARCHS[args.arch] is None:
-        raise NotImplementedError(
-            f"--arch {args.arch} (models/vit.py) is not ported yet; see "
-            "ROADMAP.md Queue A9")
     if args.zero and args.double_buffering:
         p.error("--zero and --double-buffering are mutually exclusive")
     if args.zero and args.optimizer == "lars":
         p.error("--zero flattens parameters into per-rank shards, which "
                 "destroys LARS's per-layer trust ratios -- use --optimizer "
                 "momentum/adam")
+    if args.accum_steps < 1 or args.batchsize % args.accum_steps:
+        p.error("--accum-steps must divide --batchsize")
     for flag, what, queue in NOT_PORTED:
         if getattr(args, flag) != p.get_default(flag):
             raise NotImplementedError(
@@ -279,11 +308,18 @@ def main(argv=None) -> dict:
               f"device: {device}\n"
               f"==========================================", flush=True)
 
-    train = make_synthetic_imagenet(args.train_size, args.image_size,
-                                    args.n_classes, args.seed)
+    train, augment = load_train(args)
     train = cmn.scatter_dataset(train, comm, shuffle=True, seed=args.seed)
-    train_iter = SerialIterator(train, args.batchsize, shuffle=True,
-                                seed=args.seed)
+    # examples uncollated when a per-sample transform runs: the loader
+    # decodes, augments and collates ahead of the step
+    base_iter = SerialIterator(train, args.batchsize, shuffle=True,
+                               seed=args.seed, collate=augment is None)
+    if args.prefetch <= 0 and augment is not None:
+        raise SystemExit("--prefetch 0 requires collatable data "
+                         "(no --data folder / augmentation)")
+    # the real-image datasets are NHWC (and uint8 but for a float npz)
+    nhwc = bool(args.data or args.train_root)
+    val = load_val(args)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = build_model(args, device, gen)
@@ -301,38 +337,53 @@ def main(argv=None) -> dict:
         OPTIMIZERS[args.optimizer](model.parameters(), args.lr), comm,
         double_buffering=args.double_buffering, zero=args.zero)
 
+    dropout_gen = getattr(model, "dropout_generator", None)
+    micro = [0]  # microbatches of this step so far
+
     def loss_fn(batch):
         x, y = batch
-        loss, logits = objective(model(x), y)
+        if dropout_gen is not None:
+            # JAX's seed stamp: step * K + microbatch
+            dropout_gen.manual_seed(dropout_seed(
+                args.seed, updater.iteration * args.accum_steps + micro[0],
+                comm.rank))
+            micro[0] += 1
+        y = y.long()
+        loss, logits = objective(model(model_input(x, nhwc)), y)
         acc = (logits.argmax(-1) == y).float().mean()
         return loss, {"accuracy": acc}
 
-    train_step = cmn.make_train_step(comm, loss_fn, optimizer, has_aux=True)
-    dropout_gen = getattr(model, "dropout_generator", None)
+    train_step = cmn.make_train_step(comm, loss_fn, optimizer, has_aux=True,
+                                     accum_steps=args.accum_steps)
 
     def step(batch):
         if schedule is not None:
             lr = schedule(updater.iteration)  # updates so far, as optax
             for g in optimizer.param_groups:
                 g["lr"] = lr
-        if dropout_gen is not None:
-            dropout_gen.manual_seed(dropout_seed(args.seed, updater.iteration,
-                                                 comm.rank))
+        micro[0] = 0
         return train_step(batch)
 
     step.finalize = train_step.finalize
     model.train()
-    updater = StatefulUpdater(train_iter, step, model, comm)
+    updater = StatefulUpdater(base_iter, step, model, comm)
 
     ckpt = resumed = None
     if args.checkpoint:
         ckpt = create_multi_node_checkpointer(
             comm, args.checkpoint, name=f"imagenet-{args.arch}",
             keep=args.checkpoint_keep)
-        resumed = resume(ckpt, model, optimizer, train_iter, updater)
+        resumed = resume(ckpt, model, optimizer, base_iter, updater)
         if resumed is not None and comm.rank == 0:
             print(f"resumed from snapshot at iteration {resumed} (epoch "
-                  f"{train_iter.epoch})", flush=True)
+                  f"{base_iter.epoch})", flush=True)
+    # the loader starts after a resume, from the restored position
+    train_iter = base_iter
+    if args.prefetch > 0:
+        train_iter = PrefetchIterator(base_iter, transform=augment,
+                                      prefetch=args.prefetch,
+                                      workers=args.loader_workers)
+        updater.iterator = train_iter
 
     stop = ((args.iterations, "iteration") if args.iterations
             else (args.epoch, "epoch"))
@@ -349,53 +400,112 @@ def main(argv=None) -> dict:
                                              t.updater.iteration),
             trigger=((args.checkpoint_freq, "iteration")
                      if args.checkpoint_freq else (1, "epoch"))))
-    if args.val_size:
+    if val is not None:
         trainer.extend(create_multi_node_evaluator(
-            make_evaluator(args, comm, model), comm))
+            make_evaluator(args, comm, model, val, nhwc), comm))
     log = extensions.LogReport(filename="log" if comm.rank == 0 else None)
     trainer.extend(log)
     timer.start()
-    trainer.run()
-    w = args.warmup_steps
-    losses, ips, peak_gb = timer.result(args.batchsize * comm.size, w)
-    result = {"losses": losses, "images_per_sec": ips,
-              "iterations": updater.iteration, "world": comm.size,
-              "log": log.log, "resumed_from": resumed,
-              "save_seconds": ckpt.save_seconds if ckpt else [],
-              "peak_memory_gb": peak_gb, "model": model,
-              "optimizer": optimizer}
-    if comm.rank == 0:
-        ips_s = f"{ips:.1f}" if ips is not None else "n/a"
-        final = f"{losses[-1]:.4f}" if losses else "n/a"
-        mem = f"{peak_gb:.2f} GB" if peak_gb is not None else "n/a"
-        print(f"final loss {final}; images/sec (all GPUs, steps "
-              f"{w + 1}..{len(losses)} of this run): {ips_s}; peak device "
-              f"memory of rank 0 {mem}; epoch log "
-              f"{log.log[-1] if log.log else {}}", flush=True)
-    if args.profile_steps:
-        if device.type != "cuda":
-            raise ValueError("--profile-steps profiles the GPU")
-        result["profile"] = profile_steps(updater, args.profile_steps,
-                                          device)
+    try:
+        trainer.run()
+        w = args.warmup_steps
+        losses, ips, peak_gb = timer.result(args.batchsize * comm.size, w)
+        result = {"losses": losses, "images_per_sec": ips,
+                  "iterations": updater.iteration, "world": comm.size,
+                  "log": log.log, "resumed_from": resumed,
+                  "save_seconds": ckpt.save_seconds if ckpt else [],
+                  "peak_memory_gb": peak_gb, "model": model,
+                  "optimizer": optimizer}
         if comm.rank == 0:
-            print(f"profile: {result['profile']}", flush=True)
+            ips_s = f"{ips:.1f}" if ips is not None else "n/a"
+            final = f"{losses[-1]:.4f}" if losses else "n/a"
+            mem = f"{peak_gb:.2f} GB" if peak_gb is not None else "n/a"
+            print(f"final loss {final}; images/sec (all GPUs, steps "
+                  f"{w + 1}..{len(losses)} of this run): {ips_s}; peak device "
+                  f"memory of rank 0 {mem}; epoch log "
+                  f"{log.log[-1] if log.log else {}}", flush=True)
+        if args.profile_steps:
+            if device.type != "cuda":
+                raise ValueError("--profile-steps profiles the GPU")
+            result["profile"] = profile_steps(updater, args.profile_steps,
+                                              device)
+            if comm.rank == 0:
+                print(f"profile: {result['profile']}", flush=True)
+    finally:
+        # the loader's threads stop with the run, also when it fails
+        close_loader(train_iter)
     return result
 
 
-def make_evaluator(args, comm, model):
-    """The synthetic validation set (seed + 1), scattered without
-    shuffling, evaluated in eval mode (running statistics)."""
-    val = make_synthetic_imagenet(args.val_size, args.image_size,
-                                  args.n_classes, args.seed + 1)
+def image_resize(args) -> int:
+    """The short side real images are decoded at (JAX's 256/224 rule)."""
+    return max(args.image_size, round(args.image_size * 256 / 224))
+
+
+def load_train(args):
+    """``(dataset, augment)``: the training set of ``--data``,
+    ``--train-root`` or the synthetic set, and its per-sample transform
+    (None: collatable as it is).  ``--data`` sets ``args.n_classes`` from
+    the folder."""
+    if args.data:
+        train = ImageFolderDataset(args.data, resize=image_resize(args))
+        args.n_classes = len(train.classes)
+        return train, Augment(args.image_size, train=True, seed=args.seed)
+    if args.train_root:
+        train = NpzImageDataset(args.train_root)
+        if train.x.dtype == np.uint8 and \
+                train.x.shape[1] != args.image_size:
+            return train, Augment(args.image_size, train=True,
+                                  seed=args.seed)
+        return train, None
+    return make_synthetic_imagenet(args.train_size, args.image_size,
+                                   args.n_classes, args.seed), None
+
+
+def load_val(args):
+    """The validation set: ``--val-data`` through the eval transform, the
+    synthetic one (seed + 1, ``--val-size``) beside synthetic training
+    data, else None."""
+    if args.val_data:
+        return TransformDataset(
+            ImageFolderDataset(args.val_data, resize=image_resize(args)),
+            Augment(args.image_size, train=False))
+    if not args.data and not args.train_root and args.val_size:
+        return make_synthetic_imagenet(args.val_size, args.image_size,
+                                       args.n_classes, args.seed + 1)
+    return None
+
+
+def model_input(x, nhwc: bool):
+    """A batch on the device as the models take it: an NHWC batch as an
+    NCHW (``channels_last``) view, uint8 normalized to float32 (the head
+    of the loss, as JAX's ``normalize_image``)."""
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    if x.dtype == torch.uint8:
+        x = normalize_image(x, channel_dim=1)
+    return x
+
+
+def close_loader(it) -> None:
+    """Stop a :class:`PrefetchIterator`'s threads (no-op otherwise)."""
+    if isinstance(it, PrefetchIterator):
+        it.close()
+
+
+def make_evaluator(args, comm, model, val, nhwc: bool):
+    """The validation set ``val``, scattered without shuffling, evaluated
+    in eval mode (running statistics)."""
     val = cmn.scatter_dataset(val, comm, shuffle=False)
     val_iter = SerialIterator(val, args.batchsize, repeat=False,
                               shuffle=False)
 
     def metrics(batch):
         x, y = batch
+        y = y.long()
         model.eval()
         try:
-            logits = model(x)
+            logits = model(model_input(x, nhwc))
         finally:
             model.train()
         return {"loss": F.cross_entropy(logits, y),

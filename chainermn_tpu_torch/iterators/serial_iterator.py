@@ -2,7 +2,9 @@
 
 Counterpart of ``chainermn_tpu/iterators/serial_iterator.py``: the same
 order for the same seed, batches kept full across an epoch boundary,
-numpy batches out (the updater moves them to the device), and the same
+numpy batches out (the updater moves them to the device; ``collate=False``
+yields the examples as a list, for a per-sample transform downstream), and
+the same
 checkpointable state (``state_dict``/``load_state_dict``: position, epoch
 bookkeeping, order and the MT19937 state, taken under a lock that
 ``next`` also holds).
@@ -18,8 +20,10 @@ import numpy as np
 
 class SerialIterator:
     def __init__(self, dataset, batch_size: int, *, repeat: bool = True,
-                 shuffle: bool = True, seed: Optional[int] = None):
+                 shuffle: bool = True, seed: Optional[int] = None,
+                 collate: bool = True):
         self.dataset = dataset
+        self._collate = collate
         self.batch_size = batch_size
         self._repeat = repeat
         self._shuffle = shuffle
@@ -76,7 +80,8 @@ class SerialIterator:
                 self.is_new_epoch = end >= n
                 self._pos = end
             self.iteration += 1
-        return _collate([self.dataset[int(i)] for i in idx])
+        examples = [self.dataset[int(i)] for i in idx]
+        return _collate(examples) if self._collate else examples
 
     next = __next__
 

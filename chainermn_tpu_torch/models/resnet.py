@@ -18,8 +18,16 @@ Initialisation draws from an explicit ``torch.Generator``: conv and dense
 weights from flax's ``lecun_normal`` (truncated normal, fan-in), dense bias
 zero.  Weights of a flax model come over with :mod:`..weights`.
 
-Only the ``conv7`` stem and ``remat_policy="none"`` are ported; ``s2d`` and
-the remat policies raise (ROADMAP.md, Queue A6).
+``stem="s2d"`` is JAX's space-to-depth stem: :func:`space_to_depth` in
+JAX's channel order ``(bh, bw, c)``, then a 4x4/s1 "SAME" conv over 12
+channels (padded (1, 2), as XLA pads it), so a flax ``conv_init`` kernel
+``[4, 4, 12, C]`` maps as any other conv.  ``remat_policy`` is JAX's
+(:data:`REMAT_POLICIES`): ``"block"`` recomputes each residual block in
+the backward pass (``torch.utils.checkpoint``), ``"norm"`` keeps the
+block's convolution outputs and recomputes only the norm/ReLU tail (a
+selective checkpoint whose policy saves the convolutions).  A recomputed
+forward leaves the BatchNorm running buffers alone, as flax's ``nn.remat``
+drops the recomputed state: they move once a step under every policy.
 """
 
 from __future__ import annotations
@@ -30,10 +38,19 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as tcp
 from torch import nn
 
 from chainermn_tpu_torch.ops.fused_norm import FusedBatchNormAct
 from chainermn_tpu_torch.parallel.topology import resolve_device
+
+#: the remat policies, as JAX's ``models.resnet.REMAT_POLICIES``
+REMAT_POLICIES = ("none", "block", "norm")
+STEMS = ("conv7", "s2d")
+# what the "norm" policy keeps: the convolutions' outputs (the norms'
+# inputs, JAX's ``checkpoint_name(x, "norm_in")``)
+_CONV_OPS = (torch.ops.aten.convolution.default,
+             torch.ops.aten._convolution.default)
 
 # stddev of a standard normal truncated to [-2, 2] (flax's lecun_normal
 # divides by it so the truncated draw keeps variance 1 / fan_in)
@@ -83,6 +100,58 @@ class Conv(nn.Module):
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
                         stride=s, padding=pad)
+
+
+def space_to_depth(x, block: int = 2):
+    """JAX's ``space_to_depth`` on an NCHW tensor: ``[N, C, H, W]`` ->
+    ``[N, b * b * C, H / b, W / b]`` with channel ``(bh * b + bw) * C + c``
+    (JAX's NHWC order ``(bh, bw, c)``; ``F.pixel_unshuffle`` would give
+    ``(c, bh, bw)``)."""
+    n, c, h, w = x.shape
+    if h % block or w % block:
+        raise ValueError(f"spatial dims {(h, w)} not divisible by {block}")
+    x = x.reshape(n, c, h // block, block, w // block, block)
+    x = x.permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, block * block * c, h // block, w // block)
+
+
+def _save_convs(ctx, op, *args, **kwargs):
+    return (tcp.CheckpointPolicy.MUST_SAVE if op in _CONV_OPS
+            else tcp.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _recompute_frozen(block):
+    """``block`` for a checkpoint: its first call (the forward) runs as it
+    is, every later one (the recompute in the backward pass) with its
+    norms' ``update_stats`` off."""
+    norms = [m for m in block.modules() if getattr(m, "update_stats", False)]
+    calls = [0]
+
+    def run(x):
+        calls[0] += 1
+        if calls[0] == 1:
+            return block(x)
+        for m in norms:
+            m.update_stats = False
+        try:
+            return block(x)
+        finally:
+            for m in norms:
+                m.update_stats = True
+
+    return run
+
+
+def remat(block, x, policy: str):
+    """``block(x)`` under ``policy`` (see the module note)."""
+    if policy == "none" or not torch.is_grad_enabled():
+        return block(x)
+    kw = {}
+    if policy == "norm":
+        kw["context_fn"] = partial(tcp.create_selective_checkpoint_contexts,
+                                   _save_convs)
+    return tcp.checkpoint(_recompute_frozen(block), x, use_reentrant=False,
+                          **kw)
 
 
 def flatten_nhwc(x):
@@ -196,20 +265,22 @@ class ResNet(nn.Module):
                  remat_policy: str = "none", in_channels: int = 3,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if stem != "conv7":
-            raise NotImplementedError(
-                f"stem {stem!r} is not ported yet (only 'conv7'); see "
-                "ROADMAP.md Queue A6")
-        if remat_policy != "none":
-            raise NotImplementedError(
-                f"remat_policy {remat_policy!r} is not ported yet; see "
-                "ROADMAP.md Queue A6")
+        if stem not in STEMS:
+            raise ValueError(
+                f"unknown stem {stem!r}: expected 'conv7' or 's2d'")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"unknown remat_policy {remat_policy!r}: "
+                f"expected one of {REMAT_POLICIES}")
         device = resolve_device(device)
-        self.dtype = dtype
+        self.dtype, self.stem, self.remat_policy = dtype, stem, remat_policy
         conv = partial(Conv, dtype=dtype, device=device, generator=generator)
         norm = partial(norm_cls or FusedBatchNormAct, momentum=momentum,
                        epsilon=1e-5, dtype=dtype, device=device)
-        self.conv_init = conv(in_channels, num_filters, 7, 2)
+        # s2d: the 7x7/s2 stem as a 4x4/s1 conv over the (H/2, W/2, 12) view
+        self.conv_init = (conv(4 * in_channels, num_filters, 4)
+                          if stem == "s2d" else
+                          conv(in_channels, num_filters, 7, 2))
         self.bn_init = _norm_relu(norm, num_filters)
         blocks, ch = [], num_filters
         for i, count in enumerate(stage_sizes):
@@ -224,10 +295,14 @@ class ResNet(nn.Module):
         self.to(memory_format=torch.channels_last)
 
     def forward(self, x):
-        x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        x = x.to(self.dtype)
+        if self.stem == "s2d":
+            x = space_to_depth(x, 2)
+        x = x.contiguous(memory_format=torch.channels_last)
         x = self.bn_init(self.conv_init(x))
         x = max_pool_same(x)
-        x = self.blocks(x)
+        for block in self.blocks:
+            x = remat(block, x, self.remat_policy)
         return self.dense(x.mean(dim=(2, 3))).float()
 
 

@@ -598,6 +598,10 @@ class FusedBatchNormAct(nn.Module):
     Takes ``[N, C, H, W]`` (best in ``torch.channels_last`` memory, where
     the ``[R, C]`` view is free) or ``[N, C]``; the output is in ``dtype``
     (default: the promotion of the input's dtype with float32).
+    ``update_stats`` False leaves the running buffers alone in train mode:
+    for a forward that a checkpoint recomputes in the backward pass, whose
+    statistics the first forward already folded in (flax's ``nn.remat``
+    drops the recomputed state).
     """
 
     supports_fused_relu = True  # read by models.resnet._norm_relu
@@ -612,6 +616,7 @@ class FusedBatchNormAct(nn.Module):
         self.epsilon = epsilon
         self.dtype = dtype
         self.fuse_relu = fuse_relu
+        self.update_stats = True
         f32 = {"dtype": torch.float32, "device": device}
         self.weight = nn.Parameter(torch.full((num_features,), scale_init,
                                               **f32))
@@ -628,7 +633,7 @@ class FusedBatchNormAct(nn.Module):
             xl.to(odt), self.weight, self.bias, self.running_mean,
             self.running_var, use_running_average=not self.training,
             epsilon=self.epsilon, relu=self.fuse_relu)
-        if self.training:
+        if self.training and self.update_stats:
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(m * self.running_mean

@@ -28,6 +28,7 @@ from chainermn_tpu_torch.communicators import _packing
 from chainermn_tpu_torch.communicators.mesh_communicator_base import (
     all_gather_tensor)
 from chainermn_tpu_torch.ops.cast_scale import cast_scale
+from chainermn_tpu_torch.utils.accum import accumulate_microbatches
 
 
 def _local_grads(params):
@@ -265,7 +266,7 @@ def create_multi_node_optimizer(actual_optimizer: torch.optim.Optimizer,
 
 
 def make_train_step(communicator, loss_fn: Callable, optimizer,
-                    has_aux: bool = False):
+                    has_aux: bool = False, accum_steps: int = 1):
     """The train step (the hot loop): forward/backward on the local batch,
     ``allreduce_grad``, then the inner update.
 
@@ -277,18 +278,39 @@ def make_train_step(communicator, loss_fn: Callable, optimizer,
     keeps them in the JAX package.  ``optimizer`` is from
     :func:`create_multi_node_optimizer`.
 
+    ``accum_steps=K`` (K > 1) is gradient accumulation
+    (:mod:`.utils.accum`): ``loss_fn`` runs forward and backward on K equal
+    microbatches of the local batch in turn, the K gradients are summed and
+    divided by K once, and then the ONE ``allreduce_grad`` and update of
+    the step run (through every optimizer of
+    :func:`create_multi_node_optimizer`), with peak activation memory about
+    1/K.  For a loss that is a mean over samples the gradient is the full
+    batch's; BatchNorm normalizes each microbatch on its own and updates
+    its running buffers K times (JAX's ghost-batch semantics).  A K that
+    does not divide the batch raises ``ValueError``.
+
     Returns ``step(batch) -> loss`` (``(loss, aux)`` with ``has_aux``):
     the loss, and aux, averaged over the world.  ``step.finalize()`` waits
     for a gradient mean the double-buffered optimizer still has in flight
     (the trainer calls it when training ends).
     """
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     comm = communicator
+    # the model's parameters (ZeRO-1's local optimizer holds shards)
+    params = [p for g in getattr(optimizer, "actual_optimizer",
+                                 optimizer).param_groups
+              for p in g["params"]]
 
     def step(batch):
         optimizer.zero_grad(set_to_none=True)
-        out = loss_fn(batch)
-        loss, aux = out if has_aux else (out, None)
-        loss.backward()
+        if accum_steps > 1:
+            loss, aux = accumulate_microbatches(loss_fn, batch, accum_steps,
+                                                has_aux, params)
+        else:
+            out = loss_fn(batch)
+            loss, aux = out if has_aux else (out, None)
+            loss.backward()
         optimizer.step()
         loss = comm.allreduce(loss.detach(), "mean")
         if not has_aux:

@@ -37,10 +37,15 @@ def _trigger_fires(trigger: Tuple[int, str], updater) -> bool:
 
 
 def to_device(batch, device):
-    """numpy arrays (or a tuple of them) -> tensors on ``device``."""
+    """numpy arrays (or a tuple of them) -> tensors on ``device``.  A uint8
+    array (the real-image path's batch) goes to a card through pinned
+    memory, without blocking the host."""
     if isinstance(batch, tuple):
         return tuple(to_device(b, device) for b in batch)
-    return torch.from_numpy(np.ascontiguousarray(batch)).to(device)
+    t = torch.from_numpy(np.ascontiguousarray(batch))
+    if t.dtype == torch.uint8 and torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 class StandardUpdater:

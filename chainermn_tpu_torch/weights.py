@@ -21,6 +21,14 @@ only:
   ``proj``, ``ln_mlp``, ``up``, ``down`` (the port's ``blocks.{i}.*``);
   then ``ln_f`` and ``head``; LayerNorm ``scale`` -> ``weight``.  It has
   ``params`` only;
+* the ViT's ``patch_embed`` is a conv with a bias; ``cls_token`` (with
+  ``pooling="cls"``) and ``pos_embed`` are parameters of the same name and
+  shape; each ``block_{i}`` holds the TransformerLM's six layers (the
+  port's ``blocks.{i}.*``), then ``ln_f`` and ``head``.  It has ``params``
+  only;
+* the ResNet's ``s2d`` stem ``conv_init`` is a conv like any other
+  (``[4, 4, 12, C]`` HWIO, input channels in JAX's space-to-depth order
+  ``(bh, bw, c)``, which the port's ``space_to_depth`` keeps);
 * the seq2seq encoder's ``Embed_0`` and ``OptimizedLSTMCell_0`` are the
   port's ``embed`` and ``lstm``, the decoder's ``embed``, ``cell`` and
   ``out`` its ``embed``, ``lstm`` and ``out``: the cell's eight kernels
@@ -68,6 +76,7 @@ from chainermn_tpu_torch.models.nin import NIN
 from chainermn_tpu_torch.models.seq2seq import Seq2SeqDecoder, Seq2SeqEncoder
 from chainermn_tpu_torch.models.transformer import TransformerLM
 from chainermn_tpu_torch.models.vgg import VGG
+from chainermn_tpu_torch.models.vit import ViT
 
 _NORM_NAMES = ("FusedBatchNormAct", "BatchNorm")
 _GATES = "ifgo"  # flax OptimizedLSTMCell's order, and torch's
@@ -80,10 +89,19 @@ def _norm_key(model: nn.Module, name: str) -> str:
     return f"{name}.0" if isinstance(mod, nn.Sequential) else name
 
 
+def _encoder_blocks(n: int):
+    """The TransformerLM's and the ViT's ``block_{i}``: ``(flax scope,
+    port name, kind)`` of their six layers."""
+    for i in range(n):
+        for name in ("ln_attn", "qkv", "proj", "ln_mlp", "up", "down"):
+            yield ((f"block_{i}", name), f"blocks.{i}.{name}",
+                   "ln" if name.startswith("ln") else "dense")
+
+
 def _layers(model: nn.Module):
     """``(flax scope, port name, kind)`` of every layer with weights, in
     flax's creation order; kind is "conv", "norm" (BatchNorm), "dense",
-    "embed", "ln" (LayerNorm) or "lstm"."""
+    "embed", "ln" (LayerNorm), "lstm" or "param" (a bare parameter)."""
     if isinstance(model, Seq2SeqEncoder):
         yield ("Embed_0",), "embed", "embed"
         yield ("OptimizedLSTMCell_0",), "lstm", "lstm"
@@ -96,10 +114,16 @@ def _layers(model: nn.Module):
     if isinstance(model, TransformerLM):
         yield ("tok_emb",), "tok_emb", "embed"
         yield ("pos_emb",), "pos_emb", "embed"
-        for i in range(len(model.blocks)):
-            for n in ("ln_attn", "qkv", "proj", "ln_mlp", "up", "down"):
-                yield ((f"block_{i}", n), f"blocks.{i}.{n}",
-                       "ln" if n.startswith("ln") else "dense")
+        yield from _encoder_blocks(len(model.blocks))
+        yield ("ln_f",), "ln_f", "ln"
+        yield ("head",), "head", "dense"
+        return
+    if isinstance(model, ViT):
+        yield ("patch_embed",), "patch_embed", "conv"
+        if model.pooling == "cls":
+            yield ("cls_token",), "cls_token", "param"
+        yield ("pos_embed",), "pos_embed", "param"
+        yield from _encoder_blocks(len(model.blocks))
         yield ("ln_f",), "ln_f", "ln"
         yield ("head",), "head", "dense"
         return
@@ -205,6 +229,8 @@ def flax_to_state_dict(variables, model: nn.Module) -> Dict[str, torch.Tensor]:
             sd[f"{name}.bias"] = t(p("bias"))
         elif kind == "embed":
             sd[f"{name}.weight"] = t(p("embedding"))
+        elif kind == "param":
+            sd[name] = t(p())
         elif kind == "ln":
             sd[f"{name}.weight"] = t(p("scale"))
             sd[f"{name}.bias"] = t(p("bias"))
@@ -264,6 +290,8 @@ def state_dict_to_flax(model: nn.Module, norm: str = _NORM_NAMES[0]):
                 sd[f"{name}.weight"].T), "bias": sd[f"{name}.bias"]})
         elif kind == "embed":
             put(params, scope, {"embedding": sd[f"{name}.weight"]})
+        elif kind == "param":
+            put(params, scope, sd[name])
         elif kind == "ln":
             put(params, scope, {"scale": sd[f"{name}.weight"],
                                 "bias": sd[f"{name}.bias"]})

@@ -279,6 +279,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     of 3 requests within ``utils/compare.py``'s relative L2 of a
     cache-free forward over the sequence so far, equal tokens where its
     gap exceeds 1e-3.  The summary's row 6 adds the serving launches.
+25. the ImageNet example whole (after 24, before 22; ``phase_imagenet``).
+    (a) ``benchmarks.bench_vit`` at its card defaults (ViT-B/16, batch
+    256, bf16, the bf16 wire, double buffering), ``--attention flash``
+    then ``xla``: images/s per GPU, MFU, step and device ms, busy share;
+    gated: each flash kernel launched exactly 12 times a step call under
+    flash and never under xla, 2 casts a step call, a finite and falling
+    loss.  (b) ViT-B/16's width at 2 layers in float32 (TF32 off), flash
+    against xla from the same weights: ``utils/compare.py``'s gates.  (c)
+    Rows 6-8 at the ViT shape (phase 10 adds its bf16 and float32 cases:
+    B 256, T 197, H 12, D 64, non-causal, qkv views), timed in phase 13's
+    way beside SDPA without a mask.  (d) ``bench --stem s2d`` with phase
+    16's gates (the same 53 BatchNorm boundaries); ``run_configs
+    --tune-remat`` (each policy's rate and peak memory, "block" below
+    "none"); one float32 ResNet-50 step under "block" and "norm" against
+    "none": loss relative 1e-6, gradients relative L2 1e-5, running
+    buffers relative 1e-6 (moved once), the BatchNorm kernels' launches
+    (the blocks' 52 boundaries recomputed: statistics and apply 105, the
+    backward kernels 53), the convolutions dispatched ("block" 52 more,
+    "norm" none more), and "block"'s peak memory below "none"'s.  (e)
+    ``train_imagenet`` ResNet-50 bf16 batch 32 on a generated ImageFolder
+    (1,024 JPEGs of 8 classes at 300-500 px, 256 validation images) with 4
+    loader threads: an epoch, its evaluation and 3 profiled steps, exact
+    BatchNorm launches, the loader-wait share and busy share; the
+    synthetic rate and a ``--train-root`` npz run in the same call.  (f)
+    ``train_imagenet --arch vit_s16`` float32, one step of batch 64 with
+    ``--accum-steps 4`` against one full-batch step: ``utils/compare.py``'s
+    gates, and the peak memory of each.  The summary's rows add phase
+    25's launches (flash and cast: (a); BatchNorm: (d)'s bench and (e)).
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
 """
@@ -286,6 +314,7 @@ The cast check (6) runs right after the BatchNorm kernel check (2).
 import json
 import math
 import os
+import shutil
 import sys
 import time
 
@@ -1062,6 +1091,12 @@ def phase_flash(fa, torch, dev):
         ("decode_tq1_tk4096_f32", f32, 2, 1, 4096, 16, 4, 128, True,
          {"offs": "decode"}),
         ("gqa8_d128_f32", f32, 2, 512, 512, 16, 2, 128, True, {}),
+        # ViT-B/16's attention (phase 25): T 197 (three 64-row tiles and
+        # one of 5), non-causal, D 64, q/k/v views of the qkv projection
+        ("vit_qkv_views_d64", bf, 256, 197, 197, 12, 12, 64, False,
+         {"qkv": True}),
+        ("vit_qkv_views_d64_f32", f32, 256, 197, 197, 12, 12, 64, False,
+         {"qkv": True}),
     ]
     errs = {w: 0.0 for w in FLASH}
     for i, (name, dt, b, tq, tk, h, hk, d, causal, extra) in enumerate(cases):
@@ -1227,17 +1262,21 @@ def phase_lm_f32(torch, dev):
     return loss_rel, grad_rel
 
 
-def phase_flash_timing(fa, torch, dev, card, dtype):
-    """Each flash kernel at the LM's attention shape in ``dtype``: kernel
-    (CUDA graph replay), eager, plain, library and the bound at the peak of
-    ``dtype`` (bf16: the tensor cores; float32, TF32 off: the CUDA cores,
-    the ``*_f32_kernel`` variants that ``ring_flash`` runs in the float32
+def phase_flash_timing(fa, torch, dev, card, dtype, shape=None,
+                       causal=True):
+    """Each flash kernel at the LM's attention shape in ``dtype`` (or at
+    ``shape`` = (B, T, H, D), ``causal`` or not): kernel (CUDA graph
+    replay), eager, plain, library and the bound at the peak of ``dtype``
+    (bf16: the tensor cores; float32, TF32 off: the CUDA cores, the
+    ``*_f32_kernel`` variants that ``ring_flash`` runs in the float32
     long-context example)."""
     import torch.nn.functional as F
     from chainermn_tpu_torch.utils.compare import no_tf32
     with no_tf32():
         f32 = dtype == torch.float32
-        b, t, h, d = 1, LM_T, LM["n_heads"], LM["d_model"] // LM["n_heads"]
+        lm = shape is None
+        b, t, h, d = shape or (1, LM_T, LM["n_heads"],
+                               LM["d_model"] // LM["n_heads"])
         gen = torch.Generator(device=dev).manual_seed(13 if f32 else 9)
         # q, k, v as the model gives them: views of one qkv projection
         qkv = (torch.randn(b, t, 3 * h * d, device=dev, generator=gen)
@@ -1245,27 +1284,28 @@ def phase_flash_timing(fa, torch, dev, card, dtype):
         q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, t, h, d)
                    for i in range(3))
         g = torch.randn(b, t, h, d, device=dev, generator=gen).to(dtype)
-        out, lse = fa.flash_fwd(q, k, v, True)
+        out, lse = fa.flash_fwd(q, k, v, causal)
         delta = (g.float() * out.float()).sum(-1).transpose(1, 2) \
             .contiguous()
-        bwd = (q, k, v, g, lse, delta, None, True)
-        kern = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, True),
+        bwd = (q, k, v, g, lse, delta, None, causal)
+        kern = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, causal),
                 "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(*bwd),
                 "flash_bwd_dq": lambda: fa.flash_bwd_dq(*bwd)}
         reps = 5 if f32 else 10
         # the plain backward computes dq, dk and dv in one loop: its time
         # stands beside both backward kernels
         plain_fwd = _time(torch, lambda: fa.flash_forward_plain(
-            q, k, v, True), 2, graph=False)
+            q, k, v, causal), 2, graph=False)
         torch.cuda.empty_cache()
         plain_bwd = _time(torch, lambda: fa.flash_backward_plain(
             *bwd, block_k=1024), 2, graph=False)
         torch.cuda.empty_cache()
         q3, k3, v3 = (x.transpose(1, 2) for x in (q, k, v))
         lib_fwd = _time(torch, lambda: F.scaled_dot_product_attention(
-            q3, k3, v3, is_causal=True), 2 * reps, graph=True)
+            q3, k3, v3, is_causal=causal), 2 * reps, graph=True)
         qt, kt, vt = (x.detach().requires_grad_() for x in (q3, k3, v3))
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal)
         gt = g.transpose(1, 2)
         lib_bwd_name = "SDPA autograd backward, dq+dk+dv"
         lib_bwd = _time(torch, lambda: torch.autograd.grad(
@@ -1275,7 +1315,7 @@ def phase_flash_timing(fa, torch, dev, card, dtype):
         name = str(dtype).split(".")[1]
         out_t = {}
         for w, (_, _, kind) in FLASH.items():
-            ops = fa.flash_attention_flops(b, t, t, h, d, True, kind)
+            ops = fa.flash_attention_flops(b, t, t, h, d, causal, kind)
             nbytes = fa.flash_attention_bytes(b, t, t, h, h, d, dtype, kind)
             ops_ms = ops / (peak * 1e12) * 1e3
             bytes_ms = nbytes / card.hbm_bytes_per_s * 1e3
@@ -1288,7 +1328,8 @@ def phase_flash_timing(fa, torch, dev, card, dtype):
                 bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 ops=ops, bytes=nbytes)
-            log(f"timing: {w} at B{b} T{t} H{h} D{d} causal {name}"
+            log(f"timing: {w} at B{b} T{t} H{h} D{d} "
+                f"{'causal' if causal else 'non-causal'} {name}"
                 f"{', TF32 off' if f32 else ''} (CUDA graph replay): kernel "
                 f"{ms:.4f} ms (eager {eager_ms:.4f} ms), plain "
                 f"{out_t[w]['plain_ms']:.4f} ms, library "
@@ -1302,8 +1343,8 @@ def phase_flash_timing(fa, torch, dev, card, dtype):
                 + (f"; first CUDA-core design "
                    f"{FLASH_F32_CUDA_CORE_MS[w]:.4f} ms "
                    f"({FLASH_F32_CUDA_CORE_MS[w] / ms:.2f}x this time)"
-                   if f32 and w in FLASH_F32_CUDA_CORE_MS else "")
-                + ("" if f32 else f"; mma.sync design "
+                   if lm and f32 and w in FLASH_F32_CUDA_CORE_MS else "")
+                + ("" if f32 or not lm else f"; mma.sync design "
                    f"{FLASH_MMA_SYNC_MS[w]:.4f} ms "
                    f"({FLASH_MMA_SYNC_MS[w] / ms:.2f}x this time)"))
     torch.cuda.empty_cache()
@@ -1463,19 +1504,19 @@ def phase_probe_main(pm, bcp):
     return doc, counts
 
 
-def phase_bench(fn, cs, torch):
-    """``benchmarks.bench.main`` at its card defaults: ResNet-50, batch 256,
-    the bf16 wire with double buffering, 20 steps after 5 (then 1, and 3 +
-    3 a profiler capture for its device time: the profiler's warm-up step
-    and the timed one); every BatchNorm kernel 53 times a step, 2 casts a
-    step.  Returns the line, the launches and the peak
-    memory in GB."""
+def phase_bench(fn, cs, torch, argv=()):
+    """``benchmarks.bench.main`` at its card defaults (and ``argv``):
+    ResNet-50, batch 256, the bf16 wire with double buffering, 20 steps
+    after 5 (then 1, and 3 + 3 a profiler capture for its device time: the
+    profiler's warm-up step and the timed one); every BatchNorm kernel 53
+    times a step (the s2d stem has the same 53 boundaries), 2 casts a
+    step.  Returns the line, the launches and the peak memory in GB."""
     from chainermn_tpu_torch.benchmarks import bench
     fn.reset_launch_counts()
     cs.reset_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    line = bench.main([])
+    line = bench.main(list(argv))
     counts = dict(fn.launch_counts(), cast_scale=cs.cast_scale.launches)
     batch, _, steps, warmup = bench.GPU_SHAPE
     total = counts["cast_scale"] // 2  # steps run (device_time may capture
@@ -2601,6 +2642,424 @@ def log_serving(srv, gpu, secs):
         f"peak memory {srv['peak_gb']:.2f} GB on {gpu}")
 
 
+# phase 25: the ImageNet example whole (ViT, s2d and remat, real images,
+# accumulation)
+P25_VIT_LAYERS = 12          # ViT-B/16: each flash kernel 12 times a step
+P25_VIT_SHAPE = (256, 197, 12, 64)   # its attention: B, T, H, D
+P25_F32 = dict(batch=32, layers=2)   # (b): ViT-B/16 width, float32
+P25_REMAT_BATCH = 16         # (d): the float32 ResNet-50 step
+P25_BLOCK_BN = 52            # BatchNorm boundaries inside ResNet-50's blocks
+P25_IMAGES = dict(train=1024, val=256, classes=8, min_side=300,
+                  max_side=500)
+P25_REAL_ITERS = 32          # (e): one epoch of the generated folder
+P25_REAL_PROFILED = 3
+P25_NPZ = (256, 256)         # (e): uint8 images, side (augmented to 224)
+P25_ACCUM = dict(batch=64, k=4)      # (f): ViT-S/16, float32
+
+
+def p25_vit_bench(fa, cs, torch):
+    """(a) ``bench_vit.main`` at its card defaults, flash then xla: exact
+    flash launches (12 of each kernel a step call, none under xla), 2
+    casts a step call (the bf16 wire), finite and falling loss."""
+    from chainermn_tpu_torch.benchmarks import bench_vit
+    out = {}
+    for att in ("flash", "xla"):
+        for w in fa.KERNELS:
+            w.launches = 0
+        cs.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        line = bench_vit.main(["--attention", att])
+        calls = line["step_calls"]
+        counts = {w.__name__: w.launches for w in fa.KERNELS}
+        counts["cast_scale"] = cs.cast_scale.launches
+        want = {w.__name__: P25_VIT_LAYERS * calls if att == "flash" else 0
+                for w in fa.KERNELS}
+        want["cast_scale"] = 2 * calls
+        if counts != want:
+            raise AssertionError(f"bench_vit --attention {att}: launches "
+                                 f"{counts}, expected {want}")
+        if not (math.isfinite(line["final_loss"])
+                and line["final_loss"] < line["first_loss"]
+                and line["value"] > 0
+                and 0 < line["device_ms_per_step"]
+                <= line["step_ms"] * 1.5):
+            raise AssertionError(f"bench_vit line not sane: {line}")
+        out[att] = dict(line=line, counts=counts,
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.empty_cache()
+    return out
+
+
+def p25_vit_f32(torch, dev):
+    """(b) ViT-B/16's width at 2 layers in float32, TF32 off: one loss and
+    gradient with the flash kernels (the CUDA-core float32 kernels at D 64)
+    and with the plain attention, from the same weights."""
+    import numpy as np
+    import torch.nn.functional as F
+    from chainermn_tpu_torch.models import ViT
+    from chainermn_tpu_torch.utils.compare import (
+        no_tf32, step_agrees, step_errors)
+    rng = np.random.RandomState(5)
+    b = P25_F32["batch"]
+    x = torch.from_numpy(rng.randn(b, 3, 224, 224).astype(np.float32)) \
+        .to(dev)
+    y = torch.from_numpy(rng.randint(0, 1000, size=b)).to(dev)
+    results, state = [], None
+    with no_tf32():
+        for impl in ("flash", "xla"):
+            model = ViT(n_layers=P25_F32["layers"], attention_impl=impl,
+                        device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+            if state is None:
+                state = {k: v.clone() for k, v in model.state_dict().items()}
+            model.load_state_dict(state)
+            loss = F.cross_entropy(model(x), y)
+            loss.backward()
+            results.append((float(loss.detach()), {
+                k: p.grad for k, p in model.named_parameters()}))
+            del model
+    (lk, gk), (lp, gp) = results
+    loss_rel, grad_rel, worst = step_errors([lk], [lp], gk, gp)
+    if not step_agrees(loss_rel, grad_rel):
+        raise AssertionError(f"float32 ViT step, flash vs xla: loss rel "
+                             f"{loss_rel:.3g}, gradient rel L2 {grad_rel:.3g}"
+                             f" ({worst})")
+    torch.cuda.empty_cache()
+    return dict(loss=lk, loss_xla=lp, loss_rel=loss_rel, grad_rel=grad_rel,
+                worst=worst, tensors=len(gp))
+
+
+class _ConvCounts:
+    """Convolutions dispatched at the ATen level inside the block (one that
+    a selective checkpoint serves from its cache never arrives)."""
+
+    def __init__(self, torch):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        ops = (torch.ops.aten.convolution.default,
+               torch.ops.aten._convolution.default)
+        counts = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func in ops:
+                    counts.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n, self.mode = 0, Mode()
+
+
+def p25_remat_f32(fn, torch, dev):
+    """(d) One float32 ResNet-50 step (TF32 off) under each remat policy
+    from the same weights and batch: the loss, gradients and running
+    buffers of "block" and "norm" against "none" (relative 1e-6, relative
+    L2 1e-5, relative 1e-6), the buffers moved once, the BatchNorm kernels'
+    launches (the blocks' 52 boundaries recomputed: statistics and apply
+    105 a step, the backward kernels 53), the convolutions dispatched
+    ("block" recomputes the blocks' 52, "norm" none) and the peak memory
+    ("block" below "none")."""
+    import numpy as np
+    import torch.nn.functional as F
+    from chainermn_tpu_torch.models import ResNet50
+    from chainermn_tpu_torch.utils.compare import no_tf32, rel_l2
+    rng = np.random.RandomState(6)
+    b = P25_REMAT_BATCH
+    x = torch.from_numpy(rng.randn(b, 3, 224, 224).astype(np.float32)) \
+        .to(dev)
+    y = torch.from_numpy(rng.randint(0, 1000, size=b)).to(dev)
+    res = {}
+    with no_tf32():
+        for policy in ("none", "block", "norm"):
+            model = ResNet50(remat_policy=policy, device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(4))
+            model.train()
+            before = {k: v.clone() for k, v in model.named_buffers()}
+            fn.reset_launch_counts()
+            convs = _ConvCounts(torch)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with convs.mode:
+                loss = F.cross_entropy(model(x), y)
+                loss.backward()
+            torch.cuda.synchronize()
+            res[policy] = dict(
+                loss=float(loss.detach()), launches=fn.launch_counts(),
+                convs=convs.n, before=before,
+                peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                grads={k: p.grad.clone() for k, p in
+                       model.named_parameters()},
+                buffers={k: v.clone() for k, v in model.named_buffers()
+                         if v.is_floating_point()})
+            del model, loss
+            torch.cuda.empty_cache()
+    ref = res["none"]
+    out = {"none": dict(peak_gb=ref["peak_gb"], launches=ref["launches"],
+                        convs=ref["convs"])}
+    if any(ref["buffers"][k].equal(ref["before"][k])
+           for k in ref["buffers"] if "running" in k):
+        raise AssertionError("remat none: a running buffer did not move")
+    for policy in ("block", "norm"):
+        r = res[policy]
+        loss_rel = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+        grad_rel, worst = max((rel_l2(r["grads"][k], g), k)
+                              for k, g in ref["grads"].items())
+        buf_rel = max(rel_l2(r["buffers"][k], v)
+                      for k, v in ref["buffers"].items())
+        want = {w: 53 + (P25_BLOCK_BN if w in ("stats_call", "apply_call")
+                         else 0) for w in fn.launch_counts()}
+        convs = ref["convs"] + (P25_BLOCK_BN if policy == "block" else 0)
+        out[policy] = dict(loss_rel=loss_rel, grad_rel=grad_rel,
+                           worst=worst, buffer_rel=buf_rel,
+                           peak_gb=r["peak_gb"], launches=r["launches"],
+                           convs=r["convs"])
+        if not (loss_rel <= 1e-6 and grad_rel <= 1e-5 and buf_rel <= 1e-6
+                and r["launches"] == want and r["convs"] == convs
+                and ref["launches"] == {w: 53 for w in want}):
+            raise AssertionError(f"remat {policy} against none: {out}")
+    if not res["block"]["peak_gb"] < ref["peak_gb"]:
+        raise AssertionError(f"remat block's peak memory is not below "
+                             f"none's: {out}")
+    return out
+
+
+def p25_resnet(fn, cs, torch, dev):
+    """(d) ResNet-50 with the s2d stem (``bench --stem s2d``, phase 16's
+    gates), ``run_configs --tune-remat`` (its rows and peak memory;
+    "block" below "none" in memory) and the float32 remat step."""
+    from chainermn_tpu_torch.benchmarks import run_configs
+    line, counts, peak = phase_bench(fn, cs, torch, ["--stem", "s2d"])
+    if line["stem"] != "s2d":
+        raise AssertionError(f"bench --stem s2d ran the {line['stem']} stem")
+    fn.reset_launch_counts()
+    doc = run_configs.main(["--tune-remat"])
+    rows = doc["configs"]["resnet50_xla"]["rows"]
+    if not (list(rows) == ["none", "block", "norm"]
+            and all(math.isfinite(r["final_loss"]) for r in rows.values())
+            and rows["block"]["peak_memory_gb"]
+            < rows["none"]["peak_memory_gb"]
+            and all(n > 0 for n in fn.launch_counts().values())):
+        raise AssertionError(f"tune-remat rows not sane: {rows}")
+    return dict(bench=line, bench_counts=counts, bench_peak_gb=peak,
+                tune=doc, f32=p25_remat_f32(fn, torch, dev))
+
+
+def p25_real_images(fn, torch):
+    """(e) ``train_imagenet`` ResNet-50 in bf16 at batch 32 on a generated
+    ImageFolder (``datasets.write_image_folder``: 1,024 JPEGs of 8 classes
+    at 300-500 px, and 256 validation images) through 4 loader threads
+    and 2 batches of prefetch, an epoch (32 steps) and its evaluation,
+    then 3 profiled steps: exact BatchNorm launches (53 a step, apply also
+    53 a validation batch), the share of the timed steps the loop waited
+    on the loader, the device's busy share; beside it the synthetic rate
+    and a ``--train-root`` npz run (uint8 at 256 px, augmented to 224) in
+    the same call."""
+    import numpy as np
+    from chainermn_tpu_torch.datasets import (
+        PrefetchIterator, write_image_folder)
+    from chainermn_tpu_torch.examples import train_imagenet
+    root = os.path.join(HERE, "build", "chip_smoke_images")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    im = P25_IMAGES
+    kw = dict(min_side=im["min_side"], max_side=im["max_side"])
+    train = write_image_folder(os.path.join(root, "train"), im["train"],
+                               im["classes"], **kw)
+    val = write_image_folder(os.path.join(root, "val"), im["val"],
+                             im["classes"], seed=1, **kw)
+    write_s = time.perf_counter() - t0
+    common = ["--arch", "resnet50", "--batchsize", str(BATCH), "--dtype",
+              "bfloat16", "--seed", "0", "--warmup-steps", str(WARMUP),
+              "--log-interval", "8"]
+    waits = []
+    nxt = PrefetchIterator.__next__
+
+    def timed_next(self):
+        t = time.perf_counter()
+        try:
+            return nxt(self)
+        finally:
+            waits.append(time.perf_counter() - t)
+
+    def timed(on):
+        # the updater calls next(), an alias of __next__
+        PrefetchIterator.__next__ = PrefetchIterator.next = \
+            timed_next if on else nxt
+
+    out = {"write_s": write_s}
+    try:
+        out["synthetic"] = train_imagenet.main(common + [
+            "--iterations", str(P25_REAL_ITERS), "--train-size",
+            str(im["train"]), "--val-size", "0"])
+        fn.reset_launch_counts()
+        timed(True)
+        try:
+            real = train_imagenet.main(common + [
+                "--data", train, "--val-data", val, "--loader-workers", "4",
+                "--prefetch", "2", "--iterations", str(P25_REAL_ITERS),
+                "--profile-steps", str(P25_REAL_PROFILED)])
+        finally:
+            timed(False)
+        if len(waits) < P25_REAL_ITERS:
+            raise AssertionError(f"real images: the loader was asked for "
+                                 f"{len(waits)} batches in "
+                                 f"{P25_REAL_ITERS} steps")
+        steps = P25_REAL_ITERS + P25_REAL_PROFILED
+        val_batches = im["val"] // BATCH
+        want = {w: 53 * (steps + (val_batches if w == "apply_call" else 0))
+                for w in fn.launch_counts()}
+        if fn.launch_counts() != want:
+            raise AssertionError(f"real images: launches "
+                                 f"{fn.launch_counts()}, expected {want}")
+        losses = real["losses"]
+        if not (len(losses) == P25_REAL_ITERS
+                and all(map(math.isfinite, losses))
+                and math.isfinite(real["log"][0]["validation/loss"])):
+            raise AssertionError(f"real images: losses {losses}, log "
+                                 f"{real['log']}")
+        timed = waits[WARMUP:P25_REAL_ITERS]
+        wall = (P25_REAL_ITERS - WARMUP) * BATCH / real["images_per_sec"]
+        out["real"] = real
+        out["loader_wait_share"] = sum(timed) / wall
+        rng = np.random.RandomState(2)
+        n, side = P25_NPZ
+        path = os.path.join(root, "train.npz")
+        np.savez(path, x=rng.randint(0, 256, size=(n, side, side, 3))
+                 .astype(np.uint8), y=rng.randint(0, im["classes"], size=n))
+        out["npz"] = train_imagenet.main(common + [
+            "--train-root", path, "--n-classes", str(im["classes"]),
+            "--iterations", str(n // BATCH)])
+        if not all(map(math.isfinite, out["npz"]["losses"])):
+            raise AssertionError(f"npz run: losses {out['npz']['losses']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for k in ("synthetic", "real", "npz"):
+        out[k] = {key: out[k][key] for key in (
+            "losses", "images_per_sec", "peak_memory_gb", "log", "profile")
+            if key in out[k]}
+    torch.cuda.empty_cache()
+    return out
+
+
+def p25_accum(torch):
+    """(f) ``train_imagenet --arch vit_s16`` in float32 (TF32 off), one
+    step of batch 64 with ``--accum-steps 4`` against one full-batch step
+    from the same seed: phase 12's gates on the loss and the reduced
+    gradients, and each run's peak memory."""
+    from chainermn_tpu_torch.examples import train_imagenet
+    from chainermn_tpu_torch.utils.compare import (
+        no_tf32, step_agrees, step_errors)
+    runs = {}
+    with no_tf32():
+        for k in (P25_ACCUM["k"], 1):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res = train_imagenet.main([
+                "--arch", "vit_s16", "--dtype", "float32", "--batchsize",
+                str(P25_ACCUM["batch"]), "--train-size",
+                str(P25_ACCUM["batch"]), "--val-size", "0", "--iterations",
+                "1", "--accum-steps", str(k), "--seed", "0"])
+            runs[k] = dict(loss=res["losses"][0],
+                           peak_gb=res["peak_memory_gb"],
+                           grads={n: p.grad.clone() for n, p in
+                                  res["model"].named_parameters()})
+            del res
+            torch.cuda.empty_cache()
+    acc, full = runs[P25_ACCUM["k"]], runs[1]
+    loss_rel, grad_rel, worst = step_errors(
+        [acc["loss"]], [full["loss"]], acc["grads"], full["grads"])
+    if not step_agrees(loss_rel, grad_rel):
+        raise AssertionError(f"--accum-steps {P25_ACCUM['k']} against one "
+                             f"full-batch step: loss rel {loss_rel:.3g}, "
+                             f"gradient rel L2 {grad_rel:.3g} ({worst})")
+    return dict(loss_rel=loss_rel, grad_rel=grad_rel, worst=worst,
+                peak_gb={k: r["peak_gb"] for k, r in runs.items()},
+                losses={k: r["loss"] for k, r in runs.items()})
+
+
+def phase_imagenet(fn, cs, fa, torch, dev, card):
+    """Phase 25: the ImageNet example whole on the card, (a)-(f) (each
+    sub-phase's docstring); returns their results and seconds."""
+    out, secs = {}, {}
+    for key, run in (
+            ("vit", lambda: p25_vit_bench(fa, cs, torch)),
+            ("vit_f32", lambda: p25_vit_f32(torch, dev)),
+            ("flash_vit", lambda: phase_flash_timing(
+                fa, torch, dev, card, torch.bfloat16, shape=P25_VIT_SHAPE,
+                causal=False)),
+            ("resnet", lambda: p25_resnet(fn, cs, torch, dev)),
+            ("real", lambda: p25_real_images(fn, torch)),
+            ("accum", lambda: p25_accum(torch))):
+        t0 = time.perf_counter()
+        out[key] = run()
+        secs[key] = time.perf_counter() - t0
+    out["seconds"] = secs
+    return out
+
+
+def log_imagenet(p25, gpu, secs):
+    """Phase 25's lines."""
+    for att, r in p25["vit"].items():
+        line = r["line"]
+        log(f"phase 25 (a) bench_vit --attention {att}: "
+            f"{line['value']:.1f} images/s per GPU, MFU {line['mfu']:.4f}, "
+            f"step {line['step_ms']:.2f} ms, device "
+            f"{line['device_ms_per_step']:.2f} ms (busy "
+            f"{line['device_busy_share']:.3f}), loss "
+            f"{line['first_loss']:.4f} -> {line['final_loss']:.4f}, "
+            f"launches {json.dumps(r['counts'])} in {line['step_calls']} "
+            f"step calls, peak memory {r['peak_gb']:.2f} GB; by category "
+            f"{json.dumps(line['device_ms_by_category'])} on {gpu}")
+    f = p25["vit_f32"]
+    log(f"phase 25 (b) ViT-B/16 width, {P25_F32['layers']} layers, float32, "
+        f"TF32 off, batch {P25_F32['batch']}: loss flash {f['loss']:.7f} xla "
+        f"{f['loss_xla']:.7f} (rel {f['loss_rel']:.2e}); worst gradient "
+        f"relative L2 {f['grad_rel']:.2e} ({f['worst']}) over "
+        f"{f['tensors']} tensors")
+    log(f"phase 25 (c) flash at the ViT shape (B, T, H, D) {P25_VIT_SHAPE} "
+        f"bf16 non-causal: " + json.dumps(
+            {w: {k: t[k] for k in ("ms", "eager_ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by")}
+             for w, t in p25["flash_vit"].items()}))
+    r = p25["resnet"]
+    b = r["bench"]
+    log(f"phase 25 (d) bench --stem s2d: {b['value']:.1f} images/s per GPU, "
+        f"MFU {b['mfu']:.4f}, step {b['step_ms']:.2f} ms, device "
+        f"{b['device_ms_per_step']:.2f} ms, launches "
+        f"{json.dumps(r['bench_counts'])}, peak memory "
+        f"{r['bench_peak_gb']:.2f} GB on {gpu}")
+    for policy, row in r["tune"]["configs"]["resnet50_xla"]["rows"].items():
+        log(f"phase 25 (d) tune-remat resnet50_xla/{policy}: "
+            f"{row['ms_per_step']:.3f} ms a step, "
+            f"{row['images_per_sec_per_gpu']:.1f} images/s per GPU, device "
+            f"{row.get('device_ms_per_step', float('nan')):.3f} ms, peak "
+            f"memory {row['peak_memory_gb']:.3f} GB")
+    log(f"phase 25 (d) tune-remat selected "
+        f"{r['tune']['configs']['resnet50_xla']['selected']!r}; float32 "
+        f"step (batch {P25_REMAT_BATCH}) against none: "
+        f"{json.dumps(r['f32'])}")
+    e = p25["real"]
+    real, syn, npz = e["real"], e["synthetic"], e["npz"]
+    log(f"phase 25 (e) real images: folder written in {e['write_s']:.1f} s; "
+        f"ImageFolder {real['images_per_sec']:.1f} images/s (loader wait "
+        f"{e['loader_wait_share']:.3f} of the timed steps; profile "
+        f"{json.dumps(real.get('profile'))}), validation "
+        f"{json.dumps(real['log'][0])}; synthetic "
+        f"{syn['images_per_sec']:.1f} images/s; npz "
+        f"{npz['images_per_sec']:.1f} images/s; peak memory "
+        f"{real['peak_memory_gb']:.2f} GB on {gpu}")
+    a = p25["accum"]
+    log(f"phase 25 (f) vit_s16 float32 batch {P25_ACCUM['batch']}, "
+        f"--accum-steps {P25_ACCUM['k']} against one step: loss rel "
+        f"{a['loss_rel']:.2e}, worst gradient relative L2 "
+        f"{a['grad_rel']:.2e} ({a['worst']}); losses "
+        f"{json.dumps(a['losses'])}; peak memory GB "
+        f"{json.dumps(a['peak_gb'])}")
+    log(f"phase 25: {secs:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in p25["seconds"].items()) + ")")
+
+
 C12_LOOPS = 300      # phase 22: passes of the flash autograd check
 WGRAD_LOOPS = 600    # phase 22: launches of the probe wgrad
 
@@ -2925,6 +3384,10 @@ def main():
                              "(their lines above)")
 
     t0 = time.perf_counter()
+    p25 = phase_imagenet(fn, cs, fa, torch, dev, card)
+    log_imagenet(p25, gpu, time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
     c12 = phase_c12(fa, torch, dev, C12_LOOPS)
     rep = phase_wgrad_repeat(pm, bcp, torch, dev, WGRAD_LOOPS)
     log(f"phase repeat loops (22): {time.perf_counter() - t0:.1f} s; C12 "
@@ -2935,12 +3398,20 @@ def main():
                              "launch whose bits differ from the first's")
 
     dist.destroy_process_group()
+    # phase 25's launches on the main path: (a) flash and casts, (d)'s
+    # bench and (e)'s real-image run the BatchNorm kernels
+    p25_bn = {w: p25["resnet"]["bench_counts"][w]
+              + 53 * (P25_REAL_ITERS + P25_REAL_PROFILED + (
+                  P25_IMAGES["val"] // BATCH if w == "apply_call" else 0))
+              for w in KERNELS}
+    p25_vit = p25["vit"]["flash"]["counts"]
     kernels = []
     for wrapper, (name, replaces, _, _, route, source) in KERNELS.items():
         t = times[wrapper]
         kernels.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": counts[wrapper],
+            "replaces": replaces,
+            "launches": counts[wrapper] + p25_bn[wrapper],
             "max_abs_err": errs[wrapper], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -2948,7 +3419,9 @@ def main():
         "name": "cast_scale", "route": "cuda",
         "source": "chainermn_tpu_torch/csrc/cast_scale.cu",
         "replaces": "chainermn_tpu/ops/cast_scale.py:33",
-        "launches": mnist_casts, "max_abs_err": cast_err,
+        "launches": mnist_casts + p25_vit["cast_scale"]
+        + p25["vit"]["xla"]["counts"]["cast_scale"],
+        "max_abs_err": cast_err,
         "ms": cast_t["ms"], "plain_ms": cast_t["plain_ms"],
         "bound_ms": cast_t["bound_ms"], "bound_by": "bytes",
         "library_ms": cast_t["library_ms"]})
@@ -2957,6 +3430,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": replaces, "launches": lm["counts"][wrapper]
+            + p25_vit[wrapper]
             + (srv["serving_launches"] if wrapper == "flash_fwd" else 0),
             "max_abs_err": flash_errs[wrapper], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -45,6 +45,9 @@
    multi-rank configs under ``torchrun``: ``seq2seq_mp`` on two cards and
    ``resnet50_hier`` on four (``intra_size`` 2: two "nodes" of two), each
    row with finite values, every rank's the same final loss; then
+   ``run_configs --tune-remat --repeats 1`` on four cards (``resnet50_xla``
+   and ``resnet50_hier`` under each remat policy: finite rows, the same
+   final losses on every rank, "block" below "none" in peak memory) and
    ``examples.train_parallel_conv`` at its defaults on four cards, its
    loss falling, the same on every rank.  With fewer cards than a run
    needs, the output says it did not run.
@@ -309,7 +312,24 @@ def configs(n, out, failures, work, logs):
                             f"rank {losses})")
     if n < 4:
         out["configs"]["train_parallel_conv"] = "not run: needs 4 cards"
+        out["configs"]["tune_remat"] = "not run: needs 4 cards"
         return
+    docs = torchrun(4, "tune_remat", ["--tune-remat", "--repeats", "1"],
+                    work, logs, kind="configs")
+    sweeps = docs[0]["configs"]
+    out["configs"]["tune_remat"] = sweeps
+    print(json.dumps(sweeps), flush=True)
+    for config in ("resnet50_xla", "resnet50_hier"):
+        rows = sweeps.get(config, {}).get("rows", {})
+        same = all(d["configs"][config]["rows"][p]["final_loss"]
+                   == rows[p]["final_loss"] for d in docs for p in rows)
+        if not (list(rows) == ["none", "block", "norm"] and same
+                and all(math.isfinite(r["final_loss"])
+                        and r["peak_memory_gb"] > 0 for r in rows.values())
+                and rows["block"]["peak_memory_gb"]
+                < rows["none"]["peak_memory_gb"]):
+            failures.append(f"tune-remat {config} on 4 cards: {rows} (the "
+                            f"same final losses on every rank: {same})")
     docs = torchrun(4, "parallel_conv", [], work, logs, kind="pconv")
     losses = docs[0]["losses"]
     out["configs"]["train_parallel_conv"] = {

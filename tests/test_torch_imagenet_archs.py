@@ -8,9 +8,11 @@ at a small size on the CPU (64x64 images, 10 classes, batch 4, float32).
   finite losses; a run with dropout resumed from a snapshot equals the
   uninterrupted run bit for bit (the masks are reseeded from the
   iteration).
-* The JAX example's refusals (``--aux-loss`` with another arch), the
-  ResNet-only ``--width``, the ViTs and the image-pipeline flags raise;
-  ``--intra-size`` is taken.
+* The JAX example's refusals raise: ``--aux-loss`` with another arch,
+  the ResNet-only ``--width`` (also beside a ViT), ``--prefetch 0`` with
+  an augmented folder, an ``--accum-steps`` that does not divide the
+  batch, and a ``--val-data`` folder that is not there; ``--intra-size``
+  is taken.
 * ``--profile-steps``' categories file the optimizers' foreach kernels
   (``multi_tensor_apply_kernel``, SGD's and Adam's update) under "other",
   not with the Triton BatchNorm passes whose name they contain.
@@ -100,14 +102,20 @@ def test_dropout_run_resumes_bit_for_bit(world1, tmp_path):
 @pytest.mark.parametrize("flags,err,match", [
     ("--arch alex --aux-loss", SystemExit, None),
     ("--arch nin --width 8", SystemExit, None),
-    ("--arch vit_s16", NotImplementedError, "A9"),
-    ("--arch vit_b16", NotImplementedError, "A9"),
-    ("--val-data x", NotImplementedError, "A6"),
-    ("--prefetch 0", NotImplementedError, "A6"),
-    ("--loader-workers 2", NotImplementedError, "A6")])
-def test_refusals(flags, err, match):
+    # the ViTs and the image pipeline are ported: what stays refused is
+    # what the JAX example refuses (or cannot open)
+    ("--arch vit_s16 --width 8", SystemExit, None),
+    ("--arch vit_b16 --aux-loss", SystemExit, None),
+    ("--val-data x", FileNotFoundError, "'x'"),
+    ("--prefetch 0 --data {images}", SystemExit,
+     "requires collatable data"),
+    ("--loader-workers 2 --accum-steps 0", SystemExit, None)])
+def test_refusals(world1, tmp_path, flags, err, match):
+    from chainermn_tpu_torch.datasets import write_image_folder
+    images = write_image_folder(str(tmp_path / "images"), 4, 2, min_side=8,
+                                max_side=12)
     with pytest.raises(err, match=match):
-        train_imagenet.main(SMALL + flags.split())
+        train_imagenet.main(SMALL + flags.format(images=images).split())
 
 
 def test_intra_size_is_taken(world1):

@@ -16,7 +16,9 @@ small size on the CPU: ResNet-50's depth at width 8, 32x32 images, batch
   reduce-scatter's sum is the all-reduce's one rounding, and the update is
   the same elementwise arithmetic on a flat shard);
 * LARS and Adam under the schedule give finite losses; the refusals of
-  the JAX example, and the flags that wait for other modules, raise.
+  the JAX example (a bad ``--accum-steps``, a missing ``--data`` folder
+  or ``--train-root`` file), and ``--fsdp``, which waits for its module,
+  raise.
 """
 
 import os
@@ -90,9 +92,11 @@ def test_other_optimizers_train(world1, opt):
 @pytest.mark.parametrize("flags,err", [
     ("--zero --double-buffering", SystemExit),
     ("--zero --optimizer lars", SystemExit),
-    ("--fsdp", NotImplementedError), ("--accum-steps 2", NotImplementedError),
-    ("--data x", NotImplementedError), ("--train-root x.npz",
-                                        NotImplementedError),
+    # --accum-steps, --data and --train-root are ported: JAX's own checks
+    # refuse a K that does not divide the batch and a missing folder or file
+    ("--fsdp", NotImplementedError), ("--accum-steps 3", SystemExit),
+    ("--data x", FileNotFoundError), ("--train-root x.npz",
+                                      FileNotFoundError),
     ("--aux-loss", SystemExit)])
 def test_refusals(flags, err):
     with pytest.raises(err):

@@ -170,7 +170,10 @@ def test_grads_match_flax():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tres.ResNet50(stem="s2d", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tres.ResNet50(remat_policy="norm", device="cpu")
+    # the s2d stem and the remat policies are ported; an unknown stem or
+    # policy raises JAX's ValueError
+    tres.ResNet50(stem="s2d", remat_policy="norm", device="cpu")
+    with pytest.raises(ValueError, match="unknown stem 's3d'"):
+        tres.ResNet50(stem="s3d", device="cpu")
+    with pytest.raises(ValueError, match="unknown remat_policy 'all'"):
+        tres.ResNet50(remat_policy="all", device="cpu")

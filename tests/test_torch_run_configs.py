@@ -100,8 +100,8 @@ def test_multi_rank_configs_refuse_too_few_ranks(world1, config, ranks):
 
 @pytest.mark.parametrize("argv,err", [(["--configs", "bert"], SystemExit),
                                       (["--repeats", "0"], SystemExit),
-                                      (["--tune-remat"],
-                                       NotImplementedError)])
+                                      (["--tune-remat", "--configs",
+                                        "resnet50_xla"], SystemExit)])
 def test_flag_refusals(argv, err):
     with pytest.raises(err):
         run_configs.main(["--device", "cpu"] + argv)

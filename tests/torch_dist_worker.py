@@ -3,7 +3,7 @@
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/torch_dist_worker.py \\
             {comm|train|opt|mnist|lm|unused|coll|zero|syncbn|imagenet|seq|
-             p2p|chain|seq2seq|pconv|configs|serve} \\
+             p2p|chain|seq2seq|pconv|configs|serve|accum} \\
             IN.npz OUT_PREFIX
 
 Reads the stacked per-rank inputs from ``IN.npz`` (leading axis = rank),
@@ -499,6 +499,64 @@ def run_imagenet(inp, rank):
     return out
 
 
+def run_accum(inp, rank):
+    """Gradient accumulation: for each config ``{model}-{flavor}-{K}`` in
+    ``configs`` (model ``mlp`` or ``resnet``, flavor ``plain``, ``double``
+    or ``zero``), the flax weights ``{model}/var/...`` trained over this
+    rank's slices of ``{model}/x`` and ``{model}/y`` with
+    ``make_train_step(accum_steps=K)``: ``{config}/losses``,
+    ``{config}/var/...`` (parameters and running statistics, flax-named)
+    and ``{config}/reductions`` (the optimizer's gradient reductions, one
+    a step expected)."""
+    from chainermn_tpu_torch import weights
+    from chainermn_tpu_torch.models import MLP, ResNet
+
+    out = {}
+    for config in str(inp["configs"]).split(","):
+        name, flavor, k = config.split("-")
+        variables = nest({key[len(name) + 5:]: v for key, v in inp.items()
+                          if key.startswith(f"{name}/var/")})
+        comm = create_communicator("xla", device="cpu")
+        model = (MLP(16, 10, n_in=48, device="cpu") if name == "mlp" else
+                 ResNet(stage_sizes=(1, 1), num_filters=8, num_classes=10,
+                        device="cpu"))
+        weights.load_flax_variables(model, variables)
+        opt = create_multi_node_optimizer(
+            torch.optim.SGD(model.parameters(), lr=float(inp["lr"]),
+                            momentum=0.9), comm,
+            double_buffering=flavor == "double", zero=flavor == "zero")
+        # the one reduction each optimizer issues a step
+        owner, attr = {"plain": (opt, "allreduce_grad"),
+                       "double": (comm, "_allreduce_grad_start"),
+                       "zero": (opt, "reduce_scatter_grad")}[flavor]
+        calls = [0]
+
+        def counted(*a, _f=getattr(owner, attr), **kw):
+            calls[0] += 1
+            return _f(*a, **kw)
+
+        setattr(owner, attr, counted)
+
+        def loss_fn(batch, model=model):
+            x, y = batch
+            return torch.nn.functional.cross_entropy(model(x), y)
+
+        step = make_train_step(comm, loss_fn, opt, accum_steps=int(k))
+        model.train()
+        losses = []
+        for x, y in zip(inp[f"{name}/x"][:, rank], inp[f"{name}/y"][:, rank]):
+            if x.ndim == 4:
+                x = x.transpose(0, 3, 1, 2)
+            x = torch.from_numpy(np.ascontiguousarray(x))
+            losses.append(float(step((x, torch.from_numpy(y).long()))))
+        step.finalize()
+        out.update({f"{config}/var/{key}": v for key, v in flatten(
+            weights.state_dict_to_flax(model)).items()})
+        out[f"{config}/losses"] = np.asarray(losses)
+        out[f"{config}/reductions"] = np.asarray(calls[0])
+    return out
+
+
 def _grads_as_flax(model):
     """The model's gradients in the flax parameter layout."""
     from chainermn_tpu_torch import weights
@@ -943,7 +1001,7 @@ def main():
            "imagenet": run_imagenet, "seq": run_seq, "p2p": run_p2p,
            "chain": run_chain, "seq2seq": run_seq2seq,
            "pconv": run_pconv, "configs": run_configs,
-           "serve": run_serve}[mode](inp, topo.rank)
+           "serve": run_serve, "accum": run_accum}[mode](inp, topo.rank)
     np.savez(f"{out_prefix}.{topo.rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
