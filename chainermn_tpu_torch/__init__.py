@@ -8,6 +8,8 @@ imports neither JAX nor ``chainermn_tpu``.
 """
 
 from chainermn_tpu_torch.communicators import create_communicator
+from chainermn_tpu_torch.extensions.checkpoint import (
+    consolidate_fsdp_checkpoint)
 from chainermn_tpu_torch.datasets import (
     Augment, ImageFolderDataset, NpzImageDataset, TransformDataset,
     normalize_image, scatter_dataset)
@@ -21,7 +23,8 @@ from chainermn_tpu_torch.runtime.bootstrap import init_distributed
 
 __all__ = ["Augment", "ImageFolderDataset", "MultiNodeChainList",
            "NpzImageDataset", "TransformDataset", "ViT", "ViT_B16", "ViT_S16",
-           "attention", "create_communicator", "create_multi_node_optimizer",
-           "create_per_stage_optimizer", "init_distributed",
+           "attention", "consolidate_fsdp_checkpoint", "create_communicator",
+           "create_multi_node_optimizer", "create_per_stage_optimizer",
+           "init_distributed",
            "make_train_step", "normalize_image", "pseudo_loss",
            "ring_attention", "scatter_dataset", "ulysses_attention"]

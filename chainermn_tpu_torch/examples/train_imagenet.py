@@ -57,6 +57,15 @@ holds a generation every rank can read resumes from the newest such one,
 and then trains as the uninterrupted run would have.
 ``AllreducePersistent`` averages the BatchNorm running statistics over the
 world at every epoch end.
+
+``--fsdp`` trains with ZeRO-3 (:mod:`chainermn_tpu_torch.parallel.fsdp`):
+the parameters and the optimizer's state live as 1/size flat shards per
+rank and are gathered inside the step, in ``--fsdp-buckets`` buckets under
+the step's default prefetch window (one gather ahead of the bucket in use);
+``--allreduce-grad-dtype`` is then the wire of both collectives.  A snapshot holds the shards and their
+optimizer state (the FSDP state is the parameters) beside the BatchNorm
+buffers; the evaluator runs on the gathered parameters, and at the end of
+training the module holds them.
 """
 
 from __future__ import annotations
@@ -84,7 +93,11 @@ from chainermn_tpu_torch.models.layers import dropout_seed
 from chainermn_tpu_torch.optim import (
     LARS, init_optimizer_state, load_optimizer_state_tree,
     optimizer_state_tree, warmup_cosine_decay_schedule)
-from chainermn_tpu_torch.training import StatefulUpdater, Trainer, extensions
+from chainermn_tpu_torch.parallel.fsdp import (
+    fsdp_full_params, fsdp_init, fsdp_module_params, load_module_params,
+    make_fsdp_train_step)
+from chainermn_tpu_torch.training import (
+    FsdpStatefulUpdater, FsdpUpdater, StatefulUpdater, Trainer, extensions)
 from chainermn_tpu_torch.utils.trace import KERNEL_CATEGORIES, kernel_category
 
 ARCHS = {"alex": AlexNet, "googlenet": GoogLeNet,
@@ -96,9 +109,6 @@ OPTIMIZERS = {
     "lars": lambda ps, lr: LARS(ps, lr=lr, momentum=0.9),
     "adam": lambda ps, lr: torch.optim.Adam(ps, lr=lr),
 }
-# flags of the JAX example that wait for other modules: (attribute, what,
-# ROADMAP.md queue); each raises when given
-NOT_PORTED = (("fsdp", "--fsdp (parallel/fsdp.py)", "A9"),)
 
 
 def make_synthetic_imagenet(n, image, n_classes, seed):
@@ -224,7 +234,13 @@ def parse_args(argv=None):
                    help="after training, run this many more steps under "
                         "torch.profiler and print where the device time "
                         "went")
-    p.add_argument("--fsdp", action="store_true", help="not ported yet")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3/FSDP: parameters AND optimizer state "
+                        "sharded per GPU, gathered inside the step "
+                        "(exclusive with --zero/--double-buffering)")
+    p.add_argument("--fsdp-buckets", type=int, default=1,
+                   help="--fsdp: parameter buckets, each gathered and "
+                        "reduce-scattered on its own")
     p.add_argument("--aux-loss", action="store_true",
                    help="googlenet/googlenetbn only: train with the "
                         "auxiliary classifier heads (loss1*0.3 + loss2*0.3 "
@@ -237,16 +253,15 @@ def parse_args(argv=None):
                 f"{args.arch} has no such option")
     if args.zero and args.double_buffering:
         p.error("--zero and --double-buffering are mutually exclusive")
-    if args.zero and args.optimizer == "lars":
-        p.error("--zero flattens parameters into per-rank shards, which "
-                "destroys LARS's per-layer trust ratios -- use --optimizer "
-                "momentum/adam")
+    if args.fsdp and (args.zero or args.double_buffering):
+        p.error("--fsdp already shards params+grads+state; --zero and "
+                "--double-buffering do not compose with it")
+    if (args.zero or args.fsdp) and args.optimizer == "lars":
+        p.error("--zero/--fsdp flatten parameters into per-rank shards, "
+                "which destroys LARS's per-layer trust ratios -- use "
+                "--optimizer momentum/adam")
     if args.accum_steps < 1 or args.batchsize % args.accum_steps:
         p.error("--accum-steps must divide --batchsize")
-    for flag, what, queue in NOT_PORTED:
-        if getattr(args, flag) != p.get_default(flag):
-            raise NotImplementedError(
-                f"{what} is not ported yet; see ROADMAP.md Queue {queue}")
     return args
 
 
@@ -288,11 +303,13 @@ def profile_steps(updater, steps: int, device,
 def main(argv=None) -> dict:
     """Train; returns ``{"losses", "images_per_sec", "iterations",
     "world", "log", "resumed_from", "save_seconds", "peak_memory_gb",
-    "model", "optimizer"}`` (images/sec over this run's steps after
-    ``--warmup-steps``, summed over the world; ``resumed_from`` the
+    "model", "optimizer", "fsdp_state", "fsdp_meta", "step_stats"}``
+    (images/sec over this run's steps after ``--warmup-steps``, summed
+    over the world; ``resumed_from`` the
     iteration of the snapshot it resumed from, or None; ``save_seconds``
-    each snapshot's; the run's peak device memory, None on the CPU),
-    plus ``"profile"`` with ``--profile-steps``."""
+    each snapshot's; the run's peak device memory, None on the CPU;
+    under ``--fsdp`` the FsdpState, its meta and the last step's
+    collective counts), plus ``"profile"`` with ``--profile-steps``."""
     args = parse_args(argv)
     comm = cmn.create_communicator(
         args.communicator, allreduce_grad_dtype=args.allreduce_grad_dtype,
@@ -303,7 +320,9 @@ def main(argv=None) -> dict:
               f"Num processes (GPUs): {comm.size} (intra {comm.intra_size})\n"
               f"Using {args.communicator} communicator, arch {args.arch}, "
               f"optimizer {args.optimizer}"
-              f"{' (ZeRO-1)' if args.zero else ''}\n"
+              f"{' (ZeRO-1)' if args.zero else ''}"
+              f"{f' (FSDP, {args.fsdp_buckets} buckets)' if args.fsdp else ''}"
+              f"\n"
               f"Minibatch/GPU: {args.batchsize}, dtype: {args.dtype}, "
               f"device: {device}\n"
               f"==========================================", flush=True)
@@ -333,9 +352,19 @@ def main(argv=None) -> dict:
         schedule = warmup_cosine_decay_schedule(
             0.0, args.lr, warmup,
             max(args.epoch * iters_per_epoch, warmup + 1))
-    optimizer = cmn.create_multi_node_optimizer(
-        OPTIMIZERS[args.optimizer](model.parameters(), args.lr), comm,
-        double_buffering=args.double_buffering, zero=args.zero)
+    base = OPTIMIZERS[args.optimizer](model.parameters(), args.lr)
+    fsdp_state = meta = optimizer = None
+    if args.fsdp:
+        # ZeRO-3: the gather/scatter collectives are the multi-node
+        # integration, and the state's inner optimizer steps the shards
+        fsdp_state, meta = fsdp_init(comm, model, base,
+                                     num_buckets=args.fsdp_buckets)
+        local_opt = fsdp_state.inner
+    else:
+        optimizer = cmn.create_multi_node_optimizer(
+            base, comm, double_buffering=args.double_buffering,
+            zero=args.zero)
+        local_opt = optimizer.local_optimizer
 
     dropout_gen = getattr(model, "dropout_generator", None)
     micro = [0]  # microbatches of this step so far
@@ -353,27 +382,44 @@ def main(argv=None) -> dict:
         acc = (logits.argmax(-1) == y).float().mean()
         return loss, {"accuracy": acc}
 
-    train_step = cmn.make_train_step(comm, loss_fn, optimizer, has_aux=True,
-                                     accum_steps=args.accum_steps)
+    if args.fsdp:
+        train_step = make_fsdp_train_step(
+            comm, loss_fn, fsdp_state, meta, has_aux=True,
+            wire_dtype=args.allreduce_grad_dtype,
+            accum_steps=args.accum_steps)
+    else:
+        train_step = cmn.make_train_step(comm, loss_fn, optimizer,
+                                         has_aux=True,
+                                         accum_steps=args.accum_steps)
 
     def step(batch):
         if schedule is not None:
             lr = schedule(updater.iteration)  # updates so far, as optax
-            for g in optimizer.param_groups:
+            for g in local_opt.param_groups:
                 g["lr"] = lr
         micro[0] = 0
         return train_step(batch)
 
     step.finalize = train_step.finalize
     model.train()
-    updater = StatefulUpdater(base_iter, step, model, comm)
+    if not args.fsdp:
+        updater = StatefulUpdater(base_iter, step, model, comm)
+    elif persistent_buffers(model):  # BatchNorm: rank-local buffers
+        updater = FsdpStatefulUpdater(base_iter, step, fsdp_state, meta,
+                                      model, comm)
+    else:
+        updater = FsdpUpdater(base_iter, step, fsdp_state, meta, comm)
+    state_of = lambda it, i: checkpoint_state(  # noqa: E731
+        model, local_opt, it, i, fsdp_state, getattr(optimizer,
+                                                     "pending_grads", None))
 
     ckpt = resumed = None
     if args.checkpoint:
         ckpt = create_multi_node_checkpointer(
             comm, args.checkpoint, name=f"imagenet-{args.arch}",
             keep=args.checkpoint_keep)
-        resumed = resume(ckpt, model, optimizer, base_iter, updater)
+        resumed = resume(ckpt, model, local_opt, optimizer, fsdp_state,
+                         base_iter, updater)
         if resumed is not None and comm.rank == 0:
             print(f"resumed from snapshot at iteration {resumed} (epoch "
                   f"{base_iter.epoch})", flush=True)
@@ -396,18 +442,24 @@ def main(argv=None) -> dict:
         trainer.extend(AllreducePersistent(comm, model))
     if ckpt is not None:
         trainer.extend(extensions.Snapshot(
-            ckpt, lambda t: checkpoint_state(model, optimizer, train_iter,
-                                             t.updater.iteration),
+            ckpt, lambda t: state_of(train_iter, t.updater.iteration),
             trigger=((args.checkpoint_freq, "iteration")
                      if args.checkpoint_freq else (1, "epoch"))))
     if val is not None:
-        trainer.extend(create_multi_node_evaluator(
-            make_evaluator(args, comm, model, val, nhwc), comm))
+        evaluator = create_multi_node_evaluator(
+            make_evaluator(args, comm, model, val, nhwc), comm)
+        if args.fsdp:
+            evaluator = FullParamsExtension(
+                evaluator, lambda: fsdp_module_params(fsdp_state, meta, comm))
+        trainer.extend(evaluator)
     log = extensions.LogReport(filename="log" if comm.rank == 0 else None)
     trainer.extend(log)
     timer.start()
     try:
         trainer.run()
+        if args.fsdp:  # the trained parameters, whole, in the module
+            load_module_params(model, fsdp_full_params(fsdp_state, meta,
+                                                       comm))
         w = args.warmup_steps
         losses, ips, peak_gb = timer.result(args.batchsize * comm.size, w)
         result = {"losses": losses, "images_per_sec": ips,
@@ -415,7 +467,8 @@ def main(argv=None) -> dict:
                   "log": log.log, "resumed_from": resumed,
                   "save_seconds": ckpt.save_seconds if ckpt else [],
                   "peak_memory_gb": peak_gb, "model": model,
-                  "optimizer": optimizer}
+                  "optimizer": optimizer, "fsdp_state": fsdp_state,
+                  "fsdp_meta": meta, "step_stats": getattr(train_step, "stats", None)}
         if comm.rank == 0:
             ips_s = f"{ips:.1f}" if ips is not None else "n/a"
             final = f"{losses[-1]:.4f}" if losses else "n/a"
@@ -514,36 +567,66 @@ def make_evaluator(args, comm, model, val, nhwc: bool):
     return extensions.Evaluator(val_iter, make_eval_fn(comm, metrics), comm)
 
 
-def checkpoint_state(model, optimizer, train_iter, iteration) -> dict:
+class FullParamsExtension:
+    """A trainer extension (an evaluator) run inside ``context()``: under
+    ``--fsdp`` the module holds its gathered parameters there, as JAX
+    passes its evaluator ``updater.params``."""
+
+    def __init__(self, extension, context):
+        self.extension, self.context = extension, context
+        for k in ("trigger", "priority", "name"):
+            if hasattr(extension, k):
+                setattr(self, k, getattr(extension, k))
+
+    def __call__(self, trainer):
+        with self.context():
+            return self.extension(trainer)
+
+
+def checkpoint_state(model, local_opt, train_iter, iteration,
+                     fsdp_state=None, pending=None) -> dict:
     """What a snapshot holds: the model's parameters and buffers, the
     optimizer's state (this rank's shards under ZeRO-1), the gradient mean
-    a double-buffered optimizer applies next, the iterator and the
-    iteration."""
-    state = {"model": dict(model.state_dict()),
-             "optimizer": optimizer_state_tree(optimizer.local_optimizer),
-             "iterator": train_iter.state_dict(),
-             "iteration": np.int64(iteration)}
-    pending = getattr(optimizer, "pending_grads", None)
+    a double-buffered optimizer applies next (``pending()``), the iterator
+    and the iteration.  Under ``--fsdp`` the FsdpState (the parameter
+    shards and their optimizer's state) stands for the parameters and the
+    optimizer, and the model gives its buffers only."""
+    if fsdp_state is not None:
+        state = {"model": dict(model.named_buffers()),
+                 "optimizer": fsdp_state}
+    else:
+        state = {"model": dict(model.state_dict()),
+                 "optimizer": optimizer_state_tree(local_opt)}
+    state.update(iterator=train_iter.state_dict(),
+                 iteration=np.int64(iteration))
     if pending is not None:
         state["pending"] = pending()
     return state
 
 
-def resume(ckpt, model, optimizer, train_iter, updater):
+def resume(ckpt, model, local_opt, optimizer, fsdp_state, train_iter,
+           updater):
     """Restore the newest generation every rank holds, if any; returns its
-    iteration (None: a fresh start, nothing changed)."""
+    iteration (None: a fresh start, nothing changed).  An FsdpState is
+    restored in place."""
     if ckpt.latest_consistent_generation() is None:
         return None
     # the live state that the snapshot must match: a torch optimizer has
     # no state before its first step, so take one that changes nothing
-    init_optimizer_state(optimizer.local_optimizer)
-    like = checkpoint_state(model, optimizer, train_iter, 0)
+    init_optimizer_state(local_opt)
+    pending = getattr(optimizer, "pending_grads", None)
+    like = checkpoint_state(model, local_opt, train_iter, 0, fsdp_state,
+                            pending)
     if "pending" in like:
         like["pending"] = [torch.zeros_like(p) for p in model.parameters()]
     restored, gen = ckpt.resume(like)
-    model.load_state_dict(restored["model"])
-    load_optimizer_state_tree(optimizer.local_optimizer,
-                              restored["optimizer"])
+    if fsdp_state is None:
+        model.load_state_dict(restored["model"])
+        load_optimizer_state_tree(local_opt, restored["optimizer"])
+    else:
+        with torch.no_grad():
+            for name, buf in model.named_buffers():
+                buf.copy_(restored["model"][name])
     if "pending" in restored:
         optimizer.set_pending_grads(restored["pending"])
     train_iter.load_state_dict(restored["iterator"])

@@ -22,8 +22,15 @@ rank and communicate nothing.
         --attention ring_flash --seq-len 8192
     python -m chainermn_tpu_torch.examples.train_lm --attention flash
 
-The flags are the JAX example's, plus ``--device``; ``--fsdp`` is not
-ported (ROADMAP.md Queue A9, FSDP) and raises.
+``--fsdp`` (with a sequence-parallel attention) adds ZeRO-3 over the same
+ranks (:mod:`chainermn_tpu_torch.parallel.fsdp`): the parameters and
+Adam's state live as 1/P flat shards, the step gathers them, runs
+:func:`sp_loss` on this rank's block, and the reduce-scatter of the
+gradients sums the ranks' shares (``global_loss``: no
+:func:`sum_gradients`).  At the end the module holds the trained
+parameters, gathered.
+
+The flags are the JAX example's, plus ``--device``.
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ from chainermn_tpu_torch import functions
 from chainermn_tpu_torch.communicators import _packing, create_communicator
 from chainermn_tpu_torch.models import TransformerLM
 from chainermn_tpu_torch.models.transformer import SEQUENCE_PARALLEL
+from chainermn_tpu_torch.parallel.fsdp import (
+    fsdp_full_params, fsdp_init, load_module_params, make_fsdp_train_step)
 
 
 def make_motif_task(n, seq_len, vocab, motif_len=16, seed=0):
@@ -96,15 +105,19 @@ def sum_gradients(model, comm) -> None:
 
 
 def train_steps(model, toks, steps: int, lr: float, comm=None,
-                on_grads=None):
+                on_grads=None, fsdp: bool = False):
     """``steps`` Adam steps (optax's defaults: betas 0.9/0.999, eps 1e-8) on
     the fixed batch ``toks``; yields each step's ``(loss, seconds)`` (a
     step ends in its loss read).  With ``comm`` the sequence is sharded
     over its ranks: ``toks`` is this rank's block, the loss is
     :func:`sp_loss` and the gradients are summed over the ranks.
     ``on_grads(i, model)``, if given, sees step i's gradients before the
-    update."""
+    update.  ``fsdp`` (with ``comm``) shards the parameters and Adam's
+    state over the ranks (:func:`fsdp_steps`)."""
     opt = torch.optim.Adam(model.parameters(), lr=lr)
+    if fsdp:
+        yield from fsdp_steps(model, opt, toks, steps, comm, on_grads)
+        return
     for i in range(steps):
         t0 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
@@ -118,6 +131,24 @@ def train_steps(model, toks, steps: int, lr: float, comm=None,
         opt.step()
         loss = float(loss.detach())
         yield loss, time.perf_counter() - t0
+
+
+def fsdp_steps(model, opt, toks, steps: int, comm, on_grads=None):
+    """:func:`train_steps` under ZeRO-3 over ``comm``: ``opt``'s class and
+    hyperparameters step the shards, the reduce-scatter sums the ranks'
+    shares of the gradient (``global_loss``), and after the last step the
+    module holds the gathered parameters (JAX's ``fsdp_full_params``)."""
+    if on_grads is not None:
+        raise ValueError("on_grads reads the parameters' gradients, which "
+                         "--fsdp keeps as reduce-scattered shards")
+    state, meta = fsdp_init(comm, model, opt)
+    step = make_fsdp_train_step(comm, lambda t: sp_loss(model, t, comm),
+                                state, meta, global_loss=True)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = float(step(toks))
+        yield loss, time.perf_counter() - t0
+    load_module_params(model, fsdp_full_params(state, meta, comm))
 
 
 def _log_step(log, i, steps, loss):
@@ -151,7 +182,9 @@ def parse_args(argv=None):
                         "flash/ring_flash read grouped kv natively)")
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--fsdp", action="store_true",
-                   help="not ported yet (ROADMAP.md Queue A9, FSDP)")
+                   help="ZeRO-3 over the sequence-parallel ranks: "
+                        "parameters and Adam state sharded, gathered "
+                        "inside the step")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="default: cuda:LOCAL_RANK (pass 'cpu' for the CPU)")
@@ -169,18 +202,15 @@ def parse_args(argv=None):
 
 def main(argv=None, on_grads=None) -> dict:
     """Train; returns ``{"losses", "seconds", "step_seconds",
-    "tokens_per_sec", "world", "peak_memory_gb"}``: tokens/sec of the
-    whole sequence over every step, the first included (with sequence
-    parallelism, over the ``world`` ranks together); each step's seconds;
-    this process's peak device memory (None on the CPU).  ``on_grads`` as
-    in :func:`train_steps`.  Initializes the default process group if it
-    is not yet, and then destroys it at the end."""
+    "tokens_per_sec", "world", "peak_memory_gb", "state_memory_gb",
+    "model"}``: tokens/sec of the whole sequence over every step, the first
+    included (with sequence parallelism, over the ``world`` ranks
+    together); each step's seconds; this process's peak device memory and
+    its allocation after the last step (None on the CPU); the trained
+    module.  ``on_grads`` as in :func:`train_steps`.  Initializes the
+    default process group if it is not yet, and then destroys it at the
+    end."""
     args = parse_args(argv)
-    if args.fsdp:
-        raise NotImplementedError(
-            "--fsdp (parameters and Adam state sharded over the sequence-"
-            "parallel ranks) is not ported yet; see ROADMAP.md Queue A9 "
-            "(FSDP)")
     created = not dist.is_initialized()
     comm = create_communicator("xla", device=args.device)
     try:
@@ -211,19 +241,26 @@ def _run(args, comm, on_grads) -> dict:
         toks = toks[:, comm.rank * t_local:(comm.rank + 1) * t_local]
     if comm.rank == 0:
         print(f"attention={args.attention} devices={n_sp} "
-              f"seq={args.seq_len} (local {t_local}) device={device}",
+              f"seq={args.seq_len} (local {t_local}) fsdp={args.fsdp} "
+              f"device={device}",
               flush=True)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     log = (lambda m: print(m, flush=True)) if comm.rank == 0 else None
     losses, step_seconds = [], []
+    state_gb = None
     t0 = time.perf_counter()
     for i, (loss, sec) in enumerate(train_steps(
             model, toks, args.steps, args.lr,
-            comm=comm if seq_parallel else None, on_grads=on_grads)):
+            comm=comm if seq_parallel else None, on_grads=on_grads,
+            fsdp=args.fsdp)):
         losses.append(loss)
         step_seconds.append(sec)
         _log_step(log, i, args.steps, loss)
+        if i == args.steps - 1 and device.type == "cuda":
+            # what training keeps between steps (under --fsdp, before the
+            # module gets the gathered parameters back)
+            state_gb = torch.cuda.memory_allocated(device) / 1e9
     seconds = time.perf_counter() - t0  # each step ends in a loss read
     if comm.rank == 0:
         print(f"done in {seconds:.1f}s; final loss {losses[-1]:.4f}",
@@ -233,7 +270,8 @@ def _run(args, comm, on_grads) -> dict:
             "tokens_per_sec": args.batchsize * args.seq_len * args.steps
             / seconds, "world": n_sp,
             "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9
-            if device.type == "cuda" else None}
+            if device.type == "cuda" else None,
+            "state_memory_gb": state_gb, "model": model}
 
 
 if __name__ == "__main__":

@@ -16,9 +16,19 @@ dtype differs from the live state's -- which is how ZeRO-1 shards saved at
 another world size are refused.  bfloat16 tensors are stored as their
 16-bit patterns.
 
+An :class:`~chainermn_tpu_torch.parallel.FsdpState` in the state is
+stored as ``{path}/shards/{bucket}/{buffer}`` (this rank's shards) and
+``{path}/inner/...`` (its optimizer's state), and restored in place; the
+``__fsdp_meta__`` sidecar holds the world size, the bucket count and the
+shard lengths, so a resume into another world size or bucket
+configuration, or between sharded and unsharded states, is refused before
+anything is restored.  :func:`consolidate_fsdp_checkpoint` turns a
+sharded checkpoint into full parameters, reading every rank's file: a
+process of any world (a server) can load what the training world saved.
+
 Not ported: the ``async`` backend (ROADMAP.md Queue A14) and ``orbax``,
-which has no twin in PyTorch; the FSDP, compression and plan-table
-sidecars wait for the modules they describe (Queues A9, A10, A11).
+which has no twin in PyTorch; the compression and plan-table sidecars
+wait for the modules they describe (Queues A10, A11).
 """
 
 from __future__ import annotations
@@ -33,12 +43,21 @@ from typing import Dict, List, Optional, Set
 import numpy as np
 import torch
 
+from chainermn_tpu_torch.parallel.fsdp import (
+    FsdpMeta, FsdpState, fsdp_full_params, fsdp_layout, iter_fsdp_states,
+    unpack_full_params)
+
 # the sidecar of each leaf's dtype (no leaf path starts with "__")
 _DTYPES_KEY = "__dtypes__"
+# the FSDP sharding layout (world size, buckets, shard lengths)
+_FSDP_META_KEY = "__fsdp_meta__"
 
 
 def _leaves(tree, prefix: str = "") -> Dict[str, object]:
-    """``{path: leaf}`` of a tree of dicts, lists and tuples."""
+    """``{path: leaf}`` of a tree of dicts, lists and tuples (an
+    FsdpState as its :meth:`~FsdpState.tree`)."""
+    if isinstance(tree, FsdpState):
+        return _leaves(tree.tree(), prefix)
     if isinstance(tree, dict):
         out = {}
         for k in sorted(tree):
@@ -53,7 +72,11 @@ def _leaves(tree, prefix: str = "") -> Dict[str, object]:
 
 
 def _rebuild(tree, values: Dict[str, object], prefix: str = ""):
-    """``tree``'s structure with each leaf replaced by ``values[path]``."""
+    """``tree``'s structure with each leaf replaced by ``values[path]``;
+    an FsdpState is restored in place and returned."""
+    if isinstance(tree, FsdpState):
+        tree.load_tree(_rebuild(tree.tree(), values, prefix))
+        return tree
     if isinstance(tree, dict):
         return {k: _rebuild(v, values, f"{prefix}/{k}" if prefix else str(k))
                 for k, v in tree.items()}
@@ -128,6 +151,9 @@ class _MultiNodeCheckpointer:
         arrays = {k: _to_array(v) for k, v in leaves.items()}
         arrays[_DTYPES_KEY] = np.array(json.dumps(
             {k: _dtype_name(v) for k, v in leaves.items()}))
+        layout = fsdp_layout(state)
+        if layout is not None:
+            arrays[_FSDP_META_KEY] = np.array(json.dumps(layout))
         # np.savez appends .npz when missing, so the temp name ends in it
         tmp = self._file(iteration) + ".tmp.npz"
         np.savez(tmp, **arrays)
@@ -191,6 +217,57 @@ class _MultiNodeCheckpointer:
             common = set(gens) if common is None else common & set(gens)
         return max(common) if common else None
 
+    def _validate_fsdp(self, arrays: dict, state, gen: int) -> None:
+        """Refuse a world-size, bucket or sharding-mode mismatch before any
+        leaf is restored (an FSDP checkpoint reloaded into another world
+        would train on garbage shards)."""
+        raw = arrays.pop(_FSDP_META_KEY, None)
+        saved = json.loads(str(raw)) if raw is not None else None
+        live = fsdp_layout(state)
+        where = f"{self.name}.{gen} (rank {self.comm.rank})"
+        if saved is None and live is not None:
+            raise ValueError(
+                f"checkpoint {where} holds no FSDP-sharded state but the "
+                f"resume target is an FsdpState (world_size="
+                f"{live['world_size']}) -- resume into the unsharded state "
+                f"it was saved from, then shard it with fsdp_init")
+        if saved is None:
+            return
+        if live is None:
+            raise ValueError(
+                f"checkpoint {where} holds an FSDP-sharded state "
+                f"(world_size={saved['world_size']}) but the resume "
+                f"target is unsharded -- export full parameters via "
+                f"fsdp_full_params(state, meta, comm) before saving, or "
+                f"resume into an FsdpState from fsdp_init on the same world")
+        if saved["world_size"] != self.comm.size:
+            raise ValueError(
+                f"checkpoint {where} was saved with FSDP "
+                f"world_size={saved['world_size']} but this world has "
+                f"comm.size={self.comm.size}; shard layouts are bound to "
+                f"the world size -- restore on a matching world, export "
+                f"with fsdp_full_params and re-shard with fsdp_init (the "
+                f"cross-size/cross-mode path), or, for inference, "
+                f"consolidate with consolidate_fsdp_checkpoint and load "
+                f"the full params with chainermn_tpu_torch.serving.weights."
+                f"load_inference_params (world-size-free)")
+        if saved["num_buckets"] != live["num_buckets"]:
+            raise ValueError(
+                f"checkpoint {where} was saved with "
+                f"num_buckets={saved['num_buckets']} but the live "
+                f"FsdpState was built with "
+                f"num_buckets={live['num_buckets']}; the bucketed shard "
+                f"layout is bound to the bucket config -- pass the same "
+                f"num_buckets/bucket_bytes to fsdp_init before resuming, or "
+                f"export with fsdp_full_params and re-shard under the new "
+                f"config")
+        if saved["shard_lens"] != live["shard_lens"]:
+            raise ValueError(
+                f"checkpoint {where} shard layout {saved['shard_lens']} "
+                f"does not match the live FsdpState layout "
+                f"{live['shard_lens']} -- the model or packing changed "
+                f"since the save")
+
     def _validate(self, arrays: dict, leaves: dict, gen: int) -> None:
         where = f"{self.name}.{gen} (rank {self.comm.rank})"
         saved = json.loads(str(arrays.pop(_DTYPES_KEY)))
@@ -221,15 +298,151 @@ class _MultiNodeCheckpointer:
         gen = self.latest_consistent_generation()
         if gen is None:
             return state, None
-        leaves = _leaves(state)
         with np.load(self._file(gen)) as data:
             arrays = {k: data[k] for k in data.files}
+        self._validate_fsdp(arrays, state, gen)
+        leaves = _leaves(state)
         self._validate(arrays, leaves, gen)
         return _rebuild(state, {k: _restore_leaf(arrays[k], v)
                                 for k, v in leaves.items()}), gen
 
     def finalize(self) -> None:
         self.comm.barrier()
+
+
+def _load_file(fn: str) -> dict:
+    with np.load(fn) as data:
+        return {k: data[k] for k in data.files}
+
+
+def _complete_generation(ckpt, world_size: int) -> Optional[int]:
+    """The newest generation of which ranks ``0..world_size-1`` each have
+    a readable file in ``ckpt``'s directory (no collective)."""
+    for gen, ranks in sorted(ckpt._all_rank_generations().items(),
+                             reverse=True):
+        if set(range(world_size)) <= ranks and all(
+                ckpt._is_readable(ckpt._file(gen, r))
+                for r in range(world_size)):
+            return gen
+    return None
+
+
+def consolidate_fsdp_checkpoint(state, metas, checkpointer=None, comm=None,
+                                generation: Optional[int] = None):
+    """Consolidate every FSDP-sharded sub-state of a training state into
+    its full parameters: the world-size-free export that
+    :func:`chainermn_tpu_torch.serving.weights.load_inference_params`
+    takes.
+
+    ``state`` is a tree (dicts, lists, tuples) holding one or more
+    :class:`~chainermn_tpu_torch.parallel.FsdpState` nodes, ``metas`` the
+    matching :class:`~chainermn_tpu_torch.parallel.FsdpMeta` (or a
+    sequence of them, one per FsdpState in ``iter_fsdp_states`` order).
+    Returns the tree with each FsdpState replaced by its ``{name: tensor}``
+    parameters; the inner optimizer's state is dropped.
+
+    * With ``checkpointer``, the parameters come from the checkpoint:
+      generation ``generation`` (default: the newest that every rank of
+      the metas' world saved), every rank's file read in turn, so no
+      collective runs and the caller's world may have any size -- a
+      one-process server loads what four ranks saved.  There ``state`` is
+      a template: an FsdpState only marks where the parameters go and the
+      device they go to (build it with ``fsdp_init`` on the caller's own
+      communicator), and every other leaf is restored from rank 0's file.
+    * Without it, the live shards are gathered
+      (:func:`~chainermn_tpu_torch.parallel.fsdp_full_params`, a
+      collective over ``comm``, which every rank calls).
+    """
+    metas = [metas] if isinstance(metas, FsdpMeta) else list(metas)
+    states = list(iter_fsdp_states(state))
+    if len(states) != len(metas):
+        raise ValueError(
+            f"state tree holds {len(states)} FsdpState(s) but {len(metas)} "
+            f"FsdpMeta(s) were given -- pass one meta per sharded "
+            f"sub-state, in iter_fsdp_states order")
+    if checkpointer is None:
+        if comm is None:
+            raise ValueError("consolidating live FSDP shards gathers them: "
+                             "pass the training communicator (comm=)")
+        return _consolidated(state, {
+            pre: fsdp_full_params(st, m, comm)
+            for (pre, st), m in zip(_fsdp_paths(state).items(), metas)})
+    worlds = {m.world_size for m in metas}
+    if len(worlds) != 1:
+        raise ValueError(f"the metas were cut for several worlds {worlds}")
+    world = worlds.pop()
+    gen = generation if generation is not None else \
+        _complete_generation(checkpointer, world)
+    if gen is None:
+        raise FileNotFoundError(
+            f"no generation of {checkpointer.name!r} under "
+            f"{checkpointer.path!r} holds a readable file of each of the "
+            f"{world} ranks the metas were cut for")
+    files = [_load_file(checkpointer._file(gen, r)) for r in range(world)]
+    where = f"{checkpointer.name}.{gen}"
+    raw = files[0].get(_FSDP_META_KEY)
+    saved = json.loads(str(raw)) if raw is not None else None
+    want = [[list(bl.shard_lens) for bl in m.buckets] for m in metas]
+    if saved is None or saved["world_size"] != world \
+            or saved["shard_lens"] != want:
+        raise ValueError(
+            f"checkpoint {where} layout {saved} does not match the metas "
+            f"(world_size={world}, shard_lens={want}) -- pass the metas of "
+            f"the training world (make_fsdp_meta(model, world_size, ...))")
+    paths = _fsdp_paths(state)
+    full = {}
+    for (pre, st), meta in zip(paths.items(), metas):
+        dev = st.flat_shards()[0].device if st.flat_shards() \
+            else torch.device("cpu")
+        fulls = []
+        for b, bl in enumerate(meta.buckets):
+            bufs = []
+            # the buffers' dtypes, in pack order (bfloat16 saved as int16)
+            for j, key in enumerate(bl.pack_meta[1]):
+                name = f"{pre}/shards/{b}/{j}" if pre else f"shards/{b}/{j}"
+                parts = [torch.from_numpy(np.array(f[name])) for f in files]
+                if key == "bfloat16":
+                    parts = [t.view(torch.bfloat16) for t in parts]
+                bufs.append(torch.cat(parts).to(dev))
+            fulls.append(bufs)
+        full[pre] = unpack_full_params(fulls, meta)
+    others = _leaves(_consolidated(state, dict.fromkeys(full, {})))
+    return _consolidated(state, full, {
+        k: _restore_leaf(files[0][k], v) for k, v in others.items()})
+
+
+def _fsdp_paths(tree, prefix: str = "") -> Dict[str, FsdpState]:
+    """``{path: state}`` of the FsdpStates in a tree, in
+    ``iter_fsdp_states`` order."""
+    if isinstance(tree, FsdpState):
+        return {prefix: tree}
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_fsdp_paths(v, f"{prefix}/{k}" if prefix else str(k)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_fsdp_paths(v, f"{prefix}/{i}" if prefix else str(i)))
+    return out
+
+
+def _consolidated(tree, full: dict, values: Optional[dict] = None,
+                  prefix: str = ""):
+    """``tree`` with the FsdpState at each path of ``full`` replaced by
+    ``full[path]`` and, given ``values``, every other leaf by
+    ``values[path]``."""
+    if isinstance(tree, FsdpState):
+        return full[prefix]
+    if isinstance(tree, dict):
+        return {k: _consolidated(v, full, values,
+                                 f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(
+            _consolidated(v, full, values,
+                          f"{prefix}/{i}" if prefix else str(i))
+            for i, v in enumerate(tree))
+    return tree if values is None else values[prefix]
 
 
 def create_multi_node_checkpointer(communicator, path: str,
@@ -255,4 +468,4 @@ def create_multi_node_checkpointer(communicator, path: str,
     return _MultiNodeCheckpointer(communicator, path, name, keep)
 
 
-__all__ = ["create_multi_node_checkpointer"]
+__all__ = ["consolidate_fsdp_checkpoint", "create_multi_node_checkpointer"]

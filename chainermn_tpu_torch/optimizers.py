@@ -138,6 +138,20 @@ class _DoubleBufferingOptimizer(_MultiNodeOptimizer):
         self._pending = lambda: grads
 
 
+def rebuild_optimizer(optimizer: torch.optim.Optimizer,
+                      params) -> torch.optim.Optimizer:
+    """A new instance of ``optimizer``'s class over ``params`` (flat
+    shards), with the hyperparameters of its one parameter group."""
+    cls = type(optimizer)
+    hyper = {k: optimizer.param_groups[0][k] for k in optimizer.defaults}
+    # a default the constructor does not take (AdamW's
+    # decoupled_weight_decay) is set on the group afterwards
+    takes = inspect.signature(cls.__init__).parameters
+    new = cls(params, **{k: v for k, v in hyper.items() if k in takes})
+    new.param_groups[0].update(hyper)
+    return new
+
+
 class _Zero1Optimizer(_MultiNodeOptimizer):
     """ZeRO stage-1 optimizer-state sharding (JAX ``optimizers.py:186``, a
     beyond-reference extension there too).
@@ -180,14 +194,7 @@ class _Zero1Optimizer(_MultiNodeOptimizer):
             buf, _ = _packing.pad_to_multiple(buf, size)
             n = buf.shape[0] // size
             shards.append(buf[rank * n:(rank + 1) * n].clone())
-        cls = type(actual_optimizer)
-        hyper = {k: groups[0][k] for k in actual_optimizer.defaults}
-        # a default the constructor does not take (AdamW's
-        # decoupled_weight_decay) is set on the group afterwards
-        takes = inspect.signature(cls.__init__).parameters
-        self._local = cls(
-            shards, **{k: v for k, v in hyper.items() if k in takes})
-        self._local.param_groups[0].update(hyper)
+        self._local = rebuild_optimizer(actual_optimizer, shards)
         self._shards = shards
 
     @property

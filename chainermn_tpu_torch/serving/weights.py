@@ -5,12 +5,15 @@ Counterpart of ``chainermn_tpu/serving/weights.py``:
 * :func:`load_inference_params` restores the newest consistent checkpoint
   generation through the port's ``create_multi_node_checkpointer``
   (:mod:`chainermn_tpu_torch.extensions.checkpoint`), or takes a live
-  tree, and casts its floating leaves;
+  tree, consolidates every FSDP-sharded state in it
+  (:func:`~chainermn_tpu_torch.extensions.consolidate_fsdp_checkpoint`:
+  from every rank's checkpoint file, so a one-process server loads what
+  the training world saved) and casts its floating leaves;
 * :func:`broadcast_inference_params` gives every rank root's tree, over
   the communicator, bit for bit.
 
 The JAX package's other paths raise ``NotImplementedError`` naming their
-ROADMAP.md queue: FSDP consolidation and :func:`shard_params_tp` (A9),
+ROADMAP.md queue: :func:`shard_params_tp` (A9, tensor parallelism),
 per-channel int8 weights (A10), the planner's multicast plans (A11).
 """
 
@@ -27,20 +30,35 @@ def _queue(what: str, queue: str):
 
 
 def load_inference_params(source, metas=None, *, checkpointer=None,
-                          dtype=None, int8_weights: bool = False):
+                          comm=None, dtype=None, int8_weights: bool = False):
     """An inference parameter tree (a ``state_dict``, or any tree of
     tensors).
 
     ``source`` is a live tree or -- with ``checkpointer`` -- the resume
-    template whose newest consistent generation is restored first.
-    ``dtype`` casts the floating leaves (e.g. ``torch.bfloat16``).
+    template whose newest consistent generation is restored first.  Each
+    :class:`~chainermn_tpu_torch.parallel.FsdpState` in it becomes its
+    full ``{name: tensor}`` parameters
+    (:func:`~chainermn_tpu_torch.extensions.consolidate_fsdp_checkpoint`;
+    pass the matching ``metas``): from the checkpoint's files of every
+    training rank with ``checkpointer``, or gathered over ``comm`` from
+    live shards.  ``dtype`` casts the floating leaves (e.g.
+    ``torch.bfloat16``).
     """
-    if metas is not None:
-        raise _queue("consolidating an FSDP-sharded state (metas=)", "A9")
+    from chainermn_tpu_torch.extensions.checkpoint import (
+        consolidate_fsdp_checkpoint)
+    from chainermn_tpu_torch.parallel.fsdp import iter_fsdp_states
     if int8_weights:
         raise _queue("int8_weights=True (per-channel int8 weights)", "A10")
     state = source
-    if checkpointer is not None:
+    if any(True for _ in iter_fsdp_states(source)):
+        if metas is None:
+            raise ValueError(
+                "source holds FSDP-sharded state but no FsdpMeta was "
+                "given -- pass the meta(s) from fsdp_init (the sharded "
+                "layout cannot be consolidated without it)")
+        state = consolidate_fsdp_checkpoint(
+            source, metas, checkpointer=checkpointer, comm=comm)
+    elif checkpointer is not None:
         state, gen = checkpointer.resume(source)
         if gen is None:
             raise FileNotFoundError(

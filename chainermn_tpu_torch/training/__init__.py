@@ -1,5 +1,7 @@
 from chainermn_tpu_torch.training.trainer import (
-    StandardUpdater, StatefulUpdater, Trainer)
+    FsdpStatefulUpdater, FsdpUpdater, StandardUpdater, StatefulUpdater,
+    Trainer)
 from chainermn_tpu_torch.training import extensions
 
-__all__ = ["StandardUpdater", "StatefulUpdater", "Trainer", "extensions"]
+__all__ = ["FsdpStatefulUpdater", "FsdpUpdater", "StandardUpdater",
+           "StatefulUpdater", "Trainer", "extensions"]

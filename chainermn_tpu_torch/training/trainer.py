@@ -107,6 +107,49 @@ class StatefulUpdater(StandardUpdater):
         self.model = model
 
 
+class FsdpUpdater(StandardUpdater):
+    """Updater over a ZeRO-3/FSDP train step
+    (:func:`~chainermn_tpu_torch.parallel.make_fsdp_train_step`).
+
+    The :class:`~chainermn_tpu_torch.parallel.FsdpState` rides the updater
+    as ``fsdp_state`` (the step updates it in place), and ``.params`` is a
+    property that materializes the full parameters on demand
+    (:func:`~chainermn_tpu_torch.parallel.fsdp_full_params`, a collective:
+    every rank reads it together), so code written against
+    ``updater.params`` keeps working.  Assigning to it raises
+    ``AttributeError``: the parameters are derived from the shards.
+    """
+
+    def __init__(self, iterator, step_fn: Callable, fsdp_state, meta, comm,
+                 convert_batch: Optional[Callable] = None):
+        super().__init__(iterator, step_fn, comm, convert_batch)
+        self.fsdp_state = fsdp_state
+        self._meta = meta
+
+    @property
+    def params(self) -> dict:
+        from chainermn_tpu_torch.parallel.fsdp import fsdp_full_params
+        return fsdp_full_params(self.fsdp_state, self._meta, self.comm)
+
+    @params.setter
+    def params(self, value):
+        raise AttributeError(
+            "FsdpUpdater.params is derived from the sharded FsdpState "
+            "(fsdp_state); restore the state instead")
+
+
+class FsdpStatefulUpdater(FsdpUpdater):
+    """FsdpUpdater over a model with rank-local mutable state (the
+    BatchNorm running buffers), as :class:`StatefulUpdater`: the state
+    lives in ``model`` and the step updates it."""
+
+    def __init__(self, iterator, step_fn: Callable, fsdp_state, meta, model,
+                 comm, convert_batch: Optional[Callable] = None):
+        super().__init__(iterator, step_fn, fsdp_state, meta, comm,
+                         convert_batch)
+        self.model = model
+
+
 class Trainer:
     """Trigger-driven training loop (the Chainer ``Trainer`` role).
 

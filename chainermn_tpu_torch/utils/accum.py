@@ -11,7 +11,7 @@ each microbatch in turn: JAX's ghost-batch semantics.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -40,16 +40,23 @@ def split_microbatches(batch, accum_steps: int) -> list:
 
 
 def accumulate_microbatches(loss_fn: Callable, batch, accum_steps: int,
-                            has_aux: bool, params):
+                            has_aux: bool, params,
+                            after_backward: Optional[Callable] = None):
     """Run ``loss_fn`` forward and backward on each microbatch of
     ``batch``; leaves the MEAN gradient in each of ``params``' ``.grad``
     and returns ``(loss, aux)``, both averaged over the microbatches (aux
-    None without ``has_aux``).  The gradients must be clear on entry."""
+    None without ``has_aux``).  The gradients must be clear on entry.
+    ``after_backward()``, if given, runs after each microbatch's backward
+    (FSDP adds the microbatch's reduce-scattered gradients there)."""
     loss_sum = aux_sum = None
     for mb in split_microbatches(batch, accum_steps):
         out = loss_fn(mb)
         loss, aux = out if has_aux else (out, None)
-        loss.backward()
+        try:
+            loss.backward()
+        finally:
+            if after_backward is not None:
+                after_backward()
         part = loss.detach().float()
         loss_sum = part if loss_sum is None else loss_sum + part
         if has_aux:

@@ -307,6 +307,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     ``--accum-steps 4`` against one full-batch step: ``utils/compare.py``'s
     gates, and the peak memory of each.  The summary's rows add phase
     25's launches (flash and cast: (a); BatchNorm: (d)'s bench and (e)).
+26. FSDP (after 25, before 22; ``phase_fsdp``), gated, cuDNN
+    deterministic.  (a) ``train_imagenet --fsdp`` (ResNet-50, batch 32,
+    float32, momentum SGD, 3 steps) with one bucket and with 4 (prefetch
+    1): losses and parameters bit-equal to each other and to the plain
+    step's, the plain step's BatchNorm launches (53 a step of each), one
+    and 4 gathers and reduce-scatters a step, at most 1 and 2 gathers in
+    flight.  (b) ``train_lm --attention ring_flash`` at the LM's width
+    (float32, T 8192, 3 Adam steps at 1e-3) with and without ``--fsdp``:
+    losses within 1e-6 relative, the same flash launches; tokens/sec and
+    peak memory of both; ``fsdp_init`` of the LM leaves the allocation
+    where it was (the module's parameters freed).  (c) The bfloat16 wire
+    at 4 buckets: 4 ``cast_scale`` launches a bucket a step, step 0's loss
+    within 1e-4 of the float32 wire's.  (d) A snapshot at iteration 2
+    resumed through the example: its third step bit-equal to (a)'s; a
+    resume with 2 buckets refused; ``load_inference_params(metas=)`` equal
+    to the gathered parameters bit for bit.  (e)
+    ``benchmarks.bench_fsdp_overlap`` at its defaults: each row's counters.
+    (f) A Linear-BatchNorm-Linear model's FSDP step on the card against
+    the same step on the CPU (float32 wire: 1e-5 / 2e-5; bfloat16 wire:
+    5e-3).  The summary's rows add phase 26's launches (BatchNorm: (a),
+    (c), (d); cast: (c); flash: (b)'s ``--fsdp`` run).
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
 """
@@ -2757,7 +2778,9 @@ def p25_remat_f32(fn, torch, dev):
     launches (the blocks' 52 boundaries recomputed: statistics and apply
     105 a step, the backward kernels 53), the convolutions dispatched
     ("block" recomputes the blocks' 52, "norm" none) and the peak memory
-    ("block" below "none")."""
+    ("block" below "none"); the cyclic collector runs before each step
+    (garbage freed inside one would move its peak)."""
+    import gc
     import numpy as np
     import torch.nn.functional as F
     from chainermn_tpu_torch.models import ResNet50
@@ -2778,6 +2801,7 @@ def p25_remat_f32(fn, torch, dev):
             fn.reset_launch_counts()
             convs = _ConvCounts(torch)
             torch.cuda.synchronize()
+            gc.collect()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             with convs.mode:
@@ -3058,6 +3082,361 @@ def log_imagenet(p25, gpu, secs):
         f"{json.dumps(a['peak_gb'])}")
     log(f"phase 25: {secs:.1f} s (" + ", ".join(
         f"{k} {v:.1f}" for k, v in p25["seconds"].items()) + ")")
+
+
+P26_STEPS = 3        # phase 26: steps of each run
+P26_BUCKETS = 4      # (a), (c), (d): the bucketed runs' K (prefetch 1)
+P26_SAVE = 2         # (d): the snapshot's iteration
+P26_BF16_RTOL = 5e-3  # (f): ZeRO-1's bfloat16-wire tolerance (its CPU test)
+# (c): step 0's loss with the bfloat16 wire against the float32 wire's: about
+# ten times the 9.49e-6 read on an H100, well under the 3.4e-3 that a
+# ResNet-50 with every gathered parameter zero would show (ln 1000 = 6.9078
+# against 6.9313)
+P26_BF16_STEP0_RTOL = 1e-4
+P26_LM_RTOL = 1e-6   # (b): the LM's losses, --fsdp against without
+P26_CPU = dict(batch=256, n_in=64, hidden=128, classes=10)  # card vs CPU
+
+
+def _p26_argv(extra):
+    """train_imagenet: ResNet-50 at full width, batch 32, synthetic,
+    momentum SGD, float32."""
+    return ["--arch", "resnet50", "--communicator", "xla", "--optimizer",
+            "momentum", "--batchsize", str(BATCH), "--dtype", "float32",
+            "--seed", "0", "--train-size", str(BATCH * 8), "--val-size",
+            "0", "--iterations", str(P26_STEPS), "--log-interval", "100",
+            "--warmup-steps", "1"] + extra
+
+
+def _p26_run(fn, cs, torch, extra):
+    """``train_imagenet.main`` with the BatchNorm and cast counts set to 0
+    just before it: losses, the trained parameters, launches, the FSDP
+    step's counters, images/sec and peak memory."""
+    from chainermn_tpu_torch.examples import train_imagenet
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fn.reset_launch_counts()
+    cs.reset_launch_counts()
+    res = train_imagenet.main(_p26_argv(extra))
+    torch.cuda.synchronize()
+    counts = dict(fn.launch_counts(), cast_scale=cs.cast_scale.launches)
+    out = dict(losses=res["losses"], counts=counts,
+               stats=res["step_stats"], images_per_sec=res["images_per_sec"],
+               peak_gb=res["peak_memory_gb"],
+               resumed_from=res["resumed_from"],
+               params={k: v.detach().clone()
+                       for k, v in res["model"].named_parameters()},
+               state=res["fsdp_state"], meta=res["fsdp_meta"])
+    if len(out["losses"]) != res["iterations"] - (res["resumed_from"] or 0) \
+            or not all(map(math.isfinite, out["losses"])):
+        raise AssertionError(f"phase 26 {extra}: losses {out['losses']}")
+    return out
+
+
+def _p26_differ(torch, a, b):
+    """Names of the parameters of ``a`` that differ from ``b``'s."""
+    return sorted(k for k in a if not torch.equal(a[k], b[k]))
+
+
+def p26_resnet(fn, cs, torch):
+    """(a) ``train_imagenet --fsdp`` (ResNet-50, float32, momentum SGD):
+    K=1 and K=4 (prefetch 1) bit-equal to each other and to the plain
+    step, with the plain step's BatchNorm launches; (c) the bfloat16 wire
+    at K=4: four casts a bucket a step, step 0's loss (the wire's
+    rounding alone) within ``P26_BF16_STEP0_RTOL`` of the float32 wire's;
+    (d) a snapshot at iteration 2 resumed bit for bit, a resume with
+    another bucket count refused, ``load_inference_params(metas=)`` equal
+    to the gathered parameters."""
+    import glob
+    import shutil
+    import tempfile
+    from chainermn_tpu_torch.examples import train_imagenet
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.serving.weights import load_inference_params
+    k = str(P26_BUCKETS)
+    runs = {"plain": _p26_run(fn, cs, torch, []),
+            "k1": _p26_run(fn, cs, torch, ["--fsdp"]),
+            "k4": _p26_run(fn, cs, torch, ["--fsdp", "--fsdp-buckets", k]),
+            "bf16": _p26_run(fn, cs, torch, [
+                "--fsdp", "--fsdp-buckets", k, "--allreduce-grad-dtype",
+                "bfloat16"])}
+    gates = {}
+    plain, k1, k4, bf = (runs[n] for n in ("plain", "k1", "k4", "bf16"))
+    gates["k4 = k1 (bits)"] = (k4["losses"] == k1["losses"]
+                               and not _p26_differ(
+                                   torch, k4["params"], k1["params"]))
+    gates["k1 = plain (bits, SGD momentum)"] = (
+        k1["losses"] == plain["losses"]
+        and not _p26_differ(torch, k1["params"], plain["params"]))
+    bn = {w: n for w, n in plain["counts"].items() if w != "cast_scale"}
+    gates["BatchNorm launches = plain's"] = all(
+        {w: n for w, n in r["counts"].items() if w != "cast_scale"} == bn
+        for r in (k1, k4, bf)) and bn == {w: 53 * P26_STEPS for w in bn}
+    gates["gathers/scatters 1 and 4 a step, 1 and 2 in flight"] = (
+        k1["stats"] == dict(gathers=1, reduce_scatters=1, casts=0,
+                            max_in_flight=1)
+        and k4["stats"] == dict(gathers=P26_BUCKETS,
+                                reduce_scatters=P26_BUCKETS, casts=0,
+                                max_in_flight=2))
+    want_casts = 4 * P26_BUCKETS  # one float32 buffer a bucket
+    gates["bf16 wire: 4 casts a buffer a step"] = (
+        bf["stats"]["casts"] == want_casts
+        and bf["counts"]["cast_scale"] == want_casts * P26_STEPS
+        and k4["counts"]["cast_scale"] == 0)
+    # step 0's loss sees the wire alone (every parameter rounded to it);
+    # the later steps add the rounded gradients' updates, printed beside
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(bf["losses"],
+                                                    k4["losses"])]
+    gates[f"bf16 wire step-0 loss within {P26_BF16_STEP0_RTOL}"] = \
+        loss_rel[0] <= P26_BF16_STEP0_RTOL
+    # (d) checkpoints through the example
+    root = tempfile.mkdtemp(prefix="chip_smoke_fsdp_",
+                            dir=os.path.join(HERE, "build"))
+    try:
+        flags = ["--fsdp", "--fsdp-buckets", k, "--checkpoint-freq",
+                 str(P26_SAVE), "--checkpoint", root]
+        saved = _p26_run(fn, cs, torch, flags + ["--iterations",
+                                                 str(P26_SAVE)])
+        resumed = _p26_run(fn, cs, torch, flags)
+        gates["resumed step = straight step (bits)"] = (
+            resumed["resumed_from"] == P26_SAVE
+            and resumed["losses"] == k4["losses"][P26_SAVE:]
+            and not _p26_differ(torch, resumed["params"], k4["params"]))
+        try:
+            train_imagenet.main(_p26_argv(["--fsdp", "--fsdp-buckets", "2",
+                                           "--checkpoint", root]))
+            gates["resume with 2 buckets refused"] = False
+        except ValueError as e:
+            gates["resume with 2 buckets refused"] = \
+                f"num_buckets={P26_BUCKETS}" in str(e)
+        ckpt = create_multi_node_checkpointer(
+            create_communicator("xla"), root, name="imagenet-resnet50")
+        got = load_inference_params({"optimizer": resumed["state"]},
+                                    resumed["meta"], checkpointer=ckpt)
+        gates["load_inference_params = fsdp_full_params (bits)"] = \
+            list(got["optimizer"]) == list(saved["params"]) and \
+            not _p26_differ(torch, got["optimizer"], saved["params"])
+        names = sorted(os.path.basename(f)
+                       for f in glob.glob(os.path.join(root, "*.npz")))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for r in list(runs.values()) + [saved, resumed]:
+        del r["params"], r["state"]
+    bn_launches = {w: sum(r["counts"][w] for r in (k1, k4, bf, saved,
+                                                   resumed))
+                   for w in bn}
+    torch.cuda.empty_cache()
+    return dict(runs=runs, gates=gates, loss_rel=loss_rel, files=names,
+                bn_launches=bn_launches, casts=bf["counts"]["cast_scale"])
+
+
+def p26_lm(fa, torch, dev):
+    """(b) ``train_lm --attention ring_flash`` at the LM's width (float32,
+    T 8192, batch 1, 3 Adam steps at 1e-3) with and without ``--fsdp``:
+    losses, flash launches, tokens/sec, peak memory; and ``fsdp_init``
+    frees the module's parameters (they hold no storage, and the
+    allocation does not grow).
+
+    An earlier run's model and optimizer state can sit in reference
+    cycles (frames kept by a caught exception's traceback) until the
+    cyclic collector runs, which frees gigabytes at a moment nothing
+    here chooses.  So each run starts after ``gc.collect()``, and the
+    collector is off while ``fsdp_init``'s allocation change is read."""
+    import gc
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.examples import train_lm
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.parallel import fsdp_init
+    runs = {}
+    for name, extra in (("plain", []), ("fsdp", ["--fsdp"])):
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        fa.reset_launch_counts()
+        out = train_lm.main(_p20_argv("ring_flash", LM["n_layers"]) + extra)
+        torch.cuda.synchronize()
+        steady = out["step_seconds"][1:]
+        runs[name] = dict(losses=out["losses"], counts=fa.launch_counts(),
+                          peak_gb=out["peak_memory_gb"],
+                          tokens_per_sec=LM_T * len(steady) / sum(steady),
+                          step_s=out["step_seconds"])
+        del out
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    gc.collect()
+    garbage = held - torch.cuda.memory_allocated(dev)
+    torch.cuda.empty_cache()
+    comm = create_communicator("xla", device=dev)
+    model = TransformerLM(**LM, attention_impl="flash", device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    torch.cuda.synchronize()
+    gc.collect()
+    gc.disable()
+    try:
+        before = torch.cuda.memory_allocated(dev)
+        state, _ = fsdp_init(comm, model, opt)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated(dev) - before
+    finally:
+        gc.enable()
+    emptied = all(p.untyped_storage().nbytes() == 0
+                  for p in model.parameters())
+    del state, model, opt
+    torch.cuda.empty_cache()
+    p, f = runs["plain"], runs["fsdp"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(f["losses"], p["losses"]))
+    gates = {f"LM losses within {P26_LM_RTOL}": rel <= P26_LM_RTOL,
+             "LM flash launches = without --fsdp": f["counts"] == p["counts"]
+             and all(n > 0 for n in f["counts"].values()),
+             "fsdp_init frees the parameters": emptied
+             and abs(grown) <= 0.01 * nbytes}
+    return dict(runs=runs, gates=gates, loss_rel=rel, param_gb=nbytes / 1e9,
+                init_grown_gb=grown / 1e9, garbage_gb=garbage / 1e9,
+                emptied=emptied)
+
+
+def p26_card_vs_cpu(torch, dev, wire=None):
+    """The FSDP step on the card against the same step on the CPU: a
+    Linear-FusedBatchNormAct(ReLU)-Linear model (``P26_CPU``), two
+    buckets, SGD momentum, 3 steps, float32 with TF32 off; the card runs
+    the BatchNorm kernels (and ``cast_scale`` on ``wire``), the CPU their
+    plain versions.  Returns the losses' worst relative difference, the
+    parameters' worst absolute difference and the card's launches."""
+    import importlib
+    import torch.distributed as dist
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.communicators.mesh_communicator_base import (
+        MeshCommunicator)
+    from chainermn_tpu_torch.ops.fused_norm import FusedBatchNormAct
+    from chainermn_tpu_torch.parallel import (
+        fsdp_full_params, fsdp_init, make_fsdp_train_step)
+    from chainermn_tpu_torch.parallel.topology import Topology
+    from chainermn_tpu_torch.utils.compare import no_tf32
+    fn = importlib.import_module("chainermn_tpu_torch.ops.fused_norm")
+    cs = importlib.import_module("chainermn_tpu_torch.ops.cast_scale")
+    c = P26_CPU
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(c["batch"], c["n_in"], generator=gen)
+    y = torch.randint(0, c["classes"], (c["batch"],), generator=gen)
+    card = create_communicator("xla")
+    cpu = MeshCommunicator(
+        topology=Topology(rank=0, size=1, intra_rank=0, intra_size=1,
+                          device=torch.device("cpu")),
+        group=dist.new_group([0], backend="gloo"))
+    out = {}
+    with no_tf32():
+        for name, comm in (("cpu", cpu), ("card", card)):
+            d = comm.device
+            torch.manual_seed(6)
+            model = torch.nn.Sequential(
+                torch.nn.Linear(c["n_in"], c["hidden"]),
+                FusedBatchNormAct(c["hidden"], fuse_relu=True),
+                torch.nn.Linear(c["hidden"], c["classes"])).to(d)
+            state, meta = fsdp_init(comm, model, torch.optim.SGD(
+                model.parameters(), lr=0.05, momentum=0.9), num_buckets=2)
+            step = make_fsdp_train_step(
+                comm, lambda b, m=model: torch.nn.functional.cross_entropy(
+                    m(b[0]), b[1]), state, meta, wire_dtype=wire)
+            fn.reset_launch_counts()
+            cs.reset_launch_counts()
+            losses = [float(step((x.to(d), y.to(d))))
+                      for _ in range(P26_STEPS)]
+            out[name] = dict(losses=losses, counts=dict(
+                fn.launch_counts(), cast_scale=cs.cast_scale.launches),
+                params={k: v.cpu() for k, v in fsdp_full_params(
+                    state, meta, comm).items()})
+    a, b = out["card"], out["cpu"]
+    return dict(
+        loss_rel=max(abs(p - q) / abs(q)
+                     for p, q in zip(a["losses"], b["losses"])),
+        param_abs=max(float((a["params"][k] - b["params"][k]).abs().max())
+                      for k in b["params"]),
+        counts=a["counts"], cpu_counts=b["counts"])
+
+
+def p26_card_gates(torch, dev):
+    """(f) the card against the CPU, float32 and bfloat16 wires: losses
+    within 1e-5 relative and parameters within 2e-5 (float32), within
+    ``P26_BF16_RTOL`` (bfloat16); every BatchNorm kernel and, on the wire,
+    ``cast_scale`` launched (none on the CPU)."""
+    res = {w or "float32": p26_card_vs_cpu(torch, dev, w)
+           for w in (None, "bfloat16")}
+    f, b = res["float32"], res["bfloat16"]
+    gates = {
+        "card = CPU, float32 wire": f["loss_rel"] <= 1e-5
+        and f["param_abs"] <= 2e-5,
+        "card = CPU, bf16 wire": b["loss_rel"] <= P26_BF16_RTOL
+        and b["param_abs"] <= P26_BF16_RTOL,
+        "card launched the kernels": all(
+            n == P26_STEPS for w, n in f["counts"].items()
+            if w != "cast_scale") and b["counts"]["cast_scale"]
+        == 4 * 2 * P26_STEPS and not any(f["cpu_counts"].values())}
+    return dict(res=res, gates=gates)
+
+
+def phase_fsdp(fn, cs, fa, torch, dev):
+    """Phase 26: FSDP on the card, (a)-(f) (``p26_resnet``, ``p26_lm``,
+    ``p26_card_gates``, ``bench_fsdp_overlap`` at its defaults); every
+    gate must hold."""
+    from chainermn_tpu_torch.benchmarks import bench_fsdp_overlap
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    out, secs = {}, {}
+    try:
+        for key, run in (("resnet", lambda: p26_resnet(fn, cs, torch)),
+                         ("lm", lambda: p26_lm(fa, torch, dev)),
+                         ("cpu", lambda: p26_card_gates(torch, dev)),
+                         ("bench", lambda: bench_fsdp_overlap.main([]))):
+            t0 = time.perf_counter()
+            out[key] = run()
+            secs[key] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    gates = dict(out["resnet"]["gates"], **out["lm"]["gates"],
+                 **out["cpu"]["gates"])
+    gates["bench counters"] = all(r["schedule_ok"] for r in out["bench"])
+    out["gates"], out["seconds"] = gates, secs
+    return out
+
+
+def log_fsdp(p26, gpu, secs):
+    """Phase 26's lines."""
+    r = p26["resnet"]
+    for name, run in r["runs"].items():
+        log(f"phase 26 (a/c) train_imagenet {name}: losses {run['losses']}; "
+            f"launches {json.dumps(run['counts'])}; FSDP step counters "
+            f"{json.dumps(run['stats'])}; images/sec (steps 2.."
+            f"{P26_STEPS}) {run['images_per_sec']}; peak memory "
+            f"{run['peak_gb']} GB on {gpu}")
+    log(f"phase 26 (c) bf16 wire against float32 wire at K "
+        f"{P26_BUCKETS}: losses rel {r['loss_rel']} (step 0 gated)")
+    log(f"phase 26 (d) snapshot files {r['files']}")
+    lm = p26["lm"]
+    for name, run in lm["runs"].items():
+        log(f"phase 26 (b) train_lm ring_flash {name}: losses "
+            f"{run['losses']}; flash launches {json.dumps(run['counts'])}; "
+            f"step seconds {run['step_s']}; tokens/sec (steps 2.."
+            f"{P20_STEPS}) {run['tokens_per_sec']:.1f}; peak memory "
+            f"{run['peak_gb']} GB on {gpu}")
+    log(f"phase 26 (b) losses rel {lm['loss_rel']:.3e}; parameters "
+        f"{lm['param_gb']:.3f} GB; allocation change over fsdp_init "
+        f"{lm['init_grown_gb']:.6f} GB, parameters' storage freed "
+        f"{lm['emptied']}; the runs left {lm['garbage_gb']:.6f} GB in "
+        f"reference cycles (freed by gc.collect before the reading)")
+    for w, c in p26["cpu"]["res"].items():
+        log(f"phase 26 (f) card vs CPU, {w} wire: loss rel "
+            f"{c['loss_rel']:.3e}, worst parameter abs "
+            f"{c['param_abs']:.3e}, card launches {json.dumps(c['counts'])}")
+    for row in p26["bench"]:
+        log(f"phase 26 (e) bench_fsdp_overlap: {json.dumps(row)}")
+    log(f"phase 26 gates: {json.dumps(p26['gates'])}")
+    log(f"phase 26: {secs:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in p26["seconds"].items()) + ")")
 
 
 C12_LOOPS = 300      # phase 22: passes of the flash autograd check
@@ -3388,6 +3767,14 @@ def main():
     log_imagenet(p25, gpu, time.perf_counter() - t0)
 
     t0 = time.perf_counter()
+    p26 = phase_fsdp(fn, cs, fa, torch, dev)
+    log_fsdp(p26, gpu, time.perf_counter() - t0)
+    failed = sorted(g for g, ok in p26["gates"].items() if not ok)
+    if failed:
+        raise AssertionError(f"phase 26: gates {failed} failed (their "
+                             "lines above)")
+
+    t0 = time.perf_counter()
     c12 = phase_c12(fa, torch, dev, C12_LOOPS)
     rep = phase_wgrad_repeat(pm, bcp, torch, dev, WGRAD_LOOPS)
     log(f"phase repeat loops (22): {time.perf_counter() - t0:.1f} s; C12 "
@@ -3405,6 +3792,11 @@ def main():
                   P25_IMAGES["val"] // BATCH if w == "apply_call" else 0))
               for w in KERNELS}
     p25_vit = p25["vit"]["flash"]["counts"]
+    # phase 26's launches on the main path: the FSDP example runs' BatchNorm
+    # kernels, the bfloat16 wire's casts, the FSDP LM's flash kernels
+    for w in KERNELS:
+        p25_bn[w] += p26["resnet"]["bn_launches"][w]
+    p26_flash = p26["lm"]["runs"]["fsdp"]["counts"]
     kernels = []
     for wrapper, (name, replaces, _, _, route, source) in KERNELS.items():
         t = times[wrapper]
@@ -3420,7 +3812,7 @@ def main():
         "source": "chainermn_tpu_torch/csrc/cast_scale.cu",
         "replaces": "chainermn_tpu/ops/cast_scale.py:33",
         "launches": mnist_casts + p25_vit["cast_scale"]
-        + p25["vit"]["xla"]["counts"]["cast_scale"],
+        + p25["vit"]["xla"]["counts"]["cast_scale"] + p26["resnet"]["casts"],
         "max_abs_err": cast_err,
         "ms": cast_t["ms"], "plain_ms": cast_t["plain_ms"],
         "bound_ms": cast_t["bound_ms"], "bound_by": "bytes",
@@ -3430,7 +3822,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": replaces, "launches": lm["counts"][wrapper]
-            + p25_vit[wrapper]
+            + p25_vit[wrapper] + p26_flash[wrapper]
             + (srv["serving_launches"] if wrapper == "flash_fwd" else 0),
             "max_abs_err": flash_errs[wrapper], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

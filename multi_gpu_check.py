@@ -1,6 +1,6 @@
 """The data-, sequence- and model-parallel slices on every card of one host.
 
-    python3 multi_gpu_check.py [--logs DIR] [--parts dp,sp,mp,configs]
+    python3 multi_gpu_check.py [--logs DIR] [--parts dp,sp,mp,configs,fsdp]
     # needs two CUDA cards or more
 
 1. prints the cards' names and power limits (``nvidia-smi``) and torch's
@@ -52,6 +52,23 @@
    loss falling, the same on every rank.  With fewer cards than a run
    needs, the output says it did not run.
 
+8. (part ``fsdp``, not in the default) FSDP on every card under
+   ``torchrun``, float32 with TF32 off and cuDNN deterministic:
+   ``examples.train_imagenet --fsdp`` (ResNet-50, batch 32 a card, momentum
+   SGD, 3 steps) at one bucket and at four (prefetch 1) against the plain
+   data-parallel run, the four-bucket run bit-equal to the one-bucket
+   run, and
+   ``examples.train_lm --fsdp --attention ring_flash`` at the LM's width
+   (T 8192) against ``ring_flash`` without it: every step's loss within
+   1e-5 relative and rank 0's parameters within 2e-5 (``allclose``, rtol
+   and atol; the LM's key bias, whose gradient is float noise that Adam
+   scales to +-lr, within 2 x steps x lr); every rank's peak memory and, for the LM, its allocation
+   after the last step (the persistent state: FSDP about a quarter of
+   plain's), FSDP against plain; then
+   ``benchmarks.bench_fsdp_overlap`` at K 1, 2, 4, 8 and prefetch 0, 1, 2
+   at the LM's width (2048, 8 layers), its rows, their counters and the
+   same final loss in every row.
+
 Prints one JSON object as its last line; exits 1 if a check failed.  Runs
 write under ``build/`` (removed afterwards), their logs under ``--logs``
 (default ``build/multi_gpu_logs/``).
@@ -83,6 +100,15 @@ RESUME = ["--arch", "resnet50", "--communicator", "xla", "--zero",
           "--dtype", "bfloat16", "--seed", "0", "--epoch", "3",
           "--val-size", "256", "--checkpoint-freq", "6",
           "--log-interval", "12", "--warmup-steps", "3"]
+
+FSDP_IMAGENET = ["--arch", "resnet50", "--communicator", "xla",
+                 "--optimizer", "momentum", "--batchsize", "32", "--dtype",
+                 "float32", "--iterations", "3", "--val-size", "0",
+                 "--seed", "0", "--warmup-steps", "1", "--log-interval",
+                 "100"]
+FSDP_BENCH = ["--buckets", "1,2,4,8", "--prefetch", "0,1,2", "--width",
+              "2048", "--layers", "8", "--json"]
+FSDP_RTOL, FSDP_PARAM_TOL = 1e-5, 2e-5
 
 SP_STEPS = 3
 SP = ["--batchsize", "1", "--steps", str(SP_STEPS), "--vocab", "32768",
@@ -205,9 +231,47 @@ def pconv_worker(out_prefix, flags):
         json.dump({"losses": res["losses"], "world": res["world"]}, f)
 
 
+def fsdp_worker(out_prefix, flags):
+    """One rank under ``torchrun``: ``flags[0]`` names the example
+    (``train_imagenet`` or ``train_lm``), run on ``flags[1:]`` in float32
+    with TF32 off and cuDNN deterministic; ``{out_prefix}.rank{r}.json``,
+    and rank 0's trained parameters in ``{out_prefix}.params.pt``."""
+    import importlib
+    import torch
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch.utils.compare import no_tf32
+    example = importlib.import_module(
+        f"chainermn_tpu_torch.examples.{flags[0]}")
+    rank = int(os.environ["RANK"])
+    with no_tf32():
+        res = example.main(flags[1:])
+    doc = {k: res.get(k) for k in ("losses", "peak_memory_gb",
+                                   "state_memory_gb", "images_per_sec",
+                                   "tokens_per_sec", "step_seconds")}
+    if rank == 0:
+        torch.save({k: v.detach().cpu()
+                    for k, v in res["model"].named_parameters()},
+                   f"{out_prefix}.params.pt")
+    with open(f"{out_prefix}.rank{rank}.json", "w") as f:
+        json.dump(doc, f)
+
+
+def fsdp_bench_worker(out_prefix, flags):
+    """One rank under ``torchrun``: ``bench_fsdp_overlap.main(flags)``,
+    its rows in ``{out_prefix}.rank{r}.json``."""
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch.benchmarks import bench_fsdp_overlap
+    rows = bench_fsdp_overlap.main(flags)
+    with open(f"{out_prefix}.rank{os.environ['RANK']}.json", "w") as f:
+        json.dump(rows, f)
+
+
 WORKERS = {"imagenet": worker, "lm": lm_worker, "bench": bench_worker,
            "s2s": s2s_worker, "configs": configs_worker,
-           "pconv": pconv_worker}
+           "pconv": pconv_worker, "fsdp": fsdp_worker,
+           "fsdp_bench": fsdp_bench_worker}
 
 
 def torchrun(n, name, flags, work, logs, kind="imagenet"):
@@ -233,13 +297,13 @@ def main(argv=None):
                    help="directory for the tests' and the runs' output")
     p.add_argument("--parts", default="dp,sp,mp",
                    help="which slices to run: dp (steps 2-4), sp (step 5), "
-                   "mp (step 6), configs (step 7)")
+                   "mp (step 6), configs (step 7), fsdp (step 8)")
     args = p.parse_args(argv)
     logs = os.path.abspath(args.logs)
     parts = set(args.parts.split(","))
-    if not parts or parts - {"dp", "sp", "mp", "configs"}:
+    if not parts or parts - {"dp", "sp", "mp", "configs", "fsdp"}:
         p.error(f"--parts: {args.parts!r} is not a subset of "
-                "dp,sp,mp,configs")
+                "dp,sp,mp,configs,fsdp")
     import torch
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         print("multi_gpu_check.py needs two CUDA cards or more",
@@ -267,6 +331,8 @@ def main(argv=None):
             model_parallel(n, out, failures, work, logs)
         if "configs" in parts:
             configs(n, out, failures, work, logs)
+        if "fsdp" in parts:
+            fsdp(n, out, failures, work, logs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["failures"] = failures
@@ -373,6 +439,99 @@ def model_parallel(n, out, failures, work, logs):
                 or not all(map(math.isfinite, got)):
             failures.append(f"mp seq2seq {name}: losses rel {rel:.2e}, "
                             f"final/val_bleu printed by rank {printed}")
+
+
+def _key_bias_apart(got, want, failures):
+    """The LM's key bias adds q.b to every score of a row, which softmax
+    ignores: its gradient is 0 up to float noise, which Adam scales to
+    +-lr a step (ROADMAP.md Queue C7).  Hold that slice of each
+    ``qkv.bias`` to 2 x steps x lr apart, then take it out of the
+    comparison (``want``'s values in ``got``)."""
+    d = int(SP[SP.index("--d-model") + 1])
+    reach = 2 * SP_STEPS * float(SP[SP.index("--lr") + 1]) * 1.001
+    for k in want:
+        if k.endswith("qkv.bias"):
+            gap = float((got[k][d:2 * d] - want[k][d:2 * d]).abs().max())
+            if gap > reach:
+                failures.append(f"fsdp lm: {k}'s key slice {gap:.3g} apart")
+            got[k][d:2 * d] = want[k][d:2 * d]
+
+
+def fsdp(n, out, failures, work, logs):
+    """Step 8 (see the module docstring)."""
+    import torch
+    out["fsdp"] = {}
+    lm = ["train_lm", "--attention", "ring_flash", "--seq-len", "8192"] + SP
+    imagenet = ["train_imagenet", "--train-size", str(32 * n * 8)] \
+        + FSDP_IMAGENET
+    # the bucketed window (K 4, prefetch 1) on ResNet-50 beside K 1
+    kinds = {"imagenet": {"plain": [], "fsdp": ["--fsdp"],
+                          "fsdp_k4": ["--fsdp", "--fsdp-buckets", "4"]},
+             "lm": {"plain": [], "fsdp": ["--fsdp"]}}
+    for name, flags in (("imagenet", imagenet), ("lm", lm)):
+        docs = {}
+        params = {}
+        for kind, extra in kinds[name].items():
+            run = f"fsdp_{name}_{kind}"
+            docs[kind] = torchrun(n, run, flags + extra, work, logs,
+                                  kind="fsdp")
+            path = os.path.join(work, f"{run}.params.pt")
+            params[kind] = torch.load(path)
+            os.remove(path)
+        want, want_p = docs["plain"][0]["losses"], params["plain"]
+        if name == "lm":
+            for kind in kinds[name]:
+                if kind != "plain":
+                    _key_bias_apart(params[kind], want_p, failures)
+        row = {"plain_losses": want}
+        for kind in kinds[name]:
+            if kind == "plain":
+                continue
+            got, got_p = docs[kind][0]["losses"], params[kind]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            far = sorted(k for k in want_p if not torch.allclose(
+                got_p[k], want_p[k], rtol=FSDP_PARAM_TOL,
+                atol=FSDP_PARAM_TOL))
+            worst = max(float((got_p[k] - want_p[k]).abs().max())
+                        for k in want_p)
+            row[kind] = {"losses": got, "loss_rel": loss_rel,
+                         "param_worst_abs": worst,
+                         "params_outside": far[:8]}
+            if loss_rel > FSDP_RTOL or far or len(got) != len(want):
+                failures.append(
+                    f"fsdp {name} {kind}: loss rel {loss_rel:.2e}, "
+                    f"{len(far)} parameters outside {FSDP_PARAM_TOL}")
+        if "fsdp_k4" in docs:
+            k1_p, k4_p = params["fsdp"], params["fsdp_k4"]
+            same = (docs["fsdp_k4"][0]["losses"] == docs["fsdp"][0]["losses"]
+                    and all(torch.equal(k4_p[k], k1_p[k]) for k in k1_p))
+            row["k4_bit_equal_k1"] = same
+            if not same:
+                failures.append(f"fsdp {name}: K 4 not bit-equal to K 1")
+        row["peak_memory_gb"] = {k: [d["peak_memory_gb"] for d in v]
+                                 for k, v in docs.items()}
+        row["rate"] = {k: v[0]["images_per_sec" if name == "imagenet"
+                               else "tokens_per_sec"]
+                       for k, v in docs.items()}
+        if name == "lm":
+            row["state_memory_gb"] = {k: [d["state_memory_gb"] for d in v]
+                                      for k, v in docs.items()}
+            row["step_seconds"] = {k: v[0]["step_seconds"]
+                                   for k, v in docs.items()}
+        out["fsdp"][name] = row
+        print(json.dumps({f"fsdp {name}": row}), flush=True)
+    rows = torchrun(n, "fsdp_bench", FSDP_BENCH, work, logs,
+                    kind="fsdp_bench")[0]
+    out["fsdp"]["bench_fsdp_overlap"] = rows
+    for r in rows:
+        print(json.dumps(r), flush=True)
+    if not all(r["schedule_ok"] for r in rows):
+        failures.append("fsdp bench counters")
+    # every (K, D) sums each element in the same order: the same loss
+    finals = {r["final_loss"] for r in rows}
+    if len(finals) != 1:
+        failures.append(f"fsdp bench: final losses differ across (K, D): "
+                        f"{sorted(finals)}")
 
 
 def sequence_parallel(n, out, failures, work, logs):

@@ -36,6 +36,7 @@ from chainermn_tpu_torch import (
     create_communicator, create_multi_node_optimizer, make_train_step)
 from chainermn_tpu_torch.models import MLP
 from chainermn_tpu_torch.runtime.bootstrap import init_distributed
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS, LOCAL_B, K, LR = 2, 4, 2, 0.1
 RTOL, ATOL = 1e-4, 1e-5

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from chainermn_tpu_torch.benchmarks import bench, bench_conv_probe
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CASES = ("wgrad", "dgrad", "fwd1x1")
 

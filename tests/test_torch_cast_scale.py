@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from chainermn_tpu.ops import cast_scale as jcast
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 tcs = importlib.import_module("chainermn_tpu_torch.ops.cast_scale")
 

@@ -32,6 +32,7 @@ from chainermn_tpu.links import MultiNodeChainList as JChain
 from chainermn_tpu_torch import create_communicator
 from chainermn_tpu_torch.links import MultiNodeChainList, pseudo_loss
 from chainermn_tpu_torch.optimizers import create_per_stage_optimizer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 class Dense(nn.Module):

@@ -44,6 +44,7 @@ from chainermn_tpu_torch.examples import train_cifar
 from chainermn_tpu_torch.models import VGG, VGG16
 from chainermn_tpu_torch.runtime.bootstrap import init_distributed
 from torch_flax_parity import flat, nchw, perturbed_variables
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOY = ("--device cpu --batchsize 4 --train-size 16 --dtype float32 "

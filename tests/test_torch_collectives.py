@@ -34,6 +34,7 @@ from chainermn_tpu.iterators import create_synchronized_iterator as jsync
 from chainermn_tpu.parallel.topology import init_topology
 from chainermn_tpu_torch import create_communicator
 from chainermn_tpu_torch.runtime.bootstrap import init_distributed
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WORLDS = {2: 1, 4: 2}  # world size -> intra_size of the two-level world
 

@@ -26,6 +26,7 @@ from chainermn_tpu_torch.communicators import (
     SingleNodeCommunicator, XlaCommunicator, create_communicator)
 from chainermn_tpu_torch.parallel.topology import Topology
 from chainermn_tpu_torch.runtime.bootstrap import init_distributed
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _tree(seed=0):

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jfa = importlib.import_module("chainermn_tpu.ops.flash_attention")
 tfa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")

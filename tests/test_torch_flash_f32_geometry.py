@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from chainermn_tpu_torch.ops import _build
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
 jfa = importlib.import_module("chainermn_tpu.ops.flash_attention")

@@ -21,6 +21,7 @@ import torch_dist_worker
 from chainermn_tpu import functions as F
 from chainermn_tpu.communicators import create_communicator as jcreate
 from chainermn_tpu.parallel.topology import init_topology
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-6
 

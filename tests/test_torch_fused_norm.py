@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # the packages' ops/__init__ export a function of the module's name
 jfn = importlib.import_module("chainermn_tpu.ops.fused_norm")

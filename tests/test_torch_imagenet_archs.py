@@ -29,6 +29,7 @@ import torch.distributed as dist
 from chainermn_tpu_torch.examples import train_imagenet
 from chainermn_tpu_torch.runtime.bootstrap import init_distributed
 from chainermn_tpu_torch.utils import trace
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ("--device cpu --image-size 64 --n-classes 10 --batchsize 4 "

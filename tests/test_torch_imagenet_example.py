@@ -16,9 +16,8 @@ small size on the CPU: ResNet-50's depth at width 8, 32x32 images, batch
   reduce-scatter's sum is the all-reduce's one rounding, and the update is
   the same elementwise arithmetic on a flat shard);
 * LARS and Adam under the schedule give finite losses; the refusals of
-  the JAX example (a bad ``--accum-steps``, a missing ``--data`` folder
-  or ``--train-root`` file), and ``--fsdp``, which waits for its module,
-  raise.
+  the JAX example (``--fsdp`` beside ``--zero``, a bad ``--accum-steps``,
+  a missing ``--data`` folder or ``--train-root`` file) raise.
 """
 
 import os
@@ -31,6 +30,7 @@ import torch.distributed as dist
 import torch_dist_worker
 from chainermn_tpu_torch.examples import train_imagenet
 from chainermn_tpu_torch.runtime.bootstrap import init_distributed
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = ("--device cpu --width 8 --image-size 32 --n-classes 10 "
          "--batchsize 4 --train-size 20 --val-size 8 --dtype float32 "
@@ -92,9 +92,10 @@ def test_other_optimizers_train(world1, opt):
 @pytest.mark.parametrize("flags,err", [
     ("--zero --double-buffering", SystemExit),
     ("--zero --optimizer lars", SystemExit),
-    # --accum-steps, --data and --train-root are ported: JAX's own checks
-    # refuse a K that does not divide the batch and a missing folder or file
-    ("--fsdp", NotImplementedError), ("--accum-steps 3", SystemExit),
+    # --fsdp, --accum-steps, --data and --train-root are ported: JAX's own
+    # checks refuse --fsdp beside --zero, a K that does not divide the
+    # batch and a missing folder or file
+    ("--fsdp --zero", SystemExit), ("--accum-steps 3", SystemExit),
     ("--data x", FileNotFoundError), ("--train-root x.npz",
                                       FileNotFoundError),
     ("--aux-loss", SystemExit)])

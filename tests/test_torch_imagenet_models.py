@@ -50,6 +50,7 @@ from chainermn_tpu_torch.models.resnet import _same_pads
 from torch_flax_parity import (
     close, flat, grads_as_flax, n_params, nchw, no_dropout,
     perturbed_variables, port_no_dropout, rel_l2, round_trip_exact)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # arch -> (flax model, port constructor, image size, batch)
 ARCHS = {

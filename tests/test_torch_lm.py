@@ -3,9 +3,9 @@
 * ``examples.train_lm``: the motif task gives the JAX example's tokens bit
   for bit; three Adam steps of the example's loop at toy width, from flax
   weights, match the same JAX steps (losses 1e-5, parameters 1e-4 relative
-  to each tensor's largest value); ``--fsdp`` raises, the sequence-parallel
-  attentions run on a world of one as ``flash`` does, and without
-  ``--device`` the example refuses a box with no card.
+  to each tensor's largest value); the sequence-parallel attentions, and
+  ``ring`` under ``--fsdp``, run on a world of one as ``flash`` does, and
+  without ``--device`` the example refuses a box with no card.
 * The data-parallel step of the LM benchmark (``create_communicator("xla",
   allreduce_grad_dtype=...)`` -> ``create_multi_node_optimizer(SGD momentum
   0.9, double_buffering=True)`` -> ``make_train_step``) on a 2-process gloo
@@ -39,6 +39,7 @@ from chainermn_tpu.parallel.topology import init_topology
 from chainermn_tpu_torch import weights
 from chainermn_tpu_torch.examples import train_lm
 from chainermn_tpu_torch.models import TransformerLM
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -126,12 +127,9 @@ def test_example_runs_and_learns_on_cpu(capsys):
                                   ["--attention", "ulysses"],
                                   ["--attention", "ring", "--fsdp"]])
 def test_example_refuses_sequence_parallelism(argv):
-    if "--fsdp" in argv:
-        with pytest.raises(NotImplementedError, match="Queue A9"):
-            train_lm.main(argv + ["--device", "cpu"])
-        return
-    # ring, ring_flash and ulysses are ported (A9, part): on a world of one
-    # each runs the example's three Adam steps as --attention flash does
+    # ring, ring_flash, ulysses and --fsdp are ported (A9): on a world of
+    # one each runs the example's three Adam steps as --attention flash
+    # does (with --fsdp the gather and the reduce-scatter are copies)
     small = ["--device", "cpu", "--seq-len", "64", "--steps", "3",
              "--kv-heads", "2", "--lr", "1e-3"]
     got = train_lm.main(argv + small)

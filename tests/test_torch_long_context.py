@@ -25,6 +25,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 import torch_dist_worker
 from chainermn_tpu.models import TransformerLM as JLM
 from chainermn_tpu.utils import shard_map
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = dict(vocab=32, d_model=32, n_layers=2, n_heads=4)
 B, T = 2, 64

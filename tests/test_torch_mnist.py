@@ -35,6 +35,7 @@ from chainermn_tpu_torch.iterators import SerialIterator as TIter
 from chainermn_tpu_torch.models import MLP
 from chainermn_tpu_torch.runtime.bootstrap import init_distributed
 from chainermn_tpu_torch.training import Trainer, extensions
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("units", [16, 1000])

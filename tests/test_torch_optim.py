@@ -21,6 +21,7 @@ import torch
 from chainermn_tpu_torch.optim import (
     LARS, init_optimizer_state, load_optimizer_state_tree,
     optimizer_state_tree, warmup_cosine_decay_schedule)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SCHEDULES = [(0.0, 0.1, 3, 10), (0.0, 0.4, 1, 2), (0.01, 0.1, 5, 40),
              (0.0, 0.1, 0, 7)]

@@ -34,6 +34,7 @@ from chainermn_tpu.parallel.topology import init_topology
 from chainermn_tpu_torch import (
     create_communicator, create_multi_node_optimizer, make_train_step)
 from chainermn_tpu_torch.runtime.bootstrap import init_distributed
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WORLD, UNIT, STEPS, LOCAL_B = 2, 16, 4, 8
 LR = {"adam": 1e-3, "momentum": 0.1}

@@ -24,6 +24,7 @@ from chainermn_tpu import functions as JF
 from chainermn_tpu.communicators import create_communicator as jcreate
 from chainermn_tpu_torch import functions as F
 from chainermn_tpu_torch.functions import point_to_point_communication as p2p
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 class _Comm:

@@ -28,6 +28,7 @@ from chainermn_tpu.parallel.topology import init_topology
 from chainermn_tpu.training import put_global_batch
 from chainermn_tpu_torch.examples import train_parallel_conv as pc
 from chainermn_tpu_torch.runtime.bootstrap import init_distributed
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS, LR, BATCH, SEED = 4, 1e-3, 8, 3

@@ -22,6 +22,7 @@ import re
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pm = importlib.import_module("chainermn_tpu_torch.ops.probe_matmul")
 from chainermn_tpu_torch.ops import _build  # noqa: E402

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pm = importlib.import_module("chainermn_tpu_torch.ops.probe_matmul")
 

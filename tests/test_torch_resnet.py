@@ -24,6 +24,7 @@ from chainermn_tpu.models.resnet import (
 from chainermn_tpu.ops.fused_norm import FusedBatchNormAct as JFused
 from chainermn_tpu_torch import weights
 from chainermn_tpu_torch.models import resnet as tres
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 

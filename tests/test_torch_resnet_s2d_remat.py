@@ -33,6 +33,7 @@ from chainermn_tpu.models.resnet import (
 from chainermn_tpu_torch import weights
 from chainermn_tpu_torch.models import resnet as tres
 from chainermn_tpu_torch.ops.fused_norm import FusedBatchNormAct
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 BLOCKS = {"basic": (JBasic, tres.BasicBlock),

@@ -26,6 +26,7 @@ import torch.distributed as dist
 import torch_dist_worker
 from chainermn_tpu_torch.benchmarks import run_configs
 from chainermn_tpu_torch.runtime.bootstrap import init_distributed
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KEYS = {"config", "metric", "value", "unit", "devices", "communicator",
         "final_loss", "card", "wall_s", "smoke"}

@@ -38,6 +38,7 @@ from chainermn_tpu_torch import weights
 from chainermn_tpu_torch.examples import seq2seq as example
 from chainermn_tpu_torch.models import seq2seq as tseq
 from chainermn_tpu_torch.optimizers import create_per_stage_optimizer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V_SRC, V_TGT, E, H = 13, 11, 8, 16

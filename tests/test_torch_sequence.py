@@ -30,6 +30,7 @@ import torch_dist_worker
 from chainermn_tpu.models import TransformerLM as JLM
 from chainermn_tpu.ops.flash_attention import flash_attention
 from chainermn_tpu.parallel.sequence import ring_attention, ulysses_attention
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, T, H, D = 2, 64, 4, 16
 TOL = {"ring": (2e-5, 5e-4), "ulysses": (2e-5, 5e-4),

@@ -20,6 +20,7 @@ from chainermn_tpu.serving import kv_cache as jkv
 from chainermn_tpu.serving import scheduler as jsched
 from chainermn_tpu_torch.serving import kv_cache as tkv
 from chainermn_tpu_torch.serving import scheduler as tsched
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _outcome(fn):

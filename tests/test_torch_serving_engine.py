@@ -38,6 +38,7 @@ from chainermn_tpu_torch.serving import InferenceEngine, ServingConfig
 
 from torch_dist_worker import launch
 from torch_flax_parity import perturbed_variables
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LM = dict(vocab=256, d_model=64, n_layers=2, n_heads=4, max_len=128,
           n_kv_heads=2)

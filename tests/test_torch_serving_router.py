@@ -27,12 +27,14 @@ from chainermn_tpu_torch import create_communicator, weights
 from chainermn_tpu_torch.extensions.checkpoint import (
     create_multi_node_checkpointer)
 from chainermn_tpu_torch.models.transformer import TransformerLM
+from chainermn_tpu_torch.parallel import FsdpState
 from chainermn_tpu_torch.serving import (InferenceEngine, Router,
                                          ServingConfig,
                                          load_inference_params)
 from chainermn_tpu_torch.serving import weights as sw
 
 from torch_dist_worker import launch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LM = dict(vocab=61, d_model=32, n_layers=2, n_heads=4, max_len=128,
           n_kv_heads=2)
@@ -166,7 +168,10 @@ def test_load_inference_params(lm, tmp_path):
 
 
 @pytest.mark.parametrize("call,queue", [
-    (lambda: load_inference_params({}, metas=[1]), "A9"),
+    # FSDP consolidation is ported (A9 b): a sharded state without its
+    # metas is refused as in JAX
+    (lambda: load_inference_params({"fsdp": FsdpState(
+        [[torch.zeros(2)]], None, None, 1)}), None),
     (lambda: load_inference_params({}, int8_weights=True), "A10"),
     (lambda: sw.quantize_inference_params({}), "A10"),
     (lambda: sw.dequantize_inference_params({}), "A10"),
@@ -175,5 +180,9 @@ def test_load_inference_params(lm, tmp_path):
     (lambda: sw.shard_params_tp({}, 2, n_heads=4), "A9"),
 ])
 def test_unported_weight_paths_raise(call, queue):
+    if queue is None:
+        with pytest.raises(ValueError, match="no FsdpMeta was given"):
+            call()
+        return
     with pytest.raises(NotImplementedError, match=f"Queue {queue}"):
         call()

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 import torch_dist_worker
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WORLD, B, C = 2, 4, 6
 TOL = dict(rtol=1e-5, atol=1e-5)

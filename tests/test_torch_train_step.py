@@ -27,6 +27,7 @@ from chainermn_tpu.optimizers import (
     make_train_step as jstep)
 from chainermn_tpu.parallel.topology import init_topology
 from chainermn_tpu_torch.runtime.bootstrap import init_distributed
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS, LOCAL_B, LR = 3, 4, 0.1
 RTOL, ATOL = 1e-4, 1e-5

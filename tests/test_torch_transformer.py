@@ -23,6 +23,7 @@ import torch_dist_worker
 from chainermn_tpu.models import TransformerLM as JLM
 from chainermn_tpu_torch import weights
 from chainermn_tpu_torch.models import TransformerLM
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 VOCAB, D_MODEL, LAYERS, HEADS, T, B = 64, 32, 2, 4, 48, 2
 RTOL, ATOL = 1e-4, 1e-5

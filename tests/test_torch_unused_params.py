@@ -30,6 +30,7 @@ from chainermn_tpu.optimizers import (
     create_multi_node_optimizer as jmno, init_opt_state, make_train_step as
     jstep)
 from chainermn_tpu.parallel.topology import init_topology
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WORLD, STEPS, LOCAL_B, LR = 2, 3, 4, 0.1
 RTOL, ATOL = 1e-5, 1e-7

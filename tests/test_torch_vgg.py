@@ -38,6 +38,7 @@ from chainermn_tpu_torch.ops.fused_norm import (
 from torch_flax_parity import (
     close, close_trees, flat, grads_as_flax, n_params, nchw,
     perturbed_variables, port_no_dropout, rel_l2, round_trip_exact)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (model keywords, image size, batch): VGG-16 at batch 8, so that its last
 # norms (1x1 maps) see 8 rows, not 2

@@ -32,6 +32,7 @@ from chainermn_tpu.models.vit import ViT as JViT, ViT_B16 as JB16, \
     ViT_S16 as JS16
 from chainermn_tpu_torch import weights
 from chainermn_tpu_torch.models import vit as tvit
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(num_classes=10, patch=8, d_model=32, n_layers=2, n_heads=4)
 

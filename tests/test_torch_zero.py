@@ -41,6 +41,7 @@ from chainermn_tpu.parallel.topology import init_topology
 from chainermn_tpu_torch import (
     create_communicator, create_multi_node_optimizer)
 from chainermn_tpu_torch.runtime.bootstrap import init_distributed
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 UNIT, STEPS, LOCAL_B, N_GRAD = 16, 4, 8, 37
 RTOL, ATOL = 1e-5, 1e-6

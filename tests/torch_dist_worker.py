@@ -3,7 +3,7 @@
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/torch_dist_worker.py \\
             {comm|train|opt|mnist|lm|unused|coll|zero|syncbn|imagenet|seq|
-             p2p|chain|seq2seq|pconv|configs|serve|accum} \\
+             p2p|chain|seq2seq|pconv|configs|serve|accum|fsdp} \\
             IN.npz OUT_PREFIX
 
 Reads the stacked per-rank inputs from ``IN.npz`` (leading axis = rank),
@@ -956,6 +956,173 @@ def run_serve(inp, rank):
     return out
 
 
+def fsdp_mlp(inp, prefix="mlp"):
+    """The JAX FSDP tests' MLP (Dense 16, relu, Dense 4) from the flax
+    weights ``{prefix}/Dense_i/kernel|bias``."""
+    m = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.ReLU(),
+                            torch.nn.Linear(16, 4))
+    with torch.no_grad():
+        for i, lin in ((0, m[0]), (1, m[2])):
+            lin.weight.copy_(torch.tensor(inp[f"{prefix}/Dense_{i}/kernel"]).T)
+            lin.bias.copy_(torch.tensor(inp[f"{prefix}/Dense_{i}/bias"]))
+    return m
+
+
+def run_fsdp(inp, rank):
+    """FSDP (``parallel/fsdp.py``) on this rank, every multi-rank check of
+    ``tests/test_torch_fsdp.py`` in one world: the MLP of ``mlp/...`` on
+    this rank's 8 rows of ``x``/``y`` (``{cfg}/losses``, ``{cfg}/p/...``
+    the full parameters after training, ``{cfg}/stats``); the global-loss
+    objective on ``gx``; a FusedBatchNormAct model against the plain
+    step; accumulation; the checkpoint round trip under ``ckpt_dir`` and
+    its refusals (``refuse/{what}``: the error message)."""
+    import torch.nn.functional as F  # noqa: F401
+    from chainermn_tpu_torch import functions
+    from chainermn_tpu_torch.extensions import (
+        consolidate_fsdp_checkpoint, create_multi_node_checkpointer)
+    from chainermn_tpu_torch.ops.fused_norm import FusedBatchNormAct
+    from chainermn_tpu_torch.optim import init_optimizer_state
+    from chainermn_tpu_torch.parallel import (
+        fsdp_full_params, fsdp_init, make_fsdp_train_step)
+
+    comm = create_communicator("xla", device="cpu")
+    n = comm.size
+    x = torch.tensor(inp["x"][rank * 8:(rank + 1) * 8])
+    y = torch.tensor(inp["y"][rank * 8:(rank + 1) * 8])
+    out = {}
+
+    def mse(model):
+        return lambda b: torch.mean((model(b[0]) - b[1]) ** 2)
+
+    def keep(cfg, losses, state, meta, step):
+        out[f"{cfg}/losses"] = np.asarray(losses)
+        out.update({f"{cfg}/p/{k}": v.detach().numpy() for k, v in
+                    fsdp_full_params(state, meta, comm).items()})
+        out[f"{cfg}/stats"] = np.asarray([step.stats[k] for k in (
+            "gathers", "reduce_scatters", "casts", "max_in_flight")])
+
+    # the JAX parity runs: Adam 1e-3, five steps on the same batch
+    for cfg, k, d, wire in (("k1", 1, 1, None), ("k4d0", 4, 0, None),
+                            ("k4d1", 4, 1, None), ("bf16", 2, 1, "bfloat16")):
+        model = fsdp_mlp(inp)
+        state, meta = fsdp_init(comm, model, torch.optim.Adam(
+            model.parameters(), lr=1e-3), num_buckets=k)
+        step = make_fsdp_train_step(comm, mse(model), state, meta,
+                                    prefetch=d, wire_dtype=wire)
+        keep(cfg, [float(step((x, y))) for _ in range(5)], state, meta, step)
+
+    # accumulation: two microbatches against the full batch (SGD momentum)
+    for cfg, k in (("accum1", 1), ("accum2", 2)):
+        model = fsdp_mlp(inp)
+        state, meta = fsdp_init(comm, model, torch.optim.SGD(
+            model.parameters(), lr=0.05, momentum=0.9), num_buckets=2)
+        step = make_fsdp_train_step(comm, mse(model), state, meta,
+                                    accum_steps=k)
+        keep(cfg, [float(step((x, y))) for _ in range(3)], state, meta, step)
+
+    # global_loss: JAX's sequence-sharded objective (w[t mod D] - x)^2
+    class W(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.arange(6, dtype=torch.float32))
+
+    gx = torch.tensor(inp["gx"])
+    t_loc = gx.shape[1] // n
+    xb = gx[:, rank * t_loc:(rank + 1) * t_loc]
+    wm = W()
+
+    def global_loss(b):
+        pos = rank * t_loc + torch.arange(t_loc)
+        w = wm.w[pos % 6]
+        total = functions.allreduce(comm, ((w[None, :] - b) ** 2).sum())
+        count = functions.allreduce(comm, torch.tensor(float(b.numel())))
+        return total / count
+
+    state, meta = fsdp_init(comm, wm, torch.optim.SGD(wm.parameters(),
+                                                      lr=0.1))
+    step = make_fsdp_train_step(comm, global_loss, state, meta,
+                                global_loss=True)
+    keep("global", [float(step(xb)) for _ in range(4)], state, meta, step)
+
+    # BatchNorm: buffers rank-local, against the plain data-parallel step
+    def bn_model():
+        torch.manual_seed(3)
+        return torch.nn.Sequential(
+            torch.nn.Linear(8, 16), FusedBatchNormAct(16, fuse_relu=True),
+            torch.nn.Linear(16, 4))
+
+    for cfg in ("bn_plain", "bn_fsdp"):
+        model = bn_model()
+        opt = torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9)
+        if cfg == "bn_plain":
+            step = make_train_step(comm, mse(model),
+                                   create_multi_node_optimizer(opt, comm))
+        else:
+            state, meta = fsdp_init(comm, model, opt, num_buckets=2)
+            step = make_fsdp_train_step(comm, mse(model), state, meta)
+        out[f"{cfg}/losses"] = np.asarray([float(step((x, y)))
+                                           for _ in range(3)])
+        params = dict(model.named_parameters()) if cfg == "bn_plain" \
+            else fsdp_full_params(state, meta, comm)
+        out.update({f"{cfg}/p/{k}": v.detach().numpy()
+                    for k, v in params.items()})
+        out.update({f"{cfg}/buf/{k}": v.numpy()
+                    for k, v in model.named_buffers()})
+
+    # checkpoints: save after two steps, then the third step straight and
+    # from a resumed state
+    def sgd_state(c, k=2):
+        model = fsdp_mlp(inp)
+        st, mt = fsdp_init(c, model, torch.optim.SGD(
+            model.parameters(), lr=0.05, momentum=0.9), num_buckets=k)
+        return model, st, mt
+
+    path = str(inp["ckpt_dir"])
+    ckpt = create_multi_node_checkpointer(comm, path, name="fsdp")
+    model, state, meta = sgd_state(comm)
+    step = make_fsdp_train_step(comm, mse(model), state, meta)
+    for _ in range(2):
+        step((x, y))
+    out.update({f"saved/p/{k}": v.detach().numpy() for k, v in
+                fsdp_full_params(state, meta, comm).items()})
+    ckpt.save({"fsdp": state, "iteration": np.int64(2)}, 2)
+    comm.barrier()
+    live = consolidate_fsdp_checkpoint({"fsdp": state}, meta, comm=comm)
+    out.update({f"live/p/{k}": v.detach().numpy()
+                for k, v in live["fsdp"].items()})
+    keep("straight", [float(step((x, y)))], state, meta, step)
+    model2, state2, meta2 = sgd_state(comm)
+    init_optimizer_state(state2.inner)
+    restored, gen = ckpt.resume({"fsdp": state2, "iteration": np.int64(0)})
+    assert restored["fsdp"] is state2 and gen == 2
+    out["resumed/iteration"] = np.asarray(restored["iteration"])
+    step2 = make_fsdp_train_step(comm, mse(model2), state2, meta2)
+    keep("resumed", [float(step2((x, y)))], state2, meta2, step2)
+
+    def refusal(what, template, c=comm, name="fsdp"):
+        try:
+            create_multi_node_checkpointer(c, path, name=name).resume(
+                template)
+        except ValueError as e:
+            out[f"refuse/{what}"] = np.asarray(str(e))
+
+    _, st1, _ = sgd_state(comm, k=1)
+    init_optimizer_state(st1.inner)
+    refusal("buckets", {"fsdp": st1, "iteration": np.int64(0)})
+    refusal("unsharded", {"fsdp": {k: v.detach().clone() for k, v in
+                                   fsdp_mlp(inp).state_dict().items()},
+                          "iteration": np.int64(0)})
+    plain = create_multi_node_checkpointer(comm, path, name="plain")
+    plain.save({"fsdp": {"w": torch.zeros(3)}}, 1)
+    comm.barrier()
+    refusal("sharded_target", {"fsdp": state2}, name="plain")
+    sub = comm.split(color=rank // 2, key=rank)
+    _, st_sub, _ = sgd_state(sub)
+    init_optimizer_state(st_sub.inner)
+    refusal("world", {"fsdp": st_sub, "iteration": np.int64(0)}, c=sub)
+    return out
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -1001,7 +1168,8 @@ def main():
            "imagenet": run_imagenet, "seq": run_seq, "p2p": run_p2p,
            "chain": run_chain, "seq2seq": run_seq2seq,
            "pconv": run_pconv, "configs": run_configs,
-           "serve": run_serve, "accum": run_accum}[mode](inp, topo.rank)
+           "serve": run_serve, "accum": run_accum,
+           "fsdp": run_fsdp}[mode](inp, topo.rank)
     np.savez(f"{out_prefix}.{topo.rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
