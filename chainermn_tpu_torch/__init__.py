@@ -17,14 +17,18 @@ from chainermn_tpu_torch.links import MultiNodeChainList, pseudo_loss
 from chainermn_tpu_torch.models.vit import ViT, ViT_B16, ViT_S16
 from chainermn_tpu_torch.optimizers import (
     create_multi_node_optimizer, create_per_stage_optimizer, make_train_step)
+from chainermn_tpu_torch.parallel import (
+    ColumnParallelDense, ExpertParallelMLP, RowParallelDense,
+    TensorParallelMLP, moe_apply)
 from chainermn_tpu_torch.parallel.sequence import (
     attention, ring_attention, ulysses_attention)
 from chainermn_tpu_torch.runtime.bootstrap import init_distributed
 
-__all__ = ["Augment", "ImageFolderDataset", "MultiNodeChainList",
-           "NpzImageDataset", "TransformDataset", "ViT", "ViT_B16", "ViT_S16",
-           "attention", "consolidate_fsdp_checkpoint", "create_communicator",
-           "create_multi_node_optimizer", "create_per_stage_optimizer",
-           "init_distributed",
-           "make_train_step", "normalize_image", "pseudo_loss",
+__all__ = ["Augment", "ColumnParallelDense", "ExpertParallelMLP",
+           "ImageFolderDataset", "MultiNodeChainList", "NpzImageDataset",
+           "RowParallelDense", "TensorParallelMLP", "TransformDataset", "ViT",
+           "ViT_B16", "ViT_S16", "attention", "consolidate_fsdp_checkpoint",
+           "create_communicator", "create_multi_node_optimizer",
+           "create_per_stage_optimizer", "init_distributed",
+           "make_train_step", "moe_apply", "normalize_image", "pseudo_loss",
            "ring_attention", "scatter_dataset", "ulysses_attention"]

@@ -29,8 +29,16 @@ time is host time.  The model is the port's
 ``--seed``; its position table is ``--max-len`` (default: the cache's reach
 plus a step's padded tail, which the engine needs).
 
+``--tp N`` shards the model over N ranks, one process a GPU under
+``torchrun --nproc_per_node N`` (:class:`~chainermn_tpu_torch.serving.
+InferenceEngine` over their communicator): rank 0 drives every section
+(its engines' steps name the engine to the other ranks, which step it in
+lockstep) and prints the report; rates are per ``N`` GPUs.
+
     python -m chainermn_tpu_torch.benchmarks.bench_serving --device cpu \\
         --requests 16 --spec-k 2 --replicas 2 --out serving.json
+    torchrun --nproc_per_node 2 -m chainermn_tpu_torch.benchmarks.\\
+bench_serving --tp 2
     python -m chainermn_tpu_torch.benchmarks.bench_serving  # on the card
 """
 
@@ -99,6 +107,45 @@ def _config(args, **kw):
                          cache_dtype=getattr(torch, args.dtype), **kw)
 
 
+def _engine(model, args, draft_model=None, **kw):
+    """An engine of the flags' configuration; with ``--tp`` over the
+    ranks' communicator (``args.comm``)."""
+    from chainermn_tpu_torch.serving import InferenceEngine
+    return InferenceEngine(model, _config(args, tp_size=args.tp, **kw),
+                           draft_model=draft_model,
+                           comm=getattr(args, "comm", None))
+
+
+def _lead(args, *engines) -> bool:
+    """With ``--tp``, rank 0 drives each section and the other ranks step
+    the same engines in the same order: on rank 0 each engine's ``step``
+    first names the engine to the others (True is returned); the others
+    step the engines so named until :func:`_release` (False is returned).
+    Without ``--tp``: True."""
+    comm = getattr(args, "comm", None)
+    if comm is None:
+        return True
+    if comm.rank == 0:
+        for i, eng in enumerate(engines):
+            def announced(step=eng.step, i=i):
+                comm.bcast_obj(i, root=0)
+                return step()
+            eng.step = announced
+        return True
+    while True:
+        i = comm.bcast_obj(None, root=0)
+        if i is None:
+            return False
+        engines[i].step()
+
+
+def _release(args) -> None:
+    """Rank 0: the section is over (the other ranks leave :func:`_lead`)."""
+    comm = getattr(args, "comm", None)
+    if comm is not None and comm.rank == 0:
+        comm.bcast_obj(None, root=0)
+
+
 def _cuda(args) -> bool:
     return torch.device(args.device).type == "cuda"
 
@@ -157,9 +204,9 @@ def busy_share(eng, trace, args):
 
 
 def run_policy(policy, model, trace, args):
-    from chainermn_tpu_torch.serving import InferenceEngine
-
-    eng = InferenceEngine(model, _config(args, policy=policy))
+    eng = _engine(model, args, policy=policy)
+    if not _lead(args, eng):
+        return None
     _warm(eng, trace[0][1])
     _sync(args)
     if _cuda(args):
@@ -204,6 +251,7 @@ def run_policy(policy, model, trace, args):
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         out["busy"] = busy_share(eng, trace, args)
     out["passes"] = dict(eng.passes)
+    _release(args)
     return out
 
 
@@ -247,8 +295,6 @@ def _add_passes(total, eng):
 
 def run_prefix(model, args):
     """The prefix-cache A/B: the same burst, cache off, then on."""
-    from chainermn_tpu_torch.serving import InferenceEngine
-
     trace, sys_len = build_prefix_trace(args)
     warm_rng = np.random.default_rng(args.seed + 1000)
     warm = list(map(int, warm_rng.integers(1, args.vocab,
@@ -256,7 +302,9 @@ def run_prefix(model, args):
     out = {}
     passes = {}
     for label, cached in (("uncached", False), ("cached", True)):
-        eng = InferenceEngine(model, _config(args, prefix_cache=cached))
+        eng = _engine(model, args, prefix_cache=cached)
+        if not _lead(args, eng):
+            continue
         # warm-up with a DISJOINT prompt, so the cached run's first request
         # still pays its own cold prefill
         _warm(eng, warm)
@@ -268,7 +316,10 @@ def run_prefix(model, args):
                       **({"stats": eng.scheduler.prefix_stats()}
                          if cached else {})}
         _add_passes(passes, eng)
+        _release(args)
         del eng
+    if not out:
+        return None
     out["shared_prefix_tokens"] = sys_len
     out["speedup"] = (out["cached"]["tokens_per_sec"]
                       / out["uncached"]["tokens_per_sec"])
@@ -311,22 +362,25 @@ def build_spec_trace(args):
 
 def run_spec(model, args):
     """Vanilla vs draft+verify over the same decode-heavy burst."""
-    from chainermn_tpu_torch.serving import InferenceEngine
-
     trace = build_spec_trace(args)
     dmodel = truncated_draft(model)
     out = {}
     passes = {}
-    eng = InferenceEngine(model, _config(args))
+    eng = _engine(model, args)
+    if not _lead(args, eng):
+        eng = _engine(model, args, spec_k=args.spec_k, draft_model=dmodel)
+        _lead(args, eng)
+        return None
     _warm(eng, trace[0][0])
     wall, steps, n_tokens = _drain_burst(eng, trace, args.max_steps, args)
     out["vanilla"] = {"wall_s": wall, "steps": steps,
                       "generated_tokens": n_tokens,
                       "tokens_per_sec": n_tokens / wall}
     _add_passes(passes, eng)
+    _release(args)
     del eng
-    eng = InferenceEngine(model, _config(args, spec_k=args.spec_k),
-                          draft_model=dmodel)
+    eng = _engine(model, args, spec_k=args.spec_k, draft_model=dmodel)
+    _lead(args, eng)
     _warm(eng, trace[0][0])
     _sync(args)
     t0 = time.perf_counter()
@@ -344,6 +398,7 @@ def run_spec(model, args):
         if steps > args.max_steps:
             raise RuntimeError(f"spec still busy after {steps} steps")
     wall = time.perf_counter() - t0
+    _release(args)
     n_tokens = sum(len(c.tokens) for c in eng.completions)
     out["spec"] = {"wall_s": wall, "steps": steps,
                    "generated_tokens": n_tokens,
@@ -371,10 +426,12 @@ def run_fleet(model, trace, args):
     """Open-loop sessionful trace over ``--replicas`` engines (prefix cache
     on) behind the session-affine router; every turn of a session opens
     with that session's own two-page system prefix."""
-    from chainermn_tpu_torch.serving import InferenceEngine, Router
+    from chainermn_tpu_torch.serving import Router
 
-    engines = [InferenceEngine(model, _config(args, prefix_cache=True))
+    engines = [_engine(model, args, prefix_cache=True)
                for _ in range(args.replicas)]
+    if not _lead(args, *engines):
+        return None
     for eng in engines:
         _warm(eng, trace[0][1])
     router = Router(engines)
@@ -404,6 +461,7 @@ def run_fleet(model, trace, args):
         if steps > args.max_steps:
             raise RuntimeError(f"fleet still busy after {steps} steps")
     wall = time.perf_counter() - t0
+    _release(args)
 
     comps = [c for _, _, c in router.completions]
     n_tokens = sum(len(c.tokens) for c in comps)
@@ -461,8 +519,9 @@ def parser():
     p.add_argument("--num-pages", type=int, default=64)
     p.add_argument("--max-pages-per-seq", type=int, default=8)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ways: only 1 is ported "
-                        "(ROADMAP.md Queue A12 (rest))")
+                   help="tensor-parallel ways: one process a rank under "
+                        "torchrun (--nproc_per_node = --tp); rank 0 "
+                        "reports")
     p.add_argument("--prefix-share", type=float, default=0.9,
                    help="fraction of each prefix-section prompt that is "
                         "the shared system prefix (0 skips the section)")
@@ -497,33 +556,48 @@ def build_model(args):
 
 def run(args, model=None):
     """Every section the flags ask for: the report (its JSON keys are
-    JAX's, plus the port's named in the module note)."""
-    if args.tp != 1:
-        raise NotImplementedError(
-            "--tp > 1 (tensor-parallel serving) is not ported yet; see "
-            "ROADMAP.md Queue A12 (rest)")
+    JAX's, plus the port's named in the module note).  With ``--tp`` every
+    rank of the world runs it and rank 0 returns the report, the others
+    None."""
+    args.comm = None
+    if args.tp > 1:
+        from chainermn_tpu_torch.communicators import create_communicator
+        args.comm = create_communicator("naive", device=args.device)
+        if args.comm.size != args.tp:
+            raise ValueError(
+                f"--tp {args.tp} runs one process a rank: start "
+                f"{args.tp} ranks (torchrun --nproc_per_node {args.tp}), "
+                f"not {args.comm.size}")
+        args.device = str(args.comm.device)
     model = model if model is not None else build_model(args)
+    if args.comm is not None:
+        args.comm.bcast_data(model)   # one set of weights on every rank
     trace = build_trace(args)
     results = {p: run_policy(p, model, trace, args)
                for p in ("continuous", "static")}
+    sections = {}
+    if args.prefix_share > 0:
+        sections["prefix"] = run_prefix(model, args)
+    if args.spec_k > 0:
+        sections["spec"] = run_spec(model, args)
+    if args.replicas > 1:
+        sections["fleet"] = run_fleet(model, trace, args)
+    if results["continuous"] is None:   # a rank that followed rank 0
+        return None
     speedup = (results["continuous"]["tokens_per_sec"]
                / results["static"]["tokens_per_sec"])
     report = {
         "schema": "bench_serving/v2",
-        "config": {k: v for k, v in vars(args).items() if k != "out"},
-        "devices": 1,
+        "config": {k: v for k, v in vars(args).items()
+                   if k not in ("out", "comm")},
+        "devices": args.tp,
         "continuous": results["continuous"],
         "static": results["static"],
         "speedup": speedup,
+        **sections,
     }
-    if args.prefix_share > 0:
-        report["prefix"] = run_prefix(model, args)
-    if args.spec_k > 0:
-        report["spec"] = run_spec(model, args)
-    if args.replicas > 1:
-        report["fleet"] = run_fleet(model, trace, args)
     from chainermn_tpu_torch.observability.ledger import stamp_envelope
-    stamp_envelope(report, n_devices=1, backend=torch.device(
+    stamp_envelope(report, n_devices=args.tp, backend=torch.device(
         args.device).type)
     return report
 
@@ -537,6 +611,8 @@ def main(argv=None):
         p.error(f"--prefix-prompt + --prefix-max-new exceeds the cache "
                 f"reach ({max_ctx} tokens)")
     report = run(args)
+    if report is None:      # --tp: a rank other than 0
+        return 0
     if "spec" in report:
         report["spec"].pop("completions")
     print(json.dumps(report, indent=1))

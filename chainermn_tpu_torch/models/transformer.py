@@ -36,9 +36,26 @@ Serving's hooks are JAX's: ``pos_offset`` may be a ``[B]`` vector (each
 sequence at its own global position) and ``attend=`` installs a per-layer
 callback ``attend(layer, q, k, v)`` that sees the unrepeated grouped kv
 heads and owns masking and the cache (:mod:`chainermn_tpu_torch.serving`).
-The JAX model's other extensions are not ported: ``moe_experts > 0`` and
-``tp_size > 1`` raise with their ROADMAP.md queue.  Weights
-come from a flax model with :mod:`chainermn_tpu_torch.weights`;
+
+The JAX model's two parallel extensions take communicators where JAX takes
+mesh axis names:
+
+* ``moe_experts > 0`` replaces every block's MLP by an
+  :class:`~chainermn_tpu_torch.parallel.expert.ExpertParallelMLP` (top
+  ``moe_top_k``, ``moe_capacity``) over the ranks of ``moe_comm`` (JAX's
+  ``moe_axis``; None is a world of one), each rank holding its own experts.
+  Each block keeps its last forward's statistics in ``moe_stats``, JAX's
+  sown ``"moe_stats"`` keys (``aux_loss``, ``overflow_fraction``,
+  ``expert_load``); :func:`collect_moe_stats` gathers them by block;
+* ``tp_size > 1`` shards every block Megatron-style: ``n_heads / tp``
+  local heads and ``n_kv_heads / tp`` kv heads from column slices of
+  ``qkv``, ``up`` at ``4 d_model / tp``, and ``proj``/``down`` row slices
+  whose outputs (biases included, pre-divided by ``tp`` in
+  :func:`~chainermn_tpu_torch.serving.weights.shard_params_tp`) are summed
+  over ``tp_comm`` (JAX's ``tp_axis``; None sums nothing, as JAX without
+  an axis).  Embeddings, layer norms, the router and the head stay whole.
+
+Weights come from a flax model with :mod:`chainermn_tpu_torch.weights`;
 initialisation otherwise draws from an explicit ``torch.Generator`` with
 flax's initialisers (lecun-normal dense kernels and embeddings, zero biases,
 unit scales).
@@ -53,6 +70,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from chainermn_tpu_torch import functions
 from chainermn_tpu_torch.models.resnet import Dense as _Dense, _lecun_normal_
 from chainermn_tpu_torch.ops.flash_attention import flash_attention
 from chainermn_tpu_torch.parallel.sequence import (
@@ -135,53 +153,64 @@ class Embed(nn.Module):
 
 class Block(nn.Module):
     """Pre-LN transformer block: ``x + proj(attn(ln_attn(x)))``, then
-    ``x + down(gelu(up(ln_mlp(x))))``, causal."""
+    ``x + down(gelu(up(ln_mlp(x))))`` or ``x + moe(ln_mlp(x))``, causal
+    (see the module note for the MoE and tensor-parallel branches)."""
 
     def __init__(self, d_model: int, n_heads: int,
                  attention_impl: str = "xla", dtype=torch.float32,
                  n_kv_heads: Optional[int] = None, moe_experts: int = 0,
-                 tp_size: int = 1, comm=None, *, device=None,
-                 generator=None):
+                 tp_size: int = 1, comm=None, *, moe_top_k: int = 1,
+                 moe_capacity: Optional[int] = None, moe_comm=None,
+                 moe_plan=None, tp_comm=None, device=None, generator=None):
         super().__init__()
         n_kv = n_kv_heads or n_heads
         if n_heads % tp_size or n_kv % tp_size:
             raise ValueError(
                 f"tp_size ({tp_size}) must divide n_heads "
                 f"({n_heads}) and n_kv_heads ({n_kv})")
-        if tp_size > 1:
-            raise NotImplementedError(
-                "tp_size > 1 (tensor-parallel serving) is not ported yet; "
-                "see ROADMAP.md Queue A12")
-        if moe_experts:
-            raise NotImplementedError(
-                "moe_experts > 0 (expert-parallel MLP) is not ported yet; "
-                "see ROADMAP.md Queue A9")
+        if tp_comm is not None and tp_comm.size != tp_size:
+            raise ValueError(f"tp_comm has {tp_comm.size} ranks, tp_size is "
+                             f"{tp_size}")
         _check_impl(attention_impl, comm)
-        self.n_heads, self.n_kv, self.impl = n_heads, n_kv, attention_impl
-        self.comm = comm
+        self.n_heads, self.impl = n_heads // tp_size, attention_impl
+        self.n_kv = n_kv // tp_size
+        self.comm, self.tp_comm = comm, tp_comm if tp_size > 1 else None
         self.head_dim = d_model // n_heads
-        self.d_kv = n_kv * self.head_dim
+        self.d_local = self.n_heads * self.head_dim
+        self.d_kv = self.n_kv * self.head_dim
         dense = lambda i, o: Dense(i, o, dtype=dtype, device=device,  # noqa
                                    generator=generator)
         ln = lambda: LayerNorm(d_model, dtype=dtype, device=device)  # noqa
         self.ln_attn = ln()
-        self.qkv = dense(d_model, d_model + 2 * self.d_kv)
-        self.proj = dense(d_model, d_model)
+        self.qkv = dense(d_model, self.d_local + 2 * self.d_kv)
+        self.proj = dense(self.d_local, d_model)
         self.ln_mlp = ln()
-        self.up = dense(d_model, 4 * d_model)
-        self.down = dense(4 * d_model, d_model)
+        self.moe_stats = None
+        if moe_experts:
+            from chainermn_tpu_torch.parallel.expert import ExpertParallelMLP
+            self.moe = ExpertParallelMLP(
+                d_model, 4 * d_model, moe_comm, num_experts=moe_experts,
+                top_k=moe_top_k, capacity=moe_capacity, dtype=dtype,
+                with_stats=True, plan=moe_plan, device=device,
+                generator=generator)
+        else:
+            self.up = dense(d_model, 4 * d_model // tp_size)
+            self.down = dense(4 * d_model // tp_size, d_model)
+
+    def _row_sum(self, y):
+        """The row-parallel outputs summed over the tensor-parallel ranks."""
+        return y if self.tp_comm is None else functions.allreduce(
+            self.tp_comm, y)
 
     def forward(self, x, attend=None):
-        d_model = x.shape[-1]
         lead = x.shape[:-1]
         qkv = self.qkv(self.ln_attn(x))
-        q = qkv[..., :d_model].reshape(lead + (self.n_heads, self.head_dim))
-        k = qkv[..., d_model:d_model + self.d_kv].reshape(
-            lead + (self.n_kv, self.head_dim))
-        v = qkv[..., d_model + self.d_kv:].reshape(
-            lead + (self.n_kv, self.head_dim))
+        dl, dkv = self.d_local, self.d_kv
+        q = qkv[..., :dl].reshape(lead + (self.n_heads, self.head_dim))
+        k = qkv[..., dl:dl + dkv].reshape(lead + (self.n_kv, self.head_dim))
+        v = qkv[..., dl + dkv:].reshape(lead + (self.n_kv, self.head_dim))
         if attend is not None:
-            return self._rest(x, attend(q, k, v), lead, d_model)
+            return self._rest(x, attend(q, k, v), lead)
         if self.n_kv != self.n_heads and self.impl not in (
                 "flash", "ring_flash"):
             # the fused kernels read grouped kv natively (and under
@@ -191,12 +220,25 @@ class Block(nn.Module):
             k = k.repeat_interleave(grp, dim=-2)
             v = v.repeat_interleave(grp, dim=-2)
         out = _attend(self.impl, self.comm, q, k, v, causal=True)
-        return self._rest(x, out, lead, d_model)
+        return self._rest(x, out, lead)
 
-    def _rest(self, x, out, lead, d_model):
-        x = x + self.proj(out.reshape(lead + (d_model,)))
-        h = F.gelu(self.up(self.ln_mlp(x)), approximate="tanh")
-        return x + self.down(h)
+    def _rest(self, x, out, lead):
+        x = x + self._row_sum(self.proj(out.reshape(lead + (self.d_local,))))
+        h = self.ln_mlp(x)
+        if hasattr(self, "moe"):
+            y, self.moe_stats = self.moe(h)
+            return x + y
+        h = F.gelu(self.up(h), approximate="tanh")
+        return x + self._row_sum(self.down(h))
+
+
+def collect_moe_stats(model) -> dict:
+    """The last forward's MoE statistics of every block, ``{"block_i":
+    {"aux_loss", "overflow_fraction", "expert_load"}}`` (JAX's
+    ``"moe_stats"`` collection, one value a key)."""
+    return {f"block_{i}": blk.moe_stats
+            for i, blk in enumerate(model.blocks)
+            if blk.moe_stats is not None}
 
 
 class TransformerLM(nn.Module):
@@ -206,9 +248,11 @@ class TransformerLM(nn.Module):
     ranks shard the sequence) for ``axis_name``; with a sequence-parallel
     ``attention_impl`` each rank passes its ``[B, T/P]`` block and
     ``pos_offset=rank * T/P``.  Decode mode (serving): ``pos_offset`` a
-    ``[B]`` vector and ``attend(layer, q, k, v)`` per layer.  Of the
-    extensions, ``moe_experts`` and ``tp_size`` are taken only to refuse
-    them.
+    ``[B]`` vector and ``attend(layer, q, k, v)`` per layer.
+    ``moe_experts``/``moe_top_k``/``moe_capacity`` with ``moe_comm`` (the
+    expert-parallel ranks) and ``tp_size`` with ``tp_comm`` (the
+    tensor-parallel ranks) are the module note's extensions; ``moe_plan``
+    (the planner's all-to-all) raises, naming ROADMAP.md Queue A11.
     """
 
     def __init__(self, vocab: int, d_model: int = 256, n_layers: int = 4,
@@ -216,7 +260,9 @@ class TransformerLM(nn.Module):
                  attention_impl: str = "xla", *,
                  dtype: torch.dtype = torch.float32,
                  n_kv_heads: Optional[int] = None, moe_experts: int = 0,
-                 tp_size: int = 1, comm=None, device=None,
+                 moe_top_k: int = 1, moe_capacity: Optional[int] = None,
+                 moe_comm=None, moe_plan=None, tp_size: int = 1,
+                 tp_comm=None, comm=None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if d_model % n_heads:
@@ -227,17 +273,26 @@ class TransformerLM(nn.Module):
             raise ValueError(
                 f"n_kv_heads ({n_kv_heads}) must be >= 1 and divide "
                 f"n_heads ({n_heads})")
+        if moe_plan is not None:
+            raise NotImplementedError(
+                "moe_plan (the collective planner's all-to-all plan) is not "
+                "ported yet; see ROADMAP.md Queue A11")
         device = resolve_device(device)
         self.vocab, self.d_model, self.dtype = vocab, d_model, dtype
         self.n_layers, self.n_heads, self.max_len = n_layers, n_heads, max_len
         self.n_kv_heads = n_kv_heads
+        self.attention_impl = attention_impl
+        self.moe_experts, self.moe_top_k = moe_experts, moe_top_k
+        self.moe_capacity, self.tp_size = moe_capacity, tp_size
         self.tok_emb = Embed(vocab, d_model, dtype=dtype, device=device,
                              generator=generator)
         self.pos_emb = Embed(max_len, d_model, dtype=dtype, device=device,
                              generator=generator)
         self.blocks = nn.ModuleList([
             Block(d_model, n_heads, attention_impl, dtype, n_kv_heads,
-                  moe_experts, tp_size, comm, device=device,
+                  moe_experts, tp_size, comm, moe_top_k=moe_top_k,
+                  moe_capacity=moe_capacity, moe_comm=moe_comm,
+                  moe_plan=moe_plan, tp_comm=tp_comm, device=device,
                   generator=generator)
             for _ in range(n_layers)])
         self.ln_f = LayerNorm(d_model, dtype=dtype, device=device)
@@ -257,4 +312,4 @@ class TransformerLM(nn.Module):
         return self.head(self.ln_f(x)).float()
 
 
-__all__ = ["Block", "Embed", "LayerNorm", "TransformerLM"]
+__all__ = ["Block", "Embed", "LayerNorm", "TransformerLM", "collect_moe_stats"]

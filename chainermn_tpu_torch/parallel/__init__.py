@@ -5,8 +5,13 @@ from chainermn_tpu_torch.parallel.sequence import (
     attention, ring_attention, ulysses_attention)
 from chainermn_tpu_torch.parallel.topology import (
     Topology, init_topology, resolve_device)
+from chainermn_tpu_torch.parallel.tensor import (
+    ColumnParallelDense, RowParallelDense, TensorParallelMLP)
+from chainermn_tpu_torch.parallel.expert import ExpertParallelMLP, moe_apply
 
-__all__ = ["BucketLayout", "FsdpMeta", "FsdpState", "Topology", "attention",
-           "fsdp_full_params", "fsdp_init", "fsdp_layout", "init_topology",
-           "iter_fsdp_states", "make_fsdp_meta", "make_fsdp_train_step",
+__all__ = ["BucketLayout", "ColumnParallelDense", "ExpertParallelMLP",
+           "FsdpMeta", "FsdpState", "RowParallelDense", "TensorParallelMLP",
+           "Topology", "attention", "fsdp_full_params", "fsdp_init",
+           "fsdp_layout", "init_topology", "iter_fsdp_states",
+           "make_fsdp_meta", "make_fsdp_train_step", "moe_apply",
            "resolve_device", "ring_attention", "ulysses_attention"]

@@ -21,15 +21,30 @@ ignored) -- so prefill and decode fuse into one batched forward.  A step:
 With ``spec_k > 0`` the step is the fused draft+verify step of
 :meth:`InferenceEngine._forward_spec` instead.
 
+With ``tp_size > 1`` or ``ep_size > 1``, or a MoE model, the engine runs
+over a communicator of ``tp_size x ep_size`` ranks, one process a GPU:
+rank ``r`` is ``(t, e) = (r // ep_size, r % ep_size)``, JAX's
+``reshape(tp, ep)`` order, and ``comm.split`` makes the tensor-parallel
+ranks (one ``e``) and the expert-parallel ranks (one ``t``).  Each rank
+builds its shard of the given whole model: the blocks Megatron-sliced
+(:func:`~chainermn_tpu_torch.serving.weights.shard_params_tp`) with their
+row-parallel outputs summed over the tensor-parallel ranks, the KV cache
+holding ``n_kv_heads / tp`` heads, the draft model sharded alike, and a
+MoE model's experts split ``ep`` ways over the expert-parallel ranks (the
+EP path at ``ep_size`` 1 too: a world of one).  Tokens and gate math are
+the same on every rank, so are the logits and the greedy samples; the
+plans ride the communicator's object plane.
+
 Differences from JAX: the engine takes built ``nn.Module`` s (target and
-draft) that carry their weights where JAX takes ``(model, params)``; the
-cache is written in place; the forwards are plain methods run under
-``torch.inference_mode()``; ``tp_size``/``ep_size`` > 1 raise (ROADMAP.md
-Queue A12 (rest)); there is no plan-table pickup (A11) and there are no
-``serving_*`` metrics or flight-recorder spans (A13).  The spec-decode
-accept decisions ride the next step's plan as in JAX, and every rank
-checks them.  The step's padded positions must lie inside the model's
-position table (``max_len``): where JAX's embedding lookup fills
+draft, whole) that carry their weights where JAX takes ``(model,
+params)``; the cache is written in place; the forwards are plain methods
+run under ``torch.inference_mode()``; a communicator of exactly
+``tp_size x ep_size`` ranks stands in for JAX's mesh of the first such
+devices; there is no plan-table pickup and ``moe_plan`` raises (A11), and
+there are no ``serving_*`` metrics or flight-recorder spans (A13).  The
+spec-decode accept decisions ride the next step's plan as in JAX, and
+every rank checks them.  The step's padded positions must lie inside the
+model's position table (``max_len``): where JAX's embedding lookup fills
 out-of-range rows, PyTorch's raises, so the engine refuses such a
 configuration.
 
@@ -60,8 +75,9 @@ class ServingConfig:
     max_pages_per_seq: int = 8    # page-table width (max ctx / page_size)
     eos_id: Optional[int] = None
     policy: str = "continuous"    # or "static" (benchmark baseline)
-    tp_size: int = 1              # tensor-parallel ways (not ported: A12)
-    ep_size: int = 1              # expert-parallel ways (not ported: A12)
+    tp_size: int = 1              # tensor-parallel ways
+    ep_size: int = 1              # expert-parallel ways (MoE models)
+    moe_plan: Any = None          # the planner's all-to-all (raises: A11)
     cache_dtype: Any = torch.float32
     keep_logits: bool = False     # stash last-position logits per step
     prefix_cache: bool = False    # copy-on-write prompt-prefix sharing
@@ -109,8 +125,42 @@ class LocalPlane:
 
 
 def _kv_shape(model):
-    n_kv = model.n_kv_heads or model.n_heads
-    return n_kv, model.d_model // model.n_heads
+    """This rank's kv heads (``n_kv_heads / tp``) and the head width."""
+    blk = model.blocks[0]
+    return blk.n_kv, blk.head_dim
+
+
+def _shard(model, tp, t, tp_comm, ep, e, ep_comm):
+    """Rank ``(t, e)``'s shard of the whole ``model``: a ``tp_size`` model
+    over ``tp_comm`` and ``ep_comm`` holding shard ``t`` of its blocks and
+    expert group ``e`` of its experts."""
+    from chainermn_tpu_torch.models.transformer import TransformerLM
+    from chainermn_tpu_torch.parallel.expert import expert_parameter_names
+    from chainermn_tpu_torch.serving.weights import shard_params_tp
+    if model.tp_size != 1 or any(getattr(b, "moe", None) is not None and
+                                 b.moe.comm is not None for b in model.blocks):
+        raise ValueError("the engine shards the model itself: give it the "
+                         "whole model (tp_size 1, every expert)")
+    dev = _device(model)
+    local = TransformerLM(
+        model.vocab, model.d_model, model.n_layers, model.n_heads,
+        model.max_len, model.attention_impl, dtype=model.dtype,
+        n_kv_heads=model.n_kv_heads, moe_experts=model.moe_experts,
+        moe_top_k=model.moe_top_k, moe_capacity=model.moe_capacity,
+        moe_comm=ep_comm, tp_size=tp, tp_comm=tp_comm, device=dev,
+        generator=torch.Generator(dev))
+    sd = model.state_dict()
+    if tp > 1:
+        sd = {k: v[t] for k, v in shard_params_tp(
+            sd, tp, n_heads=model.n_heads,
+            n_kv_heads=model.n_kv_heads).items()}
+    if ep > 1:
+        per = model.moe_experts // ep
+        experts = expert_parameter_names(model)
+        sd = {k: v[e * per:(e + 1) * per] if k in experts else v
+              for k, v in sd.items()}
+    local.load_state_dict(sd, strict=True)
+    return local.train(model.training)
 
 
 def _device(model) -> torch.device:
@@ -123,22 +173,52 @@ class InferenceEngine:
 
     ``model`` (and ``draft_model`` with ``spec_k > 0``) are port
     :class:`~chainermn_tpu_torch.models.transformer.TransformerLM` s with
-    their weights; the cache lives on the model's device.  ``plane`` is any
-    object with ``rank``, ``size`` and ``bcast_obj`` (a communicator);
-    the default is :class:`LocalPlane`.
+    their weights, whole; the cache lives on the model's device.
+    ``plane`` is any object with ``rank``, ``size`` and ``bcast_obj`` (a
+    communicator); the default is ``comm``, else :class:`LocalPlane`.
+    ``comm`` (``tp_size x ep_size`` ranks) is needed when either is above
+    1 (see the module note).
     """
 
     def __init__(self, model, config: ServingConfig, *, plane=None,
-                 draft_model=None):
+                 draft_model=None, comm=None):
         cfg = config
         self.cfg = cfg
-        self.plane = plane if plane is not None else LocalPlane()
+        self.plane = plane if plane is not None else (
+            comm if comm is not None else LocalPlane())
         self.model = model
-        if cfg.tp_size > 1 or cfg.ep_size > 1:
+        tp, ep = cfg.tp_size, cfg.ep_size
+        if ep > 1:
+            if not model.moe_experts:
+                raise ValueError(
+                    f"ep_size ({ep}) > 1 requires an MoE model "
+                    f"(moe_experts > 0)")
+            if model.moe_experts % ep:
+                raise ValueError(
+                    f"ep_size ({ep}) must divide moe_experts "
+                    f"({model.moe_experts})")
+            if cfg.spec_k:
+                raise ValueError(
+                    "speculative decoding (spec_k > 0) is not supported "
+                    "with ep_size > 1")
+        if cfg.moe_plan is not None:
             raise NotImplementedError(
-                "tp_size/ep_size > 1 (tensor- and expert-parallel decode) "
-                "is not ported yet; see ROADMAP.md Queue A12 (rest), which "
-                "waits for A9")
+                "moe_plan (the collective planner's all-to-all plan) is not "
+                "ported yet; see ROADMAP.md Queue A11")
+        n_kv = model.n_kv_heads or model.n_heads
+        if n_kv % tp:
+            raise ValueError(
+                f"tp_size ({tp}) must divide n_kv_heads ({n_kv})")
+        size = 1 if comm is None else comm.size
+        if tp * ep > size:
+            raise ValueError(
+                f"tp_size {tp} x ep_size {ep} exceeds the {size} ranks of "
+                f"the communicator (comm=)")
+        if tp * ep < size:
+            raise ValueError(
+                f"tp_size {tp} x ep_size {ep} uses {tp * ep} of the {size} "
+                f"ranks of the communicator: give the engine a "
+                f"communicator of tp_size x ep_size ranks")
         max_ctx = cfg.max_pages_per_seq * cfg.page_size
         if max_ctx + cfg.spec_k > model.max_len:
             raise ValueError(
@@ -177,6 +257,21 @@ class InferenceEngine:
             max_pages_per_seq=cfg.max_pages_per_seq,
             chunk_tokens=cfg.chunk_tokens, eos_id=cfg.eos_id,
             policy=cfg.policy, prefix_cache=cfg.prefix_cache)
+        if tp > 1 or ep > 1:
+            # every rank builds both groups, in one order (collective)
+            r = comm.rank
+            t, e = r // ep, r % ep
+            tp_comm = comm.split(e, t) if tp > 1 else None
+            ep_comm = comm.split(t, e) if ep > 1 else None
+            self.model = model = _shard(model, tp, t, tp_comm, ep, e,
+                                        ep_comm)
+            if cfg.spec_k and tp > 1:
+                dn_kv = draft_model.n_kv_heads or draft_model.n_heads
+                if dn_kv % tp:
+                    raise ValueError(
+                        f"tp_size ({tp}) must divide the draft model's "
+                        f"n_kv_heads ({dn_kv})")
+                draft_model = _shard(draft_model, tp, t, tp_comm, 1, 0, None)
         self.device = _device(model)
         self.cache = _kv.init_kv_cache(
             model.n_layers, cfg.num_pages, cfg.page_size, *_kv_shape(model),

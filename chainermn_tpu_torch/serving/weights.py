@@ -10,11 +10,14 @@ Counterpart of ``chainermn_tpu/serving/weights.py``:
   from every rank's checkpoint file, so a one-process server loads what
   the training world saved) and casts its floating leaves;
 * :func:`broadcast_inference_params` gives every rank root's tree, over
-  the communicator, bit for bit.
+  the communicator, bit for bit;
+* :func:`shard_params_tp` slices a TransformerLM's ``state_dict``
+  Megatron-style into ``tp`` shards, JAX's slicing of its flax tree on the
+  port's names and layouts.
 
 The JAX package's other paths raise ``NotImplementedError`` naming their
-ROADMAP.md queue: :func:`shard_params_tp` (A9, tensor parallelism),
-per-channel int8 weights (A10), the planner's multicast plans (A11).
+ROADMAP.md queue: per-channel int8 weights (A10), the planner's multicast
+plans (A11).
 """
 
 from __future__ import annotations
@@ -96,7 +99,62 @@ def weights_multicast_plan(root: int = 0, name: str = "serving_weights",
 
 def shard_params_tp(params, tp_size: int, *, n_heads: int,
                     n_kv_heads=None):
-    raise _queue("shard_params_tp (tensor-parallel slicing)", "A9")
+    """A :class:`~chainermn_tpu_torch.models.TransformerLM` ``state_dict``
+    (``{name: tensor}``) sliced Megatron-style into ``tp_size`` shards,
+    each leaf stacked on a new leading ``[tp]`` axis (rank ``t`` of the
+    tensor-parallel ranks loads ``[t]`` into a ``tp_size`` model).
+
+    Per block, as JAX's: ``qkv`` sliced by head group (q by ``n_heads``,
+    k and v by ``n_kv_heads``: GQA groups stay with their queries), ``up``
+    by output features, ``proj``/``down`` by input features (the port's
+    weights are ``[out, in]``: columns here where JAX slices the rows of
+    ``[in, out]`` kernels) with their biases divided by ``tp_size`` (the
+    block adds the bias before its row-parallel sum).  Everything else --
+    embeddings, layer norms, the head, a MoE layer's router and experts --
+    is replicated.
+    """
+    tp = int(tp_size)
+    n_kv = n_kv_heads or n_heads
+    if tp < 1 or n_heads % tp or n_kv % tp:
+        raise ValueError(
+            f"tp_size ({tp}) must be >= 1 and divide n_heads "
+            f"({n_heads}) and n_kv_heads ({n_kv})")
+
+    def qkv_slices(w):
+        d = w.shape[0]
+        hd = d // (n_heads + 2 * n_kv)
+        if hd * (n_heads + 2 * n_kv) != d:
+            raise ValueError(
+                f"qkv dim {d} is not (n_heads + 2*n_kv_heads) * head_dim "
+                f"for n_heads={n_heads}, n_kv_heads={n_kv}")
+        nq, nkv = n_heads * hd, n_kv * hd
+        q, k, v = w[:nq], w[nq:nq + nkv], w[nq + nkv:]
+        lq, lkv = nq // tp, nkv // tp
+        return [torch.cat([q[i * lq:(i + 1) * lq], k[i * lkv:(i + 1) * lkv],
+                           v[i * lkv:(i + 1) * lkv]]) for i in range(tp)]
+
+    def col_slices(w, axis):
+        n = w.shape[axis] // tp
+        if n * tp != w.shape[axis]:
+            raise ValueError(
+                f"dim {w.shape[axis]} not divisible by tp_size {tp}")
+        return list(torch.split(w, n, dim=axis))
+
+    out = {}
+    for name, w in params.items():
+        parts = name.split(".")
+        module = parts[-2] if len(parts) >= 2 else ""
+        if module == "qkv":
+            shards = qkv_slices(w)
+        elif module == "up":
+            shards = col_slices(w, 0)
+        elif module in ("proj", "down"):
+            shards = col_slices(w, 1) if parts[-1] == "weight" \
+                else [w / tp] * tp
+        else:
+            shards = [w] * tp
+        out[name] = torch.stack(shards)
+    return out
 
 
 __all__ = ["broadcast_inference_params", "dequantize_inference_params",

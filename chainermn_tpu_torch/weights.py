@@ -20,7 +20,14 @@ only:
   embeddings' ``weight``; each ``block_{i}`` holds ``ln_attn``, ``qkv``,
   ``proj``, ``ln_mlp``, ``up``, ``down`` (the port's ``blocks.{i}.*``);
   then ``ln_f`` and ``head``; LayerNorm ``scale`` -> ``weight``.  It has
-  ``params`` only;
+  ``params`` only.  A MoE block (``moe_experts > 0``) holds ``moe`` in
+  place of ``up`` and ``down``: ``moe/router`` is a dense layer (the
+  port's ``blocks.{i}.moe.router``), and the expert stacks ``up_kernel [E,
+  d, h]``, ``up_bias [E, h]``, ``down_kernel [E, h, d]`` and ``down_bias
+  [E, d]`` keep flax's layout, sliced to the rows of the experts the
+  port's layer holds (its expert-parallel rank's; all of them in a world
+  of one).  A tensor-parallel model (``tp_size > 1``) takes a shard's
+  tree (JAX's ``shard_params_tp``, one slice of its ``[tp]`` axis);
 * the ViT's ``patch_embed`` is a conv with a bias; ``cls_token`` (with
   ``pooling="cls"``) and ``pos_embed`` are parameters of the same name and
   shape; each ``block_{i}`` holds the TransformerLM's six layers (the
@@ -80,6 +87,7 @@ from chainermn_tpu_torch.models.vit import ViT
 
 _NORM_NAMES = ("FusedBatchNormAct", "BatchNorm")
 _GATES = "ifgo"  # flax OptimizedLSTMCell's order, and torch's
+_EXPERT_STACKS = ("up_kernel", "up_bias", "down_kernel", "down_bias")
 
 
 def _norm_key(model: nn.Module, name: str) -> str:
@@ -114,7 +122,12 @@ def _layers(model: nn.Module):
     if isinstance(model, TransformerLM):
         yield ("tok_emb",), "tok_emb", "embed"
         yield ("pos_emb",), "pos_emb", "embed"
-        yield from _encoder_blocks(len(model.blocks))
+        for i, blk in enumerate(model.blocks):
+            for name in ("ln_attn", "qkv", "proj", "ln_mlp") + (
+                    ("moe",) if hasattr(blk, "moe") else ("up", "down")):
+                yield ((f"block_{i}", name), f"blocks.{i}.{name}",
+                       "ln" if name.startswith("ln") else
+                       "moe" if name == "moe" else "dense")
         yield ("ln_f",), "ln_f", "ln"
         yield ("head",), "head", "dense"
         return
@@ -229,6 +242,13 @@ def flax_to_state_dict(variables, model: nn.Module) -> Dict[str, torch.Tensor]:
             sd[f"{name}.bias"] = t(p("bias"))
         elif kind == "embed":
             sd[f"{name}.weight"] = t(p("embedding"))
+        elif kind == "moe":
+            lo, hi = model.get_submodule(name).expert_rows
+            sd[f"{name}.router.weight"] = t(np.asarray(
+                p("router", "kernel")).T)
+            sd[f"{name}.router.bias"] = t(p("router", "bias"))
+            for leaf in _EXPERT_STACKS:
+                sd[f"{name}.{leaf}"] = t(np.asarray(p(leaf))[lo:hi])
         elif kind == "param":
             sd[name] = t(p())
         elif kind == "ln":
@@ -267,7 +287,8 @@ def load_flax_variables(model: nn.Module, variables) -> nn.Module:
 def state_dict_to_flax(model: nn.Module, norm: str = _NORM_NAMES[0]):
     """The inverse: ``{"params": ..., "batch_stats": ...}`` as nested dicts
     of float32 numpy arrays, flax-named with ``norm`` as the norm class
-    (``{"params": ...}`` alone for a model without BatchNorm)."""
+    (``{"params": ...}`` alone for a model without BatchNorm).  A MoE
+    layer gives the expert stacks it holds (its rank's slice)."""
     sd = {k: v.detach().float().cpu().numpy()
           for k, v in model.state_dict().items()}
     params, stats = {}, {}
@@ -290,6 +311,11 @@ def state_dict_to_flax(model: nn.Module, norm: str = _NORM_NAMES[0]):
                 sd[f"{name}.weight"].T), "bias": sd[f"{name}.bias"]})
         elif kind == "embed":
             put(params, scope, {"embedding": sd[f"{name}.weight"]})
+        elif kind == "moe":
+            put(params, scope, {"router": {
+                "kernel": np.ascontiguousarray(sd[f"{name}.router.weight"].T),
+                "bias": sd[f"{name}.router.bias"]},
+                **{leaf: sd[f"{name}.{leaf}"] for leaf in _EXPERT_STACKS}})
         elif kind == "param":
             put(params, scope, sd[name])
         elif kind == "ln":

@@ -328,10 +328,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     the same step on the CPU (float32 wire: 1e-5 / 2e-5; bfloat16 wire:
     5e-3).  The summary's rows add phase 26's launches (BatchNorm: (a),
     (c), (d); cast: (c); flash: (b)'s ``--fsdp`` run).
+27. tensor and expert parallelism (after 26, before 22; ``phase_moe``),
+    gated.  (a) The MoE LM at the LM's width (8 layers, 8 experts, top 2,
+    2.43 B parameters, bf16, ``attention_impl="flash"``, T 8192, batch 1)
+    through ``examples.train_moe_lm``'s ``build`` and ``train_step`` (Adam
+    at the example's lr, a world of one): 3 steps, each flash kernel
+    launched exactly 8 times a step, aux, overflow and the expert loads
+    finite; tokens/sec per GPU, peak memory, and a profile of 2 more
+    steps (device ms by category: flash, cuBLAS, the routing scatter and
+    gather, the rest; busy share).  (b) Its width at 2 layers, T 2048, in
+    float32 (TF32 off): one loss and gradient on the card (the flash
+    kernels) against the CPU (their plain versions) from the same
+    weights, the card's routing replayed into the CPU run
+    (``moe_card_vs_cpu``): loss within 1e-4, gradients within 1e-3
+    relative L2, at least 0.99 of the tokens routed as the CPU would
+    itself, each kernel once a layer.  (c) The MoE LM (8 layers, bf16)
+    served at ep 1 with phase 24's engine settings and seeded trace
+    (continuous policy): tokens/s, busy share, row 6 launched once a layer
+    a forward; the trace as one burst through a kernel engine and a
+    plain-attention engine stepped together, the kernel engine's routing
+    replayed into the plain one, at phase 24 (c)'s gates.  (d) Row 6 at a
+    tensor-parallel rank's serving shape (8 and 4 heads, bf16 and float32)
+    against its plain version, and timed beside its bound and SDPA.  The
+    summary's rows 6-8 add (a)'s launches, row 6 (c)'s.
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
 """
 
+import contextlib
 import json
 import math
 import os
@@ -2262,13 +2286,16 @@ SERVE_OFFS = (0, 5, 63, 64, 100, 511, 777, 1000, 1023, 1024, 1500, 1984,
               2000, 2047, 0, 300)
 
 
-def serving_case(fa, kv, torch, dev, dtype, tq, hk, seed=0, page=16):
+def serving_case(fa, kv, torch, dev, dtype, tq, hk, seed=0, page=16,
+                 h=None):
     """The flash forward against its plain version on a paged cache at a
-    serving shape: every active row holds the pages its offset reaches
+    serving shape (``h`` query heads, default the LM's 16; a tensor-parallel
+    rank's 8 or 4): every active row holds the pages its offset reaches
     (drawn at random from 2048), the rest of its table and all of an idle
     row's point at the trash page; keys past a row's length hold the
     cache's other contents.  ``(max abs error, relative L2 error)``."""
-    b, _, tk, h, d = SERVE_SHAPE
+    b, _, tk, h0, d = SERVE_SHAPE
+    h = h or h0
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_pages, per_row = 2048, tk // page
     cache_k = torch.randn(n_pages + 1, page, hk, d, generator=gen,
@@ -2295,13 +2322,15 @@ def serving_case(fa, kv, torch, dev, dtype, tq, hk, seed=0, page=16):
             _rel(torch, out_k, out_p))
 
 
-def serving_timing(fa, kv, torch, dev, card):
-    """Row 6 at the serving shape (bf16, H = Hkv = 16, the phase's
-    offsets): the kernel by CUDA-graph replay, its plain version, and SDPA
-    with the equivalent boolean mask; the bound counts the bytes of q, the
-    gathered K/V, out and lse (the work is far under the product bound)."""
+def serving_timing(fa, kv, torch, dev, card, h=None):
+    """Row 6 at the serving shape (bf16, H = Hkv = 16, or ``h``: a
+    tensor-parallel rank's heads; the phase's offsets): the kernel by
+    CUDA-graph replay, its plain version, and SDPA with the equivalent
+    boolean mask; the bound counts the bytes of q, the gathered K/V, out
+    and lse (the work is far under the product bound)."""
     import torch.nn.functional as F
-    b, tq, tk, h, d = SERVE_SHAPE
+    b, tq, tk, h0, d = SERVE_SHAPE
+    h = h or h0
     gen = torch.Generator(device=dev).manual_seed(1)
     mk = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
                                 device=dev).to(torch.bfloat16)
@@ -2431,7 +2460,10 @@ def p24_c(fa, kv, torch, model, args):
     logits of every row whose request's tokens agree so far (relative L2
     of them all within phase 10's bf16 limit), equal tokens where the
     plain run's top-two gap exceeds ``_gap_limit``; a request is compared
-    up to its first differing token, which is recorded."""
+    up to its first differing token, which is recorded.  A MoE model's
+    routing is the kernel engine's, replayed into the plain engine step by
+    step (``_Routes``; its own flips counted): a gate near a tie moves a
+    token's whole MLP output, as a ReLU branch does in phase 23."""
     from chainermn_tpu_torch.benchmarks import bench_serving as bs
     from chainermn_tpu_torch.serving import InferenceEngine
     cfg = bs._config(args, keep_logits=True)
@@ -2441,10 +2473,17 @@ def p24_c(fa, kv, torch, model, args):
             e.submit(prompt, max_new)
     diverged, num, den, worst = set(), 0.0, 0.0, 0.0
     tokens, flips, max_abs = 0, [], 0.0
+    moe = bool(getattr(model, "moe_experts", 0))
+    route_flips = route_decisions = 0
     while not engs[0].idle():
-        rk = engs[0].step()
-        with _PlainAttention(fa, kv, torch):
+        routes = _Routes()
+        with routes.record() if moe else contextlib.nullcontext():
+            rk = engs[0].step()
+        with _PlainAttention(fa, kv, torch), \
+                routes.replay() if moe else contextlib.nullcontext():
             rp = engs[1].step()
+        route_flips += routes.flips
+        route_decisions += routes.decisions
         if rk.plan != rp.plan:
             raise AssertionError("phase 24 (c): the plans differ")
         if not rk.ran_forward:
@@ -2479,9 +2518,13 @@ def p24_c(fa, kv, torch, model, args):
     rel = (num / den) ** 0.5
     over = [f for f in flips if f["gap"] > _gap_limit(f["top"])]
     del engs
-    return dict(rel_l2=rel, worst_row_rel=worst, max_abs=max_abs,
-                tokens=tokens, flips=len(flips), flip_gaps=_spacings(flips),
-                over=over, ok=rel <= FLASH_TOL["bfloat16"] and not over)
+    out = dict(rel_l2=rel, worst_row_rel=worst, max_abs=max_abs,
+               tokens=tokens, flips=len(flips), flip_gaps=_spacings(flips),
+               over=over, ok=rel <= FLASH_TOL["bfloat16"] and not over)
+    if moe:
+        out.update(routing_flips=route_flips,
+                   routing_decisions=route_decisions)
+    return out
 
 
 def p24_spec_gate(torch, model, args, spec):
@@ -3439,6 +3482,280 @@ def log_fsdp(p26, gpu, secs):
         f"{k} {v:.1f}" for k, v in p26["seconds"].items()) + ")")
 
 
+# phase 27: the MoE LM (expert parallelism, A9 c) and MoE serving (A12)
+P27_MOE = dict(moe_experts=8, moe_top_k=2)
+P27_LAYERS = 8       # (a): the MoE LM's depth at the LM's width
+P27_STEPS = 3        # (a): Adam steps through the example's train_step
+P27_PROFILED = 2     # (a): further steps under torch.profiler
+P27_B = dict(n_layers=2, max_len=2048)   # (b): float32, T 2048
+P27_AGREE = 0.99     # (b): least share of routing decisions card == CPU
+P27_TP_HEADS = (8, 4)  # (d): a tensor-parallel rank's heads at tp 2 and 4
+# (a): device time by category ("elementwise" collects the rest: GELU,
+# LayerNorm, softmax, casts, loss and Adam)
+MOE_CATEGORIES = (
+    ("flash (CUDA)", ("fwd_wgmma_kernel", "dkv_wgmma_kernel",
+                      "dq_wgmma_kernel", "_f32_kernel")),
+    ("gemm", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
+    ("routing scatter / gather", ("index", "scatter", "gather", "sort",
+                                  "cumsum", "scan", "one_hot")),
+    ("memcpy / memset", ("memcpy", "memset")),
+)
+
+
+def _moe_args(layers, seq):
+    from chainermn_tpu_torch.examples import train_moe_lm as tm
+    return tm.parser().parse_args([
+        "--vocab", str(LM["vocab"]), "--d-model", str(LM["d_model"]),
+        "--layers", str(layers), "--heads", str(LM["n_heads"]),
+        "--seq-len", str(seq), "--batchsize", "1", "--steps",
+        str(P27_STEPS), "--experts", str(P27_MOE["moe_experts"]),
+        "--top-k", str(P27_MOE["moe_top_k"])])
+
+
+def p27_train(fa, torch, dev):
+    """(a): the MoE LM at the LM's width, bf16, flash, P27_STEPS Adam steps
+    of ``train_moe_lm.train_step`` on the motif task (T 8192, batch 1),
+    then P27_PROFILED profiled steps."""
+    import gc
+    from chainermn_tpu_torch.examples import train_moe_lm as tm
+    from chainermn_tpu_torch.examples.train_imagenet import profile_steps
+    args = _moe_args(P27_LAYERS, LM_T)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    model, opt = tm.build(args, None, dev, attention_impl="flash",
+                          dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    toks = tm.make_motif_task(1, LM_T, LM["vocab"], seed=0).to(dev)
+    fa.reset_launch_counts()
+    rows, secs = [], []
+    for _ in range(P27_STEPS):
+        t0 = time.perf_counter()
+        out = tm.train_step(model, opt, toks, args.aux_weight)
+        loss, ce, aux, over, load = (float(out[0]), float(out[1]),
+                                     float(out[2]), float(out[3]),
+                                     out[4].float().cpu().tolist())
+        secs.append(time.perf_counter() - t0)
+        rows.append(dict(loss=loss, ce=ce, aux=aux, overflow=over,
+                         load_min=min(load), load_max=max(load)))
+    counts = fa.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {w: P27_LAYERS * P27_STEPS for w in counts}
+    if counts != want:
+        raise AssertionError(f"phase 27 (a): flash launches {counts}, "
+                             f"expected {want}")
+    if not all(math.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"phase 27 (a): not finite: {rows}")
+
+    class _Steps:  # the updater interface profile_steps drives
+        update = staticmethod(lambda: tm.train_step(model, opt, toks,
+                                                    args.aux_weight))
+        finalize = staticmethod(lambda: None)
+
+    prof = profile_steps(_Steps, P27_PROFILED, dev, MOE_CATEGORIES)
+    tok_s = LM_T * (P27_STEPS - 1) / sum(secs[1:])
+    del model, opt, _Steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(n_params=n_params, rows=rows, step_s=secs, counts=counts,
+                tokens_per_sec=tok_s, peak_gb=peak_gb, base_gb=base_gb,
+                profile=prof)
+
+
+class _Routes:
+    """Routing decisions recorded from one run and replayed into another:
+    inside ``record``, ``expert.top_k_indices`` keeps each layer's result;
+    inside ``replay``, it returns them in order (on the caller's device)
+    and counts the decisions that its own choice would have changed."""
+
+    def __init__(self):
+        from chainermn_tpu_torch.parallel import expert
+        self.expert, self.orig = expert, expert.top_k_indices
+        self.kept, self.flips, self.decisions = [], 0, 0
+
+    def record(self):
+        def rec(gates, k):
+            topi = self.orig(gates, k)
+            self.kept.append(topi)
+            return topi
+        return self._patched(rec)
+
+    def replay(self):
+        it = iter(list(self.kept))
+
+        def rep(gates, k):
+            topi = next(it).to(gates.device)
+            own = self.orig(gates, k)
+            self.flips += int((own != topi).any(-1).sum())
+            self.decisions += topi.shape[0]
+            return topi
+        return self._patched(rep)
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        self.expert.top_k_indices = fn
+        try:
+            yield
+        finally:
+            self.expert.top_k_indices = self.orig
+
+
+def moe_card_vs_cpu(torch, dev, width, seq, seed=9):
+    """One float32 (TF32 off) loss and gradient of the MoE LM of ``width``
+    (TransformerLM kwargs) at T ``seq``: the card (the flash kernels)
+    against the CPU (their plain versions) from the same weights, the
+    card's routing replayed into the CPU run.  Returns the loss and worst
+    gradient errors, the routing flips and the card's launches."""
+    import importlib
+    from chainermn_tpu_torch.examples import train_moe_lm as tm
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.utils.compare import no_tf32, step_errors
+    fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+    toks = tm.make_motif_task(1, seq, width["vocab"], seed=1)
+    routes, runs = _Routes(), []
+    state = None
+    with no_tf32():
+        for card, d, ctx in ((True, dev, routes.record),
+                             (False, torch.device("cpu"), routes.replay)):
+            model = TransformerLM(**width, attention_impl="flash",
+                                  device=d, **P27_MOE,
+                                  generator=torch.Generator(d).manual_seed(
+                                      seed))
+            if state is None:
+                state = {k: v.detach().cpu().clone()
+                         for k, v in model.state_dict().items()}
+            model.load_state_dict(state)
+            fa.reset_launch_counts()
+            with ctx():
+                loss = tm.moe_loss(model, toks.to(d), 1e-2)[0]
+                loss.backward()
+            if card:
+                counts = fa.launch_counts()
+            elif any(fa.launch_counts().values()):
+                raise AssertionError("a CPU run launched a kernel")
+            runs.append((float(loss.detach()),
+                         {k: p.grad.detach().cpu()
+                          for k, p in model.named_parameters()}))
+            del model, loss
+    (lk, gk), (lp, gp) = runs
+    loss_rel, grad_rel, worst = step_errors([lk], [lp], gk, gp)
+    return dict(loss_card=lk, loss_cpu=lp, loss_rel=loss_rel,
+                grad_rel=grad_rel, worst=worst, tensors=len(gp),
+                flips=routes.flips, decisions=routes.decisions,
+                agree=1.0 - routes.flips / max(routes.decisions, 1),
+                counts=counts)
+
+
+def p27_serving(fa, kv, torch, dev, card):
+    """(c): the MoE LM (8 layers, bf16) through phase 24's engine settings
+    and seeded trace at ep 1 (continuous policy), its row 6 launches, and
+    p24_c's kernel-vs-plain gates; (d): row 6 at a tensor-parallel rank's
+    8 and 4 heads against its plain version, and timed."""
+    from chainermn_tpu_torch.benchmarks import bench_serving as bs
+    from chainermn_tpu_torch.models import TransformerLM
+    args = bs.parser().parse_args(P24_FLAGS + P24_TRACE)
+    torch.cuda.empty_cache()
+    model = TransformerLM(**LM, attention_impl="xla", dtype=torch.bfloat16,
+                          device=dev, **P27_MOE,
+                          generator=torch.Generator(dev).manual_seed(0))
+    fa.reset_launch_counts()
+    pol = bs.run_policy("continuous", model, bs.build_trace(args), args)
+    launches = _p24_launches(fa, pol["passes"], LM["n_layers"])
+    if pol["free_pages"] != pol["num_pages"] or \
+            pol["requests"] != args.requests:
+        raise AssertionError(f"phase 27 (c): {pol['requests']} requests, "
+                             f"{pol['free_pages']} pages free")
+    c = p24_c(fa, kv, torch, model, args)
+    del model
+    torch.cuda.empty_cache()
+    tp = {}
+    for h in P27_TP_HEADS:
+        errs = {str(dt)[6:]: serving_case(fa, kv, torch, dev, dt, tq, h, h=h)
+                for dt in (torch.bfloat16, torch.float32)
+                for tq in (SERVE_SHAPE[1],)}
+        for dt, err in errs.items():
+            if not err[1] <= FLASH_TOL[dt]:
+                raise AssertionError(f"phase 27 (d): flash at H {h}: {err}")
+        tp[h] = dict(errs=errs, timing=serving_timing(fa, kv, torch, dev,
+                                                      card, h=h))
+    return dict(policy=pol, launches=launches, c=c, tp=tp)
+
+
+def phase_moe(fa, torch, dev, card):
+    """Phase 27 (see the module docstring)."""
+    import importlib
+    from chainermn_tpu_torch.utils.compare import step_agrees
+    kv = importlib.import_module("chainermn_tpu_torch.serving.kv_cache")
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    out["a"] = p27_train(fa, torch, dev)
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b"] = moe_card_vs_cpu(torch, dev, dict(LM, **P27_B), P27_B[
+        "max_len"])
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["srv"] = p27_serving(fa, kv, torch, dev, card)
+    secs["srv"] = time.perf_counter() - t0
+    b = out["b"]
+    out["gates"] = {
+        "(b) float32 card vs CPU": step_agrees(b["loss_rel"], b["grad_rel"]),
+        "(b) routing agreement": b["agree"] >= P27_AGREE,
+        "(b) flash launches": b["counts"] == {w: P27_B["n_layers"]
+                                              for w in b["counts"]},
+        "(c) kernel vs plain": out["srv"]["c"]["ok"]}
+    out["seconds"] = secs
+    return out
+
+
+def log_moe(p27, gpu, secs):
+    """Phase 27's lines."""
+    a = p27["a"]
+    for i, r in enumerate(a["rows"]):
+        log(f"phase 27 (a) step {i}: loss {r['loss']:.6f} ce {r['ce']:.6f} "
+            f"aux {r['aux']:.4f} overflow {r['overflow']:.4f} "
+            f"load[min/max] {r['load_min']:.4f}/{r['load_max']:.4f}; "
+            f"{a['step_s'][i]:.3f} s")
+    prof = a["profile"]
+    log(f"phase 27 (a) MoE LM ({a['n_params']} parameters: {P27_LAYERS} "
+        f"layers of the LM's width, {P27_MOE['moe_experts']} experts, top "
+        f"{P27_MOE['moe_top_k']}, bf16, flash, T {LM_T}, batch 1, Adam, "
+        f"world of one): flash launches {json.dumps(a['counts'])} in "
+        f"{P27_STEPS} steps; tokens/sec per GPU (steps 2..{P27_STEPS}) "
+        f"{a['tokens_per_sec']:.1f}; peak memory {a['peak_gb']:.2f} GB "
+        f"({a['base_gb']:.2f} GB held before); profile of {P27_PROFILED} "
+        f"steps {json.dumps(prof)} on {gpu}")
+    b = p27["b"]
+    log(f"phase 27 (b) float32 MoE LM ({P27_B['n_layers']} layers, T "
+        f"{P27_B['max_len']}, TF32 off) card vs CPU, routing replayed: "
+        f"loss {b['loss_card']:.7f} / {b['loss_cpu']:.7f} (rel "
+        f"{b['loss_rel']:.2e}), worst gradient rel L2 {b['grad_rel']:.2e} "
+        f"({b['worst']}) of {b['tensors']}; routing flips {b['flips']} of "
+        f"{b['decisions']} tokens (agree {b['agree']:.6f}); card launches "
+        f"{json.dumps(b['counts'])}")
+    srv = p27["srv"]
+    r = srv["policy"]
+    busy = r.get("busy") or {}
+    log(f"phase 27 (c) MoE LM serving at ep 1 (8 layers, bf16, phase 24's "
+        f"trace, continuous): {r['generated_tokens']} tokens of "
+        f"{r['requests']} requests in {r['steps']} steps, {r['wall_s']:.3f} "
+        f"s: {r['tokens_per_sec']:.1f} tokens/s; {_lat(r)}; busy share "
+        f"{busy.get('busy_share')} (device {busy.get('device_ms_per_step')} "
+        f"ms of wall {busy.get('wall_ms_per_step')} ms a step; "
+        f"{json.dumps(busy.get('device_ms_by_category'))}); peak memory "
+        f"{r.get('peak_gb', 0):.2f} GB; row 6 launches {srv['launches']} = "
+        f"{LM['n_layers']} x {r['passes']['target']} passes; kernel vs plain "
+        f"{json.dumps(srv['c'])}")
+    for h, t in srv["tp"].items():
+        log(f"phase 27 (d) row 6 at a tensor-parallel rank's H {h} (serving "
+            f"shape, Hkv {h}): errors {json.dumps(t['errs'])}; "
+            f"{json.dumps(t['timing'])} on {gpu}")
+    log(f"phase 27 gates: {json.dumps(p27['gates'])}")
+    log(f"phase 27: {secs:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in p27["seconds"].items()) + ")")
+
+
 C12_LOOPS = 300      # phase 22: passes of the flash autograd check
 WGRAD_LOOPS = 600    # phase 22: launches of the probe wgrad
 
@@ -3775,6 +4092,14 @@ def main():
                              "lines above)")
 
     t0 = time.perf_counter()
+    p27 = phase_moe(fa, torch, dev, card)
+    log_moe(p27, gpu, time.perf_counter() - t0)
+    failed = sorted(g for g, ok in p27["gates"].items() if not ok)
+    if failed:
+        raise AssertionError(f"phase 27: gates {failed} failed (their "
+                             "lines above)")
+
+    t0 = time.perf_counter()
     c12 = phase_c12(fa, torch, dev, C12_LOOPS)
     rep = phase_wgrad_repeat(pm, bcp, torch, dev, WGRAD_LOOPS)
     log(f"phase repeat loops (22): {time.perf_counter() - t0:.1f} s; C12 "
@@ -3823,7 +4148,9 @@ def main():
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": replaces, "launches": lm["counts"][wrapper]
             + p25_vit[wrapper] + p26_flash[wrapper]
-            + (srv["serving_launches"] if wrapper == "flash_fwd" else 0),
+            + p27["a"]["counts"][wrapper]
+            + (srv["serving_launches"] + p27["srv"]["launches"]
+               if wrapper == "flash_fwd" else 0),
             "max_abs_err": flash_errs[wrapper], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -1,6 +1,7 @@
 """The data-, sequence- and model-parallel slices on every card of one host.
 
-    python3 multi_gpu_check.py [--logs DIR] [--parts dp,sp,mp,configs,fsdp]
+    python3 multi_gpu_check.py [--logs DIR]
+        [--parts dp,sp,mp,configs,fsdp,tp_ep]
     # needs two CUDA cards or more
 
 1. prints the cards' names and power limits (``nvidia-smi``) and torch's
@@ -69,6 +70,29 @@
    at the LM's width (2048, 8 layers), its rows, their counters and the
    same final loss in every row.
 
+9. (part ``tp_ep``, not in the default) tensor and expert parallelism on
+   every card: ``tests/test_torch_tp_ep_gpu.py`` (its NCCL world of every
+   card); the MoE LM (``examples.train_moe_lm``'s model and
+   ``train_step`` with the flash attention, 8 experts, top 2, Adam at
+   1e-3) in float32 (TF32 off) at the LM's width, 2 layers, T 2048, 4
+   sequences, over 1, 2 and 4 ranks, each rank's capacity its token count
+   (no choice dropped; under JAX's default capacity each rank's tokens
+   compete for its own slots, so worlds would differ) and one card's
+   routing replayed: each run's overflow 0, its losses within 1e-5
+   relative of one card's, its step-0 gradients (the experts gathered
+   from their owners) within a relative L2 error of 1e-3, and after the
+   steps every parameter within 2 x steps x lr (Adam's reach on float
+   noise), the elements past 2e-5 counted; then
+   in bf16 at 8 layers, T 8192, a sequence a card over every card: its
+   tokens/s per card and peak memory; then serving phase 24's LM
+   (``chip_smoke.P24_FLAGS``) at ``tp_size`` 2 and 4, the MoE LM at
+   ``ep_size`` 2 and 4 and phase 24's spec burst at ``tp_size`` 2, each
+   against one card: a burst of the seeded trace, every request's tokens
+   equal up to a difference where one card's top-two gap is within phase
+   24's limit, the worst top-8 logit gap and the share of bit-equal rows;
+   the generated tokens/s per card of the burst, and for the dense LM
+   ``bench_serving``'s continuous policy at ``--tp``.
+
 Prints one JSON object as its last line; exits 1 if a check failed.  Runs
 write under ``build/`` (removed afterwards), their logs under ``--logs``
 (default ``build/multi_gpu_logs/``).
@@ -83,6 +107,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 
 from chip_smoke import S2S_WIDE
 
@@ -297,13 +322,14 @@ def main(argv=None):
                    help="directory for the tests' and the runs' output")
     p.add_argument("--parts", default="dp,sp,mp",
                    help="which slices to run: dp (steps 2-4), sp (step 5), "
-                   "mp (step 6), configs (step 7), fsdp (step 8)")
+                   "mp (step 6), configs (step 7), fsdp (step 8), tp_ep "
+                   "(step 9)")
     args = p.parse_args(argv)
     logs = os.path.abspath(args.logs)
     parts = set(args.parts.split(","))
-    if not parts or parts - {"dp", "sp", "mp", "configs", "fsdp"}:
+    if not parts or parts - {"dp", "sp", "mp", "configs", "fsdp", "tp_ep"}:
         p.error(f"--parts: {args.parts!r} is not a subset of "
-                "dp,sp,mp,configs,fsdp")
+                "dp,sp,mp,configs,fsdp,tp_ep")
     import torch
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         print("multi_gpu_check.py needs two CUDA cards or more",
@@ -333,6 +359,8 @@ def main(argv=None):
             configs(n, out, failures, work, logs)
         if "fsdp" in parts:
             fsdp(n, out, failures, work, logs)
+        if "tp_ep" in parts:
+            tp_ep(n, out, failures, work, logs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["failures"] = failures
@@ -580,6 +608,394 @@ def sequence_parallel(n, out, failures, work, logs):
     out["sp"]["bench_ring_attention"] = rows
     for r in rows:
         print(json.dumps(r), flush=True)
+
+
+# part tp_ep: the MoE LM's examples flags (LM width); float32 at 2 layers,
+# T 2048, 4 sequences over 1, 2 and 4 ranks; bf16 at 8 layers, T 8192, a
+# sequence a card
+TP_EP_MOE = ["--vocab", "32768", "--d-model", "2048", "--heads", "16",
+             "--experts", "8", "--top-k", "2", "--lr", "1e-3",
+             "--steps", str(SP_STEPS), "--seed", "0"]
+TP_EP_F32 = ["--layers", "2", "--seq-len", "2048", "--batchsize", "4"]
+TP_EP_BF16 = ["--layers", "8", "--seq-len", "8192"]
+TP_EP_BURST = 16     # requests of phase 24's trace in the token gate's burst
+
+
+def _routes(spec, rows=None):
+    """``spec`` "-", "record:PATH" or "replay:PATH": a ``chip_smoke._Routes``
+    and the context around the run: recording the MoE routing (saved to
+    PATH by :func:`_save_routes`), or replaying PATH's decisions, ``rows``
+    of each (this rank's tokens; all of them where every rank routes the
+    same tokens)."""
+    import contextlib
+    import torch
+    from chip_smoke import _Routes
+    routes = _Routes()
+    mode, _, path = spec.partition(":")
+    if mode == "record":
+        return routes, routes.record()
+    if mode == "replay":
+        routes.kept = [t if rows is None else t[rows]
+                       for t in torch.load(path)]
+        return routes, routes.replay()
+    return routes, contextlib.nullcontext()
+
+
+def _save_routes(spec, routes):
+    import torch
+    mode, _, path = spec.partition(":")
+    if mode == "record":
+        torch.save([t.cpu() for t in routes.kept], path)
+
+
+def moe_worker(out_prefix, flags):
+    """One rank under ``torchrun``: ``flags[0]`` the dtype, ``flags[1]``
+    the routing's record or replay (:func:`_routes`), the rest the MoE
+    example's flags; the model built by ``train_moe_lm.build`` with the
+    flash attention, the experts over every rank (in float32 at a capacity
+    of the rank's tokens), ``train_step`` for the steps (TF32 off in
+    float32).  ``{out_prefix}.rank{r}.json``: ``ce`` a
+    step, overflow, step seconds, tokens/s per card, peak memory, the
+    routing decisions that differed from the replayed ones; in float32
+    also this rank's parameters after the steps and its gradients of step
+    0, ``{out_prefix}.params.rank{r}.pt`` and ``.grads.rank{r}.pt``."""
+    import contextlib
+    import torch
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.examples import train_moe_lm as tm
+    from chainermn_tpu_torch.runtime.bootstrap import init_distributed
+    from chainermn_tpu_torch.utils.compare import no_tf32
+    dtype, spec = getattr(torch, flags[0]), flags[1]
+    args = tm.parser().parse_args(flags[2:])
+    topo = init_distributed(device=args.device)
+    comm = create_communicator("naive", device=args.device) \
+        if topo.size > 1 else None
+    rank, n = topo.rank, topo.size
+    cuda = topo.device.type == "cuda"
+    ctx = no_tf32() if dtype == torch.float32 else contextlib.nullcontext()
+    per = args.batchsize // n
+    with ctx:
+        # float32: a capacity of every local token, so no choice drops and
+        # every world computes one function (each rank's tokens compete
+        # only for its own slots)
+        model, opt = tm.build(args, comm, topo.device, attention_impl="flash",
+                              dtype=dtype, capacity=per * args.seq_len
+                              if dtype == torch.float32 else None)
+        toks = tm.make_motif_task(args.batchsize, args.seq_len, args.vocab,
+                                  seed=args.seed)
+        mine = toks[rank * per:(rank + 1) * per].to(topo.device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        if dtype == torch.float32:
+            # step 0's gradients as the update sees them: the replicated
+            # parameters' summed over the ranks, each expert's on its owner
+            update = opt.step
+
+            def keep_then_step(*a, **k):
+                opt.step = update
+                torch.save({k_: p.grad.detach().cpu() for k_, p in
+                            model.named_parameters()},
+                           f"{out_prefix}.grads.rank{rank}.pt")
+                return update(*a, **k)
+            opt.step = keep_then_step
+        ces, over, secs = [], [], []
+        m = per * args.seq_len
+        routes, rctx = _routes(spec, slice(rank * m, (rank + 1) * m))
+        with rctx:
+            for _ in range(args.steps):
+                t0 = time.perf_counter()
+                res = tm.train_step(model, opt, mine, args.aux_weight, comm)
+                ces.append(float(res[1]))
+                over.append(float(res[3]))
+                secs.append(time.perf_counter() - t0)
+        _save_routes(spec, routes)
+    doc = {"ce": ces, "overflow": over, "step_seconds": secs, "world": n,
+           "route_flips": routes.flips, "route_decisions": routes.decisions,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9
+           if cuda else None,
+           "tokens_per_sec_per_card": per * args.seq_len * (len(secs) - 1)
+           / sum(secs[1:])}
+    if dtype == torch.float32:
+        torch.save({k: p.detach().cpu() for k, p in model.named_parameters()},
+                   f"{out_prefix}.params.rank{rank}.pt")
+    with open(f"{out_prefix}.rank{rank}.json", "w") as f:
+        json.dump(doc, f)
+
+
+def serve_worker(out_prefix, flags):
+    """One rank under ``torchrun``: ``flags[0]`` the kind -- ``dense``
+    (phase 24's LM at ``tp_size`` = the world), ``spec`` (the same with
+    ``--spec-k``) or ``moe`` (the MoE LM at ``ep_size`` = the world) --,
+    ``flags[1]`` the routing's record or replay (:func:`_routes`: every
+    rank routes the same tokens), the rest ``bench_serving``'s flags.
+    Rank 0 submits a burst of the seeded trace (``TP_EP_BURST``
+    requests; spec: its decode-heavy burst), every
+    rank steps in lockstep, rank 0 records each emitted token with its
+    row's top-two gap, top logit, top 8 logits and the row's hash; then
+    (dense) ``bench_serving.run_policy("continuous")`` with ``--tp`` for
+    the rate.  ``{out_prefix}.rank{r}.json``, rank 0's with the records."""
+    import torch
+    sys.path.insert(0, HERE)
+    from chip_smoke import P27_MOE
+    from chainermn_tpu_torch.benchmarks import bench_serving as bs
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.serving import InferenceEngine
+    kind, routing = flags[0], flags[1]
+    args = bs.parser().parse_args(flags[2:])
+    n = int(os.environ["WORLD_SIZE"])
+    comm = create_communicator("naive", device=args.device) \
+        if n > 1 else None
+    args.comm, args.tp = comm, n if kind != "moe" else 1
+    if comm is not None:
+        args.device = str(comm.device)
+    dev = torch.device(args.device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if kind == "moe":   # the flags' LM with phase 27's experts
+        model = TransformerLM(
+            args.vocab, args.d_model, args.n_layers, args.n_heads,
+            args.max_len, "xla", dtype=getattr(torch, args.dtype),
+            device=dev, **P27_MOE,
+            generator=torch.Generator(dev).manual_seed(args.seed))
+    else:
+        model = bs.build_model(args)
+    if comm is not None:
+        comm.bcast_data(model)
+    spec = kind == "spec"
+    eng = InferenceEngine(model, bs._config(
+        args, tp_size=args.tp, ep_size=n if kind == "moe" else 1,
+        keep_logits=True, spec_k=args.spec_k if spec else 0),
+        comm=comm, draft_model=bs.truncated_draft(model) if spec else None)
+    burst = ([(p, m) for p, m in bs.build_spec_trace(args)] if spec else
+             [(p, m) for _, p, m in bs.build_trace(args)[:TP_EP_BURST]])
+    lead = comm is None or comm.rank == 0
+    if lead:
+        for p, m in burst:
+            eng.submit(p, m)
+    rows = {}
+    routes, rctx = _routes(routing)
+    sync()
+    t0 = time.perf_counter()
+    with rctx:
+        while not (comm.bcast_obj(eng.idle(), root=0) if comm
+                   else eng.idle()):
+            res = eng.step()
+            if lead and res.last_logits is not None:
+                _keep_rows(eng, res, rows)
+    sync()
+    wall = time.perf_counter() - t0
+    _save_routes(routing, routes)
+    doc = {"world": n, "route_flips": routes.flips,
+           "route_decisions": routes.decisions}
+    if lead:
+        doc["tokens"] = {str(c.rid): c.tokens for c in eng.completions}
+        doc["rows"] = {str(k): v for k, v in rows.items()}
+        doc["burst_tokens_per_sec_per_card"] = sum(
+            len(c.tokens) for c in eng.completions) / wall / n
+        doc["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9 \
+            if dev.type == "cuda" else None
+    del eng
+    if kind == "dense":
+        pol = bs.run_policy("continuous", model, bs.build_trace(args), args)
+        if lead:
+            doc["policy"] = {k: pol[k] for k in (
+                "generated_tokens", "steps", "wall_s", "tokens_per_sec",
+                "requests_per_sec", "ttft_s", "per_token_s", "mean_active")}
+            doc["policy"]["peak_gb"] = pol.get("peak_gb")
+            doc["policy"]["busy_share"] = (pol.get("busy") or {}).get(
+                "busy_share")
+            doc["policy"]["tokens_per_sec_per_card"] = \
+                pol["tokens_per_sec"] / n
+    rank = comm.rank if comm is not None else 0
+    with open(f"{out_prefix}.rank{rank}.json", "w") as f:
+        json.dump(doc, f)
+
+
+WORKERS.update(moe=moe_worker, serve=serve_worker)
+
+
+def _keep_rows(eng, res, rows):
+    """Each emitted token's record (token, its row's top-two gap, top
+    logit, top 8 logits, the row's hash) under its request, in order; a
+    token without a row of its own (past the first of a verify pass's)
+    None."""
+    import hashlib as _hl
+    import torch
+    from chip_smoke import _top2_gap
+    slot = {s.rid: i for i, s in enumerate(eng.scheduler.slots)
+            if s is not None}
+    seen = set()
+    for rid, tok, _ in res.emitted:
+        if rid in seen or rid not in slot:
+            rows.setdefault(rid, []).append(None)
+            continue
+        seen.add(rid)
+        row = torch.from_numpy(res.last_logits[slot[rid]])
+        rows.setdefault(rid, []).append(
+            [int(tok), _top2_gap(row), float(row.max()),
+             row.float().topk(8).values.tolist(),
+             _hl.sha256(row.numpy().tobytes()).hexdigest()[:16]])
+
+
+def _moe_params(work, name, n, what="params"):
+    """A run's parameters (or gradients) whole: the replicated ones from
+    rank 0, each expert stack the ranks' slices in rank order."""
+    import torch
+    files = [os.path.join(work, f"{name}.{what}.rank{r}.pt")
+             for r in range(n)]
+    parts = [torch.load(f) for f in files]
+    for f in files:
+        os.remove(f)
+    stacks = ("up_kernel", "up_bias", "down_kernel", "down_bias")
+    return {k: torch.cat([p[k] for p in parts]) if k.split(".")[-1] in stacks
+            else v for k, v in parts[0].items()}
+
+
+def _token_gate(got, want, failures, label):
+    """Each request's tokens against ``want``'s up to the first
+    difference, which may fall only where ``want``'s top-two gap is within
+    phase 24's limit; the worst top-8 logit gap over the rows compared and
+    the share of rows with the same bits."""
+    from chip_smoke import _gap_limit
+    equal, flips, worst, same, rows = 0, [], 0.0, 0, 0
+    for rid, toks in want["tokens"].items():
+        mine = got["tokens"][rid]
+        wrows, grows = want["rows"].get(rid, []), got["rows"].get(rid, [])
+        for j, (a, b) in enumerate(zip(mine, toks)):
+            w = wrows[j] if j < len(wrows) else None
+            g = grows[j] if j < len(grows) else None
+            if w is not None and g is not None:
+                rows += 1
+                same += g[4] == w[4]
+                worst = max(worst, max(abs(x - y)
+                                       for x, y in zip(g[3], w[3])))
+            if a != b:
+                # a token without its own kept row (inside a verify pass)
+                # has no known gap: reported, not gated
+                flips.append(dict(rid=rid, at=j, gap=None if w is None
+                                  else round(w[1], 4)))
+                if w is not None and w[1] > _gap_limit(w[2]):
+                    failures.append(f"{label}: request {rid} token {j} "
+                                    f"differs at gap {w[1]:.3g}")
+                break
+            equal += 1
+    return dict(equal_tokens=equal, flips=flips, worst_top8_gap=worst,
+                rows_compared=rows, rows_same_bits=same)
+
+
+def tp_ep(n, out, failures, work, logs):
+    """Part tp_ep (see the module docstring)."""
+    rc, summary, skipped = gpu_tests("tests/test_torch_tp_ep_gpu.py", logs,
+                                     "gpu_tests_tp_ep")
+    out["tp_ep_tests"] = {"rc": rc, "summary": summary}
+    if rc or skipped:
+        failures.append("tests/test_torch_tp_ep_gpu.py")
+    out["tp_ep"] = {}
+    tp_ep_train(n, out, failures, work, logs)
+    tp_ep_serve(n, out, failures, work, logs)
+
+
+def tp_ep_train(n, out, failures, work, logs):
+    """The MoE LM over 1, 2 and 4 ranks in float32, one card's routing
+    replayed into the others (a near-tie gate routes by the last bits of
+    its sums, and cuBLAS sums another way at another row count: one
+    token's expert moves its gradients wholesale): losses within phase
+    26's 1e-5, step 0's gradients within phase 20's relative L2 1e-3, and
+    after the Adam steps every parameter within 2 x steps x lr (Adam moves
+    an element whose gradient is float noise by up to lr a step either
+    way, ROADMAP.md Queue C7), the elements past phase 26's 2e-5 counted;
+    then in bf16 over every card."""
+    import torch
+    from chainermn_tpu_torch.utils.compare import GRAD_RTOL, rel_l2
+    reach = 2 * SP_STEPS * float(SP[SP.index("--lr") + 1]) * 1.001
+    ways = [w for w in (1, 2, 4) if w <= n]
+    row, ref = {}, None
+    path = os.path.join(work, "routes_f32.pt")
+    for w in ways:
+        name = f"moe_f32_ep{w}"
+        routing = f"record:{path}" if w == 1 else f"replay:{path}"
+        docs = torchrun(w, name, ["float32", routing] + TP_EP_MOE
+                        + TP_EP_F32, work, logs, kind="moe")
+        params = _moe_params(work, name, w)
+        grads = _moe_params(work, name, w, "grads")
+        r = {"ce": docs[0]["ce"], "overflow": docs[0]["overflow"],
+             "peak_memory_gb": [d["peak_memory_gb"] for d in docs],
+             "step_seconds": docs[0]["step_seconds"],
+             "route_flips": [d["route_flips"] for d in docs],
+             "route_decisions": [d["route_decisions"] for d in docs]}
+        if any(docs[0]["overflow"]):
+            # each rank's tokens compete for its own capacity: runs over
+            # other worlds compute one function only while nothing drops
+            failures.append(f"tp_ep moe f32 ep {w}: overflow "
+                            f"{docs[0]['overflow']}")
+        if ref is None:
+            ref = (docs[0]["ce"], params, grads)
+        else:
+            r["loss_rel"] = max(abs(a - b) / abs(b)
+                                for a, b in zip(docs[0]["ce"], ref[0]))
+            r["grad_rel"], r["grad_worst"] = max(
+                (rel_l2(grads[k], g), k) for k, g in ref[2].items())
+            gap = {k: (params[k] - ref[1][k]).abs() for k in ref[1]}
+            r["param_worst_abs"] = max(float(v.max()) for v in gap.values())
+            r["param_elements_past_2e-5"] = {
+                k: int((v > FSDP_PARAM_TOL + FSDP_PARAM_TOL * ref[1][k]
+                        .abs()).sum()) for k, v in gap.items()
+                if (v > FSDP_PARAM_TOL + FSDP_PARAM_TOL * ref[1][k].abs())
+                .any()}
+            r["param_elements"] = sum(v.numel() for v in gap.values())
+            if r["loss_rel"] > FSDP_RTOL or r["grad_rel"] > GRAD_RTOL \
+                    or r["param_worst_abs"] > reach:
+                failures.append(f"tp_ep moe f32 ep {w}: loss rel "
+                                f"{r['loss_rel']:.2e}, gradients rel L2 "
+                                f"{r['grad_rel']:.2e}, a parameter "
+                                f"{r['param_worst_abs']:.2e} apart")
+        row[f"ep{w}"] = r
+        print(json.dumps({f"tp_ep moe f32 ep {w}": r}), flush=True)
+    docs = torchrun(n, "moe_bf16", ["bfloat16", "-"] + TP_EP_MOE
+                    + TP_EP_BF16 + ["--batchsize", str(n)], work, logs,
+                    kind="moe")
+    row["bf16_full_width"] = {
+        "world": n, "ce": docs[0]["ce"],
+        "tokens_per_sec_per_card": docs[0]["tokens_per_sec_per_card"],
+        "peak_memory_gb": [d["peak_memory_gb"] for d in docs],
+        "step_seconds": docs[0]["step_seconds"]}
+    print(json.dumps({"tp_ep moe bf16": row["bf16_full_width"]}), flush=True)
+    if not all(map(math.isfinite, docs[0]["ce"])):
+        failures.append("tp_ep moe bf16: losses not finite")
+    out["tp_ep"]["moe_train"] = row
+
+
+def tp_ep_serve(n, out, failures, work, logs,
+                kinds=("dense", "moe", "spec")):
+    """Serving: phase 24's LM at tp 2 and 4, the MoE LM at ep 2 and 4 (one
+    card's routing replayed, as in training), spec at tp 2, each against
+    one card."""
+    from chip_smoke import P24_FLAGS, P24_SPEC, P24_TRACE
+    ways = [w for w in (1, 2, 4) if w <= n]
+    path = os.path.join(work, "routes_serve.pt")
+    for kind, extra, widths in (
+            ("dense", P24_TRACE, ways), ("moe", P24_TRACE, ways),
+            ("spec", P24_SPEC, [w for w in ways if w <= 2])):
+        if kind not in kinds:
+            continue
+        docs = {}
+        for w in widths:
+            routing = "-" if kind != "moe" else (
+                f"record:{path}" if w == 1 else f"replay:{path}")
+            docs[w] = torchrun(w, f"serve_{kind}_{w}", [kind, routing]
+                               + list(P24_FLAGS) + extra, work, logs,
+                               kind="serve")[0]
+        srow = {}
+        for w, d in docs.items():
+            srow[w] = {k: d[k] for k in (
+                "burst_tokens_per_sec_per_card", "peak_memory_gb", "policy",
+                "route_flips", "route_decisions") if k in d}
+            if w != 1:
+                srow[w]["against_1"] = _token_gate(
+                    d, docs[1], failures, f"tp_ep serve {kind} {w}")
+        out["tp_ep"][f"serve_{kind}"] = srow
+        print(json.dumps({f"tp_ep serve {kind}": srow}), flush=True)
 
 
 def data_parallel(n, out, failures, work, logs):

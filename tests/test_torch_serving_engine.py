@@ -246,7 +246,9 @@ def test_engine_refusals():
     tm = TransformerLM(37, 16, 1, 2, 64, device="cpu")
     cfg = dict(page_size=4, num_pages=8, max_seqs=2, chunk_tokens=4,
                max_pages_per_seq=4)
-    with pytest.raises(NotImplementedError, match="Queue A12"):
+    # tensor-parallel decode is ported (A12): two ways over no communicator
+    # are more ways than ranks, JAX's refusal of more ways than devices
+    with pytest.raises(ValueError, match="exceeds the 1 ranks"):
         InferenceEngine(tm, ServingConfig(**cfg, tp_size=2))
     with pytest.raises(ValueError, match="requires a draft_model"):
         InferenceEngine(tm, ServingConfig(**cfg, spec_k=2))

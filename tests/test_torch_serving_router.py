@@ -177,9 +177,16 @@ def test_load_inference_params(lm, tmp_path):
     (lambda: sw.dequantize_inference_params({}), "A10"),
     (lambda: sw.weights_multicast_plan(), "A11"),
     (lambda: sw.broadcast_inference_params(None, {}, plan=object()), "A11"),
-    (lambda: sw.shard_params_tp({}, 2, n_heads=4), "A9"),
+    (lambda: sw.shard_params_tp({"blocks.0.up.weight": torch.ones(8, 2)},
+                                2, n_heads=4), "A9"),
 ])
 def test_unported_weight_paths_raise(call, queue):
+    if queue == "A9":
+        # Megatron slicing is ported (A9 c): up's output rows in two shards
+        assert call()["blocks.0.up.weight"].shape == (2, 4, 2)
+        with pytest.raises(ValueError, match="must be >= 1 and divide"):
+            sw.shard_params_tp({}, 3, n_heads=4)
+        return
     if queue is None:
         with pytest.raises(ValueError, match="no FsdpMeta was given"):
             call()

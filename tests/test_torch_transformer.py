@@ -7,8 +7,8 @@ the flash path folds the softmax tile by tile on the JAX side), for the
 ``xla`` and ``flash`` attentions, multi-head and grouped-query, and for
 scalar and per-sequence position offsets.  The weights mapping round-trips
 exactly; the full-width configuration counts flax's parameters; the
-unported extensions raise, and the sequence-parallel impls run on a world
-of one as their single-shard twins.
+sequence-parallel impls run on a world of one as their single-shard
+twins, and so do the MoE and tensor-parallel models.
 """
 
 import copy
@@ -205,9 +205,42 @@ def test_unported_extensions_raise(kw, queue):
         _world_of_one_matches(impl, "flash" if impl == "ring_flash"
                               else "xla")
         return
-    msg = _msg(lambda: TransformerLM(VOCAB, D_MODEL, 1, HEADS, device="cpu",
-                                     **kw), NotImplementedError)
-    assert f"Queue {queue}" in msg
+    # MoE and tensor parallelism are ported (A9 c, A12): at a world of one
+    # each gives JAX's logits, the MoE LM on all its experts, the
+    # tensor-parallel model as one shard without its sum (JAX's model
+    # without a tp_axis) from JAX's shard_params_tp slice
+    _extension_matches_jax(kw)
+
+
+def _extension_matches_jax(kw):
+    from jax.sharding import Mesh, PartitionSpec as P
+    from chainermn_tpu.serving.weights import shard_params_tp
+    cfg = dict(vocab=VOCAB, d_model=D_MODEL, n_layers=LAYERS,
+               n_heads=HEADS, max_len=2 * T)
+    toks = _tokens(8)
+    if "moe_experts" in kw:
+        jm = JLM(**cfg, moe_experts=kw["moe_experts"], moe_top_k=2)
+        mesh = Mesh(np.array(jax.devices()[:1]), ("ep",))
+        params = {"params": jax.jit(jax.shard_map(
+            lambda tk: jm.init(jax.random.key(0), tk)["params"], mesh=mesh,
+            in_specs=P(), out_specs=P(), check_vma=False))(toks)}
+        want = jax.jit(jax.shard_map(
+            lambda pp, tk: jm.apply(pp, tk, mutable=["moe_stats"])[0],
+            mesh=mesh, in_specs=(P(), P()), out_specs=P(),
+            check_vma=False))(params, toks)
+        port = TransformerLM(**cfg, moe_experts=kw["moe_experts"],
+                             moe_top_k=2, device="cpu")
+    else:
+        jm = JLM(**cfg)
+        params = shard_params_tp(jm.init(jax.random.key(0), toks),
+                                 kw["tp_size"], n_heads=HEADS)
+        params = jax.tree.map(lambda v: np.asarray(v[1]), params)
+        want = jm.clone(tp_size=kw["tp_size"]).apply(params, toks)
+        port = TransformerLM(**cfg, tp_size=kw["tp_size"], device="cpu")
+    weights.load_flax_variables(port, jax.tree.map(np.asarray, params))
+    with torch.no_grad():
+        got = port(torch.from_numpy(toks)).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
 def _world_of_one_matches(impl, twin):

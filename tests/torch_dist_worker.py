@@ -3,7 +3,8 @@
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/torch_dist_worker.py \\
             {comm|train|opt|mnist|lm|unused|coll|zero|syncbn|imagenet|seq|
-             p2p|chain|seq2seq|pconv|configs|serve|accum|fsdp} \\
+             p2p|chain|seq2seq|pconv|configs|serve|accum|fsdp|tpep|
+             moelm|tpserve} \\
             IN.npz OUT_PREFIX
 
 Reads the stacked per-rank inputs from ``IN.npz`` (leading axis = rank),
@@ -1129,6 +1130,253 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+# ---- tensor and expert parallelism ------------------------------------------
+
+def _expert_fn(kind, we=None, wo=None):
+    """The JAX tests' expert functions over this rank's ``[E/P, ...]``
+    weights: "mlp" gelu(t we) wo, "id", "double"."""
+    import torch.nn.functional as F
+    if kind == "id":
+        return lambda t: t
+    if kind == "double":
+        return lambda t: 2.0 * t
+
+    def mlp(t):
+        if t.dim() == 2:
+            return F.gelu(t @ we[0], approximate="tanh") @ wo[0]
+        return torch.bmm(F.gelu(torch.bmm(t, we), approximate="tanh"), wo)
+    return mlp
+
+
+def run_tpep(inp, rank):
+    """Tensor- and expert-parallel layers on a gloo world of ``P`` ranks
+    (the JAX references run on a ``P``-device mesh in the test).
+
+    ``tp/*``: ColumnParallelDense -> gelu -> RowParallelDense from the
+    sliced dense weights; the gathered column output and its weight
+    gradient; the gradients of ``sum(allreduce(gelu(x w1) w2)^2)``;
+    TensorParallelMLP's output and its divisibility error.  ``ep/{case}``:
+    ``moe_apply`` on this rank's tokens with its ``[E/P]`` experts (case
+    meta: capacity or -1, top_k, expert function), the routing integers of
+    :func:`route`, the statistics; ``aux_grad``: the logits' gradient of
+    the aux loss; ``routed``: the gradients of per-expert scales;
+    ``module``: ExpertParallelMLP from flax leaves, every leaf's gradient
+    of ``allreduce(sum y^2) + aux`` (the router's summed over the ranks)."""
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import functions
+    from chainermn_tpu_torch.parallel.expert import (ExpertParallelMLP,
+                                                     moe_apply, route)
+    from chainermn_tpu_torch.parallel.tensor import (
+        ColumnParallelDense, RowParallelDense, TensorParallelMLP)
+    comm = create_communicator("naive", device="cpu")
+    p = comm.size
+    t = lambda k: torch.tensor(inp[k])  # noqa: E731
+    out = {}
+    if "tp/w1" in inp:
+        w1, b1, w2, b2, x = (t(f"tp/{k}") for k in ("w1", "b1", "w2", "b2",
+                                                    "x"))
+        h = w1.shape[1] // p
+        sl = slice(rank * h, (rank + 1) * h)
+        col = ColumnParallelDense(w1.shape[0], h, comm, device="cpu")
+        row = RowParallelDense(h, w2.shape[1], comm, device="cpu")
+        with torch.no_grad():
+            col.weight.copy_(w1[:, sl].T)
+            col.bias.copy_(b1[sl])
+            row.weight.copy_(w2[sl].T)
+            row.bias.copy_(b2)
+        out["tp/mlp"] = row(F.gelu(col(x), approximate="tanh")).detach()
+        gcol = ColumnParallelDense(w1.shape[0], h, comm, gather_output=True,
+                                   device="cpu")
+        with torch.no_grad():
+            gcol.weight.copy_(w1[:, sl].T)
+            gcol.bias.copy_(b1[sl])
+        y = gcol(x)
+        out["tp/gather"] = y.detach()
+        (y ** 2).sum().backward()
+        out["tp/gather_grad_w"] = gcol.weight.grad.T
+        w1l = w1[:, sl].clone().requires_grad_()
+        w2l = w2[sl].clone().requires_grad_()
+        o = functions.allreduce(comm, F.gelu(x @ w1l, approximate="tanh")
+                                @ w2l)
+        (o ** 2).sum().backward()
+        out["tp/g_w1"], out["tp/g_w2"] = w1l.grad, w2l.grad
+        mlp = TensorParallelMLP(w1.shape[0], w1.shape[1], comm, device="cpu",
+                                generator=torch.Generator().manual_seed(0))
+        out["tp/module"] = mlp(x).detach()
+        try:
+            TensorParallelMLP(w1.shape[0], w1.shape[1] + 1, comm,
+                              device="cpu")
+            out["tp/module_err"] = np.asarray("")
+        except ValueError as e:
+            out["tp/module_err"] = np.asarray(str(e))
+    cases = sorted({k.split("/")[1] for k in inp if k.startswith("ep/")})
+    for c in cases:
+        pre = f"ep/{c}/"
+        cap, top_k, kind = (int(v) for v in inp[pre + "meta"][:3])
+        cap = None if cap < 0 else cap
+        n = inp[pre + "x"].shape[0] // p
+        rows = slice(rank * n, (rank + 1) * n)
+        x, logits = t(pre + "x")[rows], t(pre + "logits")[rows]
+        e = logits.shape[1]
+        epd = e // p
+        mine = slice(rank * epd, (rank + 1) * epd)
+        we = t(pre + "we")[mine] if pre + "we" in inp else None
+        wo = t(pre + "wo")[mine] if pre + "wo" in inp else None
+        fn = _expert_fn(("mlp", "id", "double")[kind], we, wo)
+        if c == "aux_grad":
+            lg = logits.clone().requires_grad_()
+            _, st = moe_apply(fn, lg, x, comm, capacity=cap, top_k=top_k,
+                              return_stats=True)
+            st["aux_loss"].backward()
+            out[pre + "g_logits"] = lg.grad
+            continue
+        if c == "routed":
+            w = t(pre + "w")[mine].clone().requires_grad_()
+            fn = (lambda z: z * w[0]) if epd == 1 \
+                else (lambda z: z * w[:, None, :])
+            y = moe_apply(fn, logits, x, comm, capacity=cap, top_k=top_k)
+            functions.allreduce(comm, (y ** 2).sum()).backward()
+            out[pre + "g_w"] = w.grad
+            continue
+        if c == "module":
+            m = ExpertParallelMLP(x.shape[1], inp[pre + "up_kernel"].shape[2],
+                                  comm, num_experts=e, top_k=top_k,
+                                  with_stats=True, device="cpu")
+            with torch.no_grad():
+                m.router.weight.copy_(t(pre + "router_kernel").T)
+                m.router.bias.copy_(t(pre + "router_bias"))
+                for leaf in ("up_kernel", "up_bias", "down_kernel",
+                             "down_bias"):
+                    getattr(m, leaf).copy_(t(pre + leaf)[mine])
+            y, st = m(x)
+            (functions.allreduce(comm, (y ** 2).sum())
+             + st["aux_loss"]).backward()
+            out[pre + "y"] = y.detach()
+            for name, prm in m.named_parameters():
+                g = prm.grad
+                if name.startswith("router"):
+                    g = comm.allreduce(g.clone())
+                out[pre + "g/" + name] = g
+            continue
+        y, st = moe_apply(fn, logits, x, comm, capacity=cap, top_k=top_k,
+                          return_stats=True)
+        out[pre + "y"] = y
+        gates = torch.softmax(logits.float(), dim=-1)
+        c_ = cap if cap is not None else max(1, 2 * top_k * n // e)
+        topi, _, slot, keep = route(gates, top_k, c_, top_k > 1)
+        out[pre + "topi"], out[pre + "slot"] = topi, slot
+        out[pre + "keep"] = keep
+        for k, v in st.items():
+            out[pre + k] = v
+    return {k: v.detach().numpy() if torch.is_tensor(v) else v
+            for k, v in out.items()}
+
+
+def run_moelm(inp, rank):
+    """The MoE TransformerLM on an expert-parallel gloo world: flax
+    ``params/*`` (each rank keeps its experts), this rank's rows of
+    ``toks``; ``logits``, then ``steps`` Adam steps at ``lr`` through the
+    example's ``train_step``: their ``ce`` and this rank's parameters as a
+    flax tree (``p/*``)."""
+    from chainermn_tpu_torch import weights
+    from chainermn_tpu_torch.examples import train_moe_lm
+    from chainermn_tpu_torch.models import TransformerLM
+    comm = create_communicator("naive", device="cpu")
+    cfg = {k: int(v) for k, v in zip(
+        ("vocab", "d_model", "n_layers", "n_heads", "max_len", "experts",
+         "top_k"), inp["cfg"])}
+    e, k = cfg.pop("experts"), cfg.pop("top_k")
+    model = TransformerLM(**cfg, moe_experts=e, moe_top_k=k, moe_comm=comm,
+                          device="cpu")
+    weights.load_flax_variables(model, nest({
+        key[len("params/"):]: v for key, v in inp.items()
+        if key.startswith("params/")}))
+    n = inp["toks"].shape[0] // comm.size
+    toks = torch.tensor(inp["toks"][rank * n:(rank + 1) * n])
+    out = {"logits": model(toks).detach().numpy()}
+    opt = torch.optim.Adam(model.parameters(), lr=float(inp["lr"]))
+    ces = []
+    for _ in range(int(inp["steps"])):
+        ces.append(float(train_moe_lm.train_step(
+            model, opt, toks, float(inp["aux_weight"]), comm)[1]))
+    out["ce"] = np.asarray(ces)
+    for key, v in flatten(weights.state_dict_to_flax(model)).items():
+        out[f"p/{key}"] = v
+    return out
+
+
+def drive_engine(eng, comm, prompts, max_new, keep_logits=False):
+    """Rank 0 submits ``prompts``; every rank steps until rank 0's engine
+    is idle (its verdict broadcast each step).  ``(tokens by rid, [kept
+    logits per step], [spec stats per step])``."""
+    if comm.rank == 0:
+        for pr in prompts:
+            eng.submit(pr, max_new)
+    logits, spec = [], []
+    while not comm.bcast_obj(eng.idle(), root=0):
+        res = eng.step()
+        if keep_logits and res.last_logits is not None:
+            logits.append(res.last_logits)
+        if res.spec is not None:
+            spec.append(res.spec)
+    return ({c.rid: c.tokens for c in eng.completions}, logits, spec)
+
+
+def run_tpserve(inp, rank):
+    """Tensor- and expert-parallel serving on a gloo world: the engine over
+    the whole communicator (``tp x ep`` = the world size), rank 0 alone
+    submitting.  ``tp``: the dense LM from flax ``dense/*`` at ``tp_size``
+    = the world, vanilla and spec_k 2 (its bottom layer as the draft);
+    ``ep``: the MoE LM from ``moe/*`` at ``ep_size`` (``tp_size`` =
+    world / ``ep``), its kept logits a step; each part's tokens as JSON."""
+    import json
+    from chainermn_tpu_torch import weights
+    from chainermn_tpu_torch.benchmarks.bench_serving import truncated_draft
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.serving import InferenceEngine, ServingConfig
+    comm = create_communicator("naive", device="cpu")
+    parts = str(inp["parts"]).split(",")
+    out = {}
+
+    def model_from(prefix, **cfg):
+        m = TransformerLM(**cfg, device="cpu")
+        return weights.load_flax_variables(m, nest({
+            k[len(prefix):]: v for k, v in inp.items()
+            if k.startswith(prefix)}))
+
+    if "tp" in parts:
+        dense = model_from("dense/", vocab=61, d_model=32, n_layers=2,
+                           n_heads=4, max_len=128, n_kv_heads=2)
+        for label, k in (("tp", 0), ("spec", 2)):
+            cfg = ServingConfig(**json.loads(str(inp[f"{label}/cfg"])),
+                                tp_size=comm.size)
+            eng = InferenceEngine(dense, cfg, comm=comm, draft_model=(
+                truncated_draft(dense) if k else None))
+            toks, _, spec = drive_engine(
+                eng, comm, json.loads(str(inp[f"{label}/prompts"])),
+                int(inp[f"{label}/max_new"]))
+            out[f"{label}/tokens"] = np.asarray(json.dumps(sorted(
+                toks.items())))
+            out[f"{label}/accepted"] = np.asarray(
+                sum(s["accepted"] for s in spec))
+            out[f"{label}/kv_heads"] = np.asarray(eng.cache.k.shape[-2])
+    if "ep" in parts:
+        ep = int(inp["ep"])
+        moe = model_from("moe/", vocab=32, d_model=16, n_layers=1,
+                         n_heads=2, max_len=64, moe_experts=4, moe_top_k=2)
+        cfg = ServingConfig(page_size=4, num_pages=16, max_seqs=2,
+                            chunk_tokens=4, max_pages_per_seq=4,
+                            ep_size=ep, tp_size=comm.size // ep,
+                            keep_logits=True)
+        eng = InferenceEngine(moe, cfg, comm=comm)
+        toks, logits, _ = drive_engine(eng, comm, [[1, 2, 3], [5, 6]], 4,
+                                       keep_logits=True)
+        out["ep/tokens"] = np.asarray(json.dumps(sorted(toks.items())))
+        out["ep/logits"] = np.stack(logits)
+        out["ep/experts"] = np.asarray(eng.model.blocks[0].moe.expert_rows)
+    return out
+
+
 def launch(mode: str, inputs: dict, world: int, tmp_path, timeout=300):
     """Run ``world`` ranks of ``mode`` on ``inputs``; their outputs, by
     rank.  Raises with a rank's output if any rank fails."""
@@ -1169,7 +1417,9 @@ def main():
            "chain": run_chain, "seq2seq": run_seq2seq,
            "pconv": run_pconv, "configs": run_configs,
            "serve": run_serve, "accum": run_accum,
-           "fsdp": run_fsdp}[mode](inp, topo.rank)
+           "fsdp": run_fsdp, "tpep": run_tpep,
+           "moelm": run_moelm,
+           "tpserve": run_tpserve}[mode](inp, topo.rank)
     np.savez(f"{out_prefix}.{topo.rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
