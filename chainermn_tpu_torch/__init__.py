@@ -8,6 +8,9 @@ imports neither JAX nor ``chainermn_tpu``.
 """
 
 from chainermn_tpu_torch.communicators import create_communicator
+from chainermn_tpu_torch.compression import (
+    CompressionState, Compressor, Fp8Compressor, Int8Compressor,
+    NoCompression, available_compressors, resolve_compressor)
 from chainermn_tpu_torch.extensions.checkpoint import (
     consolidate_fsdp_checkpoint)
 from chainermn_tpu_torch.datasets import (
@@ -19,16 +22,22 @@ from chainermn_tpu_torch.optimizers import (
     create_multi_node_optimizer, create_per_stage_optimizer, make_train_step)
 from chainermn_tpu_torch.parallel import (
     ColumnParallelDense, ExpertParallelMLP, RowParallelDense,
-    TensorParallelMLP, moe_apply)
+    TensorParallelMLP, make_pipeline_fn, make_pipeline_train_fn, moe_apply,
+    pipeline_1f1b, pipeline_apply)
 from chainermn_tpu_torch.parallel.sequence import (
     attention, ring_attention, ulysses_attention)
 from chainermn_tpu_torch.runtime.bootstrap import init_distributed
 
-__all__ = ["Augment", "ColumnParallelDense", "ExpertParallelMLP",
-           "ImageFolderDataset", "MultiNodeChainList", "NpzImageDataset",
-           "RowParallelDense", "TensorParallelMLP", "TransformDataset", "ViT",
-           "ViT_B16", "ViT_S16", "attention", "consolidate_fsdp_checkpoint",
-           "create_communicator", "create_multi_node_optimizer",
-           "create_per_stage_optimizer", "init_distributed",
-           "make_train_step", "moe_apply", "normalize_image", "pseudo_loss",
-           "ring_attention", "scatter_dataset", "ulysses_attention"]
+__all__ = ["Augment", "ColumnParallelDense", "CompressionState",
+           "Compressor", "ExpertParallelMLP", "Fp8Compressor",
+           "ImageFolderDataset", "Int8Compressor", "MultiNodeChainList",
+           "NoCompression", "NpzImageDataset", "RowParallelDense",
+           "TensorParallelMLP", "TransformDataset", "ViT", "ViT_B16",
+           "ViT_S16", "attention", "available_compressors",
+           "consolidate_fsdp_checkpoint", "create_communicator",
+           "create_multi_node_optimizer", "create_per_stage_optimizer",
+           "init_distributed", "make_pipeline_fn", "make_pipeline_train_fn",
+           "make_train_step", "moe_apply", "normalize_image",
+           "pipeline_1f1b", "pipeline_apply", "pseudo_loss",
+           "resolve_compressor", "ring_attention", "scatter_dataset",
+           "ulysses_attention"]

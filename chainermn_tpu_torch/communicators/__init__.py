@@ -2,7 +2,8 @@
 
 Counterpart of ``chainermn_tpu/communicators/__init__.py`` (the reference's
 ``create_communicator``): string -> class dispatch, where only
-``xla``/``pure_nccl`` accept ``allreduce_grad_dtype``.  Every flavor of the
+``xla``/``pure_nccl`` accept ``allreduce_grad_dtype`` (or its spelling
+``compression=NoCompression(wire_dtype)``).  Every flavor of the
 reference is here; ``auto``, the JAX package's planner-tuned flavor, raises
 until the collective planner is ported (ROADMAP.md, Queue A11).
 """
@@ -43,7 +44,7 @@ _COMMUNICATORS = {
 def create_communicator(communicator_name: str = "hierarchical",
                         allreduce_grad_dtype=None,
                         intra_size: Optional[int] = None, device=None,
-                        **kwargs) -> CommunicatorBase:
+                        compression=None, **kwargs) -> CommunicatorBase:
     """Create a communicator by name (reference signature:
     ``create_communicator(communicator_name, mpi_comm,
     allreduce_grad_dtype)``; the process group takes ``mpi_comm``'s place).
@@ -53,6 +54,13 @@ def create_communicator(communicator_name: str = "hierarchical",
     the environment).  ``device``: CUDA unless ``"cpu"`` is asked for.
     ``intra_size``: ranks per node (default ``LOCAL_WORLD_SIZE``).  Every
     rank must call this, in the same order: it builds process groups.
+
+    ``compression`` selects the gradient wire codec (a name, a spec, a
+    config dict or a :class:`~chainermn_tpu_torch.compression.Compressor`).
+    ``NoCompression(wire_dtype=...)`` is exactly the
+    ``allreduce_grad_dtype`` knob, with the same 'xla'-only restriction; the
+    quantizers (``"int8"``, ``"fp8"``) work with every flavor (they ride the
+    generic pack-and-sum path; ``allreduce_grad`` then needs ``state=``).
     """
     if communicator_name == "auto":
         raise NotImplementedError(
@@ -64,17 +72,24 @@ def create_communicator(communicator_name: str = "hierarchical",
         raise ValueError(
             f"unknown communicator {communicator_name!r}; available: "
             f"{sorted(_COMMUNICATORS)}") from None
-    if allreduce_grad_dtype is not None and \
-            not cls.supports_allreduce_grad_dtype:
+    from chainermn_tpu_torch.compression import (
+        NoCompression, resolve_compressor)
+    compression = resolve_compressor(compression)
+    wire_knob = allreduce_grad_dtype is not None or (
+        isinstance(compression, NoCompression)
+        and compression.wire is not None)
+    if wire_knob and not cls.supports_allreduce_grad_dtype:
         raise ValueError(
-            "allreduce_grad_dtype is only supported by the "
-            "'xla'/'pure_nccl' communicator")
+            "allreduce_grad_dtype (= compression=NoCompression(wire_dtype)) "
+            "is only supported by the 'xla'/'pure_nccl' communicator")
     from chainermn_tpu_torch.parallel.topology import init_topology
     from chainermn_tpu_torch.runtime.bootstrap import init_distributed
     init_distributed(device)
     topo = init_topology(device, intra_size=intra_size)
     if allreduce_grad_dtype is not None:
         kwargs["allreduce_grad_dtype"] = allreduce_grad_dtype
+    if compression is not None:
+        kwargs["compression"] = compression
     return cls(topology=topo, **kwargs)
 
 

@@ -26,6 +26,16 @@ here are the JAX package's pre-planner ones (``_legacy_allreduce_grad_traced``,
 which its tests pin bit-exact with the plan path): the base class is the
 naive per-leaf all-reduce.  The collective planner is not ported yet
 (ROADMAP.md, Queue A11).
+
+Gradient compression (JAX ``allreduce_grad(compressor=, state=)``) runs
+on every flavor: ``NoCompression(wire_dtype)`` is the ``allreduce_grad_dtype``
+program (:meth:`MeshCommunicator._allreduce_grad_wire`, the cast kernel on
+the card), and a quantizer packs one float32 buffer, encodes it with error
+feedback, sums the codes over the world in wire arithmetic (int8: the
+backend's sum; fp8: bytes through ``all_to_all_single``, a float16 sum in
+rank order and an all-gather, :mod:`~chainermn_tpu_torch.compression.quantize`),
+decodes and unpacks the mean (:meth:`MeshCommunicator._allreduce_grad_compressed`).
+The per-hop ``Plan`` compression waits for the planner (Queue A11).
 """
 
 from __future__ import annotations
@@ -65,6 +75,12 @@ all_gather_tensor = getattr(dist, "all_gather_single",
                             dist.all_gather_into_tensor)
 
 
+def _module_grads(params) -> list:
+    """Each parameter's gradient, zeros where backward left None."""
+    return [p.grad if p.grad is not None else torch.zeros_like(p)
+            for p in params]
+
+
 def _structural(op):
     def apply(a, b):
         if isinstance(a, dict):
@@ -101,9 +117,26 @@ class MeshCommunicator(CommunicatorBase):
 
     def __init__(self, topology: Optional[Topology] = None, group=None,
                  allreduce_grad_dtype=None, device=None,
-                 intra_size: Optional[int] = None, _groups=None):
+                 intra_size: Optional[int] = None, compression=None,
+                 _groups=None):
         if topology is None:
             topology = init_topology(device, intra_size=intra_size)
+        from chainermn_tpu_torch.compression import (
+            NoCompression, resolve_compressor)
+        # compression= subsumes the dtype knob: a NoCompression wire folds
+        # INTO allreduce_grad_dtype, a quantizer is kept for allreduce_grad
+        self.compression = resolve_compressor(compression)
+        if isinstance(self.compression, NoCompression) \
+                and self.compression.wire is not None:
+            wire = self.compression.wire
+            if allreduce_grad_dtype is not None and \
+                    as_dtype(allreduce_grad_dtype) != wire:
+                raise ValueError(
+                    f"conflicting wire dtypes: allreduce_grad_dtype="
+                    f"{allreduce_grad_dtype} vs compression="
+                    f"{self.compression!r} -- pass only "
+                    f"compression=NoCompression(wire_dtype=...)")
+            allreduce_grad_dtype = wire
         if allreduce_grad_dtype is not None and \
                 not self.supports_allreduce_grad_dtype:
             raise ValueError(
@@ -455,25 +488,147 @@ class MeshCommunicator(CommunicatorBase):
         return _packing.tree_unflatten(treedef, outs), wait
 
     # ---- gradient entry points ---------------------------------------------
-    def allreduce_grad(self, grads):
+    def allreduce_grad(self, grads, *, compressor=None, state=None):
         """Average gradients over the world.
 
         ``grads``: a module, whose parameters' ``.grad`` are replaced by
         the mean in place (a parameter without one counts as zeros;
         returns the module), or a tree of gradient
         tensors (returns the tree of means).
+
+        ``compressor`` picks the wire codec of this call (default: a
+        quantizer given as the communicator's ``compression=``):
+
+        * ``None`` / ``NoCompression()`` -- this flavor's decomposition;
+        * ``NoCompression(wire_dtype=...)`` -- pack, cast, all-reduce in
+          the wire dtype, cast back with the 1/size mean: bit for bit the
+          ``allreduce_grad_dtype`` program, on any flavor;
+        * a quantizer (``"int8"`` / ``"fp8"``) -- error-feedback
+          compression: pass ``state`` (from
+          :meth:`init_compression_state`), and the call returns ``(mean,
+          new_state)``; the new state is a new object (the caller's is left
+          as it was, as JAX's functional state is).
         """
+        from chainermn_tpu_torch.compression import (
+            is_quantizing, resolve_compressor)
+        comp = (resolve_compressor(compressor) if compressor is not None
+                else (self.compression if is_quantizing(self.compression)
+                      else None))
+        if is_quantizing(comp):
+            if state is None:
+                raise ValueError(
+                    f"compressor {comp.name!r} keeps error-feedback state: "
+                    "pass state=comm.init_compression_state(grads, "
+                    "compressor) and thread the returned new state into "
+                    "the next call")
+            if isinstance(grads, nn.Module):
+                raise TypeError(
+                    "a quantized allreduce_grad takes the gradients as a "
+                    "tree of tensors (it returns them with the new state)")
+            return self._allreduce_grad_compressed(grads, comp, state)
+        wire = getattr(comp, "wire", None)
         if isinstance(grads, nn.Module):
             # every parameter: one that this rank's backward did not reach
             # contributes zeros (its JAX gradient), so every rank issues
             # the same collectives
             params = list(grads.parameters())
-            for p, g in zip(params, self._allreduce_grad_traced(
-                    [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in params])):
+            tree = _module_grads(params)
+            out = self._allreduce_grad_wire(tree, wire) if wire is not None \
+                else self._allreduce_grad_traced(tree)
+            for p, g in zip(params, out):
                 p.grad = g
             return grads
+        if wire is not None:
+            return self._allreduce_grad_wire(grads, wire)
         return self._allreduce_grad_traced(grads)
+
+    def init_compression_state(self, tree, compressor=None):
+        """A fresh error-feedback state for quantized
+        :meth:`allreduce_grad` over ``tree``-shaped gradients, on this
+        communicator's device; ``None`` for a stateless codec.  Sized for
+        the one packed float32 buffer the compressed path exchanges."""
+        from chainermn_tpu_torch.compression import (
+            is_quantizing, resolve_compressor)
+        comp = (resolve_compressor(compressor) if compressor is not None
+                else self.compression)
+        if not is_quantizing(comp):
+            return None
+        n = sum(int(l.numel()) for l in _packing.tree_flatten(tree)[0])
+        return comp.init_state(n, self.size, device=self.device)
+
+    def _allreduce_grad_wire_start(self, grads, wire):
+        """The ``allreduce_grad_dtype`` program, started: pack per dtype
+        group, :func:`~chainermn_tpu_torch.ops.cast_scale` each buffer into
+        ``wire`` (scale 1), all-reduce in the wire dtype (left in flight),
+        and ``finish()`` casts back with scale 1/size and unpacks."""
+        from chainermn_tpu_torch.ops.cast_scale import cast_scale
+        buffers, meta = _packing.pack(grads)
+        _, group_dtypes, _ = meta
+        buffers = [cast_scale(b, wire, 1.0) for b in buffers]
+        works = [dist.all_reduce(b, dist.ReduceOp.SUM, group=self._group,
+                                 async_op=True) for b in buffers]
+        scale = 1.0 / self.size
+
+        def finish():
+            for w in works:
+                w.wait()
+            out = [cast_scale(b, getattr(torch, k), scale)
+                   for b, k in zip(buffers, group_dtypes)]
+            return _packing.unpack(out, meta, scale=None)
+
+        return finish
+
+    def _allreduce_grad_wire(self, grads, wire):
+        """``NoCompression(wire_dtype)``: the exact cast-allreduce-cast
+        program of the ``allreduce_grad_dtype`` knob (the ``xla`` flavor's
+        wire route), on any flavor."""
+        return self._allreduce_grad_wire_start(grads, as_dtype(wire))()
+
+    def _sum_codes(self, codes: torch.Tensor) -> torch.Tensor:
+        """The world's sum of this rank's wire ``codes``, in wire
+        arithmetic (see the module note): int8 through the backend's sum
+        all-reduce; float8_e4m3fn as bytes, an all-to-all, each rank's
+        float16 sum of its shard in rank order, and an all-gather.  Any
+        other wire dtype raises (no fallback to a wider wire)."""
+        from chainermn_tpu_torch.compression.quantize import sum_wire
+        n = self.size
+        if n == 1:
+            return codes
+        if codes.dtype == torch.int8:
+            codes = codes.clone()
+            dist.all_reduce(codes, dist.ReduceOp.SUM, group=self._group)
+            return codes
+        if codes.dtype != torch.float8_e4m3fn:
+            raise TypeError(f"no in-wire sum for {codes.dtype}")
+        # float8 moves as bytes (int8: the dtype every backend takes)
+        b, strip = _packing.pad_to_multiple(codes.view(torch.int8), n)
+        recv = torch.empty_like(b)
+        dist.all_to_all_single(recv, b, group=self._group)
+        shard = sum_wire(recv.view(torch.float8_e4m3fn).view(n, -1),
+                         torch.float8_e4m3fn).view(torch.int8)
+        out = torch.empty_like(b)
+        all_gather_tensor(out, shard, group=self._group)
+        return strip(out).view(torch.float8_e4m3fn)
+
+    def _allreduce_grad_compressed(self, grads, comp, state):
+        """Quantized exchange: pack one float32 buffer, EF-encode it,
+        SUM the codes in wire arithmetic, decode with the delayed-scale
+        update, unpack the mean.  Returns ``(mean_grads, new_state)``."""
+        n = self.size
+        buffers, meta = _packing.pack(grads, comm_dtype=torch.float32)
+        buf = buffers[0]
+        m = int(buf.shape[0])
+        if int(state.ef.shape[0]) != comp._padded(m):
+            raise ValueError(
+                f"compression state sized for ef={state.ef.shape[0]} "
+                f"does not match this gradient tree (needs "
+                f"{comp._padded(m)}): build it with "
+                "comm.init_compression_state(grads, compressor)")
+        codes, state = comp.compress(buf, state, rank=self.rank,
+                                     world_size=n)
+        summed = self._sum_codes(codes)
+        out, state = comp.decompress(summed, state, world_size=n)
+        return _packing.unpack([out[:m]], meta, scale=1.0 / n), state
 
     def _all_reduce_sum(self, buf: torch.Tensor) -> torch.Tensor:
         dist.all_reduce(buf, dist.ReduceOp.SUM, group=self._group)
@@ -537,14 +692,19 @@ class MeshCommunicator(CommunicatorBase):
                         intra_size=intra_size, device=self.device)
         wire = self.allreduce_grad_dtype \
             if self.supports_allreduce_grad_dtype else None
+        from chainermn_tpu_torch.compression import is_quantizing
+        # quantizers ride the generic pack/sum path: any sub-world keeps
+        # them (JAX split_axes)
+        comp = self.compression if is_quantizing(self.compression) else None
         try:
             return type(self)(topology=topo, group=group,
-                              allreduce_grad_dtype=wire, _groups=groups)
+                              allreduce_grad_dtype=wire, compression=comp,
+                              _groups=groups)
         except ValueError:
             if not fallback:
                 raise
             return MeshCommunicator(topology=topo, group=group,
-                                    _groups=groups)
+                                    compression=comp, _groups=groups)
 
     def split_axes(self, axes: Sequence[str]) -> "MeshCommunicator":
         """A communicator over a subset of the world's levels, keeping this

@@ -8,10 +8,16 @@ the buffer to pinned host memory, all-reduce it over the CPU on the
 object plane's gloo group, ``/ size``, copy back.  (The JAX package
 stages through the host in eager mode and falls back to the flat psum
 inside a traced program.)
+
+``allreduce_grad(compressor=...)`` as in JAX's class: a quantizer takes
+the base class's compressed path (it rides the in-wire sum, not the host);
+``NoCompression(wire_dtype)`` rounds each gradient through the wire dtype
+and back, then stages the mean through the host.
 """
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
 from chainermn_tpu_torch.communicators import _packing
 from chainermn_tpu_torch.communicators.mesh_communicator_base import (
@@ -20,6 +26,22 @@ from chainermn_tpu_torch.communicators.mesh_communicator_base import (
 
 class NonCudaAwareCommunicator(MeshCommunicator):
     flavor = "non_cuda_aware"
+
+    def allreduce_grad(self, grads, *, compressor=None, state=None):
+        from chainermn_tpu_torch.compression import (
+            NoCompression, resolve_compressor)
+        comp = resolve_compressor(compressor)
+        if isinstance(comp, NoCompression) and comp.wire is not None:
+            wire = comp.wire
+            if isinstance(grads, nn.Module):
+                for p in grads.parameters():
+                    if p.grad is not None:
+                        p.grad = p.grad.to(wire).to(p.grad.dtype)
+            else:
+                grads = _packing.tree_map(
+                    lambda g: g.to(wire).to(g.dtype), grads)
+            comp = None
+        return super().allreduce_grad(grads, compressor=comp, state=state)
 
     def _allreduce_grad_traced(self, grads):
         buffers, meta = _packing.pack(grads)

@@ -13,6 +13,13 @@ test).
     python -m chainermn_tpu_torch.examples.train_mnist --epoch 5
     torchrun --nproc_per_node 4 -m chainermn_tpu_torch.examples.train_mnist \\
         --communicator xla --allreduce-grad-dtype float16 --double-buffering
+    torchrun --nproc_per_node 2 -m chainermn_tpu_torch.examples.train_mnist \\
+        --compression int8
+
+``--compression`` takes a registry name (``int8``/``fp8``), a bare wire
+dtype or a compressor spec JSON into ``create_multi_node_optimizer``;
+``--observability`` waits for the observability stack (ROADMAP.md Queue
+A13) and raises.
 """
 
 from __future__ import annotations
@@ -60,7 +67,9 @@ def parse_args(argv=None):
                    help="communication dtype (xla communicator only), "
                         "e.g. float16")
     p.add_argument("--compression", default=None,
-                   help="not supported yet (ROADMAP.md Queue A10)")
+                   help="gradient wire compression: a registry name "
+                        "(int8/fp8), a bare wire dtype (bfloat16), or a "
+                        "compressor spec JSON")
     p.add_argument("--intra-size", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--observability", action="store_true",
@@ -95,10 +104,9 @@ def main(argv=None) -> dict:
     ``validation/accuracy`` (on every rank), ``rate`` over the epochs after
     the first (None for one epoch)."""
     args = parse_args(argv)
-    for flag, queue in (("compression", "A10"), ("observability", "A13")):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet; see ROADMAP.md Queue {queue}")
+    if args.observability:
+        raise NotImplementedError(
+            "--observability is not ported yet; see ROADMAP.md Queue A13")
     comm = cmn.create_communicator(
         args.communicator, intra_size=args.intra_size,
         allreduce_grad_dtype=args.allreduce_grad_dtype, device=args.device)
@@ -112,6 +120,8 @@ def main(argv=None) -> dict:
               f"epochs: {args.epoch}")
         if args.double_buffering:
             print("Using double buffering (1-step-stale gradients)")
+        if args.compression:
+            print(f"Gradient wire compression: {args.compression}")
         print("==========================================", flush=True)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -119,7 +129,8 @@ def main(argv=None) -> dict:
     comm.bcast_data(model)  # identical start everywhere
     optimizer = cmn.create_multi_node_optimizer(
         torch.optim.Adam(model.parameters(), lr=1e-3), comm,
-        double_buffering=args.double_buffering)
+        double_buffering=args.double_buffering,
+        compression=args.compression)
 
     def metrics(batch):
         x, y = batch

@@ -26,9 +26,18 @@ anything is restored.  :func:`consolidate_fsdp_checkpoint` turns a
 sharded checkpoint into full parameters, reading every rank's file: a
 process of any world (a server) can load what the training world saved.
 
+A :class:`~chainermn_tpu_torch.compression.CompressionState` (a
+quantized FSDP bucket's, inside its FsdpState, or a compressed optimizer's
+``comp_state`` put in the tree) is stored as ``{path}/ef``, ``/scale`` and
+``/step`` and restored in place; the ``__compression_meta__`` sidecar
+holds the compressor specs and the EF version, and a resume refuses a
+checkpoint with EF state into a target without compression, one without
+into a compressed target, and a compressor config other than the live
+one (JAX's three refusals).
+
 Not ported: the ``async`` backend (ROADMAP.md Queue A14) and ``orbax``,
-which has no twin in PyTorch; the compression and plan-table sidecars
-wait for the modules they describe (Queues A10, A11).
+which has no twin in PyTorch; the plan-table sidecar waits for the
+collective planner (Queue A11).
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ from typing import Dict, List, Optional, Set
 import numpy as np
 import torch
 
+from chainermn_tpu_torch.compression import (
+    CompressionState, compression_layout)
 from chainermn_tpu_torch.parallel.fsdp import (
     FsdpMeta, FsdpState, fsdp_full_params, fsdp_layout, iter_fsdp_states,
     unpack_full_params)
@@ -51,12 +62,14 @@ from chainermn_tpu_torch.parallel.fsdp import (
 _DTYPES_KEY = "__dtypes__"
 # the FSDP sharding layout (world size, buckets, shard lengths)
 _FSDP_META_KEY = "__fsdp_meta__"
+# the compression config of every error-feedback state in the tree
+_COMPRESSION_META_KEY = "__compression_meta__"
 
 
 def _leaves(tree, prefix: str = "") -> Dict[str, object]:
     """``{path: leaf}`` of a tree of dicts, lists and tuples (an
     FsdpState as its :meth:`~FsdpState.tree`)."""
-    if isinstance(tree, FsdpState):
+    if isinstance(tree, (FsdpState, CompressionState)):
         return _leaves(tree.tree(), prefix)
     if isinstance(tree, dict):
         out = {}
@@ -74,7 +87,7 @@ def _leaves(tree, prefix: str = "") -> Dict[str, object]:
 def _rebuild(tree, values: Dict[str, object], prefix: str = ""):
     """``tree``'s structure with each leaf replaced by ``values[path]``;
     an FsdpState is restored in place and returned."""
-    if isinstance(tree, FsdpState):
+    if isinstance(tree, (FsdpState, CompressionState)):
         tree.load_tree(_rebuild(tree.tree(), values, prefix))
         return tree
     if isinstance(tree, dict):
@@ -154,6 +167,9 @@ class _MultiNodeCheckpointer:
         layout = fsdp_layout(state)
         if layout is not None:
             arrays[_FSDP_META_KEY] = np.array(json.dumps(layout))
+        clayout = compression_layout(state)
+        if clayout is not None:
+            arrays[_COMPRESSION_META_KEY] = np.array(json.dumps(clayout))
         # np.savez appends .npz when missing, so the temp name ends in it
         tmp = self._file(iteration) + ".tmp.npz"
         np.savez(tmp, **arrays)
@@ -268,6 +284,37 @@ class _MultiNodeCheckpointer:
                 f"{live['shard_lens']} -- the model or packing changed "
                 f"since the save")
 
+    def _validate_compression(self, arrays: dict, state, gen: int) -> None:
+        """Refuse EF state saved under another compressor config (or
+        none) before any leaf is restored: residuals and delayed scales
+        are bound to the compressor's spec."""
+        where = f"{self.name}.{gen} (rank {self.comm.rank})"
+        raw = arrays.pop(_COMPRESSION_META_KEY, None)
+        saved = json.loads(str(raw)) if raw is not None else None
+        live = compression_layout(state)
+        if saved is not None and live is None:
+            raise ValueError(
+                f"checkpoint {where} carries error-feedback compression "
+                f"state for {saved['specs']} but the resume target has "
+                f"no compression configured -- rebuild with the same "
+                f"compression config (fsdp_init(bucket_compressors=...) "
+                f"/ create_multi_node_optimizer(compression=...)), or "
+                f"restart training fresh to drop the EF state")
+        if saved is None and live is not None:
+            raise ValueError(
+                f"checkpoint {where} has no compression state but the "
+                f"resume target expects EF state for {live['specs']} -- "
+                f"resume into an uncompressed state and re-init, or save "
+                f"from a compressed run; EF residuals cannot be "
+                f"fabricated from an uncompressed checkpoint")
+        if saved is not None and saved != live:
+            raise ValueError(
+                f"checkpoint {where} compression config {saved} does "
+                f"not match the live config {live} -- the EF residuals "
+                f"and delayed scales are bound to the compressor spec; "
+                f"pass the identical compression config, or restart "
+                f"fresh under the new one")
+
     def _validate(self, arrays: dict, leaves: dict, gen: int) -> None:
         where = f"{self.name}.{gen} (rank {self.comm.rank})"
         saved = json.loads(str(arrays.pop(_DTYPES_KEY)))
@@ -301,6 +348,7 @@ class _MultiNodeCheckpointer:
         with np.load(self._file(gen)) as data:
             arrays = {k: data[k] for k in data.files}
         self._validate_fsdp(arrays, state, gen)
+        self._validate_compression(arrays, state, gen)
         leaves = _leaves(state)
         self._validate(arrays, leaves, gen)
         return _rebuild(state, {k: _restore_leaf(arrays[k], v)

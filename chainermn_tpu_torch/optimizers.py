@@ -8,8 +8,12 @@ optimizer (the JAX package wraps an optax transformation).
 
 ``double_buffering=True`` is the fork's double-buffered optimizer;
 ``zero=True`` shards the optimizer state ZeRO-1-style (a beyond-reference
-extension of the JAX package).  Compressed gradients are not ported yet
-(ROADMAP.md, Queue A10); asking for them raises.
+extension of the JAX package).  ``compression=`` picks the gradient wire
+codec (JAX ``optimizers.py:299``): ``NoCompression(wire_dtype)`` runs the
+``allreduce_grad_dtype`` program, a quantizer (``"int8"``/``"fp8"``) the
+error-feedback exchange with its state in the optimizer
+(:class:`_CompressedOptimizer`).  Per-hop ``Plan`` compression waits for
+the collective planner (ROADMAP.md Queue A11).
 
 Every wrapper's ``local_optimizer`` is the ``torch.optim`` optimizer that
 holds this rank's state and whose step moves its parameters (the wrapped
@@ -20,6 +24,7 @@ and restore its state.
 from __future__ import annotations
 
 import inspect
+import warnings
 from typing import Callable
 
 import torch
@@ -46,9 +51,13 @@ class _MultiNodeOptimizer:
     ``zero_grad``).
     """
 
-    def __init__(self, actual_optimizer: torch.optim.Optimizer, comm):
+    def __init__(self, actual_optimizer: torch.optim.Optimizer, comm,
+                 compression=None):
         self.actual_optimizer = actual_optimizer
         self.communicator = comm
+        # a stateless codec (NoCompression(wire_dtype)), forwarded to
+        # allreduce_grad on every call
+        self.compression = compression
 
     def __getattr__(self, name):
         return getattr(self.local_optimizer, name)
@@ -64,7 +73,8 @@ class _MultiNodeOptimizer:
         # optax moves a parameter with a zero gradient (momentum)
         params = [p for g in self.actual_optimizer.param_groups
                   for p in g["params"]]
-        reduced = self.communicator.allreduce_grad(_local_grads(params))
+        reduced = self.communicator.allreduce_grad(
+            _local_grads(params), compressor=self.compression)
         for p, g in zip(params, reduced):
             p.grad = g
 
@@ -78,6 +88,38 @@ class _MultiNodeOptimizer:
     def _update(self):
         self.allreduce_grad()
         return self.actual_optimizer.step()
+
+
+class _CompressedOptimizer(_MultiNodeOptimizer):
+    """Quantized gradient exchange (JAX ``optimizers.py:75``):
+    ``allreduce_grad(compressor=..., state=...)`` with the error-feedback
+    state held here.
+
+    ``comp_state`` is this rank's
+    :class:`~chainermn_tpu_torch.compression.CompressionState` (each rank
+    keeps its own residual), built at construction over the parameters'
+    packed float32 length and updated in place every step, so a checkpoint
+    tree that holds it (``{"comp": optimizer.comp_state}``) saves the
+    live state and a resume restores into it.
+    """
+
+    def __init__(self, actual_optimizer: torch.optim.Optimizer, comm,
+                 compression):
+        super().__init__(actual_optimizer, comm, compression)
+        params = [p for g in actual_optimizer.param_groups
+                  for p in g["params"]]
+        self.comp_state = comm.init_compression_state(
+            [p.detach() for p in params], compression)
+
+    def allreduce_grad(self) -> None:
+        params = [p for g in self.actual_optimizer.param_groups
+                  for p in g["params"]]
+        reduced, new = self.communicator.allreduce_grad(
+            _local_grads(params), compressor=self.compression,
+            state=self.comp_state)
+        self.comp_state.update(new)
+        for p, g in zip(params, reduced):
+            p.grad = g
 
 
 class _DoubleBufferingOptimizer(_MultiNodeOptimizer):
@@ -179,13 +221,14 @@ class _Zero1Optimizer(_MultiNodeOptimizer):
     a parameter's shape (LARS's layer-wise trust ratio).
     """
 
-    def __init__(self, actual_optimizer: torch.optim.Optimizer, comm):
+    def __init__(self, actual_optimizer: torch.optim.Optimizer, comm,
+                 compression=None):
         groups = actual_optimizer.param_groups
         if len(groups) != 1:
             raise ValueError(
                 f"zero=True flattens the parameters into one shard per "
                 f"dtype, which erases parameter groups; got {len(groups)}")
-        super().__init__(actual_optimizer, comm)
+        super().__init__(actual_optimizer, comm, compression)
         self._params = list(groups[0]["params"])
         size, rank = comm.size, comm.rank
         bufs, _ = _packing.pack([p.detach() for p in self._params])
@@ -211,8 +254,11 @@ class _Zero1Optimizer(_MultiNodeOptimizer):
         returns the pack metadata and each group's strip."""
         comm = self.communicator
         size = comm.size
-        wire = comm.allreduce_grad_dtype \
-            if comm.supports_allreduce_grad_dtype else None
+        # an explicit NoCompression(wire_dtype) wins over the
+        # communicator's knob (its deprecated spelling)
+        wire = getattr(self.compression, "wire", None)
+        if wire is None and comm.supports_allreduce_grad_dtype:
+            wire = comm.allreduce_grad_dtype
         bufs, meta = _packing.pack(grads)
         shards, strips = [], []
         for g in bufs:
@@ -248,6 +294,25 @@ class _Zero1Optimizer(_MultiNodeOptimizer):
                 p.copy_(v)
 
 
+def _deprecate_raw_wire_knob(communicator, compression) -> None:
+    """JAX ``optimizers.py:161``: a communicator with a RAW
+    ``allreduce_grad_dtype`` (the knob given directly, not as a codec)
+    still works, with a pointer to its replacement."""
+    if compression is not None:
+        return
+    dt = getattr(communicator, "allreduce_grad_dtype", None)
+    if dt is not None and getattr(communicator, "compression", None) is None:
+        name = str(dt).replace("torch.", "")
+        warnings.warn(
+            f"allreduce_grad_dtype={name!r} without an explicit "
+            "compression codec is deprecated; pass "
+            f"compression=NoCompression(wire_dtype={name!r}) (or just "
+            f"compression={name!r}) to create_communicator / "
+            "create_multi_node_optimizer instead -- it runs the identical "
+            "cast-allreduce-cast program",
+            DeprecationWarning, stacklevel=3)
+
+
 def create_multi_node_optimizer(actual_optimizer: torch.optim.Optimizer,
                                 communicator, double_buffering: bool = False,
                                 zero: bool = False, compression=None):
@@ -257,19 +322,54 @@ def create_multi_node_optimizer(actual_optimizer: torch.optim.Optimizer,
 
     ``zero=True`` shards the optimizer state over the world (ZeRO-1, see
     :class:`_Zero1Optimizer`); it excludes ``double_buffering`` (the
-    pending full-size gradients would undo the memory saving)."""
-    if compression is not None:
-        raise NotImplementedError(
-            "compression= is not ported yet; see ROADMAP.md Queue A10")
+    pending full-size gradients would undo the memory saving).
+
+    ``compression`` selects the gradient wire codec: a name
+    (``"int8"``/``"fp8"``), a dtype string, a config dict or a
+    :class:`~chainermn_tpu_torch.compression.Compressor`.
+    ``NoCompression(wire_dtype=...)`` reproduces the communicator's
+    ``allreduce_grad_dtype`` program bit for bit; a quantizer keeps its
+    error-feedback state in the returned optimizer
+    (:class:`_CompressedOptimizer`) and composes with neither ``zero``
+    nor ``double_buffering`` (JAX's refusals)."""
+    from chainermn_tpu_torch.compression import (
+        is_quantizing, resolve_compressor)
+    compression = resolve_compressor(compression)
+    _deprecate_raw_wire_knob(communicator, compression)
     if zero and double_buffering:
         raise ValueError("zero=True and double_buffering=True are mutually "
                          "exclusive (the pending full-size gradient buffer "
                          "would defeat ZeRO's memory saving)")
+    if is_quantizing(compression):
+        if zero:
+            raise NotImplementedError(
+                "compression=<quantizer> with zero=True is not supported "
+                "yet: ZeRO-1's reduce-scatter leg would need per-shard EF "
+                "state (the bucketed FSDP engine has that -- use "
+                "fsdp_init(bucket_compressors=...))")
+        if double_buffering:
+            raise NotImplementedError(
+                "compression=<quantizer> with double_buffering=True is not "
+                "supported: stale-gradient buffering and error feedback "
+                "both delay the update stream; composing them changes "
+                "convergence semantics")
+        return _CompressedOptimizer(actual_optimizer, communicator,
+                                    compression)
     if zero:
-        return _Zero1Optimizer(actual_optimizer, communicator)
+        return _Zero1Optimizer(actual_optimizer, communicator,
+                               compression=compression)
     if double_buffering:
+        if compression is not None and compression.wire is not None:
+            raise NotImplementedError(
+                "compression=NoCompression(wire_dtype) with "
+                "double_buffering=True: set allreduce_grad_dtype on the "
+                "communicator instead (the pending-buffer allreduce "
+                "honors it)")
         return _DoubleBufferingOptimizer(actual_optimizer, communicator)
-    return _MultiNodeOptimizer(actual_optimizer, communicator)
+    if compression is not None and compression.wire is None:
+        compression = None  # bare NoCompression() is the do-nothing default
+    return _MultiNodeOptimizer(actual_optimizer, communicator,
+                               compression=compression)
 
 
 def make_train_step(communicator, loss_fn: Callable, optimizer,

@@ -1,6 +1,9 @@
 from chainermn_tpu_torch.parallel.fsdp import (
     BucketLayout, FsdpMeta, FsdpState, fsdp_full_params, fsdp_init,
     fsdp_layout, iter_fsdp_states, make_fsdp_meta, make_fsdp_train_step)
+from chainermn_tpu_torch.parallel.pipeline import (
+    make_pipeline_fn, make_pipeline_train_fn, module_stage_fn,
+    pipeline_1f1b, pipeline_apply)
 from chainermn_tpu_torch.parallel.sequence import (
     attention, ring_attention, ulysses_attention)
 from chainermn_tpu_torch.parallel.topology import (
@@ -13,5 +16,7 @@ __all__ = ["BucketLayout", "ColumnParallelDense", "ExpertParallelMLP",
            "FsdpMeta", "FsdpState", "RowParallelDense", "TensorParallelMLP",
            "Topology", "attention", "fsdp_full_params", "fsdp_init",
            "fsdp_layout", "init_topology", "iter_fsdp_states",
-           "make_fsdp_meta", "make_fsdp_train_step", "moe_apply",
-           "resolve_device", "ring_attention", "ulysses_attention"]
+           "make_fsdp_meta", "make_fsdp_train_step", "make_pipeline_fn",
+           "make_pipeline_train_fn", "module_stage_fn", "moe_apply",
+           "pipeline_1f1b", "pipeline_apply", "resolve_device",
+           "ring_attention", "ulysses_attention"]

@@ -71,9 +71,24 @@ Same caveat as ZeRO-1: the flat shards erase leaf boundaries, so a rule
 whose update reads a parameter's shape (LARS's trust ratio) would compute
 shard-wise ratios; it is refused unless ``allow_layerwise=True``.
 
+Quantized buckets (``fsdp_init(bucket_compressors=...)``, JAX
+``_make_compressed_gather``): a bucket with an int8/fp8 compressor keeps an
+error-feedback state (``FsdpState.comp``: the residual over the bucket's
+padded full length, this rank's own scale exponent, the step).  Its
+forward all-gather carries each rank's exponent in one slot after its
+shard; its backward is the compressed reduce-scatter: EF add, encode each
+destination's slice with that destination's exponent (clipped so the
+in-wire sum cannot overflow), one saturation flag per destination slice,
+the all-to-all of codes and flags, their sum in wire arithmetic in rank
+order (:func:`~chainermn_tpu_torch.compression.quantize.sum_wire`: int8
+exactly, fp8 in float16 then rounded once), this rank's shard decoded by
+its own exponent, and the exponent's delayed update from the shard's amax
+and clip count.  ``NoCompression(wire_dtype)`` folds into the bucket's
+wire dtype.  A quantized bucket refuses accumulation (EF would advance once
+a microbatch), as in JAX.
+
 Not ported yet: the per-bucket observability (JAX ``_FsdpObs``, ROADMAP.md
-Queue A13) and the quantized buckets (``bucket_compressors``, JAX
-``_make_compressed_gather``, Queue A10), which raises.
+Queue A13).
 """
 
 from __future__ import annotations
@@ -134,6 +149,7 @@ class BucketLayout(NamedTuple):
     pads: tuple             # pad appended to each buffer
     nbytes: int             # unpadded payload bytes of the bucket
     wire_dtype: Optional[str] = None  # per-bucket wire override (or None)
+    compressor: Optional[str] = None  # quantizer spec JSON (or None)
 
 
 class FsdpMeta(NamedTuple):
@@ -160,14 +176,19 @@ class FsdpState:
     tensor of the buffer's shard length; ``inner``, the ``torch.optim``
     optimizer over them; ``module``, whose parameters the step swaps for
     the gathered views; ``world_size``, the world the shards were cut
-    for.  A checkpoint stores ``shards`` and the inner optimizer's state
-    under this state's path, and a resume restores them in place."""
+    for; ``comp``, one
+    :class:`~chainermn_tpu_torch.compression.CompressionState` or None per
+    bucket (``()`` when no bucket is quantized).  A checkpoint stores
+    ``shards``, the inner optimizer's state and the quantized buckets' EF
+    states under this state's path, and a resume restores them in
+    place."""
 
-    def __init__(self, shards, inner, module, world_size: int):
+    def __init__(self, shards, inner, module, world_size: int, comp=()):
         self.shards = shards
         self.inner = inner
         self.module = module
         self.world_size = world_size
+        self.comp = comp
 
     def flat_shards(self) -> List[torch.Tensor]:
         return [s for bucket in self.shards for s in bucket]
@@ -176,8 +197,12 @@ class FsdpState:
         """What a checkpoint stores: ``{"shards": [[tensor]], "inner":
         optimizer_state_tree(inner)}``."""
         from chainermn_tpu_torch.optim import optimizer_state_tree
-        return {"shards": [list(b) for b in self.shards],
+        tree = {"shards": [list(b) for b in self.shards],
                 "inner": optimizer_state_tree(self.inner)}
+        if any(c is not None for c in self.comp):
+            tree["comp"] = {str(i): c.tree() for i, c in enumerate(self.comp)
+                            if c is not None}
+        return tree
 
     def load_tree(self, tree: dict) -> None:
         """Copy a restored :meth:`tree` into this state, in place."""
@@ -187,6 +212,9 @@ class FsdpState:
                 for s, v in zip(bucket, saved):
                     s.copy_(v)
         load_optimizer_state_tree(self.inner, tree["inner"])
+        for i, c in enumerate(self.comp):
+            if c is not None:
+                c.load_tree(tree["comp"][str(i)])
 
 
 def _normalize_wire(dtype) -> Optional[torch.dtype]:
@@ -203,14 +231,30 @@ def _normalize_wire(dtype) -> Optional[torch.dtype]:
     return wire
 
 
+def _bucket_compressors(bucket_compressors, n: int) -> list:
+    """One resolved compressor (or None) per bucket: a single value goes
+    to every bucket, a list must have one entry per bucket."""
+    from chainermn_tpu_torch.compression import resolve_compressor
+    if bucket_compressors is None:
+        bucket_compressors = [None] * n
+    elif not isinstance(bucket_compressors, (list, tuple)):
+        bucket_compressors = [bucket_compressors] * n
+    elif len(bucket_compressors) != n:
+        raise ValueError(
+            f"bucket_compressors has {len(bucket_compressors)} entries "
+            f"but the partition produced {n} buckets")
+    return [resolve_compressor(c) for c in bucket_compressors]
+
+
 def make_fsdp_meta(model: nn.Module, world_size: int, num_buckets: int = 1,
                    bucket_bytes: Optional[int] = None,
-                   bucket_wire_dtypes: Optional[Sequence] = None
-                   ) -> FsdpMeta:
+                   bucket_wire_dtypes: Optional[Sequence] = None,
+                   bucket_compressors=None) -> FsdpMeta:
     """The layout :func:`fsdp_init` cuts ``model``'s parameters into for a
     world of ``world_size`` ranks, without a communicator: what a server
     of another world size needs to consolidate the checkpoint of a
     training world.  The knobs are :func:`fsdp_init`'s."""
+    from chainermn_tpu_torch.compression import NoCompression, is_quantizing
     named = list(model.named_parameters())
     leaves = [p for _, p in named]
     assignments = _buckets.partition_buckets(
@@ -221,6 +265,7 @@ def make_fsdp_meta(model: nn.Module, world_size: int, num_buckets: int = 1,
         raise ValueError(
             f"bucket_wire_dtypes has {len(bucket_wire_dtypes)} entries "
             f"but the partition produced {len(assignments)} buckets")
+    comps = _bucket_compressors(bucket_compressors, len(assignments))
     layouts = []
     for a in assignments:
         # shapes and dtypes only: pack tensors on the meta device
@@ -234,11 +279,35 @@ def make_fsdp_meta(model: nn.Module, world_size: int, num_buckets: int = 1,
                 and bucket_wire_dtypes[a.index] is not None:
             wire = _packing.dtype_name(
                 _normalize_wire(bucket_wire_dtypes[a.index]))
+        comp, spec = comps[a.index], None
+        if isinstance(comp, NoCompression):
+            # the identity codec IS the wire-dtype knob
+            if comp.wire is not None:
+                if wire is not None and wire != comp.wire_dtype:
+                    raise ValueError(
+                        f"bucket {a.index}: bucket_wire_dtypes={wire!r} "
+                        f"conflicts with bucket_compressors="
+                        f"NoCompression(wire_dtype={comp.wire_dtype!r}) "
+                        "-- pass only one spelling")
+                wire = comp.wire_dtype
+        elif is_quantizing(comp):
+            # quantizers ride ONE flat float buffer per bucket
+            if len(bufs) != 1 or not bufs[0].dtype.is_floating_point:
+                raise NotImplementedError(
+                    f"bucket {a.index}: compressor {comp.name!r} needs a "
+                    f"single float packed buffer, got "
+                    f"{[_packing.dtype_name(b.dtype) for b in bufs]} -- keep "
+                    "integer/mixed-dtype leaves in an uncompressed bucket")
+            comp.clip_limit(world_size)  # raise early at unworkable sizes
+            spec = comp.spec
+        elif comp is not None:
+            raise TypeError(f"bucket {a.index}: cannot use {comp!r} as a "
+                            "bucket compressor")
         layouts.append(BucketLayout(
             start=a.start, stop=a.stop, pack_meta=pack_meta,
             orig_lens=tuple(orig), shard_lens=tuple(shard),
             pads=tuple(s * world_size - n for s, n in zip(shard, orig)),
-            nbytes=a.nbytes, wire_dtype=wire))
+            nbytes=a.nbytes, wire_dtype=wire, compressor=spec))
     return FsdpMeta(names=tuple(n for n, _ in named),
                     buckets=tuple(layouts), world_size=int(world_size))
 
@@ -285,17 +354,19 @@ def fsdp_init(comm, model: nn.Module, optimizer: torch.optim.Optimizer,
     target instead (``num_buckets`` wins when both are given);
     ``bucket_wire_dtypes`` is a per-bucket wire-dtype list (None entries
     fall back to the step's ``wire_dtype``).  ``bucket_compressors`` is
-    not ported (ROADMAP.md Queue A10).
+    each bucket's gradient wire codec (one value for every bucket, or a
+    list of one per bucket; names, dtype strings, config dicts or
+    Compressors): ``NoCompression(wire_dtype=...)`` folds into the bucket's
+    wire dtype, a quantizer (``"int8"``/``"fp8"``) makes the bucket's
+    reduce-scatter run over 1-byte codes with error feedback, its state in
+    ``state.comp`` (the residual is the bucket's full padded length on
+    every rank: the usual EF memory cost).
     """
     _reject_multi_node_wrapper(optimizer)
     if not allow_layerwise:
         _reject_layerwise_optimizer(optimizer)
     meta = make_fsdp_meta(model, comm.size, num_buckets, bucket_bytes,
-                          bucket_wire_dtypes)
-    if bucket_compressors is not None:
-        raise NotImplementedError(
-            "bucket_compressors (quantized FSDP buckets) is not ported "
-            "yet; see ROADMAP.md Queue A10")
+                          bucket_wire_dtypes, bucket_compressors)
     groups = optimizer.param_groups
     if len(groups) != 1:
         raise ValueError(
@@ -315,8 +386,23 @@ def fsdp_init(comm, model: nn.Module, optimizer: torch.optim.Optimizer,
         shards.append(bucket)
     from chainermn_tpu_torch.optimizers import rebuild_optimizer
     inner = rebuild_optimizer(optimizer, [s for b in shards for s in b])
+    comp = []
+    for bl, bucket in zip(meta.buckets, shards):
+        if bl.compressor is None:
+            comp.append(None)
+            continue
+        from chainermn_tpu_torch.compression import (
+            EF_VERSION, CompressionState)
+        dev = bucket[0].device
+        comp.append(CompressionState(
+            ef=torch.zeros(bl.shard_lens[0] * size, dtype=torch.float32,
+                           device=dev),
+            scale=torch.zeros(1, dtype=torch.float32, device=dev),
+            step=torch.zeros(1, dtype=torch.float32, device=dev),
+            spec=bl.compressor, ef_version=EF_VERSION))
     _release(model)
-    return FsdpState(shards, inner, model, size), meta
+    return FsdpState(shards, inner, model, size,
+                     comp if any(c is not None for c in comp) else ()), meta
 
 
 def iter_fsdp_states(tree):
@@ -343,13 +429,19 @@ def fsdp_layout(tree) -> Optional[dict]:
         return None
     sizes = sorted({st.world_size for st in states})
     n_buckets = sorted({len(st.shards) for st in states})
-    return {
+    layout = {
         "world_size": sizes[0] if len(sizes) == 1 else sizes,
         "num_buckets": n_buckets[0] if len(n_buckets) == 1 else n_buckets,
         "shard_lens": [[[int(s.shape[0]) for s in bucket]
                         for bucket in st.shards] for st in states],
         "n_states": len(states),
     }
+    # bucket compression rides the same sidecar, only when present
+    from chainermn_tpu_torch.compression import compression_layout
+    comp = compression_layout([st.comp for st in states])
+    if comp is not None:
+        layout["compression"] = comp
+    return layout
 
 
 def unpack_full_params(fulls: Sequence[Sequence[torch.Tensor]],
@@ -407,6 +499,43 @@ def fsdp_module_params(state: FsdpState, meta: FsdpMeta, comm):
         _release(state.module)
 
 
+def compressed_scatter_encode(comm, comp, cstate, ct: torch.Tensor, e_vec):
+    """A quantized bucket's reduce-scatter, its sending half (JAX
+    ``_make_compressed_gather``'s backward): ``ct``, the bucket's full
+    gradient padded to ``size x L``, plus the EF residual, each
+    destination's slice encoded with that destination's exponent (``e_vec``,
+    every rank's, from the forward's gather), one saturation flag after
+    each slice.  Returns the bytes to send (``int8``: float8 codes move as
+    bytes) and ``fold(recv)``, which takes the all-to-all's received bytes
+    (every rank's slice of this rank's shard, in rank order), sums them in
+    wire arithmetic, decodes this rank's shard by its own exponent,
+    advances ``cstate`` in place (residual, exponent, step) and returns
+    the shard's gradient SUM in ``ct``'s dtype."""
+    from chainermn_tpu_torch.compression.quantize import sum_wire
+    size = comm.size
+    L = ct.shape[0] // size
+    scale_pos = torch.exp2(e_vec).repeat_interleave(L)
+    v = ct.to(torch.float32) + cstate.ef
+    codes = comp.encode(v, scale_pos, comp.step_of(cstate), comm.rank, size)
+    new_ef = v - comp.decode(codes, scale_pos)
+    flags = comp.saturation_flags(v, scale_pos, size, L)
+    ext = torch.cat([codes.view(size, L), flags[:, None]], dim=1)
+    wire = ext.dtype
+
+    def fold(recv):
+        summed = sum_wire(recv.view(wire).view(size, L + 1), wire)
+        # this rank's shard, decoded by its own (current) exponent
+        gshard = summed[:L].to(torch.float32) * torch.exp2(cstate.scale[0])
+        amax = gshard.abs().max().reshape(1)
+        new_e = comp.next_exponent(cstate.scale, amax, size,
+                                   summed[L:].to(torch.float32))
+        cstate.update(cstate._replace(ef=new_ef, scale=new_e,
+                                      step=cstate.step + 1.0))
+        return gshard.to(ct.dtype)
+
+    return ext.reshape(-1).view(torch.int8), fold
+
+
 class _Pending:
     """One bucket's gather in flight: the work handles, the gathered wire
     buffers, and what the bucket's backward needs."""
@@ -431,6 +560,11 @@ class _BucketGather(torch.autograd.Function):
             w.wait()
         outs = []
         for g, n, s in zip(pend.outs, bl.orig_lens, shards):
+            if eng.comps[pend.bucket] is not None:
+                # each rank's slot after its shard holds its exponent
+                g = g.view(eng.comm.size, -1)
+                eng.e_vecs[pend.bucket] = g[:, -1].to(torch.float32)
+                g = g[:, :-1].reshape(-1)
             full = g[:n]
             if full.dtype != s.dtype:
                 full = eng.cast(full, s.dtype, 1.0)
@@ -473,15 +607,23 @@ class _Engine:
                         and m in parent:
                     m = parent[m]
                 self.needs[m] = max(self.needs.get(m, 0), i)
+        from chainermn_tpu_torch.compression import resolve_compressor
+        self.comps = [resolve_compressor(bl.compressor) if bl.compressor
+                      else None for bl in meta.buckets]
+        # a quantized bucket's gathered exponents (every rank's), which
+        # its reduce-scatter encodes with
+        self.e_vecs: Dict[int, torch.Tensor] = {}
         self.active = False
         self.hooks: list = []
         self.stats = {}
         self.reset_stats()
 
-
     def reset_stats(self) -> None:
+        # *_bytes: what this rank handed to the gathers and the
+        # reduce-scatters (all-to-alls) of the step
         self.stats = {"gathers": 0, "reduce_scatters": 0, "casts": 0,
-                      "max_in_flight": 0}
+                      "max_in_flight": 0, "gather_bytes": 0,
+                      "scatter_bytes": 0}
 
     def cast(self, x, dtype, scale: float):
         self.stats["casts"] += 1
@@ -516,6 +658,11 @@ class _Engine:
         works, outs = [], []
         for s in self.state.shards[i]:
             x = s.detach()
+            if self.comps[i] is not None:
+                # the exponent rides the gather in one slot (a power of
+                # two: exact in any float wire)
+                x = torch.cat([x.to(torch.float32),
+                               self.state.comp[i].scale.to(torch.float32)])
             if wire is not None and x.is_floating_point() \
                     and x.dtype != wire:
                 x = self.cast(x, wire, 1.0)
@@ -524,6 +671,7 @@ class _Engine:
                                          async_op=True))
             outs.append(out)
             self.stats["gathers"] += 1
+            self.stats["gather_bytes"] += x.numel() * x.element_size()
         self.issued[i] = _Pending(self, i, works, outs)
         self.in_flight += 1
         self.stats["max_in_flight"] = max(self.stats["max_in_flight"],
@@ -563,24 +711,34 @@ class _Engine:
         for j, g in enumerate(grads):
             shard = self.state.shards[i][j]
             g, _ = _packing.pad_to_multiple(g.contiguous(), size)
-            x = g
-            if wire is not None and g.is_floating_point() \
+            x, post = g, None
+            if self.comps[i] is not None:
+                x, post = compressed_scatter_encode(
+                    self.comm, self.comps[i], self.state.comp[i], g,
+                    self.e_vecs[i])
+            elif wire is not None and g.is_floating_point() \
                     and g.dtype != wire:
                 x = self.cast(g, wire, 1.0)
             # every rank's slice of this rank's shard, summed in _fold()
             recv = torch.empty_like(x)
             work = dist.all_to_all_single(recv, x, group=self.comm.group,
                                           async_op=True)
-            self.scatters.append((shard, work, recv, x))
+            self.scatters.append((shard, work, recv, x, post))
             self.stats["reduce_scatters"] += 1
+            self.stats["scatter_bytes"] += x.numel() * x.element_size()
         self.scattered.add(i)
 
     def _fold(self) -> None:
         """Wait for the reduce-scatter in flight and add its sum, in rank
         order, to the shard gradients; its full-size buffers then go."""
         scatters, self.scatters = self.scatters, []
-        for shard, work, recv, _ in scatters:
+        for shard, work, recv, _, post in scatters:
             work.wait()
+            if post is not None:
+                out = post(recv)
+                g = out / self.grad_div if self.grad_div != 1 else out
+                shard.grad = g if shard.grad is None else shard.grad + g
+                continue
             parts = recv.view(self.comm.size, -1)
             out = parts[0]
             if len(parts) > 1:
@@ -636,9 +794,11 @@ def make_fsdp_train_step(comm, loss_fn: Callable, state: FsdpState,
     the state is updated in place.  ``step.stats`` counts the last step's
     collectives: ``gathers`` and ``reduce_scatters`` (one per dtype buffer
     per bucket per microbatch), ``casts`` (the wire's ``cast_scale``
-    calls: four per float buffer per bucket per microbatch) and
-    ``max_in_flight`` (the most gathers issued and not yet consumed, at
-    most ``prefetch + 1``).
+    calls: four per float buffer per bucket per microbatch; a quantized
+    bucket's reduce-scatter casts none), ``max_in_flight`` (the most
+    gathers issued and not yet consumed, at most ``prefetch + 1``), and
+    ``gather_bytes`` / ``scatter_bytes`` (the bytes this rank handed to
+    the gathers and to the reduce-scatters' all-to-alls).
 
     ``prefetch`` (D) is the window of the bucketed schedule
     (``meta.num_buckets > 1``): bucket i's gather is issued once bucket
@@ -668,6 +828,12 @@ def make_fsdp_train_step(comm, loss_fn: Callable, state: FsdpState,
     if state.world_size != comm.size or meta.world_size != comm.size:
         raise ValueError(f"the shards were cut for {state.world_size} ranks; "
                          f"this communicator has {comm.size}")
+    if accum_steps > 1 and any(bl.compressor for bl in meta.buckets):
+        raise NotImplementedError(
+            "accum_steps > 1 with quantized buckets is not supported: "
+            "error feedback would advance once per MICROBATCH, changing "
+            "the accumulation semantics -- accumulate uncompressed or "
+            "drop the bucket's compressor")
     default_wire = _normalize_wire(wire_dtype)
     wires = [_normalize_wire(bl.wire_dtype) if bl.wire_dtype is not None
              else default_wire for bl in meta.buckets]

@@ -1,4 +1,4 @@
-"""Inference weights: restore, cast, broadcast.
+"""Inference weights: restore, cast, quantize, broadcast.
 
 Counterpart of ``chainermn_tpu/serving/weights.py``:
 
@@ -9,15 +9,27 @@ Counterpart of ``chainermn_tpu/serving/weights.py``:
   (:func:`~chainermn_tpu_torch.extensions.consolidate_fsdp_checkpoint`:
   from every rank's checkpoint file, so a one-process server loads what
   the training world saved) and casts its floating leaves;
+* :func:`quantize_inference_params` stores every floating weight of two or
+  more axes as per-channel int8 codes and float32 scales
+  (:func:`~chainermn_tpu_torch.compression.quantize_per_channel_int8`),
+  about 4x fewer bytes; :func:`dequantize_inference_params` gives float32
+  back, and ``load_inference_params(int8_weights=True)`` round-trips the
+  weights through the codec (the artifact's precision);
 * :func:`broadcast_inference_params` gives every rank root's tree, over
   the communicator, bit for bit;
 * :func:`shard_params_tp` slices a TransformerLM's ``state_dict``
   Megatron-style into ``tp`` shards, JAX's slicing of its flax tree on the
   port's names and layouts.
 
-The JAX package's other paths raise ``NotImplementedError`` naming their
-ROADMAP.md queue: per-channel int8 weights (A10), the planner's multicast
-plans (A11).
+The channel of a weight is its output channel: the JAX package takes the
+last axis of the flax leaf, which for the port's ``[out, in]`` dense and
+conv weights is axis 0 and for an embedding the feature axis.  A
+``state_dict`` does not say which leaf is which, so the quantizers take
+``channel_axes`` (:func:`chainermn_tpu_torch.weights.channel_axes` of the
+model gives JAX's axes); without it every leaf is quantized along axis 0.
+
+The planner's multicast plans raise ``NotImplementedError`` naming
+ROADMAP.md Queue A11.
 """
 
 from __future__ import annotations
@@ -32,8 +44,13 @@ def _queue(what: str, queue: str):
         f"{what} is not ported yet; see ROADMAP.md Queue {queue}")
 
 
+_QUANT_CODES = "int8_codes"
+_QUANT_SCALE = "int8_scale"
+
+
 def load_inference_params(source, metas=None, *, checkpointer=None,
-                          comm=None, dtype=None, int8_weights: bool = False):
+                          comm=None, dtype=None, int8_weights: bool = False,
+                          channel_axes=None):
     """An inference parameter tree (a ``state_dict``, or any tree of
     tensors).
 
@@ -44,14 +61,14 @@ def load_inference_params(source, metas=None, *, checkpointer=None,
     (:func:`~chainermn_tpu_torch.extensions.consolidate_fsdp_checkpoint`;
     pass the matching ``metas``): from the checkpoint's files of every
     training rank with ``checkpointer``, or gathered over ``comm`` from
-    live shards.  ``dtype`` casts the floating leaves (e.g.
-    ``torch.bfloat16``).
+    live shards.  ``int8_weights=True`` round-trips the weights through
+    the per-channel int8 codec (:func:`quantize_inference_params`, along
+    ``channel_axes``) before returning float32; ``dtype`` then casts the
+    floating leaves (e.g. ``torch.bfloat16``).
     """
     from chainermn_tpu_torch.extensions.checkpoint import (
         consolidate_fsdp_checkpoint)
     from chainermn_tpu_torch.parallel.fsdp import iter_fsdp_states
-    if int8_weights:
-        raise _queue("int8_weights=True (per-channel int8 weights)", "A10")
     state = source
     if any(True for _ in iter_fsdp_states(source)):
         if metas is None:
@@ -69,6 +86,9 @@ def load_inference_params(source, metas=None, *, checkpointer=None,
                 f"{getattr(checkpointer, 'path', '?')!r} for "
                 f"{getattr(checkpointer, 'name', '?')!r} -- train and "
                 f"save first, or point the loader at the right path")
+    if int8_weights:
+        state = dequantize_inference_params(
+            quantize_inference_params(state, channel_axes))
     if dtype is not None:
         state = tree_map(lambda x: x.to(dtype) if torch.is_tensor(x)
                          and x.is_floating_point() else x, state)
@@ -84,12 +104,49 @@ def broadcast_inference_params(comm, params, root: int = 0, *, plan=None):
     return comm.bcast(params, root=root)
 
 
-def quantize_inference_params(params):
-    raise _queue("quantize_inference_params (per-channel int8)", "A10")
+def _is_matrix(x) -> bool:
+    return torch.is_tensor(x) and x.ndim >= 2 and x.is_floating_point()
+
+
+def quantize_inference_params(params, channel_axes=None):
+    """The per-channel int8 form of a parameter tree: every floating
+    tensor with two or more axes becomes ``{"int8_codes", "int8_scale"}``
+    (quantized along ``channel_axes[name]`` for a ``{name: tensor}`` tree,
+    else axis 0, the output channel of the port's dense and conv weights);
+    vectors and scalars stay as they are (biases and norms are small and
+    precision-critical)."""
+    from chainermn_tpu_torch.compression.quantize import (
+        quantize_per_channel_int8)
+    axes = channel_axes or {}
+
+    def leaf(x, name=None):
+        if not _is_matrix(x):
+            return x
+        codes, scale = quantize_per_channel_int8(
+            x, channel_axis=axes.get(name, 0))
+        return {_QUANT_CODES: codes, _QUANT_SCALE: scale}
+
+    if isinstance(params, dict) and all(torch.is_tensor(v)
+                                        for v in params.values()):
+        return {k: leaf(v, k) for k, v in params.items()}
+    return tree_map(leaf, params)
 
 
 def dequantize_inference_params(qparams):
-    raise _queue("dequantize_inference_params (per-channel int8)", "A10")
+    """Inverse of :func:`quantize_inference_params` (float32)."""
+    from chainermn_tpu_torch.compression.quantize import dequantize_int8
+
+    def walk(node):
+        if isinstance(node, dict):
+            if set(node) == {_QUANT_CODES, _QUANT_SCALE}:
+                return dequantize_int8(node[_QUANT_CODES],
+                                       node[_QUANT_SCALE])
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(qparams)
 
 
 def weights_multicast_plan(root: int = 0, name: str = "serving_weights",

@@ -64,6 +64,14 @@ only:
 A conv with a ``bias`` leaf maps it to the port's ``bias``.  Every leaf of
 the flax tree must be taken by the map, and every tensor of the port's
 ``state_dict`` filled.
+
+Two more maps serve other paths: :func:`flax_stage_to_state_dict` takes
+rank ``s``'s slice of the JAX pipeline's stacked stage parameters (a run
+of transformer blocks, ``{"block_{i}": ...}`` with ``[S, ...]`` leaves)
+into the ``state_dict`` of an ``nn.Sequential`` of the port's Blocks, and
+:func:`channel_axes` gives each weight's output-channel axis in the port's
+layout (the last axis of its flax leaf), which per-channel int8 serving
+weights quantize along.
 """
 
 from __future__ import annotations
@@ -338,3 +346,53 @@ def state_dict_to_flax(model: nn.Module, norm: str = _NORM_NAMES[0]):
                                "var": sd[f"{key}.running_var"]})
     return {"params": params, "batch_stats": stats} if stats else \
         {"params": params}
+
+
+def flax_stage_to_state_dict(stacked, stage: int) -> Dict[str, torch.Tensor]:
+    """Rank ``stage``'s parameters of a pipeline whose every stage is a run
+    of transformer blocks: ``stacked`` is the JAX pipeline's stacked stage
+    tree (``{"block_{i}": {layer: {leaf: [S, ...]}}}``, the TransformerLM's
+    block layers, numpy or JAX arrays) and the result the ``state_dict``
+    (``{"{i}.{layer}.weight|bias": tensor}``, float32) of an
+    ``nn.Sequential`` of the port's ``Block`` s, slice ``[stage]`` of every
+    leaf through the TransformerLM's block map (dense kernels transposed,
+    LayerNorm ``scale`` as ``weight``)."""
+    n = len([k for k in stacked if str(k).startswith("block_")])
+    if n != len(stacked) or not n:
+        raise ValueError(f"a stage tree holds block_0..block_{{n-1}} only, "
+                         f"got {sorted(stacked)}")
+    sd = {}
+    t = lambda a: torch.from_numpy(  # noqa: E731
+        np.array(np.asarray(a)[stage], np.float32))
+    for (block, layer), _, kind in _encoder_blocks(n):
+        tree = stacked[block][layer]
+        name = f"{block.split('_')[1]}.{layer}"
+        if kind == "dense":
+            sd[f"{name}.weight"] = t(tree["kernel"]).T.contiguous()
+        else:
+            sd[f"{name}.weight"] = t(tree["scale"])
+        sd[f"{name}.bias"] = t(tree["bias"])
+    return sd
+
+
+def channel_axes(model: nn.Module) -> Dict[str, int]:
+    """``{state_dict name: axis}`` of each weight with two or more axes:
+    its output channel in the port's layout, the axis the JAX package
+    quantizes serving weights along (the last of the flax leaf): 0 for
+    dense, conv and LSTM weights (``[out, ...]``), the feature axis (-1)
+    for embeddings and bare parameters, -1 for a MoE layer's expert stacks
+    (kept in flax's layout)."""
+    out = {}
+    for _, name, kind in _layers(model):
+        if kind in ("conv", "dense"):
+            out[f"{name}.weight"] = 0
+        elif kind == "embed":
+            out[f"{name}.weight"] = -1
+        elif kind == "param":
+            out[name] = -1
+        elif kind == "lstm":
+            out[f"{name}.weight_ih_l0"] = out[f"{name}.weight_hh_l0"] = 0
+        elif kind == "moe":
+            out[f"{name}.router.weight"] = 0
+            out.update({f"{name}.{k}": -1 for k in _EXPERT_STACKS})
+    return out

@@ -351,6 +351,45 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     tensor-parallel rank's serving shape (8 and 4 heads, bf16 and float32)
     against its plain version, and timed beside its bound and SDPA.  The
     summary's rows 6-8 add (a)'s launches, row 6 (c)'s.
+28. pipeline parallelism (after 27, before 22; ``phase_pipeline``),
+    gated, on the world of one (one stage).  (a) The LM's 8 blocks at
+    phase 11's width (bf16, flash, T 8192) as the stage, the embeddings
+    before the pipeline and the loss through the frozen final norm and
+    head, ``P28_M`` micro-batches of one sequence: ``make_pipeline_train_fn``
+    (1F1B) and GPipe under autograd for ``P28_STEPS`` steps each: the
+    first step's flash launches exactly 2 L M forwards (forward and
+    recompute) and L M of dK/dV and dQ under 1F1B, L M each under GPipe;
+    tokens/s over the later steps and the peak memory above the
+    parameters.  (b) Float32 (TF32 off) at 2 layers, T 2048: 1F1B's loss
+    and gradients against GPipe's and against one sequential pass over
+    the whole batch, with the kernels and with the plain attention, and
+    the kernels' 1F1B against the plain sequential pass
+    (``utils/compare.py``'s gates).  The summary's rows 6-8 add (a)'s
+    launches.
+29. gradient compression (after 28, before 22; ``phase_compression``),
+    gated.  (a) ResNet-50's gradients of one bf16 step at batch 32
+    (25,557,032 values; 53 launches of each BatchNorm kernel):
+    ``NoCompression("bfloat16"/"float16")`` on the flat flavor against the
+    xla flavor's ``allreduce_grad_dtype``, bit for bit, 4 cast launches
+    each.  (b) int8 and fp8 (deterministic) over those gradients for
+    ``P29_EF_STEPS`` EF steps through ``allreduce_grad`` on the card
+    against the same codec on the CPU: every step's wire (codes, flags),
+    residual, exponents, step and mean bit for bit; encode and decode ms
+    by CUDA events, ``wire_bits_per_param``, and stochastic rounding's
+    error after the steps beside deterministic's.  (c) ``train_mnist``
+    (``P29_MNIST``) uncompressed, ``--compression int8`` and ``fp8``:
+    JAX's contract (the loss falls; the last within 0.1 x the
+    uncompressed run's first).  (d) The LM (phase 11's width, bf16,
+    flash) under FSDP for ``P29_FSDP_STEPS`` Adam steps: plain, the bf16
+    wire, int8 buckets at K 1 and 4: the losses (int8 within JAX's
+    contract of plain), the reduce-scatter bytes a step (int8 at least
+    3.5x fewer than float32), exact flash launches; then at
+    ``P29_RT_LAYERS`` layers the EF checkpoint round trip (a resumed state
+    steps bit for bit as the uninterrupted one).  (e) Phase 24's LM with
+    ``load_inference_params(int8_weights=True)`` (JAX's channel axes):
+    phase 24 (c)'s kernel-against-plain gates on the round-tripped
+    weights.  The summary's rows 1-4 add (a)'s step, row 5 (a)'s casts,
+    rows 6-8 (d)'s launches.
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
 """
@@ -3216,12 +3255,13 @@ def p26_resnet(fn, cs, torch):
     gates["BatchNorm launches = plain's"] = all(
         {w: n for w, n in r["counts"].items() if w != "cast_scale"} == bn
         for r in (k1, k4, bf)) and bn == {w: 53 * P26_STEPS for w in bn}
+    counters = ("gathers", "reduce_scatters", "casts", "max_in_flight")
     gates["gathers/scatters 1 and 4 a step, 1 and 2 in flight"] = (
-        k1["stats"] == dict(gathers=1, reduce_scatters=1, casts=0,
-                            max_in_flight=1)
-        and k4["stats"] == dict(gathers=P26_BUCKETS,
-                                reduce_scatters=P26_BUCKETS, casts=0,
-                                max_in_flight=2))
+        {c: k1["stats"][c] for c in counters} == dict(
+            gathers=1, reduce_scatters=1, casts=0, max_in_flight=1)
+        and {c: k4["stats"][c] for c in counters} == dict(
+            gathers=P26_BUCKETS, reduce_scatters=P26_BUCKETS, casts=0,
+            max_in_flight=2))
     want_casts = 4 * P26_BUCKETS  # one float32 buffer a bucket
     gates["bf16 wire: 4 casts a buffer a step"] = (
         bf["stats"]["casts"] == want_casts
@@ -3756,6 +3796,571 @@ def log_moe(p27, gpu, secs):
         f"{k} {v:.1f}" for k, v in p27["seconds"].items()) + ")")
 
 
+# phase 28: pipeline parallelism (A9 d) on a world of one
+P28_M = 4            # micro-batches of one sequence each
+P28_STEPS = 3        # (a): steps of each schedule, the first one counted
+P28_F32 = dict(n_layers=2, max_len=2048)   # (b): float32, TF32 off
+
+
+def _p28_setup(torch, dev, dtype, cfg, impl, seq, state=None, m=P28_M,
+               blocks=None):
+    """The LM's blocks as a pipeline stage (``blocks``, a slice of them:
+    all of them by default, a world of one): the embeddings run before the
+    pipeline, the loss is the next-token cross entropy through the frozen
+    final norm and head (JAX's stage loss takes no parameters).  Returns
+    ``(model, stage params, x [m, T, d], targets [m, T], stage_fn,
+    loss_fn)``."""
+    import numpy as np
+    import torch.nn.functional as F
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.parallel import module_stage_fn
+    model = TransformerLM(**cfg, attention_impl=impl, dtype=dtype,
+                          device=dev, generator=torch.Generator(
+                              device=dev).manual_seed(0))
+    if state is not None:
+        model.load_state_dict(state)
+    for frozen in (model.tok_emb, model.pos_emb, model.ln_f, model.head):
+        frozen.requires_grad_(False)
+    stage = torch.nn.Sequential(*model.blocks[blocks or slice(None)])
+    params = dict(stage.named_parameters())
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy((rng.rand(m, seq + 1) * cfg["vocab"])
+                            .astype(np.int64)).to(dev)
+    with torch.no_grad():
+        x = model.tok_emb(toks[:, :-1]) + model.pos_emb(
+            torch.arange(seq, device=dev))
+
+    def loss_fn(y, t):
+        logits = model.head(model.ln_f(y)).float()
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               t.reshape(-1))
+
+    return model, params, x, toks[:, 1:], module_stage_fn(stage), loss_fn
+
+
+def _p28_gpipe(comm, stage_fn, loss_fn, params, x, tgt):
+    """GPipe under autograd: the mean of the micro-batches' losses (on
+    every rank) and the stage's gradients.  The outputs stay on the last
+    stage (``collect="last"``), which alone computes the loss, its scalar
+    summed over the ranks as JAX's example does; the other ranks' backward
+    starts from a zero cotangent."""
+    from chainermn_tpu_torch.parallel import pipeline_apply
+    m = int(x.shape[0])
+    for p in params.values():
+        p.grad = None
+    out = pipeline_apply(stage_fn, params, x.reshape(
+        (m, 1) + tuple(x.shape[1:])), comm, collect="last")
+    if comm.rank == comm.size - 1:
+        t = tgt.reshape(m, 1, -1)
+        loss = sum(loss_fn(out[i], t[i]) for i in range(m)) / m
+        loss.backward()
+        loss = loss.detach()
+    else:
+        out.backward(out.new_zeros(out.shape))
+        loss = out.new_zeros(()).float()
+    if comm.size > 1:
+        loss = comm.allreduce(loss, "sum")
+    return loss, {k: p.grad for k, p in params.items()}
+
+
+def _p28_1f1b(comm, stage_fn, loss_fn, params, x, tgt):
+    from chainermn_tpu_torch.parallel import make_pipeline_train_fn
+    return make_pipeline_train_fn(stage_fn, loss_fn, comm,
+                                  n_microbatches=int(x.shape[0]))(
+        params, x, tgt)
+
+
+def p28_schedules(fa, torch, dev):
+    """(a): the LM's 8 blocks at phase 11's width (bf16, flash) as one
+    stage, M micro-batches of B 1: 1F1B and GPipe, each for P28_STEPS
+    steps (the first one's flash launches counted), tokens/s over the
+    others, peak memory."""
+    import gc
+    from chainermn_tpu_torch import create_communicator
+    comm = create_communicator("flat")
+    model, params, x, tgt, stage_fn, loss_fn = _p28_setup(
+        torch, dev, torch.bfloat16, LM, "flash", LM_T)
+    out = {}
+    for name, run in (("1f1b", _p28_1f1b), ("gpipe", _p28_gpipe)):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses, secs, counts = [], [], None
+        for i in range(P28_STEPS):
+            torch.cuda.synchronize()
+            if i == 0:
+                fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, grads = run(comm, stage_fn, loss_fn, params, x, tgt)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if i == 0:
+                counts = fa.launch_counts()
+            losses.append(float(loss))
+            del grads
+        out[name] = dict(
+            losses=losses, counts=counts, step_s=secs,
+            tokens_per_sec=P28_M * LM_T * (P28_STEPS - 1) / sum(secs[1:]),
+            peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+    for p in params.values():
+        p.grad = None
+    del model, params, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = LM["n_layers"]
+    out["want"] = {"1f1b": {"flash_fwd": 2 * L * P28_M,
+                            "flash_bwd_dkv": L * P28_M,
+                            "flash_bwd_dq": L * P28_M},
+                   "gpipe": {w: L * P28_M for w in FLASH}}
+    return out
+
+
+def p28_f32(torch, dev):
+    """(b): float32 (TF32 off) at 2 layers and T 2048, M 4 on a world of
+    one: 1F1B's loss and gradients against GPipe's and against one
+    sequential pass over the whole batch, with the flash kernels and with
+    the plain attention, and the kernels' 1F1B against the plain
+    sequential pass (``utils/compare.py``'s gates)."""
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.utils.compare import (
+        no_tf32, step_agrees, step_errors)
+    comm = create_communicator("flat")
+    cfg, seq = dict(LM, **P28_F32), P28_F32["max_len"]
+    res, state = {}, None
+    with no_tf32():
+        for impl in ("flash", "xla"):
+            model, params, x, tgt, stage_fn, loss_fn = _p28_setup(
+                torch, dev, torch.float32, cfg, impl, seq, state)
+            if state is None:
+                state = {k: v.clone() for k, v in model.state_dict().items()}
+            l1, g1 = _p28_1f1b(comm, stage_fn, loss_fn,
+                               {k: v.detach() for k, v in params.items()},
+                               x, tgt)
+            lg, gg = _p28_gpipe(comm, stage_fn, loss_fn, params, x, tgt)
+            gg = {k: v.clone() for k, v in gg.items()}
+            for p in params.values():
+                p.grad = None
+            y = stage_fn(params, x)
+            ls = sum(loss_fn(y[i:i + 1], tgt[i:i + 1])
+                     for i in range(P28_M)) / P28_M
+            ls.backward()
+            gs = {k: p.grad.clone() for k, p in params.items()}
+            res[impl] = (float(l1), g1, float(lg), gg, float(ls.detach()), gs)
+            del model, params, x, y
+    out, ok = {}, True
+    for impl, (l1, g1, lg, gg, ls, gs) in res.items():
+        for ref, (lr, gr) in (("gpipe", (lg, gg)), ("sequential", (ls, gs))):
+            lrel, grel, worst = step_errors([l1], [lr], g1, gr)
+            out[f"{impl} 1f1b vs {ref}"] = dict(loss_rel=lrel, grad_rel=grel,
+                                               worst=worst)
+            ok = ok and step_agrees(lrel, grel)
+    l1, g1 = res["flash"][:2]
+    ls, gs = res["xla"][4:]
+    lrel, grel, worst = step_errors([l1], [ls], g1, gs)
+    out["flash 1f1b vs xla sequential"] = dict(loss_rel=lrel, grad_rel=grel,
+                                              worst=worst)
+    out["ok"] = ok and step_agrees(lrel, grel)
+    out["losses"] = {impl: r[0] for impl, r in res.items()}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipeline(fa, torch, dev):
+    """Phase 28 (see the module docstring)."""
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    out["a"] = p28_schedules(fa, torch, dev)
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b"] = p28_f32(torch, dev)
+    secs["b"] = time.perf_counter() - t0
+    a = out["a"]
+    out["gates"] = {
+        "(a) 1f1b flash launches": a["1f1b"]["counts"] == a["want"]["1f1b"],
+        "(a) gpipe flash launches": a["gpipe"]["counts"] == a["want"]["gpipe"],
+        "(a) finite losses": all(math.isfinite(v) for r in ("1f1b", "gpipe")
+                                 for v in a[r]["losses"]),
+        "(b) float32 1f1b vs gpipe and sequential": out["b"]["ok"]}
+    out["seconds"] = secs
+    return out
+
+
+def log_pipeline(p28, gpu, secs):
+    a = p28["a"]
+    for name in ("1f1b", "gpipe"):
+        r = a[name]
+        log(f"phase 28 (a) {name}: the LM's {LM['n_layers']} blocks as one "
+            f"stage (d {LM['d_model']}, H {LM['n_heads']}, T {LM_T}, bf16, "
+            f"flash), M {P28_M} micro-batches of B 1, world of one: losses "
+            f"{r['losses']}; step seconds {r['step_s']}; flash launches "
+            f"(step 1) {json.dumps(r['counts'])} (want "
+            f"{json.dumps(a['want'][name])}); tokens/s (steps 2..{P28_STEPS}) "
+            f"{r['tokens_per_sec']:.1f}; peak memory {r['peak_gb']:.2f} GB "
+            f"on {gpu}")
+    log(f"phase 28 (a) 1F1B / GPipe tokens/s "
+        f"{a['1f1b']['tokens_per_sec'] / a['gpipe']['tokens_per_sec']:.4f}, "
+        f"peak memory {a['1f1b']['peak_gb'] / a['gpipe']['peak_gb']:.4f}")
+    b = p28["b"]
+    log(f"phase 28 (b) float32 ({P28_F32['n_layers']} layers, T "
+        f"{P28_F32['max_len']}, M {P28_M}, TF32 off): losses "
+        f"{json.dumps(b['losses'])}; " + "; ".join(
+            f"{k}: loss rel {v['loss_rel']:.2e}, worst gradient rel L2 "
+            f"{v['grad_rel']:.2e} ({v['worst']})" for k, v in b.items()
+            if isinstance(v, dict) and "loss_rel" in v))
+    log(f"phase 28 gates: {json.dumps(p28['gates'])}")
+    log(f"phase 28: {secs:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in p28["seconds"].items()) + ")")
+
+
+# phase 29: gradient compression (A10)
+P29_EF_STEPS = 3     # (b): EF steps of each quantizer, card against CPU
+P29_TIMED = 5        # (b): encode + decode calls timed
+P29_MNIST = ["--epoch", "2", "--prefetch", "0"]   # (c)
+P29_FSDP_STEPS = 3   # (d): steps of each LM FSDP run
+P29_RT_LAYERS = 2    # (d): the checkpoint round trip's depth
+RESNET_GRADS = 25557032   # ResNet-50's packed gradient (phase 6's count)
+
+
+def p29_resnet_grads(fn, torch, dev):
+    """ResNet-50's gradients of one bf16 step at batch 32 (seed-0 weights,
+    synthetic batch); the BatchNorm kernels' launches of the step."""
+    import torch.nn.functional as F
+    from chainermn_tpu_torch.models import ResNet50
+    model = ResNet50(dtype=torch.bfloat16, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(BATCH, 3, 224, 224, device=dev, generator=g)
+    y = torch.randint(0, 1000, (BATCH,), device=dev, generator=g)
+    torch.cuda.synchronize()
+    fn.reset_launch_counts()
+    F.cross_entropy(model(x).float(), y).backward()
+    torch.cuda.synchronize()
+    counts = fn.launch_counts()
+    grads = {k: p.grad.detach() for k, p in model.named_parameters()}
+    n = sum(v.numel() for v in grads.values())
+    if n != RESNET_GRADS or counts != {w: 53 for w in KERNELS}:
+        raise AssertionError(f"phase 29: {n} gradients, BatchNorm "
+                             f"launches {counts}")
+    return grads, counts
+
+
+def _bits_equal(torch, a, b):
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.element_size() == 1:
+        return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    return torch.equal(a.view({2: torch.int16, 4: torch.int32}[
+        a.element_size()]), b.view({2: torch.int16, 4: torch.int32}[
+            b.element_size()]))
+
+
+def p29_wire(cs, torch, grads):
+    """(a): ``NoCompression(wire)`` on a plain flavor against the
+    ``allreduce_grad_dtype`` knob, bfloat16 and float16: the same bits,
+    and the cast kernel's launches (two a call)."""
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.compression import NoCompression
+    plain = create_communicator("flat")
+    out = {}
+    for wire in (torch.bfloat16, torch.float16):
+        knob = create_communicator("xla", allreduce_grad_dtype=wire)
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        a = knob.allreduce_grad(grads)
+        b = plain.allreduce_grad(grads, compressor=NoCompression(wire))
+        torch.cuda.synchronize()
+        out[str(wire)[6:]] = dict(
+            same_bits=all(_bits_equal(torch, a[k], b[k]) for k in grads),
+            casts=cs.launch_counts()["cast_scale"])
+    return out
+
+
+def p29_ef(torch, dev, grads):
+    """(b): int8 and fp8 over ResNet-50's gradients, P29_EF_STEPS steps of
+    EF (deterministic), ``allreduce_grad`` on the card against the same
+    codec on the CPU: every step's wire (codes, flags), residual,
+    exponents, step and mean bit for bit; encode and decode timed by CUDA
+    events; ``wire_bits_per_param``; stochastic mode's mean error."""
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.communicators import _packing
+    from chainermn_tpu_torch.compression import (
+        Fp8Compressor, Int8Compressor, wire_bits_per_param)
+    comm = create_communicator("flat")
+    buf = _packing.pack(grads, comm_dtype=torch.float32)[0][0]
+    n = int(buf.shape[0])
+    host = buf.cpu()
+    out = {}
+    for cls in (Int8Compressor, Fp8Compressor):
+        comp = cls(stochastic=False)
+        st = comm.init_compression_state(grads, comp)
+        stc = comp.init_state(n)
+        equal = []
+        for _ in range(P29_EF_STEPS):
+            wire, _ = comp.compress(buf, st, rank=0, world_size=1)
+            mean, st = comm.allreduce_grad(grads, compressor=comp, state=st)
+            wc, stc = comp.compress(host, stc, rank=0, world_size=1)
+            oc, stc = comp.decompress(wc, stc, world_size=1)
+            mflat = _packing.pack(mean, comm_dtype=torch.float32)[0][0]
+            equal.append({
+                "wire": _bits_equal(torch, wire, wc),
+                "ef": _bits_equal(torch, st.ef, stc.ef),
+                "scale": _bits_equal(torch, st.scale, stc.scale),
+                "step": _bits_equal(torch, st.step, stc.step),
+                "mean": _bits_equal(torch, mflat, oc[:n])})
+        # the codec's own time on the packed buffer (a world of one moves
+        # nothing): compress, then decompress of its output
+        s0 = comp.init_state(n, device=dev)
+        s0.scale.copy_(st.scale)
+        ms = {}
+        w1, s1 = comp.compress(buf, s0, 0, 1)
+        comp.decompress(w1, s1, 1)
+        for what in ("encode", "decode"):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            for _ in range(P29_TIMED):
+                if what == "encode":
+                    comp.compress(buf, s0, 0, 1)
+                else:
+                    comp.decompress(w1, s1, 1)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms[what] = ev[0].elapsed_time(ev[1]) / P29_TIMED
+        # stochastic rounding: the third step's error against the
+        # gradient, with deterministic rounding's beside it
+        errs = {}
+        for stochastic in (True, False):
+            c2 = cls(stochastic=stochastic, seed=3)
+            s2 = comm.init_compression_state(grads, c2)
+            for _ in range(P29_EF_STEPS):
+                mean, s2 = comm.allreduce_grad(grads, compressor=c2,
+                                               state=s2)
+            d = _packing.pack(mean, comm_dtype=torch.float32)[0][0] - buf
+            errs["stochastic" if stochastic else "deterministic"] = dict(
+                mean=float(d.mean()), mean_abs=float(d.abs().mean()),
+                grad_mean_abs=float(buf.abs().mean()))
+        out[comp.name] = dict(
+            equal=equal, ok=all(all(e.values()) for e in equal), ms=ms,
+            bits_per_param=wire_bits_per_param(comp, n), errors=errs)
+        del st, stc, s0, w1, s1
+    return out
+
+
+def p29_mnist():
+    """(c): ``train_mnist`` at full width with ``--compression int8`` and
+    ``fp8``, against uncompressed: JAX's contract (the loss falls; the
+    final loss within 0.1 x the uncompressed run's first)."""
+    from chainermn_tpu_torch.examples import train_mnist
+    out = {}
+    for name in ("none", "int8", "fp8"):
+        d = os.path.join(HERE, "build", f"chip_smoke_p29_mnist_{name}")
+        flags = [] if name == "none" else ["--compression", name]
+        res = train_mnist.main(P29_MNIST + ["--out", d] + flags)
+        shutil.rmtree(d, ignore_errors=True)
+        out[name] = [r["main/loss"] for r in res["log"]]
+    base = out["none"]
+    out["ok"] = all(
+        out[q][-1] < out[q][0] and abs(out[q][-1] - base[-1])
+        < 0.1 * abs(base[0]) for q in ("int8", "fp8"))
+    return out
+
+
+def _p29_lm(torch, dev, comm, layers, steps, num_buckets=1, comps=None,
+            wire=None):
+    """The LM (phase 11's width at ``layers`` blocks, bf16, flash) under
+    FSDP for ``steps`` Adam steps: losses, the last step's counters, and
+    the state, step and model."""
+    import numpy as np
+    from chainermn_tpu_torch.examples.train_lm import lm_loss
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.parallel import fsdp_init, make_fsdp_train_step
+    model = TransformerLM(**dict(LM, n_layers=layers), attention_impl="flash",
+                          dtype=torch.bfloat16, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(0))
+    state, meta = fsdp_init(comm, model, torch.optim.Adam(
+        model.parameters(), lr=1e-4), num_buckets=num_buckets,
+        bucket_compressors=comps)
+    step = make_fsdp_train_step(comm, lambda b: lm_loss(model, b), state,
+                                meta, wire_dtype=wire)
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy((rng.rand(1, LM_T) * LM["vocab"]).astype(
+        np.int32)).to(dev)
+    losses = [float(step(toks)) for _ in range(steps)]
+    return losses, dict(step.stats), state, step, toks
+
+
+def p29_fsdp(fa, torch, dev):
+    """(d): the LM under FSDP with int8 buckets at K 1 and 4 against plain
+    FSDP (float32 wire) and the bfloat16 wire: losses over
+    P29_FSDP_STEPS steps, the reduce-scatter bytes a step; then the EF
+    checkpoint round trip at P29_RT_LAYERS layers (a resumed state steps
+    bit for bit as the uninterrupted one)."""
+    import gc
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+    from chainermn_tpu_torch.optim import init_optimizer_state
+    comm = create_communicator("xla")
+    runs = {}
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    for name, kw in (("plain", {}), ("bf16 wire", dict(wire="bfloat16")),
+                     ("int8 K1", dict(comps="int8")),
+                     ("int8 K4", dict(num_buckets=4, comps="int8"))):
+        losses, stats, state, step, _ = _p29_lm(
+            torch, dev, comm, LM["n_layers"], P29_FSDP_STEPS, **kw)
+        runs[name] = dict(losses=losses, scatter_bytes=stats["scatter_bytes"],
+                          gather_bytes=stats["gather_bytes"],
+                          reduce_scatters=stats["reduce_scatters"])
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    base = runs["plain"]
+    for name in ("int8 K1", "int8 K4"):
+        r = runs[name]
+        r["ratio_vs_f32"] = base["scatter_bytes"] / r["scatter_bytes"]
+        r["ratio_vs_bf16"] = (runs["bf16 wire"]["scatter_bytes"]
+                              / r["scatter_bytes"])
+        r["loss_rel"] = [abs(a - b) / abs(b) for a, b in
+                         zip(r["losses"], base["losses"])]
+    # the EF checkpoint round trip
+    d = os.path.join(HERE, "build", "chip_smoke_p29_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    _, _, state, step, toks = _p29_lm(torch, dev, comm, P29_RT_LAYERS, 2,
+                                      num_buckets=4, comps="int8")
+    ckpt = create_multi_node_checkpointer(comm, d, "p29")
+    t0 = time.perf_counter()
+    ckpt.save({"fsdp": state}, 2)
+    save_s = time.perf_counter() - t0
+    _, _, fresh, step2, _ = _p29_lm(torch, dev, comm, P29_RT_LAYERS, 0,
+                                    num_buckets=4, comps="int8")
+    init_optimizer_state(fresh.inner)
+    t0 = time.perf_counter()
+    _, gen = ckpt.resume({"fsdp": fresh})
+    load_s = time.perf_counter() - t0
+    l_cont, l_res = float(step(toks)), float(step2(toks))
+    same = (gen == 2 and l_cont == l_res and all(
+        _bits_equal(torch, a, b) for a, b in zip(fresh.flat_shards(),
+                                                 state.flat_shards()))
+        and all(_bits_equal(torch, getattr(a, k), getattr(b, k))
+                for a, b in zip(fresh.comp, state.comp)
+                for k in ("ef", "scale", "step")))
+    shutil.rmtree(d, ignore_errors=True)
+    del state, step, fresh, step2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runs=runs, counts=counts, roundtrip=dict(
+        same=same, loss=l_cont, save_s=save_s, load_s=load_s))
+
+
+def p29_serving(fa, torch):
+    """(e): phase 24's LM with ``load_inference_params(int8_weights=True)``
+    (JAX's per-channel axes, ``weights.channel_axes``): phase 24 (c)'s
+    kernel-against-plain comparison on the same round-tripped weights."""
+    import importlib
+    from chainermn_tpu_torch.benchmarks import bench_serving as bs
+    from chainermn_tpu_torch.serving.weights import load_inference_params
+    from chainermn_tpu_torch.weights import channel_axes
+    kv = importlib.import_module("chainermn_tpu_torch.serving.kv_cache")
+    args = bs.parser().parse_args(P24_FLAGS + P24_TRACE)
+    model = bs.build_model(args)
+    sd = model.state_dict()
+    q = load_inference_params(sd, int8_weights=True,
+                              channel_axes=channel_axes(model))
+    moved = max(float((q[k] - sd[k]).abs().max() / sd[k].abs().max())
+                for k in sd if sd[k].ndim >= 2)
+    model.load_state_dict(q)
+    out = p24_c(fa, kv, torch, model, args)
+    out["weights_rel_max"] = moved
+    del model, sd, q
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_compression(fn, cs, fa, torch, dev):
+    """Phase 29 (see the module docstring)."""
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    grads, out["bn_counts"] = p29_resnet_grads(fn, torch, dev)
+    out["a"] = p29_wire(cs, torch, grads)
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b"] = p29_ef(torch, dev, grads)
+    secs["b"] = time.perf_counter() - t0
+    del grads
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["c"] = p29_mnist()
+    secs["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["d"] = p29_fsdp(fa, torch, dev)
+    secs["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["e"] = p29_serving(fa, torch)
+    secs["e"] = time.perf_counter() - t0
+    d = out["d"]["runs"]
+    L = LM["n_layers"]
+    out["gates"] = {
+        "(a) NoCompression = the knob": all(
+            r["same_bits"] and r["casts"] == 4 for r in out["a"].values()),
+        "(b) card = CPU bit for bit": all(r["ok"] for r in out["b"].values()),
+        "(c) mnist int8/fp8 contract": out["c"]["ok"],
+        "(d) int8 tracks plain FSDP": all(
+            abs(d[k]["losses"][-1] - d["plain"]["losses"][-1])
+            < 0.1 * abs(d["plain"]["losses"][0]) for k in ("int8 K1",
+                                                           "int8 K4")),
+        "(d) int8 wire >= 3.5x fewer bytes": all(
+            d[k]["ratio_vs_f32"] >= 3.5 for k in ("int8 K1", "int8 K4")),
+        "(d) flash launches": out["d"]["counts"] == {
+            w: 4 * L * P29_FSDP_STEPS for w in FLASH},
+        "(d) EF checkpoint round trip": out["d"]["roundtrip"]["same"],
+        "(e) int8 weights kernel vs plain": out["e"]["ok"]}
+    out["seconds"] = secs
+    return out
+
+
+def log_compression(p29, gpu, secs):
+    log(f"phase 29 (a) ResNet-50 bf16 step at batch {BATCH} ({RESNET_GRADS} "
+        f"gradients; BatchNorm launches {json.dumps(p29['bn_counts'])}): "
+        f"NoCompression(wire) on flat vs the xla knob: "
+        f"{json.dumps(p29['a'])}")
+    for name, r in p29["b"].items():
+        log(f"phase 29 (b) {name} (chunk 1024, deterministic) over the "
+            f"ResNet-50 gradient, {P29_EF_STEPS} EF steps, card vs CPU bit "
+            f"for bit {json.dumps(r['equal'])}; encode {r['ms']['encode']:.4f}"
+            f" ms, decode {r['ms']['decode']:.4f} ms (CUDA events, "
+            f"{P29_TIMED} calls); wire bits/param {r['bits_per_param']:.6f}; "
+            f"step-{P29_EF_STEPS} mean error {json.dumps(r['errors'])} on "
+            f"{gpu}")
+    log(f"phase 29 (c) train_mnist {' '.join(P29_MNIST)} epoch losses: "
+        + json.dumps({k: v for k, v in p29["c"].items() if k != "ok"}))
+    d = p29["d"]
+    for name, r in d["runs"].items():
+        log(f"phase 29 (d) LM FSDP ({LM['n_layers']} layers at the LM's "
+            f"width, bf16, flash, T {LM_T}, Adam 1e-4) {name}: losses "
+            f"{r['losses']}; reduce-scatter bytes a step "
+            f"{r['scatter_bytes']}, gather bytes {r['gather_bytes']}"
+            + (f"; vs float32 {r['ratio_vs_f32']:.4f}x fewer, vs the bf16 "
+               f"wire {r['ratio_vs_bf16']:.4f}x; loss rel to plain "
+               f"{r['loss_rel']}" if "ratio_vs_f32" in r else ""))
+    log(f"phase 29 (d) flash launches {json.dumps(d['counts'])}; EF "
+        f"checkpoint round trip ({P29_RT_LAYERS} layers, int8 K4): "
+        f"{json.dumps(d['roundtrip'])}")
+    e = p29["e"]
+    log(f"phase 29 (e) serving with int8 weights (largest change "
+        f"{e['weights_rel_max']:.3e} of a weight's amax): kernel vs plain "
+        f"{json.dumps({k: v for k, v in e.items() if k != 'weights_rel_max'})}"
+        f" on {gpu}")
+    log(f"phase 29 gates: {json.dumps(p29['gates'])}")
+    log(f"phase 29: {secs:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in p29["seconds"].items()) + ")")
+
+
 C12_LOOPS = 300      # phase 22: passes of the flash autograd check
 WGRAD_LOOPS = 600    # phase 22: launches of the probe wgrad
 
@@ -4100,6 +4705,22 @@ def main():
                              "lines above)")
 
     t0 = time.perf_counter()
+    p28 = phase_pipeline(fa, torch, dev)
+    log_pipeline(p28, gpu, time.perf_counter() - t0)
+    failed = sorted(g for g, ok in p28["gates"].items() if not ok)
+    if failed:
+        raise AssertionError(f"phase 28: gates {failed} failed (their "
+                             "lines above)")
+
+    t0 = time.perf_counter()
+    p29 = phase_compression(fn, cs, fa, torch, dev)
+    log_compression(p29, gpu, time.perf_counter() - t0)
+    failed = sorted(g for g, ok in p29["gates"].items() if not ok)
+    if failed:
+        raise AssertionError(f"phase 29: gates {failed} failed (their "
+                             "lines above)")
+
+    t0 = time.perf_counter()
     c12 = phase_c12(fa, torch, dev, C12_LOOPS)
     rep = phase_wgrad_repeat(pm, bcp, torch, dev, WGRAD_LOOPS)
     log(f"phase repeat loops (22): {time.perf_counter() - t0:.1f} s; C12 "
@@ -4121,7 +4742,13 @@ def main():
     # kernels, the bfloat16 wire's casts, the FSDP LM's flash kernels
     for w in KERNELS:
         p25_bn[w] += p26["resnet"]["bn_launches"][w]
+        p25_bn[w] += p29["bn_counts"][w]
     p26_flash = p26["lm"]["runs"]["fsdp"]["counts"]
+    # phases 28 and 29 on the main path: the pipelines' and the FSDP LM's
+    # flash kernels, the wire's casts
+    p2829_flash = {w: p28["a"]["1f1b"]["counts"][w]
+                   + p28["a"]["gpipe"]["counts"][w] + p29["d"]["counts"][w]
+                   for w in FLASH}
     kernels = []
     for wrapper, (name, replaces, _, _, route, source) in KERNELS.items():
         t = times[wrapper]
@@ -4137,7 +4764,8 @@ def main():
         "source": "chainermn_tpu_torch/csrc/cast_scale.cu",
         "replaces": "chainermn_tpu/ops/cast_scale.py:33",
         "launches": mnist_casts + p25_vit["cast_scale"]
-        + p25["vit"]["xla"]["counts"]["cast_scale"] + p26["resnet"]["casts"],
+        + p25["vit"]["xla"]["counts"]["cast_scale"] + p26["resnet"]["casts"]
+        + sum(r["casts"] for r in p29["a"].values()),
         "max_abs_err": cast_err,
         "ms": cast_t["ms"], "plain_ms": cast_t["plain_ms"],
         "bound_ms": cast_t["bound_ms"], "bound_by": "bytes",
@@ -4148,7 +4776,7 @@ def main():
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": replaces, "launches": lm["counts"][wrapper]
             + p25_vit[wrapper] + p26_flash[wrapper]
-            + p27["a"]["counts"][wrapper]
+            + p27["a"]["counts"][wrapper] + p2829_flash[wrapper]
             + (srv["serving_launches"] + p27["srv"]["launches"]
                if wrapper == "flash_fwd" else 0),
             "max_abs_err": flash_errs[wrapper], "ms": t["ms"],

@@ -1,7 +1,7 @@
 """The data-, sequence- and model-parallel slices on every card of one host.
 
     python3 multi_gpu_check.py [--logs DIR]
-        [--parts dp,sp,mp,configs,fsdp,tp_ep]
+        [--parts dp,sp,mp,configs,fsdp,tp_ep,pp,compression]
     # needs two CUDA cards or more
 
 1. prints the cards' names and power limits (``nvidia-smi``) and torch's
@@ -92,6 +92,27 @@
    24's limit, the worst top-8 logit gap and the share of bit-equal rows;
    the generated tokens/s per card of the burst, and for the dense LM
    ``bench_serving``'s continuous policy at ``--tp``.
+
+10. (part ``pp``, not in the default) pipeline parallelism, one stage a
+    card: the LM's width in bf16 with ``PP_BLOCKS`` blocks a stage
+    (chip_smoke phase 28's setup: embeddings before the pipeline, the loss
+    through the frozen norm and head), 1F1B at M 8, 16 and 32 and GPipe at
+    M 8 and 16 micro-batches of one 8192-token sequence (``PP_MS``), for
+    ``PP_STEPS`` steps: the losses
+    (the same on every rank), tokens/s per card over the steps after the
+    first, every card's peak memory, and step 0's loss against one card's
+    sequential pass over the whole model; then float32 (TF32 off, T 2048,
+    M 4): 1F1B's and GPipe's loss and every stage's gradients against one
+    card's sequential pass (``utils/compare.py``'s gates).
+11. (part ``compression``, not in the default) int8 and fp8
+    ``allreduce_grad`` (deterministic, 3 EF steps, ``COMP_N`` elements a
+    rank) on the cards' NCCL world bit for bit equal to the same world of
+    gloo CPU processes; ``examples.train_mnist --compression int8`` on
+    every card against uncompressed (JAX's contract: the loss falls, the
+    final within 0.1 x the uncompressed first; every rank the same log);
+    the LM (bf16, flash) under FSDP with int8 buckets at K 1 and 4
+    against the float32 and bfloat16 wires: the reduce-scatter bytes a
+    step (int8 at least 3.5x fewer than float32) and the losses.
 
 Prints one JSON object as its last line; exits 1 if a check failed.  Runs
 write under ``build/`` (removed afterwards), their logs under ``--logs``
@@ -299,6 +320,12 @@ WORKERS = {"imagenet": worker, "lm": lm_worker, "bench": bench_worker,
            "fsdp_bench": fsdp_bench_worker}
 
 
+def _late_workers():
+    """The workers defined after ``WORKERS`` (parts pp and compression)."""
+    WORKERS.update(pp=pp_worker, comp=comp_worker, mnist=mnist_worker,
+                   comp_fsdp=comp_fsdp_worker)
+
+
 def torchrun(n, name, flags, work, logs, kind="imagenet"):
     """``n`` ranks of the ``kind`` worker of ``WORKERS``; every rank's
     document, by rank; the ranks' output in ``{logs}/{name}.log``."""
@@ -323,13 +350,15 @@ def main(argv=None):
     p.add_argument("--parts", default="dp,sp,mp",
                    help="which slices to run: dp (steps 2-4), sp (step 5), "
                    "mp (step 6), configs (step 7), fsdp (step 8), tp_ep "
-                   "(step 9)")
+                   "(step 9), pp (step 10), compression (step 11)")
     args = p.parse_args(argv)
     logs = os.path.abspath(args.logs)
     parts = set(args.parts.split(","))
-    if not parts or parts - {"dp", "sp", "mp", "configs", "fsdp", "tp_ep"}:
+    known = {"dp", "sp", "mp", "configs", "fsdp", "tp_ep", "pp",
+             "compression"}
+    if not parts or parts - known:
         p.error(f"--parts: {args.parts!r} is not a subset of "
-                "dp,sp,mp,configs,fsdp,tp_ep")
+                f"{','.join(sorted(known))}")
     import torch
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         print("multi_gpu_check.py needs two CUDA cards or more",
@@ -361,6 +390,10 @@ def main(argv=None):
             fsdp(n, out, failures, work, logs)
         if "tp_ep" in parts:
             tp_ep(n, out, failures, work, logs)
+        if "pp" in parts:
+            pipeline(n, out, failures, work, logs)
+        if "compression" in parts:
+            compression(n, out, failures, work, logs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["failures"] = failures
@@ -998,6 +1031,278 @@ def tp_ep_serve(n, out, failures, work, logs,
         print(json.dumps({f"tp_ep serve {kind}": srow}), flush=True)
 
 
+# ---- part pp: pipeline parallelism over every card ---------------------------
+
+PP_BLOCKS = 2        # the LM's blocks a stage (8 layers over four cards)
+# micro-batches of one sequence each, by schedule: GPipe's last stage
+# holds every micro-batch's activations and float32 logits (~4 GB each at
+# the LM's width), so M 32 does not fit its 80 GB; 1F1B's memory is flat
+# in M
+PP_MS = {"1f1b": (8, 16, 32), "gpipe": (8, 16)}
+PP_STEPS = 3         # steps of each run; tokens/s over the steps after one
+PP_F32 = dict(seq=2048, m=4)   # the float32 parity, TF32 off
+
+
+def pp_worker(out_prefix, flags):
+    """One rank (stage) under ``torchrun``: the LM's ``blocks`` blocks of
+    this rank as its stage (phase 28's setup), ``schedule`` (1f1b, gpipe;
+    ``sequential``: one card, the whole model in one pass, no pipeline)
+    for ``steps`` steps over ``m`` micro-batches of one sequence: losses,
+    step seconds, peak memory; with ``grads``, this rank's step-0
+    gradients in ``{prefix}.rank{r}.grads.pt``."""
+    import torch
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs_
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.utils.compare import no_tf32
+    cfg = json.loads(flags[0])
+    comm = create_communicator("flat")
+    dev = comm.device
+    rank, n, b = comm.rank, comm.size, cfg["blocks"]
+    dtype = getattr(torch, cfg["dtype"])
+    lm = dict(cs_.LM, n_layers=b * n, max_len=cfg["seq"])
+    ctx = no_tf32() if dtype == torch.float32 else \
+        __import__("contextlib").nullcontext()
+    with ctx:
+        model, params, x, tgt, stage_fn, loss_fn = cs_._p28_setup(
+            torch, dev, dtype, lm, "flash", cfg["seq"], m=cfg["m"],
+            blocks=slice(rank * b, (rank + 1) * b))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs, grads = [], [], None
+        for i in range(cfg["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if cfg["schedule"] == "1f1b":
+                loss, g = cs_._p28_1f1b(comm, stage_fn, loss_fn, params, x,
+                                        tgt)
+            elif cfg["schedule"] == "gpipe":
+                loss, g = cs_._p28_gpipe(comm, stage_fn, loss_fn, params, x,
+                                         tgt)
+            else:
+                # the reference: one pass of the whole batch (without a
+                # graph unless its gradients are asked for)
+                for p in params.values():
+                    p.grad = None
+                with torch.set_grad_enabled(bool(cfg.get("grads"))):
+                    y = stage_fn(params, x)
+                    loss = sum(loss_fn(y[j:j + 1], tgt[j:j + 1])
+                               for j in range(cfg["m"])) / cfg["m"]
+                if cfg.get("grads"):
+                    loss.backward()
+                g = {k: p.grad for k, p in params.items()}
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            if i == 0 and cfg.get("grads"):
+                # the stage's names as the whole model's blocks
+                grads = {f"{rank * b + int(k.split('.')[0])}."
+                         + k.split(".", 1)[1]: v.detach().cpu()
+                         for k, v in g.items()}
+            del g
+    if grads is not None:
+        torch.save(grads, f"{out_prefix}.rank{rank}.grads.pt")
+    steady = secs[1:] or secs
+    with open(f"{out_prefix}.rank{rank}.json", "w") as f:
+        json.dump({"losses": losses, "step_s": secs,
+                   "tokens_per_sec": cfg["m"] * cfg["seq"] * len(steady)
+                   / sum(steady),
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "world": n}, f)
+
+
+def _pp_run(n, name, cfg, work, logs):
+    return torchrun(n, name, [json.dumps(cfg)], work, logs, kind="pp")
+
+
+def pipeline(n, out, failures, work, logs):
+    """Part pp (see the module docstring)."""
+    from chainermn_tpu_torch.utils.compare import step_agrees, step_errors
+    import torch
+    res = {}
+    bf16 = dict(blocks=PP_BLOCKS, dtype="bfloat16", seq=8192,
+                steps=PP_STEPS)
+    for m in PP_MS["1f1b"]:
+        ref = _pp_run(1, f"pp_seq_m{m}", dict(
+            bf16, blocks=PP_BLOCKS * n, m=m, schedule="sequential",
+            steps=1), work, logs)[0]
+        for sched in [k for k, ms in PP_MS.items() if m in ms]:
+            docs = _pp_run(n, f"pp_{sched}_m{m}", dict(
+                bf16, m=m, schedule=sched), work, logs)
+            row = {"schedule": sched, "m": m, "stages": n,
+                   "losses": docs[0]["losses"],
+                   "tokens_per_sec_per_card":
+                       docs[0]["tokens_per_sec"] / n,
+                   "peak_memory_gb": [d["peak_memory_gb"] for d in docs],
+                   "step_s": docs[0]["step_s"],
+                   "one_card_sequential_loss": ref["losses"][0],
+                   "loss_rel_to_one_card": abs(docs[0]["losses"][0]
+                                               - ref["losses"][0])
+                   / abs(ref["losses"][0])}
+            res[f"{sched}_m{m}"] = row
+            print(json.dumps(row), flush=True)
+            if not all(math.isfinite(v) for d in docs
+                       for v in d["losses"]) or any(
+                    d["losses"] != docs[0]["losses"] for d in docs):
+                failures.append(f"pp {sched} m{m}: losses")
+    # the float32 parity: 1F1B and GPipe over the cards against one card
+    f32 = dict(blocks=PP_BLOCKS, dtype="float32", steps=1, grads=True,
+               **PP_F32)
+    ref = _pp_run(1, "pp_f32_seq", dict(f32, blocks=PP_BLOCKS * n,
+                                        schedule="sequential"), work, logs)
+    want = torch.load(os.path.join(work, "pp_f32_seq.rank0.grads.pt"))
+    for sched in ("1f1b", "gpipe"):
+        docs = _pp_run(n, f"pp_f32_{sched}", dict(f32, schedule=sched),
+                       work, logs)
+        got = {}
+        for r in range(n):
+            got.update(torch.load(os.path.join(
+                work, f"pp_f32_{sched}.rank{r}.grads.pt")))
+        loss_rel, grad_rel, worst = step_errors(
+            [docs[0]["losses"][0]], [ref[0]["losses"][0]], got, want)
+        row = {"loss_rel": loss_rel, "grad_rel": grad_rel, "worst": worst,
+               "tensors": len(got)}
+        res[f"f32_{sched}"] = row
+        print(json.dumps({f"f32_{sched}": row}), flush=True)
+        if not step_agrees(loss_rel, grad_rel) or len(got) != len(want):
+            failures.append(f"pp float32 {sched}")
+    out["pp"] = res
+
+
+# ---- part compression: the quantized wires over every card -------------------
+
+COMP_N = 4_000_003   # gradient elements a rank (not a multiple of anything)
+
+
+def comp_worker(out_prefix, flags):
+    """One rank under ``torchrun`` (NCCL on the cards, or gloo with
+    ``cpu``): int8 and fp8 ``allreduce_grad`` (deterministic) for 3 EF
+    steps over this rank's seeded gradient; every step's mean, residual
+    and exponents in ``{prefix}.rank{r}.pt``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch import create_communicator, init_distributed
+    from chainermn_tpu_torch.compression import Fp8Compressor, Int8Compressor
+    device = flags[0] if flags else None
+    init_distributed(device)
+    comm = create_communicator("flat", device=device)
+    rng = np.random.RandomState(100 + comm.rank)
+    g = {"w": torch.from_numpy((rng.randn(COMP_N) * 10.0 ** rng.uniform(
+        -4, -1, COMP_N)).astype(np.float32)).to(comm.device),
+         "b": torch.from_numpy(rng.randn(77).astype(np.float32)).to(
+             comm.device)}
+    out = {}
+    for comp in (Int8Compressor(stochastic=False),
+                 Fp8Compressor(stochastic=False)):
+        st = comm.init_compression_state(g, comp)
+        for step in range(3):
+            mean, st = comm.allreduce_grad(g, compressor=comp, state=st)
+            for k, v in mean.items():
+                out[f"{comp.name}/{step}/mean/{k}"] = v.cpu()
+            for k in ("ef", "scale", "step"):
+                out[f"{comp.name}/{step}/{k}"] = getattr(st, k).cpu()
+    torch.save(out, f"{out_prefix}.rank{comm.rank}.pt")
+    with open(f"{out_prefix}.rank{comm.rank}.json", "w") as f:
+        json.dump({"world": comm.size,
+                   "backend": __import__("torch.distributed").distributed
+                   .get_backend()}, f)
+
+
+def mnist_worker(out_prefix, flags):
+    """One rank under ``torchrun``: ``train_mnist.main(flags)``'s per-epoch
+    log."""
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch.examples import train_mnist
+    res = train_mnist.main(flags)
+    rank = int(os.environ["RANK"])
+    with open(f"{out_prefix}.rank{rank}.json", "w") as f:
+        json.dump({"losses": [r["main/loss"] for r in res["log"]],
+                   "acc": [r["validation/accuracy"] for r in res["log"]],
+                   "rate": res["examples_per_sec_per_gpu"]}, f)
+
+
+def comp_fsdp_worker(out_prefix, flags):
+    """One rank under ``torchrun``: chip_smoke's LM FSDP run
+    (``_p29_lm``: the LM's width, bf16, flash) with the configuration
+    ``flags[0]`` (JSON: num_buckets, comps, wire); losses and the step's
+    counters."""
+    import torch
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs_
+    from chainermn_tpu_torch import create_communicator
+    cfg = json.loads(flags[0])
+    comm = create_communicator("xla")
+    losses, stats, *_ = cs_._p29_lm(
+        torch, comm.device, comm, cs_.LM["n_layers"], cs_.P29_FSDP_STEPS,
+        num_buckets=cfg.get("num_buckets", 1), comps=cfg.get("comps"),
+        wire=cfg.get("wire"))
+    with open(f"{out_prefix}.rank{comm.rank}.json", "w") as f:
+        json.dump({"losses": losses, "stats": stats,
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9},
+                  f)
+
+
+def compression(n, out, failures, work, logs):
+    """Part compression (see the module docstring)."""
+    import torch
+    res = {}
+    # int8 / fp8 allreduce_grad: NCCL on the cards against gloo on the CPU
+    card = torchrun(n, "comp_nccl", [], work, logs, kind="comp")
+    cpu = torchrun(n, "comp_gloo", ["cpu"], work, logs, kind="comp")
+    equal = {}
+    for r in range(n):
+        a = torch.load(os.path.join(work, f"comp_nccl.rank{r}.pt"))
+        b = torch.load(os.path.join(work, f"comp_gloo.rank{r}.pt"))
+        for k in a:
+            name = k.split("/")[0]
+            same = a[k].view(torch.int32).equal(b[k].view(torch.int32))
+            equal[name] = equal.get(name, True) and same
+    res["allreduce_grad"] = {"backends": [card[0]["backend"],
+                                          cpu[0]["backend"]],
+                             "bit_equal": equal, "elements": COMP_N + 77}
+    print(json.dumps(res["allreduce_grad"]), flush=True)
+    if not all(equal.values()) or set(equal) != {"int8", "fp8"}:
+        failures.append("compression: NCCL != gloo")
+    # the MNIST example with int8 on every card
+    mn = {}
+    for name, extra in (("none", []), ("int8", ["--compression", "int8"])):
+        docs = torchrun(n, f"mnist_{name}", ["--epoch", "3", "--prefetch",
+                                             "0"] + extra, work, logs,
+                        kind="mnist")
+        mn[name] = docs[0]
+        if any(d["losses"] != docs[0]["losses"] for d in docs):
+            failures.append(f"mnist {name}: ranks disagree")
+    base, q = mn["none"]["losses"], mn["int8"]["losses"]
+    res["mnist"] = mn
+    print(json.dumps({"mnist": mn}), flush=True)
+    if not (q[-1] < q[0] and abs(q[-1] - base[-1]) < 0.1 * abs(base[0])):
+        failures.append("mnist int8 contract")
+    # FSDP's int8 buckets on the LM: the reduce-scatter bytes
+    fs = {}
+    for name, cfg in (("plain", {}), ("bf16 wire", {"wire": "bfloat16"}),
+                      ("int8 K1", {"comps": "int8"}),
+                      ("int8 K4", {"comps": "int8", "num_buckets": 4})):
+        docs = torchrun(n, "comp_fsdp_" + name.replace(" ", "_"),
+                        [json.dumps(cfg)], work, logs, kind="comp_fsdp")
+        fs[name] = {"losses": docs[0]["losses"],
+                    "scatter_bytes": docs[0]["stats"]["scatter_bytes"],
+                    "gather_bytes": docs[0]["stats"]["gather_bytes"],
+                    "peak_memory_gb": [d["peak_memory_gb"] for d in docs]}
+    for name in ("int8 K1", "int8 K4"):
+        r = fs[name]
+        r["ratio_vs_f32"] = fs["plain"]["scatter_bytes"] / r["scatter_bytes"]
+        r["ratio_vs_bf16"] = (fs["bf16 wire"]["scatter_bytes"]
+                              / r["scatter_bytes"])
+        if r["ratio_vs_f32"] < 3.5 or not (
+                abs(r["losses"][-1] - fs["plain"]["losses"][-1])
+                < 0.1 * abs(fs["plain"]["losses"][0])):
+            failures.append(f"fsdp {name}")
+    res["fsdp"] = fs
+    print(json.dumps({"fsdp": fs}), flush=True)
+    out["compression"] = res
+
+
 def data_parallel(n, out, failures, work, logs):
     """Steps 2-4 (see the module docstring)."""
     rc, summary, _ = gpu_tests("tests/test_torch_nccl_gpu.py", logs,
@@ -1051,6 +1356,7 @@ def data_parallel(n, out, failures, work, logs):
 
 
 if __name__ == "__main__":
+    _late_workers()
     if len(sys.argv) > 3 and sys.argv[1] == "--worker":
         WORKERS[sys.argv[2]](sys.argv[3], sys.argv[4:])
     else:

@@ -181,6 +181,21 @@ def test_load_inference_params(lm, tmp_path):
                                 2, n_heads=4), "A9"),
 ])
 def test_unported_weight_paths_raise(call, queue):
+    if queue == "A10":
+        # per-channel int8 weights are ported (A10): the round trip
+        w = {"blocks.0.up.weight": torch.linspace(-1, 1, 12).reshape(4, 3),
+             "blocks.0.up.bias": torch.ones(4)}
+        q = sw.quantize_inference_params(w)
+        assert q["blocks.0.up.weight"]["int8_codes"].dtype == torch.int8
+        assert torch.equal(q["blocks.0.up.bias"], w["blocks.0.up.bias"])
+        back = sw.dequantize_inference_params(q)
+        assert (back["blocks.0.up.weight"]
+                - w["blocks.0.up.weight"]).abs().max() <= 1 / 127
+        loaded = load_inference_params(w, int8_weights=True)
+        assert torch.equal(loaded["blocks.0.up.weight"],
+                           back["blocks.0.up.weight"])
+        assert call() == {}
+        return
     if queue == "A9":
         # Megatron slicing is ported (A9 c): up's output rows in two shards
         assert call()["blocks.0.up.weight"].shape == (2, 4, 2)

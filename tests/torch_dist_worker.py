@@ -4,7 +4,7 @@
         python tests/torch_dist_worker.py \\
             {comm|train|opt|mnist|lm|unused|coll|zero|syncbn|imagenet|seq|
              p2p|chain|seq2seq|pconv|configs|serve|accum|fsdp|tpep|
-             moelm|tpserve} \\
+             moelm|tpserve|compress|pipe} \\
             IN.npz OUT_PREFIX
 
 Reads the stacked per-rank inputs from ``IN.npz`` (leading axis = rank),
@@ -13,6 +13,7 @@ writes ``OUT_PREFIX.<rank>.npz``.  Imports torch and the port only.
 :func:`launch` starts such a world from a test.
 """
 
+import json
 import os
 import socket
 import subprocess
@@ -1377,6 +1378,368 @@ def run_tpserve(inp, rank):
     return out
 
 
+# ---- gradient compression --------------------------------------------------
+
+def tanh_mlp(inp, prefix: str, n: int):
+    """The JAX compression tests' MLP (``tanh(x @ w + b)`` layers) from
+    ``{prefix}/layer{i}/w|b``."""
+    from chainermn_tpu_torch.benchmarks.bench_fsdp_overlap import TanhLayer
+    layers = []
+    for i in range(n):
+        layer = TanhLayer(torch.tensor(inp[f"{prefix}/layer{i}/w"]))
+        with torch.no_grad():
+            layer.b.copy_(torch.tensor(inp[f"{prefix}/layer{i}/b"]))
+        layers.append(layer)
+    return torch.nn.Sequential(*layers)
+
+
+def _compress_ef(inp, rank, comm, out):
+    """3 deterministic EF steps of int8 and fp8 over ``ef/*``: the codes
+    and flags each rank puts on the wire, the residual, exponents, step
+    and the means, per step."""
+    from chainermn_tpu_torch.communicators import _packing
+    from chainermn_tpu_torch.compression import (
+        Fp8Compressor, Int8Compressor)
+    grads = {k[3:]: torch.tensor(inp[k][rank]) for k in inp
+             if k.startswith("ef/")}
+    for comp in (Int8Compressor(chunk_size=256, stochastic=False),
+                 Fp8Compressor(chunk_size=256, stochastic=False)):
+        st = comm.init_compression_state(grads, comp)
+        for step in range(3):
+            buf = _packing.pack(grads, comm_dtype=torch.float32)[0][0]
+            codes, _ = comp.compress(buf, st, rank=rank,
+                                     world_size=comm.size)
+            mean, st = comm.allreduce_grad(grads, compressor=comp, state=st)
+            pre = f"ef/{comp.name}/{step}"
+            out[f"{pre}/wire"] = codes.view(torch.int8).numpy()
+            for k in ("ef", "scale", "step"):
+                out[f"{pre}/{k}"] = getattr(st, k).numpy()
+            for k, v in mean.items():
+                out[f"{pre}/mean/{k}"] = v.numpy()
+
+
+def _compress_contracts(inp, rank, comm, out):
+    """JAX's EF contracts on this world: int8 EF decay over 64
+    deterministic steps, stochastic unbiasedness over 32 rounds."""
+    from chainermn_tpu_torch.compression import Int8Compressor
+    grads = {k[6:]: torch.tensor(inp[k][rank]) for k in inp
+             if k.startswith("decay/")}
+    ref = {k: torch.tensor(inp[f"decay/{k}"]).mean(0) for k in grads}
+    comp = Int8Compressor(stochastic=False)
+    st = comm.init_compression_state(grads, comp)
+    acc = {k: torch.zeros_like(v) for k, v in ref.items()}
+    errs = []
+    for t in range(1, 65):
+        mean, st = comm.allreduce_grad(grads, compressor=comp, state=st)
+        acc = {k: acc[k] + mean[k] for k in ref}
+        if t in (1, 4, 16, 64):
+            errs.append(max(float((acc[k] / t - ref[k]).abs().max())
+                            for k in ref))
+    out["decay/errs"] = np.asarray(errs)
+    out["decay/ef_norm"] = np.asarray(float(st.ef.norm()))
+    comp = Int8Compressor(stochastic=True, seed=7)
+    g = {"w": torch.full((3, 4), float(rank)), "odd": torch.full((7,),
+                                                                 float(rank))}
+    st = comm.init_compression_state(g, comp)
+    acc = torch.zeros(3, 4)
+    for _ in range(32):
+        mean, st = comm.allreduce_grad(g, compressor=comp, state=st)
+        acc = acc + mean["w"]
+    out["unbiased/err"] = np.asarray(
+        float((acc / 32 - (comm.size - 1) / 2).abs().max()))
+
+
+def _compress_optimizer(inp, rank, out):
+    """The optimizer seam on the JAX tests' MLP problem: 12 Adam steps
+    uncompressed, int8 and fp8; 6 steps of the bfloat16 knob against
+    ``compression=NoCompression("bfloat16")``."""
+    import warnings
+    from chainermn_tpu_torch.compression import NoCompression
+    x = torch.tensor(inp["opt/x"][rank * 4:(rank + 1) * 4])
+    y = torch.tensor(inp["opt/y"][rank * 4:(rank + 1) * 4])
+    runs = {"base": ("flat", {}, None, 12), "int8": ("flat", {}, "int8", 12),
+            "fp8": ("flat", {}, "fp8", 12),
+            "knob": ("xla", {"allreduce_grad_dtype": "bfloat16"}, None, 6),
+            "nocomp": ("xla", {}, NoCompression("bfloat16"), 6)}
+    for name, (flavor, kw, compression, steps) in runs.items():
+        comm = create_communicator(flavor, device="cpu", **kw)
+        model = tanh_mlp(inp, "opt", 4)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            opt = create_multi_node_optimizer(
+                torch.optim.Adam(model.parameters(), lr=1e-2), comm,
+                compression=compression)
+        out[f"opt/{name}/warned"] = np.asarray(
+            any(issubclass(w.category, DeprecationWarning) for w in caught))
+        step = make_train_step(
+            comm, lambda b: torch.mean((model(b[0]) - b[1]) ** 2), opt)
+        out[f"opt/{name}/losses"] = np.asarray(
+            [float(step((x, y))) for _ in range(steps)])
+        for k, v in model.state_dict().items():
+            out[f"opt/{name}/p/{k}"] = v.numpy()
+        if compression in ("int8", "fp8"):
+            out[f"opt/{name}/comp_step"] = opt.comp_state.step.numpy()
+
+
+def _compress_fsdp(inp, rank, out):
+    """FSDP's quantized buckets: int8 on 4 buckets for 12 steps (losses,
+    layout, EF steps), int8 on the first of 2 buckets for 8; and one
+    bucket's compressed reduce-scatter on ``rs/*`` for int8 and fp8."""
+    from chainermn_tpu_torch.compression import (
+        CompressionState, Fp8Compressor, Int8Compressor)
+    from chainermn_tpu_torch.parallel import (
+        fsdp_init, fsdp_layout, make_fsdp_train_step)
+    from chainermn_tpu_torch.parallel.fsdp import compressed_scatter_encode
+    comm = create_communicator("flat", device="cpu")
+    x = torch.tensor(inp["opt/x"][rank * 4:(rank + 1) * 4])
+    y = torch.tensor(inp["opt/y"][rank * 4:(rank + 1) * 4])
+    for name, k, comps, steps in (("int8", 4, "int8", 12),
+                                  ("mixed", 2, ["int8", None], 8)):
+        model = tanh_mlp(inp, "opt", 4)
+        state, meta = fsdp_init(comm, model, torch.optim.Adam(
+            model.parameters(), lr=0.01), num_buckets=k,
+            bucket_compressors=comps)
+        step = make_fsdp_train_step(
+            comm, lambda b: torch.mean((model(b[0]) - b[1]) ** 2), state,
+            meta)
+        out[f"fsdp/{name}/losses"] = np.asarray(
+            [float(step((x, y))) for _ in range(steps)])
+        out[f"fsdp/{name}/quantized"] = np.asarray(
+            [bl.compressor is not None for bl in meta.buckets])
+        out[f"fsdp/{name}/specs"] = np.asarray(
+            json.dumps(fsdp_layout(state)["compression"]["specs"]))
+        out[f"fsdp/{name}/ef_steps"] = np.asarray(
+            [float(c.step[0]) for c in state.comp if c is not None])
+        out[f"fsdp/{name}/scatter_bytes"] = np.asarray(
+            step.stats["scatter_bytes"])
+    for comp in (Int8Compressor(stochastic=False),
+                 Fp8Compressor(stochastic=False)):
+        cs = CompressionState(
+            ef=torch.tensor(inp["rs/ef"][rank]),
+            scale=torch.tensor(inp["rs/scale"][rank:rank + 1]),
+            step=torch.zeros(1), spec=comp.spec)
+        e_vec = comm.allgather(cs.scale)[:, 0]
+        send, fold = compressed_scatter_encode(
+            comm, comp, cs, torch.tensor(inp["rs/ct"][rank]), e_vec)
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send)
+        pre = f"rs/{comp.name}"
+        out[f"{pre}/gshard"] = fold(recv).numpy()
+        for key in ("ef", "scale", "step"):
+            out[f"{pre}/{key}"] = getattr(cs, key).numpy()
+
+
+def _compress_mnist(inp, rank, comm, out):
+    """JAX's two-process MNIST contract on this world: MLP(64, 10) on
+    MNIST-shaped blobs, each rank its half, 20 Adam steps uncompressed
+    and with int8 (losses, this rank's EF norm); then the example's
+    ``main`` for 2 epochs with and without ``--compression int8``."""
+    import torch.nn.functional as F
+    from chainermn_tpu_torch.datasets import make_classification
+    from chainermn_tpu_torch.examples import train_mnist
+    from chainermn_tpu_torch.models import MLP
+    data = make_classification(n=1024, dim=784, n_classes=10, noise=4.0,
+                               seed=0)
+    xs = torch.tensor(np.stack([data[i][0] for i in range(len(data))]))
+    ys = torch.tensor(np.asarray([data[i][1] for i in range(len(data))]))
+    half = len(xs) // comm.size
+    x, y = xs[rank * half:(rank + 1) * half], ys[rank * half:(rank + 1)
+                                                 * half].long()
+    for name in ("base", "int8"):
+        model = MLP(64, 10, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+        comm.bcast_data(model)
+        opt = create_multi_node_optimizer(
+            torch.optim.Adam(model.parameters(), lr=1e-3), comm,
+            compression=None if name == "base" else name)
+        step = make_train_step(
+            comm, lambda b: F.cross_entropy(model(b[0]), b[1]), opt)
+        losses, ef = [], []
+        for _ in range(20):
+            losses.append(float(step((x, y))))
+            if name != "base":
+                ef.append(float(opt.comp_state.ef.norm()))
+        out[f"mnist/{name}/losses"] = np.asarray(losses)
+        out[f"mnist/{name}/ef"] = np.asarray(ef)
+    for name, flags in (("base", []), ("int8", ["--compression", "int8"])):
+        res = train_mnist.main(["--device", "cpu", "--epoch", "2", "--unit",
+                                "64", "--prefetch", "0", "--out",
+                                str(inp["out_dir"]) + f"/{name}"] + flags)
+        out[f"example/{name}/loss"] = np.asarray(
+            [r["main/loss"] for r in res["log"]])
+
+
+def run_compress(inp, rank):
+    """The multi-rank checks of ``tests/test_torch_compression.py``:
+    ``parts`` names which (``ef``, ``sum``, ``contracts``, ``opt``,
+    ``fsdp``, ``mnist``)."""
+    from chainermn_tpu_torch.compression import Fp8Compressor
+    parts = str(inp["parts"]).split(",")
+    comm = create_communicator("flat", device="cpu")
+    out = {}
+    if "ef" in parts:
+        _compress_ef(inp, rank, comm, out)
+    if "nc" in parts:
+        # NoCompression(wire) on a plain flavor against the dtype knob
+        from chainermn_tpu_torch.compression import NoCompression
+        g = {k[3:]: torch.tensor(inp[k][rank]) for k in inp
+             if k.startswith("ef/")}
+        knob = create_communicator("xla", device="cpu",
+                                   allreduce_grad_dtype="bfloat16")
+        for name, red in (
+                ("knob", knob.allreduce_grad(g)),
+                ("comp", comm.allreduce_grad(
+                    g, compressor=NoCompression("bfloat16"))),
+                ("bare", comm.allreduce_grad(g, compressor=NoCompression())),
+                ("plain", comm.allreduce_grad(g))):
+            out.update({f"nc/{name}/{k}": v.numpy() for k, v in red.items()})
+    if "sum" in parts:
+        codes = torch.tensor(inp["sum/codes"][rank]).view(
+            torch.float8_e4m3fn)
+        out["sum/flat"] = comm._sum_codes(codes).view(torch.uint8).numpy()
+        if comm.size == 4:
+            hier = create_communicator("hierarchical", intra_size=2,
+                                       device="cpu")
+            out["sum/hier"] = hier._sum_codes(codes).view(
+                torch.uint8).numpy()
+        # the whole route: an fp8 mean over the hierarchical flavor
+        if comm.size == 4:
+            g = {"w": torch.tensor(inp["ef/w"][rank])}
+            comp = Fp8Compressor(chunk_size=256, stochastic=False)
+            mean, _ = hier.allreduce_grad(
+                g, compressor=comp, state=hier.init_compression_state(
+                    g, comp))
+            out["sum/hier_mean"] = mean["w"].numpy()
+    if "contracts" in parts:
+        _compress_contracts(inp, rank, comm, out)
+    if "opt" in parts:
+        _compress_optimizer(inp, rank, out)
+    if "fsdp" in parts:
+        _compress_fsdp(inp, rank, out)
+    if "mnist" in parts:
+        _compress_mnist(inp, rank, comm, out)
+    return out
+
+
+# ---- pipeline parallelism ----------------------------------------------------
+
+def _tanh_stage(p, a):
+    return torch.tanh(a @ p["w"] + p["b"])
+
+
+class SavedBytes:
+    """The peak bytes held by autograd's saved tensors inside the
+    context (``torch.autograd.graph.saved_tensors_hooks``)."""
+
+    def __init__(self):
+        self.now = self.peak = 0
+
+    class _Box:
+        def __init__(self, t):
+            self.t = t
+
+    def __enter__(self):
+        import weakref
+
+        def pack(t):
+            n = t.numel() * t.element_size()
+            self.now += n
+            self.peak = max(self.peak, self.now)
+            box = self._Box(t)
+            weakref.finalize(box, self._free, n)
+            return box
+
+        self._ctx = torch.autograd.graph.saved_tensors_hooks(
+            pack, lambda box: box.t)
+        self._ctx.__enter__()
+        return self
+
+    def _free(self, n):
+        self.now -= n
+
+    def __exit__(self, *exc):
+        self._ctx.__exit__(*exc)
+
+
+def run_pipe(inp, rank):
+    """The multi-rank checks of ``tests/test_torch_pipeline.py``: the tanh
+    stage (``w``/``b`` stacked ``[S, ...]``, rank s's slice) through GPipe
+    and 1F1B, and a stage of two transformer Blocks from the stacked flax
+    tree ``blk/...``."""
+    from chainermn_tpu_torch.models.transformer import Block
+    from chainermn_tpu_torch.parallel import (
+        make_pipeline_fn, make_pipeline_train_fn, module_stage_fn,
+        pipeline_apply)
+    from chainermn_tpu_torch.weights import flax_stage_to_state_dict
+    comm = create_communicator("flat", device="cpu")
+    s, n = rank, comm.size
+    m = int(inp["m"])
+    out = {}
+
+    def params():
+        return {"w": torch.tensor(inp["w"][s]).requires_grad_(),
+                "b": torch.tensor(inp["b"][s]).requires_grad_()}
+
+    def mse(yy, tt):
+        return ((yy - tt) ** 2).mean()
+
+    x, t = torch.tensor(inp["x"]), torch.tensor(inp["t"])
+    p = params()
+    gpipe = make_pipeline_fn(_tanh_stage, comm, n_microbatches=m)
+    y = gpipe(p, x)
+    out["fwd"] = y.detach().numpy()
+    (y ** 2).sum().backward()
+    out.update({f"gpipe/{k}": v.grad.numpy() for k, v in p.items()})
+    out["m1"] = make_pipeline_fn(_tanh_stage, comm, n_microbatches=1)(
+        params(), x[:x.shape[0] // m]).detach().numpy()
+    loss, g = make_pipeline_train_fn(_tanh_stage, mse, comm,
+                                     n_microbatches=m)(params(), x, t)
+    out["1f1b/loss"] = loss.numpy()
+    out.update({f"1f1b/{k}": v.numpy() for k, v in g.items()})
+    p = params()
+    o = gpipe(p, x).reshape((m, -1) + tuple(x.shape[1:]))
+    tm = t.reshape(o.shape)
+    torch.stack([mse(o[i], tm[i]) for i in range(m)]).mean().backward()
+    out.update({f"gpipe_mse/{k}": v.grad.numpy() for k, v in p.items()})
+    # M = 8S: the ring's slots reused; the saved-tensor high-water marks
+    xb, tb = torch.tensor(inp["xbig"]), torch.tensor(inp["tbig"])
+    mb = 8 * n
+    with SavedBytes() as one:
+        loss, g = make_pipeline_train_fn(_tanh_stage, mse, comm,
+                                         n_microbatches=mb)(params(), xb, tb)
+    out["big/loss"] = loss.numpy()
+    out.update({f"big/{k}": v.numpy() for k, v in g.items()})
+    p = params()
+    with SavedBytes() as gp:
+        o = make_pipeline_fn(_tanh_stage, comm, n_microbatches=mb)(p, xb)
+        o = o.reshape((mb, -1) + tuple(xb.shape[1:]))
+        tm = tb.reshape(o.shape)
+        torch.stack([mse(o[i], tm[i]) for i in range(mb)]).mean().backward()
+    out["mem/1f1b"], out["mem/gpipe"] = np.asarray(one.peak), np.asarray(
+        gp.peak)
+    out["last"] = pipeline_apply(
+        _tanh_stage, params(), x.reshape((m, -1) + tuple(x.shape[1:])),
+        comm, collect="last").detach().numpy()
+    # the Block stage: two blocks, weights from the stacked flax tree
+    stacked = nest({k[4:]: v for k, v in inp.items()
+                    if k.startswith("blk/")})
+    d, heads = int(inp["blk_d"]), int(inp["blk_heads"])
+    stage = torch.nn.Sequential(*[Block(d, heads, "xla") for _ in range(2)])
+    sd = flax_stage_to_state_dict(stacked, s)
+    stage.load_state_dict(sd)
+    fn = module_stage_fn(stage)
+    bp = {k: v.clone().requires_grad_() for k, v in sd.items()}
+    bx, bt = torch.tensor(inp["bx"]), torch.tensor(inp["bt"])
+    bm = int(inp["bm"])
+    yb = make_pipeline_fn(fn, comm, n_microbatches=bm)(bp, bx)
+    out["blk/fwd"] = yb.detach().numpy()
+    loss, g = make_pipeline_train_fn(fn, mse, comm, n_microbatches=bm)(
+        {k: v.detach() for k, v in bp.items()}, bx, bt)
+    out["blk/1f1b/loss"] = loss.numpy()
+    out.update({f"blk/1f1b/g/{k}": v.numpy() for k, v in g.items()})
+    return out
+
+
 def launch(mode: str, inputs: dict, world: int, tmp_path, timeout=300):
     """Run ``world`` ranks of ``mode`` on ``inputs``; their outputs, by
     rank.  Raises with a rank's output if any rank fails."""
@@ -1419,7 +1782,8 @@ def main():
            "serve": run_serve, "accum": run_accum,
            "fsdp": run_fsdp, "tpep": run_tpep,
            "moelm": run_moelm,
-           "tpserve": run_tpserve}[mode](inp, topo.rank)
+           "tpserve": run_tpserve, "compress": run_compress,
+           "pipe": run_pipe}[mode](inp, topo.rank)
     np.savez(f"{out_prefix}.{topo.rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
