@@ -82,12 +82,37 @@ def parse_args(argv=None):
                    help="not ported yet (ROADMAP.md Queue A13)")
     p.add_argument("--device", default=None,
                    help="default: cuda:LOCAL_RANK (pass 'cpu' for the CPU)")
+    p.add_argument("--planner-census", action="store_true",
+                   help="also print the per-hop plans' modeled wire bytes "
+                        "per hop for the model's packed gradients")
     args = p.parse_args(argv)
     if args.metrics is not None:
         raise NotImplementedError(
             "--metrics (the observability sink's metrics JSONL) is not "
             "ported yet; see ROADMAP.md Queue A13")
     return args
+
+
+def planner_census(topology, nbytes: int) -> list:
+    """The per-hop compressed plans (int8 / fp8 on the inter-node hop of
+    the two-dimensional chain) beside the flat float32 and bfloat16 plans:
+    each one's wire dtype and modeled bytes per hop for ``nbytes`` of
+    float32 gradients on ``topology`` (``planner.plan_wire_dtypes``,
+    ``plan_wire_bytes``, ``plan_dcn_bytes``)."""
+    from chainermn_tpu_torch.planner import (
+        compressed_two_dimensional, flavor_plan, plan_census_kinds,
+        plan_dcn_bytes, plan_wire_bytes, plan_wire_dtypes)
+    plans = [flavor_plan("flat"), flavor_plan("xla", "bfloat16"),
+             flavor_plan("two_dimensional")]
+    if topology.inter_size > 1:
+        plans += [compressed_two_dimensional(
+            {"name": c, "stochastic": False}) for c in ("int8", "fp8")]
+    return [{"plan": p.name, "topology": topology.key(), "bytes": nbytes,
+             "kinds": list(plan_census_kinds(p, topology)),
+             "wire_dtypes": list(plan_wire_dtypes(p, topology)),
+             "wire_bytes": plan_wire_bytes(p, topology, nbytes),
+             "dcn_bytes": plan_dcn_bytes(p, topology, nbytes)}
+            for p in plans]
 
 
 def main(argv=None) -> list:
@@ -173,6 +198,16 @@ def main(argv=None) -> list:
                           f"{ratio} ({'ok' if ok else 'MISMATCH'})",
                           file=sys.stderr)
             del step, state, model
+    if args.planner_census:
+        payload = sum(p.numel() * 4 for p in tanh_mlp(
+            args.layers, args.width, 0, dev).parameters())
+        for row in planner_census(comm.plan_topology(), payload):
+            rows.append(dict(row, kind="planner_census"))
+            if comm.rank == 0:
+                print(json.dumps(row) if args.json else
+                      f"plan {row['plan']}: wire {row['wire_dtypes']}, "
+                      f"bytes by hop {row['wire_bytes']}", file=sys.stderr
+                      if not args.json else sys.stdout, flush=True)
     if not cuda and comm.rank == 0:
         print("note: gloo runs collectives one at a time -- CPU times "
               "validate the harness only; measure bandwidth on the cards",

@@ -20,11 +20,22 @@ over the ranks of the world (one process a GPU under ``torchrun``, the
 experts over the same ranks); a single process trains the whole batch.
 The batches are drawn from ``numpy.random.RandomState(seed + step)``
 where JAX draws with ``jax.random``: the same task, other sequences.
-``--sweep`` (the all-to-all plan sweep) needs the collective planner and
-raises, naming ROADMAP.md Queue A11.
+
+``--sweep OUT.json`` times every candidate all-to-all plan
+(``planner.alltoall_plans``: flat, hierarchical NVLink + inter-node,
+narrow inter-node wires, striped with ``--stripe-ratios``) across the
+``--sweep-sizes-kb`` ladder on the world's ``(inter, intra)`` ranks, each
+checked against ``comm.alltoall`` first (bit for bit, or within the
+narrow wire's rounding), and writes ``allreduce_sweep/v1`` rows -- the
+autotuner's schema, so ``autotune_from_rows`` builds the MoE exchange's
+plan table from them.  ``--link-gbps nvlink=X,ib=Y`` adds the modeled
+wire time; ``dcn_largest`` records the inter-node bytes of the flat and
+the narrow hierarchical exchange at the largest size.
 
     python -m chainermn_tpu_torch.benchmarks.bench_moe --device cpu \\
         --out moe_bench.json
+    torchrun --nproc_per_node 4 -m chainermn_tpu_torch.benchmarks.bench_moe \\
+        --intra-size 2 --sweep alltoall_sweep.json
 """
 
 from __future__ import annotations
@@ -161,11 +172,123 @@ def moe_bench(args):
     return doc
 
 
+SWEEP_SIZES_KB = "64,1024,4096"
+
+
+def sweep(args) -> dict:
+    """``--sweep``: every candidate all-to-all plan across the payload
+    ladder (see the module note)."""
+    from chainermn_tpu_torch.benchmarks.bench_allreduce import (
+        card_line, parse_link_gbps, time_calls)
+    from chainermn_tpu_torch.communicators import create_communicator
+    from chainermn_tpu_torch.observability.ledger import stamp_envelope
+    from chainermn_tpu_torch.planner import (
+        SWEEP_SCHEMA, candidate_plans, execute_alltoall, load_plan,
+        plan_dcn_bytes, plan_modeled_time_s)
+    from chainermn_tpu_torch.planner.ir import dtype_itemsize
+
+    comm = create_communicator("naive", intra_size=args.intra_size,
+                               device=args.device)
+    topo = comm.plan_topology()
+    p = topo.size
+    ratios = tuple(float(s) for s in args.stripe_ratios.split(",")) \
+        if args.stripe_ratios else ()
+    link_gbps = parse_link_gbps(args.link_gbps) if args.link_gbps else None
+    plans = list(candidate_plans(topo, op="all-to-all",
+                                 stripe_ratios=ratios))
+    if args.plan:
+        plans.append(load_plan(args.plan))
+    dtype = getattr(torch, args.dtype)
+    item = dtype_itemsize(args.dtype)
+    rows, dcn_summary = [], []
+    for kb in (float(s) for s in args.sweep_sizes_kb.split(",")):
+        # the exchanged unit is this rank's [P, m] block buffer
+        m = max(int(kb * 1024 / item) // p, 1)
+        payload = p * m * item
+        # values in [0, 1): inside every narrow wire's range
+        g = torch.Generator().manual_seed(comm.rank)
+        x = torch.rand((p, m), generator=g).to(dtype).to(comm.device)
+        want = comm.alltoall(x)
+        size_dcn = {}
+        for plan in plans:
+            def call(plan=plan):
+                return execute_alltoall(plan, comm, x)
+
+            got = call()
+            narrow = any(st.wire_dtype not in (None, args.dtype)
+                         for grp in plan.stage_groups()
+                         for st in grp.stages)
+            if narrow:
+                # narrow wires round (bf16 ~2^-8 relative, fp8 ~2^-2)
+                err = float((got.float() - want.float()).abs().max())
+                assert err <= 0.12, (plan.name, err)
+            else:
+                assert torch.equal(got, want), plan.name
+            dt = time_calls(call, comm, args.iters, args.warmup)
+            dcn = plan_dcn_bytes(plan, topo, payload, dtype=args.dtype)
+            row = {"topology": topo.key(), "dtype": args.dtype,
+                   "bytes": payload, "plan": plan.name, "us": dt * 1e6,
+                   "dcn_bytes": dcn, "plan_spec": plan.to_dict()}
+            if link_gbps:
+                modeled = plan_modeled_time_s(plan, topo, payload,
+                                              link_gbps, dtype=args.dtype)
+                row["us_measured"] = row["us"]
+                row["us_modeled_wire"] = modeled * 1e6
+                row["us"] = row["us"] + modeled * 1e6
+            size_dcn[plan.name] = dcn
+            rows.append(row)
+        flat = size_dcn.get("alltoall_flat")
+        bf16 = size_dcn.get("alltoall_hier_bfloat16_dcn")
+        if flat and bf16:
+            narrow = {n: b for n, b in size_dcn.items()
+                      if n.startswith("alltoall_hier") and n.endswith("_dcn")}
+            best = min(narrow, key=lambda n: narrow[n])
+            dcn_summary.append({
+                "bytes": payload, "flat_dcn_bytes": flat,
+                "bf16_dcn_bytes": bf16, "bf16_shrink_x": flat / bf16,
+                "best_narrow_plan": best,
+                "best_narrow_dcn_bytes": narrow[best]})
+    doc = {"schema": SWEEP_SCHEMA, "collective": "all-to-all",
+           **card_line(comm), "n_devices": p, "topology": topo.key(),
+           "timer": "event" if comm.device.type == "cuda" else "host",
+           "timestamp": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+           "rows": rows}
+    if link_gbps:
+        doc["link_gbps"] = link_gbps
+    if ratios:
+        doc["stripe_ratios"] = list(ratios)
+    if dcn_summary:
+        doc["dcn"] = dcn_summary
+        doc["dcn_largest"] = max(dcn_summary, key=lambda r: r["bytes"])
+    if comm.rank == 0:
+        stamp_envelope(doc)
+        with open(args.sweep, "w") as f:
+            json.dump(doc, f, indent=2)
+            f.write("\n")
+        print(json.dumps({"rows": len(rows), "plans": len(plans),
+                          "topology": topo.key()}), flush=True)
+    return doc
+
+
 def parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--sweep", metavar="OUT.json", default=None,
-                   help="the all-to-all plan sweep (needs the collective "
-                        "planner: ROADMAP.md Queue A11)")
+                   help="the all-to-all plan sweep mode (see the module "
+                        "note)")
+    p.add_argument("--sweep-sizes-kb", default=SWEEP_SIZES_KB,
+                   help="comma-separated per-rank payload sizes in KiB")
+    p.add_argument("--dtype", default="float32",
+                   help="the swept exchange's dtype")
+    p.add_argument("--iters", type=int, default=10)
+    p.add_argument("--warmup", type=int, default=2)
+    p.add_argument("--intra-size", type=int, default=None)
+    p.add_argument("--link-gbps", default=None, metavar="nvlink=X,ib=Y",
+                   help="add the modeled wire time to each swept row")
+    p.add_argument("--stripe-ratios", default=None,
+                   help="comma-separated NVLink-stripe ratios adding "
+                        "striped all-to-all candidates to the sweep")
+    p.add_argument("--plan", metavar="PLAN.json", default=None,
+                   help="also sweep this plan file")
     p.add_argument("--out", metavar="OUT.json", default=None,
                    help="matched-loss mode: write the moe_bench/v1 "
                         "document here")
@@ -191,12 +314,16 @@ def parser():
 def main(argv=None):
     p = parser()
     args = p.parse_args(argv)
+    if bool(args.sweep) == bool(args.out):
+        p.error("pass exactly one of --sweep or --out")
     if args.sweep:
-        raise NotImplementedError(
-            "--sweep (the all-to-all plan sweep) needs the collective "
-            "planner, which is not ported yet; see ROADMAP.md Queue A11")
-    if not args.out:
-        p.error("pass --out (the matched-loss leg)")
+        import torch.distributed as dist
+        created = not dist.is_initialized()
+        try:
+            return sweep(args)
+        finally:
+            if created and dist.is_initialized():
+                dist.destroy_process_group()
     return moe_bench(args)
 
 

@@ -4,12 +4,15 @@ Counterpart of ``chainermn_tpu/communicators/__init__.py`` (the reference's
 ``create_communicator``): string -> class dispatch, where only
 ``xla``/``pure_nccl`` accept ``allreduce_grad_dtype`` (or its spelling
 ``compression=NoCompression(wire_dtype)``).  Every flavor of the
-reference is here; ``auto``, the JAX package's planner-tuned flavor, raises
-until the collective planner is ported (ROADMAP.md, Queue A11).
+reference is here, and ``auto``, the JAX package's planner-tuned flavor
+(``plan_table=``: a path, a dict or a
+:class:`~chainermn_tpu_torch.planner.PlanTable`).
 """
 
 from typing import Optional
 
+from chainermn_tpu_torch.communicators.auto_communicator import (
+    AutoCommunicator)
 from chainermn_tpu_torch.communicators.communicator_base import (
     CommunicatorBase)
 from chainermn_tpu_torch.communicators.flat_communicator import (
@@ -38,6 +41,7 @@ _COMMUNICATORS = {
     "non_cuda_aware": NonCudaAwareCommunicator,
     "xla": XlaCommunicator,
     "pure_nccl": XlaCommunicator,
+    "auto": AutoCommunicator,
 }
 
 
@@ -61,11 +65,10 @@ def create_communicator(communicator_name: str = "hierarchical",
     ``allreduce_grad_dtype`` knob, with the same 'xla'-only restriction; the
     quantizers (``"int8"``, ``"fp8"``) work with every flavor (they ride the
     generic pack-and-sum path; ``allreduce_grad`` then needs ``state=``).
+
+    ``"auto"`` takes ``plan_table=`` (a path, a dict or a ``PlanTable``;
+    none: the flat plan) and picks each call's plan from it.
     """
-    if communicator_name == "auto":
-        raise NotImplementedError(
-            "communicator 'auto' needs the collective planner, which is not "
-            "ported yet; see ROADMAP.md Queue A11")
     try:
         cls = _COMMUNICATORS[communicator_name]
     except KeyError:
@@ -94,6 +97,7 @@ def create_communicator(communicator_name: str = "hierarchical",
 
 
 __all__ = [
+    "AutoCommunicator",
     "CommunicatorBase",
     "MeshCommunicator",
     "NaiveCommunicator",

@@ -118,7 +118,8 @@ def unpack(buffers: List[torch.Tensor], meta, scale: Optional[float] = None):
         if piece.dtype != dtype:
             piece = piece.to(dtype)
         if scale is not None:
-            piece = piece * torch.tensor(scale, dtype=piece.dtype,
-                                         device=piece.device)
+            # the factor rounded to the leaf's dtype, as a CPU scalar: a
+            # device tensor made from a host float would sync the stream
+            piece = piece * torch.tensor(scale, dtype=piece.dtype)
         leaves.append(piece)
     return tree_unflatten(treedef, leaves)

@@ -17,6 +17,7 @@ from chainermn_tpu_torch.communicators.mesh_communicator_base import (
 
 class HierarchicalCommunicator(MeshCommunicator):
     flavor = "hierarchical"
+    packs_leaf_plans = True
 
     def _allreduce_grad_traced(self, grads):
         buffers, meta = _packing.pack(grads)

@@ -24,8 +24,12 @@ may interleave as on the JAX control plane.  Sends do not block.
 The gradient decomposition is what tells the flavors apart.  The bodies
 here are the JAX package's pre-planner ones (``_legacy_allreduce_grad_traced``,
 which its tests pin bit-exact with the plan path): the base class is the
-naive per-leaf all-reduce.  The collective planner is not ported yet
-(ROADMAP.md, Queue A11).
+naive per-leaf all-reduce.  Each flavor's :meth:`MeshCommunicator.plan` is
+its decomposition as plan data (:mod:`chainermn_tpu_torch.planner`), and
+``execute_plan(comm.plan(), comm, grads)`` gives the bits of the flavor's
+own ``allreduce_grad`` (``tests/test_torch_auto_communicator.py``);
+:meth:`MeshCommunicator.plan_topology` is ``(("inter", inter_size),
+("intra", intra_size))``.
 
 Gradient compression (JAX ``allreduce_grad(compressor=, state=)``) runs
 on every flavor: ``NoCompression(wire_dtype)`` is the ``allreduce_grad_dtype``
@@ -35,7 +39,9 @@ feedback, sums the codes over the world in wire arithmetic (int8: the
 backend's sum; fp8: bytes through ``all_to_all_single``, a float16 sum in
 rank order and an all-gather, :mod:`~chainermn_tpu_torch.compression.quantize`),
 decodes and unpacks the mean (:meth:`MeshCommunicator._allreduce_grad_compressed`).
-The per-hop ``Plan`` compression waits for the planner (Queue A11).
+A :class:`~chainermn_tpu_torch.planner.Plan` as the ``compressor`` runs
+per-hop compression: only the plan's quantized stages carry codes, each
+with its own EF state (:meth:`MeshCommunicator._allreduce_grad_plan`).
 """
 
 from __future__ import annotations
@@ -114,6 +120,9 @@ class MeshCommunicator(CommunicatorBase):
     # as in the reference factory.
     supports_allreduce_grad_dtype = False
     flavor = "naive"
+    #: this flavor moves leaves packed, one collective per dtype group; a
+    #: leaf plan run on it (planner.execute_plan) does the same
+    packs_leaf_plans = False
 
     def __init__(self, topology: Optional[Topology] = None, group=None,
                  allreduce_grad_dtype=None, device=None,
@@ -191,6 +200,12 @@ class MeshCommunicator(CommunicatorBase):
                     out[r][name] = g
         return out
 
+    def _plan_all_reduce(self, buf: torch.Tensor, group, scope: str):
+        """Sum ``buf`` in place over ``group`` (the process group of plan
+        scope ``scope``): the planner executor's all-reduce."""
+        del scope
+        dist.all_reduce(buf, dist.ReduceOp.SUM, group=group)
+
     def _reduce_level(self, buf: torch.Tensor, level: str) -> torch.Tensor:
         """Sum ``buf`` in place over this rank's ``"intra"`` or ``"inter"``
         group (nothing to do over a level of one rank)."""
@@ -235,6 +250,25 @@ class MeshCommunicator(CommunicatorBase):
     @property
     def device(self) -> torch.device:
         return self._topology.device
+
+    def plan_topology(self):
+        """This communicator's levels as a
+        :class:`~chainermn_tpu_torch.planner.PlanTopology`: ``(("inter",
+        inter_size), ("intra", intra_size))``, the last axis the intra
+        (NVLink) level, as the JAX mesh's data axes."""
+        from chainermn_tpu_torch.planner.ir import PlanTopology
+        return PlanTopology(axes=(("inter", self.inter_size),
+                                  ("intra", self.intra_size)))
+
+    def plan(self):
+        """The fixed plan this flavor executes (xla threads its wire dtype
+        in as the plan's wire dtype)."""
+        from chainermn_tpu_torch.planner.plans import flavor_plan
+        wire = None
+        if self.supports_allreduce_grad_dtype and \
+                self.allreduce_grad_dtype is not None:
+            wire = _packing.dtype_name(self.allreduce_grad_dtype)
+        return flavor_plan(self.flavor, wire_dtype=wire)
 
     def _global_rank(self, rank: int) -> int:
         if self._group is None:
@@ -507,10 +541,27 @@ class MeshCommunicator(CommunicatorBase):
           compression: pass ``state`` (from
           :meth:`init_compression_state`), and the call returns ``(mean,
           new_state)``; the new state is a new object (the caller's is left
-          as it was, as JAX's functional state is).
+          as it was, as JAX's functional state is);
+        * a :class:`~chainermn_tpu_torch.planner.Plan` -- executed as the
+          mean (per-hop ``Stage.compression`` quantizes only those hops).
+          ``state`` is then the ``{hop: CompressionState}`` dict from
+          :meth:`init_compression_state` (the call returns ``(mean,
+          new_states)``); with ``state=None`` quantized hops run from a
+          cold state.  A hop-keyed ``state`` dict with ``compressor=None``
+          runs this communicator's own :meth:`plan` per hop.
         """
         from chainermn_tpu_torch.compression import (
             is_quantizing, resolve_compressor)
+        from chainermn_tpu_torch.planner.ir import Plan
+        plan = compressor if isinstance(compressor, Plan) else None
+        if plan is None and isinstance(state, dict):
+            plan = self.plan()
+        if plan is not None:
+            if isinstance(grads, nn.Module):
+                raise TypeError(
+                    "a plan's allreduce_grad takes the gradients as a tree "
+                    "of tensors (it returns them, with the new states)")
+            return self._allreduce_grad_plan(grads, plan, state)
         comp = (resolve_compressor(compressor) if compressor is not None
                 else (self.compression if is_quantizing(self.compression)
                       else None))
@@ -549,12 +600,35 @@ class MeshCommunicator(CommunicatorBase):
         the one packed float32 buffer the compressed path exchanges."""
         from chainermn_tpu_torch.compression import (
             is_quantizing, resolve_compressor)
+        from chainermn_tpu_torch.planner.ir import Plan
+        n = sum(int(l.numel()) for l in _packing.tree_flatten(tree)[0])
+        if isinstance(compressor, Plan):
+            from chainermn_tpu_torch.planner.compiler import (
+                init_plan_compression_states)
+            return init_plan_compression_states(
+                compressor, self.plan_topology(), n, device=self.device)
         comp = (resolve_compressor(compressor) if compressor is not None
                 else self.compression)
         if not is_quantizing(comp):
             return None
-        n = sum(int(l.numel()) for l in _packing.tree_flatten(tree)[0])
         return comp.init_state(n, self.size, device=self.device)
+
+    def _allreduce_grad_plan(self, grads, plan, states):
+        """Execute ``plan`` as the mean, with one EF state per quantized
+        hop (``states`` keyed by hop).  Returns ``(mean_grads,
+        new_states)`` when ``states`` is given, ``mean_grads`` for the
+        stateless one-shot path."""
+        from chainermn_tpu_torch.planner.compiler import (
+            execute_plan, plan_compressed_hops)
+        if states is not None:
+            hops = plan_compressed_hops(plan, self.plan_topology())
+            missing = sorted(set(hops) - set(states), key=repr)
+            if missing:
+                raise ValueError(
+                    f"per-hop compression states missing for stage(s) "
+                    f"{missing} of plan {plan.name!r}: build them with "
+                    "comm.init_compression_state(grads, plan)")
+        return execute_plan(plan, self, grads, states=states)
 
     def _allreduce_grad_wire_start(self, grads, wire):
         """The ``allreduce_grad_dtype`` program, started: pack per dtype
@@ -584,30 +658,34 @@ class MeshCommunicator(CommunicatorBase):
         wire route), on any flavor."""
         return self._allreduce_grad_wire_start(grads, as_dtype(wire))()
 
-    def _sum_codes(self, codes: torch.Tensor) -> torch.Tensor:
-        """The world's sum of this rank's wire ``codes``, in wire
-        arithmetic (see the module note): int8 through the backend's sum
-        all-reduce; float8_e4m3fn as bytes, an all-to-all, each rank's
-        float16 sum of its shard in rank order, and an all-gather.  Any
-        other wire dtype raises (no fallback to a wider wire)."""
+    def _sum_codes(self, codes: torch.Tensor,
+                   scope: str = "all") -> torch.Tensor:
+        """The sum of this rank's wire ``codes`` over the ranks of plan
+        scope ``scope`` (the world by default), in wire arithmetic (see the
+        module note): int8 through the backend's sum all-reduce;
+        float8_e4m3fn as bytes, an all-to-all, each rank's float16 sum of
+        its shard in rank order, and an all-gather.  Any other wire dtype
+        raises (no fallback to a wider wire)."""
         from chainermn_tpu_torch.compression.quantize import sum_wire
-        n = self.size
+        group, n = {"all": (self._group, self.size),
+                    "intra": (self._groups["intra"], self.intra_size),
+                    "inter": (self._groups["inter"], self.inter_size)}[scope]
         if n == 1:
             return codes
         if codes.dtype == torch.int8:
             codes = codes.clone()
-            dist.all_reduce(codes, dist.ReduceOp.SUM, group=self._group)
+            dist.all_reduce(codes, dist.ReduceOp.SUM, group=group)
             return codes
         if codes.dtype != torch.float8_e4m3fn:
             raise TypeError(f"no in-wire sum for {codes.dtype}")
         # float8 moves as bytes (int8: the dtype every backend takes)
         b, strip = _packing.pad_to_multiple(codes.view(torch.int8), n)
         recv = torch.empty_like(b)
-        dist.all_to_all_single(recv, b, group=self._group)
+        dist.all_to_all_single(recv, b, group=group)
         shard = sum_wire(recv.view(torch.float8_e4m3fn).view(n, -1),
                          torch.float8_e4m3fn).view(torch.int8)
         out = torch.empty_like(b)
-        all_gather_tensor(out, shard, group=self._group)
+        all_gather_tensor(out, shard, group=group)
         return strip(out).view(torch.float8_e4m3fn)
 
     def _allreduce_grad_compressed(self, grads, comp, state):

@@ -30,6 +30,10 @@ class NonCudaAwareCommunicator(MeshCommunicator):
     def allreduce_grad(self, grads, *, compressor=None, state=None):
         from chainermn_tpu_torch.compression import (
             NoCompression, resolve_compressor)
+        from chainermn_tpu_torch.planner.ir import Plan
+        if isinstance(compressor, Plan) or isinstance(state, dict):
+            return super().allreduce_grad(grads, compressor=compressor,
+                                          state=state)
         comp = resolve_compressor(compressor)
         if isinstance(comp, NoCompression) and comp.wire is not None:
             wire = comp.wire
@@ -42,6 +46,18 @@ class NonCudaAwareCommunicator(MeshCommunicator):
                     lambda g: g.to(wire).to(g.dtype), grads)
             comp = None
         return super().allreduce_grad(grads, compressor=comp, state=state)
+
+    def _plan_all_reduce(self, buf, group, scope):
+        """A plan's world-scope all-reduce stages through the host, as this
+        flavor's own mean does (its ``plan()`` is the flat plan); the
+        intra and inter scopes use the communicator's groups."""
+        if scope != "all":
+            return super()._plan_all_reduce(buf, group, scope)
+        host = torch.empty(buf.shape, dtype=buf.dtype, device="cpu",
+                           pin_memory=buf.is_cuda)
+        host.copy_(buf)
+        dist.all_reduce(host, dist.ReduceOp.SUM, group=self._obj_group)
+        buf.copy_(host)
 
     def _allreduce_grad_traced(self, grads):
         buffers, meta = _packing.pack(grads)

@@ -13,6 +13,7 @@ from chainermn_tpu_torch.communicators.mesh_communicator_base import (
 
 class SingleNodeCommunicator(MeshCommunicator):
     flavor = "single_node"
+    packs_leaf_plans = True
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)

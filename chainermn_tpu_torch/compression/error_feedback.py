@@ -17,8 +17,9 @@ lost.
 * ``step`` -- a float32 step counter ``[1]``, which seeds the stochastic
   rounding's generator;
 * ``spec``, ``ef_version`` and ``hop`` -- the compressor's identity, the
-  format version, and the plan stage of a per-hop state (``None`` here:
-  per-hop plans wait for the collective planner).
+  format version, and the plan stage of a per-hop state (``None`` for the
+  whole-buffer exchange; a per-hop plan's state carries its hop key,
+  ``planner.init_plan_compression_states``).
 
 Where JAX's state is a pytree threaded through the step, the port's is
 updated in place (:meth:`CompressionState.update`), so a checkpoint that

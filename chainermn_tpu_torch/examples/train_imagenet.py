@@ -56,7 +56,9 @@ loader drew ahead) and the iteration; a run started on a directory that
 holds a generation every rank can read resumes from the newest such one,
 and then trains as the uninterrupted run would have.
 ``AllreducePersistent`` averages the BatchNorm running statistics over the
-world at every epoch end.
+world at every epoch end.  ``--communicator auto --plan-table FILE`` runs
+each gradient mean through the plan the tuned table picks for its size
+(:mod:`chainermn_tpu_torch.planner`).
 
 ``--fsdp`` trains with ZeRO-3 (:mod:`chainermn_tpu_torch.parallel.fsdp`):
 the parameters and the optimizer's state live as 1/size flat shards per
@@ -161,6 +163,10 @@ def parse_args(argv=None):
     p.add_argument("--iterations", type=int, default=None,
                    help="stop after this many steps (overrides --epoch)")
     p.add_argument("--communicator", default="xla")
+    p.add_argument("--plan-table", default=None,
+                   help="the auto communicator's plan table (a JSON file "
+                        "from planner.autotune_from_rows over "
+                        "bench_allreduce --sweep rows)")
     p.add_argument("--intra-size", type=int, default=None,
                    help="ranks per node (default: LOCAL_WORLD_SIZE)")
     p.add_argument("--allreduce-grad-dtype", default=None,
@@ -253,6 +259,8 @@ def parse_args(argv=None):
                 f"{args.arch} has no such option")
     if args.zero and args.double_buffering:
         p.error("--zero and --double-buffering are mutually exclusive")
+    if args.plan_table and args.communicator != "auto":
+        p.error("--plan-table is the auto communicator's")
     if args.fsdp and (args.zero or args.double_buffering):
         p.error("--fsdp already shards params+grads+state; --zero and "
                 "--double-buffering do not compose with it")
@@ -313,7 +321,8 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     comm = cmn.create_communicator(
         args.communicator, allreduce_grad_dtype=args.allreduce_grad_dtype,
-        intra_size=args.intra_size, device=args.device)
+        intra_size=args.intra_size, device=args.device,
+        **({"plan_table": args.plan_table} if args.plan_table else {}))
     device = comm.device
     if comm.rank == 0:
         print(f"==========================================\n"

@@ -35,9 +35,16 @@ checkpoint with EF state into a target without compression, one without
 into a compressed target, and a compressor config other than the live
 one (JAX's three refusals).
 
+After an online plan-table hot-swap
+(:func:`~chainermn_tpu_torch.planner.set_active_plan_table`) a save pins the
+live table's content hash and swap step in the ``__plan_table_meta__``
+sidecar; a resume refuses a checkpoint whose pinned table is not the live
+one, and one that pins a table while none is registered (JAX's two
+refusals): the run would execute other collective plans than the one that
+saved.
+
 Not ported: the ``async`` backend (ROADMAP.md Queue A14) and ``orbax``,
-which has no twin in PyTorch; the plan-table sidecar waits for the
-collective planner (Queue A11).
+which has no twin in PyTorch.
 """
 
 from __future__ import annotations
@@ -64,6 +71,8 @@ _DTYPES_KEY = "__dtypes__"
 _FSDP_META_KEY = "__fsdp_meta__"
 # the compression config of every error-feedback state in the tree
 _COMPRESSION_META_KEY = "__compression_meta__"
+# the hash and swap step of the live (hot-swapped) plan table
+_PLAN_TABLE_META_KEY = "__plan_table_meta__"
 
 
 def _leaves(tree, prefix: str = "") -> Dict[str, object]:
@@ -170,6 +179,10 @@ class _MultiNodeCheckpointer:
         clayout = compression_layout(state)
         if clayout is not None:
             arrays[_COMPRESSION_META_KEY] = np.array(json.dumps(clayout))
+        from chainermn_tpu_torch.planner.online import active_plan_table_meta
+        tmeta = active_plan_table_meta()
+        if tmeta is not None:
+            arrays[_PLAN_TABLE_META_KEY] = np.array(json.dumps(tmeta))
         # np.savez appends .npz when missing, so the temp name ends in it
         tmp = self._file(iteration) + ".tmp.npz"
         np.savez(tmp, **arrays)
@@ -315,6 +328,38 @@ class _MultiNodeCheckpointer:
                 f"pass the identical compression config, or restart "
                 f"fresh under the new one")
 
+    def _validate_plan_table(self, arrays: dict, gen: int) -> None:
+        """Refuse a checkpoint saved after a plan-table hot-swap unless the
+        same table is live here: resuming without it (or with another)
+        would silently execute other collective plans than the run that
+        saved."""
+        from chainermn_tpu_torch.planner.online import active_plan_table_meta
+        where = f"{self.name}.{gen} (rank {self.comm.rank})"
+        raw = arrays.pop(_PLAN_TABLE_META_KEY, None)
+        saved = json.loads(str(raw)) if raw is not None else None
+        live = active_plan_table_meta()
+        if saved is not None and live is None:
+            raise ValueError(
+                f"checkpoint {where} was saved after an online plan-table "
+                f"hot-swap (table_hash={saved['table_hash']}, swap step "
+                f"{saved['swap_step']}) but no active plan table is "
+                f"registered in this process -- reload the swapped table "
+                f"(PlanTable.load) and register it with "
+                f"planner.online.set_active_plan_table before resuming, "
+                f"or, to deliberately discard the tuned plans, resume into "
+                f"a fresh run without the sidecar (re-save after "
+                f"planner.online.clear_active_plan_table)")
+        if saved is not None and saved["table_hash"] != live["table_hash"]:
+            raise ValueError(
+                f"checkpoint {where} pins plan table {saved['table_hash']} "
+                f"(hot-swapped at step {saved['swap_step']}) but the active "
+                f"table is {live['table_hash']} -- the run would silently "
+                f"execute different collective plans than the one that "
+                f"saved; register the matching table via "
+                f"planner.online.set_active_plan_table(PlanTable.load(...)) "
+                f"or re-tune from scratch with "
+                f"planner.online.clear_active_plan_table()")
+
     def _validate(self, arrays: dict, leaves: dict, gen: int) -> None:
         where = f"{self.name}.{gen} (rank {self.comm.rank})"
         saved = json.loads(str(arrays.pop(_DTYPES_KEY)))
@@ -349,6 +394,7 @@ class _MultiNodeCheckpointer:
             arrays = {k: data[k] for k in data.files}
         self._validate_fsdp(arrays, state, gen)
         self._validate_compression(arrays, state, gen)
+        self._validate_plan_table(arrays, gen)
         leaves = _leaves(state)
         self._validate(arrays, leaves, gen)
         return _rebuild(state, {k: _restore_leaf(arrays[k], v)

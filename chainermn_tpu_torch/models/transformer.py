@@ -252,7 +252,7 @@ class TransformerLM(nn.Module):
     ``moe_experts``/``moe_top_k``/``moe_capacity`` with ``moe_comm`` (the
     expert-parallel ranks) and ``tp_size`` with ``tp_comm`` (the
     tensor-parallel ranks) are the module note's extensions; ``moe_plan``
-    (the planner's all-to-all) raises, naming ROADMAP.md Queue A11.
+    (a planner all-to-all plan) runs the MoE exchanges through it.
     """
 
     def __init__(self, vocab: int, d_model: int = 256, n_layers: int = 4,
@@ -273,10 +273,6 @@ class TransformerLM(nn.Module):
             raise ValueError(
                 f"n_kv_heads ({n_kv_heads}) must be >= 1 and divide "
                 f"n_heads ({n_heads})")
-        if moe_plan is not None:
-            raise NotImplementedError(
-                "moe_plan (the collective planner's all-to-all plan) is not "
-                "ported yet; see ROADMAP.md Queue A11")
         device = resolve_device(device)
         self.vocab, self.d_model, self.dtype = vocab, d_model, dtype
         self.n_layers, self.n_heads, self.max_len = n_layers, n_heads, max_len

@@ -12,8 +12,9 @@ extension of the JAX package).  ``compression=`` picks the gradient wire
 codec (JAX ``optimizers.py:299``): ``NoCompression(wire_dtype)`` runs the
 ``allreduce_grad_dtype`` program, a quantizer (``"int8"``/``"fp8"``) the
 error-feedback exchange with its state in the optimizer
-(:class:`_CompressedOptimizer`).  Per-hop ``Plan`` compression waits for
-the collective planner (ROADMAP.md Queue A11).
+(:class:`_CompressedOptimizer`); a :class:`~chainermn_tpu_torch.planner.Plan`
+with quantized stages runs the per-hop exchange, one EF state a quantized
+hop (``comp_state`` is then a dict by hop).
 
 Every wrapper's ``local_optimizer`` is the ``torch.optim`` optimizer that
 holds this rank's state and whose step moves its parameters (the wrapped
@@ -100,7 +101,8 @@ class _CompressedOptimizer(_MultiNodeOptimizer):
     keeps its own residual), built at construction over the parameters'
     packed float32 length and updated in place every step, so a checkpoint
     tree that holds it (``{"comp": optimizer.comp_state}``) saves the
-    live state and a resume restores into it.
+    live state and a resume restores into it.  With a per-hop ``Plan`` it
+    is a ``{hop: CompressionState}`` dict, each sized to its hop's buffer.
     """
 
     def __init__(self, actual_optimizer: torch.optim.Optimizer, comm,
@@ -117,7 +119,11 @@ class _CompressedOptimizer(_MultiNodeOptimizer):
         reduced, new = self.communicator.allreduce_grad(
             _local_grads(params), compressor=self.compression,
             state=self.comp_state)
-        self.comp_state.update(new)
+        if isinstance(self.comp_state, dict):
+            for hop, st in self.comp_state.items():
+                st.update(new[hop])
+        else:
+            self.comp_state.update(new)
         for p, g in zip(params, reduced):
             p.grad = g
 
@@ -331,9 +337,30 @@ def create_multi_node_optimizer(actual_optimizer: torch.optim.Optimizer,
     ``allreduce_grad_dtype`` program bit for bit; a quantizer keeps its
     error-feedback state in the returned optimizer
     (:class:`_CompressedOptimizer`) and composes with neither ``zero``
-    nor ``double_buffering`` (JAX's refusals)."""
+    nor ``double_buffering`` (JAX's refusals).  A
+    :class:`~chainermn_tpu_torch.planner.Plan` with per-hop
+    ``Stage.compression`` specs executes that plan with one EF state per
+    quantized hop (JAX's two refusals: with ``zero``/``double_buffering``,
+    and a plan with no quantized stage on this topology)."""
     from chainermn_tpu_torch.compression import (
         is_quantizing, resolve_compressor)
+    from chainermn_tpu_torch.planner.compiler import plan_compressed_hops
+    from chainermn_tpu_torch.planner.ir import Plan
+    if isinstance(compression, Plan):
+        if zero or double_buffering:
+            raise NotImplementedError(
+                "compression=<Plan> (per-hop) composes with neither "
+                "zero=True nor double_buffering=True -- the per-hop EF "
+                "states ride the plain compressed-optimizer state slot")
+        if not plan_compressed_hops(compression,
+                                    communicator.plan_topology()):
+            raise ValueError(
+                f"compression plan {compression.name!r} has no quantizing "
+                "stages on this topology; pass the plan to "
+                "create_communicator(plan_table=...) instead, or add "
+                "Stage.compression specs")
+        return _CompressedOptimizer(actual_optimizer, communicator,
+                                    compression)
     compression = resolve_compressor(compression)
     _deprecate_raw_wire_knob(communicator, compression)
     if zero and double_buffering:

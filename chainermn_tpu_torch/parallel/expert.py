@@ -39,9 +39,17 @@ h]``, ``up_bias``, ``down_kernel [E, h, d]`` and ``down_bias`` stacks
 zeroes the gradient outside each device's slice.  The owner's expert
 gradients come back whole through the all-to-all's backward; only the
 replicated parameters (the router, and the rest of a model) need summing
-over the EP ranks.  ``comm=None`` is a world of one.  The collective
-planner's routes (``plan=``, ``plan_topology=``, ``plan_obs=``) and
-:func:`moe_plan_topology` raise, naming ROADMAP.md Queue A11.
+over the EP ranks.  ``comm=None`` is a world of one.
+
+``plan=`` (an all-to-all :class:`~chainermn_tpu_torch.planner.Plan`, e.g.
+from ``planner.alltoall_plans``) runs both exchanges through
+:func:`~chainermn_tpu_torch.planner.execute_alltoall` -- the hierarchical
+two-hop form, narrow wires on a hop -- with the same block layout as the
+raw all-to-all; the exchange is announced as the ``"moe"`` plan slot and a
+jointly tuned override installed there is honoured
+(``planner.schedule.resolve_slot_plan``).  ``plan_topology`` defaults to
+:func:`moe_plan_topology`; ``plan_obs`` (per-hop spans) raises unless
+``None``, naming ROADMAP.md Queue A13.
 """
 
 from __future__ import annotations
@@ -57,14 +65,15 @@ from chainermn_tpu_torch.models.resnet import _lecun_normal_
 from chainermn_tpu_torch.parallel.topology import resolve_device
 
 
-def _a11(what: str):
-    return NotImplementedError(
-        f"{what} (the collective planner's all-to-all plans) is not ported "
-        "yet; see ROADMAP.md Queue A11")
-
-
 def moe_plan_topology(comm):
-    raise _a11("moe_plan_topology")
+    """The :class:`~chainermn_tpu_torch.planner.PlanTopology` of the MoE
+    exchange ranks: ``comm.plan_topology()`` (``(("inter", I), ("intra",
+    J))``, the last the NVLink level), a world of one for ``comm=None``.
+    JAX takes the mesh axis names instead."""
+    from chainermn_tpu_torch.planner.ir import PlanTopology
+    if comm is None:
+        return PlanTopology(axes=(("inter", 1), ("intra", 1)))
+    return comm.plan_topology()
 
 
 def top_k_indices(gates: torch.Tensor, k: int) -> torch.Tensor:
@@ -111,8 +120,11 @@ def moe_apply(expert_fn: Callable, gate_logits, x, comm=None,
     ``comm``'s ranks; returns ``[N, D]`` (and the statistics with
     ``return_stats``).  ``gate_logits`` is ``[N, E]``; see the module
     note for the rest."""
-    if plan is not None or plan_topology is not None or plan_obs is not None:
-        raise _a11("moe_apply(plan=, plan_topology=, plan_obs=)")
+    if plan_obs is not None:
+        raise NotImplementedError(
+            "moe_apply(plan_obs=) (per-hop plan spans) needs the "
+            "observability stack, which is not ported yet; see ROADMAP.md "
+            "Queue A13")
     p = 1 if comm is None else comm.size
     n, d = x.shape
     e = int(num_experts) if num_experts is not None else gate_logits.shape[-1]
@@ -144,17 +156,34 @@ def moe_apply(expert_fn: Callable, gate_logits, x, comm=None,
                              x.new_zeros(())).reshape(-1, d))
     # the experts lie contiguously by owner, so [P, E/P C] ships each
     # rank its block
-    recv = send.reshape(p, epd * c, d)
-    if p > 1:
-        recv = functions.alltoall(comm, recv)
+    if plan is None:
+        def exchange(b):
+            return functions.alltoall(comm, b) if p > 1 else b
+    else:
+        from chainermn_tpu_torch.planner.compiler import execute_alltoall
+        from chainermn_tpu_torch.planner.ir import dtype_name
+        from chainermn_tpu_torch.planner.schedule import (
+            register_plan_slot, resolve_slot_plan)
+        topo = (plan_topology if plan_topology is not None
+                else moe_plan_topology(comm))
+        # the dispatch and combine exchanges are one slot (the same buffer
+        # both ways)
+        register_plan_slot("moe", nbytes=e * c * d * x.element_size(),
+                           dtype=dtype_name(x.dtype), op="all-to-all",
+                           owners=("moe",))
+        plan = resolve_slot_plan("moe", plan)
+
+        def exchange(b):
+            return execute_alltoall(plan, comm, b.contiguous(),
+                                    topology=topo)
+    recv = exchange(send.reshape(p, epd * c, d))
     recv = recv.reshape(p, epd, c, d).transpose(0, 1)        # [E/P, P, C, D]
     if epd == 1:
         out = expert_fn(recv.reshape(p * c, d))
     else:
         out = expert_fn(recv.reshape(epd, p * c, d))
-    back = out.reshape(epd, p, c, d).transpose(0, 1).reshape(p, epd * c, d)
-    if p > 1:
-        back = functions.alltoall(comm, back)
+    back = exchange(
+        out.reshape(epd, p, c, d).transpose(0, 1).reshape(p, epd * c, d))
     back = back.reshape(e, c, d)
 
     routed = back.reshape(e * c, d).index_select(0, rows).reshape(
@@ -203,8 +232,6 @@ class ExpertParallelMLP(nn.Module):
                  generator=None):
         super().__init__()
         from chainermn_tpu_torch.models.transformer import Dense
-        if plan is not None:
-            raise _a11("ExpertParallelMLP(plan=)")
         p = 1 if comm is None else comm.size
         e = num_experts if num_experts is not None else p
         if e % p:
@@ -214,6 +241,7 @@ class ExpertParallelMLP(nn.Module):
         self.comm, self.num_experts, self.top_k = comm, e, top_k
         self.capacity, self.dtype = capacity, dtype
         self.with_stats = with_stats
+        self.plan = plan
         self.epd = e // p
         me = 0 if comm is None else comm.rank
         rows = slice(me * self.epd, (me + 1) * self.epd)
@@ -246,7 +274,7 @@ class ExpertParallelMLP(nn.Module):
         res = moe_apply(self.expert_fn, self.router(flat), flat, self.comm,
                         capacity=self.capacity, top_k=self.top_k,
                         num_experts=self.num_experts,
-                        return_stats=self.with_stats)
+                        return_stats=self.with_stats, plan=self.plan)
         if self.with_stats:
             y, stats = res
             return y.reshape(shape), stats

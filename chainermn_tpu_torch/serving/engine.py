@@ -40,8 +40,12 @@ draft, whole) that carry their weights where JAX takes ``(model,
 params)``; the cache is written in place; the forwards are plain methods
 run under ``torch.inference_mode()``; a communicator of exactly
 ``tp_size x ep_size`` ranks stands in for JAX's mesh of the first such
-devices; there is no plan-table pickup and ``moe_plan`` raises (A11), and
-there are no ``serving_*`` metrics or flight-recorder spans (A13).  The
+devices; there are no ``serving_*`` metrics or flight-recorder spans
+(A13).  ``moe_plan`` runs a MoE model's exchanges through a planner
+all-to-all plan.  An online plan-table hot-swap rides the step envelope as
+in JAX: rank 0 piggybacks a newly registered table
+(``planner.online.set_active_plan_table``) on the step's plan, and every
+rank registers it on that same serving step.  The
 spec-decode accept decisions ride the next step's plan as in JAX, and
 every rank checks them.  The step's padded positions must lie inside the
 model's position table (``max_len``): where JAX's embedding lookup fills
@@ -77,7 +81,7 @@ class ServingConfig:
     policy: str = "continuous"    # or "static" (benchmark baseline)
     tp_size: int = 1              # tensor-parallel ways
     ep_size: int = 1              # expert-parallel ways (MoE models)
-    moe_plan: Any = None          # the planner's all-to-all (raises: A11)
+    moe_plan: Any = None          # all-to-all Plan for the MoE exchanges
     cache_dtype: Any = torch.float32
     keep_logits: bool = False     # stash last-position logits per step
     prefix_cache: bool = False    # copy-on-write prompt-prefix sharing
@@ -130,7 +134,7 @@ def _kv_shape(model):
     return blk.n_kv, blk.head_dim
 
 
-def _shard(model, tp, t, tp_comm, ep, e, ep_comm):
+def _shard(model, tp, t, tp_comm, ep, e, ep_comm, moe_plan=None):
     """Rank ``(t, e)``'s shard of the whole ``model``: a ``tp_size`` model
     over ``tp_comm`` and ``ep_comm`` holding shard ``t`` of its blocks and
     expert group ``e`` of its experts."""
@@ -147,8 +151,8 @@ def _shard(model, tp, t, tp_comm, ep, e, ep_comm):
         model.max_len, model.attention_impl, dtype=model.dtype,
         n_kv_heads=model.n_kv_heads, moe_experts=model.moe_experts,
         moe_top_k=model.moe_top_k, moe_capacity=model.moe_capacity,
-        moe_comm=ep_comm, tp_size=tp, tp_comm=tp_comm, device=dev,
-        generator=torch.Generator(dev))
+        moe_comm=ep_comm, moe_plan=moe_plan, tp_size=tp, tp_comm=tp_comm,
+        device=dev, generator=torch.Generator(dev))
     sd = model.state_dict()
     if tp > 1:
         sd = {k: v[t] for k, v in shard_params_tp(
@@ -201,10 +205,6 @@ class InferenceEngine:
                 raise ValueError(
                     "speculative decoding (spec_k > 0) is not supported "
                     "with ep_size > 1")
-        if cfg.moe_plan is not None:
-            raise NotImplementedError(
-                "moe_plan (the collective planner's all-to-all plan) is not "
-                "ported yet; see ROADMAP.md Queue A11")
         n_kv = model.n_kv_heads or model.n_heads
         if n_kv % tp:
             raise ValueError(
@@ -257,14 +257,19 @@ class InferenceEngine:
             max_pages_per_seq=cfg.max_pages_per_seq,
             chunk_tokens=cfg.chunk_tokens, eos_id=cfg.eos_id,
             policy=cfg.policy, prefix_cache=cfg.prefix_cache)
-        if tp > 1 or ep > 1:
+        if cfg.moe_plan is not None:
+            from chainermn_tpu_torch.planner.compiler import (
+                check_exchange_plan)
+            check_exchange_plan(cfg.moe_plan)
+        moe_plan = cfg.moe_plan if model.moe_experts else None
+        if tp > 1 or ep > 1 or moe_plan is not None:
             # every rank builds both groups, in one order (collective)
-            r = comm.rank
+            r = comm.rank if comm is not None else 0
             t, e = r // ep, r % ep
             tp_comm = comm.split(e, t) if tp > 1 else None
             ep_comm = comm.split(t, e) if ep > 1 else None
             self.model = model = _shard(model, tp, t, tp_comm, ep, e,
-                                        ep_comm)
+                                        ep_comm, moe_plan)
             if cfg.spec_k and tp > 1:
                 dn_kv = draft_model.n_kv_heads or draft_model.n_heads
                 if dn_kv % tp:
@@ -290,9 +295,47 @@ class InferenceEngine:
         # forward passes run (each launches the flash forward once a layer)
         self.passes = {"target": 0, "draft": 0}
         self._step_idx = 0
+        # the content hash of the last plan table this engine saw
+        self._plan_table_hash = None
+        #: the serving steps on which a swapped plan table was picked up
+        self.plan_table_pickups: List[int] = []
         self._arrivals: Dict[int, float] = {}
         self._token_times: Dict[int, List[float]] = {}
         self.completions: List[Completion] = []
+
+    # -- online-tuner plan-table pickup --------------------------------------
+    def _attach_plan_table(self, plan):
+        """Rank 0: when a plan table was hot-swapped since this engine last
+        broadcast one, piggyback it on the step's plan, so every rank picks
+        it up on the SAME serving step (the plan broadcast is the engine's
+        lockstep channel already)."""
+        from chainermn_tpu_torch.planner.online import (
+            active_plan_table_meta, get_active_plan_table)
+        meta = active_plan_table_meta()
+        if meta is not None and meta["table_hash"] != self._plan_table_hash:
+            plan = dict(plan, plan_table={
+                "table_hash": meta["table_hash"],
+                "swap_step": meta["swap_step"],
+                "table": get_active_plan_table().to_dict()})
+        return plan
+
+    def _pickup_plan_table(self, plan):
+        """Every rank: take a piggybacked plan table off the plan and
+        register it as this process's active table (the checkpoint
+        sidecar's pin; an auto communicator's swap reads it)."""
+        if not isinstance(plan, dict) or "plan_table" not in plan:
+            return plan
+        from chainermn_tpu_torch.planner.autotune import PlanTable
+        from chainermn_tpu_torch.planner.online import set_active_plan_table
+        plan = dict(plan)
+        entry = plan.pop("plan_table")
+        if entry["table_hash"] != self._plan_table_hash:
+            self._plan_table_hash = entry["table_hash"]
+            self.plan_table_pickups.append(self._step_idx)
+            if self.plane.rank != 0:
+                set_active_plan_table(PlanTable.from_dict(entry["table"]),
+                                      step=entry.get("swap_step"))
+        return plan
 
     # -- spec-decode accept decisions on the plan envelope -------------------
     def _attach_spec(self, plan):
@@ -443,12 +486,13 @@ class InferenceEngine:
     def step(self) -> StepResult:
         sched = self.scheduler
         if self.plane.size > 1:
-            plan = (self._attach_spec(sched.build_plan())
-                    if self.plane.rank == 0 else None)
+            plan = (self._attach_spec(self._attach_plan_table(
+                sched.build_plan())) if self.plane.rank == 0 else None)
             plan = self.plane.bcast_obj(plan, root=0)
         else:
-            plan = self._attach_spec(sched.build_plan())
-        plan = self._pickup_spec(plan)
+            plan = self._attach_spec(self._attach_plan_table(
+                sched.build_plan()))
+        plan = self._pickup_spec(self._pickup_plan_table(plan))
         retired = sched.apply_plan(plan)
         completed = [self._finish(slot) for _, slot in retired]
 

@@ -14,9 +14,10 @@ replica is one lockstep serving world; the router spreads *requests*
   the same submits picks the same replica.
 
 :meth:`Router.distribute_weights` is
-:func:`~chainermn_tpu_torch.serving.weights.broadcast_inference_params`;
-the planner's multicast plans (``plan=``) wait for ROADMAP.md Queue A11,
-and the ``serving_router_*`` metrics for A13.
+:func:`~chainermn_tpu_torch.serving.weights.broadcast_inference_params`
+through a planner multicast plan (hierarchical when the world spans
+several nodes); the ``serving_router_*`` metrics wait for ROADMAP.md Queue
+A13.
 """
 
 from __future__ import annotations
@@ -232,12 +233,19 @@ class Router:
     # -- fleet weight distribution -------------------------------------------
     @staticmethod
     def distribute_weights(comm, params, root: int = 0, *, plan=None):
-        """Root's params on every rank of ``comm`` (bit for bit).  The JAX
-        package's tuned multicast plans (``plan=``) wait for ROADMAP.md
-        Queue A11."""
+        """Root's params on every rank of ``comm`` (bit for bit), through a
+        planner multicast plan: by default hierarchical multicast (an intra
+        stage, then one inter-node crossing a node) when the world spans
+        several nodes, flat multicast otherwise."""
         from chainermn_tpu_torch.serving.weights import (
-            broadcast_inference_params)
+            broadcast_inference_params, weights_multicast_plan)
 
+        if plan is None:
+            topo = comm.plan_topology()
+            hier = any(n == "inter" and size > 1 for n, size in topo.axes)
+            plan = weights_multicast_plan(root=root, hierarchical=hier,
+                                          topology=topo,
+                                          name="router_weights")
         return broadcast_inference_params(comm, params, root=root,
                                           plan=plan)
 

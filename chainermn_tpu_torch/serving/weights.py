@@ -28,8 +28,10 @@ conv weights is axis 0 and for an embedding the feature axis.  A
 ``channel_axes`` (:func:`chainermn_tpu_torch.weights.channel_axes` of the
 model gives JAX's axes); without it every leaf is quantized along axis 0.
 
-The planner's multicast plans raise ``NotImplementedError`` naming
-ROADMAP.md Queue A11.
+:func:`broadcast_inference_params` takes a planner multicast plan
+(``plan=``, e.g. :func:`weights_multicast_plan` or one of
+``planner.broadcast_plans``) and runs its leaf-mode stage chain without the
+gradient mean.
 """
 
 from __future__ import annotations
@@ -37,11 +39,6 @@ from __future__ import annotations
 import torch
 
 from chainermn_tpu_torch.communicators._packing import tree_map
-
-
-def _queue(what: str, queue: str):
-    return NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md Queue {queue}")
 
 
 _QUANT_CODES = "int8_codes"
@@ -98,10 +95,23 @@ def load_inference_params(source, metas=None, *, checkpointer=None,
 def broadcast_inference_params(comm, params, root: int = 0, *, plan=None):
     """Root's ``params`` on every rank of ``comm``, bit for bit.  Every
     rank passes a tree of the same structure, shapes and dtypes (the other
-    ranks' values are overwritten); returns new tensors."""
-    if plan is not None:
-        raise _queue("a planner multicast plan (plan=)", "A11")
-    return comm.bcast(params, root=root)
+    ranks' values are overwritten); returns new tensors.
+
+    ``plan`` (a leaf-packed multicast plan; build it with the same
+    ``root``) runs through the planner's leaf-mode stage chain -- not
+    ``execute_plan``, whose gradient mean would scale the weights by
+    1/size; int8 trees from :func:`quantize_inference_params` ride it as
+    they are.  Without one, one broadcast a leaf (the flat multicast)."""
+    if plan is None:
+        return comm.bcast(params, root=root)
+    from chainermn_tpu_torch.planner.compiler import _run_leaf_plan
+    plan.validate()
+    if plan.packing != "leaf":
+        raise ValueError(
+            f"broadcast plan {plan.name!r} must use leaf packing "
+            f"(arbitrary param trees); got {plan.packing!r}")
+    return _run_leaf_plan(plan, comm.plan_topology(), comm, params,
+                          mean=False)
 
 
 def _is_matrix(x) -> bool:
@@ -151,7 +161,15 @@ def dequantize_inference_params(qparams):
 
 def weights_multicast_plan(root: int = 0, name: str = "serving_weights",
                            hierarchical: bool = False, topology=None):
-    raise _queue("weights_multicast_plan (the planner's multicast)", "A11")
+    """The weight broadcast as a planner plan: a leaf-packed ``multicast``
+    over the whole world, or (``hierarchical=True``) the intra-then-inter
+    two-stage form that crosses the inter-node boundary once a node
+    (``planner.plans.multicast_plan``; a non-zero ``root`` then needs the
+    ``topology`` to split into (inter, intra) coordinates)."""
+    from chainermn_tpu_torch.planner.plans import multicast_plan
+
+    return multicast_plan(hierarchical=hierarchical, root=root,
+                          topology=topology, name=name)
 
 
 def shard_params_tp(params, tp_size: int, *, n_heads: int,

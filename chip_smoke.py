@@ -390,6 +390,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     phase 24 (c)'s kernel-against-plain gates on the round-tripped
     weights.  The summary's rows 1-4 add (a)'s step, row 5 (a)'s casts,
     rows 6-8 (d)'s launches.
+30. the collective planner (after 29, before 22; ``phase_planner``),
+    gated, on the NCCL world of one.  (a) ``bench_allreduce --sweep`` at
+    ``P30_SIZES_KB``: every candidate plan checked for the mean, then
+    timed by CUDA events; the rows validate, ``autotune_from_rows`` builds
+    the table, which round-trips through JSON; the gradient bucket
+    (ResNet-50's 102.2 MB of float32, ``<=256MiB``) holds the bf16 flat
+    plan (put there whatever the world of one picked, which is printed).
+    (b) ResNet-50's gradients of one bf16 step at batch 32 (53 launches of
+    each BatchNorm kernel): each of the seven flavors (and xla with the
+    bf16 wire) bit-equal to ``execute_plan(comm.plan())``.  (c) ``auto``
+    with the table picks the bf16 flat plan for them and is bit-equal to
+    ``xla`` + the bf16 wire, with 2 ``cast_scale`` launches a call; the
+    card's bits equal the CPU's for the same plan.  (d) ``P30_STEPS``
+    ResNet-50 steps of ``train_imagenet`` through ``auto --plan-table``
+    and through ``xla`` + bf16, plain and double-buffered (cuDNN
+    deterministic): finite losses, each auto run bit-equal to its xla
+    run (losses and parameters), 53 launches a step of each BatchNorm
+    kernel and 2 casts; images/sec beside phase 3's.  (e) The per-hop plan
+    (int8 on the inter-node hop of the 2-D chain, float32 legs) equal to
+    ``allreduce_grad(compressor="int8")`` bit for bit over
+    ``P30_EF_STEPS`` deterministic EF steps.  (f) The
+    ``__plan_table_meta__`` round trip and its two refusals.  The
+    summary's rows 1-4 add (b)'s step and (d)'s runs, row 5 the casts of
+    (b), (c) and (d).
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
 """
@@ -4361,6 +4385,314 @@ def log_compression(p29, gpu, secs):
         f"{k} {v:.1f}" for k, v in p29["seconds"].items()) + ")")
 
 
+P30_SIZES_KB = "4,64,1024,16384"   # phase 30 (a): the sweep's ladder
+P30_ITERS = 20       # (a): timed calls a plan and size (after 3 warm-ups)
+P30_STEPS = 4        # (d): ResNet-50 steps of each run
+P30_EF_STEPS = 2     # (e): EF steps of the per-hop plan
+P30_FLAVORS = (("naive", "naive", {}), ("flat", "flat", {}),
+               ("hierarchical", "hierarchical", {}),
+               ("two_dimensional", "two_dimensional", {}),
+               ("single_node", "single_node", {}),
+               ("non_cuda_aware", "non_cuda_aware", {}), ("xla", "xla", {}),
+               ("xla_bf16", "xla", {"allreduce_grad_dtype": "bfloat16"}))
+
+
+def p30_sweep(root):
+    """(a): ``bench_allreduce --sweep`` on the NCCL world of one; the rows
+    validate, ``autotune_from_rows`` builds the table, the table
+    round-trips through JSON; the gradient bucket's entry is the bf16
+    flat plan (put there when the sweep picked another).  Writes the
+    table to ``root``."""
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.benchmarks import bench_allreduce
+    from chainermn_tpu_torch.planner import (
+        PlanTable, autotune_from_rows, candidate_plans, size_bucket,
+        validate_sweep_rows)
+    doc = bench_allreduce.main([
+        "--sweep", os.path.join(root, "sweep.json"), "--sweep-sizes-kb",
+        P30_SIZES_KB, "--iters", str(P30_ITERS), "--warmup", "3"])
+    rows = doc["rows"]
+    validate_sweep_rows(rows)
+    table, comparison = autotune_from_rows(rows)
+    topo = create_communicator("xla").plan_topology()
+    nbytes = 4 * RESNET_GRADS
+    swept = table.lookup(topo, "float32", nbytes).name
+    bf16 = next(p for p in candidate_plans(topo) if p.name == "flat_bfloat16")
+    table.put(topo, "float32", size_bucket(nbytes), bf16)
+    path = os.path.join(root, "plan_table.json")
+    table.save(path)
+    again = PlanTable.load(path)
+    us = {}
+    for r in rows:
+        us.setdefault(r["plan"], {})[r["bytes"]] = r["us"]
+    return dict(rows=len(rows), us=us, comparison=comparison,
+                roundtrip=again.to_dict() == table.to_dict(),
+                swept_pick=swept, bucket=size_bucket(nbytes), path=path,
+                table=table)
+
+
+def p30_flavors(cs, torch, grads):
+    """(b): each flavor's ``allreduce_grad`` against
+    ``execute_plan(comm.plan())`` of ResNet-50's gradients, bit for bit;
+    the cast launches of the bf16 xla pair."""
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.planner import execute_plan
+    out, casts = {}, 0
+    for label, name, kw in P30_FLAVORS:
+        comm = create_communicator(name, **kw)
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        a = comm.allreduce_grad(grads)
+        b = execute_plan(comm.plan(), comm, grads)
+        torch.cuda.synchronize()
+        casts += cs.launch_counts()["cast_scale"]
+        out[label] = all(_bits_equal(torch, a[k], b[k]) for k in grads)
+    return out, casts
+
+
+def p30_auto(cs, torch, grads, table_path):
+    """(c): ``auto`` with the table against ``xla`` + bf16 on the
+    gradients: its pick, the same bits, 2 cast launches a call, and the
+    card's bits against the CPU's for the same plan."""
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.planner import execute_plan
+    auto = create_communicator("auto", plan_table=table_path)
+    xla = create_communicator("xla", allreduce_grad_dtype=torch.bfloat16)
+    pick = auto._select(grads)
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    a = auto.allreduce_grad(grads)
+    torch.cuda.synchronize()
+    casts = cs.launch_counts()["cast_scale"]
+    cs.reset_launch_counts()
+    b = xla.allreduce_grad(grads)
+    torch.cuda.synchronize()
+    xla_casts = cs.launch_counts()["cast_scale"]
+    # the CPU: a scope of one rank issues no collective, so the plan runs
+    # on CPU tensors through the same communicator (the casts' plain form)
+    cpu = execute_plan(pick, auto, {k: v.cpu() for k, v in grads.items()})
+    return dict(pick=pick.name, casts=casts, xla_casts=xla_casts,
+                same_bits=all(_bits_equal(torch, a[k], b[k]) for k in grads),
+                card_cpu=all(_bits_equal(torch, a[k], cpu[k])
+                             for k in grads))
+
+
+def _p30_argv(extra):
+    """train_imagenet: ResNet-50 at full width, batch 32, bf16, synthetic,
+    momentum SGD, ``P30_STEPS`` steps."""
+    return ["--arch", "resnet50", "--batchsize", str(BATCH), "--iterations",
+            str(P30_STEPS), "--dtype", "bfloat16", "--train-size",
+            str(BATCH * P30_STEPS), "--seed", "0", "--log-interval", "100",
+            "--warmup-steps", "1", "--val-size", "0"] + extra
+
+
+def p30_resnet(fn, cs, torch, table_path):
+    """(d): ``P30_STEPS`` ResNet-50 steps through ``auto`` with the table
+    and through ``xla`` + the bf16 wire, plain and double-buffered (cuDNN
+    deterministic): losses, parameters bit for bit, launches, images/s."""
+    from chainermn_tpu_torch.examples import train_imagenet
+    runs = {}
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        for db in ([], ["--double-buffering"]):
+            for label, extra in (
+                    ("xla", ["--communicator", "xla",
+                             "--allreduce-grad-dtype", "bfloat16"]),
+                    ("auto", ["--communicator", "auto", "--plan-table",
+                              table_path])):
+                name = label + (" db" if db else "")
+                torch.cuda.synchronize()
+                fn.reset_launch_counts()
+                cs.reset_launch_counts()
+                res = train_imagenet.main(_p30_argv(extra + db))
+                torch.cuda.synchronize()
+                runs[name] = dict(
+                    losses=res["losses"], images_per_sec=res[
+                        "images_per_sec"],
+                    counts=dict(fn.launch_counts(),
+                                cast_scale=cs.cast_scale.launches),
+                    params={k: v.detach().clone() for k, v in
+                            res["model"].named_parameters()})
+                del res
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    want = dict({w: 53 * P30_STEPS for w in KERNELS},
+                cast_scale=2 * P30_STEPS)
+    out = {}
+    for name, r in runs.items():
+        ref = runs[name.replace("auto", "xla")]
+        out[name] = dict(
+            losses=r["losses"], images_per_sec=r["images_per_sec"],
+            counts=r["counts"], counts_ok=r["counts"] == want,
+            finite=len(r["losses"]) == P30_STEPS and all(
+                map(math.isfinite, r["losses"])),
+            same_as_xla=r["losses"] == ref["losses"] and all(
+                torch.equal(r["params"][k], ref["params"][k])
+                for k in r["params"]))
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def p30_per_hop(torch, grads):
+    """(e): the per-hop plan (int8 on the inter-node hop of the 2-D chain,
+    float32 NVLink legs) on the world of one against
+    ``allreduce_grad(compressor="int8")``, deterministic, over
+    ``P30_EF_STEPS`` EF steps: means and residuals bit for bit.  With the
+    default bf16 NVLink legs the plan rounds through bf16 first: its
+    largest difference is printed, not gated."""
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.compression import resolve_compressor
+    from chainermn_tpu_torch.planner import compressed_two_dimensional
+    spec = {"name": "int8", "stochastic": False}
+    comm = create_communicator("flat")
+    plan = compressed_two_dimensional(dict(spec), wire_dtype=None,
+                                      name="two_dimensional_int8_f32")
+    legs = compressed_two_dimensional(dict(spec))
+    comp = resolve_compressor(dict(spec))
+    sp, sl = (comm.init_compression_state(grads, p) for p in (plan, legs))
+    sq = comm.init_compression_state(grads, comp)
+    same, worst = True, 0.0
+    for _ in range(P30_EF_STEPS):
+        a, sp = comm.allreduce_grad(grads, compressor=plan, state=sp)
+        c, sl = comm.allreduce_grad(grads, compressor=legs, state=sl)
+        b, sq = comm.allreduce_grad(grads, compressor=comp, state=sq)
+        same = same and all(_bits_equal(torch, a[k], b[k]) for k in grads)
+        same = same and _bits_equal(torch, sp[1].ef, sq.ef)
+        worst = max(worst, max(float((c[k].float() - b[k].float()).abs()
+                                     .max()) for k in grads))
+    return dict(same_bits=same, hops=sorted(sp), bf16_legs_max_diff=worst)
+
+
+def p30_sidecar(torch, root, table):
+    """(f): the ``__plan_table_meta__`` round trip and its two refusals."""
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.extensions import (
+        create_multi_node_checkpointer)
+    from chainermn_tpu_torch.planner import (
+        PlanTable, active_plan_table_meta, clear_active_plan_table,
+        flavor_plan, set_active_plan_table)
+    comm = create_communicator("xla")
+    ckpt = create_multi_node_checkpointer(comm, os.path.join(root, "ckpt"),
+                                          name="p30")
+    state = {"w": torch.arange(6.0, device=comm.device),
+             "it": torch.tensor(P30_STEPS)}
+    out = {}
+    try:
+        set_active_plan_table(table, step=P30_STEPS)
+        pin = active_plan_table_meta()
+        ckpt.save(state, P30_STEPS)
+        got, gen = ckpt.resume({"w": torch.zeros(6, device=comm.device),
+                                "it": torch.tensor(0)})
+        out["round_trip"] = gen == P30_STEPS and torch.equal(got["w"],
+                                                             state["w"])
+        other = PlanTable()
+        other.put(comm.plan_topology(), "float32", "<=4KiB",
+                  flavor_plan("flat"))
+        for label, live, msg in (("other_table", other, "pins plan table"),
+                                 ("no_table", None, "no active plan table")):
+            clear_active_plan_table()
+            if live is not None:
+                set_active_plan_table(live, step=0)
+            try:
+                ckpt.resume(state)
+                out[label] = False
+            except ValueError as e:
+                out[label] = msg in str(e)
+        out["pin"] = pin
+    finally:
+        clear_active_plan_table()
+    return out
+
+
+def phase_planner(fn, cs, torch, dev):
+    """Phase 30 (see the module docstring)."""
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_planner_",
+                            dir=os.path.join(HERE, "build"))
+    out, secs = {}, {}
+    try:
+        t0 = time.perf_counter()
+        out["a"] = p30_sweep(root)
+        secs["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        grads, bn = p29_resnet_grads(fn, torch, dev)
+        out["b"], b_casts = p30_flavors(cs, torch, grads)
+        secs["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["c"] = p30_auto(cs, torch, grads, out["a"]["path"])
+        secs["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["e"] = p30_per_hop(torch, grads)
+        secs["e"] = time.perf_counter() - t0
+        del grads
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["d"] = p30_resnet(fn, cs, torch, out["a"]["path"])
+        secs["d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["f"] = p30_sidecar(torch, root, out["a"]["table"])
+        secs["f"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the main path's launches: (b)'s step and (d)'s runs of the BatchNorm
+    # kernels; (b)'s, (c)'s and (d)'s casts
+    out["bn_counts"] = {w: bn[w] + sum(r["counts"][w] for r in
+                                       out["d"].values()) for w in KERNELS}
+    out["casts"] = b_casts + out["c"]["casts"] + out["c"]["xla_casts"] + sum(
+        r["counts"]["cast_scale"] for r in out["d"].values())
+    d = out["d"]
+    out["gates"] = {
+        "(a) sweep rows validate, table round-trips": out["a"]["roundtrip"],
+        "(b) flavors = execute_plan(comm.plan())": all(out["b"].values()),
+        "(c) auto bf16 = xla bf16": out["c"]["same_bits"]
+        and out["c"]["pick"] == "flat_bfloat16",
+        "(c) 2 casts a call": out["c"]["casts"] == 2
+        and out["c"]["xla_casts"] == 2,
+        "(c) card = CPU": out["c"]["card_cpu"],
+        "(d) finite losses, exact launches": all(
+            r["finite"] and r["counts_ok"] for r in d.values()),
+        "(d) auto = xla bf16 bit for bit": all(
+            r["same_as_xla"] for r in d.values()),
+        "(e) per-hop int8 = int8": out["e"]["same_bits"],
+        "(f) plan-table sidecar": all(
+            out["f"][k] for k in ("round_trip", "other_table", "no_table"))}
+    out["seconds"] = secs
+    return out
+
+
+def log_planner(p30, images_per_sec_p3, gpu, secs):
+    a = p30["a"]
+    log(f"phase 30 (a) bench_allreduce --sweep on the NCCL world of one "
+        f"(sizes {P30_SIZES_KB} KiB; a plan's us: the least of 3 medians "
+        f"of {P30_ITERS} calls, each between CUDA events): "
+        f"{a['rows']} rows; us by plan and bytes {json.dumps(a['us'])}; "
+        f"the sweep's pick for the gradient bucket {a['bucket']}: "
+        f"{a['swept_pick']} (the table holds flat_bfloat16 there); "
+        f"tuned vs best fixed {json.dumps(a['comparison'])} on {gpu}")
+    log(f"phase 30 (b) ResNet-50's {RESNET_GRADS} gradients: each flavor "
+        f"= execute_plan(comm.plan()) bit for bit {json.dumps(p30['b'])}")
+    log(f"phase 30 (c) auto with the table: {json.dumps(p30['c'])}")
+    for name, r in p30["d"].items():
+        log(f"phase 30 (d) train_imagenet ResNet-50 {name} ({P30_STEPS} "
+            f"steps, batch {BATCH}, bf16): losses {r['losses']}; same as "
+            f"xla + bf16 {r['same_as_xla']}; launches "
+            f"{json.dumps(r['counts'])}; images/sec (steps 2..{P30_STEPS}) "
+            f"{r['images_per_sec']:.1f} (phase 3, xla, steps "
+            f"{WARMUP + 1}..{STEPS}: {images_per_sec_p3:.1f}) on {gpu}")
+    log(f"phase 30 (e) per-hop int8 plan vs compressor int8 "
+        f"({P30_EF_STEPS} EF steps): {json.dumps(p30['e'])}")
+    log(f"phase 30 (f) plan-table sidecar: {json.dumps(p30['f'])}")
+    log(f"phase 30 launches: BatchNorm {json.dumps(p30['bn_counts'])}, "
+        f"cast_scale {p30['casts']}")
+    log(f"phase 30 gates: {json.dumps(p30['gates'])}")
+    log(f"phase 30: {secs:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in p30["seconds"].items()) + ")")
+
+
 C12_LOOPS = 300      # phase 22: passes of the flash autograd check
 WGRAD_LOOPS = 600    # phase 22: launches of the probe wgrad
 
@@ -4721,6 +5053,14 @@ def main():
                              "lines above)")
 
     t0 = time.perf_counter()
+    p30 = phase_planner(fn, cs, torch, dev)
+    log_planner(p30, out["images_per_sec"], gpu, time.perf_counter() - t0)
+    failed = sorted(g for g, ok in p30["gates"].items() if not ok)
+    if failed:
+        raise AssertionError(f"phase 30: gates {failed} failed (their "
+                             "lines above)")
+
+    t0 = time.perf_counter()
     c12 = phase_c12(fa, torch, dev, C12_LOOPS)
     rep = phase_wgrad_repeat(pm, bcp, torch, dev, WGRAD_LOOPS)
     log(f"phase repeat loops (22): {time.perf_counter() - t0:.1f} s; C12 "
@@ -4742,7 +5082,7 @@ def main():
     # kernels, the bfloat16 wire's casts, the FSDP LM's flash kernels
     for w in KERNELS:
         p25_bn[w] += p26["resnet"]["bn_launches"][w]
-        p25_bn[w] += p29["bn_counts"][w]
+        p25_bn[w] += p29["bn_counts"][w] + p30["bn_counts"][w]
     p26_flash = p26["lm"]["runs"]["fsdp"]["counts"]
     # phases 28 and 29 on the main path: the pipelines' and the FSDP LM's
     # flash kernels, the wire's casts
@@ -4765,7 +5105,7 @@ def main():
         "replaces": "chainermn_tpu/ops/cast_scale.py:33",
         "launches": mnist_casts + p25_vit["cast_scale"]
         + p25["vit"]["xla"]["counts"]["cast_scale"] + p26["resnet"]["casts"]
-        + sum(r["casts"] for r in p29["a"].values()),
+        + sum(r["casts"] for r in p29["a"].values()) + p30["casts"],
         "max_abs_err": cast_err,
         "ms": cast_t["ms"], "plain_ms": cast_t["plain_ms"],
         "bound_ms": cast_t["bound_ms"], "bound_by": "bytes",

@@ -1,7 +1,7 @@
 """The data-, sequence- and model-parallel slices on every card of one host.
 
     python3 multi_gpu_check.py [--logs DIR]
-        [--parts dp,sp,mp,configs,fsdp,tp_ep,pp,compression]
+        [--parts dp,sp,mp,configs,fsdp,tp_ep,pp,compression,planner]
     # needs two CUDA cards or more
 
 1. prints the cards' names and power limits (``nvidia-smi``) and torch's
@@ -113,6 +113,23 @@
     the LM (bf16, flash) under FSDP with int8 buckets at K 1 and 4
     against the float32 and bfloat16 wires: the reduce-scatter bytes a
     step (int8 at least 3.5x fewer than float32) and the losses.
+12. (part ``planner``, not in the default) the collective planner on every
+    card at ``--intra-size`` 2 (topology ``inter:2,intra:2`` on four: the
+    "inter-node" hop is NVLink too on one host): ``bench_allreduce
+    --sweep`` on NCCL (``PLANNER_SIZES_KB``), the table
+    ``autotune_from_rows`` builds from the measured rows printed by bucket
+    with each plan's us against the best fixed flavor's; then every
+    candidate plan's mean against the flat plan's (within the rounding of
+    the plan's coarsest wire; quantized plans within 1e-2 on rank-valued
+    buffers, as the sweep checks), the seven flavors (and xla with the
+    bf16 wire) bit-equal to ``execute_plan`` of their plans, the MoE
+    exchange with every all-to-all plan bit-equal to ``plan=None``, the
+    weight multicast plans giving rank 0's weights exactly; then
+    ``train_imagenet`` (ResNet-50, bf16, 3 steps, cuDNN deterministic)
+    through ``auto`` with the swept table, its losses and parameters
+    bit-equal to the run of the plan the table picked for the gradient
+    bucket (its flavor run directly, or the same plan through a table of
+    that one entry when no flavor is that plan).
 
 Prints one JSON object as its last line; exits 1 if a check failed.  Runs
 write under ``build/`` (removed afterwards), their logs under ``--logs``
@@ -321,9 +338,11 @@ WORKERS = {"imagenet": worker, "lm": lm_worker, "bench": bench_worker,
 
 
 def _late_workers():
-    """The workers defined after ``WORKERS`` (parts pp and compression)."""
+    """The workers defined after ``WORKERS`` (parts pp, compression and
+    planner)."""
     WORKERS.update(pp=pp_worker, comp=comp_worker, mnist=mnist_worker,
-                   comp_fsdp=comp_fsdp_worker)
+                   comp_fsdp=comp_fsdp_worker, sweep=sweep_worker,
+                   planner=planner_worker)
 
 
 def torchrun(n, name, flags, work, logs, kind="imagenet"):
@@ -350,12 +369,13 @@ def main(argv=None):
     p.add_argument("--parts", default="dp,sp,mp",
                    help="which slices to run: dp (steps 2-4), sp (step 5), "
                    "mp (step 6), configs (step 7), fsdp (step 8), tp_ep "
-                   "(step 9), pp (step 10), compression (step 11)")
+                   "(step 9), pp (step 10), compression (step 11), planner "
+                   "(step 12)")
     args = p.parse_args(argv)
     logs = os.path.abspath(args.logs)
     parts = set(args.parts.split(","))
     known = {"dp", "sp", "mp", "configs", "fsdp", "tp_ep", "pp",
-             "compression"}
+             "compression", "planner"}
     if not parts or parts - known:
         p.error(f"--parts: {args.parts!r} is not a subset of "
                 f"{','.join(sorted(known))}")
@@ -394,6 +414,8 @@ def main(argv=None):
             pipeline(n, out, failures, work, logs)
         if "compression" in parts:
             compression(n, out, failures, work, logs)
+        if "planner" in parts:
+            planner(n, out, failures, work, logs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["failures"] = failures
@@ -1301,6 +1323,191 @@ def compression(n, out, failures, work, logs):
     res["fsdp"] = fs
     print(json.dumps({"fsdp": fs}), flush=True)
     out["compression"] = res
+
+
+PLANNER_SIZES_KB = "4,64,1024,16384,131072"
+PLANNER_N = 1 << 20          # the checks' gradient elements a rank
+PLANNER_RESNET = ["--arch", "resnet50", "--batchsize", "32", "--dtype",
+                  "bfloat16", "--iterations", "3", "--train-size", "256",
+                  "--val-size", "0", "--seed", "0", "--warmup-steps", "1",
+                  "--log-interval", "100", "--intra-size", "2"]
+# a swept plan -> the flavor flags that run it directly
+PLAN_FLAVORS = {"naive": ["--communicator", "naive"],
+                "flat": ["--communicator", "flat"],
+                "xla": ["--communicator", "xla"],
+                "hierarchical": ["--communicator", "hierarchical"],
+                "two_dimensional": ["--communicator", "two_dimensional"],
+                "flat_bfloat16": ["--communicator", "xla",
+                                  "--allreduce-grad-dtype", "bfloat16"]}
+_UNIT = {"float32": 2.0 ** -24, "bfloat16": 2.0 ** -8,
+         "float16": 2.0 ** -11}
+
+
+def sweep_worker(out_prefix, flags):
+    """One rank under ``torchrun``: ``bench_allreduce.main(flags)``."""
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch.benchmarks import bench_allreduce
+    doc = bench_allreduce.main(flags)
+    rank = int(os.environ["RANK"])
+    with open(f"{out_prefix}.rank{rank}.json", "w") as f:
+        json.dump({"rows": len(doc["rows"])}, f)
+
+
+def planner_worker(out_prefix, flags):
+    """One rank under ``torchrun`` (NCCL, intra 2): the planner's checks
+    of part ``planner``; booleans and worst errors by check."""
+    import torch
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.parallel.expert import moe_apply
+    from chainermn_tpu_torch.planner import (
+        alltoall_plans, broadcast_plans, candidate_plans, execute_plan,
+        flavor_plan, plan_compressed_hops)
+    from chainermn_tpu_torch.serving import weights as sw
+    comm = create_communicator("naive", intra_size=2)
+    dev, rank, n = comm.device, comm.rank, comm.size
+    topo = comm.plan_topology()
+    g = torch.Generator().manual_seed(100 + rank)
+    grads = {"w": torch.randn(PLANNER_N, generator=g).to(dev),
+             "b": torch.randn(777, generator=g).to(dev)}
+    ranked = {"w": torch.full((PLANNER_N,), float(rank), device=dev)}
+    out = {"plans": {}, "flavors": {}, "moe": {}, "multicast": {}}
+    flat = execute_plan(flavor_plan("flat"), comm, grads)
+    flat_r = execute_plan(flavor_plan("flat"), comm, ranked)
+    mean_abs = {k: sum(comm.allgather(v.abs())).float() / n
+                for k, v in grads.items()}
+    for plan in candidate_plans(topo, stripe_ratios=(0.6,)):
+        if plan_compressed_hops(plan, topo):
+            got = execute_plan(plan, comm, ranked)["w"]
+            err = float((got - flat_r["w"]).abs().max())
+            out["plans"][plan.name] = [err <= 1e-2 * (n - 1), err]
+            continue
+        wires = [plan.wire_dtype or "float32"] + [
+            st.wire_dtype for grp in plan.stage_groups()
+            for st in grp.stages if st.wire_dtype]
+        u = max(_UNIT[w] for w in wires)
+        got = execute_plan(plan, comm, grads)
+        ok, worst = True, 0.0
+        for k in grads:
+            # two orders of an n-term sum (plus the wire's casts of each
+            # term, shared by both): 2 (n - 1) u mean|x| after the mean
+            bound = 2 * n * u * mean_abs[k] + 1e-30
+            diff = (got[k] - flat[k]).abs()
+            ok = ok and bool((diff <= bound).all())
+            worst = max(worst, float((diff / bound).max()))
+        out["plans"][plan.name] = [ok, worst]
+    for label, name, kw in (("naive", "naive", {}), ("flat", "flat", {}),
+                            ("hierarchical", "hierarchical", {}),
+                            ("two_dimensional", "two_dimensional", {}),
+                            ("single_node", "single_node",
+                             {"intra_size": n}),
+                            ("non_cuda_aware", "non_cuda_aware", {}),
+                            ("xla", "xla", {}),
+                            ("xla_bf16", "xla",
+                             {"allreduce_grad_dtype": "bfloat16"})):
+        kw = dict({"intra_size": 2}, **kw)
+        c = create_communicator(name, **kw)
+        a, b = c.allreduce_grad(grads), execute_plan(c.plan(), c, grads)
+        out["flavors"][label] = all(
+            torch.equal(a[k].view(torch.int32), b[k].view(torch.int32))
+            for k in grads)
+    x = torch.randn(64, 32, generator=g).to(dev)
+    logits = torch.randn(64, 2 * n, generator=g).to(dev)
+    base = moe_apply(lambda t: 2.0 * t, logits, x, comm, num_experts=2 * n)
+    for plan in alltoall_plans(topo):
+        y = moe_apply(lambda t: 2.0 * t, logits, x, comm,
+                      num_experts=2 * n, plan=plan)
+        narrow = any(st.wire_dtype for grp in plan.stage_groups()
+                     for st in grp.stages)
+        out["moe"][plan.name] = bool(torch.equal(y, base)) if not narrow \
+            else float((y - base).abs().max()) < 0.25
+    w0 = {"w": torch.randn(513, 7, generator=torch.Generator().manual_seed(
+        rank)).to(dev), "ids": torch.arange(9, device=dev) * (rank + 1)}
+    mine = comm.bcast(w0, root=0)
+    for plan in broadcast_plans(topo, wire_dtypes=()):
+        got = sw.broadcast_inference_params(comm, w0, plan=plan)
+        out["multicast"][plan.name] = all(torch.equal(got[k], mine[k])
+                                          for k in w0)
+    with open(f"{out_prefix}.rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def planner(n, out, failures, work, logs):
+    """Part planner (see the module docstring)."""
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch.planner import (
+        PlanTable, PlanTopology, autotune_from_rows, size_bucket,
+        validate_sweep_rows)
+    res = {}
+    sweep = os.path.join(work, "planner_sweep.json")
+    t0 = time.perf_counter()
+    torchrun(n, "planner_sweep", [
+        "--intra-size", "2", "--sweep", sweep, "--sweep-sizes-kb",
+        PLANNER_SIZES_KB, "--iters", "20", "--warmup", "3",
+        "--stripe-ratios", "0.6,0.8"], work, logs, kind="sweep")
+    doc = json.load(open(sweep))
+    shutil.copy(sweep, os.path.join(logs, "planner_sweep.json"))
+    rows = doc["rows"]
+    validate_sweep_rows(rows)
+    table, comparison = autotune_from_rows(rows)
+    tpath = os.path.join(work, "planner_table.json")
+    table.save(tpath)
+    table.save(os.path.join(logs, "planner_table.json"))
+    res["sweep"] = {"topology": doc["topology"], "card": doc.get("card"),
+                    "rows": len(rows), "seconds": time.perf_counter() - t0}
+    by_bucket = {}
+    for r in rows:
+        by_bucket.setdefault(size_bucket(r["bytes"]), {}).setdefault(
+            r["plan"], []).append(r["us"])
+    res["table"] = [{"bucket": c["bucket"], "tuned": c["tuned_plan"],
+                     "tuned_us": c["tuned_us"],
+                     "best_fixed": c["best_fixed_plan"],
+                     "best_fixed_us": c["best_fixed_us"],
+                     "speedup": c["speedup"],
+                     "us": {p: sum(v) / len(v) for p, v in
+                            sorted(by_bucket[c["bucket"]].items())}}
+                    for c in comparison]
+    for row in res["table"]:
+        print(json.dumps(row), flush=True)
+    # the checks
+    docs = torchrun(n, "planner_checks", [], work, logs, kind="planner")
+    res["checks"] = docs[0]
+    for r, d in enumerate(docs):
+        for kind in ("plans", "flavors", "moe", "multicast"):
+            for name, v in d[kind].items():
+                ok = v[0] if isinstance(v, list) else v
+                if not ok:
+                    failures.append(f"planner {kind} {name} (rank {r})")
+    print(json.dumps({"checks": docs[0]}), flush=True)
+    # auto from the swept table against the plan it picks, run directly
+    grad_bytes = 4 * 25557032   # ResNet-50's float32 gradients
+    topo = PlanTopology.from_key(doc["topology"])
+    pick = table.lookup(topo, "float32", grad_bytes)
+    direct = PLAN_FLAVORS.get(pick.name)
+    if direct is None:
+        one = PlanTable()
+        one.put(topo, "float32", size_bucket(grad_bytes), pick)
+        opath = os.path.join(work, "planner_one.json")
+        one.save(opath)
+        direct = ["--communicator", "auto", "--plan-table", opath]
+    runs = {}
+    for label, flags in (("auto", ["--communicator", "auto", "--plan-table",
+                                   tpath]), ("direct", direct)):
+        runs[label] = torchrun(n, f"planner_{label}", PLANNER_RESNET + flags,
+                               work, logs)
+    a, d = runs["auto"], runs["direct"]
+    res["auto"] = {"pick": pick.name, "direct": " ".join(direct),
+                   "losses": a[0]["losses"], "direct_losses": d[0]["losses"],
+                   "images_per_sec": a[0]["images_per_sec"],
+                   "direct_images_per_sec": d[0]["images_per_sec"],
+                   "same_digest": all(x["digest"] == y["digest"]
+                                      for x, y in zip(a, d))}
+    print(json.dumps({"auto": res["auto"]}), flush=True)
+    if a[0]["losses"] != d[0]["losses"] or not res["auto"]["same_digest"]:
+        failures.append("planner: auto != the picked plan run directly")
+    if not all(map(math.isfinite, a[0]["losses"])):
+        failures.append("planner: auto losses not finite")
+    out["planner"] = res
 
 
 def data_parallel(n, out, failures, work, logs):

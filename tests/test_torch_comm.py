@@ -321,8 +321,13 @@ def test_factory_rules(world1):
     with pytest.raises(ValueError, match="only supported by the 'xla'"):
         create_communicator("naive", allreduce_grad_dtype="float16",
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A11"):
-        create_communicator("auto", device="cpu")
+    # the planner's tuned flavor (ported): no table runs the flat plan; a
+    # table that cannot be read raises
+    auto = create_communicator("auto", device="cpu")
+    assert auto.flavor == "auto" and auto.plan().name == "flat"
+    with pytest.raises(FileNotFoundError):
+        create_communicator("auto", device="cpu",
+                            plan_table="/nonexistent/plan_table.json")
     with pytest.raises(ValueError, match="unknown communicator"):
         create_communicator("nope", device="cpu")
     # the default name (hierarchical) and the other reference flavors work

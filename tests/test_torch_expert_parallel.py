@@ -354,13 +354,23 @@ def test_moe_rejects_expert_count_mismatch():
 
 
 def test_planner_routes_raise_naming_a11():
+    """The planner's routes are ported (A11): on a world of one the flat
+    exchange plan is the raw path bit for bit, ``moe_plan_topology`` is
+    the communicator's, the layer keeps its plan; only the per-hop spans
+    (``plan_obs=``, the observability stack) raise, naming A13."""
     from chainermn_tpu_torch.parallel import expert
-    x = torch.zeros(4, D)
-    for kw in ({"plan": object()}, {"plan_topology": object()},
-               {"plan_obs": object()}):
-        with pytest.raises(NotImplementedError, match="Queue A11"):
-            moe_apply(lambda t: t, torch.zeros(4, E), x, **kw)
-    with pytest.raises(NotImplementedError, match="Queue A11"):
-        expert.moe_plan_topology(None)
-    with pytest.raises(NotImplementedError, match="Queue A11"):
-        expert.ExpertParallelMLP(D, H, plan=object(), device="cpu")
+    from chainermn_tpu_torch.planner import alltoall_plans
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(4, D).astype(np.float32))
+    logits = torch.from_numpy(rng.randn(4, E).astype(np.float32))
+    topo = expert.moe_plan_topology(None)
+    assert topo.key() == "inter:1,intra:1"
+    flat = alltoall_plans(topo)[0]
+    want = moe_apply(lambda t: 2.0 * t, logits, x, num_experts=E)
+    got = moe_apply(lambda t: 2.0 * t, logits, x, num_experts=E,
+                    plan=flat, plan_topology=topo)
+    assert torch.equal(got, want)
+    with pytest.raises(NotImplementedError, match="Queue A13"):
+        moe_apply(lambda t: t, logits, x, plan_obs=object())
+    mlp = expert.ExpertParallelMLP(D, H, plan=flat, device="cpu")
+    assert mlp.plan is flat

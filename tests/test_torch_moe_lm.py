@@ -251,5 +251,16 @@ def test_bench_moe_matched_loss(tmp_path):
                                           doc["dense"]["final_loss"])
     assert doc["moe"]["n_params"] > doc["dense"]["n_params"]
     assert len(doc["moe"]["losses"]) == 40
-    with pytest.raises(NotImplementedError, match="Queue A11"):
-        bench_moe.main(["--device", "cpu", "--sweep", str(path)])
+    # the all-to-all plan sweep is ported (A11): its rows validate and
+    # build a plan table
+    from chainermn_tpu_torch.planner import (
+        autotune_from_rows, validate_sweep_rows)
+    sweep = tmp_path / "sweep.json"
+    bench_moe.main(["--device", "cpu", "--sweep", str(sweep),
+                    "--sweep-sizes-kb", "4,64", "--iters", "1",
+                    "--warmup", "0"])
+    rows = json.loads(sweep.read_text())["rows"]
+    validate_sweep_rows(rows)
+    assert {r["plan"] for r in rows} >= {"alltoall_flat"}
+    table, _ = autotune_from_rows(rows)
+    assert table.entries

@@ -127,8 +127,12 @@ def test_router_refusals(lm):
         router.submit([1, 2, 3], 2)
     with pytest.raises(ValueError, match="is not drained"):
         Router([InferenceEngine(tm, ServingConfig(**CFG))]).readmit_replica(0)
-    with pytest.raises(NotImplementedError, match="Queue A11"):
-        Router.distribute_weights(None, {}, plan=object())
+    # the planner's multicast is ported (A11): a plan that is not
+    # leaf-packed is refused
+    from chainermn_tpu_torch.planner import flavor_plan
+    with pytest.raises(ValueError, match="must use leaf packing"):
+        Router.distribute_weights(create_communicator("naive", device="cpu"),
+                                  {}, plan=flavor_plan("flat"))
 
 
 def test_broadcast_inference_params_bit_exact(tmp_path):
@@ -176,7 +180,10 @@ def test_load_inference_params(lm, tmp_path):
     (lambda: sw.quantize_inference_params({}), "A10"),
     (lambda: sw.dequantize_inference_params({}), "A10"),
     (lambda: sw.weights_multicast_plan(), "A11"),
-    (lambda: sw.broadcast_inference_params(None, {}, plan=object()), "A11"),
+    (lambda: sw.broadcast_inference_params(
+        create_communicator("naive", device="cpu"),
+        {"w": torch.arange(6.0).reshape(2, 3)},
+        plan=sw.weights_multicast_plan()), "A11"),
     (lambda: sw.shard_params_tp({"blocks.0.up.weight": torch.ones(8, 2)},
                                 2, n_heads=4), "A9"),
 ])
@@ -205,6 +212,17 @@ def test_unported_weight_paths_raise(call, queue):
     if queue is None:
         with pytest.raises(ValueError, match="no FsdpMeta was given"):
             call()
+        return
+    if queue == "A11":
+        # the planner's multicast is ported (A11): JAX's plan, and its
+        # leaf chain on a world of one gives the weights back exactly
+        from chainermn_tpu.serving import weights as jw
+        from chainermn_tpu_torch.planner import Plan
+        got = call()
+        if isinstance(got, Plan):
+            assert got.to_dict() == jw.weights_multicast_plan().to_dict()
+        else:
+            assert torch.equal(got["w"], torch.arange(6.0).reshape(2, 3))
         return
     with pytest.raises(NotImplementedError, match=f"Queue {queue}"):
         call()

@@ -267,9 +267,14 @@ def test_tp_ep_refusals(dense, moe):
         InferenceEngine(port, ServingConfig(**TP_CFG, tp_size=2))
     with pytest.raises(ValueError, match="must divide n_kv_heads"):
         InferenceEngine(port, ServingConfig(**TP_CFG, tp_size=4))
-    with pytest.raises(NotImplementedError, match="Queue A11"):
+    # moe_plan is ported (A11): a plan that is not an exchange is refused
+    from chainermn_tpu_torch.planner import PlanError, flavor_plan
+    with pytest.raises(TypeError, match="must be a planner Plan"):
         InferenceEngine(_port(MOE, moe[1]),
                         ServingConfig(**EP_CFG, moe_plan=object()))
+    with pytest.raises(PlanError, match="all-to-all stages only"):
+        InferenceEngine(_port(MOE, moe[1]),
+                        ServingConfig(**EP_CFG, moe_plan=flavor_plan("flat")))
     big = types.SimpleNamespace(size=4, rank=0)
     with pytest.raises(ValueError, match="uses 2 of the 4 ranks"):
         InferenceEngine(port, ServingConfig(**TP_CFG, tp_size=2), comm=big)

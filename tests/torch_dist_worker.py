@@ -4,7 +4,7 @@
         python tests/torch_dist_worker.py \\
             {comm|train|opt|mnist|lm|unused|coll|zero|syncbn|imagenet|seq|
              p2p|chain|seq2seq|pconv|configs|serve|accum|fsdp|tpep|
-             moelm|tpserve|compress|pipe} \\
+             moelm|tpserve|compress|pipe|plan|planuse} \\
             IN.npz OUT_PREFIX
 
 Reads the stacked per-rank inputs from ``IN.npz`` (leading axis = rank),
@@ -1740,6 +1740,319 @@ def run_pipe(inp, rank):
     return out
 
 
+def _plan_trees(inp, rank):
+    """``{tree: {leaf: this rank's tensor}}`` of the ``tree/{tree}/{leaf}``
+    inputs."""
+    trees: dict = {}
+    for k in inp:
+        if k.startswith("tree/"):
+            _, tree, leaf = k.split("/", 2)
+            trees.setdefault(tree, {})[leaf] = torch.tensor(inp[k][rank])
+    return trees
+
+
+def _plans(inp, key):
+    from chainermn_tpu_torch.planner import load_plan
+    return [load_plan(d) for d in json.loads(str(inp[key]))]
+
+
+def run_plan(inp, rank):
+    """The collective planner on this world (``parts``, comma-separated):
+
+    * ``flavors`` -- every flavor's ``allreduce_grad`` of each tree and
+      ``execute_plan(comm.plan())`` of it (``fl/{label}/{own|plan}/...``);
+    * ``plans`` -- ``execute_plan`` of every plan in ``plans`` (JSON) on a
+      naive communicator (``pl/{plan}/{tree}/{leaf}``) and the JAX census
+      kinds of what it issued (``census/{plan}``);
+    * ``quant`` -- the per-hop plans in ``qplans`` through
+      ``allreduce_grad(compressor=plan, state=)`` over the ``q{k}`` trees
+      in turn (``qt/{plan}/{k}/{leaf}``, then each hop's ``ef``);
+    * ``a2a`` -- ``execute_alltoall`` of the ``a2aplans`` on ``a2a/buf``,
+      with the gradient of ``sum(y * a2a/w)``, and ``comm.alltoall``;
+    * ``refuse`` -- the executor's refusals, as flags;
+    * ``auto`` -- the auto communicator on the table ``table`` (JSON):
+      its pick and mean of each tree beside ``execute_plan`` of the pick,
+      and 3 double-buffered SGD steps beside the ``xla`` bf16 flavor's;
+    * ``mnist`` -- the MNIST example for one epoch with ``--communicator
+      flat`` and ``auto`` (``mnist/{name}/loss``).
+    """
+    from chainermn_tpu_torch.planner import (
+        PlanError, census_of_record, execute_alltoall, execute_plan,
+        flavor_plan, record_collectives)
+    intra = int(inp["intra_size"])
+    world = dist.get_world_size()
+    parts = str(inp["parts"]).split(",")
+    trees = _plan_trees(inp, rank)
+    out = {}
+
+    def put(prefix, tree):
+        out.update({f"{prefix}/{n}": v.numpy() for n, v in tree.items()})
+
+    if "flavors" in parts:
+        for label, name, kw in FLAVORS:
+            if name == "pure_nccl":
+                continue
+            size = world if name == "single_node" else intra
+            comm = create_communicator(name, intra_size=size, device="cpu",
+                                       **kw)
+            for t, tree in trees.items():
+                put(f"fl/{label}/own/{t}", comm.allreduce_grad(tree))
+                put(f"fl/{label}/plan/{t}",
+                    execute_plan(comm.plan(), comm, tree))
+    comm = create_communicator("naive", intra_size=intra, device="cpu")
+    if "plans" in parts:
+        for plan in _plans(inp, "plans"):
+            for t, tree in trees.items():
+                with record_collectives() as rec:
+                    put(f"pl/{plan.name}/{t}",
+                        execute_plan(plan, comm, tree))
+                out[f"census/{plan.name}"] = np.asarray(
+                    census_of_record(rec) or ("",))
+    if "quant" in parts:
+        steps = sorted(k for k in trees if k.startswith("q"))
+        for plan in _plans(inp, "qplans"):
+            states = comm.init_compression_state(trees[steps[0]], plan)
+            for k in steps:
+                mean, states = comm.allreduce_grad(
+                    trees[k], compressor=plan, state=states)
+                put(f"qt/{plan.name}/{k}", mean)
+            for hop, st in states.items():
+                out[f"qt/{plan.name}/ef/{hop}"] = st.ef.numpy()
+    if "a2a" in parts:
+        buf = torch.tensor(inp["a2a/buf"][rank])
+        w = torch.tensor(inp["a2a/w"][rank])
+        out["a2a/ref"] = comm.alltoall(buf).numpy()
+        for plan in _plans(inp, "a2aplans"):
+            x = buf.clone().requires_grad_(True)
+            with record_collectives() as rec:
+                y = execute_alltoall(plan, comm, x)
+            (y * w).sum().backward()
+            out[f"a2a/{plan.name}"] = y.detach().numpy()
+            out[f"a2a/{plan.name}/grad"] = x.grad.numpy()
+            out[f"a2a/{plan.name}/census"] = np.asarray(
+                census_of_record(rec) or ("",))
+    if "refuse" in parts:
+        from chainermn_tpu_torch.planner import (
+            compressed_two_dimensional)
+        tree = trees["q0"]
+        plan = compressed_two_dimensional({"name": "int8", "chunk_size": 64,
+                                           "stochastic": False})
+        bad = comm.init_compression_state({"x": torch.zeros(64)}, plan)
+        try:
+            comm.allreduce_grad(tree, compressor=plan, state=bad)
+        except ValueError as e:
+            out["refuse/mis_sized"] = np.asarray(
+                "init_plan_compression_states" in str(e))
+        try:
+            execute_plan(flavor_plan("naive"), comm, tree, states={})
+        except PlanError:
+            out["refuse/leaf_states"] = np.asarray(True)
+        try:
+            comm.allreduce_grad(tree, compressor=plan, state={})
+        except ValueError as e:
+            out["refuse/missing"] = np.asarray("missing" in str(e))
+    if "auto" in parts:
+        table = json.loads(str(inp["table"]))
+        auto = create_communicator("auto", intra_size=intra, device="cpu",
+                                   plan_table=table)
+        for t, tree in trees.items():
+            pick = auto._select(tree)
+            out[f"auto/pick/{t}"] = np.asarray(pick.name)
+            put(f"auto/own/{t}", auto.allreduce_grad(tree))
+            put(f"auto/plan/{t}", execute_plan(pick, auto, tree))
+        xla = create_communicator("xla", intra_size=intra, device="cpu",
+                                  allreduce_grad_dtype="bfloat16")
+        x = torch.tensor(inp["db/x"][rank])
+        for label, c in (("auto", auto), ("xla", xla)):
+            torch.manual_seed(0)
+            lin = torch.nn.Linear(x.shape[1], 3)
+            opt = create_multi_node_optimizer(
+                torch.optim.SGD(lin.parameters(), lr=0.1), c,
+                double_buffering=True)
+            for _ in range(3):
+                opt.zero_grad()
+                lin(x).square().mean().backward()
+                opt.step()
+            opt._drain()
+            out[f"db/{label}/w"] = lin.weight.detach().numpy()
+    if "mnist" in parts:
+        from chainermn_tpu_torch.examples import train_mnist
+        for name in ("flat", "auto"):
+            res = train_mnist.main([
+                "--device", "cpu", "--epoch", "1", "--unit", "64",
+                "--prefetch", "0", "--communicator", name,
+                "--out", str(inp["out_dir"]) + f"/{name}"])
+            out[f"mnist/{name}/loss"] = np.asarray(
+                [r["main/loss"] for r in res["log"]])
+    return out
+
+
+def run_planuse(inp, rank):
+    """The planner's consumers on this world (``parts``, comma-separated):
+
+    * ``moe`` -- ``moe_apply(2 t, plan=)`` of this rank's ``moe/x`` under
+      ``moe/logits`` for ``plan=None`` and every plan of ``moeplans``:
+      ``moe/{name}/y`` and the gradient of the summed squares
+      ``moe/{name}/gx``; and a MoE ``TransformerLM(moe_plan=)``'s logits;
+    * ``bcast`` -- ``broadcast_inference_params(plan=)`` of this rank's
+      tree for each plan of ``bplans`` (root in the plan), and
+      ``Router.distribute_weights``' default plan;
+    * ``engine`` -- a MoE serving engine over the world (``ep_size`` = the
+      world) without and with the flat exchange plan (tokens), and the
+      plan-table pickup: rank 0 registers a table before step 2 and every
+      rank records the step it installed it on;
+    * ``opt`` -- 3 SGD steps of ``create_multi_node_optimizer(
+      compression=<per-hop plan>)`` beside the same steps through
+      ``allreduce_grad(compressor=plan, state=)``;
+    * ``tuner`` -- an ``OnlineTuner`` over an ``auto`` communicator, fed
+      a degraded inter-node link on rank 0 only, then ``maybe_swap`` on
+      every rank: each rank's swapped table hash and pin.
+    """
+    from chainermn_tpu_torch.planner import (
+        PlanTable, active_plan_table_meta, clear_active_plan_table,
+        compressed_two_dimensional, flavor_plan, load_plan,
+        set_active_plan_table)
+    intra = int(inp["intra_size"])
+    world = dist.get_world_size()
+    parts = str(inp["parts"]).split(",")
+    comm = create_communicator("naive", intra_size=intra, device="cpu")
+    out = {}
+    if "moe" in parts:
+        from chainermn_tpu_torch.models.transformer import TransformerLM
+        from chainermn_tpu_torch.parallel.expert import moe_apply
+        logits = torch.tensor(inp["moe/logits"][rank])
+        e = logits.shape[-1]
+        plans = [None] + _plans(inp, "moeplans")
+        for plan in plans:
+            name = "none" if plan is None else plan.name
+            x = torch.tensor(inp["moe/x"][rank]).requires_grad_(True)
+            y = moe_apply(lambda t: 2.0 * t, logits, x, comm,
+                          num_experts=e, plan=plan)
+            (y ** 2).sum().backward()
+            out[f"moe/{name}/y"] = y.detach().numpy()
+            out[f"moe/{name}/gx"] = x.grad.numpy()
+        toks = torch.tensor(inp["moe/toks"][rank])
+        for plan in (None, plans[1]):
+            lm = TransformerLM(32, 16, 1, 2, max_len=16, moe_experts=2 *
+                               world, moe_comm=comm, moe_plan=plan,
+                               device="cpu",
+                               generator=torch.Generator().manual_seed(0))
+            with torch.no_grad():
+                out[f"lm/{'none' if plan is None else 'plan'}"] = \
+                    lm(toks).numpy()
+    if "bcast" in parts:
+        from chainermn_tpu_torch.serving import Router
+        from chainermn_tpu_torch.serving import weights as sw
+        tree = {"w": torch.tensor(inp["bc/w"][rank]),
+                "h": torch.tensor(inp["bc/w"][rank]).to(torch.bfloat16),
+                "ids": torch.arange(5) * (rank + 1),
+                "q": sw.quantize_inference_params(
+                    {"m": torch.tensor(inp["bc/w"][rank])})}
+        for plan in _plans(inp, "bplans"):
+            got = sw.broadcast_inference_params(comm, tree, plan=plan)
+            out.update({f"bc/{plan.name}/{k}": v.float().numpy()
+                        for k, v in flatten_tensors(got).items()})
+        got = Router.distribute_weights(comm, tree)
+        out.update({f"bc/router/{k}": v.float().numpy()
+                    for k, v in flatten_tensors(got).items()})
+        out.update({f"bc/mine/{k}": v.float().numpy()
+                    for k, v in flatten_tensors(tree).items()})
+    if "engine" in parts:
+        from chainermn_tpu_torch.models.transformer import TransformerLM
+        from chainermn_tpu_torch.serving import InferenceEngine, ServingConfig
+        cfg = dict(page_size=4, num_pages=16, max_seqs=2, chunk_tokens=4,
+                   max_pages_per_seq=4)
+        a2a = load_plan(json.loads(str(inp["moeplans"]))[0])
+        table = PlanTable()
+        table.put(comm.plan_topology(), "float32", "<=4KiB",
+                  flavor_plan("flat"))
+        for label, plan in (("none", None), ("plan", a2a)):
+            lm = TransformerLM(32, 16, 1, 2, max_len=64,
+                               moe_experts=2 * world, moe_top_k=2,
+                               device="cpu",
+                               generator=torch.Generator().manual_seed(0))
+            eng = InferenceEngine(lm, ServingConfig(
+                **cfg, ep_size=world, moe_plan=plan), comm=comm)
+            if rank == 0:
+                for pr in ([1, 2, 3], [5, 6], [7]):
+                    eng.submit(pr, 4)
+            step = 0
+            while not comm.bcast_obj(eng.idle(), root=0):
+                if label == "plan" and step == 2 and rank == 0:
+                    set_active_plan_table(table, step=40)
+                eng.step()
+                step += 1
+            toks = {c.rid: c.tokens for c in eng.completions}
+            out[f"engine/{label}/tokens"] = np.asarray(
+                [t for rid in sorted(toks) for t in toks[rid]])
+            if label == "plan":
+                out["engine/pickups"] = np.asarray(eng.plan_table_pickups)
+                meta = active_plan_table_meta()
+                out["engine/hash"] = np.asarray(meta["table_hash"])
+                out["engine/swap_step"] = np.asarray(meta["swap_step"])
+        clear_active_plan_table()
+    if "opt" in parts:
+        plan = compressed_two_dimensional({"name": "int8",
+                                           "stochastic": False})
+        x = torch.tensor(inp["opt/x"][rank])
+        finals = {}
+        for label in ("opt", "manual"):
+            torch.manual_seed(0)
+            lin = torch.nn.Linear(x.shape[1], 3)
+            sgd = torch.optim.SGD(lin.parameters(), lr=0.1)
+            if label == "opt":
+                opt = create_multi_node_optimizer(sgd, comm,
+                                                  compression=plan)
+            else:
+                states = comm.init_compression_state(
+                    [p.detach() for p in lin.parameters()], plan)
+            for _ in range(3):
+                lin.zero_grad()
+                lin(x).square().mean().backward()
+                if label == "opt":
+                    opt.step()
+                else:
+                    params = list(lin.parameters())
+                    mean, states = comm.allreduce_grad(
+                        [p.grad for p in params], compressor=plan,
+                        state=states)
+                    for p, g in zip(params, mean):
+                        p.grad = g
+                    sgd.step()
+            finals[label] = lin.weight.detach().numpy()
+            if label == "opt":
+                out["opt/hops"] = np.asarray(sorted(opt.comp_state))
+        out["opt/opt"], out["opt/manual"] = finals["opt"], finals["manual"]
+    if "tuner" in parts:
+        from chainermn_tpu_torch.planner import OnlineTuner, plan_table_hash
+        auto = create_communicator("auto", intra_size=intra, device="cpu")
+        tuner = OnlineTuner(comm=auto, min_samples=1,
+                            fallback_gbps={"nvlink": 100.0})
+        if rank == 0:
+            for _ in range(4):
+                tuner.observations.add("ib", 8 << 20, (8 << 20) / 0.5e9)
+                tuner.observe_payload(8 << 20)
+            tuner.on_regression([{"bucket": "ib_comm", "ratio": 4.0}])
+        decision = tuner.maybe_swap(step=7)
+        out["tuner/swapped"] = np.asarray(decision is not None)
+        out["tuner/hash"] = np.asarray(plan_table_hash(auto.plan_table))
+        out["tuner/pin"] = np.asarray(json.dumps(active_plan_table_meta()))
+        out["tuner/pick"] = np.asarray(auto.plan_for(8 << 20,
+                                                     "float32").name)
+        clear_active_plan_table()
+    return out
+
+
+def flatten_tensors(tree, prefix=""):
+    """``{path: tensor}`` of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flatten_tensors(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
 def launch(mode: str, inputs: dict, world: int, tmp_path, timeout=300):
     """Run ``world`` ranks of ``mode`` on ``inputs``; their outputs, by
     rank.  Raises with a rank's output if any rank fails."""
@@ -1783,7 +2096,8 @@ def main():
            "fsdp": run_fsdp, "tpep": run_tpep,
            "moelm": run_moelm,
            "tpserve": run_tpserve, "compress": run_compress,
-           "pipe": run_pipe}[mode](inp, topo.rank)
+           "pipe": run_pipe, "plan": run_plan,
+           "planuse": run_planuse}[mode](inp, topo.rank)
     np.savez(f"{out_prefix}.{topo.rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
