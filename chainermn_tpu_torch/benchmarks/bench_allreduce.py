@@ -30,9 +30,12 @@ Times are the least of 3 medians over ``--iters`` calls, each call between
 CUDA events on the card (NCCL; where the device waits on the host, the
 host's time a call shows), the host's clock on the CPU (gloo; the times
 there only validate the harness).
-The JAX script's ``--traced``, ``--replay-spans`` and ``--metrics`` read or
-write the observability stack's spans and sinks, which are not ported:
-they raise, naming ROADMAP.md Queue A13.
+``--metrics PATH`` appends one record a flavor (``kind``
+``bench_allreduce``, with the common envelope) to a metrics JSONL on rank
+0, as JAX's does.  The JAX script's ``--traced`` and ``--replay-spans``
+read the observability stack's telemetry aggregator and the online
+tuner's span inputs, which are not ported: they raise, naming ROADMAP.md
+Queue A13 (b).
 
     python -m chainermn_tpu_torch.benchmarks.bench_allreduce --mb 64
     python -m chainermn_tpu_torch.benchmarks.bench_allreduce \\
@@ -52,6 +55,7 @@ import time
 import torch
 
 from chainermn_tpu_torch.communicators import create_communicator
+from chainermn_tpu_torch.observability.sinks import append_metrics
 from chainermn_tpu_torch.planner.ir import dtype_itemsize
 
 
@@ -90,9 +94,12 @@ def parse_args(argv=None):
     p.add_argument("--census", metavar="OUT.json", default=None,
                    help="record the collectives each candidate plan issues "
                         "and hold them to plan_census_kinds")
-    for flag in ("--traced", "--replay-spans", "--metrics"):
+    p.add_argument("--metrics", default=None, metavar="PATH",
+                   help="append one record per flavor to this metrics "
+                        "JSONL (rank 0)")
+    for flag in ("--traced", "--replay-spans"):
         p.add_argument(flag, default=None,
-                       help="not ported (observability, ROADMAP.md A13)")
+                       help="not ported (observability, ROADMAP.md A13 b)")
     return p.parse_args(argv)
 
 
@@ -378,6 +385,8 @@ def flavors(args) -> list:
                 row["scaling_efficiency"] = busbw / bb if bb else None
             rows.append(row)
             if comm.rank == 0:
+                if args.metrics:
+                    append_metrics(args.metrics, row, "bench_allreduce")
                 if args.json:
                     print(json.dumps(row), flush=True)
                 else:
@@ -389,12 +398,13 @@ def flavors(args) -> list:
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag in ("traced", "replay_spans", "metrics"):
+    for flag in ("traced", "replay_spans"):
         if getattr(args, flag):
             raise NotImplementedError(
-                f"--{flag.replace('_', '-')} reads or writes the "
-                "observability stack's spans and sinks, which are not "
-                "ported yet; see ROADMAP.md Queue A13")
+                f"--{flag.replace('_', '-')} reads the observability "
+                "stack's telemetry aggregator and the online tuner's span "
+                "inputs, which are not ported yet; see ROADMAP.md Queue "
+                "A13 (b)")
     import torch.distributed as dist
     created = not dist.is_initialized()
     try:

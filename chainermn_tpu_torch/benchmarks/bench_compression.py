@@ -21,8 +21,9 @@ rest).  ``--no-assert`` reports without asserting.
 
 Times as in :mod:`.bench_fsdp_overlap` (CUDA events on the card, the
 host's clock on the CPU, where gloo runs the collectives one at a time and
-the times only validate the harness).  ``--metrics`` (the observability
-sink) is not ported yet (ROADMAP.md Queue A13).
+the times only validate the harness).  ``--metrics PATH`` appends one
+record a config (``kind`` ``bench_compression``, with the common envelope)
+to a metrics JSONL on rank 0, as JAX's does.
 
     python -m chainermn_tpu_torch.benchmarks.bench_compression --buckets 1,4
     torchrun --nproc_per_node 4 -m \\
@@ -79,18 +80,14 @@ def parse_args(argv=None):
     p.add_argument("--json", action="store_true",
                    help="emit one JSON line per config")
     p.add_argument("--metrics", default=None, metavar="PATH",
-                   help="not ported yet (ROADMAP.md Queue A13)")
+                   help="append one record per config to this metrics "
+                        "JSONL (rank 0)")
     p.add_argument("--device", default=None,
                    help="default: cuda:LOCAL_RANK (pass 'cpu' for the CPU)")
     p.add_argument("--planner-census", action="store_true",
                    help="also print the per-hop plans' modeled wire bytes "
                         "per hop for the model's packed gradients")
-    args = p.parse_args(argv)
-    if args.metrics is not None:
-        raise NotImplementedError(
-            "--metrics (the observability sink's metrics JSONL) is not "
-            "ported yet; see ROADMAP.md Queue A13")
-    return args
+    return p.parse_args(argv)
 
 
 def planner_census(topology, nbytes: int) -> list:
@@ -189,6 +186,10 @@ def main(argv=None) -> list:
                    "backend": "cuda" if cuda else "cpu"}
             rows.append(row)
             if comm.rank == 0:
+                if args.metrics:
+                    from chainermn_tpu_torch.observability.sinks import (
+                        append_metrics)
+                    append_metrics(args.metrics, row, "bench_compression")
                 if args.json:
                     print(json.dumps(row), flush=True)
                 else:

@@ -22,8 +22,9 @@ between two CUDA events on the card (``event_ms``: the stream's elapsed
 time, the host not waiting between steps, so a step whose launches take
 longer than its kernels shows the host's time) or on the host's clock on
 the CPU (``host_ms``); gloo finishes each collective before the next is
-issued, so CPU times cannot show overlap.  ``--metrics`` (the observability sink) is not ported
-yet (ROADMAP.md Queue A13).
+issued, so CPU times cannot show overlap.  ``--metrics PATH`` appends one
+record a config (``kind`` ``bench_fsdp_overlap``, with the common
+envelope) to a metrics JSONL on rank 0, as JAX's does.
 
     python -m chainermn_tpu_torch.benchmarks.bench_fsdp_overlap \\
         --buckets 1,2,4 --prefetch 0,1
@@ -96,15 +97,11 @@ def parse_args(argv=None):
     p.add_argument("--json", action="store_true",
                    help="emit one JSON line per config")
     p.add_argument("--metrics", default=None, metavar="PATH",
-                   help="not ported yet (ROADMAP.md Queue A13)")
+                   help="append one record per config to this metrics "
+                        "JSONL (rank 0)")
     p.add_argument("--device", default=None,
                    help="default: cuda:LOCAL_RANK (pass 'cpu' for the CPU)")
-    args = p.parse_args(argv)
-    if args.metrics is not None:
-        raise NotImplementedError(
-            "--metrics (the observability sink's metrics JSONL) is not "
-            "ported yet; see ROADMAP.md Queue A13")
-    return args
+    return p.parse_args(argv)
 
 
 def expected(meta, prefetch: int, wire) -> dict:
@@ -186,6 +183,10 @@ def main(argv=None) -> list:
                    "backend": "cuda" if cuda else "cpu"}
             rows.append(row)
             if comm.rank == 0:
+                if args.metrics:
+                    from chainermn_tpu_torch.observability.sinks import (
+                        append_metrics)
+                    append_metrics(args.metrics, row, "bench_fsdp_overlap")
                 if args.json:
                     print(json.dumps(row), flush=True)
                 else:

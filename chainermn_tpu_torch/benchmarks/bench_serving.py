@@ -211,6 +211,15 @@ def run_policy(policy, model, trace, args):
     _sync(args)
     if _cuda(args):
         torch.cuda.reset_peak_memory_stats()
+    # span seam (--metrics runs have observability on, so the engine
+    # records serving_step/serving_forward spans): where the ring stands,
+    # so the summary covers only the timed window
+    from chainermn_tpu_torch.observability import flight_recorder as _flight
+    fr = _flight.get_flight_recorder()
+    seq0 = -1
+    if fr is not None:
+        evs = fr.snapshot()
+        seq0 = evs[-1]["seq"] if evs else -1
     t0 = time.perf_counter()
     pending = list(trace)
     steps = 0
@@ -234,8 +243,13 @@ def run_policy(policy, model, trace, args):
 
     comps = list(eng.completions)
     n_tokens = sum(len(c.tokens) for c in comps)
+    spans = None
+    if fr is not None:
+        from chainermn_tpu_torch.observability import span_summary
+        spans = span_summary(fr.events_since(seq0), rank=0, k=3)
     out = {
         "policy": policy,
+        **({"span_summary": spans} if spans else {}),
         "requests": len(comps),
         "generated_tokens": n_tokens,
         "steps": steps,
@@ -538,6 +552,10 @@ def parser():
     p.add_argument("--max-steps", type=int, default=100000)
     p.add_argument("--out", default=None, metavar="PATH",
                    help="write the bench_serving/v2 JSON document")
+    p.add_argument("--metrics", default=None, metavar="PATH",
+                   help="turn observability on and append the sections' "
+                        "records and a registry snapshot to this metrics "
+                        "JSONL (JAX's kinds)")
     return p
 
 
@@ -589,7 +607,7 @@ def run(args, model=None):
     report = {
         "schema": "bench_serving/v2",
         "config": {k: v for k, v in vars(args).items()
-                   if k not in ("out", "comm")},
+                   if k not in ("out", "metrics", "comm")},
         "devices": args.tp,
         "continuous": results["continuous"],
         "static": results["static"],
@@ -610,16 +628,35 @@ def main(argv=None):
             args.prefix_prompt + args.prefix_max_new > max_ctx:
         p.error(f"--prefix-prompt + --prefix-max-new exceeds the cache "
                 f"reach ({max_ctx} tokens)")
+    if args.metrics:
+        from chainermn_tpu_torch import observability as obs
+        obs.enable()
     report = run(args)
     if report is None:      # --tp: a rank other than 0
         return 0
     if "spec" in report:
         report["spec"].pop("completions")
+    if args.metrics:
+        write_metrics(args.metrics, report)
     print(json.dumps(report, indent=1))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
     return check(report)
+
+
+def write_metrics(path: str, report: dict) -> None:
+    """JAX's ``--metrics`` records: one ``bench_serving`` record a policy,
+    the prefix, spec and fleet sections, then a registry snapshot."""
+    from chainermn_tpu_torch.observability import (
+        append_jsonl, get_registry, write_snapshot_jsonl)
+    for policy in ("continuous", "static"):
+        append_jsonl(path, {"kind": "bench_serving", **report[policy]})
+    for section in ("prefix", "spec", "fleet"):
+        if section in report:
+            append_jsonl(path, {"kind": f"bench_serving_{section}",
+                                **report[section]})
+    write_snapshot_jsonl(path, get_registry().snapshot())
 
 
 def check(report) -> int:

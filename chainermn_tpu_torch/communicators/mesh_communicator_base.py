@@ -21,6 +21,16 @@ gloo channel per pair of ranks; each message carries its ``tag``, and a
 receiver keeps messages of other tags until they are asked for, so tags
 may interleave as on the JAX control plane.  Sends do not block.
 
+Given a :class:`~chainermn_tpu_torch.runtime.control_plane.ControlPlane`
+(``control_plane=``, JAX's argument), every object op goes through it
+instead, with its ``tag`` honored: the JAX package's socket control plane
+and its binomial trees.  The gloo plane stays the default (a communicator
+never mixes the two): it needs no second listener per process and rides
+the process group the launcher already built.  ``split``/``split_axes`` of
+a communicator on a control plane give the sub-world JAX's
+``_SplitControlPlane`` (parent ranks ordered by ``(key, rank)``, tags
+namespaced as ``(color + 1) * 100003 + tag``).
+
 The gradient decomposition is what tells the flavors apart.  The bodies
 here are the JAX package's pre-planner ones (``_legacy_allreduce_grad_traced``,
 which its tests pin bit-exact with the plan path): the base class is the
@@ -59,6 +69,7 @@ from chainermn_tpu_torch.communicators import _packing
 from chainermn_tpu_torch.communicators.communicator_base import (
     CommunicatorBase)
 from chainermn_tpu_torch.parallel.topology import Topology, init_topology
+from chainermn_tpu_torch.runtime.control_plane import ControlPlane
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
@@ -97,6 +108,29 @@ def _structural(op):
     return apply
 
 
+class _SplitControlPlane(ControlPlane):
+    """Sub-world view over a parent control plane (JAX's, for
+    ``mpi_comm.Split``): tags are namespaced per split group, so a split
+    sends under the tags JAX's does."""
+
+    def __init__(self, parent: ControlPlane, members: List[int], color: int):
+        self._parent = parent
+        self._members = members  # parent ranks, ordered by (key, rank)
+        self._color = color
+        self.rank = members.index(parent.rank)
+        self.size = len(members)
+
+    def _tag(self, tag: int) -> int:
+        return (self._color + 1) * 100003 + tag
+
+    def send_obj(self, obj, dest, tag=0):
+        self._parent.send_obj(obj, self._members[dest], tag=self._tag(tag))
+
+    def recv_obj(self, source, tag=0):
+        return self._parent.recv_obj(self._members[source],
+                                     tag=self._tag(tag))
+
+
 def as_dtype(dtype) -> Optional[torch.dtype]:
     """A torch dtype from a torch dtype or its name (None stays None)."""
     if dtype is None or isinstance(dtype, torch.dtype):
@@ -113,7 +147,9 @@ class MeshCommunicator(CommunicatorBase):
 
     ``group=None`` is the default (world) group.  Collectives run on the
     current CUDA stream of the process's device (NCCL) or on the CPU
-    (gloo).
+    (gloo).  ``control_plane``: the object plane (default: the gloo side
+    group; see the module note); its rank and size must be this
+    communicator's.
     """
 
     # Only the xla (pure_nccl) communicator accepts a communication dtype,
@@ -127,6 +163,7 @@ class MeshCommunicator(CommunicatorBase):
     def __init__(self, topology: Optional[Topology] = None, group=None,
                  allreduce_grad_dtype=None, device=None,
                  intra_size: Optional[int] = None, compression=None,
+                 control_plane: Optional[ControlPlane] = None,
                  _groups=None):
         if topology is None:
             topology = init_topology(device, intra_size=intra_size)
@@ -163,6 +200,15 @@ class MeshCommunicator(CommunicatorBase):
         # by (source, tag), and the sends still in flight
         self._inbox: dict = collections.defaultdict(collections.deque)
         self._sends: list = []
+        if control_plane is not None and (
+                control_plane.rank != topology.rank
+                or control_plane.size != topology.size):
+            raise ValueError(
+                f"control plane of rank {control_plane.rank} in a world of "
+                f"{control_plane.size} does not match this communicator "
+                f"(rank {topology.rank} of {topology.size})")
+        #: the object plane when one was given (None: the gloo plane)
+        self._cp = control_plane
 
     def _make_groups(self, members: List[int], intra_size: int,
                      world) -> dict:
@@ -251,6 +297,12 @@ class MeshCommunicator(CommunicatorBase):
     def device(self) -> torch.device:
         return self._topology.device
 
+    @property
+    def host_size(self) -> int:
+        """Controller processes in the world: one per GPU here, so the
+        size (JAX: ``jax.process_count()`` of the mesh)."""
+        return self._topology.size
+
     def plan_topology(self):
         """This communicator's levels as a
         :class:`~chainermn_tpu_torch.planner.PlanTopology`: ``(("inter",
@@ -281,9 +333,11 @@ class MeshCommunicator(CommunicatorBase):
         return self._groups["obj"]
 
     def bcast_obj(self, obj, root: int = 0, tag: int = 0):
-        """Root's object on every rank.  Collective: ranks match calls by
-        their order, so ``tag`` (the reference signature's) selects
-        nothing."""
+        """Root's object on every rank.  Collective: on the gloo plane
+        ranks match calls by their order, so ``tag`` (the reference
+        signature's) selects nothing; a control plane honors it."""
+        if self._cp is not None:
+            return self._cp.bcast_obj(obj, root=root, tag=tag)
         box = [obj]
         dist.broadcast_object_list(box, src=self._global_rank(root),
                                    group=self._obj_group)
@@ -292,6 +346,8 @@ class MeshCommunicator(CommunicatorBase):
     def allgather_obj(self, obj, tag: int = 0) -> List:
         """Every rank's object, in rank order, on every rank (collective;
         ``tag`` as in :meth:`bcast_obj`)."""
+        if self._cp is not None:
+            return self._cp.allgather_obj(obj, tag=tag)
         out = [None] * self.size
         dist.all_gather_object(out, obj, group=self._obj_group)
         return out
@@ -300,7 +356,10 @@ class MeshCommunicator(CommunicatorBase):
         """Reduce picklable objects over the world; every rank gets the
         result.  ``op``: "sum", "prod", "max" or "min", applied through
         dicts, lists and tuples (numpy-aware), or any binary callable.
-        Folded in rank order, so every rank computes the same value."""
+        Folded in rank order, so every rank computes the same value (on a
+        control plane: its tree order, as JAX's)."""
+        if self._cp is not None:
+            return self._cp.allreduce_obj(obj, op=op, tag=tag)
         if callable(op):
             fold = op
         elif op in _PAIR_OPS:
@@ -319,6 +378,9 @@ class MeshCommunicator(CommunicatorBase):
         at once (the transfer completes when ``dest`` receives it, and
         only while the process group lives).  A rank may send to
         itself."""
+        if self._cp is not None:
+            self._cp.send_obj(obj, dest, tag=tag)
+            return
         self._isend_obj(obj, dest, tag)
 
     def _isend_obj(self, obj, dest: int, tag: int) -> list:
@@ -342,6 +404,8 @@ class MeshCommunicator(CommunicatorBase):
         """The oldest object rank ``source`` sent this rank under ``tag``;
         messages of other tags that arrive first are kept for later
         calls."""
+        if self._cp is not None:
+            return self._cp.recv_obj(source, tag=tag)
         box = self._inbox[(source, tag)]
         src = self._global_rank(source)
         while not box:
@@ -357,6 +421,8 @@ class MeshCommunicator(CommunicatorBase):
     def gather_obj(self, obj, root: int = 0, tag: int = 0):
         """Every rank's object, in rank order, on ``root``; None on the
         other ranks."""
+        if self._cp is not None:
+            return self._cp.gather_obj(obj, root=root, tag=tag)
         if self.rank != root:
             self.send_obj(obj, root, tag=tag)
             return None
@@ -367,6 +433,8 @@ class MeshCommunicator(CommunicatorBase):
         """Rank r gets ``objs[r]`` of root's list (``objs`` is read on
         ``root`` only).  The root returns once every rank holds its
         object, so the root may tear its process group down after it."""
+        if self._cp is not None:
+            return self._cp.scatter_obj(objs, root=root, tag=tag)
         if self.rank == root:
             if len(objs) != self.size:
                 raise ValueError(f"scatter_obj: {len(objs)} objects for "
@@ -381,7 +449,11 @@ class MeshCommunicator(CommunicatorBase):
     def barrier(self, tag: int = 900) -> None:
         """Return once every rank has entered: a gather to rank 0 under
         ``tag`` and a release under ``tag + 1`` (the JAX control plane's
-        two tags).  Rank 0 returns once every rank has its release."""
+        two tags).  Rank 0 returns once every rank has its release.  On a
+        control plane: its barrier (an allgather at ``tag``)."""
+        if self._cp is not None:
+            self._cp.barrier(tag=tag)
+            return
         self.gather_obj(None, 0, tag=tag)
         self.scatter_obj([None] * self.size, 0, tag=tag + 1)
 
@@ -702,10 +774,28 @@ class MeshCommunicator(CommunicatorBase):
                 f"does not match this gradient tree (needs "
                 f"{comp._padded(m)}): build it with "
                 "comm.init_compression_state(grads, compressor)")
+        from chainermn_tpu_torch.compression import observe as _cobs
+        obs = _cobs.get_compression_obs()
+        if obs is not None:
+            from chainermn_tpu_torch.compression.quantize import (
+                wire_bits_per_param)
+            tags = ("allreduce", 0, comp.name,
+                    wire_bits_per_param(comp, m, n),
+                    m * 4 - (comp._padded(m) + comp.n_chunks(m))
+                    * comp.wire_dtype.itemsize)
+            obs.device_edge(self.rank, "compress", "begin", *tags, dep=buf)
         codes, state = comp.compress(buf, state, rank=self.rank,
                                      world_size=n)
+        if obs is not None:
+            obs.device_edge(self.rank, "compress", "end", *tags,
+                            residual=state.ef, dep=codes)
         summed = self._sum_codes(codes)
+        if obs is not None:
+            obs.device_edge(self.rank, "decompress", "begin", *tags,
+                            dep=summed)
         out, state = comp.decompress(summed, state, world_size=n)
+        if obs is not None:
+            obs.device_edge(self.rank, "decompress", "end", *tags, dep=out)
         return _packing.unpack([out[:m]], meta, scale=1.0 / n), state
 
     def _all_reduce_sum(self, buf: torch.Tensor) -> torch.Tensor:
@@ -752,19 +842,29 @@ class MeshCommunicator(CommunicatorBase):
         """:meth:`split`; with ``fallback``, a flavor that refuses the
         sub-world (single_node on several nodes) gives way to the naive
         per-leaf communicator, as the JAX ``split_axes`` does."""
-        infos = self.allgather_obj((color, key, self._global_rank(self.rank)))
+        infos = self.allgather_obj((color, key, self._global_rank(self.rank),
+                                    self.rank))
         me = self._global_rank(self.rank)
         mine = None
+        # on a control plane the order is JAX's (key, control-plane rank),
+        # which makes the sub-world's rank its sub-plane's rank
+        order = 3 if self._cp is not None else 2
         # collective: every rank builds every color's groups, in one order
         for c in sorted({t[0] for t in infos}):
             members = [t[2] for t in sorted(
-                (t for t in infos if t[0] == c), key=lambda t: (t[1], t[2]))]
+                (t for t in infos if t[0] == c),
+                key=lambda t: (t[1], t[order]))]
             group = dist.new_group(members)
             intra_size = self._sub_intra_size(members)
             groups = self._make_groups(members, intra_size, group)
             if c == color:
                 mine = (members, group, intra_size, groups[me])
         members, group, intra_size, groups = mine
+        sub_cp = None
+        if self._cp is not None:
+            sub_cp = _SplitControlPlane(self._cp, [t[3] for t in sorted(
+                (t for t in infos if t[0] == color),
+                key=lambda t: (t[1], t[3]))], color)
         topo = Topology(rank=members.index(me), size=len(members),
                         intra_rank=members.index(me) % intra_size,
                         intra_size=intra_size, device=self.device)
@@ -777,12 +877,13 @@ class MeshCommunicator(CommunicatorBase):
         try:
             return type(self)(topology=topo, group=group,
                               allreduce_grad_dtype=wire, compression=comp,
-                              _groups=groups)
+                              control_plane=sub_cp, _groups=groups)
         except ValueError:
             if not fallback:
                 raise
             return MeshCommunicator(topology=topo, group=group,
-                                    compression=comp, _groups=groups)
+                                    compression=comp, control_plane=sub_cp,
+                                    _groups=groups)
 
     def split_axes(self, axes: Sequence[str]) -> "MeshCommunicator":
         """A communicator over a subset of the world's levels, keeping this

@@ -17,9 +17,13 @@ test).
         --compression int8
 
 ``--compression`` takes a registry name (``int8``/``fp8``), a bare wire
-dtype or a compressor spec JSON into ``create_multi_node_optimizer``;
-``--observability`` waits for the observability stack (ROADMAP.md Queue
-A13) and raises.
+dtype or a compressor spec JSON into ``create_multi_node_optimizer``.
+``--observability`` turns the observability stack on before anything is
+built, instruments the communicator and extends ``MetricsReport`` on every
+rank: ``<out>/metrics.jsonl`` gains the step reports, the
+``comm_collective_*`` metrics and the straggler reports (the JAX example's
+records).  :func:`train` runs the example on a communicator the caller
+built (for example on the socket control plane).
 """
 
 from __future__ import annotations
@@ -73,7 +77,9 @@ def parse_args(argv=None):
     p.add_argument("--intra-size", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--observability", action="store_true",
-                   help="not supported yet (ROADMAP.md Queue A13)")
+                   help="record runtime metrics (collective bytes/latency, "
+                        "per-step phase breakdown, straggler report) to "
+                        "<out>/metrics.jsonl")
     p.add_argument("--device", default=None,
                    help="default: cuda:LOCAL_RANK (pass 'cpu' for the CPU)")
     return p.parse_args(argv)
@@ -99,17 +105,27 @@ def load_data(args):
 
 def main(argv=None) -> dict:
     """Train; returns ``{"log": [...], "world": size,
-    "examples_per_sec_per_gpu": rate}``, ``log`` holding one record per
-    epoch with ``main/loss``, ``main/accuracy``, ``validation/loss`` and
-    ``validation/accuracy`` (on every rank), ``rate`` over the epochs after
-    the first (None for one epoch)."""
+    "examples_per_sec_per_gpu": rate, "model": model}``, ``log`` holding
+    one record per epoch with ``main/loss``, ``main/accuracy``,
+    ``validation/loss`` and ``validation/accuracy`` (on every rank),
+    ``rate`` over the epochs after the first (None for one epoch),
+    ``model`` the trained MLP."""
     args = parse_args(argv)
     if args.observability:
-        raise NotImplementedError(
-            "--observability is not ported yet; see ROADMAP.md Queue A13")
+        # the switch flips before anything is built: the seams bind once
+        from chainermn_tpu_torch import observability
+        observability.enable()
     comm = cmn.create_communicator(
         args.communicator, intra_size=args.intra_size,
         allreduce_grad_dtype=args.allreduce_grad_dtype, device=args.device)
+    return train(args, comm)
+
+
+def train(args, comm) -> dict:
+    """:func:`main`'s training on ``comm`` (``args`` from
+    :func:`parse_args`; with ``--observability`` the switch is on before
+    ``comm`` is built)."""
+    comm = cmn.observability.instrument_communicator(comm)  # off: no-op
     device = comm.device
     if comm.rank == 0:
         print("==========================================")
@@ -165,6 +181,10 @@ def main(argv=None) -> dict:
                                      comm)
     trainer.extend(create_multi_node_evaluator(evaluator, comm),
                    trigger=(1, "epoch"))
+    # MetricsReport goes on EVERY rank (its straggler report is a
+    # collective); it writes files on rank 0 only
+    if args.observability:
+        trainer.extend(extensions.MetricsReport(trigger=(1, "epoch")))
     # every rank keeps the per-epoch log (main() returns it); rank 0 alone
     # writes it and prints it, as the reference example does
     log = extensions.LogReport(filename="log" if comm.rank == 0 else None)
@@ -188,7 +208,7 @@ def main(argv=None) -> dict:
         print(f"final: {log.log[-1] if log.log else {}}; examples/sec per "
               f"GPU (epochs 2..{len(log.log)}): {rate}", flush=True)
     return {"log": log.log, "world": comm.size,
-            "examples_per_sec_per_gpu": rate}
+            "examples_per_sec_per_gpu": rate, "model": model}
 
 
 if __name__ == "__main__":

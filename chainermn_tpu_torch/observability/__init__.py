@@ -1,12 +1,77 @@
-"""What the port's benchmarks need of ``chainermn_tpu.observability``: the
-common envelope stamped on every result document (:mod:`.ledger`) and the
-append-only JSONL sink (:mod:`.sinks`).  The metrics registry, the flight
-recorder, span summaries and the schema registry are not ported yet
-(ROADMAP.md, Queue A13)."""
+"""Runtime observability -- an always-on (but switchable) view of what the
+communicators, the trainer, the planner, FSDP, the compressors and the
+serving engine are doing while a job runs.
 
+Counterpart of ``chainermn_tpu/observability/__init__.py``, its first
+slice:
+
+* :mod:`.registry` -- the process-wide metrics registry (counters,
+  gauges, histograms and streaming histograms with labels, monotonic
+  timers) and the master switch;
+* :mod:`.sinks` -- the JSONL sink and reader, atomic JSON writes, and the
+  Prometheus text exposition;
+* :mod:`.flight_recorder` -- the bounded event ring, its dumps and the
+  cross-rank desync analysis;
+* :mod:`.instrument` -- instrumented communicators: per-collective call
+  counts, payload bytes, wire dtype and host-side latency, under
+  ``torch.profiler.record_function`` ranges named ``chainermn_tpu.<op>``;
+* :mod:`.spans` and :mod:`.attribution` -- span trees from flight
+  events, step-time attribution, the cross-rank merge and critical path,
+  the clock handshake and the Perfetto export; :class:`PlanObs`, the
+  planner's per-stage hook;
+* :mod:`.straggler` -- step telemetry and the cross-rank straggler report
+  that ``training.extensions.MetricsReport`` drives;
+* :mod:`.ledger` -- the common envelope of result documents.
+
+The master switch is process-wide: :func:`enable` / :func:`disable` /
+:func:`enabled`, or the ``CHAINERMN_TPU_OBSERVABILITY`` environment
+variable (any non-empty value other than ``0``/``false``/``off``), read
+at import.  Every data-path seam checks it ONCE at construction, so a
+disabled run makes no observability call per iteration.
+
+Not ported yet (ROADMAP.md Queue A13 (b)): the hang watchdog, contention
+timelines, streaming fleet telemetry and run diffing; the run ledger's
+artifact classification is A13 (c).
+"""
+
+from chainermn_tpu_torch.observability.attribution import (
+    BUCKETS, attribute_step, attribution_report, classify_span,
+    clock_handshake, critical_path, merge_ranks, offset_from_samples,
+    span_summary, to_trace_events)
+from chainermn_tpu_torch.observability.flight_recorder import (
+    DUMP_SCHEMA, FlightRecorder, get_flight_recorder, identify_desync,
+    install_flight_recorder, reset_flight_recorder, thread_stacks)
+from chainermn_tpu_torch.observability.instrument import (
+    InstrumentedCommunicator, instrument_communicator)
 from chainermn_tpu_torch.observability.ledger import (
     detect_device_kind, git_sha, schema_version, stamp_envelope)
-from chainermn_tpu_torch.observability.sinks import append_jsonl
+from chainermn_tpu_torch.observability.registry import (
+    Counter, Gauge, Histogram, MetricsRegistry, StreamingHistogram, disable,
+    enable, enabled, get_registry)
+from chainermn_tpu_torch.observability.sinks import (
+    append_jsonl, atomic_write_json, prometheus_text, read_jsonl,
+    write_prometheus, write_snapshot_jsonl)
+from chainermn_tpu_torch.observability.spans import (
+    PlanObs, Span, build_step_trees, get_plan_obs, pair_events,
+    phase_spans, stage_link_timings, step_windows)
+from chainermn_tpu_torch.observability.straggler import (
+    AttributionWatch, StepTelemetry, StragglerDetector, straggler_report,
+    summarize_durations)
 
-__all__ = ["append_jsonl", "detect_device_kind", "git_sha", "schema_version",
-           "stamp_envelope"]
+__all__ = [
+    "AttributionWatch", "BUCKETS", "Counter", "DUMP_SCHEMA",
+    "FlightRecorder", "Gauge", "Histogram", "InstrumentedCommunicator",
+    "MetricsRegistry", "PlanObs", "Span", "StepTelemetry",
+    "StragglerDetector", "StreamingHistogram", "append_jsonl",
+    "atomic_write_json", "attribute_step", "attribution_report",
+    "build_step_trees", "classify_span", "clock_handshake", "critical_path",
+    "detect_device_kind", "disable", "enable", "enabled",
+    "get_flight_recorder", "get_plan_obs", "get_registry", "git_sha",
+    "identify_desync", "install_flight_recorder", "instrument_communicator",
+    "merge_ranks", "offset_from_samples", "pair_events", "phase_spans",
+    "prometheus_text", "read_jsonl", "reset_flight_recorder",
+    "schema_version", "span_summary", "stage_link_timings",
+    "stamp_envelope", "step_windows", "straggler_report",
+    "summarize_durations", "thread_stacks", "to_trace_events",
+    "write_prometheus", "write_snapshot_jsonl",
+]

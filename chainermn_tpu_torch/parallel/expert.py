@@ -48,8 +48,10 @@ two-hop form, narrow wires on a hop -- with the same block layout as the
 raw all-to-all; the exchange is announced as the ``"moe"`` plan slot and a
 jointly tuned override installed there is honoured
 (``planner.schedule.resolve_slot_plan``).  ``plan_topology`` defaults to
-:func:`moe_plan_topology`; ``plan_obs`` (per-hop spans) raises unless
-``None``, naming ROADMAP.md Queue A13.
+:func:`moe_plan_topology`; ``plan_obs`` (a ``PlanObs``, from
+``observability.get_plan_obs(comm)``) brackets every hop of both exchanges
+with ``plan_stage`` spans; :class:`ExpertParallelMLP` with a plan fetches
+it itself, as JAX's does.
 """
 
 from __future__ import annotations
@@ -120,11 +122,6 @@ def moe_apply(expert_fn: Callable, gate_logits, x, comm=None,
     ``comm``'s ranks; returns ``[N, D]`` (and the statistics with
     ``return_stats``).  ``gate_logits`` is ``[N, E]``; see the module
     note for the rest."""
-    if plan_obs is not None:
-        raise NotImplementedError(
-            "moe_apply(plan_obs=) (per-hop plan spans) needs the "
-            "observability stack, which is not ported yet; see ROADMAP.md "
-            "Queue A13")
     p = 1 if comm is None else comm.size
     n, d = x.shape
     e = int(num_experts) if num_experts is not None else gate_logits.shape[-1]
@@ -175,7 +172,7 @@ def moe_apply(expert_fn: Callable, gate_logits, x, comm=None,
 
         def exchange(b):
             return execute_alltoall(plan, comm, b.contiguous(),
-                                    topology=topo)
+                                    topology=topo, pobs=plan_obs)
     recv = exchange(send.reshape(p, epd * c, d))
     recv = recv.reshape(p, epd, c, d).transpose(0, 1)        # [E/P, P, C, D]
     if epd == 1:
@@ -271,10 +268,15 @@ class ExpertParallelMLP(nn.Module):
     def forward(self, x):
         shape = x.shape
         flat = x.reshape(-1, shape[-1])
+        plan_obs = None
+        if self.plan is not None:
+            from chainermn_tpu_torch.observability.spans import get_plan_obs
+            plan_obs = get_plan_obs(self.comm)
         res = moe_apply(self.expert_fn, self.router(flat), flat, self.comm,
                         capacity=self.capacity, top_k=self.top_k,
                         num_experts=self.num_experts,
-                        return_stats=self.with_stats, plan=self.plan)
+                        return_stats=self.with_stats, plan=self.plan,
+                        plan_obs=plan_obs)
         if self.with_stats:
             y, stats = res
             return y.reshape(shape), stats

@@ -87,13 +87,25 @@ and clip count.  ``NoCompression(wire_dtype)`` folds into the bucket's
 wire dtype.  A quantized bucket refuses accumulation (EF would advance once
 a microbatch), as in JAX.
 
-Not ported yet: the per-bucket observability (JAX ``_FsdpObs``, ROADMAP.md
-Queue A13).
+Per-bucket observability (JAX ``_FsdpObs``): with observability on when
+the step is built, each bucket's gather and reduce-scatter get
+``fsdp_{gather,scatter}_{begin,end}`` flight events (``link`` ``nvlink``)
+and the ``fsdp_overlap_*`` metric family; a compressed bucket's encode
+and decode get ``compression_*`` metrics and compute spans (seam
+``fsdp``).  On the card an edge records a CUDA event on the current
+stream, where JAX's device callbacks fire; the step resolves its events
+once, at its end (one synchronize a step, after all of the step's work is
+queued), into times on the host's clocks, so the prefetch window and the
+backward's reduce-scatters overlap as they do unobserved.  On the CPU an
+edge is stamped when the host reaches it.  A gather's begin is its issue,
+a reduce-scatter's its start in the backward, and each end is its wait.
+Off, the step makes no observability call.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
@@ -499,7 +511,8 @@ def fsdp_module_params(state: FsdpState, meta: FsdpMeta, comm):
         _release(state.module)
 
 
-def compressed_scatter_encode(comm, comp, cstate, ct: torch.Tensor, e_vec):
+def compressed_scatter_encode(comm, comp, cstate, ct: torch.Tensor, e_vec,
+                              cobs=None, bucket: int = 0):
     """A quantized bucket's reduce-scatter, its sending half (JAX
     ``_make_compressed_gather``'s backward): ``ct``, the bucket's full
     gradient padded to ``size x L``, plus the EF residual, each
@@ -510,14 +523,24 @@ def compressed_scatter_encode(comm, comp, cstate, ct: torch.Tensor, e_vec):
     (every rank's slice of this rank's shard, in rank order), sums them in
     wire arithmetic, decodes this rank's shard by its own exponent,
     advances ``cstate`` in place (residual, exponent, step) and returns
-    the shard's gradient SUM in ``ct``'s dtype."""
+    the shard's gradient SUM in ``ct``'s dtype.  ``cobs`` (a
+    ``CompressionObs``) records the encode and the decode on rank 0 (seam
+    ``fsdp``, bucket ``bucket``)."""
     from chainermn_tpu_torch.compression.quantize import sum_wire
     size = comm.size
     L = ct.shape[0] // size
+    if cobs is not None:
+        item = comp.wire_dtype.itemsize
+        tags = ("fsdp", bucket, comp.name, item * 8.0, L * size * (4 - item))
     scale_pos = torch.exp2(e_vec).repeat_interleave(L)
     v = ct.to(torch.float32) + cstate.ef
+    if cobs is not None:
+        cobs.device_edge(comm.rank, "compress", "begin", *tags, dep=v)
     codes = comp.encode(v, scale_pos, comp.step_of(cstate), comm.rank, size)
     new_ef = v - comp.decode(codes, scale_pos)
+    if cobs is not None:
+        cobs.device_edge(comm.rank, "compress", "end", *tags,
+                         residual=new_ef, dep=codes)
     flags = comp.saturation_flags(v, scale_pos, size, L)
     ext = torch.cat([codes.view(size, L), flags[:, None]], dim=1)
     wire = ext.dtype
@@ -526,6 +549,9 @@ def compressed_scatter_encode(comm, comp, cstate, ct: torch.Tensor, e_vec):
         summed = sum_wire(recv.view(wire).view(size, L + 1), wire)
         # this rank's shard, decoded by its own (current) exponent
         gshard = summed[:L].to(torch.float32) * torch.exp2(cstate.scale[0])
+        if cobs is not None:
+            cobs.device_edge(comm.rank, "decompress", "end", *tags,
+                             dep=gshard)
         amax = gshard.abs().max().reshape(1)
         new_e = comp.next_exponent(cstate.scale, amax, size,
                                    summed[L:].to(torch.float32))
@@ -534,6 +560,95 @@ def compressed_scatter_encode(comm, comp, cstate, ct: torch.Tensor, e_vec):
         return gshard.to(ct.dtype)
 
     return ext.reshape(-1).view(torch.int8), fold
+
+
+class _FsdpObs:
+    """Per-bucket collective observability of the bucketed step (JAX's
+    ``_FsdpObs``, its ``fsdp_overlap`` family):
+
+    * ``fsdp_overlap_buckets`` / ``fsdp_overlap_prefetch`` (gauges),
+    * ``fsdp_overlap_bytes`` (counter, labels ``leg`` / ``bucket``),
+    * ``fsdp_overlap_seconds`` (histogram, labels ``leg`` / ``bucket``):
+      the time between a bucket's begin and end edges (on the card from
+      the edges' CUDA events),
+    * ``fsdp_overlap_dispatch_seconds`` (histogram): host latency of the
+      whole step call.
+
+    The step's edges are kept in issue order and turned into flight events
+    and metrics by :meth:`resolve` at the step's end.
+    """
+
+    def __init__(self, flight, registry, num_buckets: int, prefetch: int):
+        self.flight = flight
+        self.registry = registry
+        self._edges: list = []
+        if registry is not None:
+            registry.gauge(
+                "fsdp_overlap_buckets",
+                "bucket count of the bucketed FSDP step").set(num_buckets)
+            registry.gauge(
+                "fsdp_overlap_prefetch",
+                "prefetch depth of the bucketed FSDP step").set(prefetch)
+            self._bytes = registry.counter(
+                "fsdp_overlap_bytes",
+                "wire bytes moved per FSDP collective leg")
+            self._seconds = registry.histogram(
+                "fsdp_overlap_seconds",
+                "host-observed per-bucket collective latency")
+            self._dispatch = registry.histogram(
+                "fsdp_overlap_dispatch_seconds",
+                "host latency of one bucketed FSDP step dispatch")
+
+    def edge(self, leg: str, edge: str, bucket: int, nbytes: int,
+             dep: Optional[torch.Tensor] = None) -> None:
+        """One begin/end edge of a per-bucket collective: a CUDA event on
+        ``dep``'s current stream, else the host's clocks now."""
+        if dep is not None and dep.is_cuda:
+            stamp = torch.cuda.Event(enable_timing=True)
+            stamp.record(torch.cuda.current_stream(dep.device))
+            stamp = (stamp, dep.device)
+        else:
+            stamp = (time.perf_counter(), time.time(), time.monotonic())
+        self._edges.append((leg, edge, bucket, nbytes, stamp))
+
+    def resolve(self) -> None:
+        """The step's edges, in issue order, as flight events and metrics.
+        An event's time is the host's clocks once a last event on its
+        stream has completed, less the device time from it to that one."""
+        edges, self._edges = self._edges, []
+        now = None
+        for *_, stamp in edges:
+            if isinstance(stamp[0], torch.cuda.Event):
+                last = torch.cuda.Event(enable_timing=True)
+                last.record(torch.cuda.current_stream(stamp[1]))
+                last.synchronize()
+                now = (time.perf_counter(), time.time(), time.monotonic())
+                break
+        begin: dict = {}
+        for leg, edge, bucket, nbytes, stamp in edges:
+            if isinstance(stamp[0], torch.cuda.Event):
+                back = stamp[0].elapsed_time(last) / 1e3
+                stamp = tuple(t - back for t in now)
+            if self.flight is not None:
+                # the bucketed collectives ride the fast interconnect
+                ev = self.flight.record(f"fsdp_{leg}_{edge}", bucket=bucket,
+                                        nbytes=nbytes, link="nvlink")
+                ev["ts"], ev["mono"] = stamp[1], stamp[2]
+            if self.registry is None:
+                continue
+            key = (leg, bucket)
+            if edge == "begin":
+                begin[key] = stamp[0]
+            else:
+                t0 = begin.pop(key, None)
+                if t0 is not None:
+                    self._seconds.observe(stamp[0] - t0, leg=leg,
+                                          bucket=str(bucket))
+                self._bytes.inc(nbytes, leg=leg, bucket=str(bucket))
+
+    def record_dispatch(self, seconds: float) -> None:
+        if self.registry is not None:
+            self._dispatch.observe(seconds)
 
 
 class _Pending:
@@ -558,6 +673,9 @@ class _BucketGather(torch.autograd.Function):
         bl = eng.meta.buckets[pend.bucket]
         for w in pend.works:
             w.wait()
+        if eng.obs is not None and pend.outs:
+            eng.obs.edge("gather", "end", pend.bucket,
+                         eng.wire_nbytes(pend.bucket), dep=pend.outs[0])
         outs = []
         for g, n, s in zip(pend.outs, bl.orig_lens, shards):
             if eng.comps[pend.bucket] is not None:
@@ -584,8 +702,9 @@ class _Engine:
     reduce-scatters, and their counters."""
 
     def __init__(self, comm, state: FsdpState, meta: FsdpMeta, wires,
-                 grad_div: int, prefetch: int):
+                 grad_div: int, prefetch: int, obs=None, cobs=None):
         self.comm, self.state, self.meta = comm, state, meta
+        self.obs, self.cobs = obs, cobs
         # the reduce-scatter's sum is divided by grad_div (1: global_loss)
         self.wires, self.grad_div, self.prefetch = wires, grad_div, prefetch
         self.all_gather = _all_gather()
@@ -625,6 +744,14 @@ class _Engine:
                       "max_in_flight": 0, "gather_bytes": 0,
                       "scatter_bytes": 0}
 
+    def wire_nbytes(self, i: int) -> int:
+        """Bytes bucket ``i``'s wire moves (JAX's reporting rule: the
+        padded buffers, float ones at the bucket's wire width, 4 bytes an
+        element otherwise)."""
+        item = self.wires[i].itemsize if self.wires[i] is not None else 4
+        return sum(sl * self.comm.size * item
+                   for sl in self.meta.buckets[i].shard_lens)
+
     def cast(self, x, dtype, scale: float):
         self.stats["casts"] += 1
         return cast_scale(x, dtype, scale)
@@ -656,6 +783,9 @@ class _Engine:
     def _issue(self, i: int) -> None:
         size, wire = self.comm.size, self.wires[i]
         works, outs = [], []
+        if self.obs is not None and self.state.shards[i]:
+            self.obs.edge("gather", "begin", i, self.wire_nbytes(i),
+                          dep=self.state.shards[i][0])
         for s in self.state.shards[i]:
             x = s.detach()
             if self.comps[i] is not None:
@@ -708,6 +838,9 @@ class _Engine:
         the previous bucket's is folded into its shard gradient."""
         self._fold()
         size, wire = self.comm.size, self.wires[i]
+        if self.obs is not None and grads:
+            self.obs.edge("scatter", "begin", i, self.wire_nbytes(i),
+                          dep=grads[0])
         for j, g in enumerate(grads):
             shard = self.state.shards[i][j]
             g, _ = _packing.pad_to_multiple(g.contiguous(), size)
@@ -715,7 +848,7 @@ class _Engine:
             if self.comps[i] is not None:
                 x, post = compressed_scatter_encode(
                     self.comm, self.comps[i], self.state.comp[i], g,
-                    self.e_vecs[i])
+                    self.e_vecs[i], cobs=self.cobs, bucket=i)
             elif wire is not None and g.is_floating_point() \
                     and g.dtype != wire:
                 x = self.cast(g, wire, 1.0)
@@ -723,7 +856,7 @@ class _Engine:
             recv = torch.empty_like(x)
             work = dist.all_to_all_single(recv, x, group=self.comm.group,
                                           async_op=True)
-            self.scatters.append((shard, work, recv, x, post))
+            self.scatters.append((shard, work, recv, x, post, i))
             self.stats["reduce_scatters"] += 1
             self.stats["scatter_bytes"] += x.numel() * x.element_size()
         self.scattered.add(i)
@@ -732,8 +865,13 @@ class _Engine:
         """Wait for the reduce-scatter in flight and add its sum, in rank
         order, to the shard gradients; its full-size buffers then go."""
         scatters, self.scatters = self.scatters, []
-        for shard, work, recv, _, post in scatters:
+        for k, (shard, work, recv, _, post, i) in enumerate(scatters):
             work.wait()
+            if self.obs is not None and (k + 1 == len(scatters)
+                                         or scatters[k + 1][5] != i):
+                # the bucket's last buffer is in: its end edge
+                self.obs.edge("scatter", "end", i, self.wire_nbytes(i),
+                              dep=recv)
             if post is not None:
                 out = post(recv)
                 g = out / self.grad_div if self.grad_div != 1 else out
@@ -837,8 +975,20 @@ def make_fsdp_train_step(comm, loss_fn: Callable, state: FsdpState,
     default_wire = _normalize_wire(wire_dtype)
     wires = [_normalize_wire(bl.wire_dtype) if bl.wire_dtype is not None
              else default_wire for bl in meta.buckets]
+    # observability is bound when the step is built: with it off, the step
+    # makes no observability call
+    from chainermn_tpu_torch.compression import observe as _cobs
+    from chainermn_tpu_torch.observability import (
+        flight_recorder as _flight, registry as _registry)
+    fr = _flight.get_flight_recorder()
+    reg = _registry.get_registry() if _registry.enabled() else None
+    obs = _FsdpObs(fr, reg, meta.num_buckets, prefetch) \
+        if (fr or reg) else None
+    cobs = _cobs.get_compression_obs() \
+        if any(bl.compressor for bl in meta.buckets) else None
     engine = _Engine(comm, state, meta, wires,
-                     1 if global_loss else comm.size, prefetch)
+                     1 if global_loss else comm.size, prefetch, obs=obs,
+                     cobs=cobs)
     shards = state.flat_shards()
 
     def micro(batch):
@@ -881,7 +1031,22 @@ def make_fsdp_train_step(comm, loss_fn: Callable, state: FsdpState,
 
     step.stats = dict(engine.stats)
     step.finalize = lambda: None
-    return step
+    if obs is None:
+        return step
+
+    def step_with_metrics(batch):
+        t0 = time.perf_counter()
+        try:
+            out = step(batch)
+            obs.record_dispatch(time.perf_counter() - t0)
+        finally:
+            obs.resolve()
+        step_with_metrics.stats = step.stats
+        return out
+
+    step_with_metrics.stats = step.stats
+    step_with_metrics.finalize = step.finalize
+    return step_with_metrics
 
 
 __all__ = ["BucketLayout", "FsdpMeta", "FsdpState", "fsdp_full_params",

@@ -36,9 +36,18 @@ on the CPU).  The conventions it keeps from the JAX compiler:
 * **quantized stages** -- EF-encode, sum the codes over the stage's group in
   wire arithmetic (``MeshCommunicator._sum_codes``), decode.
 
-The per-stage spans (JAX ``pobs``) belong to the observability stack, which
-is not ported (ROADMAP.md Queue A13): a ``pobs``/``plan_obs`` that is not
-``None`` raises, naming it.
+Per-stage spans (JAX ``pobs``): given a
+:class:`~chainermn_tpu_torch.observability.spans.PlanObs`
+(``observability.get_plan_obs(comm)``), :func:`execute_plan` and
+:func:`execute_alltoall` bracket every emitted stage with
+``plan_stage_begin``/``_end`` edges at JAX's points, with JAX's payload
+pricing.  JAX's edges are device callbacks that fire when the device
+reaches the stage; here the hook synchronizes the buffer's current CUDA
+stream before it stamps, so an edge is the stage's and not its launch's
+(the cost is one synchronize an edge, only when a ``PlanObs`` is given).
+``pobs=None`` adds nothing: no synchronize, no event, the same launches.
+Unlike JAX, the executor does not fetch the hook itself: the caller
+passes it.
 
 The plan's cost model (:func:`plan_wire_bytes`, :func:`plan_link_bytes`,
 :func:`plan_modeled_time_s`, ...) is JAX's arithmetic.  Its link classes are
@@ -68,10 +77,24 @@ from chainermn_tpu_torch.planner.ir import (Plan, PlanError, PlanTopology,
                                             dtype_name, torch_dtype)
 
 
-def _a13(what: str):
-    return NotImplementedError(
-        f"{what} (per-stage plan spans) needs the observability stack, "
-        "which is not ported yet; see ROADMAP.md Queue A13")
+def _stage_hook(pobs, plan: Plan, st: Stage, i: int, buf: torch.Tensor,
+                edge: str, wire_bytes: Optional[float] = None,
+                group: Optional[int] = None) -> None:
+    """One per-stage span edge (``plan_stage_begin``/``_end``) once the
+    stream has reached it.  ``link`` classes the hop as
+    :func:`plan_link_bytes` does (``intra`` rides NVLink, ``inter`` and
+    ``all`` the inter-node network); ``wire_bytes`` overrides the payload
+    (the leaf path prices the whole tree)."""
+    if pobs is None:
+        return
+    if buf.is_cuda:
+        torch.cuda.current_stream(buf.device).synchronize()
+    if wire_bytes is None:
+        wire_bytes = _stage_wire_elem_bytes(
+            plan, st, float(buf.shape[0]), buf.element_size())
+    link = "nvlink" if st.scope == "intra" else "ib"
+    pobs.edge(edge, plan.name, i, st.op, st.scope, link,
+              int(round(wire_bytes)), group=group)
 
 
 # ---- issuing collectives ----------------------------------------------------
@@ -411,15 +434,35 @@ def _compressed_sum(comm, st: Stage, key, buf: torch.Tensor, state):
             "states with init_plan_compression_states(plan, topology, "
             "packed_length) / comm.init_compression_state(grads, plan)")
     _, world, idx, _ = _scope(comm, st.scope)
-    codes, state = comp.compress(buf.to(torch.float32), state, rank=idx,
-                                 world_size=world)
+    v = buf.to(torch.float32)
+    from chainermn_tpu_torch.compression import observe as _cobs
+    obs = _cobs.get_compression_obs()
+    if obs is not None:
+        from chainermn_tpu_torch.compression.quantize import (
+            wire_bits_per_param)
+        tags = (f"plan:{st.scope}", key, comp.name,
+                wire_bits_per_param(comp, m, world),
+                m * 4 - (comp._padded(m) + comp.n_chunks(m))
+                * comp.wire_dtype.itemsize)
+        obs.device_edge(idx, "compress", "begin", *tags, dep=v)
+    codes, state = comp.compress(v, state, rank=idx, world_size=world)
+    if obs is not None:
+        obs.device_edge(idx, "compress", "end", *tags, residual=state.ef,
+                        dep=codes)
     if world > 1:
         _note("all_to_all" if codes.dtype == torch.float8_e4m3fn
               else "all_reduce")
         if codes.dtype == torch.float8_e4m3fn:
             _note("all_gather")
     summed = comm._sum_codes(codes, st.scope)
+    if obs is not None:
+        obs.device_edge(idx, "decompress", "begin", *tags, dep=summed)
     out, state = comp.decompress(summed, state, world_size=world)
+    if obs is not None:
+        mp = comp._padded(m)
+        obs.device_sat(idx, tags[0], key, comp.name,
+                       summed[mp:].to(torch.float32).sum())
+        obs.device_edge(idx, "decompress", "end", *tags, dep=out)
     return out[:m].to(buf.dtype), state
 
 
@@ -427,10 +470,10 @@ def _compressed_sum(comm, st: Stage, key, buf: torch.Tensor, state):
 
 def _run_stages_flat(plan: Plan, topology: PlanTopology, comm,
                      buf: torch.Tensor, states: Optional[Dict] = None,
-                     group: Optional[int] = None):
+                     group: Optional[int] = None, pobs=None):
     """Apply one stage chain to one flat buffer (``group`` selects a striped
-    plan's chain; hop keys are then ``(group, stage)``).  Returns ``(buf,
-    new_states)``."""
+    plan's chain; hop keys are then ``(group, stage)``).  ``pobs``
+    brackets every emitted stage.  Returns ``(buf, new_states)``."""
     global _STAGE
     states = dict(states or {})
     new_states: Dict = {}
@@ -441,6 +484,7 @@ def _run_stages_flat(plan: Plan, topology: PlanTopology, comm,
         axes = topology.scope_axes(st.scope)
         if not axes:
             continue
+        _stage_hook(pobs, plan, st, i, buf, "begin", group=group)
         _STAGE = st
         try:
             quant = _quantizer_for(st)
@@ -502,6 +546,7 @@ def _run_stages_flat(plan: Plan, topology: PlanTopology, comm,
                 raise PlanError(f"unknown stage op {st.op!r}")
         finally:
             _STAGE = None
+        _stage_hook(pobs, plan, st, i, buf, "end", group=group)
     return buf, new_states
 
 
@@ -529,16 +574,6 @@ def _leaf_stage_op(topology: PlanTopology, comm, st: Stage, leaf):
     raise PlanError(f"stage op {st.op!r} is not legal under leaf packing")
 
 
-def _run_stages_leaf(plan: Plan, topology: PlanTopology, comm, leaf,
-                     mean: bool = True):
-    """Leaf-mode chain on one tensor (a leaf, or a packed dtype group);
-    ``mean`` divides by the world size."""
-    leaf = leaf.clone(memory_format=torch.contiguous_format)
-    for st in plan.stages:
-        leaf = _leaf_stage_op(topology, comm, st, leaf)
-    return leaf / topology.size if mean else leaf
-
-
 def _check_topology(comm, topology: Optional[PlanTopology]) -> PlanTopology:
     own = comm.plan_topology() if comm is not None else \
         PlanTopology(axes=(("inter", 1), ("intra", 1)))
@@ -549,16 +584,44 @@ def _check_topology(comm, topology: Optional[PlanTopology]) -> PlanTopology:
     return topology if topology is not None else own
 
 
+def _run_leaf_chain(plan: Plan, topology: PlanTopology, comm,
+                    leaves: list, pobs=None, mean: bool = True) -> list:
+    """Leaf packing: stage-outer, leaf-inner, each stage applied to every
+    leaf (a leaf, or a packed dtype group) in turn; ``mean`` divides by the
+    world size.  With ``pobs`` one begin/end pair brackets each stage for
+    the whole tree, priced over every leaf, as JAX's
+    ``_run_stages_leaf_traced``."""
+    leaves = [l.clone(memory_format=torch.contiguous_format)
+              for l in leaves]
+    for i, st in enumerate(plan.stages):
+        if not topology.scope_axes(st.scope):
+            continue
+        sized = [l for l in leaves if l.numel()] if pobs is not None else []
+        if sized:
+            wire_bytes = sum(_stage_wire_elem_bytes(
+                plan, st, float(l.numel()), l.element_size())
+                for l in sized)
+            _stage_hook(pobs, plan, st, i, max(sized, key=torch.numel),
+                        "begin", wire_bytes=wire_bytes)
+        for j, leaf in enumerate(leaves):
+            leaves[j] = _leaf_stage_op(topology, comm, st, leaf)
+        if sized:
+            _stage_hook(pobs, plan, st, i,
+                        max(leaves, key=torch.numel), "end",
+                        wire_bytes=wire_bytes)
+    return [l / topology.size for l in leaves] if mean else leaves
+
+
 def _run_leaf_plan(plan: Plan, topology: PlanTopology, comm, grads,
-                   mean: bool = True):
+                   mean: bool = True, pobs=None):
     from chainermn_tpu_torch.communicators import _packing
     if getattr(comm, "packs_leaf_plans", False):
         buffers, meta = _packing.pack(grads)
-        out = [_run_stages_leaf(plan, topology, comm, b, mean)
-               for b in buffers]
-        return _packing.unpack(out, meta)
-    return _packing.tree_map(
-        lambda g: _run_stages_leaf(plan, topology, comm, g, mean), grads)
+        return _packing.unpack(_run_leaf_chain(
+            plan, topology, comm, buffers, pobs, mean), meta)
+    leaves, treedef = _packing.tree_flatten(grads)
+    return _packing.tree_unflatten(treedef, _run_leaf_chain(
+        plan, topology, comm, leaves, pobs, mean))
 
 
 def execute_plan(plan: Plan, comm, grads, *, states: Optional[Dict] = None,
@@ -572,11 +635,12 @@ def execute_plan(plan: Plan, comm, grads, *, states: Optional[Dict] = None,
     CompressionState}`` dict from :func:`init_plan_compression_states`.
     When given, the call returns ``(mean_grads, new_states)``; when
     omitted, quantizing stages run from a cold state (the one-shot sweep /
-    check path) and the call returns ``mean_grads``.  ``pobs`` (JAX's span
-    hook) raises unless ``None``: the spans are ROADMAP.md Queue A13's.
+    check path) and the call returns ``mean_grads``.  ``pobs`` (a
+    :class:`~chainermn_tpu_torch.observability.spans.PlanObs`, from
+    ``observability.get_plan_obs(comm)``) brackets every emitted stage
+    with ``plan_stage`` edges (see the module note); the outputs are the
+    same bits.
     """
-    if pobs is not None:
-        raise _a13("execute_plan(pobs=)")
     from chainermn_tpu_torch.communicators import _packing
     topology = _check_topology(comm, topology)
     n = topology.size
@@ -586,7 +650,7 @@ def execute_plan(plan: Plan, comm, grads, *, states: Optional[Dict] = None,
             raise PlanError(
                 f"plan {plan.name!r}: leaf packing carries no per-hop "
                 "compression state")
-        return _run_leaf_plan(plan, topology, comm, grads)
+        return _run_leaf_plan(plan, topology, comm, grads, pobs=pobs)
     # quantizing plans exchange ONE float32 buffer (EF state maps one to
     # one onto it); per-stage wires still cast per hop
     comm_dtype = (torch_dtype(plan.wire_dtype)
@@ -618,14 +682,15 @@ def execute_plan(plan: Plan, comm, grads, *, states: Optional[Dict] = None,
                 off += ln
                 if ln:
                     seg, st_out = _run_stages_flat(
-                        plan, topology, comm, seg, states=states, group=g)
+                        plan, topology, comm, seg, states=states, group=g,
+                        pobs=pobs)
                     new_states.update(st_out)
                 parts.append(seg)
             b = torch.cat(parts)
         else:
             b, st_out = _run_stages_flat(
                 plan, topology, comm, b, states=states,
-                group=0 if plan.groups is not None else None)
+                group=0 if plan.groups is not None else None, pobs=pobs)
             new_states.update(st_out)
         outs.append(b)
     result = _finish_flat(outs, meta, comm_dtype, n)
@@ -667,8 +732,20 @@ def _finish_flat(outs, meta, comm_dtype, n: int):
 
 # ---- block exchange ---------------------------------------------------------
 
+def _exchange_hook(pobs, plan: Plan, st: Stage, i: int, buf: torch.Tensor,
+                   edge: str, group: Optional[int] = None) -> None:
+    """Per-stage edge of an exchange stage: the payload is the WHOLE block
+    buffer, priced at the stage's wire width (JAX's ``_exchange_hook``)."""
+    if pobs is None:
+        return
+    wb = _stage_wire_elem_bytes(plan, st, float(buf.numel()),
+                                buf.element_size())
+    _stage_hook(pobs, plan, st, i, buf, edge, wire_bytes=wb, group=group)
+
+
 def _run_alltoall_chain(plan: Plan, topology: PlanTopology, comm, stages,
-                        buf: torch.Tensor) -> torch.Tensor:
+                        buf: torch.Tensor, pobs=None,
+                        group: Optional[int] = None) -> torch.Tensor:
     """One exchange chain over one ``[P, ...]`` block buffer: one stage
     over ``all`` (or ``intra`` on a one-node topology), or the hierarchical
     ``intra`` then ``inter`` pair, which lands blocks in source global-rank
@@ -683,14 +760,17 @@ def _run_alltoall_chain(plan: Plan, topology: PlanTopology, comm, stages,
             f"{int(buf.shape[0])} != topology size {topology.size} -- "
             "all-to-all buffers carry one block per destination rank")
 
-    def hop(st, b):
+    def hop(i, st, b):
         global _STAGE
+        _exchange_hook(pobs, plan, st, i, b, "begin", group=group)
         _STAGE = st
         try:
-            return _with_wire(b, st.wire_dtype,
-                              lambda v: _all_to_all(comm, v, st.scope))
+            out = _with_wire(b, st.wire_dtype,
+                             lambda v: _all_to_all(comm, v, st.scope))
         finally:
             _STAGE = None
+        _exchange_hook(pobs, plan, st, i, out, "end", group=group)
+        return out
 
     if scopes in (("all",), ("intra",)):
         if scopes == ("intra",) and topology.inter_size != 1:
@@ -699,26 +779,26 @@ def _run_alltoall_chain(plan: Plan, topology: PlanTopology, comm, stages,
                 f"multi-node topology ({topology.key()}) is not a full "
                 "all-to-all -- use scope 'all' or the hierarchical "
                 "intra+inter chain")
-        return hop(emitted[0][1], buf)
+        return hop(*emitted[0], buf)
     if scopes != ("intra", "inter"):
         raise PlanError(
             f"plan {plan.name!r}: unsupported exchange chain over scopes "
             f"{scopes}; supported: one flat stage (scope 'all') or the "
             "hierarchical 'intra' then 'inter' pair")
-    (_, intra_st), (_, inter_st) = emitted
+    (ii, intra_st), (ji, inter_st) = emitted
     isz, jsz = topology.inter_size, topology.intra_size
     rest = tuple(buf.shape[1:])
     # [P (dest rank, inter-major), ...] -> intra-major, so the NVLink hop
     # splits by destination intra coordinate
     x = buf.reshape((isz, jsz) + rest).transpose(0, 1).reshape(
         (jsz * isz,) + rest)
-    x = hop(intra_st, x)
+    x = hop(ii, intra_st, x)
     # x[b' * I + i] = block from intra peer b' destined (i, own j);
     # re-major by destination node for the inter-node hop
     x = x.reshape((jsz, isz) + rest).transpose(0, 1).reshape(
         (isz * jsz,) + rest)
     # x[a' * J + b'] = block from source (a', b'): source global-rank order
-    return hop(inter_st, x)
+    return hop(ji, inter_st, x)
 
 
 def check_exchange_plan(plan) -> Plan:
@@ -739,10 +819,11 @@ def check_exchange_plan(plan) -> Plan:
 
 
 def _exchange(plan: Plan, topology: PlanTopology, comm,
-              buf: torch.Tensor) -> torch.Tensor:
+              buf: torch.Tensor, pobs=None) -> torch.Tensor:
     check_exchange_plan(plan)
     if plan.groups is None:
-        return _run_alltoall_chain(plan, topology, comm, plan.stages, buf)
+        return _run_alltoall_chain(plan, topology, comm, plan.stages, buf,
+                                   pobs=pobs)
     if buf.dim() < 2:
         raise PlanError(
             f"plan {plan.name!r}: a striped exchange splits the "
@@ -750,7 +831,8 @@ def _exchange(plan: Plan, topology: PlanTopology, comm,
     lens = plan_group_lengths(plan, int(buf.shape[1]))
     if len(lens) == 1:
         return _run_alltoall_chain(plan, topology, comm,
-                                   plan.groups[0].stages, buf)
+                                   plan.groups[0].stages, buf, pobs=pobs,
+                                   group=0)
     parts = []
     off = 0
     for g, ln in enumerate(lens):
@@ -758,7 +840,8 @@ def _exchange(plan: Plan, topology: PlanTopology, comm,
         off += ln
         if ln:
             seg = _run_alltoall_chain(plan, topology, comm,
-                                      plan.groups[g].stages, seg)
+                                      plan.groups[g].stages, seg, pobs=pobs,
+                                      group=g)
         parts.append(seg)
     return torch.cat(parts, dim=1)
 
@@ -769,15 +852,15 @@ class _PlanExchange(torch.autograd.Function):
     included, as JAX's transpose of ``astype``)."""
 
     @staticmethod
-    def forward(ctx, plan, topology, comm, buf):
-        ctx.args = (plan, topology, comm)
-        return _exchange(plan, topology, comm, buf)
+    def forward(ctx, plan, topology, comm, pobs, buf):
+        ctx.args = (plan, topology, comm, pobs)
+        return _exchange(plan, topology, comm, buf, pobs)
 
     @staticmethod
     def backward(ctx, g):
-        plan, topology, comm = ctx.args
-        return None, None, None, _exchange(plan, topology, comm,
-                                           g.contiguous())
+        plan, topology, comm, pobs = ctx.args
+        return None, None, None, None, _exchange(plan, topology, comm,
+                                                 g.contiguous(), pobs)
 
 
 def execute_alltoall(plan: Plan, comm, buf: torch.Tensor, *,
@@ -793,15 +876,14 @@ def execute_alltoall(plan: Plan, comm, buf: torch.Tensor, *,
     striped plan splits the buffer's second dim at its group ratios.
     Differentiable (the backward exchanges the cotangent).  ``topology``
     defaults to ``comm.plan_topology()``; ``comm=None`` is a world of one
-    (only the wire casts run).  ``pobs`` raises unless ``None``
-    (ROADMAP.md Queue A13).
+    (only the wire casts run).  ``pobs`` brackets every emitted hop with
+    ``plan_stage`` edges (the backward's hops too), so the NVLink and
+    inter-node legs of one dispatch are separate spans.
     """
-    if pobs is not None:
-        raise _a13("execute_alltoall(pobs=)")
     topology = _check_topology(comm, topology)
     if torch.is_grad_enabled() and buf.requires_grad:
-        return _PlanExchange.apply(plan, topology, comm, buf)
-    return _exchange(plan, topology, comm, buf)
+        return _PlanExchange.apply(plan, topology, comm, pobs, buf)
+    return _exchange(plan, topology, comm, buf, pobs)
 
 
 # ---- the device-free cost model (JAX's arithmetic) --------------------------

@@ -19,9 +19,9 @@ table.  The joint mode re-prices the whole registered step workload
 (``planner.schedule``).
 
 The JAX tuner is fed by the observability stack -- plan-stage spans from
-the flight recorder, attribution, contention timelines -- which is not
-ported (ROADMAP.md Queue A13): :meth:`OnlineTuner.ingest`,
-:meth:`~OnlineTuner.observe_attribution`,
+the flight recorder, attribution, contention timelines -- whose second
+slice is not ported (ROADMAP.md Queue A13 (b)):
+:meth:`OnlineTuner.ingest`, :meth:`~OnlineTuner.observe_attribution`,
 :meth:`~OnlineTuner.observe_timelines` and
 :meth:`LinkObservations.ingest_spans` / :meth:`~LinkObservations.
 ingest_events` raise, naming it, and the tuner keeps no flight recorder or
@@ -54,7 +54,8 @@ ONLINE_TUNE_SCHEMA = "online_tune/v1"
 def _a13(what: str):
     return NotImplementedError(
         f"{what} reads spans, flight-recorder events or attribution, which "
-        "need the observability stack; see ROADMAP.md Queue A13")
+        "need the observability stack's second slice; see ROADMAP.md "
+        "Queue A13 (b)")
 
 #: attribution buckets whose sustained regression arms a re-tune (the
 #: comm buckets -- a compute or host_input regression says nothing about
@@ -139,11 +140,11 @@ class LinkObservations:
 
     def ingest_spans(self, spans) -> int:
         """Fold completed plan-stage spans: those come from the
-        observability stack, which raises here (ROADMAP.md Queue A13)."""
+        observability stack, which raises here (ROADMAP.md Queue A13 (b))."""
         raise _a13("LinkObservations.ingest_spans")
 
     def ingest_events(self, events) -> int:
-        """Fold flight-recorder events (ROADMAP.md Queue A13: raises)."""
+        """Fold flight-recorder events (ROADMAP.md Queue A13 (b): raises)."""
         raise _a13("LinkObservations.ingest_events")
 
     def n_samples(self, link: str) -> int:
@@ -273,7 +274,7 @@ class OnlineTuner:
         self._timelines: Optional[dict] = None
         self.observations = LinkObservations(window=window)
         # no flight recorder or metrics registry until the observability
-        # stack is ported (ROADMAP.md Queue A13)
+        # stack is ported (ROADMAP.md Queue A13 (b))
         self._flight = None
         self._reg = None
         #: max payload wire bytes seen per size bucket — the cells the
@@ -289,7 +290,7 @@ class OnlineTuner:
 
     # -- observation -------------------------------------------------------
     def ingest(self, events) -> int:
-        """Absorb flight-recorder events (ROADMAP.md Queue A13: raises;
+        """Absorb flight-recorder events (ROADMAP.md Queue A13 (b): raises;
         feed :attr:`observations` and :meth:`observe_payload` instead)."""
         raise _a13("OnlineTuner.ingest")
 
@@ -304,11 +305,11 @@ class OnlineTuner:
             self._payload_max[b] = max(self._payload_max.get(b, 0), nb)
 
     def observe_attribution(self, attribution: dict) -> None:
-        """Bank one step's attribution (ROADMAP.md Queue A13: raises)."""
+        """Bank one step's attribution (ROADMAP.md Queue A13 (b): raises)."""
         raise _a13("OnlineTuner.observe_attribution")
 
     def observe_timelines(self, timelines: dict) -> None:
-        """Bank contention occupancy timelines (ROADMAP.md Queue A13:
+        """Bank contention occupancy timelines (ROADMAP.md Queue A13 (b):
         raises)."""
         raise _a13("OnlineTuner.observe_timelines")
 

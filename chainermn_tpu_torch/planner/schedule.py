@@ -25,7 +25,7 @@ Counterpart of ``chainermn_tpu/planner/schedule.py``, whole and device-free
   announce their in-flight collectives there, and a jointly tuned plan is
   installed there.  :func:`reconstruct_workload` rebuilds the workload
   from the registry; filtering it by contention occupancy timelines
-  (``timelines=``) needs the observability stack (ROADMAP.md Queue A13)
+  (``timelines=``) needs the observability stack (ROADMAP.md Queue A13 (b))
   and raises.
 
 Jointly tuned plans are name-tagged ``<base>@wl:<signature>``.
@@ -790,7 +790,7 @@ def reconstruct_workload(topology: PlanTopology,
     """Rebuild the in-flight :class:`StepWorkload` from the plan-slot
     registry.  Filtering it by contention occupancy evidence
     (``timelines``, the observability stack's ``occupancy_timelines``)
-    raises: that stack is ROADMAP.md Queue A13.
+    raises: that stack is ROADMAP.md Queue A13 (b).
 
     ``timelines`` is ``occupancy_timelines`` output (``{link: {owner:
     intervals}}``); a registered slot is included when any timeline
@@ -801,7 +801,7 @@ def reconstruct_workload(topology: PlanTopology,
         raise NotImplementedError(
             "reconstruct_workload(timelines=) reads contention occupancy "
             "timelines, which need the observability stack; see "
-            "ROADMAP.md Queue A13")
+            "ROADMAP.md Queue A13 (b)")
     specs = slots if slots is not None else _SLOTS
     if not specs:
         return None

@@ -40,8 +40,11 @@ draft, whole) that carry their weights where JAX takes ``(model,
 params)``; the cache is written in place; the forwards are plain methods
 run under ``torch.inference_mode()``; a communicator of exactly
 ``tp_size x ep_size`` ranks stands in for JAX's mesh of the first such
-devices; there are no ``serving_*`` metrics or flight-recorder spans
-(A13).  ``moe_plan`` runs a MoE model's exchanges through a planner
+devices.  With observability on (bound at construction) the engine keeps
+JAX's ``serving_*`` metric family and its ``serving_step`` /
+``serving_forward`` / ``serving_plan_bcast`` flight spans; the forward
+span ends after the sampled tokens' copy to the host, which waits for the
+card, as JAX's ends after its sync point.  ``moe_plan`` runs a MoE model's exchanges through a planner
 all-to-all plan.  An online plan-table hot-swap rides the step envelope as
 in JAX: rank 0 piggybacks a newly registered table
 (``planner.online.set_active_plan_table``) on the step's plan, and every
@@ -66,6 +69,58 @@ import torch
 
 from chainermn_tpu_torch.serving import kv_cache as _kv
 from chainermn_tpu_torch.serving.scheduler import AdmissionScheduler
+
+
+def _serving_metrics(reg) -> dict:
+    """JAX's ``serving_*`` family in ``reg`` (names and kinds)."""
+    return {
+        "steps": reg.counter("serving_steps", "engine steps run"),
+        "gen": reg.counter("serving_generated_tokens",
+                           "tokens sampled and emitted"),
+        "prefill": reg.counter("serving_prefill_tokens",
+                               "prompt tokens written to cache"),
+        "admitted": reg.counter("serving_admitted",
+                                "requests admitted into slots"),
+        "retired": reg.counter("serving_retired", "sequences retired"),
+        "active": reg.gauge("serving_active_seqs", "occupied slots"),
+        "queue": reg.gauge("serving_queue_depth",
+                           "waiting requests (rank 0)"),
+        "pages": reg.gauge("serving_free_pages", "free KV pages"),
+        # the latency SLO family: streaming histograms (mergeable fixed
+        # log-grid buckets)
+        "step_s": reg.streaming_histogram("serving_step_seconds",
+                                          "wall time per engine step"),
+        "ttft": reg.streaming_histogram("serving_ttft_seconds",
+                                        "arrival to first emitted token"),
+        "tok_s": reg.streaming_histogram(
+            "serving_token_seconds", "inter-token gap per emitted token"),
+        "spec_rows": reg.counter(
+            "serving_spec_rows",
+            "decode rows run through the draft+verify step"),
+        "spec_proposed": reg.counter(
+            "serving_spec_proposed_tokens",
+            "draft tokens proposed (k per decode row)"),
+        "spec_accepted": reg.counter(
+            "serving_spec_accepted_tokens",
+            "draft tokens accepted by the target verify pass"),
+        "spec_out": reg.counter(
+            "serving_spec_out_tokens",
+            "tokens landed per verify pass (accepted + 1)"),
+        "prefix_hits": reg.gauge("serving_prefix_hits",
+                                 "admissions with a cache hit"),
+        "prefix_hit_tokens": reg.gauge(
+            "serving_prefix_hit_tokens",
+            "prompt tokens served from shared pages"),
+        "prefix_prompt_tokens": reg.gauge(
+            "serving_prefix_prompt_tokens",
+            "prompt tokens across all admissions"),
+        "prefix_cached_pages": reg.gauge(
+            "serving_prefix_cached_pages",
+            "pages currently indexed by the prefix trie"),
+        "prefix_evictions": reg.gauge(
+            "serving_prefix_evictions",
+            "trie pages evicted under page pressure"),
+    }
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,6 +357,12 @@ class InferenceEngine:
         self._arrivals: Dict[int, float] = {}
         self._token_times: Dict[int, List[float]] = {}
         self.completions: List[Completion] = []
+        # observability seams, bound once (None while it is off)
+        from chainermn_tpu_torch.observability import (
+            flight_recorder as _flight, registry as _registry)
+        reg = _registry.get_registry() if _registry.enabled() else None
+        self._m = None if reg is None else _serving_metrics(reg)
+        self._fr = _flight.get_flight_recorder()
 
     # -- online-tuner plan-table pickup --------------------------------------
     def _attach_plan_table(self, plan):
@@ -484,15 +545,28 @@ class InferenceEngine:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def step(self) -> StepResult:
+        t0 = time.perf_counter()
         sched = self.scheduler
+        fr = self._fr
         if self.plane.size > 1:
             plan = (self._attach_spec(self._attach_plan_table(
                 sched.build_plan())) if self.plane.rank == 0 else None)
+            btok = None
+            if fr is not None:
+                btok = fr.span_begin("object", "serving_plan_bcast",
+                                     step=self._step_idx)
             plan = self.plane.bcast_obj(plan, root=0)
+            if fr is not None:
+                fr.span_end(btok)
         else:
             plan = self._attach_spec(self._attach_plan_table(
                 sched.build_plan()))
         plan = self._pickup_spec(self._pickup_plan_table(plan))
+        tok = None
+        if fr is not None:
+            tok = fr.span_begin(
+                "serving", "serving_step", step=self._step_idx,
+                admitted=len(plan["admit"]), retired=len(plan["retire"]))
         retired = sched.apply_plan(plan)
         completed = [self._finish(slot) for _, slot in retired]
 
@@ -503,6 +577,16 @@ class InferenceEngine:
         last_logits = None
         spec_stats = None
         if ran:
+            ftok = None
+            if fr is not None:
+                # the forward sub-span: dispatch plus the sampled tokens'
+                # copy to the host (the device-bound slice of a step)
+                ftok = fr.span_begin(
+                    "serving", "serving_forward", step=self._step_idx,
+                    n_new=int(n_new.sum()),
+                    decode_slots=int((n_new == 1).sum()),
+                    prefill_slots=int((n_new > 1).sum()),
+                    spec=bool(self.cfg.spec_k))
             put = self._put
             table, tokens = put(batch["page_table"]), put(batch["tokens"])
             pos0, n_new_d = put(batch["pos0"]), put(n_new)
@@ -521,6 +605,8 @@ class InferenceEngine:
                     sampled = sampled_d.cpu().numpy()        # sync point
                 if self.cfg.keep_logits:
                     last_logits = logits_d.float().cpu().numpy()
+            if fr is not None:
+                fr.span_end(ftok)
             if self.cfg.spec_k:
                 emitted = sched.note_sampled_spec(n_new, out, n_out)
                 decisions = [
@@ -540,14 +626,57 @@ class InferenceEngine:
                 emitted = sched.note_sampled(n_new, sampled)
             now = time.perf_counter()
             for rid, _tok, _n in emitted:
-                self._token_times.setdefault(rid, []).append(now)
+                times = self._token_times.setdefault(rid, [])
+                if self._m is not None:
+                    if times:
+                        self._m["tok_s"].observe(now - times[-1])
+                    else:
+                        arrival = self._arrivals.get(rid)
+                        if arrival is not None:
+                            self._m["ttft"].observe(now - arrival)
+                times.append(now)
 
+        if self._m is not None:
+            self._observe_step(plan, batch, n_new, emitted, spec_stats, t0)
+        if fr is not None:
+            fr.span_end(
+                tok, emitted=len(emitted), ran_forward=ran,
+                spec_accepted=0 if spec_stats is None
+                else spec_stats["accepted"])
         res = StepResult(step=self._step_idx, plan=plan, emitted=emitted,
                          completed=completed, ran_forward=ran,
                          last_logits=last_logits, n_new=n_new,
                          spec=spec_stats)
         self._step_idx += 1
         return res
+
+    def _observe_step(self, plan, batch, n_new, emitted, spec_stats,
+                      t0: float) -> None:
+        """One step into the ``serving_*`` family (JAX's updates)."""
+        m, sched = self._m, self.scheduler
+        m["steps"].inc()
+        m["gen"].inc(len(emitted))
+        if spec_stats is None:
+            m["prefill"].inc(int(n_new.sum()) - len(emitted))
+        else:
+            m["prefill"].inc(int(n_new[batch["decode"] == 0].sum()))
+            m["spec_rows"].inc(spec_stats["rows"])
+            m["spec_proposed"].inc(spec_stats["proposed"])
+            m["spec_accepted"].inc(spec_stats["accepted"])
+            m["spec_out"].inc(spec_stats["out_tokens"])
+        m["admitted"].inc(len(plan["admit"]))
+        m["retired"].inc(len(plan["retire"]))
+        m["active"].set(sched.active_count)
+        m["queue"].set(sched.queue_depth)
+        m["pages"].set(sched.allocator.num_free)
+        if sched.prefix is not None:
+            ps = sched.prefix_stats()
+            m["prefix_hits"].set(ps["hits"])
+            m["prefix_hit_tokens"].set(ps["hit_tokens"])
+            m["prefix_prompt_tokens"].set(ps["prompt_tokens"])
+            m["prefix_cached_pages"].set(ps["cached_pages"])
+            m["prefix_evictions"].set(ps["evictions"])
+        m["step_s"].observe(time.perf_counter() - t0)
 
     def _finish(self, slot) -> Completion:
         comp = Completion(

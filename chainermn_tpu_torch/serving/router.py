@@ -16,8 +16,8 @@ replica is one lockstep serving world; the router spreads *requests*
 :meth:`Router.distribute_weights` is
 :func:`~chainermn_tpu_torch.serving.weights.broadcast_inference_params`
 through a planner multicast plan (hierarchical when the world spans
-several nodes); the ``serving_router_*`` metrics wait for ROADMAP.md Queue
-A13.
+several nodes).  With observability on (bound at construction) the router
+keeps JAX's ``serving_router_*`` metrics.
 """
 
 from __future__ import annotations
@@ -75,6 +75,22 @@ class Router:
         self._drained: set = set()
         self._lost: Dict[int, List[int]] = {}
 
+        from chainermn_tpu_torch.observability.registry import (
+            enabled, get_registry)
+        self._m = None
+        if enabled():
+            reg = get_registry()
+            self._m = {
+                "dispatched": reg.counter(
+                    "serving_router_dispatched",
+                    "requests dispatched to replicas"),
+                "sessions": reg.gauge(
+                    "serving_router_sessions", "distinct sessions seen"),
+                "load": reg.gauge(
+                    "serving_router_replica_load",
+                    "per-replica load signal at last dispatch"),
+            }
+
     # -- load signals --------------------------------------------------------
     def status(self) -> List[ReplicaStatus]:
         out = []
@@ -125,6 +141,11 @@ class Router:
         self._session_of[(rep, eng_rid)] = session
         self._requests[rid] = (prompt, max_new_tokens, session)
         self.dispatch_log.append((rid, session, rep))
+        if self._m is not None:
+            self._m["dispatched"].inc(replica=str(rep))
+            self._m["sessions"].set(len(self._session_replica))
+            self._m["load"].set(self.status()[rep].load,
+                                replica=str(rep))
         return rid
 
     def replica_of(self, rid: int) -> int:
@@ -207,6 +228,8 @@ class Router:
             self._session_of[(new_rep, new_erid)] = session
             self.dispatch_log.append((rid, session, new_rep))
             replayed += 1
+            if self._m is not None:
+                self._m["dispatched"].inc(replica=str(new_rep))
         return {"replica": rep, "sessions_rerouted": len(moved_sessions),
                 "requests_replayed": replayed}
 

@@ -1,11 +1,11 @@
 """Trainer extensions (the Chainer ``training.extensions`` role).
 
 Counterpart of ``chainermn_tpu/training/extensions.py``: ``LogReport``,
-``PrintReport``, ``Evaluator`` and ``Snapshot``; the examples' own
-``StepTimer``.  The reference gates the
-reports to rank 0 in every example (``if comm.rank == 0:
-trainer.extend(...)``); the same pattern applies here.  ``MetricsReport``
-waits for observability (ROADMAP.md, Queue A13).
+``PrintReport``, ``MetricsReport``, ``Evaluator`` and ``Snapshot``; the
+examples' own ``StepTimer``.  The reference gates the reports to rank 0 in
+every example (``if comm.rank == 0: trainer.extend(...)``); the same
+pattern applies here, except ``MetricsReport``, which goes on every rank
+(its straggler report is a collective) and writes on rank 0 only.
 """
 
 from __future__ import annotations
@@ -99,6 +99,217 @@ class PrintReport:
             row.append(f"{v:16.6g}" if isinstance(v, float) else f"{v!s:>16}")
         self._out.write("  ".join(row) + "\n")
         self._out.flush()
+
+
+def _a13b(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"MetricsReport({what}) needs the observability stack's second "
+        "slice (the watchdog, the online tuner's inputs, streaming "
+        "telemetry), which is not ported yet; see ROADMAP.md Queue A13 (b)")
+
+
+class MetricsReport:
+    """Runtime-observability extension: per-step timing breakdown,
+    communicator counters, and the periodic cross-rank straggler report,
+    all appended to one metrics JSONL (``<out>/metrics.jsonl``; the JAX
+    package's records and keys).
+
+    On ``initialize`` it installs a
+    :class:`~chainermn_tpu_torch.observability.StepTelemetry` on the
+    updater -- but only when observability is enabled
+    (``chainermn_tpu_torch.observability.enable()`` or the
+    ``CHAINERMN_TPU_OBSERVABILITY`` environment variable); otherwise the
+    extension is inert and the trainer's loop stays untimed.  With a
+    flight recorder installed (``attribution=True``), every completed
+    step's span tree is attributed and watched for bucket regressions
+    (``profile_dir`` arms a ``torch.profiler`` capture of a flagged step).
+
+    Add it on **every** rank: the straggler report allgathers summaries
+    over the communicator's object plane, so all ranks must reach the same
+    trigger; only rank 0 writes files (none when ``trainer.out`` is
+    ``None``).
+
+    ``watchdog=True``, ``online_tune=True`` and ``stream_telemetry=True``
+    (and ``CHAINERMN_TPU_WATCHDOG`` set while the extension is active)
+    raise: they are ROADMAP.md Queue A13 (b), and so are JAX's tuner
+    arguments (``online_tune_threshold``, ``online_tune_link_gbps``,
+    ``fsdp_prefetch``), which are not taken.
+    """
+
+    priority = 45
+    name = "MetricsReport"
+    trigger = (1, "iteration")  # called every iteration; emits on _emit
+
+    def __init__(self, trigger=(1, "epoch"), filename: str = "metrics.jsonl",
+                 straggler_every: int = 1, straggler_threshold: float = 1.5,
+                 prometheus: Optional[str] = None, registry=None,
+                 tokens_per_example: Optional[int] = None,
+                 watchdog: Optional[bool] = None,
+                 attribution: bool = True,
+                 attribution_factor: float = 2.0,
+                 profile_dir: Optional[str] = None,
+                 online_tune: bool = False,
+                 stream_telemetry: bool = False):
+        if straggler_every < 1:
+            raise ValueError(f"straggler_every must be >= 1, got "
+                             f"{straggler_every}")
+        if watchdog:
+            raise _a13b("watchdog=True")
+        if online_tune:
+            raise _a13b("online_tune=True")
+        if stream_telemetry:
+            raise _a13b("stream_telemetry=True")
+        self._emit = trigger
+        self._filename = filename
+        self._straggler_every = straggler_every
+        self._straggler_threshold = straggler_threshold
+        self._prometheus = prometheus
+        self._registry = registry
+        self._tokens_per_example = tokens_per_example
+        self._want_watchdog = watchdog
+        self._want_attribution = attribution
+        self._attribution_factor = attribution_factor
+        self._profile_dir = profile_dir
+        self._attr = None
+        self._active = False
+
+    def initialize(self, trainer):
+        from chainermn_tpu_torch import observability as obs
+
+        self._active = obs.enabled()
+        if not self._active:
+            return
+        if self._want_watchdog is None and os.environ.get(
+                "CHAINERMN_TPU_WATCHDOG", "") not in ("", "0", "false",
+                                                      "off"):
+            raise _a13b("CHAINERMN_TPU_WATCHDOG")
+        reg = self._registry if self._registry is not None else \
+            obs.get_registry()
+        comm = trainer.updater.comm
+        self._reg = reg
+        self._comm = comm
+        self._tele = obs.StepTelemetry(
+            registry=reg, comm=comm,
+            straggler_threshold=self._straggler_threshold)
+        trainer.updater.telemetry = self._tele
+        self._is_writer = getattr(comm, "rank", 0) == 0 and \
+            trainer.out is not None
+        self._path = os.path.join(trainer.out or ".", self._filename)
+        self._win = {"steps": 0, "examples": 0,
+                     **{p: 0.0 for p in self._tele.PHASES}}
+        self._t_last_emit = time.perf_counter()
+        self._emits = 0
+        self._fr = obs.get_flight_recorder()
+        self._attr_seq = -1
+        self._last_attr = None
+        if self._want_attribution and self._fr is not None:
+            self._attr = obs.AttributionWatch(
+                registry=reg, flight=self._fr,
+                factor=self._attribution_factor,
+                profile_dir=self._profile_dir)
+
+    def _observe_attribution(self) -> None:
+        """Feed every newly-completed step's span tree to the attribution
+        watch (incremental: only events past the last consumed step are
+        re-read from the ring)."""
+        if self._attr is None:
+            return
+        evs = self._fr.events_since(self._attr_seq)
+        step_evs = [e for e in evs if e.get("kind") == "step"]
+        if not step_evs:
+            return
+        last_seq = step_evs[-1].get("seq", self._attr_seq)
+        window = [e for e in evs if e.get("seq", 0) <= last_seq]
+        from chainermn_tpu_torch.observability import (
+            attribution as _attribution, spans as _spans)
+        for tree in _spans.build_step_trees(
+                window, rank=getattr(self._comm, "rank", 0)):
+            self._last_attr = _attribution.attribute_step(tree)
+            self._attr.observe(self._last_attr)
+        self._attr_seq = last_seq
+
+    def _emit_record(self, trainer) -> dict:
+        now = time.perf_counter()
+        dt = max(now - self._t_last_emit, 1e-9)
+        self._t_last_emit = now
+        w = self._win
+        n = max(w["steps"], 1)
+        record = {
+            "kind": "step_report",
+            "ts": time.time(),
+            "iteration": trainer.updater.iteration,
+            "epoch": trainer.updater.epoch,
+            "elapsed_time": trainer.elapsed_time,
+            "steps": w["steps"],
+            "examples_per_sec": w["examples"] / dt,
+            "steps_per_sec": w["steps"] / dt,
+        }
+        if self._tokens_per_example:
+            record["tokens_per_sec"] = (
+                w["examples"] * self._tokens_per_example / dt)
+        for p in self._tele.PHASES:
+            record[f"{p}_s_mean"] = w[p] / n
+        record["step_s_mean"] = sum(w[p] for p in self._tele.PHASES) / n
+        self._win = {"steps": 0, "examples": 0,
+                     **{p: 0.0 for p in self._tele.PHASES}}
+        return record
+
+    def __call__(self, trainer):
+        from chainermn_tpu_torch.observability import (
+            append_jsonl, write_prometheus, write_snapshot_jsonl)
+
+        if not self._active:
+            return
+        last = self._tele.last
+        if last is not None:
+            w = self._win
+            w["steps"] += 1
+            w["examples"] += last["examples"]
+            for p in self._tele.PHASES:
+                w[p] += last[f"{p}_s"]
+            self._tele.last = None
+        self._observe_attribution()
+        if not _trigger_fires(self._emit, trainer.updater):
+            return
+        record = self._emit_record(trainer)
+        self._emits += 1
+        straggler = None
+        if self._emits % self._straggler_every == 0:
+            # COLLECTIVE over the object plane -- every rank reaches this
+            # at the same trigger; do not gate it on the writer rank.
+            straggler = self._tele.straggler.report()
+        if not self._is_writer:
+            return
+        append_jsonl(self._path, record)
+        write_snapshot_jsonl(self._path, self._reg.snapshot(),
+                             rank=self._comm.rank)
+        if straggler is not None:
+            straggler = dict(straggler,
+                             iteration=trainer.updater.iteration)
+            append_jsonl(self._path, straggler)
+        if self._last_attr is not None:
+            append_jsonl(self._path, dict(self._last_attr,
+                                          kind="step_attribution",
+                                          ts=time.time()))
+            self._last_attr = None
+        if self._prometheus:
+            write_prometheus(self._prometheus, self._reg.snapshot())
+
+    def finalize(self, trainer):
+        from chainermn_tpu_torch.observability import (
+            append_jsonl, write_snapshot_jsonl)
+
+        if not self._active or self._win["steps"] == 0:
+            return
+        record = self._emit_record(trainer)
+        straggler = self._tele.straggler.report()
+        if not self._is_writer:
+            return
+        append_jsonl(self._path, record)
+        write_snapshot_jsonl(self._path, self._reg.snapshot(),
+                             rank=self._comm.rank)
+        append_jsonl(self._path, dict(straggler,
+                                      iteration=trainer.updater.iteration))
 
 
 class Evaluator:
@@ -209,4 +420,5 @@ class StepTimer:
         return losses, ips, peak
 
 
-__all__ = ["Evaluator", "LogReport", "PrintReport", "Snapshot", "StepTimer"]
+__all__ = ["Evaluator", "LogReport", "MetricsReport", "PrintReport",
+           "Snapshot", "StepTimer"]

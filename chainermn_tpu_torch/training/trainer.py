@@ -13,8 +13,9 @@ The step is :func:`chainermn_tpu_torch.optimizers.make_train_step`.
 Extensions (``training/extensions.py``: ``LogReport``, ``PrintReport``,
 ``Evaluator``) run in order of their ``priority``, each when its
 ``trigger`` fires; the trainer also keeps a plain rank-0 print on
-``log_trigger``.  ``MetricsReport`` is not ported yet (ROADMAP.md, Queue
-A13).
+``log_trigger``.  ``MetricsReport`` installs a
+:class:`~chainermn_tpu_torch.observability.StepTelemetry` on the updater
+(``updater.telemetry``), whose phases the updater then times.
 """
 
 from __future__ import annotations
@@ -48,6 +49,14 @@ def to_device(batch, device):
     return t.to(device)
 
 
+def _batch_examples(batch) -> int:
+    """Examples in a device batch (leading dim of the first tensor)."""
+    while isinstance(batch, (tuple, list)) and batch:
+        batch = batch[0]
+    shape = getattr(batch, "shape", ())
+    return int(shape[0]) if len(shape) else 0
+
+
 class StandardUpdater:
     """Pulls this rank's batch, moves it to the device, runs the step.
 
@@ -55,6 +64,18 @@ class StandardUpdater:
     scalars, typically from
     :func:`chainermn_tpu_torch.optimizers.make_train_step`; aux lands in
     the observation as ``main/<key>``.
+
+    **Observability seam** (JAX's): :attr:`telemetry` is ``None`` by
+    default and the flight recorder is bound once here (``None`` while
+    observability is off), so the plain loop makes no observability call.
+    When a :class:`~chainermn_tpu_torch.observability.StepTelemetry` is
+    installed (normally by ``MetricsReport``), :meth:`update` times each
+    phase: data-load (the iterator), host-put (to the device), dispatch
+    (the step call) and device-block (a synchronize of the device's
+    current stream, so the step has finished).  The synchronize trades the
+    overlap of the host with the card for the breakdown; the values the
+    step computes are the same.  ``examples`` counts the global batch
+    (this rank's times the world size).
     """
 
     def __init__(self, iterator, step_fn: Callable, comm,
@@ -64,6 +85,10 @@ class StandardUpdater:
         self.comm = comm
         self._convert = convert_batch
         self.iteration = 0
+        self.telemetry = None
+        from chainermn_tpu_torch.observability import (
+            flight_recorder as _flight)
+        self._flight = _flight.get_flight_recorder()
 
     @property
     def epoch(self):
@@ -77,17 +102,58 @@ class StandardUpdater:
     def epoch_detail(self):
         return self.iterator.epoch_detail
 
-    def update(self) -> dict:
-        batch = self.iterator.next()
+    def _put(self, batch):
         if self._convert is not None:
             batch = self._convert(batch)
-        batch = to_device(batch, self.comm.device)
+        return to_device(batch, self.comm.device)
+
+    def _apply_step(self, batch) -> dict:
         out = self.step_fn(batch)
-        self.iteration += 1
         if not isinstance(out, tuple):
             return {"main/loss": out}
         obs = {"main/loss": out[0]}
         obs.update({f"main/{k}": v for k, v in out[1].items()})
+        return obs
+
+    def update(self) -> dict:
+        tele = self.telemetry
+        fl = self._flight
+        if tele is None and fl is None:
+            # fast path: no timing, no observability calls
+            obs = self._apply_step(self._put(self.iterator.next()))
+            self.iteration += 1
+            return obs
+        t0 = time.perf_counter()
+        if fl is not None:
+            fl.record_phase("data_load", self.iteration)
+        raw = self.iterator.next()
+        t1 = time.perf_counter()
+        if fl is not None:
+            fl.record_phase("host_put", self.iteration)
+        batch = self._put(raw)
+        t2 = time.perf_counter()
+        if fl is not None:
+            fl.record_phase("dispatch", self.iteration)
+        obs = self._apply_step(batch)
+        t3 = time.perf_counter()
+        if tele is not None:
+            # device_block only under telemetry: the flight recorder alone
+            # keeps the host ahead of the card (the step event still
+            # marks progress)
+            if fl is not None:
+                fl.record_phase("device_block", self.iteration)
+            device = torch.device(self.comm.device)
+            if device.type == "cuda":
+                torch.cuda.current_stream(device).synchronize()
+        t4 = time.perf_counter()
+        self.iteration += 1
+        if fl is not None:
+            fl.record_step(t4 - t0, iteration=self.iteration)
+        if tele is not None:
+            tele.record_step(data_load=t1 - t0, host_put=t2 - t1,
+                             dispatch=t3 - t2, device_block=t4 - t3,
+                             examples=_batch_examples(batch)
+                             * int(self.comm.size))
         return obs
 
     def finalize(self) -> None:
@@ -155,9 +221,11 @@ class Trainer:
 
     ``out``: directory for the extensions' files (``None``: they write
     none).  ``log_trigger``: when rank 0 prints the iteration, epoch,
-    elapsed time and observation (``None``: never).  When the loop ends,
-    the updater's ``finalize`` runs (the double-buffered optimizer's last
-    gradient mean completes there)."""
+    elapsed time and observation (``None``: never).  Before the loop each
+    extension's ``initialize(trainer)`` runs, where it has one; when the
+    loop ends, the updater's ``finalize`` runs (the double-buffered
+    optimizer's last gradient mean completes there), then each extension's
+    ``finalize(trainer)``."""
 
     def __init__(self, updater, stop_trigger: Tuple[int, str] = (20, "epoch"),
                  log_trigger: Optional[Tuple[int, str]] = (1, "epoch"),
@@ -200,6 +268,9 @@ class Trainer:
         if self.out is not None:
             os.makedirs(self.out, exist_ok=True)
         start = time.perf_counter()
+        for _, ext, _, _ in self._extensions:
+            if hasattr(ext, "initialize"):
+                ext.initialize(self)
         while not self._stop():
             self.observation = self.updater.update()
             self.elapsed_time = time.perf_counter() - start
@@ -211,6 +282,9 @@ class Trainer:
                     _trigger_fires(self.log_trigger, self.updater):
                 self.print_report()
         self.updater.finalize()
+        for _, ext, _, _ in self._extensions:
+            if hasattr(ext, "finalize"):
+                ext.finalize(self)
 
     def print_report(self):
         vals = " ".join(f"{k}={float(v):.6g}"

@@ -2,6 +2,7 @@
 """Quickest proof that the PyTorch port runs on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 31   # the builds and phase 31 alone
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -414,6 +415,33 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     ``__plan_table_meta__`` round trip and its two refusals.  The
     summary's rows 1-4 add (b)'s step and (d)'s runs, row 5 the casts of
     (b), (c) and (d).
+31. the control plane and observability (after 22, before the summary;
+    ``phase_obs``), gated.  (a) ``train_mnist`` at the example's width
+    (``--unit 1000 --batchsize 100``, two epochs, xla + the float16 wire +
+    double buffering), without and with ``--observability`` (a flight
+    recorder installed), ``P31_PAIRS`` pairs in turn: ``cast_scale``
+    launches 2 x iterations in every run, every run's parameters bit-equal
+    to the first's, ``metrics.jsonl`` holding the float16
+    ``allreduce_grad`` calls and bytes and the step telemetry; the second
+    epoch's step time off and on, their medians, ranges and pairs.  (b)
+    ``execute_plan`` of the two-dimensional plan on the bfloat16 wire over
+    ResNet-50's packed gradient size, without and with
+    ``pobs=get_plan_obs(comm)``: one ``plan_stage_begin``/``_end`` pair a
+    stage in stage order, outputs bit-equal, the same cast launches; a
+    call's host time off and on.  (c) Phase 24's LM (bf16) serving phase
+    24's trace, submitted at once, without and with observability,
+    ``P31_PAIRS`` pairs in turn: the same tokens in every run, the
+    ``serving_*`` counters equal to the engine's completions and tokens,
+    ``layers x passes`` flash launches; the wall time off and on.  (d)
+    ``SocketControlPlane`` worlds of 2 and 4 processes on the native
+    transport (built here), then a Python rank with a native one: the
+    collectives' results and a frame both ways; round-trip latency at 1
+    KiB and goodput at 64 MiB of both transports.  (e) A bucketed FSDP
+    step (``P31_FSDP``) without and with observability, ``P31_PAIRS``
+    pairs in turn: the shards bit-equal, each bucket's gather and
+    reduce-scatter a begin/end pair a step (the edges' CUDA events, read
+    at the step's end); the step time off and on.  The summary's row 5
+    adds (a)'s and (b)'s casts, row 6 (c)'s launches.
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
 """
@@ -423,6 +451,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import sys
 import time
 
@@ -4693,6 +4722,430 @@ def log_planner(p30, images_per_sec_p3, gpu, secs):
         f"{k} {v:.1f}" for k, v in p30["seconds"].items()) + ")")
 
 
+P31_MNIST = ["--epoch", "2", "--unit", "1000", "--batchsize", "100",
+             "--communicator", "xla", "--allreduce-grad-dtype", "float16",
+             "--double-buffering"]
+P31_PAIRS = 3        # (a), (c), (e): interleaved off / on pairs timed
+P31_PLAN_CALLS = 10  # (b): timed calls of the plan, off and on
+P31_SIZES = [1 << 10, 1 << 26]   # (d): the transports' payloads
+# (e): bench_fsdp_overlap's tanh MLP, 4 buckets, a prefetch window of 1
+P31_FSDP = {"layers": 8, "width": 4096, "batch": 256, "buckets": 4,
+            "prefetch": 1, "steps": 10}
+
+
+def _obs_reset():
+    from chainermn_tpu_torch import observability as obs
+    obs.disable()
+    obs.reset_flight_recorder()
+    obs.get_registry().reset()
+
+
+def _p31_spread(off, on):
+    """Medians, ranges and the pairs' relative differences of ``off`` and
+    ``on`` (interleaved runs); ``resolved``: the medians differ by more
+    than either label's range."""
+    med = {k: statistics.median(v) for k, v in (("off", off), ("on", on))}
+    rng = {k: [min(v), max(v)] for k, v in (("off", off), ("on", on))}
+    effect = med["on"] - med["off"]
+    return {"off": off, "on": on, "median": med, "range": rng,
+            "pairs_pct": [100.0 * (b / a - 1.0) for a, b in zip(off, on)],
+            "effect_pct": 100.0 * effect / med["off"],
+            "resolved": abs(effect) > max(r[1] - r[0]
+                                          for r in rng.values())}
+
+
+def p31_mnist(cs, torch):
+    """(a): the MNIST example without and with ``--observability``, two
+    epochs a run, ``P31_PAIRS`` interleaved pairs; a run's step time is
+    its second epoch's (the first holds the start-up)."""
+    from chainermn_tpu_torch import observability as obs
+    from chainermn_tpu_torch.examples import train_mnist
+    runs = {"off": [], "on": []}
+    for label in ("off", "on") * P31_PAIRS:
+        out_dir = os.path.join(HERE, "build", f"chip_smoke_obs_{label}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        flags = P31_MNIST + ["--out", out_dir]
+        if label == "on":
+            obs.install_flight_recorder()
+            flags.append("--observability")
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        try:
+            res = train_mnist.main(flags)
+            torch.cuda.synchronize()
+        finally:
+            _obs_reset()
+        e1, e2 = res["log"][-2:]
+        run = {"casts": cs.launch_counts()["cast_scale"],
+               "iters": e2["iteration"],
+               "step_ms": (e2["elapsed_time"] - e1["elapsed_time"])
+               / (e2["iteration"] - e1["iteration"]) * 1e3,
+               "params": {k: v.detach().clone()
+                          for k, v in res["model"].state_dict().items()}}
+        if label == "on":
+            recs = [json.loads(ln) for ln in open(
+                os.path.join(out_dir, "metrics.jsonl"))]
+            run["metrics"] = _p31_metrics(recs)
+        runs[label].append(run)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    runs["step_ms"] = _p31_spread([r["step_ms"] for r in runs["off"]],
+                                  [r["step_ms"] for r in runs["on"]])
+    return runs
+
+
+def _p31_metrics(recs):
+    """What (a) holds ``metrics.jsonl`` to: the float16 allreduce_grad
+    calls and bytes, the telemetry phases' counts, the record kinds."""
+    def metric(name, **labels):  # the last window's: cumulative
+        for r in reversed(recs):
+            if r.get("kind") == "metric" and r["name"] == name and all(
+                    r["labels"].get(k) == v for k, v in labels.items()):
+                return r
+        return {}
+    calls = metric("comm_collective_calls", op="allreduce_grad")
+    nbytes = metric("comm_collective_bytes", op="allreduce_grad")
+    return {"kinds": sorted({r.get("kind") for r in recs}),
+            "calls": calls.get("value"),
+            "bytes": nbytes.get("value"),
+            "dtype": nbytes.get("labels", {}).get("dtype"),
+            "phases": {ph: metric("step_phase_seconds", phase=ph).get(
+                "count") for ph in ("data_load", "host_put", "dispatch",
+                                    "device_block")}}
+
+
+def p31_plan(cs, torch, dev):
+    """(b): the bf16 two-dimensional plan over ResNet-50's packed gradient
+    size, without and with the per-stage spans."""
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch import observability as obs
+    from chainermn_tpu_torch.planner import Plan, execute_plan, flavor_plan
+    comm = create_communicator("xla")
+    two_d = flavor_plan("two_dimensional")
+    plan = Plan(name="two_dimensional_bf16", packing="flat",
+                wire_dtype="bfloat16", stages=two_d.stages)
+    g = torch.Generator(device=dev).manual_seed(31)
+    grads = {"resnet50": torch.randn(RESNET_GRADS, device=dev, generator=g)}
+    out = {}
+    try:
+        for label in ("off", "on"):
+            pobs = None
+            if label == "on":
+                obs.enable()
+                pobs = obs.get_plan_obs(comm)
+            res = execute_plan(plan, comm, grads, pobs=pobs)  # warm
+            times = []
+            torch.cuda.synchronize()
+            cs.reset_launch_counts()
+            for _ in range(P31_PLAN_CALLS):
+                t0 = time.perf_counter()
+                res = execute_plan(plan, comm, grads, pobs=pobs)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            run = {"out": res["resnet50"],
+                   "casts": cs.launch_counts()["cast_scale"],
+                   "call_ms": sorted(times)[len(times) // 2] * 1e3}
+            if label == "on":
+                evs = [e for e in obs.get_flight_recorder().snapshot()
+                       if e["kind"].startswith("plan_stage_")]
+                run["events"] = [(e["kind"][len("plan_stage_"):],
+                                  e["stage"], e["op"], e["scope"])
+                                 for e in evs]
+                run["ts_sorted"] = all(a["ts"] <= b["ts"]
+                                       for a, b in zip(evs, evs[1:]))
+                run["stage_ms"] = {
+                    r["labels"]["stage"]: r["quantiles"]["0.5"] * 1e3
+                    for r in obs.get_registry().snapshot()
+                    if r["name"] == "plan_stage_seconds"}
+            out[label] = run
+    finally:
+        _obs_reset()
+    stages = [(i, st.op, st.scope) for i, st in enumerate(plan.stages)]
+    want = [(edge, i, op, scope) for i, op, scope in stages
+            for edge in ("begin", "end")] * (P31_PLAN_CALLS + 1)
+    out["stages"] = len(stages)
+    out["events_ok"] = out["on"]["events"] == want and out["on"]["ts_sorted"]
+    out["same_bits"] = _bits_equal(torch, out["on"]["out"], out["off"]["out"])
+    out["casts_ok"] = out["on"]["casts"] == out["off"]["casts"] == \
+        2 * P31_PLAN_CALLS
+    for label in ("off", "on"):
+        del out[label]["out"]
+    return out
+
+
+def p31_serving(fa, torch):
+    """(c): phase 24's trace, all of it submitted at once, through the LM's
+    engine without and with observability, ``P31_PAIRS`` interleaved
+    pairs."""
+    from chainermn_tpu_torch import observability as obs
+    from chainermn_tpu_torch.benchmarks import bench_serving as bs
+    args = bs.parser().parse_args(P24_FLAGS + P24_TRACE)
+    model = bs.build_model(args)
+    trace = bs.build_trace(args)
+    names = ("steps", "retired", "admitted", "generated_tokens")
+    runs = {"off": [], "on": []}
+    try:
+        for label in ("off", "on") * P31_PAIRS:
+            if label == "on":
+                obs.enable()
+                obs.install_flight_recorder()
+            eng = bs._engine(model, args, policy="continuous")
+            bs._warm(eng, trace[0][1])  # cuBLAS and the kernel, untimed
+            reg = obs.get_registry()
+            base = {k: reg.get(f"serving_{k}").value()
+                    for k in names} if label == "on" else {}
+            passes0 = eng.passes["target"]
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            for _, prompt, max_new in trace:
+                eng.submit(prompt, max_new_tokens=max_new)
+            comps = eng.run_until_idle()
+            torch.cuda.synchronize()
+            run = {"tokens": [c.tokens for c in comps],
+                   "wall_s": time.perf_counter() - t0,
+                   "launches": fa.launch_counts()["flash_fwd"],
+                   "passes": eng.passes["target"] - passes0}
+            if label == "on":  # the trace's counts, past the warm-up's
+                run["counters"] = {
+                    k: reg.get(f"serving_{k}").value() - base[k]
+                    for k in names}
+                _obs_reset()
+            runs[label].append(run)
+            del eng
+    finally:
+        _obs_reset()
+    del model
+    torch.cuda.empty_cache()
+    first = runs["off"][0]["tokens"]
+    out = {"requests": len(trace),
+           "tokens": sum(len(t) for t in first),
+           "launches": sum(r["launches"] for rs in runs.values()
+                           for r in rs),
+           "wall_s": _p31_spread([r["wall_s"] for r in runs["off"]],
+                                 [r["wall_s"] for r in runs["on"]])}
+    out["same_tokens"] = all(r["tokens"] == first for rs in runs.values()
+                             for r in rs)
+    out["counters_ok"] = all(
+        r["counters"]["retired"] == r["counters"]["admitted"]
+        == len(r["tokens"]) == len(trace)
+        and r["counters"]["generated_tokens"]
+        == sum(len(t) for t in r["tokens"]) for r in runs["on"])
+    out["launches_ok"] = all(r["launches"] == LM["n_layers"] * r["passes"]
+                             for rs in runs.values() for r in rs)
+    out["counters"] = runs["on"][0]["counters"]
+    return out
+
+
+def _p31_edges_ok(evs, leg, bucket, n):
+    """``n`` begin/end pairs of one bucket's leg, each end no earlier than
+    its begin on the monotonic clock."""
+    seq = [(e["kind"].rsplit("_", 1)[1], e["mono"]) for e in evs
+           if e["kind"].startswith(f"fsdp_{leg}_")
+           and e["bucket"] == bucket]
+    return len(seq) == 2 * n and all(
+        b[0] == "begin" and e[0] == "end" and b[1] <= e[1]
+        for b, e in zip(seq[::2], seq[1::2]))
+
+
+def p31_fsdp(torch, dev):
+    """(e): ``P31_FSDP``'s bucketed FSDP step on a world of one without and
+    with observability, ``P31_PAIRS`` interleaved pairs of a warm step and
+    ``steps`` timed ones."""
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch import observability as obs
+    from chainermn_tpu_torch.benchmarks.bench_fsdp_overlap import tanh_mlp
+    from chainermn_tpu_torch.parallel.fsdp import (
+        fsdp_init, make_fsdp_train_step)
+    cfg = P31_FSDP
+    comm = create_communicator("xla")
+    g = torch.Generator().manual_seed(31)
+    xs, ys = (torch.randn(cfg["batch"], cfg["width"], generator=g).to(dev)
+              for _ in range(2))
+    runs = {"off": [], "on": []}
+    try:
+        for label in ("off", "on") * P31_PAIRS:
+            if label == "on":
+                obs.enable()
+                obs.install_flight_recorder()
+            model = tanh_mlp(cfg["layers"], cfg["width"], 0, dev)
+            state, meta = fsdp_init(comm, model, torch.optim.Adam(
+                model.parameters(), lr=1e-3), num_buckets=cfg["buckets"])
+            step = make_fsdp_train_step(
+                comm, lambda b: torch.mean((model(b[0]) - b[1]) ** 2),
+                state, meta, prefetch=cfg["prefetch"])
+            step((xs, ys))  # warm
+            t0, t1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            torch.cuda.synchronize()
+            t0.record()
+            for _ in range(cfg["steps"]):
+                step((xs, ys))
+            t1.record()
+            t1.synchronize()
+            run = {"step_ms": t0.elapsed_time(t1) / cfg["steps"],
+                   "shards": [s.detach().clone()
+                              for s in state.flat_shards()]}
+            if label == "on":
+                evs = [e for e in obs.get_flight_recorder().snapshot()
+                       if e["kind"].startswith("fsdp_")]
+                seconds = obs.get_registry().histogram(
+                    "fsdp_overlap_seconds")
+                run["edges_ok"] = all(
+                    _p31_edges_ok(evs, leg, k, cfg["steps"] + 1)
+                    and seconds.count(leg=leg, bucket=str(k))
+                    == cfg["steps"] + 1
+                    for leg in ("gather", "scatter")
+                    for k in range(meta.num_buckets))
+                run["events"] = len(evs)
+                _obs_reset()
+            runs[label].append(run)
+            del model, state, step
+    finally:
+        _obs_reset()
+    torch.cuda.empty_cache()
+    first = runs["off"][0]["shards"]
+    out = {"buckets": cfg["buckets"],
+           "events": runs["on"][0]["events"],
+           "step_ms": _p31_spread([r["step_ms"] for r in runs["off"]],
+                                  [r["step_ms"] for r in runs["on"]])}
+    out["same_bits"] = all(
+        len(r["shards"]) == len(first) and all(
+            _bits_equal(torch, a, b) for a, b in zip(r["shards"], first))
+        for rs in runs.values() for r in rs)
+    out["edges_ok"] = all(r["edges_ok"] for r in runs["on"]) and \
+        out["events"] == 4 * cfg["buckets"] * (cfg["steps"] + 1)
+    return out
+
+
+def p31_plane():
+    """(d): socket control-plane worlds on the native transport, a mixed
+    world, and the transports' latency and goodput."""
+    from concurrent.futures import ThreadPoolExecutor
+    from chainermn_tpu_torch.benchmarks import bench_transport as bt
+    from chainermn_tpu_torch.runtime import native
+    native._load()  # one g++ build before the worlds start together
+    out = {"worlds": {}}
+    worlds = {"native x2": ["native"] * 2, "native x4": ["native"] * 4,
+              "python + native": ["python", "native"]}
+    with ThreadPoolExecutor(len(worlds)) as ex:  # untimed: together
+        futs = {k: ex.submit(bt.run_plane_world, b)
+                for k, b in worlds.items()}
+        results = {k: f.result() for k, f in futs.items()}
+    for name, backends in worlds.items():
+        res = results[name]
+        n = len(backends)
+        ok = all(
+            r["transport"] == ("PyTransport" if b == "python"
+                               else "NativeTransport")
+            and r["bcast"] == {"seed": 42}
+            and r["gather"] == ([10 * i for i in range(n)] if i == 0
+                                else None)
+            and r["scatter"] == f"s{i}"
+            and r["allreduce"] == {"n": n, "m": [n - 1]}
+            and r["allgather"] == list(range(n))
+            for i, (r, b) in enumerate(zip(res, backends)))
+        frames = res[0].get("frame") and res[-1].get("frame")
+        out["worlds"][name] = bool(ok and frames)
+    for backend in ("native", "python"):
+        r = bt.run_sweep(P31_SIZES, backend, reps_cap=20)
+        out[backend] = {"rtt_us_1KiB": r["rtt_us"],
+                        "MB_per_s_64MiB": r["mb_per_s"][str(1 << 26)]}
+    out["native_vs_python_64MiB"] = (out["native"]["MB_per_s_64MiB"]
+                                     / out["python"]["MB_per_s_64MiB"])
+    return out
+
+
+def phase_obs(cs, fa, torch, dev):
+    """Phase 31 (see the module docstring)."""
+    out, secs = {}, {}
+    for key, run in (("a", lambda: p31_mnist(cs, torch)),
+                     ("b", lambda: p31_plan(cs, torch, dev)),
+                     ("c", lambda: p31_serving(fa, torch)),
+                     ("d", p31_plane),
+                     ("e", lambda: p31_fsdp(torch, dev))):
+        t0 = time.perf_counter()
+        out[key] = run()
+        secs[key] = time.perf_counter() - t0
+    a = out["a"]
+    runs = a["off"] + a["on"]
+    first = a["off"][0]["params"]
+    out["a_casts"] = sum(r["casts"] for r in runs)
+    m = [r["metrics"] for r in a["on"]]
+    iters = a["on"][0]["iters"]
+    out["gates"] = {
+        "(a) 2 casts an iteration": all(
+            r["casts"] == 2 * r["iters"] for r in runs),
+        "(a) on = off bit for bit": all(
+            _bits_equal(torch, r["params"][k], first[k])
+            for r in runs for k in first),
+        "(a) metrics.jsonl": all(
+            x["calls"] == iters and x["dtype"] == "float16" and x["bytes"]
+            and set(x["phases"].values()) == {iters}
+            and {"step_report", "metric", "straggler_report"}
+            <= set(x["kinds"]) for x in m),
+        "(b) a begin/end pair a stage, in order": out["b"]["events_ok"],
+        "(b) on = off bit for bit, same casts": out["b"]["same_bits"]
+        and out["b"]["casts_ok"],
+        "(c) same tokens": out["c"]["same_tokens"],
+        "(c) serving counters = completions": out["c"]["counters_ok"],
+        "(c) flash launches = layers x passes": out["c"]["launches_ok"],
+        "(d) socket worlds": all(out["d"]["worlds"].values()),
+        "(e) on = off bit for bit": out["e"]["same_bits"],
+        "(e) a begin/end pair a bucket's leg a step":
+        out["e"]["edges_ok"]}
+    for r in runs:
+        del r["params"]
+    out["seconds"] = secs
+    return out
+
+
+def _spread_text(sp, unit, nd=4):
+    return (f"off {[round(x, nd) for x in sp['off']]}, on "
+            f"{[round(x, nd) for x in sp['on']]} {unit}; medians "
+            f"{sp['median']['off']:.{nd}f} / {sp['median']['on']:.{nd}f}, "
+            f"on - off {sp['effect_pct']:+.2f}% (pairs "
+            f"{[round(x, 2) for x in sp['pairs_pct']]}%), ranges off "
+            f"{[round(x, nd) for x in sp['range']['off']]} on "
+            f"{[round(x, nd) for x in sp['range']['on']]}; the medians' "
+            f"difference above both ranges: {sp['resolved']}")
+
+
+def log_obs(p31, gpu, secs):
+    a = p31["a"]
+    log(f"phase 31 (a) train_mnist {' '.join(P31_MNIST)}, "
+        f"{a['on'][0]['iters']} iterations a run, {P31_PAIRS} off / on "
+        f"pairs in turn: the second epoch's step (epoch time / iterations) "
+        f"{_spread_text(a['step_ms'], 'ms')}; cast launches "
+        f"{[r['casts'] for r in a['off'] + a['on']]}; metrics "
+        f"{json.dumps(a['on'][0]['metrics'])} on {gpu}")
+    b = p31["b"]
+    log(f"phase 31 (b) execute_plan two_dimensional bf16 over "
+        f"{RESNET_GRADS} float32 gradients ({b['stages']} stages): call ms "
+        f"(median of {P31_PLAN_CALLS}) off {b['off']['call_ms']:.4f}, on "
+        f"{b['on']['call_ms']:.4f}; stage ms (median) "
+        f"{json.dumps(b['on']['stage_ms'])}; casts off {b['off']['casts']} "
+        f"on {b['on']['casts']} on {gpu}")
+    c = p31["c"]
+    log(f"phase 31 (c) serving phase 24's trace ({c['requests']} requests "
+        f"at once, {c['tokens']} tokens), {P31_PAIRS} off / on pairs: wall "
+        f"{_spread_text(c['wall_s'], 's')}; on counters "
+        f"{json.dumps(c['counters'])}; flash launches {c['launches']} on "
+        f"{gpu}")
+    d = p31["d"]
+    log(f"phase 31 (d) control plane worlds {json.dumps(d['worlds'])}; "
+        f"native {json.dumps(d['native'])}, python {json.dumps(d['python'])}"
+        f", native / python at 64 MiB {d['native_vs_python_64MiB']:.3f} "
+        f"(localhost TCP, host CPU) on {gpu}")
+    e = p31["e"]
+    log(f"phase 31 (e) FSDP {json.dumps(P31_FSDP)} on a world of one, "
+        f"{P31_PAIRS} off / on pairs: step (CUDA events over the timed "
+        f"steps) {_spread_text(e['step_ms'], 'ms')}; {e['events']} flight "
+        f"events a run on {gpu}")
+    log(f"phase 31 gates: {json.dumps(p31['gates'])}")
+    log(f"phase 31: {secs:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in p31["seconds"].items()) + ")")
+
+
 C12_LOOPS = 300      # phase 22: passes of the flash autograd check
 WGRAD_LOOPS = 600    # phase 22: launches of the probe wgrad
 
@@ -5070,6 +5523,14 @@ def main():
         raise AssertionError("phase 22: a pass over the 1e-5 gate, or a "
                              "launch whose bits differ from the first's")
 
+    t0 = time.perf_counter()
+    p31 = phase_obs(cs, fa, torch, dev)
+    log_obs(p31, gpu, time.perf_counter() - t0)
+    failed = sorted(g for g, ok in p31["gates"].items() if not ok)
+    if failed:
+        raise AssertionError(f"phase 31: gates {failed} failed (their "
+                             "lines above)")
+
     dist.destroy_process_group()
     # phase 25's launches on the main path: (a) flash and casts, (d)'s
     # bench and (e)'s real-image run the BatchNorm kernels
@@ -5105,7 +5566,9 @@ def main():
         "replaces": "chainermn_tpu/ops/cast_scale.py:33",
         "launches": mnist_casts + p25_vit["cast_scale"]
         + p25["vit"]["xla"]["counts"]["cast_scale"] + p26["resnet"]["casts"]
-        + sum(r["casts"] for r in p29["a"].values()) + p30["casts"],
+        + sum(r["casts"] for r in p29["a"].values()) + p30["casts"]
+        + p31["a_casts"] + p31["b"]["off"]["casts"]
+        + p31["b"]["on"]["casts"],
         "max_abs_err": cast_err,
         "ms": cast_t["ms"], "plain_ms": cast_t["plain_ms"],
         "bound_ms": cast_t["bound_ms"], "bound_by": "bytes",
@@ -5118,6 +5581,7 @@ def main():
             + p25_vit[wrapper] + p26_flash[wrapper]
             + p27["a"]["counts"][wrapper] + p2829_flash[wrapper]
             + (srv["serving_launches"] + p27["srv"]["launches"]
+               + p31["c"]["launches"]
                if wrapper == "flash_fwd" else 0),
             "max_abs_err": flash_errs[wrapper], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -5143,5 +5607,31 @@ def main():
     return 0
 
 
+def phase_obs_alone():
+    """``python3 chip_smoke.py --phase 31``: the CUDA builds and phase 31
+    alone, gated as in the whole run; no summary and no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    import importlib
+    import torch.distributed as dist
+    from chainermn_tpu_torch import init_distributed
+    for f in start_cuda_builds().values():
+        f.result()
+    init_distributed()
+    cs = importlib.import_module("chainermn_tpu_torch.ops.cast_scale")
+    fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+    gpu = gpu_line()
+    log(f"gpu: {gpu}")
+    t0 = time.perf_counter()
+    p31 = phase_obs(cs, fa, torch, torch.device("cuda", 0))
+    log_obs(p31, gpu, time.perf_counter() - t0)
+    dist.destroy_process_group()
+    return 1 if not all(p31["gates"].values()) else 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(phase_obs_alone() if sys.argv[1:] == ["--phase", "31"]
+             else main())

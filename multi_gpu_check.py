@@ -1,7 +1,7 @@
 """The data-, sequence- and model-parallel slices on every card of one host.
 
     python3 multi_gpu_check.py [--logs DIR]
-        [--parts dp,sp,mp,configs,fsdp,tp_ep,pp,compression,planner]
+        [--parts dp,sp,mp,configs,fsdp,tp_ep,pp,compression,planner,obs]
     # needs two CUDA cards or more
 
 1. prints the cards' names and power limits (``nvidia-smi``) and torch's
@@ -130,6 +130,17 @@
     bit-equal to the run of the plan the table picked for the gradient
     bucket (its flavor run directly, or the same plan through a table of
     that one entry when no flavor is that plan).
+13. (part ``obs``, not in the default) the socket control plane and
+    observability on every card: ``examples.train_mnist`` (one epoch at
+    the example's width, xla + the float16 wire + double buffering,
+    ``--observability``, so ``MetricsReport``'s straggler report is an
+    ``allgather_obj``) through ``train_mnist.train`` on a communicator
+    on ``get_control_plane()`` (a socket world at MASTER_PORT + 1 on the
+    native transport) and on the default gloo object plane: every
+    rank's ``comm_collective_calls`` equal, the object ops (bcast, gather,
+    scatter, allgather, allreduce, a split's allgather) giving on the
+    socket plane what they give on gloo, each rank's parameters bit-equal
+    between the two runs, rank 0's straggler report over every rank.
 
 Prints one JSON object as its last line; exits 1 if a check failed.  Runs
 write under ``build/`` (removed afterwards), their logs under ``--logs``
@@ -342,7 +353,7 @@ def _late_workers():
     planner)."""
     WORKERS.update(pp=pp_worker, comp=comp_worker, mnist=mnist_worker,
                    comp_fsdp=comp_fsdp_worker, sweep=sweep_worker,
-                   planner=planner_worker)
+                   planner=planner_worker, obs=obs_worker)
 
 
 def torchrun(n, name, flags, work, logs, kind="imagenet"):
@@ -370,12 +381,12 @@ def main(argv=None):
                    help="which slices to run: dp (steps 2-4), sp (step 5), "
                    "mp (step 6), configs (step 7), fsdp (step 8), tp_ep "
                    "(step 9), pp (step 10), compression (step 11), planner "
-                   "(step 12)")
+                   "(step 12), obs (step 13)")
     args = p.parse_args(argv)
     logs = os.path.abspath(args.logs)
     parts = set(args.parts.split(","))
     known = {"dp", "sp", "mp", "configs", "fsdp", "tp_ep", "pp",
-             "compression", "planner"}
+             "compression", "planner", "obs"}
     if not parts or parts - known:
         p.error(f"--parts: {args.parts!r} is not a subset of "
                 f"{','.join(sorted(known))}")
@@ -416,6 +427,8 @@ def main(argv=None):
             compression(n, out, failures, work, logs)
         if "planner" in parts:
             planner(n, out, failures, work, logs)
+        if "obs" in parts:
+            observability(n, out, failures, work, logs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["failures"] = failures
@@ -1560,6 +1573,95 @@ def data_parallel(n, out, failures, work, logs):
     if not all(math.isfinite(v) for d in straight + resumed
                for v in d["losses"]):
         failures.append("resume: losses not finite")
+
+
+OBS_MNIST = ["--epoch", "1", "--unit", "1000", "--batchsize", "100",
+             "--communicator", "xla", "--allreduce-grad-dtype", "float16",
+             "--double-buffering", "--prefetch", "0", "--observability"]
+
+
+def obs_worker(out_prefix, flags):
+    """One rank under ``torchrun``: the object ops on the plane
+    ``flags[0]`` (``socket`` or ``gloo``), then the MNIST example with
+    observability on that plane; the results, the collective call counts
+    and a digest of the parameters."""
+    import torch
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch import (create_communicator, get_control_plane,
+                                     init_distributed)
+    from chainermn_tpu_torch import observability as obs
+    from chainermn_tpu_torch.examples import train_mnist
+    from chainermn_tpu_torch.runtime.control_plane import reset_control_plane
+    plane = flags[0]
+    torch.backends.cudnn.deterministic = True
+    init_distributed()
+    kw = {"control_plane": get_control_plane()} if plane == "socket" else {}
+    comm = create_communicator("naive", **kw)
+    r, n = comm.rank, comm.size
+    objs = [comm.bcast_obj({"s": 7} if r == 0 else None),
+            comm.gather_obj(r * 3),
+            comm.scatter_obj([f"i{i}" for i in range(n)] if r == 0
+                             else None),
+            comm.allgather_obj((r, "x")),
+            comm.allreduce_obj({"a": r + 1, "b": [r]}),
+            comm.split(r % 2, r).allgather_obj(r)]
+    comm.barrier()
+    kinds = [type(comm._cp).__name__,
+             type(getattr(comm._cp, "_tp", None)).__name__]
+    # the example on an xla communicator on the same object plane
+    args = train_mnist.parse_args(OBS_MNIST + ["--out", f"{out_prefix}_out"])
+    obs.enable()
+    res = train_mnist.train(args, create_communicator(
+        args.communicator, allreduce_grad_dtype=args.allreduce_grad_dtype,
+        **kw))
+    reset_control_plane()
+    calls = sorted([sorted(x["labels"].items()), x["value"]]
+                   for x in obs.get_registry().snapshot()
+                   if x["name"] == "comm_collective_calls")
+    h = hashlib.sha256()
+    for name, t in sorted(res["model"].state_dict().items()):
+        h.update(name.encode())
+        h.update(t.detach().reshape(-1).contiguous().cpu()
+                 .view(torch.uint8).numpy().tobytes())
+    with open(f"{out_prefix}.rank{r}.json", "w") as f:
+        json.dump({"objs": objs, "plane": kinds, "calls": calls,
+                   "digest": h.hexdigest(),
+                   "iterations": res["log"][-1]["iteration"]}, f,
+                  default=lambda o: o.item())
+
+
+def observability(n, out, failures, work, logs):
+    """Part obs (see the module docstring)."""
+    runs = {plane: torchrun(n, f"obs_{plane}", [plane], work, logs,
+                            kind="obs") for plane in ("socket", "gloo")}
+    res = {}
+    for plane, docs in runs.items():
+        res[plane] = {"plane": docs[0]["plane"],
+                      "calls_equal": all(d["calls"] == docs[0]["calls"]
+                                         for d in docs),
+                      "calls": docs[0]["calls"]}
+        if not res[plane]["calls_equal"]:
+            failures.append(f"obs {plane}: ranks' collective calls differ")
+    sock, gloo = runs["socket"], runs["gloo"]
+    res["objs_equal"] = all(a["objs"] == b["objs"]
+                            for a, b in zip(sock, gloo))
+    res["params_equal"] = all(a["digest"] == b["digest"]
+                              for a, b in zip(sock, gloo))
+    if sock[0]["plane"] != ["SocketControlPlane", "NativeTransport"]:
+        failures.append(f"obs: socket run on {sock[0]['plane']}")
+    if not res["objs_equal"]:
+        failures.append("obs: object ops socket != gloo")
+    if not res["params_equal"]:
+        failures.append("obs: parameters socket != gloo")
+    recs = [json.loads(ln) for ln in open(os.path.join(
+        work, "obs_socket_out", "metrics.jsonl"))]
+    strag = [x for x in recs if x.get("kind") == "straggler_report"]
+    res["straggler_ranks"] = strag[-1]["n_ranks"] if strag else None
+    if res["straggler_ranks"] != n:
+        failures.append(f"obs: straggler report over "
+                        f"{res['straggler_ranks']} ranks")
+    print(json.dumps({"obs": res}), flush=True)
+    out["obs"] = res
 
 
 if __name__ == "__main__":

@@ -356,8 +356,8 @@ def test_moe_rejects_expert_count_mismatch():
 def test_planner_routes_raise_naming_a11():
     """The planner's routes are ported (A11): on a world of one the flat
     exchange plan is the raw path bit for bit, ``moe_plan_topology`` is
-    the communicator's, the layer keeps its plan; only the per-hop spans
-    (``plan_obs=``, the observability stack) raise, naming A13."""
+    the communicator's, the layer keeps its plan; and the per-hop spans
+    (``plan_obs=``, ported with A13 (a)) record the exchanges' stages."""
     from chainermn_tpu_torch.parallel import expert
     from chainermn_tpu_torch.planner import alltoall_plans
     rng = np.random.RandomState(3)
@@ -370,7 +370,20 @@ def test_planner_routes_raise_naming_a11():
     got = moe_apply(lambda t: 2.0 * t, logits, x, num_experts=E,
                     plan=flat, plan_topology=topo)
     assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="Queue A13"):
-        moe_apply(lambda t: t, logits, x, plan_obs=object())
+    # the per-hop spans are ported (A13 a): a PlanObs records both
+    # exchanges' stages, and the output is the same bits
+    from chainermn_tpu_torch.observability import (
+        FlightRecorder, MetricsRegistry, PlanObs)
+    rec, reg = FlightRecorder(), MetricsRegistry()
+    got = moe_apply(lambda t: 2.0 * t, logits, x, num_experts=E,
+                    plan=flat, plan_topology=topo,
+                    plan_obs=PlanObs(rec, reg))
+    assert torch.equal(got, want)
+    kinds = [e["kind"] for e in rec.snapshot()]
+    assert kinds == ["plan_stage_begin", "plan_stage_end"] * 2
+    assert {e["plan"] for e in rec.snapshot()} == {flat.name}
+    assert reg.get("plan_stage_seconds").count(
+        plan=flat.name, stage="0", op="all-to-all",
+        scope=flat.stages[0].scope, link="ib", group="-") == 2
     mlp = expert.ExpertParallelMLP(D, H, plan=flat, device="cpu")
     assert mlp.plan is flat

@@ -109,3 +109,62 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+_FACADE = _GUARD.split("import chainermn_tpu_torch\n")[0] + """
+import chainermn_tpu_torch as c
+from chainermn_tpu_torch.ops import _build
+from chainermn_tpu_torch.runtime import native
+missing = [n for n in c.__all__ if getattr(c, n, None) is None]
+assert not missing, missing
+assert _build._LIBS == {} and native._lib is None, "something was built"
+print("names", len(c.__all__))
+"""
+
+_NATIVE = _GUARD.split("import chainermn_tpu_torch\n")[0] + """
+import threading
+from chainermn_tpu_torch.benchmarks.bench_transport import free_port
+from chainermn_tpu_torch.runtime.native import NativeTransport, library_path
+coord = "127.0.0.1:%d" % free_port()
+tps = [None, None]
+def boot(r):
+    tps[r] = NativeTransport(r, 2, coord)
+ts = [threading.Thread(target=boot, args=(r,), daemon=True) for r in (0, 1)]
+[t.start() for t in ts]
+[t.join(60) for t in ts]
+try:
+    tps[0].send(1, 3, b"ping")
+    assert tps[1].recv(0, 3, timeout=30) == b"ping"
+finally:
+    [t.close() for t in tps if t is not None]
+print(library_path())
+"""
+
+
+def test_facade_names_resolve_without_building_anything():
+    proc = subprocess.run([sys.executable, "-c", _FACADE], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) >= 60
+    for name in ("ControlPlane", "SocketControlPlane", "get_control_plane",
+                 "reserved_tag", "observability", "CommunicatorBase",
+                 "scatter_index", "create_multi_node_evaluator",
+                 "MultiNodeBatchNormalization", "Topology", "init_topology",
+                 "flash_attention", "InferenceEngine", "ServingConfig",
+                 "Plan", "PlanTable", "execute_plan"):
+        import chainermn_tpu_torch
+        assert name in chainermn_tpu_torch.__all__, name
+
+
+def test_native_transport_builds_without_jax():
+    """``csrc/dcn_transport.cpp`` builds with g++ into ``build/native/``
+    and two native ranks exchange a frame, in an interpreter that refuses
+    JAX and ``chainermn_tpu``."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this machine")
+    proc = subprocess.run([sys.executable, "-c", _NATIVE], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    path = proc.stdout.split()[-1]
+    assert os.path.relpath(path, REPO).startswith(
+        os.path.join("build", "native"))

@@ -179,9 +179,23 @@ def test_example_trains_on_a_gloo_world(mnist_world):
 
 
 def test_example_refuses_what_is_not_ported(tmp_path):
+    from chainermn_tpu_torch import observability as obs
     from chainermn_tpu_torch.examples import train_mnist
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_mnist.main(["--observability", "--device", "cpu"])
+    # --observability is ported (A13 a): the run trains and writes its
+    # metrics JSONL
+    try:
+        res = train_mnist.main(["--observability", "--device", "cpu",
+                                "--epoch", "1", "--unit", "32",
+                                "--prefetch", "0", "--out",
+                                str(tmp_path / "obs")])
+    finally:
+        obs.disable()
+        obs.reset_flight_recorder()
+        obs.get_registry().reset()
+    assert res["log"][-1]["validation/accuracy"] > 0.5
+    kinds = {r.get("kind") for r in obs.read_jsonl(
+        str(tmp_path / "obs" / "metrics.jsonl"))}
+    assert {"step_report", "metric", "straggler_report"} <= kinds
     assert not dist.is_initialized() or dist.get_world_size() == 1
     # --compression is ported (A10): int8 runs and trains
     res = train_mnist.main(["--compression", "int8", "--device", "cpu",

@@ -4,7 +4,7 @@
         python tests/torch_dist_worker.py \\
             {comm|train|opt|mnist|lm|unused|coll|zero|syncbn|imagenet|seq|
              p2p|chain|seq2seq|pconv|configs|serve|accum|fsdp|tpep|
-             moelm|tpserve|compress|pipe|plan|planuse} \\
+             moelm|tpserve|compress|pipe|plan|planuse|obs} \\
             IN.npz OUT_PREFIX
 
 Reads the stacked per-rank inputs from ``IN.npz`` (leading axis = rank),
@@ -2043,6 +2043,124 @@ def run_planuse(inp, rank):
     return out
 
 
+def _obs_reset():
+    from chainermn_tpu_torch import observability as obs
+    obs.disable()
+    obs.reset_flight_recorder()
+    obs.get_registry().reset()
+
+
+def comm_metric_rows(snapshot) -> list:
+    """The ``comm_*`` records of a registry snapshot, seconds reduced to
+    their counts: ``[name, labels, value]`` sorted (JSON-friendly)."""
+    rows = []
+    for r in snapshot:
+        if not r["name"].startswith("comm_"):
+            continue
+        val = r["count"] if r["type"] == "histogram" else r["value"]
+        rows.append([r["name"], sorted(r["labels"].items()), val])
+    return sorted(rows)
+
+
+def instrument_sequence(inst, rank: int, n: int) -> None:
+    """The op sequence the instrumented-communicator parity runs (the
+    JAX side runs the same in ``run_spmd``)."""
+    g = {"a": torch.full((3, 4), float(rank)), "b": torch.ones(5)}
+    inst.allreduce_grad(g)
+    inst.bcast_data({"w": torch.ones(3, 4)})
+    inst.allgather_obj(rank)
+    inst.bcast_obj("x" if rank == 0 else None)
+    inst.allreduce_obj({"v": rank})
+    inst.gather_obj(rank)
+    inst.scatter_obj(list(range(n)) if rank == 0 else None)
+    inst.barrier()
+
+
+def run_obs(inp, rank):
+    """Observability parts (``parts``): ``inst`` -- the instrumented xla
+    float16 communicator through :func:`instrument_sequence`, its
+    ``comm_*`` rows as JSON; ``mnist`` -- ``train_mnist.main(argv)`` with
+    observability off then on: both runs' parameters, the cast kernel's
+    (plain on the CPU) call counts, the metrics records' kinds and keys;
+    ``cp`` -- the default control plane (a socket world at MASTER_PORT +
+    1), a communicator on it against the gloo plane on the same object
+    ops, and a split of it."""
+    from chainermn_tpu_torch import observability as obs
+    parts = str(inp["parts"]).split(",")
+    n = dist.get_world_size()
+    out = {}
+    if "inst" in parts:
+        obs.enable()
+        try:
+            comm = create_communicator("xla", allreduce_grad_dtype="float16",
+                                       device="cpu")
+            inst = obs.instrument_communicator(comm)
+            instrument_sequence(inst, rank, n)
+            out["inst/rows"] = np.asarray(json.dumps(comm_metric_rows(
+                obs.get_registry().snapshot())))
+        finally:
+            _obs_reset()
+    if "mnist" in parts:
+        from chainermn_tpu_torch.examples import train_mnist
+        import importlib
+        cs = importlib.import_module("chainermn_tpu_torch.ops.cast_scale")
+        plain = cs.cast_scale_plain
+        calls = [0]
+
+        def counting(*a, **k):
+            calls[0] += 1
+            return plain(*a, **k)
+
+        cs.cast_scale_plain = counting
+        try:
+            argv = str(inp["argv"]).split()
+            for label, extra in (("off", []), ("on", ["--observability"])):
+                calls[0] = 0
+                try:
+                    res = train_mnist.main(argv + extra + [
+                        "--out", str(inp["out"]) + f"/{label}"])
+                finally:
+                    _obs_reset()
+                out[f"{label}/casts"] = np.asarray(calls[0])
+                out[f"{label}/iters"] = np.asarray(
+                    res["log"][-1]["iteration"])
+                for k, v in res["model"].state_dict().items():
+                    out[f"{label}/param/{k}"] = v.numpy()
+        finally:
+            cs.cast_scale_plain = plain
+    if "cp" in parts:
+        from chainermn_tpu_torch.runtime import control_plane as pcp
+        cp = pcp.get_control_plane()
+        out["cp/type"] = np.asarray(type(cp).__name__)
+        out["cp/rank_size"] = np.asarray([cp.rank, cp.size])
+        try:
+            res = {}
+            for label, kw in (("gloo", {}), ("socket", {"control_plane": cp})):
+                comm = create_communicator("naive", device="cpu", **kw)
+                got = [comm.bcast_obj({"s": 7} if rank == 0 else None),
+                       comm.gather_obj(rank * 3),
+                       comm.scatter_obj([f"i{r}" for r in range(n)]
+                                        if rank == 0 else None),
+                       comm.allgather_obj((rank, "x")),
+                       comm.allreduce_obj({"a": rank + 1, "b": [rank]}),
+                       comm.allreduce_obj(rank, op="max")]
+                comm.barrier()
+                if rank == 0:
+                    comm.send_obj("ping", n - 1, tag=21)
+                if rank == n - 1:
+                    got.append(comm.recv_obj(0, tag=21))
+                sub = comm.split(rank % 2, rank)
+                got.append(sub.allgather_obj(rank))
+                got.append(type(sub._cp).__name__)
+                res[label] = got
+            for label, got in res.items():  # numpy scalars as numbers
+                out[f"cp/{label}"] = np.asarray(json.dumps(
+                    got, default=lambda o: o.item()))
+        finally:
+            pcp.reset_control_plane()
+    return out
+
+
 def flatten_tensors(tree, prefix=""):
     """``{path: tensor}`` of a nested dict of tensors."""
     if isinstance(tree, dict):
@@ -2097,7 +2215,7 @@ def main():
            "moelm": run_moelm,
            "tpserve": run_tpserve, "compress": run_compress,
            "pipe": run_pipe, "plan": run_plan,
-           "planuse": run_planuse}[mode](inp, topo.rank)
+           "planuse": run_planuse, "obs": run_obs}[mode](inp, topo.rank)
     np.savez(f"{out_prefix}.{topo.rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
