@@ -24,7 +24,23 @@ of the world (one GPU each under ``torchrun``; a world of one without it):
   (``planner.census_of_record``: a default all-gather and a multicast are
   JAX's masked-psum ``all-reduce``), to ``planner.plan_census_kinds`` of
   the stages that issue a collective (a stage over one rank issues none,
-  where JAX's census counts it).
+  where JAX's census counts it);
+* ``--traced OUT.json`` -- what the per-stage span hooks cost: the plan
+  of the first ``--communicators`` flavor (``comm.plan()``, or
+  ``--plan``) through ``execute_plan`` at ``--mb`` MiB, ``--repeats``
+  interleaved pairs of an arm without observability and an arm with a
+  flight recorder and ``pobs=get_plan_obs(comm)`` (a stream synchronize
+  and an event at each stage edge), plus one
+  ``TelemetryAggregator.collect`` a repeat amortized over ``--iters``
+  calls into the on arm; writes ``tracing_overhead/v1`` with
+  :func:`overhead_stats`' noise guard (the per-repeat paired overheads
+  and their spread);
+* ``--replay-spans FILE`` -- no device: feeds a span dump (a flight dump,
+  a JSON event list or an event JSONL; JAX's ``"ici"``/``"dcn"`` read as
+  ``"nvlink"``/``"ib"``) through the online tuner and writes the
+  ``online_tune/v1`` re-tune decision (``--replay-topology``,
+  ``--replay-table``, ``--replay-out``, ``--stripe-ratios``,
+  ``--link-gbps`` for links the dump does not observe).
 
 Times are the least of 3 medians over ``--iters`` calls, each call between
 CUDA events on the card (NCCL; where the device waits on the host, the
@@ -32,14 +48,17 @@ host's time a call shows), the host's clock on the CPU (gloo; the times
 there only validate the harness).
 ``--metrics PATH`` appends one record a flavor (``kind``
 ``bench_allreduce``, with the common envelope) to a metrics JSONL on rank
-0, as JAX's does.  The JAX script's ``--traced`` and ``--replay-spans``
-read the observability stack's telemetry aggregator and the online
-tuner's span inputs, which are not ported: they raise, naming ROADMAP.md
-Queue A13 (b).
+0, as JAX's does.
 
     python -m chainermn_tpu_torch.benchmarks.bench_allreduce --mb 64
     python -m chainermn_tpu_torch.benchmarks.bench_allreduce \\
         --sweep sweep.json
+    python -m chainermn_tpu_torch.benchmarks.bench_allreduce \
+        --communicators xla --allreduce-grad-dtype bfloat16 --mb 97.5 \
+        --traced traced.json
+    python -m chainermn_tpu_torch.benchmarks.bench_allreduce \
+        --replay-spans tests/data/degraded_dcn_spans.json \
+        --replay-out online_tune.json
     torchrun --nproc_per_node 4 -m \\
         chainermn_tpu_torch.benchmarks.bench_allreduce --intra-size 2 \\
         --sweep sweep4.json
@@ -49,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -97,9 +117,25 @@ def parse_args(argv=None):
     p.add_argument("--metrics", default=None, metavar="PATH",
                    help="append one record per flavor to this metrics "
                         "JSONL (rank 0)")
-    for flag in ("--traced", "--replay-spans"):
-        p.add_argument(flag, default=None,
-                       help="not ported (observability, ROADMAP.md A13 b)")
+    p.add_argument("--traced", metavar="OUT.json", default=None,
+                   help="A/B the per-stage span hooks' cost on the first "
+                        "flavor's plan and write tracing_overhead/v1")
+    p.add_argument("--repeats", type=int, default=3,
+                   help="interleaved off/on pairs for --traced (the least "
+                        "of each arm is its time)")
+    p.add_argument("--replay-spans", metavar="FILE", default=None,
+                   help="feed a span dump through the online tuner and "
+                        "write its re-tune decision (no device)")
+    p.add_argument("--replay-topology", default="inter:2,intra:4",
+                   metavar="KEY",
+                   help="PlanTopology key the replayed spans were recorded "
+                        "on")
+    p.add_argument("--replay-table", metavar="FILE", default=None,
+                   help="baseline plan table of the re-tune (default: "
+                        "empty, i.e. the flat fallback plan)")
+    p.add_argument("--replay-out", metavar="OUT.json", default=None,
+                   help="write the --replay-spans document here (default: "
+                        "stdout)")
     return p.parse_args(argv)
 
 
@@ -322,6 +358,226 @@ def census(args) -> dict:
     return doc
 
 
+def load_events(path):
+    """Events of a flight dump (``{"events": [...]}``), a JSON event list
+    or an event JSONL; undecodable JSONL lines are skipped."""
+    with open(path) as f:
+        head = f.read(1)
+        f.seek(0)
+        if head in ("[", "{"):
+            try:
+                doc = json.load(f)
+            except json.JSONDecodeError:
+                doc = None
+            if isinstance(doc, list):
+                return doc
+            if isinstance(doc, dict):
+                return list(doc.get("events", []))
+            f.seek(0)
+        events = []
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                events.append(json.loads(line))
+            except json.JSONDecodeError:
+                continue
+        return events
+
+
+def replay(args) -> dict:
+    """``--replay-spans``: reproduce an online re-tune decision offline,
+    through the SAME observation store and decision path the live loop
+    uses (``planner.online.OnlineTuner``): completed ``plan_stage`` spans
+    become observed per-link rates, the candidate zoo is re-priced at
+    those rates, and the document records whether the tuner would swap
+    and at what modeled speedup.  Deterministic and device-free."""
+    from chainermn_tpu_torch.observability.ledger import stamp_envelope
+    from chainermn_tpu_torch.planner.autotune import PlanTable
+    from chainermn_tpu_torch.planner.ir import PlanTopology
+    from chainermn_tpu_torch.planner.online import (
+        ONLINE_TUNE_SCHEMA, OnlineTuner)
+    from chainermn_tpu_torch.planner.plans import STRIPE_RATIOS
+
+    events = load_events(args.replay_spans)
+    topology = PlanTopology.from_key(args.replay_topology)
+    ratios = STRIPE_RATIOS if args.stripe_ratios is None else tuple(
+        float(r) for r in str(args.stripe_ratios).split(",") if r.strip())
+    fallback = parse_link_gbps(args.link_gbps) if args.link_gbps else None
+    table = PlanTable.load(args.replay_table) if args.replay_table else None
+    tuner = OnlineTuner(topology=topology, dtype=args.dtype, table=table,
+                        stripe_ratios=ratios, fallback_gbps=fallback,
+                        min_samples=1)
+    n_spans = tuner.ingest(events)
+    regressions = [e for e in events
+                   if e.get("kind") == "attribution_regression"]
+    tuner.on_regression(regressions)
+    decision = tuner.retune()
+    doc = {
+        "schema": ONLINE_TUNE_SCHEMA,
+        "source": os.path.basename(args.replay_spans),
+        "topology": topology.key(),
+        "dtype": args.dtype,
+        "n_events": len(events),
+        "n_spans": n_spans,
+        "regression_events": len(regressions),
+        "observed_gbps": tuner.observations.observed_gbps(1),
+        "timestamp": time.time(),
+        "retune": None,
+    }
+    if decision is not None:
+        doc["retune"] = {k: decision[k] for k in (
+            "best_speedup", "swap", "threshold", "table_hash",
+            "rows_merged", "cells")}
+    stamp_envelope(doc)
+    blob = json.dumps(doc, indent=2) + "\n"
+    if args.replay_out:
+        with open(args.replay_out, "w") as f:
+            f.write(blob)
+        best = (doc["retune"] or {}).get("best_speedup")
+        print(f"replay: {n_spans} plan-stage spans, observed "
+              f"{doc['observed_gbps']}, retune_speedup="
+              f"{best if best is not None else 'n/a'} "
+              f"-> {args.replay_out}", file=sys.stderr)
+    else:
+        print(blob, end="")
+    return doc
+
+
+def overhead_stats(off_s, on_s, collect_s_per_iter=0.0):
+    """Noise-aware summary of a paired A/B overhead measurement.
+
+    ``off_s``/``on_s`` are per-repeat times (seconds per iteration) for
+    the instrumented-off and instrumented-on arms; ``collect_s_per_iter``
+    is amortized into every on-arm sample.  Returns the published
+    ``tracing_overhead_pct`` plus the honesty fields:
+
+    * ``raw_overhead_pct`` — the min-vs-min center, sign preserved;
+    * ``per_repeat_pct`` — the paired overhead of each repeat (repeat i's
+      on arm vs repeat i's off arm), the spread's raw material;
+    * ``spread_pct`` — max-min across the paired repeats;
+    * ``noise_dominated`` — True when the spread swallows the center
+      (spread >= max(|center|, 1.0)) **or** the center is negative:
+      tracing cannot make the program faster, so a negative center is a
+      measurement-noise artifact, not a win.  When set, the published
+      pct is clamped at 0 instead of advertising the artifact.
+    """
+    off_s = [float(t) for t in off_s]
+    on_s = [float(t) + float(collect_s_per_iter) for t in on_s]
+    if not off_s or not on_s:
+        raise ValueError("overhead_stats needs at least one repeat "
+                         "per arm")
+    per_repeat = [(on - off) / off * 100.0
+                  for off, on in zip(off_s, on_s)]
+    center = (min(on_s) - min(off_s)) / min(off_s) * 100.0
+    spread = (max(per_repeat) - min(per_repeat)) \
+        if len(per_repeat) > 1 else 0.0
+    noise_dominated = spread >= max(abs(center), 1.0) or center < 0.0
+    published = max(center, 0.0) if noise_dominated else center
+    return {
+        "tracing_overhead_pct": round(published, 3),
+        "raw_overhead_pct": round(center, 3),
+        "per_repeat_pct": [round(p, 3) for p in per_repeat],
+        "spread_pct": round(spread, 3),
+        "noise_dominated": noise_dominated,
+    }
+
+
+def traced(args) -> dict:
+    """``--traced``: what the per-stage span hooks cost (see the module
+    note).  Both arms run the same plan through ``execute_plan``; the on
+    arm adds the flight recorder and the stage hook, which synchronizes
+    the stream and records an event at each stage edge.  Each arm's time
+    is the least over ``--repeats`` of :func:`time_calls`, and
+    :func:`overhead_stats` guards the published overhead against the
+    pairs' spread."""
+    from chainermn_tpu_torch.observability import flight_recorder as _flight
+    from chainermn_tpu_torch.observability.ledger import stamp_envelope
+    from chainermn_tpu_torch.observability.spans import get_plan_obs
+    from chainermn_tpu_torch.observability.streaming import \
+        TelemetryAggregator
+    from chainermn_tpu_torch.planner import execute_plan, load_plan
+
+    flavor = args.communicators.split(",")[0]
+    kw = {}
+    if args.allreduce_grad_dtype and flavor in ("xla", "pure_nccl"):
+        kw["allreduce_grad_dtype"] = args.allreduce_grad_dtype
+    comm = create_communicator(flavor, intra_size=args.intra_size,
+                               device=args.device, **kw)
+    plan = load_plan(args.plan) if args.plan else comm.plan()
+    n_elems = int(args.mb * (1 << 20) / dtype_itemsize(args.dtype))
+    g = rank_buffer(comm, n_elems, args.dtype)
+
+    def run_arm(pobs):
+        def call():
+            return execute_plan(plan, comm, g, pobs=pobs)
+        check_mean(call(), comm, f"--traced plan {plan.name}")
+        return time_calls(call, comm, args.iters, args.warmup)
+
+    had_recorder = _flight.get_flight_recorder() is not None
+    times = {"off": [], "on": []}
+    collects = []
+    events_recorded = 0
+    try:
+        for i in range(max(int(args.repeats), 1)):
+            if not had_recorder:
+                _flight.reset_flight_recorder()
+            times["off"].append(run_arm(None))
+            fr = _flight.install_flight_recorder()
+            before = len(fr.snapshot()) + fr.dropped_events
+            times["on"].append(run_arm(get_plan_obs(comm)))
+            events_recorded = len(fr.snapshot()) + fr.dropped_events \
+                - before
+            # the streaming window ride-along: one telemetry collect an
+            # emit interval (= iters calls), amortized into the on arm
+            agg = TelemetryAggregator(comm)
+            c0 = time.perf_counter()
+            agg.collect(i)
+            collects.append(time.perf_counter() - c0)
+    finally:
+        if not had_recorder:
+            _flight.reset_flight_recorder()
+    if events_recorded <= 0:
+        raise AssertionError("--traced: the traced arm recorded no "
+                             "plan_stage events; the A/B is meaningless")
+    collect_s = min(collects)
+    per_iter_collect = collect_s / max(int(args.iters), 1)
+    stats = overhead_stats(times["off"], times["on"], per_iter_collect)
+    doc = {"schema": "tracing_overhead/v1", **card_line(comm),
+           "n_devices": comm.size,
+           "communicator": flavor,
+           "plan": plan.name,
+           "payload_mib": args.mb,
+           "iters": args.iters,
+           "repeats": args.repeats,
+           "timer": "event" if comm.device.type == "cuda" else "host",
+           "time_ms_off": round(min(times["off"]) * 1e3, 4),
+           "time_ms_on": round((min(times["on"]) + per_iter_collect)
+                               * 1e3, 4),
+           "times_ms_off": [t * 1e3 for t in times["off"]],
+           "times_ms_on": [t * 1e3 for t in times["on"]],
+           "streaming_collect_ms": round(collect_s * 1e3, 4),
+           "events_per_traced_run": events_recorded,
+           "timestamp": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())}
+    doc.update(stats)
+    if comm.rank == 0:
+        stamp_envelope(doc, n_devices=comm.size, backend=doc["backend"])
+        if stats["noise_dominated"]:
+            print(f"--traced: noise-dominated measurement (center "
+                  f"{stats['raw_overhead_pct']}%, spread "
+                  f"{stats['spread_pct']}% over {len(times['off'])} "
+                  f"repeats) -- publishing clamped overhead "
+                  f"{stats['tracing_overhead_pct']}%", file=sys.stderr)
+        with open(args.traced, "w") as f:
+            json.dump(doc, f, indent=2)
+            f.write("\n")
+        print(json.dumps({k: doc[k] for k in (
+            "tracing_overhead_pct", "noise_dominated", "time_ms_off",
+            "time_ms_on")}), flush=True)
+    return doc
+
+
 def flavors(args) -> list:
     """The default mode: each flavor's ``allreduce_grad`` (and ``--plan``)
     timed at ``--mb`` MiB (see the module note)."""
@@ -398,16 +654,14 @@ def flavors(args) -> list:
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag in ("traced", "replay_spans"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} reads the observability "
-                "stack's telemetry aggregator and the online tuner's span "
-                "inputs, which are not ported yet; see ROADMAP.md Queue "
-                "A13 (b)")
+    if args.replay_spans:
+        # the replay touches no device: it runs before any process group
+        return replay(args)
     import torch.distributed as dist
     created = not dist.is_initialized()
     try:
+        if args.traced:
+            return traced(args)
         if args.census:
             return census(args)
         if args.sweep:

@@ -8,9 +8,8 @@ the three gradient exchange seams --
 ``allreduce_grad_dtype`` cast (now exactly ``NoCompression(wire_dtype)``)
 into int8/fp8 quantization with error feedback.  ``base.py`` holds the
 protocol, ``quantize.py`` the codecs, ``error_feedback.py`` the EF state
-that checkpoints carry.  The JAX package's ``observe.py`` (the
-``compression_*`` metrics) waits for the observability stack (ROADMAP.md
-Queue A13).
+that checkpoints carry, ``observe.py`` the ``compression_*`` metrics and
+the codecs' compute spans (observability on).
 """
 
 from chainermn_tpu_torch.compression.base import (

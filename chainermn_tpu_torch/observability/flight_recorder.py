@@ -9,7 +9,8 @@ forever; steady-state metrics show *nothing* because nothing is
 progressing.  Production collective stacks answer this with a bounded
 per-process ring of structured events plus a watchdog that dumps the ring
 when progress stalls (the NCCL / PyTorch "flight recorder" design).  This
-module is the ring; the watchdog is ROADMAP.md Queue A13 (b).
+module is the ring; :mod:`chainermn_tpu_torch.observability.watchdog` is
+the watchdog.
 
 What rides the ring (each event one small dict, O(1) to record):
 

@@ -6,7 +6,7 @@ ledger.py`` (``schema_version``, ``git_sha``, ``detect_device_kind``,
 and version, the device it ran on, the number of devices, the backend and
 the commit, so that a run ledger can classify it later.  The schema
 registry and the artifact classification are not ported yet (ROADMAP.md,
-Queue A13).
+Queue A13 (c)).
 """
 
 from __future__ import annotations

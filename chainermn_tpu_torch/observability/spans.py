@@ -49,6 +49,17 @@ from typing import Dict, List, Optional, Tuple
 #: pairing slack for float timestamps (well under any real span)
 _EPS = 1e-9
 
+#: JAX's link-class names and the card's: ``"ici"`` is the intra-node
+#: interconnect (NVLink here), ``"dcn"`` the inter-node network
+LINK_ALIASES = {"ici": "nvlink", "dcn": "ib"}
+
+
+def link_class(link):
+    """The card's name of a link class: JAX's ``"ici"`` / ``"dcn"`` (in a
+    dump written by the JAX package) read as ``"nvlink"`` / ``"ib"``;
+    any other value is returned as it is."""
+    return LINK_ALIASES.get(link, link)
+
 
 @dataclass
 class Span:
@@ -340,10 +351,12 @@ def get_plan_obs(comm=None) -> Optional[PlanObs]:
 
 
 __all__ = [
+    "LINK_ALIASES",
     "PlanObs",
     "Span",
     "build_step_trees",
     "get_plan_obs",
+    "link_class",
     "pair_events",
     "phase_spans",
     "stage_link_timings",

@@ -3,35 +3,40 @@ rates.
 
 Counterpart of ``chainermn_tpu/planner/online.py``.  The offline autotuner
 measures candidate plans once, at the link rates of the tuning run; an
-:class:`OnlineTuner` re-prices the candidate zoo
-(``planner.plans.candidate_plans``) through
-:func:`~chainermn_tpu_torch.planner.compiler.plan_modeled_time_s` at the
-*observed* per-link rates (:class:`LinkObservations`, keyed ``"nvlink"`` /
-``"ib"``), feeds the synthesized ``allreduce_sweep/v1`` rows to the
-unchanged :func:`~chainermn_tpu_torch.planner.autotune.autotune_from_rows`,
-and hot-swaps the :class:`~chainermn_tpu_torch.planner.autotune.PlanTable`
-at a step boundary when the modeled win clears ``threshold``: rank 0
-decides, the decision is broadcast on the object plane so every rank
-flips on the same step, and the new table's content hash
-(:func:`plan_table_hash`) is pinned into the checkpoint sidecar
-(``extensions/checkpoint.py``) so a resume refuses a silently different
-table.  The joint mode re-prices the whole registered step workload
-(``planner.schedule``).
+:class:`OnlineTuner`
 
-The JAX tuner is fed by the observability stack -- plan-stage spans from
-the flight recorder, attribution, contention timelines -- whose second
-slice is not ported (ROADMAP.md Queue A13 (b)):
-:meth:`OnlineTuner.ingest`, :meth:`~OnlineTuner.observe_attribution`,
-:meth:`~OnlineTuner.observe_timelines` and
-:meth:`LinkObservations.ingest_spans` / :meth:`~LinkObservations.
-ingest_events` raise, naming it, and the tuner keeps no flight recorder or
-metrics registry.  Observations go in through
-:meth:`LinkObservations.add` and :meth:`OnlineTuner.observe_payload` (the
-two facts ``ingest`` takes from a span: a link's bytes over seconds, and
-the payload size whose bucket is live).
+1. consumes the ``(group, stage)``-tagged ``plan_stage`` spans the plan
+   executor emits into the flight recorder (:meth:`OnlineTuner.ingest`),
+   folding each completed span into a rolling per-link-class observation
+   window (:class:`LinkObservations`, keyed ``"nvlink"`` / ``"ib"``; a
+   span tagged with JAX's ``"ici"`` / ``"dcn"`` counts as those);
+2. arms a re-tune when :class:`~chainermn_tpu_torch.observability.
+   straggler.AttributionWatch` flags a sustained ``ici_comm`` /
+   ``dcn_comm`` regression (:meth:`OnlineTuner.on_regression`);
+3. re-prices the candidate zoo (``planner.plans.candidate_plans``) through
+   :func:`~chainermn_tpu_torch.planner.compiler.plan_modeled_time_s` at
+   the *observed* rates, feeds the synthesized ``allreduce_sweep/v1`` rows
+   to the unchanged :func:`~chainermn_tpu_torch.planner.autotune.
+   autotune_from_rows`, and
+4. hot-swaps the :class:`~chainermn_tpu_torch.planner.autotune.PlanTable`
+   at a step boundary when the modeled win clears ``threshold``: rank 0
+   decides, the decision is broadcast on the object plane so every rank
+   flips on the same step, a ``plan_table_swap`` flight event marks the
+   boundary, and the new table's content hash (:func:`plan_table_hash`)
+   is pinned into the checkpoint sidecar (``extensions/checkpoint.py``) so
+   a resume refuses a silently different table.
 
-:func:`recommend_prefetch_depth` is the FSDP prefetch-depth advice from
-stall fractions.
+The joint mode re-prices the whole registered step workload
+(``planner.schedule``), filtered by contention occupancy timelines
+(:meth:`OnlineTuner.observe_timelines`).  :func:`recommend_prefetch_depth`
+is the FSDP prefetch-depth advice from stall fractions
+(:meth:`OnlineTuner.observe_attribution`).  Observations also go in
+directly through :meth:`LinkObservations.add` and
+:meth:`OnlineTuner.observe_payload`.
+
+Offline replay: ``chainermn_tpu_torch.benchmarks.bench_allreduce
+--replay-spans FILE`` feeds a span dump through this module to reproduce
+a re-tune decision.
 """
 
 from __future__ import annotations
@@ -50,17 +55,12 @@ from chainermn_tpu_torch.planner.plans import (STRIPE_RATIOS, candidate_plans,
 
 ONLINE_TUNE_SCHEMA = "online_tune/v1"
 
-
-def _a13(what: str):
-    return NotImplementedError(
-        f"{what} reads spans, flight-recorder events or attribution, which "
-        "need the observability stack's second slice; see ROADMAP.md "
-        "Queue A13 (b)")
-
 #: attribution buckets whose sustained regression arms a re-tune (the
 #: comm buckets -- a compute or host_input regression says nothing about
-#: plan choice; JAX's "ici_comm" / "dcn_comm")
-COMM_BUCKETS = ("nvlink_comm", "ib_comm")
+#: plan choice); JAX's names, which the port's attribution keeps
+COMM_BUCKETS = ("ici_comm", "dcn_comm")
+#: the same buckets under the card's link names
+_COMM_BUCKET_ALIASES = ("nvlink_comm", "ib_comm")
 
 
 def plan_table_hash(table) -> str:
@@ -117,11 +117,13 @@ def clear_active_plan_table() -> None:
 class LinkObservations:
     """Rolling window of observed per-link-class transfer rates.
 
-    Fed one transfer at a time (:meth:`add`: ``link`` in {"nvlink", "ib"},
-    wire ``nbytes``, seconds); the aggregate rate per link class is total
-    bytes over total seconds in the window -- the harmonic weighting a
-    byte-cost model wants, not a mean of per-transfer rates that would let
-    tiny transfers dominate.
+    Fed from completed ``plan_stage`` spans (each carries ``link``, wire
+    ``nbytes`` and a host-observed duration) or one transfer at a time
+    (:meth:`add`: ``link`` in {"nvlink", "ib"}, wire ``nbytes``,
+    seconds); the aggregate rate per link class is total bytes over total
+    seconds in the window -- the harmonic weighting a byte-cost model
+    wants, not a mean of per-transfer rates that would let tiny transfers
+    dominate.
     """
 
     def __init__(self, window: int = 256):
@@ -139,13 +141,30 @@ class LinkObservations:
             (nbytes, seconds))
 
     def ingest_spans(self, spans) -> int:
-        """Fold completed plan-stage spans: those come from the
-        observability stack, which raises here (ROADMAP.md Queue A13 (b))."""
-        raise _a13("LinkObservations.ingest_spans")
+        """Fold completed :class:`~chainermn_tpu_torch.observability.spans.
+        Span` objects (only ``kind == "plan_stage"`` counts; JAX's link
+        names read as the card's).  Returns how many were absorbed."""
+        from chainermn_tpu_torch.observability.spans import link_class
+
+        n = 0
+        for sp in spans:
+            if getattr(sp, "kind", None) != "plan_stage":
+                continue
+            self.add(link_class(sp.meta.get("link")), sp.meta.get("nbytes"),
+                     sp.dur_s)
+            n += 1
+        return n
 
     def ingest_events(self, events) -> int:
-        """Fold flight-recorder events (ROADMAP.md Queue A13 (b): raises)."""
-        raise _a13("LinkObservations.ingest_events")
+        """Fold raw flight-recorder events via the spans module's
+        per-stage link-timing export."""
+        from chainermn_tpu_torch.observability.spans import (
+            link_class, stage_link_timings)
+
+        timings = stage_link_timings(events)
+        for link, nbytes, dur_s in timings:
+            self.add(link_class(link), nbytes, dur_s)
+        return len(timings)
 
     def n_samples(self, link: str) -> int:
         return len(self._samples.get(link, ()))
@@ -226,11 +245,19 @@ class OnlineTuner:
     """The attribution-closed control loop over one communicator's plan
     table.
 
-    Feed it with ``observations.add`` and :meth:`observe_payload`;
-    :meth:`on_regression` arms a re-tune from flagged comm buckets, and
-    :meth:`maybe_swap` -- COLLECTIVE, called at the same trigger on every
-    rank -- computes the decision on rank 0, broadcasts it on the object
-    plane, and applies it everywhere on the same step boundary.
+    Drive it from ``MetricsReport`` (``MetricsReport(online_tune=True)``):
+    :meth:`ingest` absorbs each newly-completed step's flight events
+    (``observations.add`` and :meth:`observe_payload` feed it directly),
+    :meth:`on_regression` arms a re-tune from the attribution watch's
+    flagged comm buckets, and :meth:`maybe_swap` -- COLLECTIVE, called at
+    the same trigger on every rank -- computes the decision on rank 0,
+    broadcasts it on the object plane, and applies it everywhere on the
+    same step boundary.
+
+    ``flight`` / ``registry`` default to the process-wide flight recorder
+    and (with observability on) metrics registry: the re-tune, swap and
+    prefetch-recommendation events and the ``plan_table_swaps_total`` /
+    ``online_retunes_total`` / ``retune_speedup`` metrics go there.
 
     ``fallback_gbps`` prices link classes the window has not observed
     yet (e.g. a plan with no inter-node hop never exercises ``ib``); with no
@@ -247,8 +274,9 @@ class OnlineTuner:
                  stripe_ratios: Tuple[float, ...] = STRIPE_RATIOS,
                  fallback_gbps: Optional[Dict[str, float]] = None,
                  joint: bool = False):
-        if flight is not None or registry is not None:
-            raise _a13("OnlineTuner(flight=, registry=)")
+        from chainermn_tpu_torch.observability import (
+            flight_recorder as _flight, registry as _registry)
+
         if threshold < 1.0:
             raise ValueError(f"threshold must be >= 1, got {threshold}")
         self.comm = comm
@@ -273,10 +301,22 @@ class OnlineTuner:
         self.joint = bool(joint)
         self._timelines: Optional[dict] = None
         self.observations = LinkObservations(window=window)
-        # no flight recorder or metrics registry until the observability
-        # stack is ported (ROADMAP.md Queue A13 (b))
-        self._flight = None
-        self._reg = None
+        self._flight = flight if flight is not None \
+            else _flight.get_flight_recorder()
+        reg = registry if registry is not None else \
+            (_registry.get_registry() if _registry.enabled() else None)
+        self._reg = reg
+        if reg is not None:
+            self._swaps_total = reg.counter(
+                "plan_table_swaps_total",
+                "plan-table hot-swaps applied by the online tuner")
+            self._retunes_total = reg.counter(
+                "online_retunes_total",
+                "re-tune decisions computed (swapped or not)")
+            self._speedup_gauge = reg.gauge(
+                "retune_speedup",
+                "modeled old-plan/new-plan time ratio of the last "
+                "re-tune decision")
         #: max payload wire bytes seen per size bucket — the cells the
         #: re-tune re-prices (only traffic actually observed)
         self._payload_max: Dict[str, int] = {}
@@ -290,9 +330,19 @@ class OnlineTuner:
 
     # -- observation -------------------------------------------------------
     def ingest(self, events) -> int:
-        """Absorb flight-recorder events (ROADMAP.md Queue A13 (b): raises;
-        feed :attr:`observations` and :meth:`observe_payload` instead)."""
-        raise _a13("OnlineTuner.ingest")
+        """Absorb a slice of flight-recorder events: plan-stage spans
+        feed the link-rate window and mark their size bucket live."""
+        from chainermn_tpu_torch.observability.spans import pair_events
+
+        spans = pair_events(list(events))
+        n = self.observations.ingest_spans(spans)
+        for sp in spans:
+            if sp.kind != "plan_stage":
+                continue
+            nb = sp.meta.get("nbytes")
+            if nb:
+                self.observe_payload(int(nb))
+        return n
 
     def observe_payload(self, nbytes: int) -> None:
         """Mark the size bucket of a ``nbytes`` payload live: the re-tune
@@ -305,19 +355,27 @@ class OnlineTuner:
             self._payload_max[b] = max(self._payload_max.get(b, 0), nb)
 
     def observe_attribution(self, attribution: dict) -> None:
-        """Bank one step's attribution (ROADMAP.md Queue A13 (b): raises)."""
-        raise _a13("OnlineTuner.observe_attribution")
+        """Bank one step's attribution (stall fraction feeds the FSDP
+        prefetch recommendation)."""
+        step_s = float(attribution.get("step_s") or 0.0)
+        if step_s > 0:
+            stall = float(attribution.get("buckets", {}).get("stall", 0.0))
+            self._stall_fracs.append(stall / step_s)
 
     def observe_timelines(self, timelines: dict) -> None:
-        """Bank contention occupancy timelines (ROADMAP.md Queue A13 (b):
-        raises)."""
-        raise _a13("OnlineTuner.observe_timelines")
+        """Bank the latest contention occupancy timelines
+        (:func:`~chainermn_tpu_torch.observability.contention.
+        occupancy_timelines` / ``occupancy_from_events`` output) — the
+        evidence the joint retune uses to reconstruct WHICH registered
+        plan slots are actually in flight."""
+        self._timelines = timelines
 
     def on_regression(self, flagged: List[dict]) -> bool:
         """The AttributionWatch trigger seam: arm a re-tune when a comm
         bucket regressed.  Returns whether this call armed it."""
         comm_regs = [f for f in (flagged or [])
-                     if f.get("bucket") in COMM_BUCKETS]
+                     if f.get("bucket") in COMM_BUCKETS
+                     + _COMM_BUCKET_ALIASES]
         if not comm_regs:
             return False
         self._evidence.extend(comm_regs)

@@ -24,9 +24,8 @@ Counterpart of ``chainermn_tpu/planner/schedule.py``, whole and device-free
   :func:`clear_plan_slots`) -- the MoE exchange and the auto communicator
   announce their in-flight collectives there, and a jointly tuned plan is
   installed there.  :func:`reconstruct_workload` rebuilds the workload
-  from the registry; filtering it by contention occupancy timelines
-  (``timelines=``) needs the observability stack (ROADMAP.md Queue A13 (b))
-  and raises.
+  from the registry, filtered by contention occupancy timelines
+  (``timelines=``, ``observability.contention``).
 
 Jointly tuned plans are name-tagged ``<base>@wl:<signature>``.
 """
@@ -788,20 +787,13 @@ def reconstruct_workload(topology: PlanTopology,
                          slots: Optional[Dict[str, dict]] = None
                          ) -> Optional[StepWorkload]:
     """Rebuild the in-flight :class:`StepWorkload` from the plan-slot
-    registry.  Filtering it by contention occupancy evidence
-    (``timelines``, the observability stack's ``occupancy_timelines``)
-    raises: that stack is ROADMAP.md Queue A13 (b).
+    registry, filtered by contention occupancy evidence.
 
     ``timelines`` is ``occupancy_timelines`` output (``{link: {owner:
     intervals}}``); a registered slot is included when any timeline
     owner matches its declared ``owners`` patterns (no timelines =
     include every registered slot).  ``None`` when nothing matches —
     the online tuner then stays on its per-plan path."""
-    if timelines is not None:
-        raise NotImplementedError(
-            "reconstruct_workload(timelines=) reads contention occupancy "
-            "timelines, which need the observability stack; see "
-            "ROADMAP.md Queue A13 (b)")
     specs = slots if slots is not None else _SLOTS
     if not specs:
         return None

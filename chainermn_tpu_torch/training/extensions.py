@@ -101,13 +101,6 @@ class PrintReport:
         self._out.flush()
 
 
-def _a13b(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"MetricsReport({what}) needs the observability stack's second "
-        "slice (the watchdog, the online tuner's inputs, streaming "
-        "telemetry), which is not ported yet; see ROADMAP.md Queue A13 (b)")
-
-
 class MetricsReport:
     """Runtime-observability extension: per-step timing breakdown,
     communicator counters, and the periodic cross-rank straggler report,
@@ -129,11 +122,18 @@ class MetricsReport:
     trigger; only rank 0 writes files (none when ``trainer.out`` is
     ``None``).
 
-    ``watchdog=True``, ``online_tune=True`` and ``stream_telemetry=True``
-    (and ``CHAINERMN_TPU_WATCHDOG`` set while the extension is active)
-    raise: they are ROADMAP.md Queue A13 (b), and so are JAX's tuner
-    arguments (``online_tune_threshold``, ``online_tune_link_gbps``,
-    ``fsdp_prefetch``), which are not taken.
+    ``watchdog=True`` (``None``: the ``CHAINERMN_TPU_WATCHDOG`` variable
+    decides) starts the hang watchdog on the communicator's socket control
+    plane (``_cp``; local-only dumps without one), its dumps next to the
+    metrics file; ``finalize`` stops it, so a healthy run leaves no
+    ``flight_*.json``.  ``online_tune=True`` feeds an
+    :class:`~chainermn_tpu_torch.planner.online.OnlineTuner` from the
+    plan-stage spans and the attribution watch and hot-swaps the
+    communicator's plan table at an emit boundary (``online_tune_threshold``,
+    ``online_tune_link_gbps`` for links not observed yet, ``fsdp_prefetch=
+    (depth, buckets)`` for the advisory prefetch records).
+    ``stream_telemetry=True`` gathers every rank's window to rank 0 at each
+    emit and appends the ``fleet_telemetry/v1`` document.
     """
 
     priority = 45
@@ -149,16 +149,13 @@ class MetricsReport:
                  attribution_factor: float = 2.0,
                  profile_dir: Optional[str] = None,
                  online_tune: bool = False,
+                 online_tune_threshold: float = 1.05,
+                 online_tune_link_gbps: Optional[dict] = None,
+                 fsdp_prefetch: Optional[tuple] = None,
                  stream_telemetry: bool = False):
         if straggler_every < 1:
             raise ValueError(f"straggler_every must be >= 1, got "
                              f"{straggler_every}")
-        if watchdog:
-            raise _a13b("watchdog=True")
-        if online_tune:
-            raise _a13b("online_tune=True")
-        if stream_telemetry:
-            raise _a13b("stream_telemetry=True")
         self._emit = trigger
         self._filename = filename
         self._straggler_every = straggler_every
@@ -166,11 +163,29 @@ class MetricsReport:
         self._prometheus = prometheus
         self._registry = registry
         self._tokens_per_example = tokens_per_example
+        # watchdog=True starts the hang watchdog (flight dumps land next
+        # to the metrics JSONL); None defers to CHAINERMN_TPU_WATCHDOG.
         self._want_watchdog = watchdog
+        self._watchdog = None
         self._want_attribution = attribution
         self._attribution_factor = attribution_factor
         self._profile_dir = profile_dir
         self._attr = None
+        # online_tune=True closes the attribution loop: plan-stage spans
+        # feed an OnlineTuner and a flagged ici/dcn_comm regression
+        # re-tunes the communicator's PlanTable against the observed link
+        # rates, hot-swapping it at the next emit boundary (rank-0
+        # decision broadcast, so all ranks flip on the same step).
+        self._want_online_tune = online_tune
+        self._online_tune_threshold = online_tune_threshold
+        self._online_tune_link_gbps = online_tune_link_gbps
+        self._fsdp_prefetch = fsdp_prefetch
+        self._tuner = None
+        # stream_telemetry=True ships each rank's compact window summary
+        # to rank 0 at every emit and appends the folded fleet_telemetry
+        # document; the aggregator exists only with observability on.
+        self._want_stream = stream_telemetry
+        self._stream = None
         self._active = False
 
     def initialize(self, trainer):
@@ -179,10 +194,6 @@ class MetricsReport:
         self._active = obs.enabled()
         if not self._active:
             return
-        if self._want_watchdog is None and os.environ.get(
-                "CHAINERMN_TPU_WATCHDOG", "") not in ("", "0", "false",
-                                                      "off"):
-            raise _a13b("CHAINERMN_TPU_WATCHDOG")
         reg = self._registry if self._registry is not None else \
             obs.get_registry()
         comm = trainer.updater.comm
@@ -207,6 +218,22 @@ class MetricsReport:
                 registry=reg, flight=self._fr,
                 factor=self._attribution_factor,
                 profile_dir=self._profile_dir)
+        if self._want_online_tune and self._attr is not None:
+            from chainermn_tpu_torch.planner.online import OnlineTuner
+            self._tuner = OnlineTuner(
+                comm=comm, registry=reg, flight=self._fr,
+                threshold=self._online_tune_threshold,
+                fallback_gbps=self._online_tune_link_gbps)
+        if self._want_stream:
+            self._stream = obs.TelemetryAggregator(comm)
+        want_wd = self._want_watchdog
+        if want_wd is None:
+            want_wd = os.environ.get("CHAINERMN_TPU_WATCHDOG", "") \
+                not in ("", "0", "false", "off")
+        if want_wd and self._watchdog is None:
+            self._watchdog = obs.start_watchdog(
+                control_plane=getattr(comm, "_cp", None),
+                out_dir=trainer.out, rank=getattr(comm, "rank", 0))
 
     def _observe_attribution(self) -> None:
         """Feed every newly-completed step's span tree to the attribution
@@ -222,10 +249,15 @@ class MetricsReport:
         window = [e for e in evs if e.get("seq", 0) <= last_seq]
         from chainermn_tpu_torch.observability import (
             attribution as _attribution, spans as _spans)
+        if self._tuner is not None:
+            self._tuner.ingest(window)
         for tree in _spans.build_step_trees(
                 window, rank=getattr(self._comm, "rank", 0)):
             self._last_attr = _attribution.attribute_step(tree)
-            self._attr.observe(self._last_attr)
+            flagged = self._attr.observe(self._last_attr)
+            if self._tuner is not None:
+                self._tuner.observe_attribution(self._last_attr)
+                self._tuner.on_regression(flagged)
         self._attr_seq = last_seq
 
     def _emit_record(self, trainer) -> dict:
@@ -278,11 +310,25 @@ class MetricsReport:
             # COLLECTIVE over the object plane -- every rank reaches this
             # at the same trigger; do not gate it on the writer rank.
             straggler = self._tele.straggler.report()
+        swap = None
+        if self._tuner is not None:
+            # COLLECTIVE (rank-0 decision broadcast): every rank calls
+            # maybe_swap at this trigger so all ranks swap the plan table
+            # on the SAME step boundary; the communicator's next
+            # allreduce_grad selects from the new table.
+            swap = self._tuner.maybe_swap(trainer.updater.iteration)
+        fleet = None
+        if self._stream is not None:
+            # COLLECTIVE (gather to rank 0): every rank ships its
+            # telemetry window at this trigger.
+            fleet = self._stream.collect(trainer.updater.iteration)
         if not self._is_writer:
             return
         append_jsonl(self._path, record)
         write_snapshot_jsonl(self._path, self._reg.snapshot(),
                              rank=self._comm.rank)
+        if fleet is not None:
+            append_jsonl(self._path, dict(fleet, ts=time.time()))
         if straggler is not None:
             straggler = dict(straggler,
                              iteration=trainer.updater.iteration)
@@ -292,6 +338,29 @@ class MetricsReport:
                                           kind="step_attribution",
                                           ts=time.time()))
             self._last_attr = None
+        if self._tuner is not None:
+            if swap is not None:
+                # JSONL copy of the swap (minus the full table/comparison
+                # payloads — the flight event and sidecar pin carry the
+                # hash)
+                slim = {k: v for k, v in swap.items()
+                        if k not in ("table", "comparison")}
+                append_jsonl(self._path, dict(
+                    slim, kind="plan_table_swap",
+                    iteration=trainer.updater.iteration, ts=time.time()))
+            append_jsonl(self._path, dict(
+                self._tuner.state(),
+                iteration=trainer.updater.iteration, ts=time.time()))
+            if self._fsdp_prefetch is not None:
+                cur, nbuckets = self._fsdp_prefetch
+                rec = self._tuner.recommend_prefetch(int(cur),
+                                                     int(nbuckets))
+                if rec != int(cur):
+                    append_jsonl(self._path, {
+                        "kind": "fsdp_prefetch_recommendation",
+                        "current": int(cur), "recommended": rec,
+                        "iteration": trainer.updater.iteration,
+                        "ts": time.time()})
         if self._prometheus:
             write_prometheus(self._prometheus, self._reg.snapshot())
 
@@ -299,6 +368,11 @@ class MetricsReport:
         from chainermn_tpu_torch.observability import (
             append_jsonl, write_snapshot_jsonl)
 
+        if self._watchdog is not None:
+            # stop before the run goes quiet — a finished trainer must
+            # not read as a step stall
+            self._watchdog.stop()
+            self._watchdog = None
         if not self._active or self._win["steps"] == 0:
             return
         record = self._emit_record(trainer)

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 31   # the builds and phase 31 alone
+    python3 chip_smoke.py --phase 32   # the builds and phase 32 alone
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -442,6 +443,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     reduce-scatter a begin/end pair a step (the edges' CUDA events, read
     at the step's end); the step time off and on.  The summary's row 5
     adds (a)'s and (b)'s casts, row 6 (c)'s launches.
+32. observability's second slice (after 31, before the summary;
+    ``phase_obs2``), gated.  (a) Phase 31 (a)'s observed MNIST run with
+    ``CHAINERMN_TPU_WATCHDOG`` 0 and 1 (the watchdog's defaults),
+    ``P32_PAIRS`` pairs in turn: no ``flight_*.json``, no watchdog thread
+    after ``finalize``, the parameters bit-equal, 2 casts an iteration; the
+    second epoch's step time without and with the watchdog.  (b) The same
+    run with the watchdog polling every 0.1 s and iteration
+    ``P32_STALL_AT``'s stream held by ``torch.cuda._sleep`` (a stimulus of
+    a device-side hang): one ``step_stall`` dump, written inside the held
+    step while the main thread waits in the stream synchronize (its stack
+    in the dump), and the run's parameters bit-equal to (a)'s.  (c)
+    ``bench_allreduce --traced`` on the bf16 plan over ResNet-50's packed
+    gradient size (``P32_TRACED``): ``tracing_overhead/v1`` with its
+    per-repeat pairs and spread, 2 casts a call; ``--replay-spans`` on the
+    committed degraded dump gives the CPU's decision (``P32_REPLAY_HASH``).
+    (d) ``diff_runs`` of (a)'s last observed run against a run with
+    ``P32_DELAY_S`` of host time a batch names ``host_input``; the run
+    against itself names none.  (e) Phase 24's trace with observability
+    on, then one ``TelemetryAggregator.collect``: the fleet p50/p95/p99 of
+    the ``serving_*`` streaming histograms equal the registry's; flash
+    launches ``layers x passes``.  The summary's row 5 adds (a)-(d)'s
+    casts, row 6 (e)'s launches.
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
 """
@@ -5146,6 +5169,334 @@ def log_obs(p31, gpu, secs):
         f"{k} {v:.1f}" for k, v in p31["seconds"].items()) + ")")
 
 
+P32_PAIRS = 2        # (a): interleaved watchdog off / on pairs timed
+P32_STALL_AT = 100   # (b): the iteration whose stream is held
+P32_STALL_CYCLES = 1 << 31   # (b): torch.cuda._sleep's cycles (~1.1-1.3 s)
+P32_STALL_ENV = {"CHAINERMN_TPU_WATCHDOG_POLL": "0.1",
+                 "CHAINERMN_TPU_WATCHDOG_MAX_DUMPS": "1"}
+P32_DELAY_S = 1e-3   # (d): the host delay a batch in the candidate run
+P32_TRACED = ["--communicators", "xla", "--allreduce-grad-dtype",
+              "bfloat16", "--mb", repr(RESNET_GRADS * 4 / (1 << 20)),
+              "--iters", "20", "--warmup", "3", "--repeats", "5"]
+P32_REPLAY = "tests/data/degraded_dcn_spans.json"
+P32_REPLAY_HASH = "81094b6ac05b3840"  # the CPU's (and JAX's) decision
+
+
+@contextlib.contextmanager
+def _p32_env(env):
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def _p32_patch(obj, name, wrap):
+    """``obj.name`` replaced by ``wrap(original)`` for the block."""
+    orig = getattr(obj, name)
+    setattr(obj, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def _p32_mnist(cs, torch, label, env=None, patch=None):
+    """One observed ``train_mnist`` run (``P31_MNIST`` + ``--observability``,
+    a flight recorder installed) under ``env`` and ``patch``: its second
+    epoch's step ms, casts, parameters, flight events, the dumps left in
+    its directory and the watchdog threads alive after it."""
+    from chainermn_tpu_torch import observability as obs
+    from chainermn_tpu_torch.examples import train_mnist
+    out_dir = os.path.join(HERE, "build", f"chip_smoke_p32_{label}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    obs.install_flight_recorder()
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    try:
+        with _p32_env(env or {}), (patch or contextlib.nullcontext()):
+            res = train_mnist.main(P31_MNIST + ["--out", out_dir,
+                                                "--observability"])
+        torch.cuda.synchronize()
+        events = obs.get_flight_recorder().snapshot()
+    finally:
+        _obs_reset()
+    e1, e2 = res["log"][-2:]
+    dumps = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.startswith("flight_") and name.endswith(".json"):
+            with open(os.path.join(out_dir, name)) as f:
+                dumps[name] = json.load(f)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"casts": cs.launch_counts()["cast_scale"],
+            "iters": e2["iteration"],
+            "step_ms": (e2["elapsed_time"] - e1["elapsed_time"])
+            / (e2["iteration"] - e1["iteration"]) * 1e3,
+            "params": {k: v.detach().clone()
+                       for k, v in res["model"].state_dict().items()},
+            "events": events, "dumps": dumps,
+            "threads": obs.watchdog_thread_count()}
+
+
+def p32_watchdog(cs, torch):
+    """(a): ``P32_PAIRS`` interleaved pairs of the observed MNIST run
+    without and with ``CHAINERMN_TPU_WATCHDOG=1`` (its defaults)."""
+    runs = {"off": [], "on": []}
+    for label in ("off", "on") * P32_PAIRS:
+        env = {"CHAINERMN_TPU_WATCHDOG": "1" if label == "on" else "0"}
+        runs[label].append(_p32_mnist(cs, torch, f"a_{label}", env))
+    runs["step_ms"] = _p31_spread([r["step_ms"] for r in runs["off"]],
+                                  [r["step_ms"] for r in runs["on"]])
+    return runs
+
+
+def p32_stall(cs, torch):
+    """(b): the watchdog on (``P32_STALL_ENV``: a 0.1 s poll, one dump)
+    and iteration ``P32_STALL_AT``'s stream held by ``torch.cuda._sleep``
+    after its step was issued -- the stimulus of a device-side hang: the
+    host then waits in the updater's stream synchronize."""
+    from chainermn_tpu_torch.training import trainer as tr
+
+    def wrap(apply_step):
+        def held(self, batch):
+            out = apply_step(self, batch)
+            if self.iteration == P32_STALL_AT:
+                torch.cuda._sleep(P32_STALL_CYCLES)
+            return out
+        return held
+
+    run = _p32_mnist(cs, torch, "b", dict(P32_STALL_ENV,
+                                          CHAINERMN_TPU_WATCHDOG="1"),
+                     _p32_patch(tr.StandardUpdater, "_apply_step", wrap))
+    (doc,) = run["dumps"].values() or [None]
+    steps = [e for e in run["events"] if e["kind"] == "step"
+             and e["iteration"] == P32_STALL_AT + 1]
+    out = {"dumps": sorted(run["dumps"]), "threads": run["threads"],
+           "casts": run["casts"], "iters": run["iters"],
+           "params": run["params"]}
+    if doc is not None:
+        main = [t for t in doc["threads"] if t["thread"] == "MainThread"]
+        out.update(reason=doc["reason"], exchange=doc.get("exchange"),
+                   in_sync=bool(main) and any(
+                       "synchronize" in ln for ln in main[0]["stack"]))
+        if steps:  # the dump inside the held step's window
+            end = steps[0]["ts"]
+            out["stalled_s"] = steps[0]["dur_s"]
+            out["dump_after_start_s"] = doc["ts"] - (end - steps[0]["dur_s"])
+            out["dump_in_step"] = end - steps[0]["dur_s"] <= doc["ts"] <= end
+    return out
+
+
+def p32_traced(cs, torch):
+    """(c): ``bench_allreduce --traced`` on the bf16 plan over ResNet-50's
+    packed gradient size, then ``--replay-spans`` on the committed dump."""
+    from chainermn_tpu_torch.benchmarks import bench_allreduce as ba
+    path = os.path.join(HERE, "build", "chip_smoke_p32_traced.json")
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    doc = ba.main(P32_TRACED + ["--traced", path])
+    torch.cuda.synchronize()
+    casts = cs.launch_counts()["cast_scale"]
+    a = ba.parse_args(P32_TRACED)
+    calls = 2 * a.repeats * (1 + a.warmup + 3 * a.iters)
+    rep = ba.main(["--replay-spans", os.path.join(HERE, P32_REPLAY),
+                   "--replay-out", path + ".replay"])
+    for p in (path, path + ".replay"):
+        os.remove(p)
+    return {"doc": doc, "casts": casts, "calls": calls,
+            "repeats": a.repeats,
+            "replay": {"n_spans": rep["n_spans"],
+                       "observed_gbps": rep["observed_gbps"],
+                       **{k: rep["retune"][k] for k in (
+                           "swap", "best_speedup", "table_hash")}}}
+
+
+def p32_diff(cs, torch, base):
+    """(d): an observed MNIST run with ``P32_DELAY_S`` of host time a batch
+    (in the updater's host-put), diffed against (a)'s last observed run,
+    and that run against itself."""
+    from chainermn_tpu_torch.observability import diff_runs
+    from chainermn_tpu_torch.training import trainer as tr
+
+    def wrap(put):
+        def slow(self, batch):
+            time.sleep(P32_DELAY_S)
+            return put(self, batch)
+        return slow
+
+    cand = _p32_mnist(cs, torch, "d", {"CHAINERMN_TPU_WATCHDOG": "0"},
+                      _p32_patch(tr.StandardUpdater, "_put", wrap))
+    diff = diff_runs(base["events"], cand["events"])
+    self_diff = diff_runs(base["events"], base["events"])
+    reg = diff["regression"] or {}
+    return {"casts": cand["casts"], "iters": cand["iters"],
+            "bucket": reg.get("bucket"), "delta_s": reg.get("delta_s"),
+            "ratio": reg.get("ratio"), "confidence": reg.get("confidence"),
+            "buckets": {r["bucket"]: [r["base_s"], r["cand_s"]]
+                        for r in diff["buckets"]},
+            "self_regression": self_diff["regression"]}
+
+
+def p32_fleet(fa, torch):
+    """(e): phase 24's trace through the LM's engine with observability on,
+    then one ``TelemetryAggregator.collect`` on the world of one: the fleet
+    p50/p95/p99 of each ``serving_*`` streaming histogram against the
+    registry's own."""
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch import observability as obs
+    from chainermn_tpu_torch.benchmarks import bench_serving as bs
+    args = bs.parser().parse_args(P24_FLAGS + P24_TRACE)
+    model = bs.build_model(args)
+    trace = bs.build_trace(args)
+    try:
+        obs.enable()
+        obs.install_flight_recorder()
+        eng = bs._engine(model, args, policy="continuous")
+        bs._warm(eng, trace[0][1])
+        reg = obs.get_registry()
+        for name in reg.names():  # the trace's series alone
+            if name.startswith("serving_"):
+                reg.get(name).reset()
+        passes0 = eng.passes["target"]
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        for _, prompt, max_new in trace:
+            eng.submit(prompt, max_new_tokens=max_new)
+        comps = eng.run_until_idle()
+        torch.cuda.synchronize()
+        launches = fa.launch_counts()["flash_fwd"]
+        passes = eng.passes["target"] - passes0
+        comm = create_communicator("xla")
+        t0 = time.perf_counter()
+        doc = obs.TelemetryAggregator(comm).collect(0)
+        collect_ms = (time.perf_counter() - t0) * 1e3
+        want = {}
+        for name, slo in doc["slo"].items():
+            h = reg.get(name)
+            counts = [0] * (len(h.bounds) + 1)
+            for labels in h.labels_seen():
+                for i, c in enumerate(h.state(**labels)["counts"]):
+                    counts[i] += c
+            want[name] = {f"p{int(q * 100)}": h._quantile_from_counts(
+                counts, q) for q in (0.5, 0.95, 0.99)}
+            if len(h.labels_seen()) == 1:  # and the series' own quantile
+                want[name + " (series)"] = {
+                    f"p{int(q * 100)}": h.quantile(q, **h.labels_seen()[0])
+                    for q in (0.5, 0.95, 0.99)}
+    finally:
+        _obs_reset()
+        del model
+        torch.cuda.empty_cache()
+    got = {k: v["quantiles"] for k, v in doc["slo"].items()}
+    return {"requests": len(trace), "completions": len(comps),
+            "launches": launches, "passes": passes,
+            "collect_ms": collect_ms, "slo": doc["slo"],
+            "stragglers": doc["stragglers"],
+            "equal": bool(got) and all(
+                got[k.split(" ")[0]] == v for k, v in want.items()),
+            "names": sorted(got)}
+
+
+def phase_obs2(cs, fa, torch):
+    """Phase 32 (see the module docstring)."""
+    out, secs = {}, {}
+    for key, run in (("a", lambda: p32_watchdog(cs, torch)),
+                     ("b", lambda: p32_stall(cs, torch)),
+                     ("c", lambda: p32_traced(cs, torch)),
+                     ("d", lambda: p32_diff(cs, torch, out["a"]["on"][-1])),
+                     ("e", lambda: p32_fleet(fa, torch))):
+        t0 = time.perf_counter()
+        out[key] = run()
+        secs[key] = time.perf_counter() - t0
+    a, b, c, d, e = (out[k] for k in "abcde")
+    runs = a["off"] + a["on"]
+    first = a["off"][0]["params"]
+    traced = c["doc"]
+    out["casts"] = sum(r["casts"] for r in runs) + b["casts"] \
+        + c["casts"] + d["casts"]
+    out["gates"] = {
+        "(a) no flight dump, no watchdog thread after finalize": all(
+            not r["dumps"] and r["threads"] == 0 for r in runs),
+        "(a) watchdog on = off bit for bit": all(
+            _bits_equal(torch, r["params"][k], first[k])
+            for r in runs for k in first),
+        "(a) 2 casts an iteration": all(
+            r["casts"] == 2 * r["iters"] for r in runs + [b, d]),
+        "(b) one step_stall dump, main thread in synchronize":
+        b["dumps"] == ["flight_0.json"] and b.get("reason", "").startswith(
+            "step_stall") and b.get("in_sync") is True
+        and b.get("dump_in_step") is True and b["threads"] == 0,
+        "(b) stalled run = (a) bit for bit": all(
+            _bits_equal(torch, b["params"][k], first[k]) for k in first),
+        "(c) tracing_overhead/v1 with its spread":
+        traced["schema"] == "tracing_overhead/v1"
+        and traced["events_per_traced_run"] > 0
+        and len(traced["per_repeat_pct"]) == c["repeats"]
+        and c["casts"] == 2 * c["calls"],
+        "(c) replay = the CPU's decision": c["replay"]["swap"] is True
+        and c["replay"]["table_hash"] == P32_REPLAY_HASH,
+        "(d) the delayed run names host_input": d["bucket"] == "host_input",
+        "(d) a run against itself names none": d["self_regression"] is None,
+        "(e) fleet quantiles = the registry's": e["equal"]
+        and {"serving_ttft_seconds", "serving_token_seconds",
+             "serving_step_seconds"} <= set(e["names"]),
+        "(e) flash launches = layers x passes": e["launches"]
+        == LM["n_layers"] * e["passes"]
+        and e["completions"] == e["requests"]}
+    for r in runs:
+        del r["params"], r["events"]
+    del b["params"]
+    out["seconds"] = secs
+    return out
+
+
+def log_obs2(p32, gpu, secs):
+    a, b, c, d, e = (p32[k] for k in "abcde")
+    log(f"phase 32 (a) train_mnist {' '.join(P31_MNIST)} --observability, "
+        f"{a['on'][0]['iters']} iterations a run, {P32_PAIRS} pairs of "
+        f"CHAINERMN_TPU_WATCHDOG 0 / 1 in turn: the second epoch's step "
+        f"{_spread_text(a['step_ms'], 'ms')}; cast launches "
+        f"{[r['casts'] for r in a['off'] + a['on']]}; dumps "
+        f"{[sorted(r['dumps']) for r in a['off'] + a['on']]} on {gpu}")
+    log(f"phase 32 (b) iteration {P32_STALL_AT}'s stream held "
+        f"(torch.cuda._sleep({P32_STALL_CYCLES})), {json.dumps(P32_STALL_ENV)}"
+        f": dumps {b['dumps']}, reason {b.get('reason')!r}, main thread in "
+        f"synchronize {b.get('in_sync')}, the held step "
+        f"{b.get('stalled_s')} s, dump {b.get('dump_after_start_s')} s "
+        f"after its start, exchange {b.get('exchange')}, casts "
+        f"{b['casts']} on {gpu}")
+    t = c["doc"]
+    log(f"phase 32 (c) bench_allreduce {' '.join(P32_TRACED)} --traced: "
+        f"plan {t['plan']}, off ms {[round(x, 4) for x in t['times_ms_off']]}"
+        f", on ms {[round(x, 4) for x in t['times_ms_on']]}, collect "
+        f"{t['streaming_collect_ms']} ms, tracing_overhead_pct "
+        f"{t['tracing_overhead_pct']} (raw {t['raw_overhead_pct']}, pairs "
+        f"{t['per_repeat_pct']}, spread {t['spread_pct']}, noise_dominated "
+        f"{t['noise_dominated']}), {t['events_per_traced_run']} events a "
+        f"traced arm, {c['casts']} casts in {c['calls']} calls; replay "
+        f"{json.dumps(c['replay'])} on {gpu}")
+    log(f"phase 32 (d) diff of a run with {P32_DELAY_S * 1e3:.1f} ms of host "
+        f"time a batch against (a)'s last observed run: bucket "
+        f"{d['bucket']}, delta_s {d['delta_s']}, ratio {d['ratio']}, "
+        f"confidence {d['confidence']}; buckets (base, cand) s "
+        f"{json.dumps(d['buckets'])}; the run against itself: "
+        f"{d['self_regression']} on {gpu}")
+    log(f"phase 32 (e) phase 24's trace ({e['requests']} requests, "
+        f"{e['completions']} completions, {e['launches']} flash launches in "
+        f"{e['passes']} passes), one collect {e['collect_ms']:.3f} ms: fleet "
+        f"{json.dumps({k: v['quantiles'] for k, v in e['slo'].items()})} = "
+        f"the registry's: {e['equal']} on {gpu}")
+    log(f"phase 32 gates: {json.dumps(p32['gates'])}")
+    log(f"phase 32: {secs:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in p32["seconds"].items()) + ")")
+
+
 C12_LOOPS = 300      # phase 22: passes of the flash autograd check
 WGRAD_LOOPS = 600    # phase 22: launches of the probe wgrad
 
@@ -5531,6 +5882,14 @@ def main():
         raise AssertionError(f"phase 31: gates {failed} failed (their "
                              "lines above)")
 
+    t0 = time.perf_counter()
+    p32 = phase_obs2(cs, fa, torch)
+    log_obs2(p32, gpu, time.perf_counter() - t0)
+    failed = sorted(g for g, ok in p32["gates"].items() if not ok)
+    if failed:
+        raise AssertionError(f"phase 32: gates {failed} failed (their "
+                             "lines above)")
+
     dist.destroy_process_group()
     # phase 25's launches on the main path: (a) flash and casts, (d)'s
     # bench and (e)'s real-image run the BatchNorm kernels
@@ -5568,7 +5927,7 @@ def main():
         + p25["vit"]["xla"]["counts"]["cast_scale"] + p26["resnet"]["casts"]
         + sum(r["casts"] for r in p29["a"].values()) + p30["casts"]
         + p31["a_casts"] + p31["b"]["off"]["casts"]
-        + p31["b"]["on"]["casts"],
+        + p31["b"]["on"]["casts"] + p32["casts"],
         "max_abs_err": cast_err,
         "ms": cast_t["ms"], "plain_ms": cast_t["plain_ms"],
         "bound_ms": cast_t["bound_ms"], "bound_by": "bytes",
@@ -5581,7 +5940,7 @@ def main():
             + p25_vit[wrapper] + p26_flash[wrapper]
             + p27["a"]["counts"][wrapper] + p2829_flash[wrapper]
             + (srv["serving_launches"] + p27["srv"]["launches"]
-               + p31["c"]["launches"]
+               + p31["c"]["launches"] + p32["e"]["launches"]
                if wrapper == "flash_fwd" else 0),
             "max_abs_err": flash_errs[wrapper], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -5607,9 +5966,10 @@ def main():
     return 0
 
 
-def phase_obs_alone():
-    """``python3 chip_smoke.py --phase 31``: the CUDA builds and phase 31
-    alone, gated as in the whole run; no summary and no result line."""
+def phase_alone(n):
+    """``python3 chip_smoke.py --phase 31`` (or ``32``): the CUDA builds
+    and that phase alone, gated as in the whole run; no summary and no
+    result line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5626,12 +5986,16 @@ def phase_obs_alone():
     gpu = gpu_line()
     log(f"gpu: {gpu}")
     t0 = time.perf_counter()
-    p31 = phase_obs(cs, fa, torch, torch.device("cuda", 0))
-    log_obs(p31, gpu, time.perf_counter() - t0)
+    if n == "31":
+        res = phase_obs(cs, fa, torch, torch.device("cuda", 0))
+        log_obs(res, gpu, time.perf_counter() - t0)
+    else:
+        res = phase_obs2(cs, fa, torch)
+        log_obs2(res, gpu, time.perf_counter() - t0)
     dist.destroy_process_group()
-    return 1 if not all(p31["gates"].values()) else 0
+    return 1 if not all(res["gates"].values()) else 0
 
 
 if __name__ == "__main__":
-    sys.exit(phase_obs_alone() if sys.argv[1:] == ["--phase", "31"]
-             else main())
+    sys.exit(phase_alone(sys.argv[2]) if sys.argv[1:2] == ["--phase"]
+             and sys.argv[2:] in (["31"], ["32"]) else main())

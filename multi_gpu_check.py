@@ -141,6 +141,18 @@
     scatter, allgather, allreduce, a split's allgather) giving on the
     socket plane what they give on gloo, each rank's parameters bit-equal
     between the two runs, rank 0's straggler report over every rank.
+    Then, on the socket plane (native): a ``contention/v1`` report of one
+    FSDP step with a hierarchical all-to-all plan's hops in its window
+    (``consistency_ok``, every rank merged by its clock offset), a
+    ``fleet_telemetry/v1`` document gathered on the telemetry tag with
+    the last rank's steps five times longer (flagged the straggler), and
+    an online tuner armed on rank 0 only swapping on every rank at step
+    11 (one table hash, pin and 8 MiB plan).  Last, the hang: every rank
+    on an instrumented ``non_cuda_aware`` communicator (a host-staged,
+    blocking all-reduce) with the watchdog on the socket plane, the last
+    rank skipping one ``allreduce_grad``; every rank must dump, rank 0's
+    dump name the last rank (``desynced_ranks``), and once the harness
+    has ended the world the cards hold no process.
 
 Prints one JSON object as its last line; exits 1 if a check failed.  Runs
 write under ``build/`` (removed afterwards), their logs under ``--logs``
@@ -353,7 +365,8 @@ def _late_workers():
     planner)."""
     WORKERS.update(pp=pp_worker, comp=comp_worker, mnist=mnist_worker,
                    comp_fsdp=comp_fsdp_worker, sweep=sweep_worker,
-                   planner=planner_worker, obs=obs_worker)
+                   planner=planner_worker, obs=obs_worker,
+                   obs2=obs2_worker, desync=desync_worker)
 
 
 def torchrun(n, name, flags, work, logs, kind="imagenet"):
@@ -1630,6 +1643,234 @@ def obs_worker(out_prefix, flags):
                   default=lambda o: o.item())
 
 
+OBS2_FSDP = {"layers": 4, "width": 4096, "batch": 256, "buckets": 2,
+             "prefetch": 1}
+OBS2_A2A = (1 << 16, 256)   # the all-to-all's rows, their width
+OBS2_SLOW = (0.01, 0.05)    # fleet: a step's host time, the last rank's
+
+
+def obs2_worker(out_prefix, flags):
+    """One rank under ``torchrun`` on the socket control plane (native):
+    a contention report of one FSDP step with a plan's all-to-all hops in
+    its window, a fleet document with the last rank slowed on purpose, and
+    an online tuner armed on rank 0 only swapping on every rank."""
+    import torch
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch import (create_communicator, get_control_plane,
+                                     init_distributed)
+    from chainermn_tpu_torch import observability as obs
+    from chainermn_tpu_torch.benchmarks.bench_fsdp_overlap import tanh_mlp
+    from chainermn_tpu_torch.parallel.fsdp import (
+        fsdp_init, make_fsdp_train_step)
+    from chainermn_tpu_torch.planner import alltoall_plans, execute_alltoall
+    from chainermn_tpu_torch.planner.online import (
+        OnlineTuner, active_plan_table_meta)
+    from chainermn_tpu_torch.runtime.control_plane import reset_control_plane
+    init_distributed()
+    cp = get_control_plane()
+    comm = create_communicator("xla", intra_size=2, control_plane=cp)
+    r, n = comm.rank, comm.size
+    dev = comm.device
+    out = {"plane": [type(cp).__name__, type(cp._tp).__name__]}
+    obs.enable()
+    fr = obs.install_flight_recorder()
+    agg = obs.TelemetryAggregator(comm)
+    # contention: one FSDP step, then a hierarchical all-to-all, in one
+    # step window (warmed once outside it)
+    cfg = OBS2_FSDP
+    g = torch.Generator().manual_seed(22 + r)
+    xs, ys = (torch.randn(cfg["batch"], cfg["width"], generator=g).to(dev)
+              for _ in range(2))
+    model = tanh_mlp(cfg["layers"], cfg["width"], 0, dev)
+    state, meta = fsdp_init(comm, model, torch.optim.Adam(
+        model.parameters(), lr=1e-3), num_buckets=cfg["buckets"])
+    step = make_fsdp_train_step(
+        comm, lambda b: torch.mean((model(b[0]) - b[1]) ** 2), state, meta,
+        prefetch=cfg["prefetch"])
+    plan = next(p for p in alltoall_plans(comm.plan_topology())
+                if p.name == "alltoall_hierarchical")
+    buf = torch.randn(n, OBS2_A2A[0] // n, OBS2_A2A[1], device=dev)
+    step((xs, ys))
+    execute_alltoall(plan, comm, buf)
+    torch.cuda.synchronize()
+    pobs = obs.get_plan_obs(comm)
+    t0 = time.time()
+    step((xs, ys))
+    execute_alltoall(plan, comm, buf, pobs=pobs)
+    torch.cuda.synchronize()
+    fr.record_step(time.time() - t0, 1)
+    off = obs.clock_handshake(comm)["offset_s"]
+    got = comm.gather_obj((r, off, fr.snapshot()))
+    if r == 0:
+        evs = {rr: e for rr, _, e in got}
+        rep = obs.contention_report(evs, offsets={rr: o for rr, o, _ in got})
+        out["contention"] = {k: rep[k] for k in (
+            "schema", "n_ranks", "n_steps", "links", "overlap", "rates",
+            "consistency_ok")}
+        out["contention"]["owners"] = {
+            link: sorted(owners) for link, owners in rep["timelines"].items()}
+    # fleet: six steps a rank, the last rank's five times longer (the
+    # window before them shipped first)
+    agg.collect(1)
+    for k in range(6):
+        t0 = time.perf_counter()
+        time.sleep(OBS2_SLOW[r == n - 1])
+        fr.record_step(time.perf_counter() - t0, 2 + k)
+    fleet = agg.collect(8)
+    out["fleet_plane"] = agg._plane is cp
+    if r == 0:
+        out["fleet"] = {k: fleet[k] for k in (
+            "schema", "n_ranks", "step_time", "stragglers", "overlap")}
+    # online tune: rank 0 alone observes the slow inter-node link
+    auto = create_communicator("auto", intra_size=2, control_plane=cp)
+    rec = obs.FlightRecorder(capacity=256)
+    tuner = OnlineTuner(comm=auto, flight=rec, min_samples=1)
+    if r == 0:
+        events, t = [], 0.0
+        for _ in range(8):
+            for pl, link, nbytes, gbps in (("flat", "ib", 8 << 20, 0.5),
+                                           ("hierarchical", "nvlink",
+                                            1 << 20, 16.0)):
+                dur = nbytes / (gbps * 1e9)
+                base = dict(plan=pl, stage=0, op="all_reduce",
+                            scope="intra" if link == "nvlink" else "inter",
+                            link=link, nbytes=nbytes)
+                events += [dict(kind="plan_stage_begin", ts=t, **base),
+                           dict(kind="plan_stage_end", ts=t + dur, **base)]
+                t += dur
+            t += 0.01
+        tuner.ingest(events)
+        tuner.on_regression([{"bucket": "dcn_comm", "ratio": 4.0}])
+    d = tuner.maybe_swap(step=11)
+    out["swap"] = {
+        "step": d["step"] if d else None,
+        "table_hash": d["table_hash"] if d else None,
+        "best_speedup": d["best_speedup"] if d else None,
+        "pin": active_plan_table_meta(),
+        "events": sum(e["kind"] == "plan_table_swap"
+                      for e in rec.events_since(-1)),
+        "plan_8mib": auto.plan_for(8 << 20, "float32").name}
+    comm.barrier()
+    reset_control_plane()
+    with open(f"{out_prefix}.rank{r}.json", "w") as f:
+        json.dump(out, f)
+
+
+DESYNC_SKIP = 3      # the iteration whose allreduce_grad the last rank skips
+DESYNC_STEPS = 6
+
+
+def desync_worker(out_prefix, flags):
+    """One rank of the hang: an instrumented ``non_cuda_aware`` communicator
+    (its mean staged through the host on gloo: a blocking call, an open
+    span) on the socket plane, the watchdog on; the last rank skips
+    iteration ``DESYNC_SKIP``'s ``allreduce_grad``, so the others block in
+    their last one while it goes idle.  Every rank's dump lands in
+    ``{out_prefix}_dumps``; the harness ends the world."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch import (create_communicator, get_control_plane,
+                                     init_distributed)
+    from chainermn_tpu_torch import observability as obs
+    rank, size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    # a short group timeout: the harness ends the world well inside it
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://{os.environ['MASTER_ADDR']}:"
+        f"{os.environ['MASTER_PORT']}", rank=rank, world_size=size,
+        timeout=datetime.timedelta(seconds=180))
+    init_distributed()
+    cp = get_control_plane()
+    obs.enable()
+    fr = obs.install_flight_recorder()
+    comm = obs.instrument_communicator(create_communicator(
+        "non_cuda_aware", control_plane=cp))
+    out_dir = f"{out_prefix}_dumps"
+    obs.start_watchdog(control_plane=cp, out_dir=out_dir, rank=rank,
+                       deadline_s=2.0, step_stall_factor=8.0,
+                       poll_interval_s=0.1, collect_window_s=3.0,
+                       heartbeat_interval_s=0.5, heartbeat_timeout_s=60.0,
+                       max_dumps=1)
+    grads = {"g": torch.full((1 << 20,), float(rank), device=comm.device)}
+    for it in range(DESYNC_STEPS):
+        t0 = time.time()
+        if not (rank == size - 1 and it == DESYNC_SKIP):
+            comm.allreduce_grad(grads)
+        torch.cuda.synchronize()
+        fr.record_step(time.time() - t0, it + 1)
+    # the last rank never enters its partners' last all-reduce: idle here
+    # until the harness ends the world
+    while True:
+        time.sleep(1.0)
+
+
+def desync(n, work, logs, res, failures):
+    """The hang: ``n`` ranks of :func:`desync_worker` under ``torchrun`` in
+    a session of their own; once every rank's dump is written (or 120 s),
+    SIGTERM to the session, SIGKILL after 10 s, then the cards must hold
+    no process."""
+    import signal
+    prefix = os.path.join(work, "desync")
+    dumps = f"{prefix}_dumps"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(n), os.path.abspath(__file__), "--worker",
+           "desync", prefix]
+    path = os.path.join(logs, "desync.log")
+    t0 = time.time()
+    with open(path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        want = [os.path.join(dumps, f"flight_{r}.json") for r in range(n)]
+        while time.time() - t0 < 120 and proc.poll() is None and not all(
+                os.path.exists(p) for p in want):
+            time.sleep(0.5)
+        time.sleep(1.0)  # a dump renamed into place is whole
+        docs = {r: json.load(open(p)) for r, p in enumerate(want)
+                if os.path.exists(p)}
+        res["dumped_s"] = round(time.time() - t0, 1)
+        res["exited_early"] = proc.poll()
+        for sig, grace in ((signal.SIGTERM, 10), (signal.SIGKILL, 10)):
+            if proc.poll() is not None:
+                break
+            try:
+                os.killpg(proc.pid, sig)
+            except ProcessLookupError:
+                break
+            try:
+                proc.wait(timeout=grace)
+            except subprocess.TimeoutExpired:
+                pass
+    res["ended_s"] = round(time.time() - t0, 1)
+    busy = None
+    for _ in range(30):
+        busy = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.split()
+        if not busy:
+            break
+        time.sleep(1.0)
+    res["cards_free"] = not busy
+    res["ranks_dumped"] = sorted(docs)
+    d0 = docs.get(0, {})
+    an = d0.get("analysis") or {}
+    res["reasons"] = {str(r): d["reason"] for r, d in docs.items()}
+    res["desynced_ranks"] = an.get("desynced_ranks")
+    res["stalled"] = an.get("stalled_collectives")
+    res["incidents"] = sorted({d.get("incident") for d in docs.values()},
+                              key=str)
+    if res["ranks_dumped"] != list(range(n)):
+        failures.append(f"obs desync: dumps of ranks {res['ranks_dumped']}")
+    if res["desynced_ranks"] != [n - 1]:
+        failures.append(f"obs desync: rank 0's dump names "
+                        f"{res['desynced_ranks']}")
+    if not res["cards_free"]:
+        failures.append(f"obs desync: processes left on the cards {busy}")
+
+
 def observability(n, out, failures, work, logs):
     """Part obs (see the module docstring)."""
     runs = {plane: torchrun(n, f"obs_{plane}", [plane], work, logs,
@@ -1660,6 +1901,27 @@ def observability(n, out, failures, work, logs):
     if res["straggler_ranks"] != n:
         failures.append(f"obs: straggler report over "
                         f"{res['straggler_ranks']} ranks")
+    # the second slice: contention, the fleet, the swap; then the hang
+    docs = torchrun(n, "obs2", [], work, logs, kind="obs2")
+    d0 = docs[0]
+    res["contention"] = d0["contention"]
+    res["fleet"] = d0["fleet"]
+    res["swap"] = [d["swap"] for d in docs]
+    if not d0["contention"]["consistency_ok"] or \
+            d0["contention"]["n_ranks"] != n:
+        failures.append("obs contention: consistency")
+    if d0["fleet"]["stragglers"] != [n - 1] or not all(
+            d["fleet_plane"] for d in docs):
+        failures.append(f"obs fleet: stragglers "
+                        f"{d0['fleet']['stragglers']}")
+    sw = res["swap"]
+    if not (all(s["step"] == 11 and s["events"] == 1 for s in sw)
+            and len({(s["table_hash"], s["plan_8mib"],
+                      json.dumps(s["pin"])) for s in sw}) == 1
+            and sw[0]["plan_8mib"] != "flat"):
+        failures.append("obs swap: not the same swap on every rank")
+    res["desync"] = {}
+    desync(n, work, logs, res["desync"], failures)
     print(json.dumps({"obs": res}), flush=True)
     out["obs"] = res
 

@@ -117,6 +117,17 @@ from chainermn_tpu_torch.ops import _build
 from chainermn_tpu_torch.runtime import native
 missing = [n for n in c.__all__ if getattr(c, n, None) is None]
 assert not missing, missing
+o = c.observability
+missing = [n for n in o.__all__ if getattr(o, n, None) is None]
+assert not missing, missing
+for n in ("Watchdog", "WatchdogConfig", "start_watchdog",
+          "watchdog_thread_count", "TelemetryAggregator",
+          "contention_report", "occupancy_timelines", "overlap_matrix",
+          "link_rates", "attribution_consistency", "feed_link_observations",
+          "diff_runs", "diff_profiles", "run_profile", "load_run"):
+    assert n in o.__all__, n
+from chainermn_tpu_torch.runtime.bootstrap import install_crash_dumps
+assert install_crash_dumps() is None  # observability off: nothing
 assert _build._LIBS == {} and native._lib is None, "something was built"
 print("names", len(c.__all__))
 """

@@ -12,7 +12,9 @@ package's, on the CPU.
 * The default control plane under a ``torch.distributed`` world of two is
   a socket world, and a communicator on it answers the object ops as the
   gloo plane does.
-* The A13 (b) options raise, naming it.
+* ``watchdog=`` (and ``CHAINERMN_TPU_WATCHDOG``), ``online_tune=`` and
+  ``stream_telemetry=`` build their parts while observability is on, and
+  nothing while it is off; ``finalize`` stops the watchdog.
 """
 
 import json
@@ -105,29 +107,76 @@ def test_metrics_report_records_are_jax_s(tmp_path):
             "step_attribution"} <= set(pkeys)
 
 
+class _PlanComm(_Comm):
+    def plan_topology(self):
+        from chainermn_tpu_torch.planner import PlanTopology
+        return PlanTopology.from_key("intra:1")
+
+
 @pytest.mark.parametrize("kw", [dict(watchdog=True), dict(online_tune=True),
                                 dict(stream_telemetry=True)])
-def test_a13b_options_raise(kw):
+def test_a13b_options_raise(kw, tmp_path):
+    """Each option builds its part (the watchdog's threads, the online
+    tuner on the flight recorder and the registry, the telemetry
+    aggregator) with observability on, none with it off; ``finalize``
+    stops the watchdog, which leaves no dump on a healthy run."""
     from chainermn_tpu_torch.training.extensions import MetricsReport
-    with pytest.raises(NotImplementedError, match="Queue A13 \\(b\\)"):
-        MetricsReport(**kw)
+    attr = {"watchdog": "_watchdog", "online_tune": "_tuner",
+            "stream_telemetry": "_stream"}[next(iter(kw))]
+    pobs.disable()
+    ext = MetricsReport(**kw)
+    ext.initialize(_Trainer(str(tmp_path), _PlanComm()))
+    assert getattr(ext, attr) is None
+    assert pobs.watchdog_thread_count() == 0
+    pobs.enable()
+    pobs.install_flight_recorder()
+    ext = MetricsReport(**kw)
+    tr = _Trainer(str(tmp_path), _PlanComm())
+    ext.initialize(tr)
+    part = getattr(ext, attr)
+    assert part is not None
+    if attr == "_watchdog":
+        assert pobs.watchdog_thread_count() >= 1 and part.rank == 0
+    if attr == "_tuner":
+        assert part._flight is pobs.get_flight_recorder()
+        assert part._reg is pobs.get_registry()
+    ext.finalize(tr)
+    assert pobs.watchdog_thread_count() == 0
+    assert not [f for f in (tmp_path).iterdir()
+                if f.name.startswith("flight_")]
 
 
 def test_watchdog_env_raises_only_when_set(tmp_path, monkeypatch):
+    """``CHAINERMN_TPU_WATCHDOG`` starts the watchdog when ``watchdog=``
+    is left at None (its dumps beside the metrics file), ``watchdog=False``
+    overrides it, and the extension is inert while observability is
+    off."""
     from chainermn_tpu_torch.training.extensions import MetricsReport
     monkeypatch.delenv("CHAINERMN_TPU_WATCHDOG", raising=False)
     pobs.enable()
-    MetricsReport().initialize(_Trainer(str(tmp_path), _Comm()))
+    ext = MetricsReport()
+    tr = _Trainer(str(tmp_path), _Comm())
+    ext.initialize(tr)
+    assert ext._watchdog is None and pobs.watchdog_thread_count() == 0
     monkeypatch.setenv("CHAINERMN_TPU_WATCHDOG", "1")
-    with pytest.raises(NotImplementedError, match="Queue A13 \\(b\\)"):
-        MetricsReport().initialize(_Trainer(str(tmp_path), _Comm()))
+    ext = MetricsReport()
+    ext.initialize(tr)
+    assert ext._watchdog is not None
+    assert ext._watchdog._cfg.out_dir == str(tmp_path)
+    assert pobs.watchdog_thread_count() >= 1
+    ext.finalize(tr)
+    assert ext._watchdog is None and pobs.watchdog_thread_count() == 0
+    ext = MetricsReport(watchdog=False)
+    ext.initialize(tr)
+    assert ext._watchdog is None
     # inert while observability is off
     pobs.disable()
     ext = MetricsReport()
     tr = _Trainer(str(tmp_path / "off"), _Comm())
     ext.initialize(tr)
     ext(tr)
-    assert tr.updater.telemetry is None
+    assert tr.updater.telemetry is None and ext._watchdog is None
+    assert pobs.watchdog_thread_count() == 0
 
 
 def _count_casts(monkeypatch):

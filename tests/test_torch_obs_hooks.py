@@ -13,6 +13,9 @@ compressors against the JAX package's, and the benches' ``--metrics``.
   family carry JAX's names, kinds and labels (and its counts and bytes
   where the two layouts agree).
 * Each bench's ``--metrics`` appends enveloped JSONL records.
+* ``bench_allreduce --traced`` writes ``tracing_overhead/v1`` (the plan's
+  stage events recorded, the noise guard's fields) and ``--replay-spans``
+  the ``online_tune/v1`` decision, without a device.
 """
 
 import json
@@ -385,8 +388,31 @@ def test_bench_metrics_write_enveloped_jsonl(tmp_path):
     assert {"serving_steps", "serving_generated_tokens"} <= names
 
 
-def test_a13b_routes_still_raise():
+def test_a13b_routes_still_raise(tmp_path):
+    """``--traced`` and ``--replay-spans`` run: the traced A/B on a world
+    of one (the bf16 wire's plan, its casts through the plain cast on the
+    CPU) and the replay of the committed degraded span dump."""
+    import os
     from chainermn_tpu_torch.benchmarks import bench_allreduce
     for flag in ("--traced", "--replay-spans"):
-        with pytest.raises(NotImplementedError, match="Queue A13 \\(b\\)"):
-            bench_allreduce.main([flag, "x", "--device", "cpu"])
+        out = str(tmp_path / f"{flag[2:]}.json")
+        if flag == "--traced":
+            doc = bench_allreduce.main([
+                flag, out, "--device", "cpu", "--communicators", "xla",
+                "--allreduce-grad-dtype", "bfloat16", "--mb", "0.25",
+                "--iters", "3", "--warmup", "1", "--repeats", "2"])
+            assert doc["schema"] == "tracing_overhead/v1"
+            assert doc["plan"] == "xla" and doc["timer"] == "host"
+            assert doc["events_per_traced_run"] > 0
+            assert len(doc["per_repeat_pct"]) == 2
+            assert {"tracing_overhead_pct", "raw_overhead_pct",
+                    "spread_pct", "noise_dominated", "time_ms_off",
+                    "time_ms_on", "streaming_collect_ms"} <= set(doc)
+            assert pobs.get_flight_recorder() is None  # left as found
+        else:
+            data = os.path.join(os.path.dirname(__file__), "data",
+                                "degraded_dcn_spans.json")
+            doc = bench_allreduce.main([flag, data, "--replay-out", out])
+            assert doc["schema"] == "online_tune/v1"
+            assert doc["retune"]["swap"] is True
+        assert json.load(open(out))["schema"] == doc["schema"]

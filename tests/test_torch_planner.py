@@ -369,8 +369,14 @@ def test_plan_slots_and_a13_refusals():
         topo = T.PlanTopology.from_key("inter:2,intra:2")
         wl = T.reconstruct_workload(topo)
         assert [s.name for s in wl.slots] == ["moe"]
-        with pytest.raises(NotImplementedError, match="Queue A13"):
-            T.reconstruct_workload(topo, timelines={})
+        # occupancy evidence filters the slots (empty: every slot)
+        assert [s.name for s in T.reconstruct_workload(
+            topo, timelines={}).slots] == ["moe"]
+        assert T.reconstruct_workload(
+            topo, timelines={"nvlink": {"fsdp": [(0.0, 1.0)]}}) is None
+        assert [s.name for s in T.reconstruct_workload(
+            topo, timelines={"nvlink": {"moe": [(0.0, 1.0)]}}).slots] == [
+                "moe"]
         plan = T.alltoall_plans(topo)[0]
         assert T.resolve_slot_plan("moe", None) is None
         T.set_slot_plan("moe", plan)
@@ -378,16 +384,18 @@ def test_plan_slots_and_a13_refusals():
         assert T.get_slot_plan("moe") is plan
     finally:
         T.clear_plan_slots()
+    # the tuner's span, attribution and timeline inputs take empty input
     tuner = T.OnlineTuner(topology=T.PlanTopology.from_key("intra:4"))
-    for call in (lambda: tuner.ingest([]),
-                 lambda: tuner.observe_attribution({}),
-                 lambda: tuner.observe_timelines({}),
-                 lambda: tuner.observations.ingest_spans([]),
-                 lambda: tuner.observations.ingest_events([]),
-                 lambda: T.OnlineTuner(topology=tuner.topology,
-                                       flight=object())):
-        with pytest.raises(NotImplementedError, match="Queue A13"):
-            call()
+    for call, want in ((lambda: tuner.ingest([]), 0),
+                       (lambda: tuner.observe_attribution({}), None),
+                       (lambda: tuner.observe_timelines({}), None),
+                       (lambda: tuner.observations.ingest_spans([]), 0),
+                       (lambda: tuner.observations.ingest_events([]), 0)):
+        assert call() == want
+    assert tuner._timelines == {} and list(tuner._stall_fracs) == []
+    rec = object()
+    assert T.OnlineTuner(topology=tuner.topology,
+                         flight=rec)._flight is rec
 
 
 def _degraded_samples(steps=8):

@@ -18,6 +18,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -2084,7 +2085,16 @@ def run_obs(inp, rank):
     (plain on the CPU) call counts, the metrics records' kinds and keys;
     ``cp`` -- the default control plane (a socket world at MASTER_PORT +
     1), a communicator on it against the gloo plane on the same object
-    ops, and a split of it."""
+    ops, and a split of it; ``stream`` -- ``TelemetryAggregator.collect``
+    over the gloo plane, the last rank's steps three times the others',
+    the fleet document as JSON; ``swap`` -- an online tuner on the auto
+    communicator, only rank 0 observing the slow inter-node link and
+    armed, ``maybe_swap(step=11)`` on both ranks: each rank's decision,
+    pin, swap events and 8 MiB plan; ``wdgloo`` -- the watchdog (no
+    socket plane: local-only) on an instrumented communicator, rank 0 in
+    an ``allgather_obj`` that the last rank joins ``inp["late"]``
+    seconds late: rank 0's dump (written while its main thread waits in
+    gloo) and the op's result."""
     from chainermn_tpu_torch import observability as obs
     parts = str(inp["parts"]).split(",")
     n = dist.get_world_size()
@@ -2128,6 +2138,80 @@ def run_obs(inp, rank):
                     out[f"{label}/param/{k}"] = v.numpy()
         finally:
             cs.cast_scale_plain = plain
+    if "stream" in parts:
+        obs.enable()
+        try:
+            fr = obs.install_flight_recorder()
+            fs = dict(bucket=0, link="nvlink", nbytes=1 << 20)
+            for _ in range(3):
+                fr.record("fsdp_gather_begin", **fs)
+                time.sleep(0.002)
+                fr.record("fsdp_gather_end", **fs)
+                fr.record_step(0.3 if rank == n - 1 else 0.1, 1)
+            comm = create_communicator("naive", device="cpu")
+            doc = obs.TelemetryAggregator(comm).collect(3)
+            comm.barrier()  # rank 1's send completes while comm lives
+            out["stream/doc"] = np.asarray(json.dumps(doc))
+        finally:
+            _obs_reset()
+    if "swap" in parts:
+        from chainermn_tpu_torch.planner.online import (
+            OnlineTuner, active_plan_table_meta, clear_active_plan_table)
+        comm = create_communicator("auto", device="cpu", intra_size=1)
+        fr = obs.FlightRecorder(capacity=256)
+        tuner = OnlineTuner(comm=comm, flight=fr, min_samples=1)
+        if rank == 0:
+            events, t = [], 0.0
+            for _ in range(8):
+                for plan, link, nbytes, gbps in (
+                        ("flat", "ib", 8 << 20, 0.5),
+                        ("hierarchical", "nvlink", 1 << 20, 16.0)):
+                    dur = nbytes / (gbps * 1e9)
+                    base = dict(plan=plan, stage=0, op="all_reduce",
+                                scope="intra" if link == "nvlink"
+                                else "inter", link=link, nbytes=nbytes)
+                    events.append(dict(kind="plan_stage_begin", ts=t,
+                                       **base))
+                    events.append(dict(kind="plan_stage_end", ts=t + dur,
+                                       **base))
+                    t += dur
+                t += 0.01
+            tuner.ingest(events)
+            tuner.on_regression([{"bucket": "dcn_comm", "ratio": 4.0,
+                                  "iteration": 100}])
+        decision = tuner.maybe_swap(step=11)
+        swaps = [e for e in fr.events_since(-1)
+                 if e["kind"] == "plan_table_swap"]
+        out["swap/doc"] = np.asarray(json.dumps({
+            "topology": comm.plan_topology().key(),
+            "swapped": decision is not None,
+            "step": decision["step"] if decision else None,
+            "table_hash": decision["table_hash"] if decision else None,
+            "best_speedup": decision["best_speedup"] if decision else None,
+            "pin": active_plan_table_meta(),
+            "n_swap_events": len(swaps),
+            "plan_8mib": comm.plan_for(8 << 20, "float32").name}))
+        clear_active_plan_table()
+    if "wdgloo" in parts:
+        obs.enable()
+        try:
+            obs.install_flight_recorder()
+            comm = obs.instrument_communicator(
+                create_communicator("naive", device="cpu"))
+            wd = obs.start_watchdog(
+                control_plane=getattr(comm, "_cp", None),
+                out_dir=str(inp["out"]), rank=rank, deadline_s=0.3,
+                poll_interval_s=0.05, collect_window_s=0.2)
+            if rank == n - 1:
+                time.sleep(float(inp["late"]))
+            got = comm.allgather_obj(rank)
+            wd.stop()
+            out["wdgloo/threads"] = np.asarray(obs.watchdog_thread_count())
+            out["wdgloo/got"] = np.asarray(got)
+            out["wdgloo/dumps"] = np.asarray(json.dumps(wd.dump_paths))
+            comm.barrier()
+        finally:
+            _obs_reset()
     if "cp" in parts:
         from chainermn_tpu_torch.runtime import control_plane as pcp
         cp = pcp.get_control_plane()
