@@ -43,8 +43,13 @@ one, and one that pins a table while none is registered (JAX's two
 refusals): the run would execute other collective plans than the one that
 saved.
 
-Not ported: the ``async`` backend (ROADMAP.md Queue A14) and ``orbax``,
-which has no twin in PyTorch.
+A save is two parts (JAX's split): :meth:`_snapshot_arrays`, the
+device-to-host copy and the sidecars, taken at the step boundary into host
+memory that no live tensor shares, and :meth:`_persist`, the npz write,
+the atomic publish and the generation GC.  ``backend="async"`` runs the
+second part on a background thread
+(:mod:`chainermn_tpu_torch.elastic.async_ckpt`); ``orbax`` has no twin in
+PyTorch.
 """
 
 from __future__ import annotations
@@ -120,13 +125,30 @@ def _shape(leaf) -> tuple:
         np.shape(leaf)
 
 
-def _to_array(leaf) -> np.ndarray:
-    if torch.is_tensor(leaf):
-        t = leaf.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.view(torch.int16)
-        return t.numpy()
-    return np.asarray(leaf)
+def _host_copy(leaves: Dict[str, object]) -> Dict[str, np.ndarray]:
+    """``{path: array}``, each array a host copy of its leaf that shares
+    no memory with it.  A CUDA tensor is copied into pinned host memory
+    on the current stream (so after the work that produced it), all of
+    them queued before one wait: when this returns every copy has landed
+    and a later in-place update of the leaf cannot reach the snapshot."""
+    out: Dict[str, np.ndarray] = {}
+    pending = False
+    for k, leaf in leaves.items():
+        if torch.is_tensor(leaf) and leaf.is_cuda:
+            buf = torch.empty(leaf.shape, dtype=leaf.dtype, pin_memory=True)
+            buf.copy_(leaf.detach(), non_blocking=True)
+            pending = True
+        elif torch.is_tensor(leaf):
+            buf = leaf.detach().clone()
+        else:
+            out[k] = np.array(leaf)
+            continue
+        if buf.dtype == torch.bfloat16:
+            buf = buf.view(torch.int16)
+        out[k] = buf.numpy()
+    if pending:
+        torch.cuda.current_stream().synchronize()
+    return out
 
 
 def _restore_leaf(arr: np.ndarray, like):
@@ -168,9 +190,29 @@ class _MultiNodeCheckpointer:
     def save(self, state, iteration: int) -> None:
         """Write this rank's ``state`` as generation ``iteration``, publish
         it atomically, then collect old generations."""
+        from chainermn_tpu_torch.observability import (
+            flight_recorder as _flight)
+        fr = _flight.get_flight_recorder()
+        tok = None
+        if fr is not None:
+            tok = fr.span_begin("checkpoint", "checkpoint_save",
+                                iteration=iteration)
         t0 = time.perf_counter()
+        try:
+            self._persist(self._snapshot_arrays(state), iteration)
+        finally:
+            if tok is not None:
+                fr.span_end(tok)
+        self.save_seconds.append(time.perf_counter() - t0)
+
+    def _snapshot_arrays(self, state) -> dict:
+        """The device-to-host copy plus the sidecars: the only part of a
+        save that must happen at the step boundary.  Returns the whole npz
+        payload, a copy that owns its memory (the live tensors are updated
+        in place by the next step), so :meth:`_persist` can write it from
+        any thread later (the async backend's split)."""
         leaves = _leaves(state)
-        arrays = {k: _to_array(v) for k, v in leaves.items()}
+        arrays = _host_copy(leaves)
         arrays[_DTYPES_KEY] = np.array(json.dumps(
             {k: _dtype_name(v) for k, v in leaves.items()}))
         layout = fsdp_layout(state)
@@ -183,12 +225,20 @@ class _MultiNodeCheckpointer:
         tmeta = active_plan_table_meta()
         if tmeta is not None:
             arrays[_PLAN_TABLE_META_KEY] = np.array(json.dumps(tmeta))
+        return arrays
+
+    def _persist(self, arrays: dict, iteration: int) -> None:
+        """Write and atomically publish one snapshot, then collect old
+        generations.  The collection runs strictly after ``os.replace``:
+        a generation is never collected while the one that supersedes it
+        is still a torn temp file (the write barrier the async backend
+        relies on).  It reads only the directory and runs no collective,
+        so any thread may call it."""
         # np.savez appends .npz when missing, so the temp name ends in it
         tmp = self._file(iteration) + ".tmp.npz"
         np.savez(tmp, **arrays)
         os.replace(tmp, self._file(iteration))
         self._gc()
-        self.save_seconds.append(time.perf_counter() - t0)
 
     def _all_rank_generations(self) -> Dict[int, Set[int]]:
         """generation -> ranks with a published file (every rank's files
@@ -387,18 +437,29 @@ class _MultiNodeCheckpointer:
         structure; returns ``(restored, iteration)``, or ``(state, None)``
         when there is none (a fresh start).  Tensors come back on the
         device and in the dtype of the live leaves."""
+        from chainermn_tpu_torch.observability import (
+            flight_recorder as _flight)
         gen = self.latest_consistent_generation()
         if gen is None:
             return state, None
-        with np.load(self._file(gen)) as data:
-            arrays = {k: data[k] for k in data.files}
-        self._validate_fsdp(arrays, state, gen)
-        self._validate_compression(arrays, state, gen)
-        self._validate_plan_table(arrays, gen)
-        leaves = _leaves(state)
-        self._validate(arrays, leaves, gen)
-        return _rebuild(state, {k: _restore_leaf(arrays[k], v)
-                                for k, v in leaves.items()}), gen
+        fr = _flight.get_flight_recorder()
+        tok = None
+        if fr is not None:
+            tok = fr.span_begin("checkpoint", "checkpoint_resume",
+                                generation=gen)
+        try:
+            with np.load(self._file(gen)) as data:
+                arrays = {k: data[k] for k in data.files}
+            self._validate_fsdp(arrays, state, gen)
+            self._validate_compression(arrays, state, gen)
+            self._validate_plan_table(arrays, gen)
+            leaves = _leaves(state)
+            self._validate(arrays, leaves, gen)
+            return _rebuild(state, {k: _restore_leaf(arrays[k], v)
+                                    for k, v in leaves.items()}), gen
+        finally:
+            if tok is not None:
+                fr.span_end(tok)
 
     def finalize(self) -> None:
         self.comm.barrier()
@@ -544,22 +605,25 @@ def create_multi_node_checkpointer(communicator, path: str,
                                    backend: str = "npz"):
     """Reference signature: ``create_multi_node_checkpointer(name, comm,
     path=...)``.  ``keep`` newest generations are kept (``keep=0``: all of
-    them).  Only ``backend="npz"`` is ported."""
+    them).  ``backend="npz"`` saves on the calling thread;
+    ``backend="async"`` (:class:`~chainermn_tpu_torch.elastic.
+    AsyncCheckpointer`) takes the device-to-host snapshot on the calling
+    thread and writes the same npz files on a background thread."""
     if keep < 0:
         raise ValueError(f"keep must be >= 0 (got {keep}); "
                          f"0 means retain every generation")
-    if backend == "async":
-        raise NotImplementedError(
-            "backend='async' (the elastic runtime's background writer) is "
-            "not ported yet; see ROADMAP.md Queue A14")
     if backend == "orbax":
         raise NotImplementedError(
             "backend='orbax' has no twin in the PyTorch port (Orbax is "
             "JAX's checkpoint library); use backend='npz'")
-    if backend != "npz":
+    if backend not in ("npz", "async"):
         raise ValueError(f"unknown checkpoint backend {backend!r} "
                          "(expected 'npz', 'async' or 'orbax')")
-    return _MultiNodeCheckpointer(communicator, path, name, keep)
+    inner = _MultiNodeCheckpointer(communicator, path, name, keep)
+    if backend == "async":
+        from chainermn_tpu_torch.elastic.async_ckpt import AsyncCheckpointer
+        return AsyncCheckpointer(inner)
+    return inner
 
 
 __all__ = ["consolidate_fsdp_checkpoint", "create_multi_node_checkpointer"]

@@ -31,7 +31,10 @@ Counterpart of ``chainermn_tpu/observability/__init__.py``:
   percentiles);
 * :mod:`.diffing` -- run profiles and the ``run_diff/v1`` document that
   names the regressed bucket;
-* :mod:`.ledger` -- the common envelope of result documents.
+* :mod:`.ledger` -- the common envelope of result documents, the schema
+  registry and artifact classification, and the run ledger
+  (``RunLedger``, ``build_manifest``, ``ingest_artifacts``) that keeps
+  one device kind's records apart from another's.
 
 The master switch is process-wide: :func:`enable` / :func:`disable` /
 :func:`enabled`, or the ``CHAINERMN_TPU_OBSERVABILITY`` environment
@@ -39,10 +42,8 @@ variable (any non-empty value other than ``0``/``false``/``off``), read
 at import.  Every data-path seam checks it ONCE at construction, so a
 disabled run makes no observability call per iteration.
 
-Not ported yet (ROADMAP.md Queue A13 (c)): the run ledger's artifact
-classification (``RunLedger``, ``build_manifest``, ``classify_artifact``,
-``ingest_artifacts``, ``iter_artifacts``) and the report tools that read
-these documents.
+The report tools that read these documents are
+``chainermn_tpu_torch.tools`` (``obs_report``, ``ledger``, ``perf_gate``).
 """
 
 from chainermn_tpu_torch.observability.attribution import (
@@ -62,7 +63,8 @@ from chainermn_tpu_torch.observability.flight_recorder import (
 from chainermn_tpu_torch.observability.instrument import (
     InstrumentedCommunicator, instrument_communicator)
 from chainermn_tpu_torch.observability.ledger import (
-    detect_device_kind, git_sha, schema_version, stamp_envelope)
+    RunLedger, build_manifest, classify_artifact, detect_device_kind, git_sha,
+    ingest_artifacts, iter_artifacts, schema_version, stamp_envelope)
 from chainermn_tpu_torch.observability.registry import (
     Counter, Gauge, Histogram, MetricsRegistry, StreamingHistogram, disable,
     enable, enabled, get_registry)
@@ -82,16 +84,18 @@ from chainermn_tpu_torch.observability.watchdog import (
 __all__ = [
     "AttributionWatch", "BUCKETS", "Counter", "DUMP_SCHEMA", "FlightRecorder",
     "Gauge", "Histogram", "InstrumentedCommunicator", "MetricsRegistry",
-    "PlanObs", "Span", "StepTelemetry", "StragglerDetector",
+    "PlanObs", "RunLedger", "Span", "StepTelemetry", "StragglerDetector",
     "StreamingHistogram", "TelemetryAggregator", "Watchdog", "WatchdogConfig",
     "append_jsonl", "atomic_write_json", "attribute_step",
-    "attribution_consistency", "attribution_report", "build_step_trees",
-    "classify_span", "clock_handshake", "contention_report", "critical_path",
+    "attribution_consistency", "attribution_report", "build_manifest",
+    "build_step_trees", "classify_artifact", "classify_span",
+    "clock_handshake", "contention_report", "critical_path",
     "detect_device_kind", "diff_histograms", "diff_manifests",
     "diff_profiles", "diff_runs", "disable", "enable", "enabled",
     "feed_link_observations", "get_flight_recorder", "get_plan_obs",
-    "get_registry", "git_sha", "identify_desync", "install_flight_recorder",
-    "instrument_communicator", "leaf_comm_spans", "link_rates", "load_run",
+    "get_registry", "git_sha", "identify_desync", "ingest_artifacts",
+    "install_flight_recorder", "instrument_communicator", "iter_artifacts",
+    "leaf_comm_spans", "link_rates", "load_run",
     "merge_ranks", "occupancy_from_events", "occupancy_timelines",
     "offset_from_samples", "overlap_matrix", "pair_events", "phase_spans",
     "plan_identity", "prometheus_text", "read_jsonl", "reset_flight_recorder",

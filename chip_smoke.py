@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 31   # the builds and phase 31 alone
     python3 chip_smoke.py --phase 32   # the builds and phase 32 alone
+    python3 chip_smoke.py --phase 33   # the builds and phase 33 alone
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -465,6 +466,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     the ``serving_*`` streaming histograms equal the registry's; flash
     launches ``layers x passes``.  The summary's row 5 adds (a)-(d)'s
     casts, row 6 (e)'s launches.
+33. the elastic runtime and the run ledger (after 32, before the summary;
+    ``phase_elastic``), gated.  (a) ResNet-50's data-parallel train state
+    (about 205 MB: float32 parameters, BatchNorm statistics, SGD momentum)
+    with bf16 steps through the BatchNorm kernels and the float16 wire's
+    cast, ``P33_SAVES`` saves through ``npz`` and through ``async`` in
+    turn, ``P33_GAP`` steps before each: each save's stall (what ``save``
+    blocks for) as median and range, async below npz; both backends then
+    save the same step, a step updates the state in place, and after the
+    drain the two generations are equal bit for bit; 53 launches of each
+    BatchNorm kernel and 2 casts a step.  (b) ``tools.elastic_smoke``
+    (``P33_SMOKE``): its A/B leg on the card, the chaos world started on 2
+    gloo ranks on the CPU, rank 1 SIGKILLed, relaunched by the supervisor
+    on the card at world 1 (NCCL) through ``resume_resized``: a restart
+    manifest with the survivor's dump, at most one lost step, losses
+    within 1e-4 of the uninterrupted run; then ``tools.perf_gate
+    --elastic`` with the port's budgets.  (c) ``tools.ledger ingest`` of
+    the committed artifacts and of (a)'s and (b)'s under ``build/p33``
+    into one ledger: everything classifies, the card's records form a cell
+    of their own, and the card's baseline is a card's; ``tools.
+    obs_report`` over phase 31's metrics JSONL.  The summary's rows 1-5
+    add (a)'s launches.
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
 """
@@ -4809,6 +4831,7 @@ def p31_mnist(cs, torch):
             recs = [json.loads(ln) for ln in open(
                 os.path.join(out_dir, "metrics.jsonl"))]
             run["metrics"] = _p31_metrics(recs)
+            shutil.copy(os.path.join(out_dir, "metrics.jsonl"), P31_METRICS)
         runs[label].append(run)
         shutil.rmtree(out_dir, ignore_errors=True)
     runs["step_ms"] = _p31_spread([r["step_ms"] for r in runs["off"]],
@@ -5497,6 +5520,283 @@ def log_obs2(p32, gpu, secs):
         f"{k} {v:.1f}" for k, v in p32["seconds"].items()) + ")")
 
 
+P33_SAVES = 5        # phase 33 (a): saves of each backend, in turn
+P33_GAP = 6          # (a): steps before each save (the persist's cover)
+P33_DIR = os.path.join(HERE, "build", "p33")
+P33_SMOKE = ["--device", "cuda", "--chaos-start-device", "cpu",
+             "--resize-schedule", "2,1", "--timeout", "300"]
+P31_METRICS = os.path.join(HERE, "build", "p31_metrics.jsonl")
+
+
+def _npz_members(path):
+    """``{member: bytes}`` of an npz: its arrays bit for bit."""
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        return {n: z.read(n) for n in z.namelist()}
+
+
+def _spread(xs):
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs)}
+
+
+def p33_async_ab(fn, cs, torch, dev):
+    """(a): ResNet-50's data-parallel state through the npz and the async
+    backends in turn, the steps between them through the BatchNorm kernels
+    and the float16 wire's cast."""
+    import tempfile
+
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer,
+                                     make_train_step)
+    from chainermn_tpu_torch.extensions.checkpoint import (
+        _leaves, create_multi_node_checkpointer)
+    from chainermn_tpu_torch.models import ResNet50
+    from chainermn_tpu_torch.optim import optimizer_state_tree
+    root = tempfile.mkdtemp(prefix="chip_smoke_p33_",
+                            dir=os.path.join(HERE, "build"))
+    gen = torch.Generator(device=dev).manual_seed(33)
+    model = ResNet50(dtype=torch.bfloat16, device=dev, generator=gen)
+    comm = create_communicator("xla", allreduce_grad_dtype="float16")
+    opt = create_multi_node_optimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9), comm)
+    batch = (torch.randn((BATCH, 3, 224, 224), device=dev, generator=gen),
+             torch.randint(0, 1000, (BATCH,), device=dev, generator=gen))
+    step = make_train_step(
+        comm, lambda b: F.cross_entropy(model(b[0]), b[1]), opt)
+
+    def state():
+        return {"model": dict(model.state_dict()),
+                "optimizer": optimizer_state_tree(opt.local_optimizer)}
+
+    model.train()
+    try:
+        step(batch)  # momentum exists from here on (not counted)
+        torch.cuda.synchronize()
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in _leaves(state()).values())
+        sync = create_multi_node_checkpointer(
+            comm, os.path.join(root, "npz"), "ab", keep=2)
+        asy = create_multi_node_checkpointer(
+            comm, os.path.join(root, "async"), "ab", keep=2, backend="async")
+        fn.reset_launch_counts()
+        cs.reset_launch_counts()
+        steps, losses, sync_ms = 0, [], []
+
+        def run(n):
+            nonlocal steps
+            for _ in range(n):
+                losses.append(float(step(batch)))
+                steps += 1
+
+        for _ in range(P33_SAVES):
+            run(P33_GAP)
+            asy.save(state(), steps)
+            run(P33_GAP)
+            asy.drain()  # the sync save does not compete with the persist
+            t0 = time.perf_counter()
+            sync.save(state(), steps)
+            sync_ms.append((time.perf_counter() - t0) * 1e3)
+        # gate 2: both backends save the same step, then a step updates
+        # the parameters and the momentum in place before the drain
+        same = steps
+        sync.save(state(), same)
+        asy.save(state(), same)
+        run(1)
+        torch.cuda.synchronize()
+        in_flight = asy._q.unfinished_tasks > 0
+        asy.drain()
+        counts = dict(fn.launch_counts(), cast_scale=cs.cast_scale.launches)
+        equal = _npz_members(sync._file(same)) == \
+            _npz_members(asy._inner._file(same))
+        stall = list(asy.stall_ms[:P33_SAVES])
+        asy.finalize()
+        return {"bytes": nbytes, "steps": steps, "losses": losses,
+                "counts": counts, "async_ms": stall, "sync_ms": sync_ms,
+                "async": _spread(stall), "sync": _spread(sync_ms),
+                "persist_ms": _spread(asy.persist_ms),
+                "copy_gbps": nbytes / (statistics.median(stall) * 1e-3)
+                / 1e9,
+                "same_step_equal": equal, "persist_in_flight": in_flight}
+    finally:
+        del model, opt
+        torch.cuda.empty_cache()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _p33_tool(name, args):
+    """``python -m chainermn_tpu_torch.tools.<name> <args>`` in this
+    process (no interpreter or card start-up a call): ``(rc, stdout,
+    stderr)``."""
+    import importlib
+    import io
+    mod = importlib.import_module(f"chainermn_tpu_torch.tools.{name}")
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = mod.main(args)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def p33_chaos():
+    """(b): the elastic smoke, its chaos world started on 2 CPU ranks and
+    relaunched on the card, then the elastic gate on its artifact."""
+    art = os.path.join(P33_DIR, "ELASTIC_CARD_r1.json")
+    t0 = time.perf_counter()
+    rc, out, err = _p33_tool(
+        "elastic_smoke", ["--out", art, "--work-dir",
+                          os.path.join(P33_DIR, "work")] + P33_SMOKE)
+    secs = time.perf_counter() - t0
+    if rc:
+        log(f"phase 33 (b) elastic_smoke rc {rc}: {err[-3000:]}")
+    doc = json.load(open(art)) if os.path.exists(art) else {}
+    grc, gout, gerr = _p33_tool(
+        "perf_gate", ["--elastic", art, "--out",
+                      os.path.join(P33_DIR, "elastic_gate.json")])
+    chaos = doc.get("chaos") or {}
+    dumps = {}
+    if chaos.get("manifest") and os.path.exists(chaos["manifest"]):
+        dumps = json.load(open(chaos["manifest"]))["flight_dumps"]
+    return {"rc": rc, "seconds": secs, "doc": doc, "gate_rc": grc,
+            "gate": gout.strip().splitlines()[-1:] + gerr.strip()
+            .splitlines()[-3:], "survivor_dump": "0" in dumps}
+
+
+def p33_ledger(torch, a):
+    """(c): (a)'s document and (b)'s artifact into the run ledger beside
+    the committed ones, then obs_report over phase 31's metrics."""
+    from chainermn_tpu_torch.observability.ledger import (RunLedger,
+                                                          stamp_envelope)
+    card = torch.cuda.get_device_name(0)
+    doc = stamp_envelope({
+        "kind": "elastic_smoke/v1", "ok": True, "chaos": None,
+        "async_ckpt": {"state_bytes": a["bytes"],
+                       "stall_ms": a["async"]["median"],
+                       "sync_stall_ms": a["sync"]["median"],
+                       "stall_ms_all": a["async_ms"],
+                       "sync_stall_ms_all": a["sync_ms"],
+                       "ok": a["async"]["median"] < a["sync"]["median"]}},
+        "elastic_smoke/v1", n_devices=1, backend="cuda")
+    with open(os.path.join(P33_DIR, "ELASTIC_CARD_RESNET_r1.json"), "w") as f:
+        json.dump(doc, f, indent=2)
+    runs = os.path.join(P33_DIR, "runs.jsonl")
+    if os.path.exists(runs):
+        os.remove(runs)
+    ingest = []
+    for root in (HERE, P33_DIR):
+        rc, out, err = _p33_tool(
+            "ledger", ["ingest", "--root", root, "--ledger", runs])
+        ingest.append({"rc": rc, "summary": json.loads(
+            out.strip().splitlines()[-1]) if out.strip() else err[-500:]})
+    led = RunLedger.load(runs)
+    mine = [r for r in led.records()
+            if r["artifact"].startswith("ELASTIC_CARD")]
+    theirs = [r for r in led.records() if r not in mine]
+    base = led.baseline("elastic_smoke/v1", card, "async_ckpt_stall_ms",
+                        "lower")
+    cpu_base = led.baseline("elastic_smoke/v1", "cpu", "async_ckpt_stall_ms",
+                            "lower")
+    metrics = P31_METRICS
+    if not os.path.exists(metrics):  # phase 33 alone: one observed run
+        from chainermn_tpu_torch.examples import train_mnist
+        out_dir = os.path.join(HERE, "build", "chip_smoke_p33_obs")
+        train_mnist.main(P31_MNIST + ["--out", out_dir, "--observability"])
+        _obs_reset()
+        shutil.copy(os.path.join(out_dir, "metrics.jsonl"), metrics)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    rc, out, err = _p33_tool("obs_report", [metrics])
+    return {"ingest": ingest, "card": card,
+            "cells": {f"{dk}/{s}": n for (dk, s), n in led.cells().items()},
+            "mine": len(mine),
+            "separate": bool(mine) and all(r["device_kind"] == card
+                                           for r in mine)
+            and not any(r["device_kind"] == card for r in theirs),
+            "baseline_is_card": base is not None
+            and base["device_kind"] == card
+            and base["artifact"].startswith("ELASTIC_CARD"),
+            "cpu_baseline_not_card": cpu_base is None
+            or cpu_base["device_kind"] == "cpu",
+            "report_rc": rc, "report_lines": len(out.splitlines()),
+            "report_ok": rc == 0 and all(
+                h in out for h in ("per-step summary", "per-collective "
+                                   "summary", "straggler report"))}
+
+
+def phase_elastic(fn, cs, torch, dev):
+    """Phase 33 (see the module docstring)."""
+    shutil.rmtree(P33_DIR, ignore_errors=True)
+    os.makedirs(P33_DIR)
+    out, secs = {}, {}
+    for key, run in (("a", lambda: p33_async_ab(fn, cs, torch, dev)),
+                     ("b", p33_chaos),
+                     ("c", lambda: p33_ledger(torch, out["a"]))):
+        t0 = time.perf_counter()
+        out[key] = run()
+        secs[key] = time.perf_counter() - t0
+    a, b, c = out["a"], out["b"], out["c"]
+    chaos = b["doc"].get("chaos") or {}
+    out["gates"] = {
+        "(a) async below sync": a["async"]["median"] < a["sync"]["median"],
+        "(a) async = sync at the same step, bit for bit":
+        a["same_step_equal"],
+        "(a) 53 BatchNorm launches and 2 casts a step": all(
+            n == (2 if w == "cast_scale" else 53) * a["steps"]
+            for w, n in a["counts"].items()),
+        "(a) finite losses": all(map(math.isfinite, a["losses"])),
+        "(b) elastic_smoke ok": b["rc"] == 0 and bool(b["doc"].get("ok")),
+        "(b) manifest holds the survivor's dump": b["survivor_dump"],
+        "(b) lost steps <= 1": chaos.get("lost_steps", 99) <= 1,
+        "(b) losses within 1e-4": chaos.get("max_loss_delta", 1.0) <= 1e-4,
+        "(b) relaunched on the card at world 1": [
+            (x["world"], x["device"]) for x in chaos.get("attempts", [])]
+        == [(2, "cpu"), (1, None)],
+        "(b) perf_gate --elastic": b["gate_rc"] == 0,
+        "(c) every artifact classifies": all(
+            i["rc"] == 0 and i["summary"]["unknown"] == 0
+            for i in c["ingest"]),
+        "(c) the card's records in a cell of their own": c["separate"]
+        and c["mine"] == 2,
+        "(c) the card's baseline is the card's": c["baseline_is_card"]
+        and c["cpu_baseline_not_card"],
+        "(c) obs_report over phase 31's metrics": c["report_ok"]}
+    out["seconds"] = secs
+    return out
+
+
+def log_elastic(p33, gpu, secs):
+    a, b, c = p33["a"], p33["b"], p33["c"]
+    chaos = b["doc"].get("chaos") or {}
+    ab = b["doc"].get("async_ckpt") or {}
+    log(f"phase 33 (a) ResNet-50 data-parallel state ({a['bytes']} bytes: "
+        f"parameters, BatchNorm statistics, SGD momentum), batch {BATCH} "
+        f"bf16 steps on the float16 wire, {P33_SAVES} saves of each backend "
+        f"every {P33_GAP} steps: stall ms npz {json.dumps(a['sync'])} "
+        f"(all {[round(v, 3) for v in a['sync_ms']]}), async "
+        f"{json.dumps(a['async'])} (all {[round(v, 3) for v in a['async_ms']]}"
+        f"); the snapshot's copy {a['copy_gbps']:.2f} GB/s; persist ms "
+        f"{json.dumps(a['persist_ms'])}; the same step's generations equal "
+        f"{a['same_step_equal']} (persist still in flight after the next "
+        f"step: {a['persist_in_flight']}); launches {json.dumps(a['counts'])}"
+        f" in {a['steps']} steps on {gpu}")
+    log(f"phase 33 (b) elastic_smoke {' '.join(P33_SMOKE)} ({b['seconds']:.1f}"
+        f" s): A/B over {ab.get('state_bytes')} bytes on the card, stall ms "
+        f"{ab.get('stall_ms')} vs sync {ab.get('sync_stall_ms')}; chaos: "
+        f"attempts {json.dumps(chaos.get('attempts'))}, resumed from "
+        f"{chaos.get('resumed_from')}, lost steps {chaos.get('lost_steps')}, "
+        f"max loss delta {chaos.get('max_loss_delta')} over "
+        f"{chaos.get('steps_compared')} steps, resize "
+        f"{json.dumps(chaos.get('resize'))}, baseline "
+        f"{chaos.get('baseline_s')} s, manifest reason "
+        f"{chaos.get('manifest_reason')!r}, dumps "
+        f"{chaos.get('n_embedded_dumps')}; perf_gate --elastic rc "
+        f"{b['gate_rc']}: {b['gate']}")
+    log(f"phase 33 (c) ledger ingest {json.dumps(c['ingest'])}; cells "
+        f"{json.dumps(c['cells'])}; obs_report over phase 31's metrics rc "
+        f"{c['report_rc']}, {c['report_lines']} lines")
+    log(f"phase 33 gates: {json.dumps(p33['gates'])}")
+    log(f"phase 33: {secs:.1f} s (" + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in p33["seconds"].items()) + ")")
+
+
 C12_LOOPS = 300      # phase 22: passes of the flash autograd check
 WGRAD_LOOPS = 600    # phase 22: launches of the probe wgrad
 
@@ -5890,6 +6190,14 @@ def main():
         raise AssertionError(f"phase 32: gates {failed} failed (their "
                              "lines above)")
 
+    t0 = time.perf_counter()
+    p33 = phase_elastic(fn, cs, torch, dev)
+    log_elastic(p33, gpu, time.perf_counter() - t0)
+    failed = sorted(g for g, ok in p33["gates"].items() if not ok)
+    if failed:
+        raise AssertionError(f"phase 33: gates {failed} failed (their "
+                             "lines above)")
+
     dist.destroy_process_group()
     # phase 25's launches on the main path: (a) flash and casts, (d)'s
     # bench and (e)'s real-image run the BatchNorm kernels
@@ -5902,7 +6210,8 @@ def main():
     # kernels, the bfloat16 wire's casts, the FSDP LM's flash kernels
     for w in KERNELS:
         p25_bn[w] += p26["resnet"]["bn_launches"][w]
-        p25_bn[w] += p29["bn_counts"][w] + p30["bn_counts"][w]
+        p25_bn[w] += p29["bn_counts"][w] + p30["bn_counts"][w] \
+            + p33["a"]["counts"][w]
     p26_flash = p26["lm"]["runs"]["fsdp"]["counts"]
     # phases 28 and 29 on the main path: the pipelines' and the FSDP LM's
     # flash kernels, the wire's casts
@@ -5927,7 +6236,8 @@ def main():
         + p25["vit"]["xla"]["counts"]["cast_scale"] + p26["resnet"]["casts"]
         + sum(r["casts"] for r in p29["a"].values()) + p30["casts"]
         + p31["a_casts"] + p31["b"]["off"]["casts"]
-        + p31["b"]["on"]["casts"] + p32["casts"],
+        + p31["b"]["on"]["casts"] + p32["casts"]
+        + p33["a"]["counts"]["cast_scale"],
         "max_abs_err": cast_err,
         "ms": cast_t["ms"], "plain_ms": cast_t["plain_ms"],
         "bound_ms": cast_t["bound_ms"], "bound_by": "bytes",
@@ -5967,9 +6277,9 @@ def main():
 
 
 def phase_alone(n):
-    """``python3 chip_smoke.py --phase 31`` (or ``32``): the CUDA builds
-    and that phase alone, gated as in the whole run; no summary and no
-    result line."""
+    """``python3 chip_smoke.py --phase 31`` (or ``32``, ``33``): the CUDA
+    builds and that phase alone, gated as in the whole run; no summary and
+    no result line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5989,6 +6299,10 @@ def phase_alone(n):
     if n == "31":
         res = phase_obs(cs, fa, torch, torch.device("cuda", 0))
         log_obs(res, gpu, time.perf_counter() - t0)
+    elif n == "33":
+        fn = importlib.import_module("chainermn_tpu_torch.ops.fused_norm")
+        res = phase_elastic(fn, cs, torch, torch.device("cuda", 0))
+        log_elastic(res, gpu, time.perf_counter() - t0)
     else:
         res = phase_obs2(cs, fa, torch)
         log_obs2(res, gpu, time.perf_counter() - t0)
@@ -5998,4 +6312,4 @@ def phase_alone(n):
 
 if __name__ == "__main__":
     sys.exit(phase_alone(sys.argv[2]) if sys.argv[1:2] == ["--phase"]
-             and sys.argv[2:] in (["31"], ["32"]) else main())
+             and sys.argv[2:] in (["31"], ["32"], ["33"]) else main())

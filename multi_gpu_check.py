@@ -1,7 +1,8 @@
 """The data-, sequence- and model-parallel slices on every card of one host.
 
     python3 multi_gpu_check.py [--logs DIR]
-        [--parts dp,sp,mp,configs,fsdp,tp_ep,pp,compression,planner,obs]
+        [--parts dp,sp,mp,configs,fsdp,tp_ep,pp,compression,planner,obs,
+                 elastic]
     # needs two CUDA cards or more
 
 1. prints the cards' names and power limits (``nvidia-smi``) and torch's
@@ -153,6 +154,24 @@
     rank skipping one ``allreduce_grad``; every rank must dump, rank 0's
     dump name the last rank (``desynced_ranks``), and once the harness
     has ended the world the cards hold no process.
+14. (part ``elastic``, not in the default) the elastic runtime on every
+    card: the LM at the width of part ``fsdp`` (vocab 32768, d_model
+    2048, 16 heads; ``ELASTIC`` cuts the depth to 2 layers, T 2048, a
+    sequence a card) under FSDP (K 2 buckets, Adam, float32, TF32 off)
+    through the flash kernels, on every card under the elastic
+    supervisor, saving every step through the ``async`` backend; the last
+    rank SIGKILLs itself after step ``kill_step`` (its earlier snapshots
+    drained first, so a generation of every rank exists); the survivors'
+    watchdogs dump (heartbeat loss on the socket plane), the supervisor
+    harvests the dumps into a restart manifest, frees the cards and
+    relaunches at half the world, which resumes through
+    ``resume_resized``: the resumed state, consolidated, equals the saved
+    generation's parameters and Adam moments bit for bit; its next step
+    equals, bit for bit, the step of a half world started directly from
+    the consolidated state (its shards and moments cut by hand); the cards
+    hold no process afterwards; the seconds to restart and to resume and
+    the resharded bytes are printed.  Then ``tools.attribution_smoke`` on
+    every card.
 
 Prints one JSON object as its last line; exits 1 if a check failed.  Runs
 write under ``build/`` (removed afterwards), their logs under ``--logs``
@@ -394,12 +413,12 @@ def main(argv=None):
                    help="which slices to run: dp (steps 2-4), sp (step 5), "
                    "mp (step 6), configs (step 7), fsdp (step 8), tp_ep "
                    "(step 9), pp (step 10), compression (step 11), planner "
-                   "(step 12), obs (step 13)")
+                   "(step 12), obs (step 13), elastic (step 14)")
     args = p.parse_args(argv)
     logs = os.path.abspath(args.logs)
     parts = set(args.parts.split(","))
     known = {"dp", "sp", "mp", "configs", "fsdp", "tp_ep", "pp",
-             "compression", "planner", "obs"}
+             "compression", "planner", "obs", "elastic"}
     if not parts or parts - known:
         p.error(f"--parts: {args.parts!r} is not a subset of "
                 f"{','.join(sorted(known))}")
@@ -442,6 +461,8 @@ def main(argv=None):
             planner(n, out, failures, work, logs)
         if "obs" in parts:
             observability(n, out, failures, work, logs)
+        if "elastic" in parts:
+            elastic(n, out, failures, work, logs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["failures"] = failures
@@ -1924,6 +1945,280 @@ def observability(n, out, failures, work, logs):
     desync(n, work, logs, res["desync"], failures)
     print(json.dumps({"obs": res}), flush=True)
     out["obs"] = res
+
+ELASTIC = {"vocab": 32768, "d_model": 2048, "layers": 2, "heads": 16,
+           "seq": 2048, "buckets": 2, "lr": 1e-3, "steps": 5, "kill_step": 3}
+#: the device of the elastic part's ranks: None is one card a rank
+ELASTIC_DEVICE = None
+
+_ELASTIC_WORKER = r"""
+import json, os, signal, sys, time
+os.environ["CHAINERMN_TPU_OBSERVABILITY"] = "1"
+sys.path.insert(0, os.environ["CHAINERMN_TPU_REPO"])
+import numpy as np
+import torch
+
+import chainermn_tpu_torch as cmn
+from chainermn_tpu_torch.elastic import resume_resized
+from chainermn_tpu_torch.examples.train_lm import lm_loss, make_motif_task
+from chainermn_tpu_torch.extensions.checkpoint import \
+    create_multi_node_checkpointer
+from chainermn_tpu_torch.models import TransformerLM
+from chainermn_tpu_torch.observability import start_watchdog
+from chainermn_tpu_torch.optim import init_optimizer_state
+from chainermn_tpu_torch.parallel.fsdp import (
+    fsdp_init, make_fsdp_meta, make_fsdp_train_step)
+from chainermn_tpu_torch.runtime.control_plane import get_control_plane
+from chainermn_tpu_torch.utils.compare import no_tf32
+from chainermn_tpu_torch.utils.proc_world import worker_device
+
+t_start = time.time()
+cfg = json.loads(os.environ["ELASTIC_CFG"])
+attempt = int(os.environ.get("CHAINERMN_TPU_ELASTIC_ATTEMPT", "0"))
+direct = os.environ.get("ELASTIC_DIRECT")
+torch.set_num_threads(1)
+topo = cmn.init_distributed(device=worker_device())
+comm = cmn.create_communicator("flat", device=worker_device())
+dev = comm.device
+wd = None if direct else start_watchdog(
+    control_plane=get_control_plane(), rank=comm.rank,
+    out_dir=os.environ["CHAINERMN_TPU_FLIGHT_DIR"])
+
+
+def new_model():
+    return TransformerLM(vocab=cfg["vocab"], d_model=cfg["d_model"],
+                         n_layers=cfg["layers"], n_heads=cfg["heads"],
+                         max_len=cfg["seq"], attention_impl="flash",
+                         device=dev, generator=torch.Generator(
+                             device=dev).manual_seed(0))
+
+
+def batch(t):
+    # the same 4 sequences a step for every world: rank r's share of them
+    toks = make_motif_task(4, cfg["seq"], cfg["vocab"], seed=100 + t)
+    n = 4 // comm.size
+    return toks[comm.rank * n:(comm.rank + 1) * n].to(dev)
+
+
+def files(path, gen, world):
+    return [dict(np.load(os.path.join(path, "lm.%d.rank%d.npz" % (gen, r))))
+            for r in range(world)]
+
+
+with no_tf32():
+    model = new_model()
+    if direct:
+        # the half world started directly from the consolidated generation:
+        # parameters and Adam moments cut into this world's shards by hand
+        gen, old = int(direct), int(cfg["old_world"])
+        saved = files(cfg["ckpt"], gen, old)
+        meta_old = make_fsdp_meta(model, old, cfg["buckets"])
+        names = [n for n, _ in model.named_parameters()]
+        full = {}
+        for b, bl in enumerate(meta_old.buckets):
+            buf = np.concatenate([f["fsdp/shards/%d/0" % b] for f in saved])
+            off = 0
+            for n in names[bl.start:bl.stop]:
+                p = dict(model.named_parameters())[n]
+                full[n] = torch.from_numpy(
+                    buf[off:off + p.numel()].reshape(p.shape).copy())
+                off += p.numel()
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(full[n])
+    state, meta = fsdp_init(comm, model, torch.optim.Adam(
+        model.parameters(), lr=cfg["lr"]), num_buckets=cfg["buckets"])
+    step = make_fsdp_train_step(comm, lambda toks: lm_loss(model, toks),
+                                state, meta)
+    out = {"rank": comm.rank, "world": comm.size, "attempt": attempt,
+           "start_s": time.time() - t_start}
+    if direct:
+        init_optimizer_state(state.inner)
+        shards = state.flat_shards()
+        for i, (bl, p) in enumerate(zip(meta.buckets, shards)):
+            st = state.inner.state[p]
+            for key in ("exp_avg", "exp_avg_sq"):
+                v = np.concatenate([f["fsdp/inner/%d/%s" % (i, key)]
+                                    for f in saved])[:bl.orig_lens[0]]
+                n = bl.shard_lens[0]
+                v = np.concatenate([v, np.zeros(n * comm.size - v.size,
+                                                v.dtype)])
+                st[key].copy_(torch.from_numpy(
+                    v[comm.rank * n:(comm.rank + 1) * n]))
+            st["step"].copy_(torch.from_numpy(
+                saved[0]["fsdp/inner/%d/step" % i]))
+        out["loss"] = float(step(batch(gen + 1)))
+        create_multi_node_checkpointer(comm, cfg["direct_out"], "lm",
+                                       keep=0).save({"fsdp": state}, gen + 1)
+    elif attempt == 0:
+        ckpt = create_multi_node_checkpointer(comm, cfg["ckpt"], "lm",
+                                              keep=0, backend="async")
+        for t in range(cfg["steps"]):
+            loss = float(step(batch(t)))
+            if t == cfg["kill_step"] and comm.rank == comm.size - 1:
+                # the preemption, once this rank's earlier snapshots are
+                # on disk (a generation of every rank exists to resume)
+                ckpt.drain()
+                os.kill(os.getpid(), signal.SIGKILL)
+            ckpt.save({"fsdp": state}, t)
+        ckpt.finalize()
+    else:
+        init_optimizer_state(state.inner)
+        t0 = time.time()
+        src = create_multi_node_checkpointer(comm, cfg["ckpt"], "lm", keep=0)
+        tree, gen, report = resume_resized(src, {"fsdp": state}, comm)
+        out["resume_s"] = time.time() - t0
+        out.update(gen=gen, report={k: v for k, v in report.items()
+                                    if k != "plan_table"})
+        create_multi_node_checkpointer(comm, cfg["resumed"], "lm",
+                                       keep=0).save({"fsdp": state}, gen)
+        out["loss"] = float(step(batch(gen + 1)))
+        create_multi_node_checkpointer(comm, cfg["next"], "lm",
+                                       keep=0).save({"fsdp": state}, gen + 1)
+if wd is not None:
+    wd.stop()
+print("RESULT " + json.dumps(out), flush=True)
+comm.barrier()
+torch.distributed.destroy_process_group()
+"""
+
+
+def _lm_consolidated(path, gen, world, orig):
+    """``{leaf: array}``: a generation's sharded leaves, every rank's slice
+    concatenated and the pad cut (``orig``: each bucket's length)."""
+    import numpy as np
+    parts = [dict(np.load(os.path.join(path, f"lm.{gen}.rank{r}.npz")))
+             for r in range(world)]
+    out = {}
+    for k in parts[0]:
+        if not k.startswith("fsdp/"):
+            continue
+        if k.endswith("/step"):
+            out[k] = parts[0][k]
+            out[k + "@same"] = np.array(all(
+                (p[k] == parts[0][k]).all() for p in parts))
+            continue
+        out[k] = np.concatenate([p[k] for p in parts])[
+            :orig[int(k.split("/")[2])]]
+    return out
+
+
+def elastic(n, out, failures, work, logs):
+    """Part elastic (see the module docstring)."""
+    import numpy as np
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch.elastic import Supervisor, SupervisorConfig
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.parallel.fsdp import make_fsdp_meta
+    from chainermn_tpu_torch.utils.proc_world import spawn_world
+    half = n // 2
+    d = {k: os.path.join(work, f"elastic_{k}") for k in (
+        "ckpt", "resumed", "next", "direct", "dumps", "out")}
+    for v in d.values():
+        os.makedirs(v, exist_ok=True)
+    cfg = dict(ELASTIC, ckpt=d["ckpt"], resumed=d["resumed"],
+               next=d["next"], direct_out=d["direct"], old_world=n)
+    # NCCL survivors block in the next gather: their watchdogs find the
+    # heartbeat lost (1.5 s), ask the peers for their states (0.5 s; the
+    # dead one never answers) and probe the clocks before they dump
+    env = {"ELASTIC_CFG": json.dumps(cfg),
+           "CHAINERMN_TPU_WATCHDOG_HEARTBEAT": "0.2",
+           "CHAINERMN_TPU_WATCHDOG_HB_TIMEOUT": "1.5",
+           "CHAINERMN_TPU_WATCHDOG_POLL": "0.1",
+           "CHAINERMN_TPU_WATCHDOG_COLLECT": "0.5"}
+    sup = Supervisor(_ELASTIC_WORKER, SupervisorConfig(
+        n_procs=n, device=ELASTIC_DEVICE, max_restarts=1,
+        attempt_timeout_s=900, dump_dir=d["dumps"], out_dir=d["out"],
+        ckpt_path=d["ckpt"], ckpt_name="lm", resize_schedule=[n, half],
+        env=env, dump_grace_s=30.0, log_dir=os.path.join(logs, "elastic")))
+    t0 = time.time()
+    try:
+        outcome = sup.run()
+    except RuntimeError as e:
+        failures.append(f"elastic: supervisor {e}"[:2000])
+        out["elastic"] = {"attempts": sup.attempts}
+        return
+    res = {"seconds": round(time.time() - t0, 1),
+           "attempts": [{k: a[k] for k in ("attempt", "world",
+                                           "resume_generation",
+                                           "duration_s")}
+                        for a in outcome["attempts"]]}
+    results = outcome["results"]
+    gen = results[0]["gen"]
+    res["generation"] = gen
+    res["report"] = results[0]["report"]
+    res["resume_s"] = max(r["resume_s"] for r in results.values())
+    res["relaunch_start_s"] = max(r["start_s"] for r in results.values())
+    man = json.load(open(outcome["manifests"][0]))
+    res["manifest"] = {"reason": man["reason"],
+                       "dumps": sorted(man["flight_dumps"]),
+                       "dump_reasons": {r: x.get("reason") for r, x in
+                                        man["flight_dumps"].items()},
+                       "exit_codes": man["exit_codes"]}
+    if res["manifest"]["dumps"] != [str(r) for r in range(n - 1)]:
+        failures.append(f"elastic: the manifest holds dumps "
+                        f"{res['manifest']['dumps']}, not every survivor's")
+    model = TransformerLM(vocab=ELASTIC["vocab"], d_model=ELASTIC["d_model"],
+                          n_layers=ELASTIC["layers"],
+                          n_heads=ELASTIC["heads"], max_len=ELASTIC["seq"],
+                          device="meta")
+    orig = [bl.orig_lens[0] for bl in make_fsdp_meta(
+        model, n, ELASTIC["buckets"]).buckets]
+    saved = _lm_consolidated(d["ckpt"], gen, n, orig)
+    back = _lm_consolidated(d["resumed"], gen, half, orig)
+    res["leaves"] = len(saved)
+    res["resharded_bytes"] = sum(int(v.nbytes) for k, v in saved.items()
+                                 if "@" not in k)
+    res["resumed_equal"] = set(saved) == set(back) and all(
+        saved[k].dtype == back[k].dtype and np.array_equal(saved[k], back[k])
+        for k in saved)
+    if not res["resumed_equal"]:
+        failures.append("elastic: the resumed state is not the saved one")
+    # a half world from the consolidated state, directly
+    direct = spawn_world(_ELASTIC_WORKER, n_procs=half,
+                         device=ELASTIC_DEVICE, timeout=900,
+                         log_dir=os.path.join(logs, "elastic_direct"),
+                         env={"ELASTIC_CFG": json.dumps(cfg),
+                              "ELASTIC_DIRECT": str(gen)})
+    res["losses"] = {"resumed": results[0]["loss"],
+                     "direct": direct[0]["loss"]}
+    res["next_step_equal"] = res["losses"]["resumed"] == \
+        res["losses"]["direct"] and all(
+        {k: v.tobytes() for k, v in np.load(os.path.join(
+            d["next"], f"lm.{gen + 1}.rank{r}.npz")).items()
+         if k.startswith("fsdp/")} == {
+            k: v.tobytes() for k, v in np.load(os.path.join(
+                d["direct"], f"lm.{gen + 1}.rank{r}.npz")).items()
+            if k.startswith("fsdp/")} for r in range(half))
+    if not res["next_step_equal"]:
+        failures.append(f"elastic: the next step differs {res['losses']}")
+    busy = None
+    for _ in range(30):
+        busy = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.split()
+        if not busy:
+            break
+        time.sleep(1.0)
+    res["cards_free"] = not busy
+    if busy:
+        failures.append(f"elastic: processes left on the cards {busy}")
+    # the attribution smoke on every card
+    rc = subprocess.run(
+        [sys.executable, "-m", "chainermn_tpu_torch.tools.attribution_smoke",
+         "--n-procs", str(n), "--out", os.path.join(logs,
+                                                     "ATTRIBUTION.json"),
+         "--dump-dir", os.path.join(work, "attr_dumps")]
+        + (["--device", "cpu"] if ELASTIC_DEVICE == "cpu" else []),
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    res["attribution_smoke"] = {"rc": rc.returncode,
+                                "tail": rc.stdout.strip().splitlines()[-4:]}
+    if rc.returncode:
+        failures.append(f"elastic: attribution_smoke rc {rc.returncode}: "
+                        f"{rc.stderr[-1500:]}")
+    print(json.dumps({"elastic": res}), flush=True)
+    out["elastic"] = res
 
 
 if __name__ == "__main__":

@@ -100,6 +100,27 @@ def test_entry_points_refuse_the_cpu_unless_asked():
             call()
 
 
+def test_elastic_entry_points_refuse_the_cpu_unless_asked(tmp_path):
+    """The async A/B leg, the supervisor's default world and the smokes'
+    default runs go to the card; on a box without one they raise (or
+    fail) rather than run on the CPU."""
+    _no_cuda()
+    from chainermn_tpu_torch.elastic import Supervisor, SupervisorConfig
+    from chainermn_tpu_torch.tools import elastic_smoke
+    from chainermn_tpu_torch.utils.proc_world import worker_device
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        elastic_smoke.run_async_ab(n_saves=1)
+    src = ("import sys\nsys.path.insert(0, %r)\nfrom chainermn_tpu_torch "
+           "import init_distributed\nfrom chainermn_tpu_torch.utils."
+           "proc_world import worker_device\ninit_distributed(device="
+           "worker_device())\nprint('RESULT {}')\n" % REPO)
+    cfg = SupervisorConfig(n_procs=1, max_restarts=0, dump_dir=str(tmp_path),
+                           out_dir=str(tmp_path), attempt_timeout_s=120)
+    with pytest.raises(RuntimeError, match="gave up"):
+        Supervisor(src, cfg).run()
+    assert worker_device() is None
+
+
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     _no_cuda()
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
@@ -124,8 +145,22 @@ for n in ("Watchdog", "WatchdogConfig", "start_watchdog",
           "watchdog_thread_count", "TelemetryAggregator",
           "contention_report", "occupancy_timelines", "overlap_matrix",
           "link_rates", "attribution_consistency", "feed_link_observations",
-          "diff_runs", "diff_profiles", "run_profile", "load_run"):
+          "diff_runs", "diff_profiles", "run_profile", "load_run",
+          "RunLedger", "build_manifest", "classify_artifact",
+          "ingest_artifacts", "iter_artifacts"):
     assert n in o.__all__, n
+import chainermn_tpu_torch.elastic as e
+missing = [n for n in e.__all__ if getattr(e, n, None) is None]
+assert not missing, missing
+for n in ("AsyncCheckpointer", "MANIFEST_SCHEMA", "Supervisor",
+          "SupervisorConfig", "build_restart_manifest", "resize_report",
+          "resume_resized", "retune_plan_table", "write_restart_manifest"):
+    assert n in e.__all__, n
+import importlib
+for n in ("ledger", "obs_report", "perf_gate", "attribution_smoke",
+          "elastic_run", "elastic_smoke"):
+    assert callable(importlib.import_module(
+        "chainermn_tpu_torch.tools." + n).main), n
 from chainermn_tpu_torch.runtime.bootstrap import install_crash_dumps
 assert install_crash_dumps() is None  # observability off: nothing
 assert _build._LIBS == {} and native._lib is None, "something was built"
