@@ -45,8 +45,31 @@ from chainermn_tpu_torch.serving import (
     AdmissionScheduler, InferenceEngine, KvCache, PageAllocator,
     ServingConfig, load_inference_params, paged_attention)
 
+#: cmn-lint (``chainermn_tpu_torch.analysis``), imported at first use as
+#: JAX's facade does: the recorder pulls in ``torch.testing``'s fake
+#: process group only when a lint runs
+_LAZY = {
+    "lint_step": "chainermn_tpu_torch.analysis",
+    "LintError": "chainermn_tpu_torch.analysis",
+    "LintReport": "chainermn_tpu_torch.analysis",
+    "extract_schedule": "chainermn_tpu_torch.analysis",
+    "CollectiveSchedule": "chainermn_tpu_torch.analysis",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        val = getattr(importlib.import_module(_LAZY[name]), name)
+        globals()[name] = val
+        return val
+    raise AttributeError(
+        f"module 'chainermn_tpu_torch' has no attribute {name!r}")
+
+
 __all__ = ["AdmissionScheduler", "AllreducePersistent", "Augment",
-           "ColumnParallelDense", "CommunicatorBase", "CompressionState",
+           "CollectiveSchedule", "ColumnParallelDense", "CommunicatorBase",
+           "CompressionState",
            "Compressor", "ControlPlane", "ExpertParallelMLP",
            "Fp8Compressor", "ImageFolderDataset", "InferenceEngine",
            "Int8Compressor", "KvCache", "MultiNodeBatchNormalization",
@@ -62,7 +85,8 @@ __all__ = ["AdmissionScheduler", "AllreducePersistent", "Augment",
            "create_per_stage_optimizer", "create_synchronized_iterator",
            "execute_plan", "flash_attention", "flavor_plan",
            "get_control_plane", "init_distributed", "init_topology",
-           "instrument_communicator", "load_inference_params",
+           "instrument_communicator", "LintError", "LintReport",
+           "lint_step", "extract_schedule", "load_inference_params",
            "make_pipeline_fn", "make_pipeline_train_fn", "make_train_step",
            "moe_apply", "normalize_image", "observability",
            "paged_attention", "pipeline_1f1b", "pipeline_apply",

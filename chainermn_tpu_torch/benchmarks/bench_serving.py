@@ -116,22 +116,29 @@ def _engine(model, args, draft_model=None, **kw):
                            comm=getattr(args, "comm", None))
 
 
-def _lead(args, *engines) -> bool:
+def _lead(args, *engines, release: bool = False) -> bool:
     """With ``--tp``, rank 0 drives each section and the other ranks step
     the same engines in the same order: on rank 0 each engine's ``step``
     first names the engine to the others (True is returned); the others
-    step the engines so named until :func:`_release` (False is returned).
-    Without ``--tp``: True."""
+    step the engines so named until rank 0 ends the section with
+    ``release=True`` (:func:`_release`; False is returned to them).
+    Both sides of this broadcast protocol sit under the one rank guard
+    below.  Without ``--tp``: True."""
     comm = getattr(args, "comm", None)
     if comm is None:
         return True
     if comm.rank == 0:
+        if release:
+            comm.bcast_obj(None, root=0)
+            return True
         for i, eng in enumerate(engines):
             def announced(step=eng.step, i=i):
                 comm.bcast_obj(i, root=0)
                 return step()
             eng.step = announced
         return True
+    if release:  # the other ranks left the section on its end message
+        return False
     while True:
         i = comm.bcast_obj(None, root=0)
         if i is None:
@@ -141,9 +148,7 @@ def _lead(args, *engines) -> bool:
 
 def _release(args) -> None:
     """Rank 0: the section is over (the other ranks leave :func:`_lead`)."""
-    comm = getattr(args, "comm", None)
-    if comm is not None and comm.rank == 0:
-        comm.bcast_obj(None, root=0)
+    _lead(args, release=True)
 
 
 def _cuda(args) -> bool:

@@ -222,13 +222,15 @@ class MeshCommunicator(CommunicatorBase):
         that spans the whole world reuses ``world``; a level of one rank
         gets ``None`` (its reduction is the identity and is skipped).
         ``"obj"`` is the object plane's gloo group of the whole world:
-        ``world`` itself when the default group is gloo, else a gloo group
-        of the same ranks.
+        ``world`` itself when the default group is gloo (or the fake group
+        of a dry run, which issues nothing), else a gloo group of the same
+        ranks.
         """
         n = len(members)
         inter_size = n // intra_size
         obj = world
-        if dist.is_initialized() and dist.get_backend() != "gloo":
+        if dist.is_initialized() and \
+                dist.get_backend() not in ("gloo", "fake"):
             obj = dist.new_group(members, backend="gloo")
         out = {r: {"intra": None, "inter": None, "obj": obj}
                for r in members}

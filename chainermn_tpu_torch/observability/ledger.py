@@ -96,6 +96,9 @@ KNOWN_SCHEMAS = {
     # the PyTorch port's own writers
     "bench_transport/v1",
     "conv_probe_torch/v1",
+    # the static protocol model (``analysis.protocol.ProtocolModel.
+    # to_json``; JAX's tag), written out whole on request
+    "protocol_model/v1",
 }
 
 #: legacy ``suite`` marker -> retroactive schema name

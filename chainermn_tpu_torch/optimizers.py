@@ -427,6 +427,12 @@ def make_train_step(communicator, loss_fn: Callable, optimizer,
     the loss, and aux, averaged over the world.  ``step.finalize()`` waits
     for a gradient mean the double-buffered optimizer still has in flight
     (the trainer calls it when training ends).
+
+    The loss (and aux) means are all-reduced before the update: the
+    double-buffered optimizer's gradient mean is then the step's last
+    collective, left in flight.  A blocking all-reduce issued after it on
+    the same communicator would wait for it, and the next step's forward
+    with it (``tools/check_db_overlap.py`` judges this on the cards).
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -445,12 +451,12 @@ def make_train_step(communicator, loss_fn: Callable, optimizer,
             out = loss_fn(batch)
             loss, aux = out if has_aux else (out, None)
             loss.backward()
-        optimizer.step()
         loss = comm.allreduce(loss.detach(), "mean")
-        if not has_aux:
-            return loss
-        return loss, comm.allreduce(
-            {k: v.detach() for k, v in aux.items()}, "mean")
+        if has_aux:
+            aux = comm.allreduce({k: v.detach() for k, v in aux.items()},
+                                 "mean")
+        optimizer.step()
+        return (loss, aux) if has_aux else loss
 
     step.finalize = getattr(optimizer, "_drain", lambda: None)
     return step

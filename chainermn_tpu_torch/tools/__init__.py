@@ -12,5 +12,11 @@ Counterparts of the JAX package's ``tools/`` scripts, each run as
 * :mod:`.attribution_smoke` -- a two-rank world's flight dumps held to the
   attribution checks;
 * :mod:`.elastic_run` / :mod:`.elastic_smoke` -- the supervisor's CLI and
-  its chaos and async-checkpoint smoke.
+  its chaos and async-checkpoint smoke;
+* :mod:`.cmn_lint` -- the static analyzer: entry points run dry, the
+  protocol sweep, recorded flight events, committed artifacts;
+* :mod:`.check_db_overlap` -- the double-buffered step's two NCCL
+  all-reduces and their overlap, from a profile on the cards;
+* :mod:`.contention_smoke` -- a two-rank world's contention report held to
+  JAX's checks.
 """

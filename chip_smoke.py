@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase 31   # the builds and phase 31 alone
     python3 chip_smoke.py --phase 32   # the builds and phase 32 alone
     python3 chip_smoke.py --phase 33   # the builds and phase 33 alone
+    python3 chip_smoke.py --phase 34   # the builds and phase 34 alone
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -432,15 +433,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     stage in stage order, outputs bit-equal, the same cast launches; a
     call's host time off and on.  (c) Phase 24's LM (bf16) serving phase
     24's trace, submitted at once, without and with observability,
-    ``P31_PAIRS`` pairs in turn: the same tokens in every run, the
+    ``P31_ONE_PAIR`` pair in turn: the same tokens in every run, the
     ``serving_*`` counters equal to the engine's completions and tokens,
     ``layers x passes`` flash launches; the wall time off and on.  (d)
     ``SocketControlPlane`` worlds of 2 and 4 processes on the native
     transport (built here), then a Python rank with a native one: the
     collectives' results and a frame both ways; round-trip latency at 1
     KiB and goodput at 64 MiB of both transports.  (e) A bucketed FSDP
-    step (``P31_FSDP``) without and with observability, ``P31_PAIRS``
-    pairs in turn: the shards bit-equal, each bucket's gather and
+    step (``P31_FSDP``) without and with observability, ``P31_ONE_PAIR``
+    pair in turn: the shards bit-equal, each bucket's gather and
     reduce-scatter a begin/end pair a step (the edges' CUDA events, read
     at the step's end); the step time off and on.  The summary's row 5
     adds (a)'s and (b)'s casts, row 6 (c)'s launches.
@@ -487,6 +488,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     of their own, and the card's baseline is a card's; ``tools.
     obs_report`` over phase 31's metrics JSONL.  The summary's rows 1-5
     add (a)'s launches.
+34. static analysis (after 33, before the summary; ``phase_lint``),
+    gated.  (a) ResNet-50 at full width (batch 32, bf16,
+    ``FusedBatchNormAct`` at every boundary) on the float16 wire of the
+    NCCL world of one, ``P34_STEPS`` steps under ``analysis.lint_step``
+    (``census-drift`` against the xla flavor, ``wire-dtype-mismatch``
+    against its float16 plan, ``async-pair``, ``captured-constant``,
+    ``donation-alias``): no finding, a float16 all-reduce recorded, the
+    parameters and buffers bit-equal to a twin's bare steps (cuDNN
+    deterministic), 53 launches of each BatchNorm kernel and 2 casts a
+    step (and 2 of the census probe); then as many steps bare and
+    recorded for the recorder's cost.  (b) Planted faults, each caught
+    with JAX's rule ID: a rank-branching variant recorded dry at ranks 0
+    and 1 of a fake world of 2 in a process with no card
+    (``schedule-desync``, nothing issued), a float32 all-reduce under a
+    float16 plan (``wire-dtype-mismatch``), a handle never waited
+    (``async-pair``), a 64 MiB CUDA tensor closed over
+    (``captured-constant``).  (c) ``tools.cmn_lint --protocol`` over the
+    port's tree: no finding.  (d) ``tools.check_db_overlap`` on the card:
+    "not judgeable" at a world of one.  The summary's rows 1-5 add (a)'s
+    launches.
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
 """
@@ -4770,7 +4791,10 @@ def log_planner(p30, images_per_sec_p3, gpu, secs):
 P31_MNIST = ["--epoch", "2", "--unit", "1000", "--batchsize", "100",
              "--communicator", "xla", "--allreduce-grad-dtype", "float16",
              "--double-buffering"]
-P31_PAIRS = 3        # (a), (c), (e): interleaved off / on pairs timed
+P31_PAIRS = 3        # (a): interleaved off / on pairs timed
+# (c), (e): one off / on pair each; their gates (same tokens and counters,
+# same bits and edges) need no more, and the script's time limit is tight
+P31_ONE_PAIR = 1
 P31_PLAN_CALLS = 10  # (b): timed calls of the plan, off and on
 P31_SIZES = [1 << 10, 1 << 26]   # (d): the transports' payloads
 # (e): bench_fsdp_overlap's tanh MLP, 4 buckets, a prefetch window of 1
@@ -4920,8 +4944,8 @@ def p31_plan(cs, torch, dev):
 
 def p31_serving(fa, torch):
     """(c): phase 24's trace, all of it submitted at once, through the LM's
-    engine without and with observability, ``P31_PAIRS`` interleaved
-    pairs."""
+    engine without and with observability, ``P31_ONE_PAIR`` interleaved
+    pair."""
     from chainermn_tpu_torch import observability as obs
     from chainermn_tpu_torch.benchmarks import bench_serving as bs
     args = bs.parser().parse_args(P24_FLAGS + P24_TRACE)
@@ -4930,7 +4954,7 @@ def p31_serving(fa, torch):
     names = ("steps", "retired", "admitted", "generated_tokens")
     runs = {"off": [], "on": []}
     try:
-        for label in ("off", "on") * P31_PAIRS:
+        for label in ("off", "on") * P31_ONE_PAIR:
             if label == "on":
                 obs.enable()
                 obs.install_flight_recorder()
@@ -4995,8 +5019,8 @@ def _p31_edges_ok(evs, leg, bucket, n):
 
 def p31_fsdp(torch, dev):
     """(e): ``P31_FSDP``'s bucketed FSDP step on a world of one without and
-    with observability, ``P31_PAIRS`` interleaved pairs of a warm step and
-    ``steps`` timed ones."""
+    with observability, ``P31_ONE_PAIR`` interleaved pair of a warm step
+    and ``steps`` timed ones."""
     from chainermn_tpu_torch import create_communicator
     from chainermn_tpu_torch import observability as obs
     from chainermn_tpu_torch.benchmarks.bench_fsdp_overlap import tanh_mlp
@@ -5009,7 +5033,7 @@ def p31_fsdp(torch, dev):
               for _ in range(2))
     runs = {"off": [], "on": []}
     try:
-        for label in ("off", "on") * P31_PAIRS:
+        for label in ("off", "on") * P31_ONE_PAIR:
             if label == "on":
                 obs.enable()
                 obs.install_flight_recorder()
@@ -5173,8 +5197,8 @@ def log_obs(p31, gpu, secs):
         f"on {b['on']['casts']} on {gpu}")
     c = p31["c"]
     log(f"phase 31 (c) serving phase 24's trace ({c['requests']} requests "
-        f"at once, {c['tokens']} tokens), {P31_PAIRS} off / on pairs: wall "
-        f"{_spread_text(c['wall_s'], 's')}; on counters "
+        f"at once, {c['tokens']} tokens), {P31_ONE_PAIR} off / on pair: "
+        f"wall {_spread_text(c['wall_s'], 's')}; on counters "
         f"{json.dumps(c['counters'])}; flash launches {c['launches']} on "
         f"{gpu}")
     d = p31["d"]
@@ -5184,7 +5208,7 @@ def log_obs(p31, gpu, secs):
         f"(localhost TCP, host CPU) on {gpu}")
     e = p31["e"]
     log(f"phase 31 (e) FSDP {json.dumps(P31_FSDP)} on a world of one, "
-        f"{P31_PAIRS} off / on pairs: step (CUDA events over the timed "
+        f"{P31_ONE_PAIR} off / on pair: step (CUDA events over the timed "
         f"steps) {_spread_text(e['step_ms'], 'ms')}; {e['events']} flight "
         f"events a run on {gpu}")
     log(f"phase 31 gates: {json.dumps(p31['gates'])}")
@@ -5797,6 +5821,255 @@ def log_elastic(p33, gpu, secs):
         f"({k}) {v:.1f} s" for k, v in p33["seconds"].items()) + ")")
 
 
+P34_STEPS = 3        # phase 34 (a): steps under the recorder (and bare)
+P34_CAPTURED = 16 << 20   # (b): the closed-over tensor's float32 elements
+
+_P34_DRY = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch, torch.distributed as dist
+from chainermn_tpu_torch.analysis import extract_schedule, lint_step
+from chainermn_tpu_torch.communicators import create_communicator
+
+def body():
+    comm = create_communicator("xla", device="cpu")
+    x = torch.ones(1024)
+    ops = ((dist.ReduceOp.SUM, dist.ReduceOp.MAX) if comm.rank == 0
+           else (dist.ReduceOp.MAX, dist.ReduceOp.SUM))
+    for op in ops:
+        dist.all_reduce(x, op=op, group=comm._group)
+    return dist.get_backend()
+
+seen = {}
+def variant(r):
+    def run():
+        seen[r] = body()
+    return extract_schedule(run, rank=r, world=2, label=f"rank{r}")
+rep = lint_step(None, variants={f"rank{r}": variant(r) for r in (0, 1)},
+                rules=["schedule-desync"], raise_on_error=False)
+print("RESULT " + json.dumps({
+    "findings": [f.as_dict() for f in rep.findings], "backends": seen,
+    "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def p34_resnet(fn, cs, torch, dev):
+    """(a): ResNet-50 on the float16 wire, ``P34_STEPS`` steps under
+    ``lint_step`` against as many bare steps of a twin built from the
+    same seed; then as many again, recorded against bare, for the
+    recorder's cost."""
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer,
+                                     make_train_step)
+    from chainermn_tpu_torch.analysis import lint_step, record
+    from chainermn_tpu_torch.models import ResNet50
+    comm = create_communicator("xla", allreduce_grad_dtype="float16")
+    gen = torch.Generator(device=dev).manual_seed(34)
+    batch = (torch.randn((BATCH, 3, 224, 224), device=dev, generator=gen),
+             torch.randint(0, 1000, (BATCH,), device=dev, generator=gen))
+
+    def build():
+        g = torch.Generator(device=dev).manual_seed(3434)
+        model = ResNet50(dtype=torch.bfloat16, device=dev, generator=g)
+        model.train()
+        opt = create_multi_node_optimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9), comm)
+        step = make_train_step(
+            comm, lambda b: F.cross_entropy(model(b[0]), b[1]), opt)
+
+        def fn_step(state, b):
+            del state  # the step holds it
+            return step(b)
+        return model, opt, step, fn_step
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / P34_STEPS
+
+    def state(model):
+        return [t.detach().clone() for t in list(model.parameters())
+                + list(model.buffers())]
+
+    deterministic = (torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        bare_m, _, bare_step, _ = build()
+        rec_m, rec_opt, rec_step, fn_step = build()
+        bare_step(batch)  # the builds' first launches, on both twins
+        rec_step(batch)
+        bare_losses, bare_ms = timed(
+            lambda: [float(bare_step(batch)) for _ in range(P34_STEPS)])
+        fn.reset_launch_counts()
+        cs.reset_launch_counts()
+        rep, lint_ms = timed(lambda: lint_step(
+            fn_step, (rec_m, rec_opt), batch, comm=comm, census=True,
+            plan=comm.plan(), donate_argnums=(0,), steps=P34_STEPS,
+            name="resnet50[xla,float16 wire]", raise_on_error=False,
+            rules=["census-drift", "wire-dtype-mismatch", "async-pair",
+                   "captured-constant", "donation-alias"]))
+        counts = dict(fn.launch_counts(), cast_scale=cs.cast_scale.launches)
+        rec_losses = [float(x) for x in rep.outputs]
+        equal = all(torch.equal(a, b) for a, b in zip(state(bare_m),
+                                                        state(rec_m)))
+        # the recorder's cost: as many steps again, bare against recorded
+        _, bare2_ms = timed(lambda: [bare_step(batch)
+                                     for _ in range(P34_STEPS)])
+        _, rec2_ms = timed(lambda: record(
+            lambda: [rec_step(batch) for _ in range(P34_STEPS)],
+            comms=[comm]))
+        equal2 = all(torch.equal(a, b) for a, b in zip(state(bare_m),
+                                                         state(rec_m)))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = deterministic
+    sched = rep.schedule
+    return {"report": rep.to_json(), "counts": counts,
+            "steps": P34_STEPS, "losses": rec_losses,
+            "bare_losses": bare_losses,
+            "bit_equal": equal and bare_losses == rec_losses,
+            "bit_equal_after_cost": equal2,
+            "collectives": [[op.kind, op.dtype, op.nbytes, op.async_op]
+                            for op in sched],
+            "bare_ms": bare_ms, "lint_ms": lint_ms,
+            "bare2_ms": bare2_ms, "recorded_ms": rec2_ms}
+
+
+def p34_dry_start():
+    """(b)'s rank-branching variant, dry, in a process with no card and no
+    process group (this one has an NCCL world): started first, so its
+    interpreter's start-up runs beside (a)."""
+    import subprocess
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", _P34_DRY, HERE], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=HERE)
+
+
+def p34_faults(torch, dev, dry_proc):
+    """(b): one planted fault a rule; each must fire with its JAX ID."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch.analysis import lint_step
+    from chainermn_tpu_torch.planner.plans import flavor_plan
+    out = {}
+    stdout, stderr = dry_proc.communicate(timeout=300)
+    line = [ln for ln in stdout.splitlines() if ln.startswith("RESULT ")]
+    dry = json.loads(line[-1][7:]) if line else {"error": stderr[-800:]}
+    out["desync"] = dict(dry, rc=dry_proc.returncode)
+    # float32 all-reduce under the float16 plan
+    g = torch.ones(1 << 20, device=dev)
+    rep = lint_step(lambda x: dist.all_reduce(x.clone()), g,
+                    plan=flavor_plan("xla", wire_dtype="float16"),
+                    rules=["wire-dtype-mismatch"], raise_on_error=False)
+    out["wire"] = [f.as_dict() for f in rep.findings]
+    # a handle never waited
+    pending = []
+
+    def leaky(x):
+        pending.append(dist.all_reduce(x, async_op=True))
+        return x
+    rep = lint_step(leaky, torch.ones(1024, device=dev),
+                    rules=["async-pair"], raise_on_error=False)
+    for w in pending:
+        w.wait()
+    out["async"] = [f.as_dict() for f in rep.findings]
+    # a 64 MiB CUDA tensor closed over
+    big = torch.ones(P34_CAPTURED, device=dev)
+    rep = lint_step(lambda x: x + big.sum(), torch.ones(8, device=dev),
+                    rules=["captured-constant"], raise_on_error=False)
+    out["captured"] = [f.as_dict() for f in rep.findings]
+    del big
+    return out
+
+
+def phase_lint(fn, cs, torch, dev):
+    """Phase 34 (see the module docstring)."""
+    out, secs = {}, {}
+    dry = p34_dry_start()
+    for key, run in (("a", lambda: p34_resnet(fn, cs, torch, dev)),
+                     ("b", lambda: p34_faults(torch, dev, dry)),
+                     ("c", lambda: _p33_tool("cmn_lint",
+                                             ["--protocol", "--json"])),
+                     ("d", lambda: __import__(
+                         "chainermn_tpu_torch.tools.check_db_overlap",
+                         fromlist=["run"]).run(steps=4))):
+        t0 = time.perf_counter()
+        out[key] = run()
+        secs[key] = time.perf_counter() - t0
+    a, b, (c_rc, c_out, _), d = out["a"], out["b"], out["c"], out["d"]
+    out["c"] = json.loads(c_out) if c_rc == 0 else {"rc": c_rc,
+                                                     "tail": c_out[-800:]}
+    findings = a["report"]["findings"]
+    dry = b["desync"]
+    one = lambda fs, rule: [f["rule"] for f in fs] == [rule]  # noqa: E731
+    out["gates"] = {
+        "(a) census, wire, async, captured, donation clean": not findings
+        and not a["report"]["skipped"],
+        "(a) a float16 all-reduce recorded": any(
+            k == "all-reduce" and dt == "f16"
+            for k, dt, _, _ in a["collectives"]),
+        "(a) recorded steps bit-equal to bare steps": a["bit_equal"]
+        and a["bit_equal_after_cost"],
+        "(a) 53 launches of rows 1-4 and 2 casts a step (+2 census)": all(
+            n == (2 * a["steps"] + 2 if w == "cast_scale"
+                  else 53 * a["steps"]) for w, n in a["counts"].items()),
+        "(b) schedule-desync, dry on the fake group": dry.get("rc") == 0
+        and one(dry.get("findings", []), "schedule-desync")
+        and dry["findings"][0]["details"]["index"] == 0
+        and set(dry.get("backends", {}).values()) == {"fake"}
+        and not dry.get("cuda_initialized", True),
+        "(b) wire-dtype-mismatch on a float32 all-reduce": one(
+            b["wire"], "wire-dtype-mismatch")
+        and b["wire"][0]["details"]["expected_dtype"] == "f16",
+        "(b) async-pair on a handle never waited": one(b["async"],
+                                                       "async-pair"),
+        "(b) captured-constant on 64 MiB": one(b["captured"],
+                                               "captured-constant")
+        and b["captured"][0]["details"]["constants"][0]["nbytes"]
+        == 4 * P34_CAPTURED,
+        "(c) cmn_lint --protocol: 0 errors": c_rc == 0
+        and out["c"].get("ok") is True and not out["c"].get("findings"),
+        "(d) check_db_overlap on one card": d["ok"]
+        and d["verdict"].startswith("not judgeable")}
+    out["seconds"] = secs
+    return out
+
+
+def log_lint(p34, gpu, secs):
+    a, b, c, d = p34["a"], p34["b"], p34["c"], p34["d"]
+    log(f"phase 34 (a) ResNet-50 batch {BATCH} bf16 on the float16 wire, "
+        f"{a['steps']} steps under lint_step: findings "
+        f"{json.dumps(a['report']['findings'])}, skipped "
+        f"{json.dumps(a['report']['skipped'])}; collectives a run "
+        f"{json.dumps(a['collectives'])}; bit-equal to the bare twin "
+        f"{a['bit_equal']} (after the cost runs {a['bit_equal_after_cost']}"
+        f"); losses {a['losses']}; launches {json.dumps(a['counts'])}; "
+        f"ms a step: bare {a['bare_ms']:.3f}, under lint_step "
+        f"{a['lint_ms']:.3f} (rules and the census probe included), then "
+        f"bare {a['bare2_ms']:.3f} vs recorded {a['recorded_ms']:.3f} "
+        f"(x{a['recorded_ms'] / a['bare2_ms']:.3f}) on {gpu}")
+    log(f"phase 34 (b) planted faults: desync (dry, rc "
+        f"{b['desync'].get('rc')}, backends "
+        f"{b['desync'].get('backends')}) "
+        f"{[f['rule'] for f in b['desync'].get('findings', [])]}; wire "
+        f"{[(f['rule'], f['details'].get('observed_dtypes')) for f in b['wire']]}"
+        f"; async {[f['rule'] for f in b['async']]}; captured "
+        f"{[(f['rule'], f['details']['constants'][0]['nbytes']) for f in b['captured']]}")
+    log(f"phase 34 (c) cmn_lint --protocol: ok {c.get('ok')}, "
+        f"{(c.get('protocol') or {}).get('n_sites')} call sites, findings "
+        f"{len(c.get('findings', []))}")
+    log(f"phase 34 (d) check_db_overlap: {d['verdict']}; NCCL all-reduce "
+        f"kernels {d['n_all_reduce']} in {d['steps']} steps")
+    log(f"phase 34 gates: {json.dumps(p34['gates'])}")
+    log(f"phase 34: {secs:.1f} s (" + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in p34["seconds"].items()) + ")")
+
+
 C12_LOOPS = 300      # phase 22: passes of the flash autograd check
 WGRAD_LOOPS = 600    # phase 22: launches of the probe wgrad
 
@@ -6198,6 +6471,14 @@ def main():
         raise AssertionError(f"phase 33: gates {failed} failed (their "
                              "lines above)")
 
+    t0 = time.perf_counter()
+    p34 = phase_lint(fn, cs, torch, dev)
+    log_lint(p34, gpu, time.perf_counter() - t0)
+    failed = sorted(g for g, ok in p34["gates"].items() if not ok)
+    if failed:
+        raise AssertionError(f"phase 34: gates {failed} failed (their "
+                             "lines above)")
+
     dist.destroy_process_group()
     # phase 25's launches on the main path: (a) flash and casts, (d)'s
     # bench and (e)'s real-image run the BatchNorm kernels
@@ -6211,7 +6492,7 @@ def main():
     for w in KERNELS:
         p25_bn[w] += p26["resnet"]["bn_launches"][w]
         p25_bn[w] += p29["bn_counts"][w] + p30["bn_counts"][w] \
-            + p33["a"]["counts"][w]
+            + p33["a"]["counts"][w] + p34["a"]["counts"][w]
     p26_flash = p26["lm"]["runs"]["fsdp"]["counts"]
     # phases 28 and 29 on the main path: the pipelines' and the FSDP LM's
     # flash kernels, the wire's casts
@@ -6237,7 +6518,8 @@ def main():
         + sum(r["casts"] for r in p29["a"].values()) + p30["casts"]
         + p31["a_casts"] + p31["b"]["off"]["casts"]
         + p31["b"]["on"]["casts"] + p32["casts"]
-        + p33["a"]["counts"]["cast_scale"],
+        + p33["a"]["counts"]["cast_scale"]
+        + p34["a"]["counts"]["cast_scale"],
         "max_abs_err": cast_err,
         "ms": cast_t["ms"], "plain_ms": cast_t["plain_ms"],
         "bound_ms": cast_t["bound_ms"], "bound_by": "bytes",
@@ -6277,7 +6559,7 @@ def main():
 
 
 def phase_alone(n):
-    """``python3 chip_smoke.py --phase 31`` (or ``32``, ``33``): the CUDA
+    """``python3 chip_smoke.py --phase 31`` (or ``32``, ``33``, ``34``): the CUDA
     builds and that phase alone, gated as in the whole run; no summary and
     no result line."""
     import torch
@@ -6303,6 +6585,10 @@ def phase_alone(n):
         fn = importlib.import_module("chainermn_tpu_torch.ops.fused_norm")
         res = phase_elastic(fn, cs, torch, torch.device("cuda", 0))
         log_elastic(res, gpu, time.perf_counter() - t0)
+    elif n == "34":
+        fn = importlib.import_module("chainermn_tpu_torch.ops.fused_norm")
+        res = phase_lint(fn, cs, torch, torch.device("cuda", 0))
+        log_lint(res, gpu, time.perf_counter() - t0)
     else:
         res = phase_obs2(cs, fa, torch)
         log_obs2(res, gpu, time.perf_counter() - t0)
@@ -6312,4 +6598,5 @@ def phase_alone(n):
 
 if __name__ == "__main__":
     sys.exit(phase_alone(sys.argv[2]) if sys.argv[1:2] == ["--phase"]
-             and sys.argv[2:] in (["31"], ["32"], ["33"]) else main())
+             and sys.argv[2:] in (["31"], ["32"], ["33"], ["34"])
+             else main())

@@ -2,7 +2,7 @@
 
     python3 multi_gpu_check.py [--logs DIR]
         [--parts dp,sp,mp,configs,fsdp,tp_ep,pp,compression,planner,obs,
-                 elastic]
+                 elastic,lint]
     # needs two CUDA cards or more
 
 1. prints the cards' names and power limits (``nvidia-smi``) and torch's
@@ -172,6 +172,18 @@
     hold no process afterwards; the seconds to restart and to resume and
     the resharded bytes are printed.  Then ``tools.attribution_smoke`` on
     every card.
+15. (part ``lint``, not in the default) static analysis on every card:
+    under ``torchrun`` each of the seven flavors' ``allreduce_grad``
+    (``hierarchical`` and ``two_dimensional`` at intra 2, so both levels
+    hold two cards) recorded over the real NCCL groups
+    (``analysis.allreduce_schedule``) equals ``issued_census_kinds`` of
+    its plan on the communicator's topology in JAX's census kinds, on
+    every rank, and ``census-drift`` finds nothing; the xla flavor's
+    float16 wire records a float16 all-reduce.  Then
+    ``tools.check_db_overlap`` judged on every card (two NCCL all-reduce
+    kernels a step, the pending one overlapping the next forward), and
+    ``tools.contention_smoke --n-procs 2 --device cuda`` (its check 4 is
+    ``lint_step``'s ``overlapping-collectives``).
 
 Prints one JSON object as its last line; exits 1 if a check failed.  Runs
 write under ``build/`` (removed afterwards), their logs under ``--logs``
@@ -385,7 +397,8 @@ def _late_workers():
     WORKERS.update(pp=pp_worker, comp=comp_worker, mnist=mnist_worker,
                    comp_fsdp=comp_fsdp_worker, sweep=sweep_worker,
                    planner=planner_worker, obs=obs_worker,
-                   obs2=obs2_worker, desync=desync_worker)
+                   obs2=obs2_worker, desync=desync_worker,
+                   lint=lint_worker)
 
 
 def torchrun(n, name, flags, work, logs, kind="imagenet"):
@@ -413,12 +426,13 @@ def main(argv=None):
                    help="which slices to run: dp (steps 2-4), sp (step 5), "
                    "mp (step 6), configs (step 7), fsdp (step 8), tp_ep "
                    "(step 9), pp (step 10), compression (step 11), planner "
-                   "(step 12), obs (step 13), elastic (step 14)")
+                   "(step 12), obs (step 13), elastic (step 14), lint "
+                   "(step 15)")
     args = p.parse_args(argv)
     logs = os.path.abspath(args.logs)
     parts = set(args.parts.split(","))
     known = {"dp", "sp", "mp", "configs", "fsdp", "tp_ep", "pp",
-             "compression", "planner", "obs", "elastic"}
+             "compression", "planner", "obs", "elastic", "lint"}
     if not parts or parts - known:
         p.error(f"--parts: {args.parts!r} is not a subset of "
                 f"{','.join(sorted(known))}")
@@ -463,6 +477,8 @@ def main(argv=None):
             observability(n, out, failures, work, logs)
         if "elastic" in parts:
             elastic(n, out, failures, work, logs)
+        if "lint" in parts:
+            static_analysis(n, out, failures, work, logs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["failures"] = failures
@@ -2219,6 +2235,97 @@ def elastic(n, out, failures, work, logs):
                         f"{rc.stderr[-1500:]}")
     print(json.dumps({"elastic": res}), flush=True)
     out["elastic"] = res
+
+
+LINT_FLAVORS = ("naive", "flat", "hierarchical", "two_dimensional",
+                "single_node", "non_cuda_aware", "xla")
+LINT_DEVICE = None   # "cpu" runs the lint part's ranks on gloo
+
+
+def lint_worker(out_prefix, flags):
+    """One rank under ``torchrun``: each flavor's recorded
+    ``allreduce_grad`` over the real groups, in census kinds, beside its
+    plan's issued kinds, and the census-drift rule's findings."""
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch import create_communicator, init_distributed
+    from chainermn_tpu_torch.analysis import (
+        allreduce_schedule, census_schedule, lint_step)
+    from chainermn_tpu_torch.planner.compiler import issued_census_kinds
+    from chainermn_tpu_torch.planner.plans import flavor_plan
+    topo = init_distributed(device=LINT_DEVICE)
+    res = {"rank": topo.rank, "flavors": {}}
+    for flavor in LINT_FLAVORS:
+        kw = {"intra_size": 2} if flavor in ("hierarchical",
+                                             "two_dimensional") else {}
+        comm = create_communicator(flavor, device=LINT_DEVICE, **kw)
+        sched = allreduce_schedule(comm)
+        got = census_schedule(sched).kinds()
+        want = issued_census_kinds(flavor_plan(flavor), comm.plan_topology())
+        rep = lint_step(None, comm=comm, census=sched, name=flavor,
+                        rules=["census-drift"], raise_on_error=False)
+        res["flavors"][flavor] = {
+            "census": list(got), "issued": list(want),
+            "groups": [[op.kind, list(op.axes or ()), op.dtype]
+                       for op in sched],
+            "findings": [f.as_dict() for f in rep.findings]}
+    comm = create_communicator("xla", device=LINT_DEVICE,
+                               allreduce_grad_dtype="float16")
+    res["wire"] = [[op.kind, op.dtype]
+                   for op in allreduce_schedule(comm)]
+    json.dump(res, open(f"{out_prefix}.rank{topo.rank}.json", "w"))
+
+
+def static_analysis(n, out, failures, work, logs):
+    """Part lint (see the module docstring)."""
+    res = {}
+    docs = torchrun(n, "lint", [], work, logs, kind="lint")
+    for flavor in LINT_FLAVORS:
+        rows = [d["flavors"][flavor] for d in docs]
+        res[flavor] = {"census": rows[0]["census"],
+                       "issued": rows[0]["issued"]}
+        for r, row in enumerate(rows):
+            if row["census"] != row["issued"] or row["findings"]:
+                failures.append(f"lint: {flavor} rank {r} recorded "
+                                f"{row['census']}, issued kinds "
+                                f"{row['issued']}, findings "
+                                f"{row['findings']}")
+        if any(row["census"] != rows[0]["census"] for row in rows):
+            failures.append(f"lint: {flavor}: the ranks recorded different "
+                            "schedules")
+    res["wire"] = docs[0]["wire"]
+    if ["all-reduce", "f16"] not in docs[0]["wire"]:
+        failures.append(f"lint: the float16 wire recorded {docs[0]['wire']}")
+    overlap = os.path.join(logs, "DB_OVERLAP.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(n), "-m",
+           "chainermn_tpu_torch.tools.check_db_overlap", "--out", overlap]
+    if LINT_DEVICE is not None:
+        cmd += ["--device", LINT_DEVICE]
+    with open(os.path.join(logs, "db_overlap.log"), "w") as log:
+        rc = subprocess.run(cmd, cwd=HERE, stdout=log,
+                            stderr=subprocess.STDOUT, timeout=600).returncode
+    doc = json.load(open(overlap)) if os.path.exists(overlap) else {}
+    res["db_overlap"] = {"rc": rc, "verdict": doc.get("verdict"),
+                         "n_all_reduce": doc.get("n_all_reduce"),
+                         "pending_overlap_us": doc.get("pending_overlap_us"),
+                         "names": doc.get("all_reduce_names")}
+    if rc or not doc.get("ok") or not str(doc.get("verdict")).startswith(
+            "split"):
+        failures.append(f"lint: check_db_overlap rc {rc}: "
+                        f"{doc.get('verdict')}")
+    cont = os.path.join(logs, "CONTENTION.json")
+    proc = subprocess.run(
+        [sys.executable, "-m", "chainermn_tpu_torch.tools.contention_smoke",
+         "--n-procs", "2", "--device", LINT_DEVICE or "cuda", "--out", cont,
+         "--dump-dir", os.path.join(work, "cont_dumps")],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    res["contention_smoke"] = {"rc": proc.returncode,
+                               "tail": proc.stdout.strip().splitlines()[-7:]}
+    if proc.returncode:
+        failures.append(f"lint: contention_smoke rc {proc.returncode}: "
+                        f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    print(json.dumps({"lint": res}), flush=True)
+    out["lint"] = res
 
 
 if __name__ == "__main__":

@@ -214,3 +214,36 @@ def test_native_transport_builds_without_jax():
     path = proc.stdout.split()[-1]
     assert os.path.relpath(path, REPO).startswith(
         os.path.join("build", "native"))
+
+
+_ANALYSIS = _GUARD.split("import chainermn_tpu_torch\n")[0] + """
+import importlib
+import chainermn_tpu_torch as c
+for n in ("lint_step", "LintError", "LintReport", "extract_schedule",
+          "CollectiveSchedule"):
+    assert n in c.__all__ and getattr(c, n) is not None, n
+for n in ("captured", "entrypoints", "hlo", "lint", "protocol", "rules",
+          "schedule"):
+    importlib.import_module("chainermn_tpu_torch.analysis." + n)
+for n in ("cmn_lint", "check_db_overlap", "contention_smoke"):
+    assert callable(importlib.import_module(
+        "chainermn_tpu_torch.tools." + n).main), n
+from chainermn_tpu_torch.tools import cmn_lint
+assert cmn_lint.main(["--protocol"]) == 0
+from chainermn_tpu_torch.analysis.entrypoints import lint_mnist
+(rep,) = lint_mnist(flavors=["xla"])
+assert rep.ok, rep.render_text()
+bad = [m for m in sys.modules if m.split(".")[0] in BANNED]
+assert not bad, bad
+print("analysis", len(c.__all__))
+"""
+
+
+def test_analysis_and_its_tools_stand_alone():
+    """``analysis/``, the three tools and the five lint names of the
+    facade resolve, the protocol sweep and a dry lint run, with JAX and
+    ``chainermn_tpu`` refused."""
+    proc = subprocess.run([sys.executable, "-c", _ANALYSIS], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[-2] == "analysis"

@@ -24,6 +24,7 @@ the same events:
 """
 
 import argparse
+import importlib
 import importlib.util
 import json
 import os
@@ -338,15 +339,50 @@ class _Trainer:
         self.updater = _Upd(comm)
 
 
+class _FixedClock:
+    """The recorder's clock, made the same for JAX's and the port's:
+    each read is 1 us after the previous one, and ``_drive`` moves it
+    10 ms ahead at every iteration.  With the host's clock a loaded
+    machine could put a stage span's midpoint outside the 6.5 ms step
+    it was recorded in on one side only, and the two step trees (so
+    the prefetch advice and the records) then differed."""
+
+    def __init__(self, t0=1000.0):
+        self.now = t0
+
+    def _read(self):
+        self.now += 1e-6
+        return self.now
+
+    time = monotonic = _read
+
+    def advance(self, seconds):
+        self.now += seconds
+
+
 def _drive(M, report, out, comm, steps=4):
     """``steps`` iterations of a fake trainer; the degraded link's stage
-    spans inside each step, an emit every 2."""
+    spans inside each step, an emit every 2.  The flight recorder reads
+    a :class:`_FixedClock`."""
+    from unittest import mock
+    recorder = importlib.import_module(M.__name__ + ".flight_recorder")
+    clock = _FixedClock()
+    with mock.patch.object(recorder, "time", clock):
+        return _drive_steps(M, report, out, comm, steps, clock)
+
+
+def _drive_steps(M, report, out, comm, steps, clock):
     from chainermn_tpu.observability import read_jsonl
+    # a recorder another test of this process left installed would be
+    # returned as it is, with that test's events: start from none
+    M.reset_flight_recorder()
+    M.get_registry().reset()
     M.enable()
     fr = M.install_flight_recorder()
     tr = _Trainer(str(out), comm)
     report.initialize(tr)
     for i in range(steps):
+        clock.advance(0.01)
         tr.updater.iteration = i + 1
         fr.record_phase("dispatch", i + 1)
         for e in degraded_dcn_events(steps=1):
@@ -393,14 +429,16 @@ def test_metrics_report_online_tune_records_are_jax_s(tmp_path, online):
     js = [r for r in jrecs if r["kind"] == "plan_table_state"]
     ps = [r for r in precs if r["kind"] == "plan_table_state"]
     assert [s["iteration"] for s in ps] == ([2, 4] if online else [])
-    # the recorders stamp their own clocks: the observed rates differ,
-    # their links and sample counts do not
+    # both recorders read the same fixed clock: the links, the sample
+    # counts and the observed rates agree
     strip = ("ts", "observed_gbps")
     assert [{k: v for k, v in s.items() if k not in strip} for s in ps] \
         == to_port([{k: v for k, v in s.items() if k not in strip}
                     for s in js])
     assert [sorted(s["observed_gbps"]) for s in ps] == to_port(
         [sorted(s["observed_gbps"]) for s in js])
+    assert [s["observed_gbps"] for s in ps] == to_port(
+        [s["observed_gbps"] for s in js])
     assert (prep._tuner is not None) == online
 
 
