@@ -103,13 +103,16 @@ def load_data(args):
     return train, test
 
 
-def main(argv=None) -> dict:
+def main(argv=None, *, flax_init=None) -> dict:
     """Train; returns ``{"log": [...], "world": size,
     "examples_per_sec_per_gpu": rate, "model": model}``, ``log`` holding
     one record per epoch with ``main/loss``, ``main/accuracy``,
     ``validation/loss`` and ``validation/accuracy`` (on every rank),
     ``rate`` over the epochs after the first (None for one epoch),
-    ``model`` the trained MLP."""
+    ``model`` the trained MLP.  ``flax_init`` (for parity tests): flax
+    variables of the JAX example's MLP, as numpy arrays, to start from
+    instead of this example's seeded init (:func:`..weights.
+    load_flax_variables`)."""
     args = parse_args(argv)
     if args.observability:
         # the switch flips before anything is built: the seams bind once
@@ -118,10 +121,10 @@ def main(argv=None) -> dict:
     comm = cmn.create_communicator(
         args.communicator, intra_size=args.intra_size,
         allreduce_grad_dtype=args.allreduce_grad_dtype, device=args.device)
-    return train(args, comm)
+    return train(args, comm, flax_init=flax_init)
 
 
-def train(args, comm) -> dict:
+def train(args, comm, flax_init=None) -> dict:
     """:func:`main`'s training on ``comm`` (``args`` from
     :func:`parse_args`; with ``--observability`` the switch is on before
     ``comm`` is built)."""
@@ -142,6 +145,9 @@ def train(args, comm) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = MLP(args.unit, 10, device=device, generator=gen)
+    if flax_init is not None:
+        from chainermn_tpu_torch.weights import load_flax_variables
+        load_flax_variables(model, flax_init)
     comm.bcast_data(model)  # identical start everywhere
     optimizer = cmn.create_multi_node_optimizer(
         torch.optim.Adam(model.parameters(), lr=1e-3), comm,

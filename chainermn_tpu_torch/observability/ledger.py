@@ -96,6 +96,7 @@ KNOWN_SCHEMAS = {
     # the PyTorch port's own writers
     "bench_transport/v1",
     "conv_probe_torch/v1",
+    "gpu_smoke/v1",
     # the static protocol model (``analysis.protocol.ProtocolModel.
     # to_json``; JAX's tag), written out whole on request
     "protocol_model/v1",

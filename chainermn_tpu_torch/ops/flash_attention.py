@@ -149,22 +149,28 @@ def flash_forward_plain(q, k, v, causal=False, sm_scale=None, *, qseg=None,
     """Plain version of the forward kernel: ``(out [B, Tq, H, D] in q's
     dtype, lse [B, H, Tq] float32)`` from the whole ``[Tq, Tkv]`` score
     matrix in float32.  ``qseg``/``kseg`` are ``[B, T]`` ids, ``offs`` a
-    ``[B, 2]`` (q, kv) offset tensor, ``seed`` a host int."""
+    ``[B, 2]`` (q, kv) offset tensor, ``seed`` a host int.  Differentiable
+    by autograd (out of place where q, k or v requires grad)."""
     b, tq, h, d = q.shape
     tk, hk = k.shape[1], k.shape[2]
     grp = h // hk
     dev = q.device
+    # in place unless autograd records the call (the same values either way)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     s = torch.matmul(_bhtd(q), _bhtd(k, grp).transpose(-1, -2))
-    s.mul_(_scale(sm_scale, d))
+    scale = _scale(sm_scale, d)
+    s = s * scale if grad else s.mul_(scale)
     q_pos, k_pos = _pos(tq, offs, 0, dev), _pos(tk, offs, 1, dev)
     mask = _mask(causal, q_pos, k_pos, qseg, kseg)
     if mask is not None:
-        s.masked_fill_(~mask, _NEG_INF)
+        s = (s.masked_fill(~mask, _NEG_INF) if grad
+             else s.masked_fill_(~mask, _NEG_INF))
     m = s.amax(-1, keepdim=True)
-    p = s.sub_(m).exp_()
+    p = (s - m).exp() if grad else s.sub_(m).exp_()
     if mask is not None:
         # a row masked everywhere has s - m == 0: zero it explicitly
-        p.masked_fill_(~mask, 0.0)
+        p = p.masked_fill(~mask, 0.0) if grad else p.masked_fill_(~mask, 0.0)
     l = p.sum(-1, keepdim=True)
     if rate > 0.0:
         keep = _keep_mask(seed, _heads(b, h, dev), q_pos, k_pos, rate)

@@ -72,16 +72,17 @@ class LogReport:
 
 class PrintReport:
     """Print the chosen entries of ``LogReport``'s newest record, as a
-    table, each time the log grows."""
+    table, each time the log grows, to ``out`` (default: the
+    ``sys.stdout`` of the time the report is built)."""
 
     priority = 40
 
     def __init__(self, entries: List[str], log_report: str = "LogReport",
-                 out=sys.stdout):
+                 out=None):
         self.trigger = (1, "epoch")
         self._entries = entries
         self._log_report = log_report
-        self._out = out
+        self._out = out if out is not None else sys.stdout
         self._header_done = False
 
     def __call__(self, trainer):

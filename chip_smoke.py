@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase 32   # the builds and phase 32 alone
     python3 chip_smoke.py --phase 33   # the builds and phase 33 alone
     python3 chip_smoke.py --phase 34   # the builds and phase 34 alone
+    python3 chip_smoke.py --phase 35   # the builds and phase 35 alone
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -259,8 +260,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     sequence): first ``cmn_flash_fwd`` against its plain version on a
     paged cache at the engine's shapes (``serving_case``: B 16, Tk 2048,
     Tq 64 and 5, kv heads 16 and 4, bf16 and float32, idle rows at offset
-    0), phase 10's limits.  (a) The open-loop trace (seed 0, 64 requests,
-    prompts 128-1024, up to 128 new tokens, 200 requests/s) under
+    0), phase 10's limits.  (a) The open-loop trace (seed 0, 32 requests,
+    prompts 128-1024, up to 64 new tokens, 200 requests/s) under
     ``continuous`` then ``static``: tokens/s, requests/s, steps, TTFT and
     inter-token p50/p99, mean active slots, the device's busy share over
     5 profiled steps, peak memory; gated: every page free after each
@@ -277,7 +278,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     one-layer draft, 16 requests, prompts 64-256, 128 new tokens: tokens a
     verify pass), the spec completions equal to greedy decoding's
     wherever its gap exceeds that limit, launches 8 x target + 1 x draft
-    passes.  (e) ``fleet``: 2 replicas, 32 requests over 8 sessions: TTFT
+    passes.  (e) ``fleet``: 2 replicas, 16 requests over 8 sessions: TTFT
     p50/p99, every session served by one replica.  (b) Float32 (TF32 off)
     at ``P24_B_LAYERS`` layers of the same width: each step's kept logits
     of 3 requests within ``utils/compare.py``'s relative L2 of a
@@ -508,6 +509,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     port's tree: no finding.  (d) ``tools.check_db_overlap`` on the card:
     "not judgeable" at a world of one.  The summary's rows 1-5 add (a)'s
     launches.
+35. the rest of the reference's measurement tools (after 34, before the
+    summary; ``phase_queue_a``), gated.  (a) ``benchmarks.bench_lm`` at
+    its card defaults (phase 11's LM, 553.9 M parameters, T 8192, bf16,
+    the bf16 wire, double buffering, 10 timed steps): the line's keys
+    (JAX's, and the MFU), 3.6239 train GFLOP/token, finite losses, 8
+    launches of each flash kernel and 2 casts a step.  (b)
+    ``benchmarks.bench_flash_64k`` at T 65536 (B 1, H 4, D 128, bf16,
+    causal): every stage, the window check within the bf16 tolerance, the
+    training step's losses moving and its weight delta non-zero; and
+    ``tools.gpu_smoke``'s T 262144 step with its window check (the first
+    length whose T^2 passes 2^32).  (c) ``gpu_smoke``'s checks that no
+    phase covers: GQA rectangular attention (out, dq, dk, dv against the
+    plain version's autograd within ``FLASH_TOL`` relative L2), the
+    forward and backward at T 32768 with the window check there.  (d) the
+    BatchNorm kernels against their plain versions at every [R, C] of
+    ResNet-50 at 32 px and batch 16 in bf16 (R 4096 down to 16), then
+    ``tools.convergence_ledger`` rows ``mnist_mlp`` and
+    ``tiny_resnet_synthetic_imagenet`` at or above JAX's floors (the
+    ResNet row through the BatchNorm kernels at those shapes).  The
+    summary's rows add (a)-(d)'s launches, less those that compared a
+    kernel with its plain version.
 
 The cast check (6) runs right after the BatchNorm kernel check (2).
 """
@@ -2417,14 +2439,14 @@ P24_FLAGS = ["--device", "cuda", "--dtype", "bfloat16", "--seed", "0",
              "--max-seqs", "16", "--chunk-tokens", "64",
              "--max-pages-per-seq", "128", "--rate", "200"]
 # (a) and (e): the open-loop trace; (d) the prefix and spec bursts
-P24_TRACE = ["--requests", "64", "--min-prompt", "128", "--max-prompt",
-             "1024", "--max-new", "128"]
+P24_TRACE = ["--requests", "32", "--min-prompt", "128", "--max-prompt",
+             "1024", "--max-new", "64"]
 P24_PREFIX = ["--requests", "32", "--prefix-prompt", "1024",
               "--prefix-share", "0.9", "--prefix-max-new", "4"]
 P24_SPEC = ["--requests", "16", "--min-prompt", "64", "--max-prompt", "256",
             "--spec-k", "4", "--spec-max-new", "128"]
-P24_FLEET = ["--requests", "32", "--min-prompt", "128", "--max-prompt",
-             "1024", "--max-new", "128", "--replicas", "2", "--sessions",
+P24_FLEET = ["--requests", "16", "--min-prompt", "128", "--max-prompt",
+             "1024", "--max-new", "64", "--replicas", "2", "--sessions",
              "8"]
 P24_PARAMS_M = 553.9  # the LM's parameters (phase 11's check), millions
 P24_B_LAYERS = 2     # (b): the float32 check's depth
@@ -4797,6 +4819,7 @@ P31_PAIRS = 3        # (a): interleaved off / on pairs timed
 P31_ONE_PAIR = 1
 P31_PLAN_CALLS = 10  # (b): timed calls of the plan, off and on
 P31_SIZES = [1 << 10, 1 << 26]   # (d): the transports' payloads
+P31_REPS = 6         # (d): the most repeats a payload's goodput takes
 # (e): bench_fsdp_overlap's tanh MLP, 4 buckets, a prefetch window of 1
 P31_FSDP = {"layers": 8, "width": 4096, "batch": 256, "buckets": 4,
             "prefetch": 1, "steps": 10}
@@ -5117,7 +5140,7 @@ def p31_plane():
         frames = res[0].get("frame") and res[-1].get("frame")
         out["worlds"][name] = bool(ok and frames)
     for backend in ("native", "python"):
-        r = bt.run_sweep(P31_SIZES, backend, reps_cap=20)
+        r = bt.run_sweep(P31_SIZES, backend, reps_cap=P31_REPS)
         out[backend] = {"rtt_us_1KiB": r["rtt_us"],
                         "MB_per_s_64MiB": r["mb_per_s"][str(1 << 26)]}
     out["native_vs_python_64MiB"] = (out["native"]["MB_per_s_64MiB"]
@@ -6070,6 +6093,171 @@ def log_lint(p34, gpu, secs):
         f"({k}) {v:.1f} s" for k, v in p34["seconds"].items()) + ")")
 
 
+P35_GFLOP_TOKEN = 3.6239    # (a): JAX's count at the LM's configuration
+P35_LM_KEYS = ("metric", "value", "unit", "seq_len", "d_model", "layers",
+               "n_params_m", "train_gflop_per_token", "mfu", "peak_tflops",
+               "step_ms", "device_ms_per_step", "device_busy_share")
+P35_SMOKE = "flash_gqa_rectangular,flash_throughput_T32k,flash_bwd_T32k"
+P35_CONV = "mnist_mlp,tiny_resnet_synthetic_imagenet"
+P35_DIR = os.path.join(HERE, "build", "p35")
+
+
+def p35_bench_lm(fa, cs, torch):
+    """(a): bench_lm at its card defaults, counted."""
+    from chainermn_tpu_torch.benchmarks import bench_lm
+    fa.reset_launch_counts()
+    cs.reset_launch_counts()
+    line = bench_lm.main([])
+    torch.cuda.synchronize()
+    counts = dict(fa.launch_counts(), cast_scale=cs.cast_scale.launches)
+    per_step = {w: n / line["step_calls"] for w, n in counts.items()}
+    gates = {
+        "keys": all(k in line for k in P35_LM_KEYS)
+        and line.get("schema") == "bench_lm/v1",
+        "gflop_per_token": line["train_gflop_per_token"] == P35_GFLOP_TOKEN,
+        "params": line["n_params_m"] == P24_PARAMS_M,
+        "finite": all(map(math.isfinite, (line["first_loss"],
+                                          line["final_loss"], line["mfu"]))),
+        "launches": per_step == {"flash_fwd": 8, "flash_bwd_dkv": 8,
+                                 "flash_bwd_dq": 8, "cast_scale": 2}}
+    return dict(line=line, counts=counts, per_step=per_step, gates=gates)
+
+
+def p35_flash(fa, torch):
+    """(b) and (c): bench_flash_64k at T 65536 with its window check, then
+    gpu_smoke's T 262144 step and the checks no phase covers, counted; the
+    launches that compared a kernel with its plain version (the window
+    checks, the GQA check) are taken out of the count."""
+    from chainermn_tpu_torch.benchmarks import bench_flash_64k
+    from chainermn_tpu_torch.tools import gpu_smoke
+    os.makedirs(P35_DIR, exist_ok=True)
+    probe_out = os.path.join(P35_DIR, "flash_64k.json")
+    smoke_out = os.path.join(P35_DIR, "gpu_smoke.json")
+    if os.path.exists(smoke_out):
+        os.remove(smoke_out)
+    fa.reset_launch_counts()
+    rc = bench_flash_64k.main(["--out", probe_out])
+    torch.cuda.empty_cache()
+    rc_smoke = gpu_smoke.main(["--only", "flash_train_T256k," + P35_SMOKE,
+                               "--out", smoke_out])
+    torch.cuda.synchronize()
+    launches = fa.launch_counts()
+    with open(probe_out) as f:
+        probe = json.load(f)
+    with open(smoke_out) as f:
+        smoke = json.load(f)
+    torch.cuda.empty_cache()
+    st, ck = probe["stages"], smoke["checks"]
+    compared = [st.get("window", {}).get("launches", {})] + [
+        c.get("compare_launches", {}) for c in ck.values()]
+    for w in launches:
+        launches[w] -= sum(c.get(w, 0) for c in compared)
+    step = st.get("train_step", {})
+    big = ck.get("flash_train_T256k", {})
+    gqa = ck.get("flash_gqa_rectangular", {})
+
+    def window_ok(w):
+        return bool(w) and all(e <= w["tol"] for e in w["rel_l2"].values())
+
+    gates = {
+        "probe_ok": rc == 0 and probe["ok"] and probe["T"] == 65536,
+        "window": st.get("window", {}).get("ok", False)
+        and window_ok(st["window"]),
+        "T64k_step_moves": step.get("ok", False)
+        and step["weight_delta_norm"] > 0
+        and all(a != b for a, b in zip(step["losses"], step["losses"][1:])),
+        "T256k_step_moves": big.get("ok", False) and big.get("T") == 262144
+        and big["weight_delta_norm"] > 0
+        and all(a != b for a, b in zip(big["train_losses"],
+                                       big["train_losses"][1:])),
+        "T256k_window": big.get("ok", False) and window_ok(big["window"]),
+        "T32k_window": ck.get("flash_bwd_T32k", {}).get("ok", False)
+        and window_ok(ck["flash_bwd_T32k"]["window"]),
+        "gqa_vs_plain": gqa.get("ok", False) and set(gqa["rel_l2"]) == {
+            "out", "dq", "dk", "dv"}
+        and all(e <= gqa["tol"] for e in gqa["rel_l2"].values()),
+        "smoke_ok": rc_smoke == 0 and smoke["ok"] and smoke["on_gpu"]}
+    return dict(probe=probe, smoke=smoke, launches=launches, gates=gates)
+
+
+def p35_convergence(fn, torch, dev):
+    """(d): the BatchNorm kernels against their plain versions at the tiny
+    ResNet row's shapes, then the two convergence rows, counted."""
+    from chainermn_tpu_torch.tools import convergence_ledger
+    shapes = sorted({(n * h * w, c) for _, (n, h, w, c), _ in
+                     fn.resnet_bn_boundaries(16, image=32)}, reverse=True)
+    errs, kernel_error = {}, None
+    try:
+        phase_kernels(fn, torch, dev, shapes, (torch.bfloat16,), errs)
+    except AssertionError as e:
+        kernel_error = str(e)
+    os.makedirs(P35_DIR, exist_ok=True)
+    out = os.path.join(P35_DIR, "convergence.json")
+    fn.reset_launch_counts()
+    rc = convergence_ledger.main(["--only", P35_CONV, "--out", out])
+    torch.cuda.synchronize()
+    with open(out) as f:
+        doc = json.load(f)
+    counts = fn.launch_counts()
+    rows = doc["checks"]
+    gates = {
+        "bn_vs_plain": kernel_error is None and set(errs) == {
+            "stats_call", "apply_call", "bwd_reduce_call", "bwd_dx_call"},
+        "ok": rc == 0 and doc["ok"] and set(rows) == set(P35_CONV.split(",")),
+        "floors": all(r.get("ok") and r["val_accuracy"] >= r["floor"]
+                      for r in rows.values()),
+        "bn_kernels": all(n > 0 for n in counts.values())}
+    return dict(doc=doc, counts=counts, gates=gates, shapes=shapes,
+                kernel_errs=errs, kernel_error=kernel_error)
+
+
+def phase_queue_a(fn, cs, fa, torch, dev):
+    """Phase 35 (see the module docstring)."""
+    out = {"seconds": {}}
+    for key, call in (("a", lambda: p35_bench_lm(fa, cs, torch)),
+                      ("bc", lambda: p35_flash(fa, torch)),
+                      ("d", lambda: p35_convergence(fn, torch, dev))):
+        t0 = time.perf_counter()
+        out[key] = call()
+        out["seconds"][key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["gates"] = {f"{k}:{g}": ok for k in ("a", "bc", "d")
+                    for g, ok in out[k]["gates"].items()}
+    return out
+
+
+def log_queue_a(p35, gpu, secs):
+    a, bc, d = p35["a"], p35["bc"], p35["d"]
+    ln = a["line"]
+    log(f"phase 35 (a) bench_lm: {ln['value']:.1f} tokens/s per GPU, MFU "
+        f"{ln['mfu']:.4f} (peak {ln['peak_tflops']} TFLOP/s, assumed "
+        f"{ln['peak_assumed']}), {ln['train_gflop_per_token']} train "
+        f"GFLOP/token, {ln['n_params_m']} M parameters, step "
+        f"{ln['step_ms']:.2f} ms, device {ln['device_ms_per_step']:.2f} ms "
+        f"(busy {ln['device_busy_share']:.3f}), loss {ln['first_loss']:.4f} "
+        f"-> {ln['final_loss']:.4f}; launches a step "
+        f"{json.dumps(a['per_step'])} over {ln['step_calls']} step calls on "
+        f"{gpu}")
+    st = bc["probe"]["stages"]
+    for name, stage in st.items():
+        log(f"phase 35 (b) bench_flash_64k T {bc['probe']['T']} {name}: "
+            + json.dumps(stage))
+    for name, chk in bc["smoke"]["checks"].items():
+        log(f"phase 35 (b/c) gpu_smoke {name}: " + json.dumps(chk))
+    log(f"phase 35 (b/c) flash launches {json.dumps(bc['launches'])}")
+    log(f"phase 35 (d) BatchNorm kernels against plain at {len(d['shapes'])}"
+        f" [R, C] of ResNet-50 at 32 px, batch 16, bf16 "
+        f"({d['shapes'][0]} .. {d['shapes'][-1]}): max abs "
+        f"{json.dumps(d['kernel_errs'])}"
+        + (f"; FAILED: {d['kernel_error']}" if d["kernel_error"] else ""))
+    for name, row in d["doc"]["checks"].items():
+        log(f"phase 35 (d) convergence {name}: " + json.dumps(row))
+    log(f"phase 35 (d) BatchNorm launches {json.dumps(d['counts'])}")
+    log(f"phase 35 gates: {json.dumps(p35['gates'])}")
+    log(f"phase 35: {secs:.1f} s (" + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in p35["seconds"].items()) + ")")
+
+
 C12_LOOPS = 300      # phase 22: passes of the flash autograd check
 WGRAD_LOOPS = 600    # phase 22: launches of the probe wgrad
 
@@ -6479,6 +6667,16 @@ def main():
         raise AssertionError(f"phase 34: gates {failed} failed (their "
                              "lines above)")
 
+    t0 = time.perf_counter()
+    p35 = phase_queue_a(fn, cs, fa, torch, dev)
+    log_queue_a(p35, gpu, time.perf_counter() - t0)
+    failed = sorted(g for g, ok in p35["gates"].items() if not ok)
+    if failed:
+        raise AssertionError(f"phase 35: gates {failed} failed (their "
+                             "lines above)")
+    log(f"phases done: {time.perf_counter() - t_build:.1f} s since the "
+        f"builds started")
+
     dist.destroy_process_group()
     # phase 25's launches on the main path: (a) flash and casts, (d)'s
     # bench and (e)'s real-image run the BatchNorm kernels
@@ -6492,7 +6690,8 @@ def main():
     for w in KERNELS:
         p25_bn[w] += p26["resnet"]["bn_launches"][w]
         p25_bn[w] += p29["bn_counts"][w] + p30["bn_counts"][w] \
-            + p33["a"]["counts"][w] + p34["a"]["counts"][w]
+            + p33["a"]["counts"][w] + p34["a"]["counts"][w] \
+            + p35["d"]["counts"][w]
     p26_flash = p26["lm"]["runs"]["fsdp"]["counts"]
     # phases 28 and 29 on the main path: the pipelines' and the FSDP LM's
     # flash kernels, the wire's casts
@@ -6519,7 +6718,8 @@ def main():
         + p31["a_casts"] + p31["b"]["off"]["casts"]
         + p31["b"]["on"]["casts"] + p32["casts"]
         + p33["a"]["counts"]["cast_scale"]
-        + p34["a"]["counts"]["cast_scale"],
+        + p34["a"]["counts"]["cast_scale"]
+        + p35["a"]["counts"]["cast_scale"],
         "max_abs_err": cast_err,
         "ms": cast_t["ms"], "plain_ms": cast_t["plain_ms"],
         "bound_ms": cast_t["bound_ms"], "bound_by": "bytes",
@@ -6531,6 +6731,7 @@ def main():
             "replaces": replaces, "launches": lm["counts"][wrapper]
             + p25_vit[wrapper] + p26_flash[wrapper]
             + p27["a"]["counts"][wrapper] + p2829_flash[wrapper]
+            + p35["a"]["counts"][wrapper] + p35["bc"]["launches"][wrapper]
             + (srv["serving_launches"] + p27["srv"]["launches"]
                + p31["c"]["launches"] + p32["e"]["launches"]
                if wrapper == "flash_fwd" else 0),
@@ -6559,7 +6760,7 @@ def main():
 
 
 def phase_alone(n):
-    """``python3 chip_smoke.py --phase 31`` (or ``32``, ``33``, ``34``): the CUDA
+    """``python3 chip_smoke.py --phase 31`` (or ``32``-``35``): the CUDA
     builds and that phase alone, gated as in the whole run; no summary and
     no result line."""
     import torch
@@ -6589,6 +6790,10 @@ def phase_alone(n):
         fn = importlib.import_module("chainermn_tpu_torch.ops.fused_norm")
         res = phase_lint(fn, cs, torch, torch.device("cuda", 0))
         log_lint(res, gpu, time.perf_counter() - t0)
+    elif n == "35":
+        fn = importlib.import_module("chainermn_tpu_torch.ops.fused_norm")
+        res = phase_queue_a(fn, cs, fa, torch, torch.device("cuda", 0))
+        log_queue_a(res, gpu, time.perf_counter() - t0)
     else:
         res = phase_obs2(cs, fa, torch)
         log_obs2(res, gpu, time.perf_counter() - t0)
@@ -6598,5 +6803,5 @@ def phase_alone(n):
 
 if __name__ == "__main__":
     sys.exit(phase_alone(sys.argv[2]) if sys.argv[1:2] == ["--phase"]
-             and sys.argv[2:] in (["31"], ["32"], ["33"], ["34"])
+             and sys.argv[2:] in (["31"], ["32"], ["33"], ["34"], ["35"])
              else main())

@@ -2,7 +2,7 @@
 
     python3 multi_gpu_check.py [--logs DIR]
         [--parts dp,sp,mp,configs,fsdp,tp_ep,pp,compression,planner,obs,
-                 elastic,lint]
+                 elastic,lint,collectives]
     # needs two CUDA cards or more
 
 1. prints the cards' names and power limits (``nvidia-smi``) and torch's
@@ -184,6 +184,21 @@
     kernels a step, the pending one overlapping the next forward), and
     ``tools.contention_smoke --n-procs 2 --device cuda`` (its check 4 is
     ``lint_step``'s ``overlapping-collectives``).
+16. (part ``collectives``, not in the default) the five NCCL collectives
+    at the LM's wire size (``COLL_ELEMS``: the 553,897,984 gradients of
+    phase 11's LM in bf16, 1.108 GB a rank) on worlds of 2 cards and of
+    every card: all-reduce, reduce-scatter, all-gather, all-to-all and
+    broadcast, ``COLL_WARMUP`` calls then ``COLL_ITERS`` timed, each after
+    a barrier and a device sync so that no rank's wait for a late rank
+    counts as transfer.  Each call's time is the slowest rank's CUDA-event
+    interval; the host clock's arrival skew (the spread of the ranks'
+    issue times) is measured beside it.  Printed per collective and world:
+    median and least ms, algorithm bandwidth (bytes over time) and bus
+    bandwidth (NCCL's factors: all-reduce 2(n-1)/n, reduce-scatter,
+    all-gather and all-to-all (n-1)/n, broadcast 1), and the skew's median
+    and largest.  The result must match its plain reference (every rank's
+    values are small integers, so each sum is exact).  ``nvidia-smi
+    nvlink -s`` (the links' rates) is written to the logs.
 
 Prints one JSON object as its last line; exits 1 if a check failed.  Runs
 write under ``build/`` (removed afterwards), their logs under ``--logs``
@@ -398,7 +413,7 @@ def _late_workers():
                    comp_fsdp=comp_fsdp_worker, sweep=sweep_worker,
                    planner=planner_worker, obs=obs_worker,
                    obs2=obs2_worker, desync=desync_worker,
-                   lint=lint_worker)
+                   lint=lint_worker, coll=coll_worker)
 
 
 def torchrun(n, name, flags, work, logs, kind="imagenet"):
@@ -427,12 +442,13 @@ def main(argv=None):
                    "mp (step 6), configs (step 7), fsdp (step 8), tp_ep "
                    "(step 9), pp (step 10), compression (step 11), planner "
                    "(step 12), obs (step 13), elastic (step 14), lint "
-                   "(step 15)")
+                   "(step 15), collectives (step 16)")
     args = p.parse_args(argv)
     logs = os.path.abspath(args.logs)
     parts = set(args.parts.split(","))
     known = {"dp", "sp", "mp", "configs", "fsdp", "tp_ep", "pp",
-             "compression", "planner", "obs", "elastic", "lint"}
+             "compression", "planner", "obs", "elastic", "lint",
+             "collectives"}
     if not parts or parts - known:
         p.error(f"--parts: {args.parts!r} is not a subset of "
                 f"{','.join(sorted(known))}")
@@ -479,6 +495,8 @@ def main(argv=None):
             elastic(n, out, failures, work, logs)
         if "lint" in parts:
             static_analysis(n, out, failures, work, logs)
+        if "collectives" in parts:
+            collectives(n, out, failures, work, logs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["failures"] = failures
@@ -2326,6 +2344,164 @@ def static_analysis(n, out, failures, work, logs):
                         f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
     print(json.dumps({"lint": res}), flush=True)
     out["lint"] = res
+
+
+COLL_ELEMS = 553_897_984   # phase 11's LM's gradients (bf16: 1.108 GB)
+COLL_WARMUP, COLL_ITERS = 3, 20
+COLL_KINDS = ("all_reduce", "reduce_scatter", "all_gather", "all_to_all",
+              "broadcast")
+
+
+def bus_factor(kind: str, n: int) -> float:
+    """NCCL's bus-bandwidth factor of ``kind`` on ``n`` ranks (nccl-tests'
+    convention: bytes = the whole buffer a rank holds)."""
+    return {"all_reduce": 2 * (n - 1) / n, "broadcast": 1.0}.get(
+        kind, (n - 1) / n)
+
+
+def coll_worker(out_prefix, flags):
+    """One rank under ``torchrun``: each collective of ``COLL_KINDS`` over
+    ``elems`` bf16 elements, ``COLL_WARMUP`` + ``COLL_ITERS`` calls, each
+    after a barrier and a device sync; per timed call this rank's
+    CUDA-event ms (host ms on the CPU) and its host issue time; whether
+    the last result equals the plain reference."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    from chainermn_tpu_torch import init_distributed
+    elems = int(flags[flags.index("--elems") + 1]) if "--elems" in flags \
+        else COLL_ELEMS
+    iters = int(flags[flags.index("--iters") + 1]) if "--iters" in flags \
+        else COLL_ITERS
+    device = flags[flags.index("--device") + 1] if "--device" in flags \
+        else None
+    topo = init_distributed(device=device)
+    dev, r, n = topo.device, topo.rank, dist.get_world_size()
+    cuda = dev.type == "cuda"
+    dt = torch.bfloat16
+    part = elems // n
+    # small integers: every sum of n of them is exact in bf16
+    base = (torch.arange(elems, device=dev) % 7).to(dt)
+    mine = (base + r).to(dt)
+    res = {"rank": r, "world": n, "elems": elems, "kinds": {}}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    for kind in COLL_KINDS:
+        if kind == "all_reduce":
+            buf = torch.empty_like(mine)
+            prep, call = (lambda: buf.copy_(mine)), (
+                lambda: dist.all_reduce(buf))
+            want = lambda: (base * n + n * (n - 1) // 2).to(dt)  # noqa
+            got = lambda: buf  # noqa: E731
+        elif kind == "reduce_scatter":
+            outb = torch.empty(part, dtype=dt, device=dev)
+            prep, call = (lambda: None), (
+                lambda: dist.reduce_scatter_tensor(outb, mine))
+            want = lambda: (base[r * part:(r + 1) * part] * n  # noqa
+                            + n * (n - 1) // 2).to(dt)
+            got = lambda: outb  # noqa: E731
+        elif kind == "all_gather":
+            outb = torch.empty(part * n, dtype=dt, device=dev)
+            src = mine[r * part:(r + 1) * part]
+            prep, call = (lambda: None), (
+                lambda: dist.all_gather_into_tensor(outb, src))
+            want = lambda: torch.cat([(base[i * part:(i + 1) * part]  # noqa
+                                       + i).to(dt) for i in range(n)])
+            got = lambda: outb  # noqa: E731
+        elif kind == "all_to_all":
+            outb = torch.empty_like(mine)
+            prep, call = (lambda: None), (
+                lambda: dist.all_to_all_single(outb, mine))
+            want = lambda: torch.cat([(base[r * part:(r + 1) * part]  # noqa
+                                       + i).to(dt) for i in range(n)])
+            got = lambda: outb  # noqa: E731
+        else:
+            buf = torch.empty_like(mine)
+            prep, call = (lambda: buf.copy_(mine)), (
+                lambda: dist.broadcast(buf, 0))
+            want = lambda: base  # noqa: E731
+            got = lambda: buf  # noqa: E731
+        ms, issued = [], []
+        for i in range(COLL_WARMUP + iters):
+            prep()
+            sync()
+            dist.barrier()
+            sync()
+            t_issue = time.time()
+            if cuda:
+                a, b = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                a.record()
+                call()
+                b.record()
+                b.synchronize()
+                t = a.elapsed_time(b)
+            else:
+                t0 = time.perf_counter()
+                call()
+                t = (time.perf_counter() - t0) * 1e3
+            if i >= COLL_WARMUP:
+                ms.append(t)
+                issued.append(t_issue)
+        sync()
+        ok = bool(torch.equal(got(), want()))
+        res["kinds"][kind] = {"ms": ms, "issued": issued, "ok": ok}
+        del prep, call, got, want
+        if cuda:
+            torch.cuda.empty_cache()
+    json.dump(res, open(f"{out_prefix}.rank{r}.json", "w"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if len(xs) % 2 else (
+        xs[len(xs) // 2 - 1] + xs[len(xs) // 2]) / 2
+
+
+def collectives(n, out, failures, work, logs, flags=()):
+    """Part collectives (see the module docstring)."""
+    try:
+        smi = subprocess.run(["nvidia-smi", "nvlink", "-s"],
+                             capture_output=True, text=True)
+        with open(os.path.join(logs, "nvlink.txt"), "w") as f:
+            f.write(smi.stdout + smi.stderr)
+    except OSError as e:  # no nvidia-smi: a CPU rehearsal
+        print(f"collectives: nvidia-smi nvlink -s: {e}", flush=True)
+    res = {}
+    for world in sorted({2, n}):
+        docs = torchrun(world, f"coll{world}", list(flags), work, logs,
+                        kind="coll")
+        nbytes = docs[0]["elems"] * 2
+        rows = {}
+        for kind in COLL_KINDS:
+            per = [d["kinds"][kind] for d in docs]
+            slowest = [max(c) for c in zip(*(p["ms"] for p in per))]
+            skew = [(max(c) - min(c)) * 1e3
+                    for c in zip(*(p["issued"] for p in per))]
+            med = _median(slowest)
+            algbw = nbytes / (med / 1e3) / 1e9
+            rows[kind] = {
+                "ms_median": med, "ms_min": min(slowest), "ms": slowest,
+                "algbw_GBps": algbw,
+                "busbw_GBps": algbw * bus_factor(kind, world),
+                "skew_ms_median": _median(skew), "skew_ms_max": max(skew),
+                "exact": all(p["ok"] for p in per)}
+            if not rows[kind]["exact"]:
+                failures.append(f"collectives: {kind} on {world} ranks "
+                                "differs from its reference")
+            print(f"collectives world {world} {kind} over {nbytes} bytes: "
+                  f"{med:.4f} ms median ({min(slowest):.4f} least), algbw "
+                  f"{algbw:.1f} GB/s, busbw {rows[kind]['busbw_GBps']:.1f} "
+                  f"GB/s; arrival skew median "
+                  f"{rows[kind]['skew_ms_median']:.4f} ms, largest "
+                  f"{rows[kind]['skew_ms_max']:.4f} ms", flush=True)
+        res[str(world)] = {"bytes": nbytes, "kinds": rows}
+    out["collectives"] = res
 
 
 if __name__ == "__main__":

@@ -272,6 +272,9 @@ def test_socket_plane_counters_are_jax_s():
                 p.shutdown()
             obs.disable()
             obs.get_registry().reset()
+            # the planes' instrumentation installed a process-wide flight
+            # recorder that disable() leaves: later tests start from none
+            obs.reset_flight_recorder()
     assert snaps["port"] == snaps["jax"] and snaps["port"]
 
 

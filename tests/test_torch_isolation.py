@@ -121,6 +121,53 @@ def test_elastic_entry_points_refuse_the_cpu_unless_asked(tmp_path):
     assert worker_device() is None
 
 
+def test_measurement_entry_points_refuse_the_cpu_unless_asked():
+    """``benchmarks.bench_lm``, ``bench_flash_64k``, ``tools.gpu_smoke``
+    and ``tools.convergence_ledger`` run on the card by default; without
+    one they raise rather than run on the CPU."""
+    _no_cuda()
+    from chainermn_tpu_torch.benchmarks import bench_flash_64k, bench_lm
+    from chainermn_tpu_torch.tools import convergence_ledger, gpu_smoke
+    for call in (lambda: bench_lm.main(["--attempts", "1"]),
+                 lambda: bench_flash_64k.main(["--T", "512"]),
+                 lambda: gpu_smoke.main(["--only", "cast_scale"]),
+                 lambda: convergence_ledger.main(["--only", "mnist_mlp"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+_MEASUREMENT = _GUARD.split("import chainermn_tpu_torch\n")[0] + """
+import importlib, os
+before = set(os.listdir(os.path.join({repo!r}, "build"))) \\
+    if os.path.isdir(os.path.join({repo!r}, "build")) else set()
+names = ("benchmarks.bench_lm", "benchmarks.bench_flash_64k",
+         "tools.gpu_smoke", "tools.convergence_ledger",
+         "examples.train_mnist")
+for n in names:
+    mod = importlib.import_module("chainermn_tpu_torch." + n)
+    assert callable(mod.main), n
+from chainermn_tpu_torch.ops import _build
+fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+assert not any(w.launches for w in fa.KERNELS)
+after = set(os.listdir(os.path.join({repo!r}, "build"))) \\
+    if os.path.isdir(os.path.join({repo!r}, "build")) else set()
+assert after == before, after - before
+bad = [m for m in sys.modules if m.split(".")[0] in BANNED + ("triton",)]
+assert not bad, bad
+print("measurement", len(names))
+""".replace("{repo!r}", repr(REPO))
+
+
+def test_measurement_modules_stand_alone():
+    """The four measurement modules and the MNIST example import with JAX,
+    ``chainermn_tpu`` and Triton refused, and importing them builds
+    nothing (no new entry under ``build/``, no kernel launched)."""
+    proc = subprocess.run([sys.executable, "-c", _MEASUREMENT], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[-2:] == ["measurement", "5"]
+
+
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     _no_cuda()
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)

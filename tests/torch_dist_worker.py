@@ -2,7 +2,7 @@
 
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/torch_dist_worker.py \\
-            {comm|train|opt|mnist|lm|unused|coll|zero|syncbn|imagenet|seq|
+            {comm|train|opt|mnist|mnistpar|lm|unused|coll|zero|syncbn|imagenet|seq|
              p2p|chain|seq2seq|pconv|configs|serve|accum|fsdp|tpep|
              moelm|tpserve|compress|pipe|plan|planuse|obs} \\
             IN.npz OUT_PREFIX
@@ -220,6 +220,23 @@ def run_mnist(inp, rank):
     keys = sorted(res["log"][0])
     return {f"log/{k}": np.asarray([r[k] for r in res["log"]], np.float64)
             for k in keys}
+
+
+def run_mnistpar(inp, rank):
+    """The MNIST example's ``main`` once per variant (``variants``: one
+    argv string each), every run from the flax variables ``init/...``;
+    each run's per-epoch log as ``{i}/{key}`` arrays."""
+    from chainermn_tpu_torch.examples import train_mnist
+
+    init = nest({k[len("init/"):]: v for k, v in inp.items()
+                 if k.startswith("init/")})
+    out = {}
+    for i, argv in enumerate(inp["variants"]):
+        res = train_mnist.main(str(argv).split(), flax_init=init)
+        for k in sorted(res["log"][0]):
+            out[f"{i}/{k}"] = np.asarray([r[k] for r in res["log"]],
+                                         np.float64)
+    return out
 
 
 def run_lm(inp, rank):
@@ -2289,7 +2306,7 @@ def main():
     topo = init_distributed(device="cpu")
     inp = dict(np.load(inp_path))
     out = {"comm": run_comm, "train": run_train, "opt": run_opt,
-           "mnist": run_mnist, "lm": run_lm, "unused": run_unused,
+           "mnist": run_mnist, "mnistpar": run_mnistpar, "lm": run_lm, "unused": run_unused,
            "coll": run_coll, "zero": run_zero, "syncbn": run_syncbn,
            "imagenet": run_imagenet, "seq": run_seq, "p2p": run_p2p,
            "chain": run_chain, "seq2seq": run_seq2seq,
